@@ -5,28 +5,43 @@
 
 Phases (any failure exits non-zero before the result line):
 
-1. the card's name, count and power limit, and the kernel build (nvcc,
-   from the sources in this checkout);
-2. the hand-written GF(2^8) kernel against its plain PyTorch version on
+1. the card's name, count and power limit, and the kernels' build (one
+   nvcc per source, all at once, from the sources in this checkout);
+2. each hand-written GF(2^8) kernel against its plain PyTorch version on
    the card: RS(10,4), RS(20,4) and RS(6,3); widths 1, 1023, 64 KiB + 3,
    1 MiB + 5, 8 MiB and 16 MiB; the parity matrix, a zero-padded
    reconstruction matrix for victims {0, 3, 7, 12} (rebuild) and the
    unpadded one-row matrix for victim 0 (a degraded read); bit equality
-   required. Then the kernel's and the plain version's times (CUDA
-   events, after warm-up) at the shapes the main path gives the kernel,
-   beside the memory bound;
-3. the main path at full size: a 1 GiB volume (seeded needles,
-   log-uniform 1 KiB .. 4 MiB, about 5% deleted) written with the port's
-   Volume, ``stream_encode`` with ``get_coder("auto", 10, 4)`` under
-   the default RS(10,4) geometry (1 GiB large / 1 MiB small blocks), the
-   sorted .ecx, the parity held against the plain version over the whole
-   volume, every live needle read through ``EcVolume``, the same with
-   shards {0, 3, 7, 12} deleted (degraded reads through the kernel),
-   ``stream_rebuild`` (sha256 of the rebuilt shards) and ``write_dat_file``
-   (the decoded .dat equals the source). The kernel's launch count is
-   set to 0 before each step and read after it;
-4. the same at a mixed-tier layout (262144 / 16384 blocks, 4 MiB volume);
-5. the ``kernels`` line, the nvidia-smi line, and the result line.
+   required, 54 cases per kernel: (2) ``gf_apply`` (bit-plane matrix
+   operand), (2b) ``gf_apply_xorsched`` (the matrix's lowered XOR
+   schedule), which must also equal ``gf_apply`` on the same inputs;
+3. the main path at full size under the default ``bitplane``
+   formulation: a 1 GiB volume (seeded needles, log-uniform 1 KiB ..
+   4 MiB, about 5% deleted) written with the port's Volume,
+   ``stream_encode`` with ``get_coder("auto", 10, 4)`` under the default
+   RS(10,4) geometry (1 GiB large / 1 MiB small blocks), the sorted .ecx,
+   the parity held against the plain version over the whole volume, every
+   live needle read through ``EcVolume``, the same with shards
+   {0, 3, 7, 12} deleted (degraded reads through the kernel),
+   ``stream_rebuild`` (sha256 of the rebuilt shards), ``write_dat_file``
+   (the decoded .dat equals the source), and (3c) the device sinks
+   ``stream_encode_device_sink`` and ``stream_rebuild_device_sink`` of the
+   four victims, whose digests must equal the shard files' and the .ecm's
+   stamped ones. Both kernels' launch counts are set to 0 before each
+   step and read after it;
+   (3b) the same with ``TorchCoder(10, 4, formulation="xorsched")`` on a
+   copy of the same volume (written once from the seed: needle records
+   carry their append time, so two writes differ): its 14 shard files
+   must equal the bitplane run's by sha256, and only the XOR-schedule
+   kernel may run;
+   ``get_coder("auto")`` under ``WEED_EC_FORMULATION=xorsched`` must give
+   the xorsched coder;
+4. the same at a mixed-tier layout (262144 / 16384 blocks, 4 MiB volume),
+   under both formulations;
+5. both kernels' times and the plain versions' (CUDA events, median of
+   windows after warm-up) at the shapes the main path gives them, beside
+   the bound; the ``kernels`` line, the nvidia-smi line, and the result
+   line.
 
 It needs one card, exits non-zero without one, and works in a scratch
 directory inside the checkout that it removes at the end.
@@ -50,6 +65,7 @@ import torch
 from seaweedfs_torch.ec import coder as coder_mod
 from seaweedfs_torch.ec import ec_volume, geometry, pipeline, striping
 from seaweedfs_torch.ops import _build, gf256, rs_cuda, rs_torch
+from seaweedfs_torch.ops import xor_schedule
 from seaweedfs_torch.storage import types as st
 from seaweedfs_torch.storage.needle import Needle
 from seaweedfs_torch.storage.volume import Volume
@@ -61,12 +77,27 @@ VICTIMS = (0, 3, 7, 12)
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, data sheet
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor rate
-KERNEL = {
-    "name": "gf_apply",
-    "route": "cuda",
-    "source": "seaweedfs_torch/csrc/gf_apply.cu",
-    "replaces": "seaweedfs_tpu/ops/rs_pallas.py:46",
+# 32-bit word operations outside the tensor cores: the data sheet's
+# float32 rate, an upper bound on the card's 32-bit integer rate
+WORD_OPS_PER_S = 67e12
+KERNELS = {
+    "gf_apply": {
+        "name": "gf_apply",
+        "route": "cuda",
+        "source": "seaweedfs_torch/csrc/gf_apply.cu",
+        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:46",
+    },
+    "gf_apply_xorsched": {
+        "name": "gf_apply_xorsched",
+        "route": "cuda",
+        "source": "seaweedfs_torch/csrc/gf_xorsched.cu",
+        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:65",
+    },
 }
+WRAPPERS = {"gf_apply": rs_cuda.gf_apply,
+            "gf_apply_xorsched": rs_cuda.gf_apply_xorsched}
+FORMULATION_KERNEL = {"bitplane": "gf_apply",
+                      "xorsched": "gf_apply_xorsched"}
 
 
 def log(obj) -> None:
@@ -88,6 +119,23 @@ def bound_ms(rows: int, cols: int, n: int) -> tuple[float, str]:
     t_bytes = (cols + rows) * n / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * (8 * rows) * (8 * cols) * n / INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_ms_xorsched(sched, rows: int, cols: int,
+                      n: int) -> tuple[float, str]:
+    """Least time for a schedule applied to [C, n]: the same bytes,
+    against the schedule's XORs, one 32-bit word operation per op per 32
+    columns."""
+    t_bytes = (cols + rows) * n / HBM_BYTES_PER_S * 1e3
+    t_ops = (sched.sched_xors * xor_schedule.packed_width(n)
+             / WORD_OPS_PER_S * 1e3)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def program(mat: np.ndarray, device: torch.device):
+    """The lowered XOR program of a coefficient matrix, on `device`."""
+    return xor_schedule.lower_schedule(
+        xor_schedule.schedule_for_matrix(mat)).to(device)
 
 
 def time_cuda(fn, reps: int, warm: int = 3, windows: int = 5) -> float:
@@ -128,11 +176,15 @@ def one_row_rec(k: int, m: int) -> np.ndarray:
     return gf256.reconstruction_matrix(k, m, present, victims[:1])
 
 
-# --- phase 2: the kernel against its plain version ---------------------
+# --- phase 2: the kernels against their plain versions ------------------
 
-def check_kernel(device: torch.device) -> dict:
+def check_kernels(device: torch.device) -> dict:
+    """Both kernels against their plain versions (and the XOR-schedule
+    kernel against gf_apply) on the same inputs; returns, per kernel, the
+    largest absolute difference and the number of cases."""
     rng = np.random.default_rng(SEED)
-    cases, worst = 0, 0
+    worst = {name: 0 for name in KERNELS}
+    cases = 0
     for k, m in [(10, 4), (20, 4), (6, 3)]:
         for n in [1, 1023, 64 * 1024 + 3, MIB + 5, 8 * MIB, 16 * MIB]:
             x = torch.from_numpy(
@@ -140,44 +192,67 @@ def check_kernel(device: torch.device) -> dict:
             for mat in [gf256.parity_matrix(k, m), padded_rec(k, m),
                         one_row_rec(k, m)]:
                 w = rs_torch.load_matrix(mat, device)
+                prog = program(mat, device)
                 got = rs_cuda.gf_apply(w, x)
+                got_x = rs_cuda.gf_apply_xorsched(prog, x)
                 torch.cuda.synchronize()
-                want = rs_torch.gf_apply(w, x)
-                err = int((got.int() - want.int()).abs().max())
-                worst = max(worst, err)
-                cases += 1
-                if err:
+                pairs = {"gf_apply": (got, rs_torch.gf_apply(w, x)),
+                         "gf_apply_xorsched": (got_x, rs_torch.
+                                               gf_apply_xorsched(
+                                                   prog.sched, x))}
+                for name, (a, b) in pairs.items():
+                    err = int((a.int() - b.int()).abs().max())
+                    worst[name] = max(worst[name], err)
+                    if err:
+                        raise AssertionError(
+                            f"{name} != plain at RS({k},{m}) n={n} "
+                            f"matrix {mat.shape}: max abs err {err}")
+                if not torch.equal(got, got_x):
                     raise AssertionError(
-                        f"kernel != plain at RS({k},{m}) n={n} "
-                        f"matrix {mat.shape}: max abs err {err}")
-    log({"phase": "kernel_vs_plain", "cases": cases, "bit_equal": True,
+                        f"gf_apply_xorsched != gf_apply at RS({k},{m}) "
+                        f"n={n} matrix {mat.shape}")
+                cases += 1
+    log({"phase": "kernels_vs_plain", "cases_per_kernel": cases,
+         "bit_equal": True, "xorsched_equals_gf_apply": True,
          "max_abs_err": worst})
     return {"max_abs_err": worst, "cases": cases}
 
 
-def time_kernel(device: torch.device, shapes: list) -> list:
-    """Kernel and plain times at main-path shapes [(label, R, C, n)]."""
+def time_kernels(device: torch.device, shapes: list) -> dict:
+    """Each kernel's and its plain version's times at main-path shapes
+    [(label, R, C, n)], on the same inputs; {kernel: [rows]}."""
     rng = np.random.default_rng(SEED + 1)
-    rows_out = []
+    out: dict = {name: [] for name in KERNELS}
     for label, rows, cols, n in shapes:
         x = torch.from_numpy(
             rng.integers(0, 256, (cols, n), dtype=np.uint8)).to(device)
         mat = (gf256.parity_matrix(cols, rows) if label.startswith("encode")
+               else one_row_rec(cols, 4) if rows == 1
                else rng.integers(0, 256, (rows, cols)).astype(np.uint8))
         w = rs_torch.load_matrix(mat, device)
+        prog = program(mat, device)
+        runs = {
+            "gf_apply": (lambda: rs_cuda.gf_apply(w, x),
+                         lambda: rs_torch.gf_apply(w, x),
+                         bound_ms(rows, cols, n)),
+            "gf_apply_xorsched": (
+                lambda: rs_cuda.gf_apply_xorsched(prog, x),
+                lambda: rs_torch.gf_apply_xorsched(prog.sched, x),
+                bound_ms_xorsched(prog.sched, rows, cols, n)),
+        }
         # a window moves about 20 GB through the kernel (some ms of work)
         reps = max(50, min(2000, int(2e10 // max(n * (rows + cols), 1))))
-        ms = time_cuda(lambda: rs_cuda.gf_apply(w, x), reps, warm=reps)
-        plain_ms = time_cuda(lambda: rs_torch.gf_apply(w, x),
-                             max(3, reps // 40), warm=1, windows=3)
-        b_ms, b_by = bound_ms(rows, cols, n)
-        row = {"phase": "kernel_time", "shape": label,
-               "in": [cols, n], "out": [rows, n], "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None, "reps": reps}
-        log(row)
-        rows_out.append(row)
-    return rows_out
+        for name, (kernel, plain, (b_ms, b_by)) in runs.items():
+            ms = time_cuda(kernel, reps, warm=reps)
+            plain_ms = time_cuda(plain, max(3, reps // 40), warm=1,
+                                 windows=3)
+            row = {"phase": "kernel_time", "kernel": name, "shape": label,
+                   "in": [cols, n], "out": [rows, n], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None, "reps": reps}
+            log(row)
+            out[name].append(row)
+    return out
 
 
 # --- phases 3 and 4: the main path ------------------------------------
@@ -301,27 +376,71 @@ def timed(name: str, fn, nbytes_fn=None, extra=None):
 
 
 def counted(fn):
-    """(result, kernel launches during fn) with the count set to 0 first."""
-    rs_cuda.gf_apply.launches = 0
+    """(result, {kernel: launches during fn}) with every count set to 0
+    first."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
     result = fn()
-    return result, rs_cuda.gf_apply.launches
+    return result, {name: w.launches for name, w in WRAPPERS.items()}
 
 
-def run_main_path(work: Path, coder, g: geometry.Geometry, total: int,
-                  max_needle: int, seed: int, device: torch.device,
-                  tag: str, min_on_victims: int = 1) -> dict:
-    """Write, encode, verify, serve (whole and degraded), rebuild and
-    decode one volume; returns the kernel launches per step."""
-    work.mkdir(parents=True, exist_ok=True)
-    directory = str(work)
-    base = os.path.join(directory, "1")
+def check_sinks(base: str, coder, g: geometry.Geometry, tag: str) -> dict:
+    """Both device sinks on the finished volume: the encode digest must
+    equal the parity files' and the .ecm's, the rebuild digest of the
+    four victims the victims' files' and the .ecm's. Returns launches."""
+    stamped = pipeline.read_stamped_digests(base)
     launches = {}
+    stats: dict = {}
+    digest, launches["encode_sink"] = timed(
+        f"{tag}encode_device_sink",
+        lambda: counted(lambda: pipeline.stream_encode_device_sink(
+            base, coder, g, stats=stats)),
+        lambda r: os.path.getsize(base + ".dat"),
+        lambda r: {"launches": r[1], "stats": stats})
+    want = pipeline.parity_file_digest(base, g)
+    if not (np.array_equal(digest, want) and digest.tolist() == [
+            stamped[i] for i in range(g.data_shards, g.total_shards)]):
+        raise AssertionError(f"encode sink digest {digest.tolist()} != "
+                             f"files {want.tolist()} / .ecm {stamped}")
+    stats = {}
+    digest, launches["rebuild_sink"] = timed(
+        f"{tag}rebuild_device_sink",
+        lambda: counted(lambda: pipeline.stream_rebuild_device_sink(
+            base, coder, VICTIMS, g, stats=stats)),
+        lambda r: os.path.getsize(base + geometry.to_ext(1))
+        * g.data_shards, lambda r: {"launches": r[1], "stats": stats})
+    want = pipeline.shard_file_digest(base, VICTIMS)
+    if not (np.array_equal(digest, want)
+            and digest.tolist() == [stamped[v] for v in VICTIMS]):
+        raise AssertionError(f"rebuild sink digest {digest.tolist()} != "
+                             f"files {want.tolist()} / .ecm {stamped}")
+    return launches
 
+
+def source_volume(work: Path, total: int, max_needle: int, seed: int,
+                  tag: str) -> dict:
+    """Write one seeded volume that each formulation's run copies (needle
+    records carry their append time, so two writes of one seed differ)."""
+    work.mkdir(parents=True, exist_ok=True)
     sizes, deleted = timed(
         f"{tag}write_volume",
-        lambda: write_volume(directory, total, max_needle, seed),
-        lambda r: os.path.getsize(base + ".dat"),
+        lambda: write_volume(str(work), total, max_needle, seed),
+        lambda r: os.path.getsize(os.path.join(str(work), "1.dat")),
         lambda r: {"needles": len(r[0]), "deleted": len(r[1])})
+    return {"dir": work, "sizes": sizes, "deleted": deleted, "seed": seed}
+
+
+def run_main_path(work: Path, coder, g: geometry.Geometry, volume: dict,
+                  device: torch.device, tag: str,
+                  min_on_victims: int = 1) -> tuple[dict, dict]:
+    """Encode, verify, serve (whole and degraded), rebuild, decode and
+    sink a copy of a source volume; returns the launches of both kernels
+    per step and the sha256 of each shard file as encoded."""
+    shutil.copytree(volume["dir"], work)
+    directory = str(work)
+    base = os.path.join(directory, "1")
+    sizes, deleted, seed = volume["sizes"], volume["deleted"], volume["seed"]
+    launches = {}
     dat_size = os.path.getsize(base + ".dat")
     src_sha = sha256_file(base + ".dat")
 
@@ -330,6 +449,8 @@ def run_main_path(work: Path, coder, g: geometry.Geometry, total: int,
         lambda: counted(lambda: pipeline.stream_encode(base, coder, g)),
         lambda r: dat_size, lambda r: {"launches": r[1]})
     striping.write_sorted_ecx_from_idx(base)
+    shard_sha = {i: sha256_file(base + geometry.to_ext(i))
+                 for i in range(g.total_shards)}
     timed(f"{tag}parity_vs_plain",
           lambda: check_parity_with_plain(base, g, device),
           lambda shard: shard * g.total_shards)
@@ -346,7 +467,6 @@ def run_main_path(work: Path, coder, g: geometry.Geometry, total: int,
     finally:
         vol.close()
 
-    shard_sha = {v: sha256_file(base + geometry.to_ext(v)) for v in VICTIMS}
     for v in VICTIMS:
         os.remove(base + geometry.to_ext(v))
     vol = ec_volume.EcVolume(directory, "", 1, g, coder=coder)
@@ -362,11 +482,10 @@ def run_main_path(work: Path, coder, g: geometry.Geometry, total: int,
                        **latency_summary(r[0]["latencies"])})
     finally:
         vol.close()
-    if launches["degraded_read"] == 0 or on_victims < min_on_victims:
+    if on_victims < min_on_victims:
         raise AssertionError(
             f"degraded reads: {on_victims} needles on the lost shards "
-            f"(want {min_on_victims}), {launches['degraded_read']} "
-            "kernel launches")
+            f"(want {min_on_victims})")
 
     rebuilt, launches["rebuild"] = timed(
         f"{tag}stream_rebuild",
@@ -389,11 +508,38 @@ def run_main_path(work: Path, coder, g: geometry.Geometry, total: int,
     found = striping.find_dat_file_size(base, st.CURRENT_VERSION)
     if not 0 < found <= dat_size:
         raise AssertionError(f"find_dat_file_size {found} > {dat_size}")
-    log({"phase": f"{tag}summary", "dat_bytes": dat_size,
-         "needles": len(sizes), "deleted": len(deleted),
-         "needles_on_victims": on_victims, "launches": launches,
-         "rebuilt_sha256_equal": True, "decoded_equal": True})
-    return launches
+    launches.update(check_sinks(base, coder, g, tag))
+    # every step ran the coder's kernel and no other
+    mine = FORMULATION_KERNEL[coder.formulation]
+    for step, counts in launches.items():
+        if counts[mine] == 0 or any(n for name, n in counts.items()
+                                    if name != mine):
+            raise AssertionError(f"{tag}{step}: launches {counts}, want "
+                                 f"only {mine}")
+    log({"phase": f"{tag}summary", "formulation": coder.formulation,
+         "dat_bytes": dat_size, "needles": len(sizes),
+         "deleted": len(deleted), "needles_on_victims": on_victims,
+         "launches": launches, "rebuilt_sha256_equal": True,
+         "decoded_equal": True, "sink_digests_equal": True})
+    return launches, shard_sha
+
+
+class formulation_pin:
+    """Set (or with None, unset) WEED_EC_FORMULATION in this process for a
+    block, and restore it after."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.saved = os.environ.pop("WEED_EC_FORMULATION", None)
+        if self.value is not None:
+            os.environ["WEED_EC_FORMULATION"] = self.value
+
+    def __exit__(self, *exc):
+        os.environ.pop("WEED_EC_FORMULATION", None)
+        if self.saved is not None:
+            os.environ["WEED_EC_FORMULATION"] = self.saved
 
 
 def main() -> int:
@@ -401,55 +547,87 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    card = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
-    log({"phase": "device", "name": name, "count": count, "nvidia_smi": smi,
+    log({"phase": "device", "name": card, "count": count, "nvidia_smi": smi,
          "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.perf_counter()
     lib = _build.build()
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "library": lib.name})
 
-    checked = check_kernel(device)
-    coder = coder_mod.get_coder("auto", 10, 4)
+    checked = check_kernels(device)
+    with formulation_pin(None):
+        coder = coder_mod.get_coder("auto", 10, 4)
+    with formulation_pin("xorsched"):
+        auto_x = coder_mod.get_coder("auto", 10, 4)
     if not isinstance(coder, coder_mod.TorchCoder) or \
-            coder.device.type != "cuda":
+            coder.device.type != "cuda" or coder.formulation != "bitplane":
         raise AssertionError(f"auto coder is {coder!r}")
+    if not isinstance(auto_x, coder_mod.TorchCoder) or \
+            auto_x.formulation != "xorsched":
+        raise AssertionError("auto coder under WEED_EC_FORMULATION="
+                             "xorsched is not the xorsched coder")
+    log({"phase": "auto_coder", "unpinned": coder.formulation,
+         "pinned_xorsched": auto_x.formulation})
+    coder_x = coder_mod.TorchCoder(10, 4, formulation="xorsched")
 
     shutil.rmtree(WORK, ignore_errors=True)
+    launches = {}
     try:
-        launches = run_main_path(WORK / "default", coder, geometry.DEFAULT,
-                                 1 << 30, 4 * MIB, SEED, device, "",
-                                 min_on_victims=200)
+        volume = source_volume(WORK / "src", 1 << 30, 4 * MIB, SEED, "")
+        launches["bitplane"], sha_b = run_main_path(
+            WORK / "default", coder, geometry.DEFAULT, volume, device, "",
+            min_on_victims=200)
+        shutil.rmtree(WORK / "default", ignore_errors=True)
+        launches["xorsched"], sha_x = run_main_path(
+            WORK / "xorsched", coder_x, geometry.DEFAULT, volume, device,
+            "xorsched.", min_on_victims=200)
+        shutil.rmtree(WORK / "src", ignore_errors=True)
+        if sha_x != sha_b:
+            raise AssertionError("xorsched shard files differ from the "
+                                 "bitplane run's")
+        log({"phase": "formulations_agree", "shards": len(sha_b),
+             "sha256_equal": True})
         mixed = geometry.Geometry(large_block_size=262144,
                                   small_block_size=16384)
-        run_main_path(WORK / "mixed", coder, mixed, 4 * MIB, 256 * 1024,
-                      SEED + 1, device, "mixed_tier.")
+        volume = source_volume(WORK / "mixed_src", 4 * MIB, 256 * 1024,
+                               SEED + 1, "mixed_tier.")
+        sha = {}
+        for tag, c in [("mixed_tier.", coder),
+                       ("mixed_tier.xorsched.", coder_x)]:
+            _, sha[tag] = run_main_path(WORK / tag, c, mixed, volume,
+                                        device, tag)
+        if sha["mixed_tier."] != sha["mixed_tier.xorsched."]:
+            raise AssertionError("mixed-tier xorsched shards differ")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    missing = [step for step, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the kernel never ran in: {missing}")
 
     # main-path shapes: encode and rebuild batches are [10, 8 MiB] (the
     # feed joins consecutive 1 MiB small-block segments up to the batch
     # size); a degraded read is one interval, R = 1
-    times = time_kernel(device, [("encode", 4, 10, 8 * MIB),
-                                 ("encode_1mib", 4, 10, MIB),
-                                 ("degraded_read", 1, 10, 64 * 1024)])
-    enc = times[0]
+    times = time_kernels(device, [("encode", 4, 10, 8 * MIB),
+                                  ("encode_1mib", 4, 10, MIB),
+                                  ("degraded_read", 1, 10, 64 * 1024)])
     log(smi)
-    log({"kernels": [{
-        **KERNEL, "launches": sum(launches.values()),
-        "max_abs_err": checked["max_abs_err"], "ms": enc["ms"],
-        "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
-        "bound_by": enc["bound_by"], "library_ms": None,
-        "shape": "W[32,80] x [10,8MiB] -> [4,8MiB]",
-        "launches_by_phase": launches, "bit_equal": True,
-        "library_note": "no single PyTorch call computes a GF(2^8) "
-                        "matrix product"}]})
-    log({"ok": True, "device": {"platform": "gpu", "kind": name,
+    kernels = []
+    for kernel, form in [("gf_apply", "bitplane"),
+                         ("gf_apply_xorsched", "xorsched")]:
+        by_phase = {step: counts[kernel]
+                    for step, counts in launches[form].items()}
+        enc = times[kernel][0]
+        kernels.append({
+            **KERNELS[kernel], "launches": sum(by_phase.values()),
+            "max_abs_err": checked["max_abs_err"][kernel], "ms": enc["ms"],
+            "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
+            "bound_by": enc["bound_by"], "library_ms": None,
+            "shape": "[10,8MiB] -> [4,8MiB]",
+            "launches_by_phase": by_phase, "bit_equal": True,
+            "library_note": "no single PyTorch call computes a GF(2^8) "
+                            "matrix product"})
+    log({"kernels": kernels})
+    log({"ok": True, "device": {"platform": "gpu", "kind": card,
                                 "count": count}})
     return 0
 

@@ -3,25 +3,32 @@
 The port's counterpart of seaweedfs_tpu/ec/coder.py:
 
 - ``NumpyCoder`` -- the numpy reference (table lookups, slow);
-- ``TorchCoder`` -- the hand-written CUDA kernel (``ops/rs_cuda``) on a
+- ``TorchCoder`` -- the hand-written CUDA kernels (``ops/rs_cuda``) on a
   card, the counterpart of the reference's ``PallasCoder``; constructed
-  with ``device="cpu"`` the same class runs the kernel's plain version,
-  which is the only place the plain version serves a coder.
+  with ``device="cpu"`` the same class runs the kernels' plain versions,
+  which is the only place a plain version serves a coder.
+
+``TorchCoder``'s formulation picks the kernel, as ``PallasCoder``'s does:
+``"bitplane"`` (``rs_cuda.gf_apply``, the bit-plane matrix as operand) or
+``"xorsched"`` (``rs_cuda.gf_apply_xorsched``, the matrix's lowered XOR
+schedule as operand). Unset, it follows the ``WEED_EC_FORMULATION`` pin:
+xorsched when the pin says so, bitplane otherwise; an unknown pin raises.
 
 ``get_coder("auto", k, m)`` returns the CUDA ``TorchCoder`` and raises
-where there is no card: it never falls back to the CPU. All backends
-produce bit-identical shards.
+where there is no card: it never falls back to the CPU. All backends and
+formulations produce bit-identical shards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..ops import gf256, rs_cuda, rs_torch
+from ..ops import gf256, rs_cuda, rs_torch, xor_schedule
 
 # fn(survivors [k, n] uint8) -> rebuilt rows [len(missing), n] uint8
 ApplyFn = Callable[[np.ndarray], np.ndarray]
@@ -100,6 +107,41 @@ class ErasureCoder:
         parity = np.stack(shards[self.k:])
         return bool(np.array_equal(self.encode(data), parity))
 
+    # --- staged-window hooks (pipeline.stream_*_device_sink) ---
+    # The sinks separate moving bytes (stage_async) from running kernels
+    # (one *_window_async call per staged window) and keep only a per-row
+    # digest of the result: the wrapping uint32 byte sum of each output
+    # row, summed over the batches.
+
+    def stage_async(self, data: np.ndarray):
+        """Move one batch toward the device without running any kernel.
+        CPU backends return the array unchanged."""
+        return np.asarray(data, dtype=np.uint8)
+
+    def encode_digest_async(self, data: np.ndarray, acc=None):
+        """Encode one batch and fold its parity digest ([m] uint32 per-row
+        wrapping byte sums) into `acc`; materialize() makes it real."""
+        d = np.sum(self.encode(data), axis=1, dtype=np.uint32)
+        return d if acc is None else np.asarray(acc, np.uint32) + d
+
+    def encode_digest_window_async(self, staged: Sequence, acc=None):
+        """Digest a whole staged window (batches of one shape)."""
+        for b in staged:
+            acc = self.encode_digest_async(b, acc)
+        return acc
+
+    def rec_digest_window_async(self, present: tuple, missing: tuple,
+                                staged: Sequence, acc=None):
+        """Like encode_digest_window_async, but digesting reconstructed
+        shards: staged batches are [k, n] survivor stripes and the digest
+        has len(missing) rows, in the caller's order of `missing`."""
+        apply_fn = self._rec_apply(present, missing)
+        for b in staged:
+            rebuilt = np.asarray(apply_fn(np.asarray(b, dtype=np.uint8)))
+            d = np.sum(rebuilt, axis=1, dtype=np.uint32)
+            acc = d if acc is None else np.asarray(acc, np.uint32) + d
+        return acc
+
 
 class NumpyCoder(ErasureCoder):
     def encode(self, data: np.ndarray) -> np.ndarray:
@@ -124,24 +166,78 @@ class _Pending:
         self.keep = keep
 
 
+class _Staged:
+    """A batch whose H2D copy is enqueued on the coder's stream; `host`
+    pins the source until block_until_ready() has seen the copy done."""
+
+    __slots__ = ("dev", "host", "event")
+
+    def __init__(self, dev: torch.Tensor, host, event):
+        self.dev = dev
+        self.host = host
+        self.event = event
+
+    def block_until_ready(self) -> "_Staged":
+        if self.event is not None:
+            self.event.synchronize()
+        self.host = None
+        return self
+
+
+class _Digest:
+    """A running per-row byte sum (int64, on the coder's device): real
+    once `event` (recorded after the last kernel that feeds it) is done.
+    materialize() reduces it mod 2^32, the reference's wrapping uint32
+    sum; PyTorch's uint32 arithmetic on CUDA is incomplete."""
+
+    __slots__ = ("acc", "event")
+
+    def __init__(self, acc: torch.Tensor, event):
+        self.acc = acc
+        self.event = event
+
+
 class TorchCoder(ErasureCoder):
-    """GF(2^8) through ``rs_cuda.gf_apply`` on one device.
+    """GF(2^8) through the hand-written kernels on one device.
 
     On a card every kernel run is enqueued on the coder's own CUDA
     stream: the host batch is copied H2D (asynchronously when it is
     page-locked, as the pipeline's staging buffers are), the kernel runs
-    with the matrix operand W, and the result is copied D2H into a fresh
+    with its matrix operand, and the result is copied D2H into a fresh
     page-locked tensor, after which an event is recorded. materialize()
     waits for that event and hands out a numpy view of the host tensor;
     the view keeps the tensor alive while writer threads hold its rows,
     and PyTorch's page-locked allocator reuses its memory only after the
-    recorded copy is done. Every matrix is runtime data, so no failure
-    pattern builds anything new.
+    recorded copy is done. Every matrix is runtime data (the bit-plane
+    matrix W, or the lowered XOR program), made once per matrix, kept on
+    the device and cached under a lock (degraded reads come from many
+    threads), so no failure pattern compiles anything.
+
+    The staged-window hooks keep the batches and the digests on the
+    device: stage_async enqueues the H2D copy only, the window calls
+    enqueue one kernel and one row sum per batch into an int64
+    accumulator, and only the accumulator crosses back.
+
+    Not ported from ``PallasCoder``: ``_shrink_tile`` and its retry
+    loops (they retry after any exception, which would hide a kernel that
+    fails) and the AOT ``warm_*`` hooks (nothing compiles per shape here).
     """
 
     def __init__(self, data_shards: int, parity_shards: int,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 formulation: str | None = None):
         super().__init__(data_shards, parity_shards)
+        # as PallasCoder: lut has no kernel of its own, so any pin other
+        # than xorsched keeps the bitplane kernel; a bad pin raises
+        env = rs_torch.formulation_env()
+        self.formulation = formulation or (
+            "xorsched" if env == "xorsched" else "bitplane")
+        if self.formulation not in ("bitplane", "xorsched"):
+            raise ValueError(f"TorchCoder: unknown formulation "
+                             f"{self.formulation!r}")
+        self._kernel = (rs_cuda.gf_apply_xorsched
+                        if self.formulation == "xorsched"
+                        else rs_cuda.gf_apply)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -152,31 +248,39 @@ class TorchCoder(ErasureCoder):
         else:
             raise ValueError(f"TorchCoder: unsupported device {device}")
         self.pinned_host = self.device.type == "cuda"
-        self._w_enc = rs_torch.load_matrix(
-            gf256.parity_matrix(data_shards, parity_shards), self.device)
+        self._w_enc = self._operand(
+            gf256.parity_matrix(data_shards, parity_shards))
         self._w_rec: dict = {}
         self._w_lock = threading.Lock()
 
+    def _operand(self, matrix: np.ndarray, rows: Optional[int] = None):
+        """The kernel's operand for a coefficient matrix, on the device;
+        rows > R zero-pads (zero rows rebuild zeros)."""
+        if self.formulation == "bitplane":
+            return rs_torch.load_matrix(matrix, self.device, rows=rows)
+        return xor_schedule.lower_schedule(xor_schedule.schedule_for_matrix(
+            rs_torch.pad_rows(matrix, rows))).to(self.device)
+
     def _rec_w(self, present: tuple, missing: tuple,
-               rows: Optional[int] = None) -> torch.Tensor:
+               rows: Optional[int] = None):
         key = (present, missing, rows)
         with self._w_lock:
             w = self._w_rec.get(key)
             if w is None:
                 rec = gf256.reconstruction_matrix(self.k, self.m, present,
                                                   missing)
-                w = self._w_rec[key] = rs_torch.load_matrix(
-                    rec, self.device, rows=rows)
+                w = self._w_rec[key] = self._operand(rec, rows)
         return w
 
-    def _run(self, w: torch.Tensor, data: np.ndarray, rows: int):
-        """Enqueue W applied to host bytes [C, n]; returns a handle."""
+    def _run(self, w, data: np.ndarray, rows: int):
+        """Enqueue the operand applied to host bytes [C, n]; returns a
+        handle."""
         x = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
         if self._stream is None:
-            return rs_cuda.gf_apply(w, x)[:rows]
+            return self._kernel(w, x)[:rows]
         with torch.cuda.stream(self._stream):
             xd = x.to(self.device, non_blocking=True)
-            out = rs_cuda.gf_apply(w, xd)
+            out = self._kernel(w, xd)
             host = torch.empty(out.shape, dtype=torch.uint8,
                                pin_memory=True)
             host.copy_(out, non_blocking=True)
@@ -189,6 +293,10 @@ class TorchCoder(ErasureCoder):
         if isinstance(handle, _Pending):
             handle.event.synchronize()
             return handle.host[:handle.rows].numpy()
+        if isinstance(handle, _Digest):
+            if handle.event is not None:
+                handle.event.synchronize()
+            return (handle.acc.cpu().numpy() & 0xFFFFFFFF).astype(np.uint32)
         return handle.numpy()
 
     def encode_async(self, data: np.ndarray):
@@ -210,6 +318,51 @@ class TorchCoder(ErasureCoder):
         return lambda survivors: self.materialize(
             self._run(w, survivors, len(missing)))
 
+    # --- staged-window hooks ---
+
+    def stage_async(self, data: np.ndarray) -> _Staged:
+        """Enqueue the batch's H2D copy on the coder's stream; no kernel
+        runs. On the CPU the batch is wrapped as it is."""
+        x = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
+        if self._stream is None:
+            return _Staged(x, None, None)
+        with torch.cuda.stream(self._stream):
+            xd = x.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return _Staged(xd, x, event)
+
+    def _digest_window(self, w, staged: Sequence, rows: int,
+                       acc: Optional[_Digest]) -> _Digest:
+        """acc + the per-row byte sums of the operand applied to every
+        staged batch, all enqueued on the coder's stream."""
+        on_card = self._stream is not None
+        with (torch.cuda.stream(self._stream) if on_card
+              else contextlib.nullcontext()):
+            total = (acc.acc if acc is not None else torch.zeros(
+                rows, dtype=torch.int64, device=self.device))
+            for b in staged:
+                total = total + self._kernel(w, b.dev).sum(
+                    dim=1, dtype=torch.int64)
+            event = torch.cuda.Event() if on_card else None
+            if on_card:
+                event.record(self._stream)
+        return _Digest(total, event)
+
+    def encode_digest_async(self, data: np.ndarray, acc=None) -> _Digest:
+        return self.encode_digest_window_async([self.stage_async(data)],
+                                               acc)
+
+    def encode_digest_window_async(self, staged, acc=None) -> _Digest:
+        return self._digest_window(self._w_enc, staged, self.m, acc)
+
+    def rec_digest_window_async(self, present, missing, staged,
+                                acc=None) -> _Digest:
+        # the exact matrix: one digest row per victim, in the caller's
+        # order of `missing`
+        w = self._rec_w(tuple(present), tuple(missing))
+        return self._digest_window(w, staged, len(missing), acc)
+
 
 _REGISTRY: dict = {}
 
@@ -224,8 +377,8 @@ register_coder("torch", TorchCoder)
 
 def get_coder(name: str, data_shards: int,
               parity_shards: int) -> ErasureCoder:
-    """A coder by name. "auto" is the CUDA kernel coder; it raises where
-    there is no card."""
+    """A coder by name. "auto" is the CUDA kernel coder, its formulation
+    from WEED_EC_FORMULATION; it raises where there is no card."""
     if name == "auto":
         if not torch.cuda.is_available():
             raise RuntimeError(

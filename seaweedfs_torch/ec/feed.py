@@ -13,7 +13,11 @@ the volume is. With ``pinned=True`` the pool's buffers are page-locked
 (numpy views of PyTorch pinned tensors), so the coder's host-to-device
 copy runs asynchronously on its stream. The pipeline recycles a buffer
 once its batch is fully consumed (result materialized and every row
-written).
+written). Feeds with ``pooled=False`` hand out a fresh buffer per batch
+and recycling is a no-op: the device sinks use that mode, because a whole
+window of batches stays referenced until its one dispatch, and they ask
+``batches(..., pad_final=True)`` so that every batch of a window has one
+shape.
 
 Not ported: the mmap zero-copy feed, O_DIRECT reads and the reader-thread
 pool that assembles several batches at once.
@@ -35,16 +39,20 @@ Segment = "tuple[list[int], int]"
 
 class BufferPool:
     """Bounded free-list of [k, width] uint8 staging buffers;
-    ``pinned=True`` allocates page-locked memory."""
+    ``pinned=True`` allocates page-locked memory. ``pooled=False`` turns
+    the pool into an allocator: acquire returns a fresh buffer and release
+    is a no-op."""
 
     def __init__(self, k: int, width: int, count: int,
-                 pinned: bool = False):
+                 pinned: bool = False, pooled: bool = True):
         self.shape = (k, width)
         self.pinned = pinned
+        self.pooled = pooled
         self._closed = threading.Event()
         self._q: queue.Queue = queue.Queue()
-        for _ in range(max(count, 2)):
-            self._q.put(self._alloc())
+        if pooled:
+            for _ in range(max(count, 2)):
+                self._q.put(self._alloc())
 
     def _alloc(self) -> np.ndarray:
         if self.pinned:
@@ -54,6 +62,8 @@ class BufferPool:
         return np.empty(self.shape, dtype=np.uint8)
 
     def acquire(self) -> np.ndarray:
+        if not self.pooled:
+            return self._alloc()
         # poll so a consumer that stops recycling (error paths) can never
         # wedge the reader thread: close() unblocks us
         while True:
@@ -65,7 +75,8 @@ class BufferPool:
                 continue
 
     def release(self, buf: np.ndarray) -> None:
-        self._q.put(buf)
+        if self.pooled:
+            self._q.put(buf)
 
     def close(self) -> None:
         self._closed.set()
@@ -88,22 +99,25 @@ def _readinto(fd: int, dest: np.ndarray, offset: int) -> int:
 class _FeedBase:
     """Lent-buffer tracking and recycling shared by the feeds."""
 
-    def __init__(self, k: int, width: int, pool_buffers: int, pinned: bool):
+    def __init__(self, k: int, width: int, pool_buffers: int, pinned: bool,
+                 pooled: bool):
         self.k = k
         self.width = width
-        self.pool = BufferPool(k, width, pool_buffers, pinned)
+        self.pool = BufferPool(k, width, pool_buffers, pinned, pooled)
         self._lent: dict[int, np.ndarray] = {}
         self._lent_lock = threading.Lock()
 
     def _lend(self, buf: np.ndarray, out: np.ndarray) -> np.ndarray:
         """Register `out` (a view of pool buffer `buf`) as lent."""
-        with self._lent_lock:
-            self._lent[id(out)] = buf
+        if self.pool.pooled:
+            with self._lent_lock:
+                self._lent[id(out)] = buf
         return out
 
     def recycle(self, batch: np.ndarray) -> None:
         """Return a batch's staging buffer to the pool (a no-op for a
-        batch already returned: always safe to call)."""
+        batch already returned, or an unpooled one: always safe to
+        call)."""
         with self._lent_lock:
             buf = self._lent.pop(id(batch), None)
         if buf is not None:
@@ -118,15 +132,18 @@ class PreadvFeed(_FeedBase):
     run, scattered straight into the staging rows."""
 
     def __init__(self, path: str, k: int, width: int,
-                 pool_buffers: int = 4, pinned: bool = False):
-        super().__init__(k, width, pool_buffers, pinned)
+                 pool_buffers: int = 4, pinned: bool = False,
+                 pooled: bool = True):
+        super().__init__(k, width, pool_buffers, pinned, pooled)
         self.size = os.path.getsize(path)
         self._fd = os.open(path, os.O_RDONLY)
 
-    def batches(self, segments: Iterator[Segment]) -> Iterator[np.ndarray]:
+    def batches(self, segments: Iterator[Segment],
+                pad_final: bool = False) -> Iterator[np.ndarray]:
         """Aggregate stripe segments into [k, width] batches: consecutive
         segments append to the same shard files, so the batch width never
-        changes the layout. The last batch may be narrower."""
+        changes the layout. The last batch may be narrower; pad_final
+        yields it at full width, zero-padded."""
         buf: Optional[np.ndarray] = None
         col = 0
         for offsets, w in segments:
@@ -139,7 +156,12 @@ class PreadvFeed(_FeedBase):
             self._fill_segment(buf, col, offsets, w)
             col += w
         if buf is not None and col:
-            yield self._lend(buf, buf[:, :col] if col < self.width else buf)
+            if col < self.width and pad_final:
+                buf[:, col:] = 0
+                yield self._lend(buf, buf)
+            else:
+                yield self._lend(buf, buf[:, :col] if col < self.width
+                                 else buf)
 
     def _fill_segment(self, buf: np.ndarray, col: int,
                       offsets: Sequence[int], w: int) -> None:
@@ -184,8 +206,9 @@ class ShardFeed(_FeedBase):
     truncated shard must fail the rebuild, not feed zeros)."""
 
     def __init__(self, paths: Sequence[str], width: int,
-                 pool_buffers: int = 4, pinned: bool = False):
-        super().__init__(len(paths), width, pool_buffers, pinned)
+                 pool_buffers: int = 4, pinned: bool = False,
+                 pooled: bool = True):
+        super().__init__(len(paths), width, pool_buffers, pinned, pooled)
         self.shard_size = os.path.getsize(paths[0])
         self._paths = list(paths)
         self._fds: list[int] = []
@@ -196,7 +219,10 @@ class ShardFeed(_FeedBase):
             self.close()
             raise
 
-    def batches(self, batch_size: int) -> Iterator[np.ndarray]:
+    def batches(self, batch_size: int,
+                pad_final: bool = False) -> Iterator[np.ndarray]:
+        """[k, n] batches of the survivors, n = batch_size but the last;
+        pad_final yields the last at full width, zero-padded."""
         offset = 0
         while offset < self.shard_size:
             n = min(batch_size, self.shard_size - offset)
@@ -207,7 +233,11 @@ class ShardFeed(_FeedBase):
                     self.pool.release(buf)
                     raise IOError(f"shard file {self._paths[i]} short read "
                                   f"{got} != {n}")
-            yield self._lend(buf, buf[:, :n] if n < batch_size else buf)
+            if n < batch_size and pad_final:
+                buf[:, n:] = 0
+                yield self._lend(buf, buf)
+            else:
+                yield self._lend(buf, buf[:, :n] if n < batch_size else buf)
             offset += n
 
     def close(self) -> None:

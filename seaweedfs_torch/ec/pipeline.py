@@ -20,17 +20,27 @@ Batch size and queue depth are explicit arguments (8 MiB / 4 by
 default); the adaptive governor of the reference is not ported. Layout
 semantics are identical to striping.write_ec_files: row-major two-tier
 striping, final batch zero-padded and written full length.
+
+The device sinks (``stream_encode_device_sink``,
+``stream_rebuild_device_sink``) run the same reads but keep the results
+on the card: batches are staged into device memory window by window, each
+window runs its kernels at once, and only a per-row uint32 byte-sum
+digest comes back, to be held against ``shard_file_digest`` of the real
+shard files and the .ecm's stamped digests (``read_stamped_digests``).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import queue
 import threading
+import time
 from typing import Iterator, Sequence
 
 import numpy as np
 
+from ..utils import durable
 from . import feed as feed_mod
 from .coder import ErasureCoder
 from .geometry import DEFAULT, Geometry, to_ext
@@ -322,3 +332,273 @@ def stream_rebuild(base_file_name: str, coder: ErasureCoder,
     if fan.errors:
         raise fan.errors[0]
     return missing
+
+
+# staged window default: bounded so a volume larger than device memory
+# streams in windows; one window still holds a 1 GiB volume
+DEFAULT_WINDOW_BYTES = 2 * 1024 * 1024 * 1024
+
+
+def _windowed_digest_sink(batches: Iterator[np.ndarray], dispatch_window,
+                          stage, depth: int, window_bytes: int,
+                          stats: dict | None):
+    """The staged-window schedule of the device sinks:
+
+      reader thread -> host batches (bounded queue; disk overlaps staging)
+      this thread   -> stage each batch (H2D only) and wait for its copy
+      window full   -> dispatch_window(staged, acc): the window's kernels
+                       and digests, enqueued at once
+
+    The reference stages on a pool of threads because ``jax.device_put``
+    blocks; a copy enqueued on a CUDA stream does not block, so this one
+    thread keeps the copies going while the reader reads ahead. Waiting
+    for each copy makes ``stage_s`` the copies' real time and lets the
+    host batch go at once.
+
+    Fills `stats` (when given) with the measured ledger: read-wait, stage
+    seconds and bytes, dispatch seconds, batch and window counts.
+    """
+    read_q: queue.Queue = queue.Queue(maxsize=depth)
+    errors: list[BaseException] = []
+
+    def reader_main() -> None:
+        try:
+            for item in batches:
+                read_q.put(item)
+        except BaseException as e:
+            errors.append(e)
+        finally:
+            read_q.put(_SENTINEL)
+
+    reader = threading.Thread(target=reader_main, daemon=True)
+    reader.start()
+
+    acc = None
+    staged: list = []
+    staged_bytes = total_bytes = 0
+    t_read = t_stage = t_dispatch = 0.0
+    n_batches = n_windows = 0
+
+    def flush_window() -> None:
+        nonlocal acc, staged, staged_bytes, n_windows, t_dispatch
+        if not staged:
+            return
+        t0 = time.perf_counter()
+        acc = dispatch_window(staged, acc)
+        t_dispatch += time.perf_counter() - t0
+        n_windows += 1
+        staged = []
+        staged_bytes = 0
+
+    drained = False
+    try:
+        while True:
+            t0 = time.perf_counter()
+            batch = read_q.get()
+            t_read += time.perf_counter() - t0
+            if batch is _SENTINEL:
+                drained = True
+                break
+            t0 = time.perf_counter()
+            handle = stage(batch)
+            block = getattr(handle, "block_until_ready", None)
+            if block is not None:
+                block()
+            staged.append(handle)
+            t_stage += time.perf_counter() - t0
+            staged_bytes += batch.nbytes
+            total_bytes += batch.nbytes
+            n_batches += 1
+            if staged_bytes >= window_bytes:
+                flush_window()
+        flush_window()
+    finally:
+        while not drained and read_q.get() is not _SENTINEL:
+            pass  # unblock a reader stuck on a full queue after an error
+        reader.join()
+    if errors:
+        raise errors[0]
+    if stats is not None:
+        stats.update({
+            "staged_bytes": total_bytes, "n_batches": n_batches,
+            "n_windows": n_windows, "read_wait_s": t_read,
+            "stage_s": t_stage,
+            "stage_gbps": (total_bytes / t_stage / 1e9
+                           if t_stage > 1e-9 else None),
+            "dispatch_s": t_dispatch,
+        })
+    return acc
+
+
+def _finish_sink(coder: ErasureCoder, acc, rows: int, materialize: bool,
+                 stats: dict | None, t_all: float, size_key: str,
+                 size: int):
+    """The sink's result: the uint32 digest, or with materialize=False the
+    coder's unmaterialized handle (coder.materialize makes it real), so a
+    caller can run several volumes before it waits once."""
+    if acc is None:
+        out = np.zeros(rows, dtype=np.uint32)
+    elif not materialize:
+        out = acc
+    else:
+        t0 = time.perf_counter()
+        out = np.asarray(coder.materialize(acc), dtype=np.uint32)
+        if stats is not None:
+            stats["wait_s"] = time.perf_counter() - t0
+    if stats is not None:
+        stats["total_s"] = time.perf_counter() - t_all
+        stats[size_key] = size
+    return out
+
+
+def stream_encode_device_sink(base_file_name: str, coder: ErasureCoder,
+                              geometry: Geometry = DEFAULT,
+                              batch_size: int = DEFAULT_BATCH_SIZE,
+                              depth: int = DEFAULT_DEPTH,
+                              window_bytes: int = DEFAULT_WINDOW_BYTES,
+                              stats: dict | None = None,
+                              materialize: bool = True):
+    """stream_encode with the parity landing in an on-device sink.
+
+    Reads <base>.dat in stream_encode's batches, stages them onto the
+    device and reduces each window's parity to an [m] uint32 wrapping
+    byte-sum digest (_windowed_digest_sink): only the digest crosses back
+    and no shard file is written. The digest equals parity_file_digest()
+    of the shards stream_encode writes (the padding encodes to zeros), so
+    the sink does the full encode, not a shortcut. `stats` gets the
+    measured ledger."""
+    g = geometry
+    check_coder(coder, g)
+    dat_size = os.path.getsize(base_file_name + ".dat")
+    # unpooled: a whole window of batches stays referenced until its
+    # one dispatch; padded: every batch of a window has one shape
+    src = feed_mod.PreadvFeed(base_file_name + ".dat", g.data_shards,
+                              batch_size, pinned=coder.pinned_host,
+                              pooled=False)
+    t_all = time.perf_counter()
+    try:
+        acc = _windowed_digest_sink(
+            src.batches(stripe_segments(dat_size, g, batch_size),
+                        pad_final=True),
+            coder.encode_digest_window_async, coder.stage_async, depth,
+            window_bytes, stats)
+    finally:
+        src.close()
+    return _finish_sink(coder, acc, g.parity_shards, materialize, stats,
+                        t_all, "volume_bytes", dat_size)
+
+
+def stream_rebuild_device_sink(base_file_name: str, coder: ErasureCoder,
+                               victims: Sequence[int],
+                               geometry: Geometry = DEFAULT,
+                               batch_size: int = DEFAULT_BATCH_SIZE,
+                               depth: int = DEFAULT_DEPTH,
+                               window_bytes: int = DEFAULT_WINDOW_BYTES,
+                               stats: dict | None = None,
+                               materialize: bool = True):
+    """stream_rebuild with the reconstructed shards landing in an
+    on-device digest sink.
+
+    Treats `victims` as missing, streams k survivor shard files through
+    the staged-window schedule, reconstructs the victim rows on the device
+    and digests them to [len(victims)] uint32 wrapping byte sums, in the
+    caller's order of `victims`: comparable with shard_file_digest() of
+    the real shard files. The survivors are the first k present shards
+    that are not victims, as RebuildEcFiles (ec_encoder.go:233-287)
+    chooses them."""
+    g = geometry
+    check_coder(coder, g)
+    victims = tuple(victims)
+    present = [i for i in range(g.total_shards)
+               if i not in victims
+               and os.path.exists(base_file_name + to_ext(i))]
+    if len(present) < g.data_shards:
+        raise ValueError(
+            f"need {g.data_shards} survivors, have {len(present)}")
+    survivors_ids = tuple(present[:g.data_shards])
+    src = feed_mod.ShardFeed(
+        [base_file_name + to_ext(i) for i in survivors_ids], batch_size,
+        pinned=coder.pinned_host, pooled=False)
+    shard_size = src.shard_size
+    t_all = time.perf_counter()
+
+    def dispatch_window(staged, acc):
+        return coder.rec_digest_window_async(survivors_ids, victims,
+                                             staged, acc)
+
+    try:
+        acc = _windowed_digest_sink(
+            src.batches(batch_size, pad_final=True), dispatch_window,
+            coder.stage_async, depth, window_bytes, stats)
+    finally:
+        src.close()
+    return _finish_sink(coder, acc, len(victims), materialize, stats,
+                        t_all, "shard_bytes", shard_size)
+
+
+def shard_file_digest(base_file_name: str,
+                      shard_ids: Sequence[int]) -> np.ndarray:
+    """[len(ids)] uint32 wrapping byte sum of each shard file: the
+    host-side cross-check of the device sinks. Accumulates in uint64 and
+    masks once at the end."""
+    out = []
+    for i in shard_ids:
+        total = np.uint64(0)
+        with open(base_file_name + to_ext(i), "rb") as f:
+            while True:
+                chunk = f.read(1 << 24)
+                if not chunk:
+                    break
+                total += np.sum(np.frombuffer(chunk, dtype=np.uint8),
+                                dtype=np.uint64)
+        out.append(int(total) & 0xFFFFFFFF)
+    return np.asarray(out, dtype=np.uint32)
+
+
+def read_stamped_digests(base_file_name: str) -> dict[int, int]:
+    """shard id -> stamped uint32 byte-sum digest from the .ecm sidecar
+    ({} when the marker is absent or carries no digests)."""
+    try:
+        with open(base_file_name + ".ecm") as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return {int(k): int(v)
+            for k, v in (meta.get("shard_digests") or {}).items()}
+
+
+def stamp_shard_digests(base_file_name: str,
+                        geometry: Geometry = DEFAULT) -> dict[int, int]:
+    """Record each local shard file's digest into the .ecm sidecar.
+    Merge-only: a shard id already stamped keeps its value (recomputing
+    over a shard that has since rotted would launder the corruption into
+    the record), so the truth is set once, when the bytes are known to be
+    good. No-op without a marker: a digests-only .ecm would not name a
+    layout. (The reference also counts the recomputed digests in its
+    metrics registry, which the port does not have yet.)"""
+    path = base_file_name + ".ecm"
+    try:
+        with open(path) as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    digests = {int(k): int(v)
+               for k, v in (meta.get("shard_digests") or {}).items()}
+    for sid in range(geometry.total_shards):
+        if sid in digests or not os.path.exists(
+                base_file_name + to_ext(sid)):
+            continue
+        digests[sid] = int(shard_file_digest(base_file_name, [sid])[0])
+    meta["shard_digests"] = {str(k): v
+                             for k, v in sorted(digests.items())}
+    durable.write_json_atomic(path, meta)
+    return digests
+
+
+def parity_file_digest(base_file_name: str,
+                       geometry: Geometry = DEFAULT) -> np.ndarray:
+    """[m] uint32 wrapping byte sum of each parity shard file: the
+    host-side cross-check of stream_encode_device_sink."""
+    g = geometry
+    return shard_file_digest(
+        base_file_name, range(g.data_shards, g.total_shards))

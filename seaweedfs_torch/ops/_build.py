@@ -5,8 +5,8 @@ interface, loaded through ctypes: no PyTorch headers, so a build takes
 seconds. The build runs at first use, never at import, into
 ``seaweedfs_torch/_build/`` (listed in .gitignore); the library's file
 name carries a hash of the sources and flags, so an edited source builds
-anew and a finished build is reused. ``build()`` compiles and links in
-one nvcc call.
+anew and a finished build is reused. ``build()`` starts one nvcc per
+source, all at once, and links the objects in a last call.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -64,14 +65,23 @@ def build() -> Path:
     if compiler is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}_{threading.get_ident()}")
-    proc = subprocess.run(
-        [compiler, *NVCC_FLAGS, "-shared", *map(str, sources()),
-         "-o", str(tmp)], capture_output=True, text=True)
-    if proc.returncode:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # concurrent builds race to the same bytes
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen(
+            [compiler, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc failed:\n" + "".join(logs))
+        tmp = Path(work) / out.name
+        proc = subprocess.run(
+            [compiler, *NVCC_FLAGS, "-shared", *map(str, objs),
+             "-o", str(tmp)], capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError("nvcc link failed:\n" + proc.stdout
+                               + proc.stderr)
+        os.replace(tmp, out)  # concurrent builds race to the same bytes
     return out
 
 
@@ -87,6 +97,12 @@ def library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p]
         lib.sw_gf_apply.restype = ctypes.c_int
+        lib.sw_gf_xorsched.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.sw_gf_xorsched.restype = ctypes.c_int
         lib.sw_crc32c_update.argtypes = [
             ctypes.c_uint32, ctypes.c_char_p, ctypes.c_size_t]
         lib.sw_crc32c_update.restype = ctypes.c_uint32

@@ -1,21 +1,31 @@
-"""The hand-written GF(2^8) kernel's wrapper (``csrc/gf_apply.cu``).
+"""The hand-written GF(2^8) kernels' wrappers.
 
-Counterpart of ``seaweedfs_tpu/ops/rs_pallas.py:_gf_kernel``. The wrapper
-takes the same operands as the plain version ``rs_torch.gf_apply``
-(W [8R, 8C] int8, x [C, n] uint8). On a CPU tensor it computes the plain
-version, and only there; on a CUDA tensor it launches the kernel on the
-current stream or raises -- there is no fallback. ``gf_apply.launches``
-counts kernel launches, so a run can show that its path went through the
-kernel.
+- ``gf_apply`` (``csrc/gf_apply.cu``), counterpart of
+  ``seaweedfs_tpu/ops/rs_pallas.py:_gf_kernel``: takes the same operands
+  as the plain version ``rs_torch.gf_apply`` (W [8R, 8C] int8, x [C, n]
+  uint8).
+- ``gf_apply_xorsched`` (``csrc/gf_xorsched.cu``), counterpart of
+  ``rs_pallas.py:_gf_kernel_xorsched``: takes the lowered XOR program
+  (``xor_schedule.lower_schedule``) and x; its plain version is
+  ``rs_torch.gf_apply_xorsched``.
+
+On a CPU tensor each wrapper computes its plain version, and only there;
+on a CUDA tensor it launches its kernel on the current stream or raises --
+there is no fallback. Each keeps its own ``.launches`` count of kernel
+launches, so a run can show that its path went through the kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, rs_torch
+from . import _build, rs_torch, xor_schedule
 
-MAX_ROWS = 32  # R and C limit of the kernel (k + m <= 32 shards)
+MAX_ROWS = 32  # R and C limit of the kernels (k + m <= 32 shards)
+# shared memory a block may use on the H100 (227 KB) and the block size
+# the XOR-schedule kernel aims for
+SMEM_LIMIT = 232448
+XORSCHED_THREADS = 128
 
 
 def gf_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -54,3 +64,67 @@ def gf_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 gf_apply.launches = 0
+
+
+def xorsched_launch(prog: xor_schedule.XorProgram) -> tuple[int, int]:
+    """(threads per block, dynamic shared-memory bytes) for a program:
+    the program itself, then one 4-byte slot per value per thread. Raises
+    when the slots do not fit even 32 threads."""
+    rows = prog.sched.n_rows // 8
+    prog_bytes = 4 * ((3 * prog.code.shape[0] + 8 * rows + 1) // 2)
+    per_thread = 4 * prog.n_slots
+    threads = min(XORSCHED_THREADS,
+                  (SMEM_LIMIT - prog_bytes) // per_thread // 32 * 32)
+    if threads < 32:
+        raise ValueError(
+            f"gf_apply_xorsched: {prog.n_slots} slots and a "
+            f"{prog_bytes}-byte program do not fit 32 threads in "
+            f"{SMEM_LIMIT} bytes of shared memory")
+    return threads, prog_bytes + per_thread * threads
+
+
+def gf_apply_xorsched(prog: xor_schedule.XorProgram,
+                      x: torch.Tensor) -> torch.Tensor:
+    """The lowered XOR program of a matrix [R, C] applied to x [C, n]
+    uint8 -> [R, n] uint8 on x's device; kernel launches run on the
+    current CUDA stream."""
+    if x.device.type == "cpu":
+        return rs_torch.gf_apply_xorsched(prog.sched, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"gf_apply_xorsched: unsupported device {x.device}")
+    if prog.code.device != x.device or prog.out_slots.device != x.device:
+        raise ValueError(f"gf_apply_xorsched: program on "
+                         f"{prog.code.device}, x on {x.device}")
+    if (prog.code.dtype != torch.int16 or prog.out_slots.dtype != torch.int16
+            or x.dtype != torch.uint8):
+        raise TypeError(f"gf_apply_xorsched: want an int16 program and "
+                        f"uint8 x, got {prog.code.dtype} and {x.dtype}")
+    sched = prog.sched
+    if (x.dim() != 2 or 8 * x.shape[0] != sched.n_in or sched.n_rows % 8
+            or tuple(prog.code.shape) != (len(sched.ops), 3)
+            or tuple(prog.out_slots.shape) != (sched.n_rows,)):
+        raise ValueError(f"gf_apply_xorsched: program for {sched.n_in} "
+                         f"input planes does not fit x {tuple(x.shape)}")
+    rows, cols, n = sched.n_rows // 8, x.shape[0], x.shape[1]
+    if not (1 <= rows <= MAX_ROWS and 1 <= cols <= MAX_ROWS):
+        raise ValueError(f"gf_apply_xorsched: [{rows}, {cols}] exceeds the "
+                         f"kernel's {MAX_ROWS} rows or columns")
+    threads, smem = xorsched_launch(prog)
+    x = x.contiguous()
+    out = torch.empty((rows, n), dtype=torch.uint8, device=x.device)
+    if n == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device)
+    err = _build.library().sw_gf_xorsched(
+        prog.code.data_ptr(), prog.code.shape[0], prog.out_slots.data_ptr(),
+        prog.n_slots, rows, cols, x.data_ptr(), out.data_ptr(), n, threads,
+        smem, x.device.index if x.device.index is not None
+        else torch.cuda.current_device(), stream.cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"gf_apply_xorsched kernel launch failed: cudaError {err}")
+    gf_apply_xorsched.launches += 1
+    return out
+
+
+gf_apply_xorsched.launches = 0

@@ -14,14 +14,27 @@ take it as runtime data, so one kernel serves the parity matrix and every
 reconstruction matrix. This module is the plain version: the CPU tests
 and the on-card comparison use it; the coder runs it only for tensors on
 the CPU.
+
+``gf_apply_xorsched`` is the plain version of the second formulation
+(``rs_jax.gf_apply_xorsched``): the same output from the matrix's XOR
+schedule (``xor_schedule``) run over packed bit-plane words; its kernel
+is ``rs_cuda.gf_apply_xorsched``. ``formulation_env`` reads the
+``WEED_EC_FORMULATION`` pin by the reference's rules.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from . import gf256
+from . import gf256, xor_schedule
+
+# the formulations the WEED_EC_FORMULATION pin may name, as in the
+# reference's rs_jax.FORMULATIONS (the port's coder runs bitplane and
+# xorsched; lut pins the bitplane kernel, as it does for PallasCoder)
+FORMULATIONS = ("bitplane", "lut", "xorsched")
 
 # columns per product: bounds the [8C, chunk] float32 bit-plane temporary
 # (at C = 32 and 2^20 columns, 1 GiB)
@@ -43,19 +56,25 @@ def bitplane_matrix(matrix: np.ndarray) -> np.ndarray:
     return bits.transpose(0, 3, 1, 2).reshape(r * 8, c * 8).astype(np.int8)
 
 
-def load_matrix(matrix: np.ndarray, device: torch.device | str,
-                rows: int | None = None) -> torch.Tensor:
-    """Coefficient matrix [R, C] (numpy, as the reference produces it) ->
-    the port's operand W [8*rows, 8C] int8 on `device`.
-
-    rows > R zero-pads: zero rows rebuild zeros, which is how a
-    reconstruction matrix for fewer victims than parity shards takes the
-    parity matrix's [m, k] shape (the caller slices the pad rows off)."""
+def pad_rows(matrix: np.ndarray, rows: int | None) -> np.ndarray:
+    """The coefficient matrix [R, C] zero-padded to `rows` rows (when
+    rows > R): zero rows rebuild zeros, which is how a reconstruction
+    matrix for fewer victims than parity shards takes the parity matrix's
+    [m, k] shape (the caller slices the pad rows off)."""
     matrix = np.asarray(matrix, dtype=np.uint8)
     if rows is not None and rows > matrix.shape[0]:
         matrix = np.vstack([matrix, np.zeros(
             (rows - matrix.shape[0], matrix.shape[1]), dtype=np.uint8)])
-    return torch.from_numpy(bitplane_matrix(matrix)).to(device)
+    return matrix
+
+
+def load_matrix(matrix: np.ndarray, device: torch.device | str,
+                rows: int | None = None) -> torch.Tensor:
+    """Coefficient matrix [R, C] (numpy, as the reference produces it) ->
+    the port's operand W [8*rows, 8C] int8 on `device`, zero-padded to
+    `rows` rows by ``pad_rows``."""
+    return torch.from_numpy(bitplane_matrix(pad_rows(matrix, rows))).to(
+        device)
 
 
 def unpack_bits(x: torch.Tensor) -> torch.Tensor:
@@ -97,3 +116,31 @@ def gf_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         acc = wf @ unpack_bits(x[:, lo:hi]).to(torch.float32)
         out[:, lo:hi] = pack_bits(acc.to(torch.int32) & 1, rows)
     return out
+
+
+def gf_apply_xorsched(sched: xor_schedule.XorSchedule,
+                      x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the XOR-schedule kernel: x [C, n] uint8 ->
+    [R, n] uint8 on x's device, where the schedule was built for a
+    coefficient matrix [R, C] (``xor_schedule.schedule_for_matrix``):
+    pack the bit-planes, run the schedule, unpack."""
+    if x.dim() != 2 or 8 * x.shape[0] != sched.n_in:
+        raise ValueError(f"gf_apply_xorsched: schedule for {sched.n_in} "
+                         f"input planes does not fit x {tuple(x.shape)}")
+    n = x.shape[1]
+    planes = xor_schedule.pack_planes(x)
+    out = xor_schedule.run_schedule(sched, planes)
+    return xor_schedule.unpack_planes(out, n)
+
+
+def formulation_env() -> str | None:
+    """The WEED_EC_FORMULATION pin (lut|bitplane|xorsched), or None when
+    unset. An unknown value raises rather than silently ignoring the
+    operator's intent."""
+    raw = os.environ.get("WEED_EC_FORMULATION", "").strip().lower()
+    if not raw:
+        return None
+    if raw not in FORMULATIONS:
+        raise ValueError(f"WEED_EC_FORMULATION={raw!r}: valid values are "
+                         f"{sorted(FORMULATIONS)}")
+    return raw

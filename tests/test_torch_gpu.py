@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the CUDA kernel, the CUDA coder and the C
-CRC-32C, each against the port's plain versions.
+"""Card-only tests of the port: the CUDA kernels, the CUDA coder under
+both formulations and the C CRC-32C, each against the port's plain
+versions.
 
 Every test is marked ``gpu`` and decides inside its body whether a card
 (or the CUDA toolkit) is present, skipping here. This file imports
@@ -20,6 +21,7 @@ import torch
 
 from seaweedfs_torch.ec import coder as pcoder
 from seaweedfs_torch.ops import gf256, rs_cuda, rs_torch
+from seaweedfs_torch.ops import xor_schedule
 from seaweedfs_torch.storage import crc
 
 GEOMETRIES = [(10, 4), (12, 4), (20, 4), (6, 3)]
@@ -95,6 +97,79 @@ def test_cuda_coder_matches_numpy_coder(k, m):
             coder.rec_apply_async(present, drop)(survivors))
         for row, v in enumerate(drop):
             assert np.array_equal(out[row], shards[v])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", GEOMETRIES)
+def test_xorsched_kernel_matches_plain_and_gf_apply(k, m):
+    _need_card()
+    rng = np.random.default_rng(70 + k)
+    for n in [1, 31, 33, 1023, 1025, 1 << 20, (1 << 20) + 5]:
+        x = torch.from_numpy(
+            rng.integers(0, 256, (k, n), dtype=np.uint8)).cuda()
+        for mat in [gf256.parity_matrix(k, m), _padded_rec(k, m),
+                    _padded_rec(k, m)[:1]]:
+            prog = xor_schedule.lower_schedule(
+                xor_schedule.schedule_for_matrix(mat)).to("cuda")
+            got = rs_cuda.gf_apply_xorsched(prog, x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, rs_torch.gf_apply_xorsched(
+                prog.sched, x)), (n, mat.shape)
+            w = rs_torch.load_matrix(mat, "cuda")
+            assert torch.equal(got, rs_cuda.gf_apply(w, x)), (n, mat.shape)
+
+
+@pytest.mark.gpu
+def test_xorsched_kernel_takes_offset_views_and_counts():
+    _need_card()
+    rng = np.random.default_rng(61)
+    x = torch.from_numpy(rng.integers(0, 256, (10, 4099), dtype=np.uint8))
+    pm = gf256.parity_matrix(10, 4)
+    prog = xor_schedule.lower_schedule(xor_schedule.schedule_for_matrix(pm))
+    progd = prog.to("cuda")
+    before = rs_cuda.gf_apply_xorsched.launches
+    got = rs_cuda.gf_apply_xorsched(progd, x.cuda()[:, 3:]).cpu()
+    assert torch.equal(got, rs_torch.gf_apply_xorsched(prog.sched,
+                                                       x[:, 3:]))
+    assert rs_cuda.gf_apply_xorsched.launches == before + 1
+    assert rs_cuda.gf_apply_xorsched(progd, x.cuda()[:, :0]).shape == (4, 0)
+    assert rs_cuda.gf_apply_xorsched.launches == before + 1
+    with pytest.raises(ValueError):
+        rs_cuda.gf_apply_xorsched(progd, x[:6].cuda())
+    with pytest.raises(ValueError):
+        rs_cuda.gf_apply_xorsched(prog, x.cuda())  # program on the CPU
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", [(10, 4), (20, 4)])
+def test_xorsched_coder_matches_numpy_coder(k, m):
+    _need_card()
+    coder = pcoder.TorchCoder(k, m, formulation="xorsched")
+    ref = pcoder.NumpyCoder(k, m)
+    rng = np.random.default_rng(k + 1)
+    data = rng.integers(0, 256, (k, 100_003), dtype=np.uint8)
+    before = rs_cuda.gf_apply_xorsched.launches
+    parity = coder.encode(data)
+    assert rs_cuda.gf_apply_xorsched.launches == before + 1
+    assert np.array_equal(parity, ref.encode(data))
+    shards = [data[i] for i in range(k)] + [parity[j] for j in range(m)]
+    for drop in [(0,), (0, 3, 7, 12), (k, k + 1)]:
+        holed = [None if i in drop else s for i, s in enumerate(shards)]
+        got = coder.reconstruct(holed)
+        for i in range(k + m):
+            assert np.array_equal(got[i], shards[i]), (drop, i)
+        present = tuple(i for i in range(k + m) if i not in drop)[:k]
+        survivors = np.stack([shards[i] for i in present])
+        out = coder.materialize(
+            coder.rec_apply_async(present, drop)(survivors))
+        for row, v in enumerate(drop):
+            assert np.array_equal(out[row], shards[v])
+        staged = [coder.stage_async(survivors)]
+        digest = coder.materialize(
+            coder.rec_digest_window_async(present, drop, staged))
+        assert digest.tolist() == [
+            int(shards[v].astype(np.uint64).sum()) & 0xFFFFFFFF
+            for v in drop]
 
 
 @pytest.mark.gpu

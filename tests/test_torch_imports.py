@@ -31,7 +31,8 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))
-print(json.dumps({"modules": len(names), "forbidden": bad}))
+print(json.dumps({"modules": len(names), "names": names,
+                  "forbidden": bad}))
 """ % str(REPO)
 
 
@@ -42,7 +43,11 @@ def test_port_imports_without_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert result["modules"] >= 17
+    assert result["modules"] >= 18
+    for name in ("seaweedfs_torch.ops.xor_schedule",
+                 "seaweedfs_torch.ops.rs_cuda",
+                 "seaweedfs_torch.ec.pipeline"):
+        assert name in result["names"]
     assert result["forbidden"] == []
 
 
