@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the result line):
    unpadded one-row matrix for victim 0 (a degraded read); bit equality
    required, 54 cases per kernel: (2) ``gf_apply`` (bit-plane matrix
    operand), (2b) ``gf_apply_xorsched`` (the matrix's lowered XOR
-   schedule), which must also equal ``gf_apply`` on the same inputs;
+   schedule) and (2c) ``gf_apply_mxu`` (the same operand, both products on
+   the tensor cores), which must also equal ``gf_apply`` on the same
+   inputs;
 3. the main path at full size under the default ``bitplane``
    formulation: a 1 GiB volume (seeded needles, log-uniform 1 KiB ..
    4 MiB, about 5% deleted) written with the port's Volume,
@@ -27,8 +29,9 @@ Phases (any failure exits non-zero before the result line):
    (the decoded .dat equals the source), and (3c) the device sinks
    ``stream_encode_device_sink`` and ``stream_rebuild_device_sink`` of the
    four victims, whose digests must equal the shard files' and the .ecm's
-   stamped ones. Both kernels' launch counts are set to 0 before each
-   step and read after it;
+   stamped ones. All three kernels' launch counts are set to 0 before
+   each step and read after it; only the formulation's kernel may run
+   (the tensor-core kernel never does, as in the reference);
    (3b) the same with ``TorchCoder(10, 4, formulation="xorsched")`` on a
    copy of the same volume (written once from the seed: needle records
    carry their append time, so two writes differ): its 14 shard files
@@ -36,9 +39,25 @@ Phases (any failure exits non-zero before the result line):
    kernel may run;
    ``get_coder("auto")`` under ``WEED_EC_FORMULATION=xorsched`` must give
    the xorsched coder;
-4. the same at a mixed-tier layout (262144 / 16384 blocks, 4 MiB volume),
-   under both formulations;
-5. both kernels' times and the plain versions' (CUDA events, median of
+   (3d) the governed pipeline on a copy of the same volume, with the
+   governor, the span ring and the wide events reset first: three
+   ``stream_encode(base, coder)`` runs with no batch size or depth (one
+   line each: the planned operating point, the ``ec.*`` span totals,
+   GB/s, the staging pool's allocation time, the feed), a fourth under
+   ``torch.profiler`` (the device's kernel, copy and busy seconds and its
+   idle share over the run); then on each feed, mmap, ``WEED_EC_MMAP=0``
+   and ``WEED_EC_ODIRECT=1`` (whether O_DIRECT engaged), one
+   ``stream_encode_many`` over two copies and one governed
+   ``stream_rebuild`` of the four victims, and a governed encode on the
+   last two; all with shards equal by sha256 to the pinned run's; a fault drill on the preadv feed
+   (``ec.feed.read`` armed as an error: ``FaultError`` and no .ecm; after
+   ``faults.clear()`` the next run succeeds); the tensor-core kernel's
+   entry, ``rs_cuda.gf_apply(w, x, repack="mxu")``, applied to every
+   [10, 8 MiB] batch of the data shards, equal to the parity shards; the
+   "ec" metrics registry on one line;
+4. the same as 3/3b at a mixed-tier layout (262144 / 16384 blocks, 4 MiB
+   volume), under both formulations;
+5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) at the shapes the main path gives them, beside
    the bound; the ``kernels`` line, the nvidia-smi line, and the result
    line.
@@ -62,13 +81,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from seaweedfs_torch import faults, observe
 from seaweedfs_torch.ec import coder as coder_mod
-from seaweedfs_torch.ec import ec_volume, geometry, pipeline, striping
+from seaweedfs_torch.ec import ec_volume, feed, geometry, governor
+from seaweedfs_torch.ec import pipeline, striping
+from seaweedfs_torch.observe import wideevents
 from seaweedfs_torch.ops import _build, gf256, rs_cuda, rs_torch
 from seaweedfs_torch.ops import xor_schedule
 from seaweedfs_torch.storage import types as st
 from seaweedfs_torch.storage.needle import Needle
 from seaweedfs_torch.storage.volume import Volume
+from seaweedfs_torch.utils import metrics
 
 REPO = Path(__file__).resolve().parent
 WORK = REPO / ".chip_smoke_work"
@@ -93,9 +116,16 @@ KERNELS = {
         "source": "seaweedfs_torch/csrc/gf_xorsched.cu",
         "replaces": "seaweedfs_tpu/ops/rs_pallas.py:65",
     },
+    "gf_apply_mxu": {
+        "name": "gf_apply_mxu",
+        "route": "cuda",
+        "source": "seaweedfs_torch/csrc/gf_mxu.cu",
+        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:109",
+    },
 }
 WRAPPERS = {"gf_apply": rs_cuda.gf_apply,
-            "gf_apply_xorsched": rs_cuda.gf_apply_xorsched}
+            "gf_apply_xorsched": rs_cuda.gf_apply_xorsched,
+            "gf_apply_mxu": rs_cuda.gf_apply_mxu}
 FORMULATION_KERNEL = {"bitplane": "gf_apply",
                       "xorsched": "gf_apply_xorsched"}
 
@@ -118,6 +148,16 @@ def bound_ms(rows: int, cols: int, n: int) -> tuple[float, str]:
     product's 2*8R*8C*n int8 operations at the tensor-core rate."""
     t_bytes = (cols + rows) * n / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * (8 * rows) * (8 * cols) * n / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_ms_mxu(rows: int, cols: int, n: int) -> tuple[float, str]:
+    """Least time for the tensor-core variant: the same bytes, against
+    the GF product's 2*8R*8C*n and the two nibble products' 2*2*R*4R*n
+    int8 operations at the tensor-core rate."""
+    t_bytes = (cols + rows) * n / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * (8 * rows) * (8 * cols) * n + 2 * 2 * rows * (4 * rows) * n
+             ) / INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -179,9 +219,9 @@ def one_row_rec(k: int, m: int) -> np.ndarray:
 # --- phase 2: the kernels against their plain versions ------------------
 
 def check_kernels(device: torch.device) -> dict:
-    """Both kernels against their plain versions (and the XOR-schedule
-    kernel against gf_apply) on the same inputs; returns, per kernel, the
-    largest absolute difference and the number of cases."""
+    """Every kernel against its plain version (and the XOR-schedule and
+    tensor-core kernels against gf_apply) on the same inputs; returns, per
+    kernel, the largest absolute difference and the number of cases."""
     rng = np.random.default_rng(SEED)
     worst = {name: 0 for name in KERNELS}
     cases = 0
@@ -195,11 +235,14 @@ def check_kernels(device: torch.device) -> dict:
                 prog = program(mat, device)
                 got = rs_cuda.gf_apply(w, x)
                 got_x = rs_cuda.gf_apply_xorsched(prog, x)
+                got_m = rs_cuda.gf_apply(w, x, repack="mxu")
                 torch.cuda.synchronize()
                 pairs = {"gf_apply": (got, rs_torch.gf_apply(w, x)),
                          "gf_apply_xorsched": (got_x, rs_torch.
                                                gf_apply_xorsched(
-                                                   prog.sched, x))}
+                                                   prog.sched, x)),
+                         "gf_apply_mxu": (got_m,
+                                          rs_torch.gf_apply_mxu(w, x))}
                 for name, (a, b) in pairs.items():
                     err = int((a.int() - b.int()).abs().max())
                     worst[name] = max(worst[name], err)
@@ -207,14 +250,16 @@ def check_kernels(device: torch.device) -> dict:
                         raise AssertionError(
                             f"{name} != plain at RS({k},{m}) n={n} "
                             f"matrix {mat.shape}: max abs err {err}")
-                if not torch.equal(got, got_x):
-                    raise AssertionError(
-                        f"gf_apply_xorsched != gf_apply at RS({k},{m}) "
-                        f"n={n} matrix {mat.shape}")
+                for name, other in [("gf_apply_xorsched", got_x),
+                                    ("gf_apply_mxu", got_m)]:
+                    if not torch.equal(got, other):
+                        raise AssertionError(
+                            f"{name} != gf_apply at RS({k},{m}) n={n} "
+                            f"matrix {mat.shape}")
                 cases += 1
     log({"phase": "kernels_vs_plain", "cases_per_kernel": cases,
          "bit_equal": True, "xorsched_equals_gf_apply": True,
-         "max_abs_err": worst})
+         "mxu_equals_gf_apply": True, "max_abs_err": worst})
     return {"max_abs_err": worst, "cases": cases}
 
 
@@ -239,6 +284,9 @@ def time_kernels(device: torch.device, shapes: list) -> dict:
                 lambda: rs_cuda.gf_apply_xorsched(prog, x),
                 lambda: rs_torch.gf_apply_xorsched(prog.sched, x),
                 bound_ms_xorsched(prog.sched, rows, cols, n)),
+            "gf_apply_mxu": (lambda: rs_cuda.gf_apply(w, x, repack="mxu"),
+                             lambda: rs_torch.gf_apply_mxu(w, x),
+                             bound_ms_mxu(rows, cols, n)),
         }
         # a window moves about 20 GB through the kernel (some ms of work)
         reps = max(50, min(2000, int(2e10 // max(n * (rows + cols), 1))))
@@ -336,10 +384,11 @@ def needles_on(vol, sizes: dict, deleted: set, shards: tuple) -> int:
     return count
 
 
-def check_parity_with_plain(base: str, g: geometry.Geometry,
-                            device: torch.device) -> int:
-    """Every parity byte on disk equals the plain version's parity of the
-    data shards on disk, computed on `device`."""
+def check_parity_with(base: str, g: geometry.Geometry,
+                      device: torch.device, apply=rs_torch.gf_apply) -> int:
+    """Every parity byte on disk equals apply(W, data) of the data shards
+    on disk in [k, 8 MiB] batches, computed on `device` (the plain
+    version by default)."""
     w = rs_torch.load_matrix(gf256.parity_matrix(g.data_shards,
                                                  g.parity_shards), device)
     files = [open(base + geometry.to_ext(i), "rb")
@@ -350,10 +399,10 @@ def check_parity_with_plain(base: str, g: geometry.Geometry,
             rows = [np.frombuffer(f.read(min(8 * MIB, size - off)), np.uint8)
                     for f in files]
             data = torch.from_numpy(np.stack(rows[:g.data_shards]))
-            want = rs_torch.gf_apply(w, data.to(device)).cpu().numpy()
+            want = apply(w, data.to(device)).cpu().numpy()
             if not np.array_equal(want, np.stack(rows[g.data_shards:])):
-                raise AssertionError(f"parity differs from the plain "
-                                     f"version at shard offset {off}")
+                raise AssertionError(f"parity differs from {apply.__name__}"
+                                     f" at shard offset {off}")
         return size
     finally:
         for f in files:
@@ -452,7 +501,7 @@ def run_main_path(work: Path, coder, g: geometry.Geometry, volume: dict,
     shard_sha = {i: sha256_file(base + geometry.to_ext(i))
                  for i in range(g.total_shards)}
     timed(f"{tag}parity_vs_plain",
-          lambda: check_parity_with_plain(base, g, device),
+          lambda: check_parity_with(base, g, device),
           lambda shard: shard * g.total_shards)
 
     vol = ec_volume.EcVolume(directory, "", 1, g, coder=coder)
@@ -524,22 +573,265 @@ def run_main_path(work: Path, coder, g: geometry.Geometry, volume: dict,
     return launches, shard_sha
 
 
-class formulation_pin:
-    """Set (or with None, unset) WEED_EC_FORMULATION in this process for a
-    block, and restore it after."""
+class env_set:
+    """Set environment variables in this process for a block (None
+    unsets one), and restore them after."""
 
-    def __init__(self, value):
-        self.value = value
+    def __init__(self, **values):
+        self.values = values
 
     def __enter__(self):
-        self.saved = os.environ.pop("WEED_EC_FORMULATION", None)
-        if self.value is not None:
-            os.environ["WEED_EC_FORMULATION"] = self.value
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
 
     def __exit__(self, *exc):
-        os.environ.pop("WEED_EC_FORMULATION", None)
-        if self.saved is not None:
-            os.environ["WEED_EC_FORMULATION"] = self.saved
+        for k, v in self.saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+class feed_recorder:
+    """Record the feeds the pipeline opens during a block (the objects
+    open_feed and ShardFeed return, whose class and O_DIRECT flags say
+    what ran)."""
+
+    def __enter__(self):
+        self.feeds = []
+        self.real = (feed.open_feed, feed.ShardFeed)
+
+        def recorder(make):
+            def recording(*args, **kwargs):
+                f = make(*args, **kwargs)
+                # mapped files, at open (close() drops the maps)
+                mapped = (any(v is not None for v in f._views)
+                          if hasattr(f, "_views")
+                          else getattr(f, "_mm", None) is not None)
+                self.feeds.append((f, mapped))
+                return f
+            return recording
+
+        pipeline.feed_mod.open_feed = recorder(self.real[0])
+        pipeline.feed_mod.ShardFeed = recorder(self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        pipeline.feed_mod.open_feed, pipeline.feed_mod.ShardFeed = self.real
+
+    def describe(self) -> list:
+        out = []
+        for f, mapped in self.feeds:
+            readers = getattr(f, "_rds", None) or (
+                [f._rd] if hasattr(f, "_rd") else [])
+            out.append({"feed": type(f).__name__, "readers": f.readers,
+                        "pinned": f.pool.pinned, "mapped": mapped,
+                        "odirect_engaged": bool(readers) and all(
+                            rd.direct for rd in readers)})
+        return out
+
+
+def shard_shas(base: str, g: geometry.Geometry) -> dict:
+    return {i: sha256_file(base + geometry.to_ext(i))
+            for i in range(g.total_shards)}
+
+
+def last_stage_totals() -> dict:
+    """The ec.* span totals (count, seconds) of the trace of the last
+    wide event: the run that just ended."""
+    trace = wideevents.events(svc="ec")[-1]["trace"]
+    return {k: {"count": c, "seconds": us / 1e6} for k, (c, us) in
+            sorted(observe.stage_totals(trace, prefix="ec.").items())}
+
+
+def governed_encode(label: str, base: str, coder, g: geometry.Geometry,
+                    want_sha: dict) -> dict:
+    """One stream_encode(base, coder) with no batch size or depth; logs
+    the planned operating point, the run's ec.* span totals, GB/s, the
+    staging pool's allocation time and the feed, and checks the shards."""
+    dat_size = os.path.getsize(base + ".dat")
+    reg = metrics.shared("ec")
+    # plan() is a pure function of the governor's state: this preview is
+    # the point the run plans
+    op = governor.get().plan(dat_size, g.data_shards)
+    alloc0 = (reg.value("feed_pool_alloc_seconds"),
+              reg.value("feed_pool_alloc_bytes"))
+    with feed_recorder() as rec:
+        t0 = time.perf_counter()
+        _, launches = counted(lambda: pipeline.stream_encode(base, coder, g))
+        secs = time.perf_counter() - t0
+    totals = last_stage_totals()
+    same = shard_shas(base, g) == want_sha
+    row = {"phase": f"governed.{label}", "seconds": secs, "bytes": dat_size,
+           "gbps": dat_size / secs / 1e9,
+           "plan": {"batch_size": op.batch_size, "depth": op.depth,
+                    "write_depth": op.write_depth, "readers": op.readers,
+                    "formulation": op.formulation,
+                    "steered_formulation": pipeline._steer_formulation(
+                        coder, op).formulation,
+                    "coder_formulation": coder.formulation},
+           "stage_totals": totals,
+           "pool_alloc_s": reg.value("feed_pool_alloc_seconds") - alloc0[0],
+           "pool_alloc_bytes": reg.value("feed_pool_alloc_bytes")
+           - alloc0[1],
+           "feeds": rec.describe(), "launches": launches,
+           "sha256_equal_pinned": same}
+    log(row)
+    if not same:
+        raise AssertionError(f"governed {label}: shards differ from the "
+                             f"pinned run's")
+    return row
+
+
+def device_busy(fn, trace_path: Path) -> tuple:
+    """(fn's result, the device's busy ledger over fn): fn runs under
+    torch.profiler (CPU and CUDA activities); the exported Chrome trace's
+    kernel and memcpy/memset events give the device's time, their union
+    the busy time, and the host clock around fn the window."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(str(trace_path))
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {"kernel": [], "gpu_memcpy": [], "gpu_memset": []}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in spans:
+            spans[e["cat"]].append((float(e["ts"]),
+                                    float(e["ts"]) + float(e["dur"])))
+    intervals = sorted(iv for ivs in spans.values() for iv in ivs)
+    busy, end = 0.0, None
+    for a, b in intervals:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    ledger = {"wall_s": wall,
+              "kernel_s": sum(b - a for a, b in spans["kernel"]) / 1e6,
+              "memcpy_s": sum(b - a for a, b in spans["gpu_memcpy"]) / 1e6,
+              "kernels": len(spans["kernel"]),
+              "memcpys": len(spans["gpu_memcpy"]),
+              "busy_s": busy / 1e6}
+    ledger["idle_share"] = (1 - ledger["busy_s"] / wall if intervals
+                            else "not measured")
+    return result, ledger
+
+
+def run_governed(work: Path, coder, g: geometry.Geometry, volume: dict,
+                 want_sha: dict, device: torch.device) -> dict:
+    """The governed pipeline on copies of a source volume (phase 3d);
+    returns the launches per step."""
+    governor.reset()
+    observe.reset()
+    wideevents.reset()
+    faults.clear()
+    shutil.copytree(volume["dir"], work / "a")
+    base = str(work / "a" / "1")
+    launches = {}
+    for i in range(3):
+        launches[f"governed_encode_{i}"] = governed_encode(
+            f"encode_{i}", base, coder, g, want_sha)["launches"]
+
+    # a fourth governed run under torch.profiler: the device's busy and
+    # idle share over an encode (the profiler's own cost included)
+    (_, launches["governed_encode_profiled"]), ledger = device_busy(
+        lambda: counted(lambda: pipeline.stream_encode(base, coder, g)),
+        work / "trace.json")
+    same = shard_shas(base, g) == want_sha
+    log({"phase": "governed.encode_profiled", **ledger,
+         "launches": launches["governed_encode_profiled"],
+         "sha256_equal_pinned": same})
+    if not same:
+        raise AssertionError("profiled governed encode differs")
+
+    # encode_many over two copies and a governed rebuild of the four
+    # victims on each feed (the mmap feed's plain encodes ran above)
+    (work / "b").mkdir()
+    base_b = str(work / "b" / "1")
+    shutil.copyfile(base + ".dat", base_b + ".dat")
+    for tag, env in [("", {}), ("_preadv", {"WEED_EC_MMAP": "0"}),
+                     ("_odirect", {"WEED_EC_ODIRECT": "1"})]:
+        with env_set(**env):
+            if tag:
+                launches[f"governed_encode{tag}"] = governed_encode(
+                    f"encode{tag}", base, coder, g, want_sha)["launches"]
+            with feed_recorder() as rec:
+                t0 = time.perf_counter()
+                n, launches[f"governed_encode_many{tag}"] = counted(
+                    lambda: pipeline.stream_encode_many([base, base_b],
+                                                        coder, g))
+                secs = time.perf_counter() - t0
+            same = (n == 2 and shard_shas(base, g) == want_sha
+                    and shard_shas(base_b, g) == want_sha)
+            log({"phase": f"governed.encode_many{tag}", "volumes": n,
+                 "seconds": secs,
+                 "gbps": 2 * os.path.getsize(base + ".dat") / secs / 1e9,
+                 "stage_totals": last_stage_totals(),
+                 "feeds": rec.describe(),
+                 "launches": launches[f"governed_encode_many{tag}"],
+                 "sha256_equal_pinned": same})
+            if not same:
+                raise AssertionError(f"stream_encode_many{tag} shards "
+                                     f"differ")
+            for v in VICTIMS:
+                os.remove(base + geometry.to_ext(v))
+            with feed_recorder() as rec:
+                rebuilt, launches[f"governed_rebuild{tag}"] = timed(
+                    f"governed.stream_rebuild{tag}",
+                    lambda: counted(
+                        lambda: pipeline.stream_rebuild(base, coder, g)),
+                    lambda r: os.path.getsize(base + geometry.to_ext(1))
+                    * g.data_shards,
+                    lambda r: {"launches": r[1],
+                               "stage_totals": last_stage_totals(),
+                               "feeds": rec.describe()})
+            if rebuilt != list(VICTIMS) or shard_shas(base, g) != want_sha:
+                raise AssertionError(f"governed rebuild{tag} of {rebuilt} "
+                                     f"differs")
+    shutil.rmtree(work / "b")
+
+    # the fault drill, on the preadv feed (every read passes the hook)
+    with env_set(WEED_EC_MMAP="0"):
+        os.remove(base + ".ecm")
+        faults.set_fault("ec.feed.read", "error")
+        try:
+            pipeline.stream_encode(base, coder, g)
+        except faults.FaultError as e:
+            raised = repr(e)
+        else:
+            raise AssertionError("armed ec.feed.read did not fail the run")
+        finally:
+            armed = faults.active()
+            faults.clear()
+        if os.path.exists(base + ".ecm"):
+            raise AssertionError("a failed encode left a .ecm")
+        pipeline.stream_encode(base, coder, g)
+    same = os.path.exists(base + ".ecm") and shard_shas(base, g) == want_sha
+    log({"phase": "governed.fault_drill", "raised": raised,
+         "fired": armed[0]["fired"] if armed else 0,
+         "no_ecm_after_fault": True, "after_clear_sha256_equal": same})
+    if not same:
+        raise AssertionError("encode after faults.clear() differs")
+
+    # the tensor-core kernel's entry at the main path's batch shape
+    rows, launches["mxu_entry"] = timed(
+        "mxu_entry.parity_vs_shards",
+        lambda: counted(lambda: check_parity_with(
+            base, g, device,
+            apply=lambda w, x: rs_cuda.gf_apply(w, x, repack="mxu"))),
+        lambda r: r[0] * g.total_shards, lambda r: {"launches": r[1]})
+    log({"phase": "governed.metrics",
+         "ec_registry": metrics.render_shared().strip().splitlines()})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -558,9 +850,9 @@ def main() -> int:
          "library": lib.name})
 
     checked = check_kernels(device)
-    with formulation_pin(None):
+    with env_set(WEED_EC_FORMULATION=None):
         coder = coder_mod.get_coder("auto", 10, 4)
-    with formulation_pin("xorsched"):
+    with env_set(WEED_EC_FORMULATION="xorsched"):
         auto_x = coder_mod.get_coder("auto", 10, 4)
     if not isinstance(coder, coder_mod.TorchCoder) or \
             coder.device.type != "cuda" or coder.formulation != "bitplane":
@@ -577,6 +869,7 @@ def main() -> int:
     launches = {}
     try:
         volume = source_volume(WORK / "src", 1 << 30, 4 * MIB, SEED, "")
+        log({"phase": "disk", "free_bytes": shutil.disk_usage(WORK).free})
         launches["bitplane"], sha_b = run_main_path(
             WORK / "default", coder, geometry.DEFAULT, volume, device, "",
             min_on_victims=200)
@@ -584,12 +877,16 @@ def main() -> int:
         launches["xorsched"], sha_x = run_main_path(
             WORK / "xorsched", coder_x, geometry.DEFAULT, volume, device,
             "xorsched.", min_on_victims=200)
-        shutil.rmtree(WORK / "src", ignore_errors=True)
+        shutil.rmtree(WORK / "xorsched", ignore_errors=True)
         if sha_x != sha_b:
             raise AssertionError("xorsched shard files differ from the "
                                  "bitplane run's")
         log({"phase": "formulations_agree", "shards": len(sha_b),
              "sha256_equal": True})
+        launches["governed"] = run_governed(
+            WORK / "governed", coder, geometry.DEFAULT, volume, sha_b,
+            device)
+        shutil.rmtree(WORK / "src", ignore_errors=True)
         mixed = geometry.Geometry(large_block_size=262144,
                                   small_block_size=16384)
         volume = source_volume(WORK / "mixed_src", 4 * MIB, 256 * 1024,
@@ -603,6 +900,15 @@ def main() -> int:
             raise AssertionError("mixed-tier xorsched shards differ")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    # every governed step ran gf_apply and nothing else (TorchCoder has no
+    # formulation hook, so the governor never switches its kernel); the
+    # mxu entry ran the tensor-core kernel and nothing else
+    for step, counts in launches["governed"].items():
+        mine = "gf_apply_mxu" if step == "mxu_entry" else "gf_apply"
+        if counts[mine] == 0 or any(n for name, n in counts.items()
+                                    if name != mine):
+            raise AssertionError(f"governed.{step}: launches {counts}, "
+                                 f"want only {mine}")
 
     # main-path shapes: encode and rebuild batches are [10, 8 MiB] (the
     # feed joins consecutive 1 MiB small-block segments up to the batch
@@ -612,20 +918,30 @@ def main() -> int:
                                   ("degraded_read", 1, 10, 64 * 1024)])
     log(smi)
     kernels = []
-    for kernel, form in [("gf_apply", "bitplane"),
-                         ("gf_apply_xorsched", "xorsched")]:
+    main_steps = {**launches["bitplane"], **{
+        f"xorsched.{k}": v for k, v in launches["xorsched"].items()}, **{
+        f"governed.{k}": v for k, v in launches["governed"].items()
+        if k != "mxu_entry"}}
+    for kernel in KERNELS:
         by_phase = {step: counts[kernel]
-                    for step, counts in launches[form].items()}
+                    for step, counts in main_steps.items()}
         enc = times[kernel][0]
-        kernels.append({
-            **KERNELS[kernel], "launches": sum(by_phase.values()),
-            "max_abs_err": checked["max_abs_err"][kernel], "ms": enc["ms"],
-            "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
-            "bound_by": enc["bound_by"], "library_ms": None,
-            "shape": "[10,8MiB] -> [4,8MiB]",
-            "launches_by_phase": by_phase, "bit_equal": True,
-            "library_note": "no single PyTorch call computes a GF(2^8) "
-                            "matrix product"})
+        row = {**KERNELS[kernel], "launches": sum(by_phase.values()),
+               "max_abs_err": checked["max_abs_err"][kernel],
+               "ms": enc["ms"], "plain_ms": enc["plain_ms"],
+               "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
+               "library_ms": None, "shape": "[10,8MiB] -> [4,8MiB]",
+               "launches_by_phase": by_phase, "bit_equal": True,
+               "library_note": "no single PyTorch call computes a GF(2^8) "
+                               "matrix product"}
+        if kernel == "gf_apply_mxu":
+            # no main-path step runs it (none does in the reference): its
+            # launches are those of its own entry, the repack="mxu"
+            # argument, over the volume's [10, 8 MiB] batches
+            row["launches"] = launches["governed"]["mxu_entry"][kernel]
+            row["launches_main_path"] = sum(by_phase.values())
+            row["launches_entry"] = row["launches"]
+        kernels.append(row)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": card,
                                 "count": count}})

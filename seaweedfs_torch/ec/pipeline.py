@@ -1,57 +1,111 @@
 """Streaming EC pipeline: disk -> host buffer -> card -> kernel -> shard files.
 
-The port's reduced copy of seaweedfs_tpu/ec/pipeline.py. Multi-MB batches
-with disk read, host-to-device copy, kernel, device-to-host copy and shard
+The port's copy of seaweedfs_tpu/ec/pipeline.py. Multi-MB batches with
+disk read, host-to-device copy, kernel, device-to-host copy and shard
 write-back all overlapped:
 
   reader thread   -- assemble [k, B] batches through the host feed
-                     (ec/feed.py; page-locked staging buffers when the
-                     coder runs on a card), push to a depth-bounded queue
-  main thread     -- pop a batch, dispatch coder.encode_async (the copies
-                     and the kernel are enqueued on the coder's CUDA stream
-                     and the call returns at once)
+                     (ec/feed.py: page-cache views of the mmap'd .dat where
+                     the stripe allows, else page-locked staging buffers
+                     when the coder runs on a card), push to a
+                     depth-bounded queue
+  main thread     -- pop a batch, dispatch coder.encode_async (the copies,
+                     the kernel and the copy back are enqueued on the
+                     coder's CUDA stream and the call returns at once)
   materializer    -- wait for the batch's parity (only this thread waits
                      on the card), then fan rows out to the per-file
                      queues; data rows go straight from the host batch
   k+m writers     -- one thread per shard file, coalescing queued rows into
                      single writev appends
 
-Batch size and queue depth are explicit arguments (8 MiB / 4 by
-default); the adaptive governor of the reference is not ported. Layout
-semantics are identical to striping.write_ec_files: row-major two-tier
-striping, final batch zero-padded and written full length.
+Batch size, queue depths and the reader-pool width default to the
+adaptive governor's operating point (ec/governor.py), tuned between runs
+from the per-stage spans this module records (``ec.read``,
+``ec.dispatch``, ``ec.kernel``, ``ec.digest``, ``ec.write``; on the card
+the dispatch and the materialize wait also carry the NVTX ranges
+``ec_pipeline_dispatch`` and ``ec_pipeline_kernel_wait``). Each run emits
+one wide event with its stage totals. Explicit ``batch_size``/``depth``
+pin the plan and skip retuning. The governor's formulation axis steers
+only coders with a ``retune_formulation`` hook; ``TorchCoder`` has none
+(its formulation is its argument or the ``WEED_EC_FORMULATION`` pin), as
+the reference's ``PallasCoder`` has none. Layout semantics are identical
+to striping.write_ec_files: row-major two-tier striping, final batch
+zero-padded and written full length.
 
 The device sinks (``stream_encode_device_sink``,
 ``stream_rebuild_device_sink``) run the same reads but keep the results
 on the card: batches are staged into device memory window by window, each
-window runs its kernels at once, and only a per-row uint32 byte-sum
-digest comes back, to be held against ``shard_file_digest`` of the real
-shard files and the .ecm's stamped digests (``read_stamped_digests``).
+window runs its kernels at once (an ``ec.dispatch_window`` span), and only
+a per-row uint32 byte-sum digest comes back, to be held against
+``shard_file_digest`` of the real shard files and the .ecm's stamped
+digests (``read_stamped_digests``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
 import threading
 import time
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from .. import observe
+from ..observe import wideevents
+from ..observe.profiler import trace_annotation
 from ..utils import durable
+from ..utils import metrics as metrics_mod
 from . import feed as feed_mod
+from . import governor
 from .coder import ErasureCoder
 from .geometry import DEFAULT, Geometry, to_ext
 from .striping import check_coder, stripe_segments, write_layout_marker
 
-# 8 MiB per shard-row batch = 80 MiB host buffer per batch at RS(10,4);
-# the stripe feed clamps it to a divisor of the block size
+# the operating point when the governor is bypassed (explicit args):
+# 8 MiB per shard-row batch = 80 MiB host buffer per batch at RS(10,4)
 DEFAULT_BATCH_SIZE = 8 * 1024 * 1024
 DEFAULT_DEPTH = 4
 
 _SENTINEL = None
+
+
+def _resolve_op(batch_size: Optional[int], depth: Optional[int],
+                nbytes: int, k: int,
+                chips: int = 1) -> tuple["governor.OperatingPoint", bool]:
+    """(operating point, governed?): explicit args pin the plan and opt
+    the run out of the governor entirely, with no retuning from this
+    run's shapes and no export of a plan the run is not using."""
+    if batch_size is None and depth is None:
+        return governor.get().plan(nbytes, k, chips=chips), True
+    b = batch_size if batch_size is not None else DEFAULT_BATCH_SIZE
+    d = depth if depth is not None else DEFAULT_DEPTH
+    return governor.OperatingPoint(b, d, d,
+                                   feed_mod.reader_count_default(),
+                                   max(chips, 1)), False
+
+
+def coder_chips(coder: ErasureCoder) -> int:
+    """The number of devices a coder spreads each batch over (1 for every
+    single-card coder)."""
+    return int(getattr(coder, "mesh_devices", 1) or 1)
+
+
+def _steer_formulation(coder: ErasureCoder,
+                       op: "governor.OperatingPoint"
+                       ) -> "governor.OperatingPoint":
+    """Apply the governor's planned kernel formulation to the coder
+    before the run starts. The coder reports the formulation it actually
+    runs, and the returned op carries that, so finish_run never
+    attributes one kernel's spans to another. Coders without the hook
+    (NumpyCoder, TorchCoder) report "", which opts the run out of the
+    formulation model."""
+    retune = getattr(coder, "retune_formulation", None)
+    if retune is None:
+        return op._replace(formulation="")
+    return op._replace(formulation=retune(op.formulation))
 
 
 class _FanOut:
@@ -155,13 +209,39 @@ class _FanOut:
             th.join()
 
 
+def _traced_batches(batches: Iterator[np.ndarray],
+                    ctx: "observe.TraceCtx") -> Iterator[np.ndarray]:
+    """One ec.read span per batch, recorded in the reader thread against
+    the captured context. The final pull learns it was the end only after
+    its timing window, so it records no span."""
+    it = iter(batches)
+    i = 0
+    while True:
+        start_us = int(time.time() * 1e6)
+        t0 = time.perf_counter()
+        item = next(it, None)
+        if item is None:
+            return
+        observe.record_span(
+            "ec.read", ctx, start_us,
+            int((time.perf_counter() - t0) * 1e6),
+            tags={"batch": i, "bytes": int(item.nbytes)})
+        yield item
+        i += 1
+
+
 def _run_pipeline(batches: Iterator[np.ndarray], dispatch, consume,
-                  depth: int, recycle=None, settle=None) -> None:
+                  depth: int, recycle=None, settle=None,
+                  trace_ctx: "observe.TraceCtx | None" = None) -> None:
     """reader thread -> main dispatch -> materializer thread. recycle
     (optional) is called on batches drained without being consumed on
     error paths, so pooled feed buffers keep circulating. settle (the
     coder's materialize) first waits out a drained batch's dispatched
-    work, so its buffer is not refilled while a copy still reads it."""
+    work, so its buffer is not refilled while a copy still reads it.
+    With trace_ctx each dispatch is an ec.dispatch span; every dispatch
+    is an ec_pipeline_dispatch NVTX range on the card. The coder enqueues
+    each batch's copy back to the host in the dispatch itself, so the
+    reference's separate copy_to_host_async kick has no counterpart."""
     read_q: queue.Queue = queue.Queue(maxsize=depth)
     mat_q: queue.Queue = queue.Queue(maxsize=depth)
     errors: list[BaseException] = []
@@ -205,18 +285,25 @@ def _run_pipeline(batches: Iterator[np.ndarray], dispatch, consume,
     mat.start()
     reader.start()
     drained = False
+    batch_i = 0
     try:
         while True:
             batch = read_q.get()
             if batch is _SENTINEL:
                 drained = True
                 break
-            try:
-                handle = dispatch(batch)
-            except BaseException:
-                # the in-flight batch is nobody else's to recycle
-                _recycle(batch)
-                raise
+            with contextlib.ExitStack() as stack:
+                if trace_ctx is not None:
+                    stack.enter_context(observe.stage(
+                        "ec.dispatch", trace_ctx, tags={"batch": batch_i}))
+                stack.enter_context(trace_annotation("ec_pipeline_dispatch"))
+                try:
+                    handle = dispatch(batch)
+                except BaseException:
+                    # the in-flight batch is nobody else's to recycle
+                    _recycle(batch)
+                    raise
+            batch_i += 1
             mat_q.put((batch, handle))
     finally:
         mat_q.put(_SENTINEL)
@@ -233,7 +320,9 @@ def _run_pipeline(batches: Iterator[np.ndarray], dispatch, consume,
 
 
 def _stream_encode_core(batches: Iterator[np.ndarray], coder: ErasureCoder,
-                        shard_paths: Sequence[str], depth: int,
+                        shard_paths: Sequence[str],
+                        op: "governor.OperatingPoint",
+                        tctx: "observe.TraceCtx",
                         recycle=None,
                         digests: "np.ndarray | None" = None) -> None:
     """Host batches -> async dispatch -> materialize -> one writer thread
@@ -241,22 +330,30 @@ def _stream_encode_core(batches: Iterator[np.ndarray], coder: ErasureCoder,
     writes no .ecm marker. `digests` (uint64[total_shards]) accumulates
     each shard row's byte sum while the rows stream through, so the
     marker's digests come out of the encode pass itself."""
-    fan = _FanOut(list(shard_paths), depth)
+    fan = _FanOut(list(shard_paths), op.write_depth)
 
     def consume(data: np.ndarray, handle) -> None:
-        parity = coder.materialize(handle)
+        with observe.stage("ec.kernel", tctx), \
+                trace_annotation("ec_pipeline_kernel_wait"):
+            parity = coder.materialize(handle)
         rows = [*data, *parity]
         if digests is not None:
-            for i, row in enumerate(rows):
-                digests[i] += np.sum(row, dtype=np.uint64)
-        cb = None
-        if recycle is not None:
-            cb = (lambda b=data: recycle(b))
-        fan.put_rows(iter(rows), on_done=cb)
+            with observe.stage("ec.digest", tctx):
+                for i, row in enumerate(rows):
+                    digests[i] += np.sum(row, dtype=np.uint64)
+        with observe.stage("ec.write", tctx):
+            # data rows go straight from the host batch (a page-cache view
+            # or a pooled staging buffer), which recycles only after every
+            # row has been written
+            cb = None
+            if recycle is not None:
+                cb = (lambda b=data: recycle(b))
+            fan.put_rows(iter(rows), on_done=cb)
 
     try:
-        _run_pipeline(batches, coder.encode_async, consume, depth,
-                      recycle=recycle, settle=coder.materialize)
+        _run_pipeline(_traced_batches(batches, tctx), coder.encode_async,
+                      consume, op.depth, recycle=recycle,
+                      settle=coder.materialize, trace_ctx=tctx)
     finally:
         fan.close()
     if fan.errors:
@@ -265,42 +362,93 @@ def _stream_encode_core(batches: Iterator[np.ndarray], coder: ErasureCoder,
 
 def stream_encode(base_file_name: str, coder: ErasureCoder,
                   geometry: Geometry = DEFAULT,
-                  batch_size: int = DEFAULT_BATCH_SIZE,
-                  depth: int = DEFAULT_DEPTH) -> None:
+                  batch_size: Optional[int] = None,
+                  depth: Optional[int] = None,
+                  _op: "governor.OperatingPoint | None" = None) -> None:
     """Encode <base>.dat into shard files with the overlapped pipeline and
     commit them with a .ecm marker carrying each shard's digest.
 
     Byte-identical output to striping.write_ec_files (WriteEcFiles,
-    ec_encoder.go:57); only the schedule differs."""
+    ec_encoder.go:57); only the schedule differs. batch_size/depth
+    default to the governor's operating point; passing either pins the
+    schedule and skips retuning. _op pins a whole operating point
+    (stream_encode_many shares one across its volumes and does the
+    window's finish_run itself)."""
     g = geometry
     check_coder(coder, g)
+    run_t0 = time.perf_counter()
     dat_size = os.path.getsize(base_file_name + ".dat")
-    src = feed_mod.PreadvFeed(base_file_name + ".dat", g.data_shards,
-                              batch_size, pool_buffers=depth + 2,
-                              pinned=coder.pinned_host)
+    if _op is not None:
+        op, governed = _op, False
+    else:
+        op, governed = _resolve_op(batch_size, depth, dat_size,
+                                   g.data_shards, coder_chips(coder))
+        if governed:
+            op = _steer_formulation(coder, op)
+    src = feed_mod.open_feed(base_file_name + ".dat", g.data_shards,
+                             op.batch_size, pool_buffers=op.depth + 2,
+                             readers=op.readers, pinned=coder.pinned_host)
+    # the stage spans share the caller's trace (stream_encode_many binds
+    # its own); a fresh root is minted when none is active
+    tctx = observe.ensure_ctx("ec")
     digests = np.zeros(g.total_shards, dtype=np.uint64)
     try:
         _stream_encode_core(
-            src.batches(stripe_segments(dat_size, g, batch_size)),
+            src.batches(stripe_segments(dat_size, g, op.batch_size)),
             coder, [base_file_name + to_ext(i)
                     for i in range(g.total_shards)],
-            depth, recycle=src.recycle, digests=digests)
+            op, tctx, recycle=src.recycle, digests=digests)
     finally:
         src.close()
     write_layout_marker(base_file_name, dat_size, g,
                         shard_digests={i: int(digests[i]) & 0xFFFFFFFF
                                        for i in range(g.total_shards)})
+    if governed:
+        governor.get().finish_run(tctx.trace_id, op, dat_size,
+                                  g.data_shards)
+    wideevents.emit_stages(
+        "ec", f"ec.encode {os.path.basename(base_file_name)}",
+        tctx.trace_id, int((time.perf_counter() - run_t0) * 1e6),
+        observe.stage_totals(tctx.trace_id, prefix="ec."))
+
+
+def stream_encode_many(base_file_names: Sequence[str], coder: ErasureCoder,
+                       geometry: Geometry = DEFAULT,
+                       batch_size: Optional[int] = None,
+                       depth: Optional[int] = None) -> int:
+    """Encode N volumes back to back through ONE operating point, planned
+    once for the whole window (every volume feeds the same [k, B] batch
+    shape); the governor retunes once from the window's aggregate spans.
+    Returns the number of volumes encoded."""
+    g = geometry
+    bases = list(base_file_names)
+    if not bases:
+        return 0
+    total = sum(os.path.getsize(b + ".dat") for b in bases)
+    op, governed = _resolve_op(batch_size, depth, total, g.data_shards,
+                               coder_chips(coder))
+    if governed:
+        op = _steer_formulation(coder, op)
+    tctx = observe.ensure_ctx("ec")
+    for base in bases:
+        with observe.stage("ec.volume", tctx, tags={"base": base}):
+            observe.run_with(tctx, stream_encode, base, coder, g, _op=op)
+    if governed:
+        governor.get().finish_run(tctx.trace_id, op, total, g.data_shards)
+    return len(bases)
 
 
 def stream_rebuild(base_file_name: str, coder: ErasureCoder,
                    geometry: Geometry = DEFAULT,
-                   batch_size: int = DEFAULT_BATCH_SIZE,
-                   depth: int = DEFAULT_DEPTH) -> list[int]:
+                   batch_size: Optional[int] = None,
+                   depth: Optional[int] = None) -> list[int]:
     """Regenerate missing shard files from k survivors, overlapped
     (RebuildEcFiles, ec_encoder.go:233-287, with multi-MB strides and
-    read/compute/write overlap). Returns the rebuilt shard ids."""
+    read/compute/write overlap). Returns the rebuilt shard ids. Runs on
+    the governed operating point as stream_encode does."""
     g = geometry
     check_coder(coder, g)
+    run_t0 = time.perf_counter()
     present = [i for i in range(g.total_shards)
                if os.path.exists(base_file_name + to_ext(i))]
     missing = [i for i in range(g.total_shards) if i not in present]
@@ -310,27 +458,49 @@ def stream_rebuild(base_file_name: str, coder: ErasureCoder,
         raise ValueError(
             f"need {g.data_shards} shards to rebuild, have {len(present)}")
     survivors_ids = tuple(present[:g.data_shards])
+    shard_size = os.path.getsize(base_file_name + to_ext(survivors_ids[0]))
+    op, governed = _resolve_op(batch_size, depth,
+                               g.data_shards * shard_size, g.data_shards,
+                               coder_chips(coder))
+    if governed:
+        # steer before rec_apply_async binds the reconstruction operand
+        op = _steer_formulation(coder, op)
     fn = coder.rec_apply_async(survivors_ids, tuple(missing))
     src = feed_mod.ShardFeed(
-        [base_file_name + to_ext(i) for i in survivors_ids], batch_size,
-        pool_buffers=depth + 2, pinned=coder.pinned_host)
-    fan = _FanOut([base_file_name + to_ext(i) for i in missing], depth)
+        [base_file_name + to_ext(i) for i in survivors_ids],
+        op.batch_size, pool_buffers=op.depth + 2, readers=op.readers,
+        pinned=coder.pinned_host)
+    fan = _FanOut([base_file_name + to_ext(i) for i in missing],
+                  op.write_depth)
+    tctx = observe.ensure_ctx("ec")
 
     def consume(survivors: np.ndarray, handle) -> None:
-        rebuilt = coder.materialize(handle)
+        with observe.stage("ec.kernel", tctx), \
+                trace_annotation("ec_pipeline_kernel_wait"):
+            rebuilt = coder.materialize(handle)
         # the kernel has consumed the survivor batch: recycle it now (the
         # rebuilt rows are the coder's own host memory)
         src.recycle(survivors)
-        fan.put_rows(iter(rebuilt))
+        with observe.stage("ec.write", tctx):
+            fan.put_rows(iter(rebuilt))
 
     try:
-        _run_pipeline(src.batches(batch_size), fn, consume, depth,
-                      recycle=src.recycle, settle=coder.materialize)
+        _run_pipeline(_traced_batches(src.batches(op.batch_size), tctx),
+                      fn, consume, op.depth, recycle=src.recycle,
+                      settle=coder.materialize, trace_ctx=tctx)
     finally:
         fan.close()
         src.close()
     if fan.errors:
         raise fan.errors[0]
+    if governed:
+        governor.get().finish_run(tctx.trace_id, op,
+                                  g.data_shards * shard_size,
+                                  g.data_shards)
+    wideevents.emit_stages(
+        "ec", f"ec.rebuild {os.path.basename(base_file_name)}",
+        tctx.trace_id, int((time.perf_counter() - run_t0) * 1e6),
+        observe.stage_totals(tctx.trace_id, prefix="ec."))
     return missing
 
 
@@ -347,7 +517,8 @@ def _windowed_digest_sink(batches: Iterator[np.ndarray], dispatch_window,
       reader thread -> host batches (bounded queue; disk overlaps staging)
       this thread   -> stage each batch (H2D only) and wait for its copy
       window full   -> dispatch_window(staged, acc): the window's kernels
-                       and digests, enqueued at once
+                       and digests, enqueued at once (an
+                       ec.dispatch_window span)
 
     The reference stages on a pool of threads because ``jax.device_put``
     blocks; a copy enqueued on a CUDA stream does not block, so this one
@@ -360,6 +531,7 @@ def _windowed_digest_sink(batches: Iterator[np.ndarray], dispatch_window,
     """
     read_q: queue.Queue = queue.Queue(maxsize=depth)
     errors: list[BaseException] = []
+    tctx = observe.ensure_ctx("ec")
 
     def reader_main() -> None:
         try:
@@ -384,7 +556,9 @@ def _windowed_digest_sink(batches: Iterator[np.ndarray], dispatch_window,
         if not staged:
             return
         t0 = time.perf_counter()
-        acc = dispatch_window(staged, acc)
+        with observe.stage("ec.dispatch_window", tctx,
+                           tags={"batches": len(staged)}):
+            acc = dispatch_window(staged, acc)
         t_dispatch += time.perf_counter() - t0
         n_windows += 1
         staged = []
@@ -472,9 +646,9 @@ def stream_encode_device_sink(base_file_name: str, coder: ErasureCoder,
     dat_size = os.path.getsize(base_file_name + ".dat")
     # unpooled: a whole window of batches stays referenced until its
     # one dispatch; padded: every batch of a window has one shape
-    src = feed_mod.PreadvFeed(base_file_name + ".dat", g.data_shards,
-                              batch_size, pinned=coder.pinned_host,
-                              pooled=False)
+    src = feed_mod.open_feed(base_file_name + ".dat", g.data_shards,
+                             batch_size, pooled=False,
+                             pinned=coder.pinned_host)
     t_all = time.perf_counter()
     try:
         acc = _windowed_digest_sink(
@@ -518,7 +692,7 @@ def stream_rebuild_device_sink(base_file_name: str, coder: ErasureCoder,
     survivors_ids = tuple(present[:g.data_shards])
     src = feed_mod.ShardFeed(
         [base_file_name + to_ext(i) for i in survivors_ids], batch_size,
-        pinned=coder.pinned_host, pooled=False)
+        pooled=False, pinned=coder.pinned_host)
     shard_size = src.shard_size
     t_all = time.perf_counter()
 
@@ -574,8 +748,9 @@ def stamp_shard_digests(base_file_name: str,
     over a shard that has since rotted would launder the corruption into
     the record), so the truth is set once, when the bytes are known to be
     good. No-op without a marker: a digests-only .ecm would not name a
-    layout. (The reference also counts the recomputed digests in its
-    metrics registry, which the port does not have yet.)"""
+    layout. Recomputed digests count in the shared "ec" registry
+    (``ec_digest_host_recompute``): encode passes that stamp inline leave
+    nothing to recompute."""
     path = base_file_name + ".ecm"
     try:
         with open(path) as f:
@@ -584,11 +759,16 @@ def stamp_shard_digests(base_file_name: str,
         return {}
     digests = {int(k): int(v)
                for k, v in (meta.get("shard_digests") or {}).items()}
+    recomputed = 0
     for sid in range(geometry.total_shards):
         if sid in digests or not os.path.exists(
                 base_file_name + to_ext(sid)):
             continue
         digests[sid] = int(shard_file_digest(base_file_name, [sid])[0])
+        recomputed += 1
+    if recomputed:
+        metrics_mod.shared("ec").count("ec_digest_host_recompute",
+                                       recomputed)
     meta["shard_digests"] = {str(k): v
                              for k, v in sorted(digests.items())}
     durable.write_json_atomic(path, meta)

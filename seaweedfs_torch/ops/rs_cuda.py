@@ -4,6 +4,11 @@
   ``seaweedfs_tpu/ops/rs_pallas.py:_gf_kernel``: takes the same operands
   as the plain version ``rs_torch.gf_apply`` (W [8R, 8C] int8, x [C, n]
   uint8).
+- ``gf_apply_mxu`` (``csrc/gf_mxu.cu``), counterpart of
+  ``rs_pallas.py:_gf_kernel_mxu_repack``: the same operands as
+  ``gf_apply``, both products on the int8 tensor cores; reached as
+  ``gf_apply(w, x, repack="mxu")``, the reference's argument. No coder
+  selects it.
 - ``gf_apply_xorsched`` (``csrc/gf_xorsched.cu``), counterpart of
   ``rs_pallas.py:_gf_kernel_xorsched``: takes the lowered XOR program
   (``xor_schedule.lower_schedule``) and x; its plain version is
@@ -28,42 +33,75 @@ SMEM_LIMIT = 232448
 XORSCHED_THREADS = 128
 
 
-def gf_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """W [8R, 8C] int8 applied to x [C, n] uint8 -> [R, n] uint8 on x's
-    device; kernel launches run on the current CUDA stream."""
-    if x.device.type == "cpu":
-        return rs_torch.gf_apply(w, x)
+def _launch(name: str, entry: str, w: torch.Tensor,
+            x: torch.Tensor) -> torch.Tensor:
+    """Check the bit-plane operands W [8R, 8C] int8 and x [C, n] uint8 on
+    one card and launch `entry` of the library on the current stream."""
     if x.device.type != "cuda":
-        raise ValueError(f"gf_apply: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     if w.device != x.device:
-        raise ValueError(f"gf_apply: W on {w.device}, x on {x.device}")
+        raise ValueError(f"{name}: W on {w.device}, x on {x.device}")
     if w.dtype != torch.int8 or x.dtype != torch.uint8:
-        raise TypeError(f"gf_apply: want int8 W and uint8 x, got "
+        raise TypeError(f"{name}: want int8 W and uint8 x, got "
                         f"{w.dtype} and {x.dtype}")
     if (w.dim() != 2 or x.dim() != 2 or w.shape[0] % 8
             or w.shape[1] != 8 * x.shape[0]):
         raise ValueError(
-            f"gf_apply: W {tuple(w.shape)} does not fit x {tuple(x.shape)}")
+            f"{name}: W {tuple(w.shape)} does not fit x {tuple(x.shape)}")
     rows, cols, n = w.shape[0] // 8, x.shape[0], x.shape[1]
     if not (1 <= rows <= MAX_ROWS and 1 <= cols <= MAX_ROWS):
-        raise ValueError(f"gf_apply: [{rows}, {cols}] exceeds the kernel's "
+        raise ValueError(f"{name}: [{rows}, {cols}] exceeds the kernel's "
                          f"{MAX_ROWS} rows or columns")
     w, x = w.contiguous(), x.contiguous()
     out = torch.empty((rows, n), dtype=torch.uint8, device=x.device)
     if n == 0:
         return out
     stream = torch.cuda.current_stream(x.device)
-    err = _build.library().sw_gf_apply(
+    err = getattr(_build.library(), entry)(
         w.data_ptr(), rows, cols, x.data_ptr(), out.data_ptr(), n,
         x.device.index if x.device.index is not None
         else torch.cuda.current_device(), stream.cuda_stream)
     if err:
-        raise RuntimeError(f"gf_apply kernel launch failed: cudaError {err}")
-    gf_apply.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return out
+
+
+def gf_apply(w: torch.Tensor, x: torch.Tensor,
+             repack: str = "vpu") -> torch.Tensor:
+    """W [8R, 8C] int8 applied to x [C, n] uint8 -> [R, n] uint8 on x's
+    device; kernel launches run on the current CUDA stream. repack is the
+    reference's argument: "vpu" runs ``csrc/gf_apply.cu``, "mxu" the
+    tensor-core kernel ``gf_apply_mxu``, anything else raises."""
+    if repack not in rs_torch.REPACKS:
+        raise ValueError(f"gf_apply: unknown repack {repack!r}; have "
+                         f"{rs_torch.REPACKS}")
+    if repack == "mxu":
+        return gf_apply_mxu(w, x)
+    if x.device.type == "cpu":
+        return rs_torch.gf_apply(w, x)
+    out = _launch("gf_apply", "sw_gf_apply", w, x)
+    if out.shape[1]:
+        gf_apply.launches += 1
     return out
 
 
 gf_apply.launches = 0
+
+
+def gf_apply_mxu(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``gf_apply`` with both the product and the byte repack on the int8
+    tensor cores (``csrc/gf_mxu.cu``, counterpart of ``rs_pallas.py:
+    _gf_kernel_mxu_repack``): the same operands and result; its plain
+    version is ``rs_torch.gf_apply_mxu``. Counts its own launches."""
+    if x.device.type == "cpu":
+        return rs_torch.gf_apply_mxu(w, x)
+    out = _launch("gf_apply_mxu", "sw_gf_mxu", w, x)
+    if out.shape[1]:
+        gf_apply_mxu.launches += 1
+    return out
+
+
+gf_apply_mxu.launches = 0
 
 
 def xorsched_launch(prog: xor_schedule.XorProgram) -> tuple[int, int]:

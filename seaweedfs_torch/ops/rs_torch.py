@@ -15,6 +15,13 @@ reconstruction matrix. This module is the plain version: the CPU tests
 and the on-card comparison use it; the coder runs it only for tensors on
 the CPU.
 
+``gf_apply_mxu`` (or ``gf_apply(..., repack="mxu")``) is the plain
+version of the reference's MXU-repack variant (``rs_pallas.py:
+_gf_kernel_mxu_repack``): the same product and ``& 1``, then the byte
+repack as two nibble products with ``nibble_weights``; its kernel is
+``rs_cuda.gf_apply_mxu``. No coder selects it, as none of the reference's
+does.
+
 ``gf_apply_xorsched`` is the plain version of the second formulation
 (``rs_jax.gf_apply_xorsched``): the same output from the matrix's XOR
 schedule (``xor_schedule``) run over packed bit-plane words; its kernel
@@ -35,6 +42,11 @@ from . import gf256, xor_schedule
 # reference's rs_jax.FORMULATIONS (the port's coder runs bitplane and
 # xorsched; lut pins the bitplane kernel, as it does for PallasCoder)
 FORMULATIONS = ("bitplane", "lut", "xorsched")
+
+# the byte repacks of the bit-plane kernel, as the reference's
+# gf_apply_pallas(repack=) names them: an 8-step shift/or chain, or two
+# nibble products on the matrix unit
+REPACKS = ("vpu", "mxu")
 
 # columns per product: bounds the [8C, chunk] float32 bit-plane temporary
 # (at C = 32 and 2^20 columns, 1 GiB)
@@ -95,18 +107,39 @@ def pack_bits(bits: torch.Tensor, rows: int) -> torch.Tensor:
     return b.sum(dim=1).to(torch.uint8)
 
 
-def gf_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def nibble_weights(rows: int) -> np.ndarray:
+    """[rows, 4*rows] int8 selector of the MXU repack, as the reference's
+    ``rs_pallas._nibble_weights``: out[r] = sum_i 2^i * planes[i*rows+r]
+    over 4 plane-major planes (two of these products cover the 8)."""
+    w2 = np.zeros((rows, 4 * rows), dtype=np.int8)
+    for i in range(4):
+        for r in range(rows):
+            w2[r, i * rows + r] = 1 << i
+    return w2
+
+
+def _check_operands(w: torch.Tensor, x: torch.Tensor) -> None:
+    if w.dim() != 2 or x.dim() != 2 or w.shape[1] != 8 * x.shape[0]:
+        raise ValueError(
+            f"gf_apply: W {tuple(w.shape)} does not fit x {tuple(x.shape)}")
+
+
+def gf_apply(w: torch.Tensor, x: torch.Tensor,
+             repack: str = "vpu") -> torch.Tensor:
     """Plain version: W [8R, 8C] int8 applied to x [C, n] uint8 -> [R, n]
-    uint8, on x's device.
+    uint8, on x's device. repack="mxu" is ``gf_apply_mxu``.
 
     The integer product runs as a float32 matrix product: every term is a
     0/1 product and every row sum is at most 8C <= 256, which float32 (and
     TF32, whose 10-bit mantissa holds 0 and 1 exactly and which
     accumulates in float32) represents exactly; PyTorch has no integer
     matrix product on CUDA. ``& 1`` then recovers the XOR."""
-    if w.dim() != 2 or x.dim() != 2 or w.shape[1] != 8 * x.shape[0]:
-        raise ValueError(
-            f"gf_apply: W {tuple(w.shape)} does not fit x {tuple(x.shape)}")
+    if repack not in REPACKS:
+        raise ValueError(f"gf_apply: unknown repack {repack!r}; have "
+                         f"{REPACKS}")
+    if repack == "mxu":
+        return gf_apply_mxu(w, x)
+    _check_operands(w, x)
     rows = w.shape[0] // 8
     n = x.shape[1]
     wf = w.to(device=x.device, dtype=torch.float32)
@@ -115,6 +148,32 @@ def gf_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         hi = min(lo + _CHUNK, n)
         acc = wf @ unpack_bits(x[:, lo:hi]).to(torch.float32)
         out[:, lo:hi] = pack_bits(acc.to(torch.int32) & 1, rows)
+    return out
+
+
+def gf_apply_mxu(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the MXU-repack variant: the product and ``& 1`` of
+    ``gf_apply``, then the planes in plane-major order (i*R + r, as the
+    reference's kernel holds them) repacked by two nibble products,
+    ``lo = W2 . planes[:4R]`` and ``hi = W2 . planes[4R:]``, out = lo | hi
+    << 4. The products run in float32, which holds these sums (at most 15)
+    exactly."""
+    _check_operands(w, x)
+    rows = w.shape[0] // 8
+    n = x.shape[1]
+    wf = w.to(device=x.device, dtype=torch.float32)
+    w2 = torch.from_numpy(nibble_weights(rows)).to(device=x.device,
+                                                   dtype=torch.float32)
+    out = torch.empty((rows, n), dtype=torch.uint8, device=x.device)
+    for lo in range(0, n, _CHUNK):
+        hi = min(lo + _CHUNK, n)
+        acc = wf @ unpack_bits(x[:, lo:hi]).to(torch.float32)
+        lsb = (acc.to(torch.int32) & 1).reshape(rows, 8, hi - lo)
+        planes = lsb.transpose(0, 1).reshape(8 * rows, hi - lo).to(
+            torch.float32)
+        low = (w2 @ planes[:4 * rows]).to(torch.int32)
+        high = (w2 @ planes[4 * rows:]).to(torch.int32)
+        out[:, lo:hi] = (low | (high << 4)).to(torch.uint8)
     return out
 
 

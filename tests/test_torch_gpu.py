@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA kernels, the CUDA coder under
-both formulations and the C CRC-32C, each against the port's plain
-versions.
+both formulations, the page-locked O_DIRECT staging, a governed encode
+and the C CRC-32C, each against the port's plain versions or pinned
+runs.
 
 Every test is marked ``gpu`` and decides inside its body whether a card
 (or the CUDA toolkit) is present, skipping here. This file imports
@@ -184,3 +185,96 @@ def test_native_crc_matches_python_twin():
             crc.crc32c_update_py(0, data)
         assert lib.sw_crc32c_update(0x12345678, data, n) == \
             crc.crc32c_update_py(0x12345678, data)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", GEOMETRIES)
+def test_mxu_kernel_matches_plain_and_gf_apply(k, m):
+    _need_card()
+    rng = np.random.default_rng(80 + k)
+    mats = [gf256.parity_matrix(k, m), _padded_rec(k, m),
+            _padded_rec(k, m)[:1],
+            rng.integers(0, 256, (32, 32)).astype(np.uint8)]
+    for n in [1, 31, 129, 1023, 1025, 1 << 20, (1 << 20) + 5]:
+        for mat in mats:
+            x = torch.from_numpy(rng.integers(
+                0, 256, (mat.shape[1], n + 3), dtype=np.uint8)).cuda()
+            w = rs_torch.load_matrix(mat, "cuda")
+            # contiguous rows starting 3 bytes past an aligned address
+            flat = torch.from_numpy(rng.integers(
+                0, 256, mat.shape[1] * n + 3, dtype=np.uint8)).cuda()
+            skewed = flat[3:].view(mat.shape[1], n)
+            assert skewed.is_contiguous() and skewed.data_ptr() % 4
+            for xv in (x[:, :n].contiguous(), x[:, 3:], skewed):
+                before = rs_cuda.gf_apply_mxu.launches
+                got = rs_cuda.gf_apply(w, xv, repack="mxu")
+                torch.cuda.synchronize()
+                assert rs_cuda.gf_apply_mxu.launches == before + 1
+                assert torch.equal(got, rs_torch.gf_apply_mxu(
+                    w, xv.contiguous())), (n, mat.shape)
+                assert torch.equal(got, rs_cuda.gf_apply(w, xv)), (
+                    n, mat.shape)
+
+
+@pytest.mark.gpu
+def test_mxu_entry_checks_and_counts():
+    _need_card()
+    w = rs_torch.load_matrix(gf256.parity_matrix(10, 4), "cuda")
+    x = torch.zeros((10, 64), dtype=torch.uint8, device="cuda")
+    before = (rs_cuda.gf_apply.launches, rs_cuda.gf_apply_mxu.launches)
+    assert rs_cuda.gf_apply(w, x[:, :0], repack="mxu").shape == (4, 0)
+    assert (rs_cuda.gf_apply.launches,
+            rs_cuda.gf_apply_mxu.launches) == before
+    with pytest.raises(ValueError):
+        rs_cuda.gf_apply(w, x, repack="vmx")
+    with pytest.raises(ValueError):
+        rs_cuda.gf_apply(w, x[:6], repack="mxu")
+    with pytest.raises(TypeError):
+        rs_cuda.gf_apply(w.to(torch.int32), x, repack="mxu")
+
+
+@pytest.mark.gpu
+def test_pinned_odirect_staging_is_page_aligned():
+    _need_card()
+    from seaweedfs_torch.ec import feed
+    pool = feed.BufferPool(10, 8192, count=3, aligned=True, pinned=True)
+    for _ in range(3):
+        buf = pool.acquire()
+        assert buf.ctypes.data % feed._ALIGN == 0
+        assert buf.shape == (10, 8192)
+        assert torch.from_numpy(buf).is_pinned()
+
+
+@pytest.mark.gpu
+def test_governed_auto_encode_equals_pinned_run(tmp_path):
+    _need_card()
+    from seaweedfs_torch import observe
+    from seaweedfs_torch.ec import geometry, governor, pipeline
+    from seaweedfs_torch.observe import wideevents
+    governor.reset()
+    observe.reset()
+    wideevents.reset()
+    g = geometry.Geometry(large_block_size=1 << 20, small_block_size=65536)
+    shas = {}
+    for run in ("pinned", "governed"):
+        d = tmp_path / run
+        d.mkdir()
+        base = str(d / "1")
+        with open(base + ".dat", "wb") as f:
+            f.write(np.random.default_rng(91).bytes(23 << 20))
+        coder = pcoder.get_coder("auto", 10, 4)
+        before = rs_cuda.gf_apply.launches
+        if run == "pinned":
+            pipeline.stream_encode(base, coder, g, batch_size=8 << 20,
+                                   depth=4)
+        else:
+            pipeline.stream_encode(base, coder, g)
+            assert governor.get().runs == 1
+            trace = wideevents.events(svc="ec")[-1]["trace"]
+            totals = observe.stage_totals(trace, prefix="ec.")
+            assert {"ec.read", "ec.dispatch", "ec.kernel", "ec.digest",
+                    "ec.write"} <= set(totals)
+        assert rs_cuda.gf_apply.launches > before
+        shas[run] = [open(base + geometry.to_ext(i), "rb").read()
+                     for i in range(14)]
+    assert shas["pinned"] == shas["governed"]

@@ -43,10 +43,17 @@ def test_port_imports_without_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert result["modules"] >= 18
+    assert result["modules"] >= 25
     for name in ("seaweedfs_torch.ops.xor_schedule",
                  "seaweedfs_torch.ops.rs_cuda",
-                 "seaweedfs_torch.ec.pipeline"):
+                 "seaweedfs_torch.ec.pipeline",
+                 "seaweedfs_torch.ec.governor",
+                 "seaweedfs_torch.ec.feed",
+                 "seaweedfs_torch.observe",
+                 "seaweedfs_torch.observe.profiler",
+                 "seaweedfs_torch.observe.wideevents",
+                 "seaweedfs_torch.faults",
+                 "seaweedfs_torch.utils.metrics"):
         assert name in result["names"]
     assert result["forbidden"] == []
 
