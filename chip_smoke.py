@@ -13,10 +13,11 @@ Phases (any failure exits non-zero before the result line):
    reconstruction matrix for victims {0, 3, 7, 12} (rebuild) and the
    unpadded one-row matrix for victim 0 (a degraded read); bit equality
    required, 54 cases per kernel: (2) ``gf_apply`` (bit-plane matrix
-   operand), (2b) ``gf_apply_xorsched`` (the matrix's lowered XOR
-   schedule) and (2c) ``gf_apply_mxu`` (the same operand, both products on
+   operand), (2b) ``gf_apply_xorsched`` (the matrix's grouped XOR
+   program) and (2c) ``gf_apply_mxu`` (the same operand, both products on
    the tensor cores), which must also equal ``gf_apply`` on the same
-   inputs;
+   inputs; the first two also with their digest epilogue, with and
+   without output stores, whose [C + R] sums must equal the plain ones;
 3. the main path at full size under the default ``bitplane``
    formulation: a 1 GiB volume (seeded needles, log-uniform 1 KiB ..
    4 MiB, about 5% deleted) written with the port's Volume,
@@ -29,7 +30,10 @@ Phases (any failure exits non-zero before the result line):
    (the decoded .dat equals the source), and (3c) the device sinks
    ``stream_encode_device_sink`` and ``stream_rebuild_device_sink`` of the
    four victims, whose digests must equal the shard files' and the .ecm's
-   stamped ones. All three kernels' launch counts are set to 0 before
+   stamped ones. The encode's .ecm digests come from the kernels' digest
+   epilogue (the host sum is never called: counted) and must equal the
+   shard files'; the sinks call no ``torch.sum`` (counted). All three
+   kernels' launch counts are set to 0 before
    each step and read after it; only the formulation's kernel may run
    (the tensor-core kernel never does, as in the reference);
    (3b) the same with ``TorchCoder(10, 4, formulation="xorsched")`` on a
@@ -58,9 +62,18 @@ Phases (any failure exits non-zero before the result line):
 4. the same as 3/3b at a mixed-tier layout (262144 / 16384 blocks, 4 MiB
    volume), under both formulations;
 5. the kernels' times and the plain versions' (CUDA events, median of
-   windows after warm-up) at the shapes the main path gives them, beside
-   the bound; the ``kernels`` line, the nvidia-smi line, and the result
-   line.
+   windows after warm-up) and the wrappers' host time per call at the
+   shapes the main path gives them, with and without the digest epilogue
+   (beside the kernel-then-``sum`` pass the epilogue replaces), and the
+   bound: bytes at the memory rate, or the function's operations at their
+   rate, whichever takes longer. For ``gf_apply`` and the XOR-schedule
+   kernel (one function) the operations are the XORs of the matrix's
+   schedule, one 32-bit word operation per XOR per 32 columns, at the
+   32-bit integer rate (132 SMs x 64 per clock x the SM clock nvidia-smi
+   reports): a count of the function, not of either kernel's design.
+   ``gf_apply``'s own integer instructions per column, counted from the
+   built library's SASS, are reported beside it (``ops_per_column``). The
+   ``kernels`` line, the nvidia-smi line, and the result line.
 
 It needs one card, exits non-zero without one, and works in a scratch
 directory inside the checkout that it removes at the end.
@@ -100,9 +113,13 @@ VICTIMS = (0, 3, 7, 12)
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, data sheet
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor rate
-# 32-bit word operations outside the tensor cores: the data sheet's
-# float32 rate, an upper bound on the card's 32-bit integer rate
-WORD_OPS_PER_S = 67e12
+# 32-bit integer add and logic results per clock per SM at compute
+# capability 9.0 (CUDA C Programming Guide, arithmetic instructions)
+INT32_RESULTS_PER_CLOCK_PER_SM = 64
+# set in main(): the card's 32-bit integer rate (word_ops_per_s) and
+# gf_apply's SASS instruction counts (gf_apply_sass_ops)
+WORD_OPS = [0.0]
+SASS_OPS: dict = {}
 KERNELS = {
     "gf_apply": {
         "name": "gf_apply",
@@ -142,13 +159,55 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
 
 
-def bound_ms(rows: int, cols: int, n: int) -> tuple[float, str]:
-    """Least time for W [8R,8C] applied to [C, n]: input read once and
-    output written once at the memory rate, against the bit-plane
-    product's 2*8R*8C*n int8 operations at the tensor-core rate."""
-    t_bytes = (cols + rows) * n / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * (8 * rows) * (8 * cols) * n / INT8_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def word_ops_per_s() -> float:
+    """The card's 32-bit integer add/logic rate: its SMs x 64 results per
+    clock x the SM clock (nvidia-smi clocks.max.sm, MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    mhz = float(out.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_RESULTS_PER_CLOCK_PER_SM * mhz * 1e6
+
+
+def gf_apply_sass_ops(lib: Path) -> dict:
+    """gf_apply_vec16's integer-pipe instructions from the built library's
+    SASS (scripts/torch_sass_ops.py): the row-pair loop's (two input rows
+    of 16 columns: the loop with global loads and the most shared loads)
+    and the rest of the enclosing column-group loop's (16 columns: the
+    transposes, stores and digest)."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_sass_ops as so
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    insns = next(v for k, v in so.kernels(sass).items()
+                 if "gf_apply_vec16" in k)
+
+    def count(span, cls):
+        return sum(1 for a, op, _ in insns
+                   if span[0] <= a <= span[1] and so.classify(op) == cls)
+
+    spans = so.loops(insns)
+    # the innermost of the loops with the most shared loads and any
+    # global load
+    inner = max((sp for sp in spans if count(sp, "global_or_local")),
+                key=lambda sp: (count(sp, "shared"), sp[0] - sp[1]))
+    outer = min((sp for sp in spans if sp != inner and sp[0] <= inner[0]
+                 and inner[1] <= sp[1]), key=lambda sp: sp[1] - sp[0])
+    return {"row_pair_loop": count(inner, "alu"),
+            "column_group_rest": count(outer, "alu") - count(inner, "alu")}
+
+
+def gf_apply_ops_per_column(cols: int) -> float | None:
+    """Integer instructions per byte column (one row group of up to four
+    output rows) at C input rows, from the SASS counts."""
+    if not SASS_OPS:
+        return None
+    pairs = (cols + 1) // 2
+    return (pairs * SASS_OPS["row_pair_loop"]
+            + SASS_OPS["column_group_rest"]) / 16
 
 
 def bound_ms_mxu(rows: int, cols: int, n: int) -> tuple[float, str]:
@@ -161,40 +220,67 @@ def bound_ms_mxu(rows: int, cols: int, n: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_ms_xorsched(sched, rows: int, cols: int,
-                      n: int) -> tuple[float, str]:
-    """Least time for a schedule applied to [C, n]: the same bytes,
-    against the schedule's XORs, one 32-bit word operation per op per 32
-    columns."""
+def bound_ms(sched, rows: int, cols: int, n: int) -> tuple[float, str]:
+    """Least time for a matrix [R, C] applied to [C, n] (gf_apply and
+    the XOR-schedule kernel): input read once and output written once at
+    the memory rate, against the XORs of the matrix's schedule, one 32-bit
+    word operation per XOR per 32 columns, at the 32-bit integer rate."""
     t_bytes = (cols + rows) * n / HBM_BYTES_PER_S * 1e3
     t_ops = (sched.sched_xors * xor_schedule.packed_width(n)
-             / WORD_OPS_PER_S * 1e3)
+             / WORD_OPS[0] * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def program(mat: np.ndarray, device: torch.device):
-    """The lowered XOR program of a coefficient matrix, on `device`."""
-    return xor_schedule.lower_schedule(
+    """The grouped XOR program of a coefficient matrix (the coder's
+    operand), on `device`."""
+    return xor_schedule.lower_schedule_grouped(
         xor_schedule.schedule_for_matrix(mat)).to(device)
 
 
-def time_cuda(fn, reps: int, warm: int = 3, windows: int = 5) -> float:
-    """Ms per call, CUDA events: the median over `windows` windows of
-    `reps` back-to-back calls each, after `warm` calls of warm-up."""
+def time_cuda(fn, reps: int, warm: int = 3,
+              windows: int = 5) -> tuple[float, float]:
+    """(ms per call on the device, us per call on the host): CUDA events
+    and the host clock (before the closing synchronize), medians over
+    `windows` windows of `reps` back-to-back calls each, after `warm`
+    calls of warm-up."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    per_call = []
+    per_call, host = [], []
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        host.append((time.perf_counter() - t0) / reps * 1e6)
         end.record()
         torch.cuda.synchronize()
         per_call.append(start.elapsed_time(end) / reps)
-    return float(np.median(per_call))
+    return float(np.median(per_call)), float(np.median(host))
+
+
+class call_counter:
+    """Count the calls of obj.name during a block; the function itself
+    still runs."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.calls = obj, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.obj, self.name)
+
+        def counting(*args, **kwargs):
+            self.calls += 1
+            return self.real(*args, **kwargs)
+
+        setattr(self.obj, self.name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.real)
 
 
 def lost(k: int, m: int) -> tuple[tuple, tuple]:
@@ -218,10 +304,29 @@ def one_row_rec(k: int, m: int) -> np.ndarray:
 
 # --- phase 2: the kernels against their plain versions ------------------
 
+def check_digests(w, prog, x: torch.Tensor, case: str) -> None:
+    """Both digest kernels' [C + R] sums, with and without output stores
+    (the second launch adds to the first), against the plain digest."""
+    want = rs_torch.gf_apply_digest(w, x)[1]
+    for name, kernel, operand in [
+            ("gf_apply", rs_cuda.gf_apply, w),
+            ("gf_apply_xorsched", rs_cuda.gf_apply_xorsched, prog)]:
+        d = rs_cuda.new_digest(len(want), x.device)
+        kernel(operand, x, digest=d)
+        once = rs_cuda.digest_values(d)
+        if kernel(operand, x, digest=d, out=False) is not None:
+            raise AssertionError(f"{name}: out=False returned an output")
+        twice = rs_cuda.digest_values(d)
+        if not (torch.equal(once, want)
+                and torch.equal(twice, (2 * want) & 0xFFFFFFFF)):
+            raise AssertionError(f"{name} digest != plain at {case}")
+
+
 def check_kernels(device: torch.device) -> dict:
     """Every kernel against its plain version (and the XOR-schedule and
-    tensor-core kernels against gf_apply) on the same inputs; returns, per
-    kernel, the largest absolute difference and the number of cases."""
+    tensor-core kernels against gf_apply) on the same inputs, and the
+    digest epilogues against the plain digests; returns, per kernel, the
+    largest absolute difference and the number of cases."""
     rng = np.random.default_rng(SEED)
     worst = {name: 0 for name in KERNELS}
     cases = 0
@@ -256,48 +361,80 @@ def check_kernels(device: torch.device) -> dict:
                         raise AssertionError(
                             f"{name} != gf_apply at RS({k},{m}) n={n} "
                             f"matrix {mat.shape}")
+                check_digests(w, prog, x, f"RS({k},{m}) n={n} matrix "
+                              f"{mat.shape}")
                 cases += 1
     log({"phase": "kernels_vs_plain", "cases_per_kernel": cases,
          "bit_equal": True, "xorsched_equals_gf_apply": True,
-         "mxu_equals_gf_apply": True, "max_abs_err": worst})
+         "mxu_equals_gf_apply": True, "max_abs_err": worst,
+         "digests_equal_plain": ["gf_apply", "gf_apply_xorsched"],
+         "digest_only_launches_equal_plain": True})
     return {"max_abs_err": worst, "cases": cases}
 
 
 def time_kernels(device: torch.device, shapes: list) -> dict:
     """Each kernel's and its plain version's times at main-path shapes
-    [(label, R, C, n)], on the same inputs; {kernel: [rows]}."""
+    [(label, R, C, n)], on the same inputs, and the two digest kernels'
+    launches with the epilogue beside the kernel-then-sum pass it
+    replaces; {kernel: [rows]}."""
     rng = np.random.default_rng(SEED + 1)
     out: dict = {name: [] for name in KERNELS}
     for label, rows, cols, n in shapes:
         x = torch.from_numpy(
             rng.integers(0, 256, (cols, n), dtype=np.uint8)).to(device)
         mat = (gf256.parity_matrix(cols, rows) if label.startswith("encode")
-               else one_row_rec(cols, 4) if rows == 1
-               else rng.integers(0, 256, (rows, cols)).astype(np.uint8))
+               else padded_rec(cols, rows) if label == "rebuild"
+               else one_row_rec(cols, 4))
         w = rs_torch.load_matrix(mat, device)
         prog = program(mat, device)
+        d = rs_cuda.new_digest(rows + cols, device)
         runs = {
             "gf_apply": (lambda: rs_cuda.gf_apply(w, x),
                          lambda: rs_torch.gf_apply(w, x),
-                         bound_ms(rows, cols, n)),
+                         bound_ms(prog.sched, rows, cols, n)),
             "gf_apply_xorsched": (
                 lambda: rs_cuda.gf_apply_xorsched(prog, x),
                 lambda: rs_torch.gf_apply_xorsched(prog.sched, x),
-                bound_ms_xorsched(prog.sched, rows, cols, n)),
+                bound_ms(prog.sched, rows, cols, n)),
             "gf_apply_mxu": (lambda: rs_cuda.gf_apply(w, x, repack="mxu"),
                              lambda: rs_torch.gf_apply_mxu(w, x),
                              bound_ms_mxu(rows, cols, n)),
         }
+        digest_runs = {
+            "gf_apply": (
+                lambda: rs_cuda.gf_apply(w, x, digest=d),
+                lambda: rs_cuda.gf_apply(w, x, digest=d, out=False),
+                lambda: rs_cuda.gf_apply(w, x).sum(dim=1,
+                                                   dtype=torch.int64)),
+            "gf_apply_xorsched": (
+                lambda: rs_cuda.gf_apply_xorsched(prog, x, digest=d),
+                lambda: rs_cuda.gf_apply_xorsched(prog, x, digest=d,
+                                                  out=False),
+                lambda: rs_cuda.gf_apply_xorsched(prog, x).sum(
+                    dim=1, dtype=torch.int64)),
+        }
         # a window moves about 20 GB through the kernel (some ms of work)
         reps = max(50, min(2000, int(2e10 // max(n * (rows + cols), 1))))
         for name, (kernel, plain, (b_ms, b_by)) in runs.items():
-            ms = time_cuda(kernel, reps, warm=reps)
-            plain_ms = time_cuda(plain, max(3, reps // 40), warm=1,
-                                 windows=3)
+            ms, host_us = time_cuda(kernel, reps, warm=reps)
+            plain_ms, _ = time_cuda(plain, max(3, reps // 40), warm=1,
+                                    windows=3)
             row = {"phase": "kernel_time", "kernel": name, "shape": label,
                    "in": [cols, n], "out": [rows, n], "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "library_ms": None, "reps": reps}
+                   "host_us": host_us, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "reps": reps}
+            if name == "gf_apply":
+                row["ops_per_column"] = gf_apply_ops_per_column(cols)
+            if name in digest_runs:
+                with_d, only_d, then_sum = digest_runs[name]
+                row["digest_ms"], row["digest_host_us"] = time_cuda(
+                    with_d, reps, warm=reps)
+                row["digest_only_ms"], _ = time_cuda(only_d, reps, warm=reps)
+                # the digest part's yardstick: the kernel, then one
+                # PyTorch row sum over its output
+                row["digest_library_ms"], _ = time_cuda(then_sum, reps,
+                                                        warm=reps)
             log(row)
             out[name].append(row)
     return out
@@ -436,28 +573,36 @@ def counted(fn):
 def check_sinks(base: str, coder, g: geometry.Geometry, tag: str) -> dict:
     """Both device sinks on the finished volume: the encode digest must
     equal the parity files' and the .ecm's, the rebuild digest of the
-    four victims the victims' files' and the .ecm's. Returns launches."""
+    four victims the victims' files' and the .ecm's; neither runs a
+    torch.sum (the digest-only launches add into one buffer). Returns
+    launches."""
     stamped = pipeline.read_stamped_digests(base)
     launches = {}
     stats: dict = {}
-    digest, launches["encode_sink"] = timed(
-        f"{tag}encode_device_sink",
-        lambda: counted(lambda: pipeline.stream_encode_device_sink(
-            base, coder, g, stats=stats)),
-        lambda r: os.path.getsize(base + ".dat"),
-        lambda r: {"launches": r[1], "stats": stats})
+    with call_counter(torch.Tensor, "sum") as sums:
+        digest, launches["encode_sink"] = timed(
+            f"{tag}encode_device_sink",
+            lambda: counted(lambda: pipeline.stream_encode_device_sink(
+                base, coder, g, stats=stats)),
+            lambda r: os.path.getsize(base + ".dat"),
+            lambda r: {"launches": r[1], "stats": stats})
+    if sums.calls:
+        raise AssertionError(f"encode sink ran {sums.calls} torch.sum")
     want = pipeline.parity_file_digest(base, g)
     if not (np.array_equal(digest, want) and digest.tolist() == [
             stamped[i] for i in range(g.data_shards, g.total_shards)]):
         raise AssertionError(f"encode sink digest {digest.tolist()} != "
                              f"files {want.tolist()} / .ecm {stamped}")
     stats = {}
-    digest, launches["rebuild_sink"] = timed(
-        f"{tag}rebuild_device_sink",
-        lambda: counted(lambda: pipeline.stream_rebuild_device_sink(
-            base, coder, VICTIMS, g, stats=stats)),
-        lambda r: os.path.getsize(base + geometry.to_ext(1))
-        * g.data_shards, lambda r: {"launches": r[1], "stats": stats})
+    with call_counter(torch.Tensor, "sum") as sums:
+        digest, launches["rebuild_sink"] = timed(
+            f"{tag}rebuild_device_sink",
+            lambda: counted(lambda: pipeline.stream_rebuild_device_sink(
+                base, coder, VICTIMS, g, stats=stats)),
+            lambda r: os.path.getsize(base + geometry.to_ext(1))
+            * g.data_shards, lambda r: {"launches": r[1], "stats": stats})
+    if sums.calls:
+        raise AssertionError(f"rebuild sink ran {sums.calls} torch.sum")
     want = pipeline.shard_file_digest(base, VICTIMS)
     if not (np.array_equal(digest, want)
             and digest.tolist() == [stamped[v] for v in VICTIMS]):
@@ -493,10 +638,23 @@ def run_main_path(work: Path, coder, g: geometry.Geometry, volume: dict,
     dat_size = os.path.getsize(base + ".dat")
     src_sha = sha256_file(base + ".dat")
 
-    _, launches["encode"] = timed(
-        f"{tag}stream_encode",
-        lambda: counted(lambda: pipeline.stream_encode(base, coder, g)),
-        lambda r: dat_size, lambda r: {"launches": r[1]})
+    # the .ecm digests come from the kernels' digest epilogue: the host
+    # sum is never called
+    with call_counter(pipeline, "host_row_digests") as host_sums:
+        _, launches["encode"] = timed(
+            f"{tag}stream_encode",
+            lambda: counted(lambda: pipeline.stream_encode(base, coder, g)),
+            lambda r: dat_size, lambda r: {"launches": r[1]})
+    stamped = pipeline.read_stamped_digests(base)
+    files = pipeline.shard_file_digest(base, range(g.total_shards))
+    if host_sums.calls or [stamped.get(i) for i in range(g.total_shards)] \
+            != files.tolist():
+        raise AssertionError(f"{tag}encode digests: {host_sums.calls} host "
+                             f"sums; .ecm {stamped} != files "
+                             f"{files.tolist()}")
+    log({"phase": f"{tag}ecm_digests", "from": "kernel digest epilogue",
+         "host_sum_calls": host_sums.calls,
+         "equal_shard_file_digest": True})
     striping.write_sorted_ecx_from_idx(base)
     shard_sha = {i: sha256_file(base + geometry.to_ext(i))
                  for i in range(g.total_shards)}
@@ -658,12 +816,13 @@ def governed_encode(label: str, base: str, coder, g: geometry.Geometry,
     op = governor.get().plan(dat_size, g.data_shards)
     alloc0 = (reg.value("feed_pool_alloc_seconds"),
               reg.value("feed_pool_alloc_bytes"))
-    with feed_recorder() as rec:
+    with feed_recorder() as rec, \
+            call_counter(pipeline, "host_row_digests") as host_sums:
         t0 = time.perf_counter()
         _, launches = counted(lambda: pipeline.stream_encode(base, coder, g))
         secs = time.perf_counter() - t0
     totals = last_stage_totals()
-    same = shard_shas(base, g) == want_sha
+    same = shard_shas(base, g) == want_sha and host_sums.calls == 0
     row = {"phase": f"governed.{label}", "seconds": secs, "bytes": dat_size,
            "gbps": dat_size / secs / 1e9,
            "plan": {"batch_size": op.batch_size, "depth": op.depth,
@@ -677,11 +836,12 @@ def governed_encode(label: str, base: str, coder, g: geometry.Geometry,
            "pool_alloc_bytes": reg.value("feed_pool_alloc_bytes")
            - alloc0[1],
            "feeds": rec.describe(), "launches": launches,
+           "host_digest_calls": host_sums.calls,
            "sha256_equal_pinned": same}
     log(row)
     if not same:
         raise AssertionError(f"governed {label}: shards differ from the "
-                             f"pinned run's")
+                             f"pinned run's, or the host summed digests")
     return row
 
 
@@ -848,6 +1008,16 @@ def main() -> int:
     lib = _build.build()
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "library": lib.name})
+    WORD_OPS[0] = word_ops_per_s()
+    try:
+        SASS_OPS.update(gf_apply_sass_ops(lib))
+    except (OSError, subprocess.CalledProcessError, StopIteration,
+            ValueError) as e:
+        # ops_per_column then reads None
+        log({"phase": "sass_ops", "error": repr(e)})
+    log({"phase": "rates", "int32_ops_per_s": WORD_OPS[0],
+         "gf_apply_sass_alu": SASS_OPS or "not measured",
+         "gf_apply_ops_per_column_rs10_4": gf_apply_ops_per_column(10)})
 
     checked = check_kernels(device)
     with env_set(WEED_EC_FORMULATION=None):
@@ -914,6 +1084,7 @@ def main() -> int:
     # feed joins consecutive 1 MiB small-block segments up to the batch
     # size); a degraded read is one interval, R = 1
     times = time_kernels(device, [("encode", 4, 10, 8 * MIB),
+                                  ("rebuild", 4, 10, 8 * MIB),
                                   ("encode_1mib", 4, 10, MIB),
                                   ("degraded_read", 1, 10, 64 * 1024)])
     log(smi)
@@ -931,9 +1102,14 @@ def main() -> int:
                "ms": enc["ms"], "plain_ms": enc["plain_ms"],
                "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
                "library_ms": None, "shape": "[10,8MiB] -> [4,8MiB]",
+               "host_us": enc["host_us"],
                "launches_by_phase": by_phase, "bit_equal": True,
                "library_note": "no single PyTorch call computes a GF(2^8) "
                                "matrix product"}
+        for key in ("ops_per_column", "digest_ms", "digest_only_ms",
+                    "digest_library_ms"):
+            if key in enc:
+                row[key] = enc[key]
         if kernel == "gf_apply_mxu":
             # no main-path step runs it (none does in the reference): its
             # launches are those of its own entry, the repack="mxu"

@@ -1,4 +1,5 @@
-// GF(2^8) matrix application by XOR schedule, for Hopper (sm_90a).
+// GF(2^8) matrix application by XOR schedule, for Hopper (sm_90a), with a
+// fused row digest.
 //
 // Replaces the TPU kernel seaweedfs_tpu/ops/rs_pallas.py:_gf_kernel_xorsched
 // (reached through _build_apply.apply_sched, formulation="xorsched"):
@@ -10,38 +11,56 @@
 //
 // The TPU kernel bakes one schedule per matrix into straight-line code.
 // Here the schedule is runtime data, lowered on the host
-// (seaweedfs_torch/ops/xor_schedule.py:lower_schedule) to int16 (dst, a, b)
-// slot triples and a table of output slots, so one compiled kernel runs
-// the parity matrix and every reconstruction matrix of every failure
-// pattern, and no failure pattern builds anything.
+// (seaweedfs_torch/ops/xor_schedule.py) to int16 (dst, a, b) slot triples
+// and a table of output slots, so one compiled kernel runs the parity
+// matrix and every reconstruction matrix of every failure pattern, and no
+// failure pattern builds anything.
 //
 // Design. Each thread owns 32 consecutive columns. Per input row it loads
 // 32 bytes (two 16-byte loads where rows start on 16 bytes and the group
 // is whole, else bytes with the tail masked) and transposes them in
-// registers into 8 plane words: bit b of word j is bit j of column b,
-// the layout of the reference's pack_planes. The words go to the thread's
-// shared-memory slots, laid out slots[slot][thread] so that a warp's 32
-// accesses fall on 32 banks. The block then walks the program, uniformly
-// (no divergence; the program is read from shared memory as a broadcast),
-// one XOR of two slots into a third per op, and finally transposes each
-// output row's 8 plane words back into 32 bytes.
+// registers into 8 plane words: bit b of word j is bit j of column b, the
+// layout of the reference's pack_planes. The words go to the thread's
+// shared-memory slots, a row of S words per thread with S odd, so that a
+// warp's 32 accesses to one slot fall on 32 banks. The block then walks
+// the program uniformly (no divergence; the program sits in shared memory
+// as byte offsets and is read as a broadcast), and finally transposes each
+// output row's 8 plane words back into 32 bytes. The grid is persistent:
+// one wave of blocks as large as the slots allow.
+//
+// Grouped walk. The first design walked one op at a time, a load-load-
+// store chain through shared memory that the compiler cannot reorder
+// across the previous op's store, with 8 warps on an SM: bound by shared
+// memory's latency. The grouped lowering (lower_schedule_grouped) emits
+// ops in groups of G independent ops (no op of a group reads a slot that
+// another op of the group writes, no two write one slot), so the kernel
+// issues a group's 2G loads before its G stores; its ordering also lowers
+// the live slots (RS(10,4) parity: 152 against 209), so more threads fit.
+// G is 4, the lowering's default; a program in groups of any other size is
+// refused.
+//
+// Digest: with a non-null `digest` [C + R] (uint32), the first C entries
+// gain the input rows' byte sums and the next R the output rows' (wrapping,
+// added to what the buffer holds): one __dp4a per word in registers, a
+// running sum per row in the thread's own shared-memory row (C + R words
+// past its slots, reserved only for a digest launch), one block reduction
+// and one atomicAdd per row per block. A null `out` skips the output
+// stores (a digest-only launch).
 //
 // Bound. The function moves (C + R) * n bytes: for RS(10,4) encode at
 // [10, 8 MiB] that is 117 MB, 0.035 ms at 3.35 TB/s. This design is bound
-// by shared memory instead: per 32 columns about 8C stores, 3 accesses per
-// op (499 ops for the RS(10,4) parity schedule) and 8R loads of 4-byte
-// words, about 1.7 GB for that batch, or roughly 0.06 ms at the card's
-// aggregate shared-memory rate; and the live slots (209 for RS(10,4),
-// 4 bytes each per thread) cap a block at 128 threads and an SM at about
-// 8 warps. With so few warps the walk is bound by shared-memory latency
-// more than by its rate: each op is a load-load-store chain that the
-// compiler cannot hoist above the previous op's store. Pairing
-// independent ops in the lowering, keeping hot values in registers and a
-// TMA-fed persistent grid are later work.
+// by shared memory and instruction issue instead: in the built SASS
+// (scripts/torch_sass_ops.py) the walk spends 8.1 instructions per op per
+// 32 columns, 4.25 of them integer (three address adds and the XOR) and
+// 3.75 shared-memory (two loads, a store, a quarter of the group's
+// broadcast program read), on 504 ops for the RS(10,4) parity program;
+// the transposes add about 4 word operations per byte of a row each way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stddef.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -136,90 +155,187 @@ __device__ __forceinline__ void store32(uint8_t* __restrict__ row,
   }
 }
 
-// Dynamic shared memory: the program (3 * n_ops + 8R int16, padded to a
-// word), then n_slots * blockDim.x words of slots. Grid-stride over the
-// ceil(n / 32) column groups; `vec` says rows start on 16 bytes.
-__global__ void gf_xorsched_kernel(const int16_t* __restrict__ code,
-                                   int n_ops,
-                                   const int16_t* __restrict__ out_slots,
-                                   int R, int C,
-                                   const uint8_t* __restrict__ x,
-                                   uint8_t* __restrict__ out, long long n,
-                                   int vec) {
+__device__ __forceinline__ uint32_t byte_sum(uint32_t w) {
+  return (uint32_t)__dp4a(w, 0x01010101u, 0u);
+}
+
+constexpr int kMaxThreads = 512;
+constexpr int kGroup = 4;  // ops per group of the program
+constexpr uint32_t kZeroPlane = 0xFFFFFFFFu;
+
+// Words of shared memory before the slots: the program's 3 * n_ops byte
+// offsets and the 8R output planes' offsets, padded to 16 bytes.
+__host__ __device__ inline int prog_words(int n_ops, int R) {
+  return (3 * n_ops + 8 * R + 3) & ~3;
+}
+
+__device__ __forceinline__ uint32_t lds(const char* p, uint32_t off) {
+  return *reinterpret_cast<const uint32_t*>(p + off);
+}
+
+__device__ __forceinline__ void sts(char* p, uint32_t off, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p + off) = v;
+}
+
+// The byte offsets of group gi's ops (dst, a, b each) into o: three
+// 16-byte broadcast reads.
+__device__ __forceinline__ void read_group(const uint32_t* prog, int gi,
+                                           uint32_t* o) {
+  const uint4* p4 = reinterpret_cast<const uint4*>(prog) + gi * 3;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const uint4 v = p4[i];
+    o[4 * i] = v.x;
+    o[4 * i + 1] = v.y;
+    o[4 * i + 2] = v.z;
+    o[4 * i + 3] = v.w;
+  }
+}
+
+// Dynamic shared memory: prog_words(n_ops, R) words of program, then
+// blockDim.x rows of S words (S odd): the thread's n_slots slots and, with
+// a digest, its C + R running row sums. Grid-stride over the ceil(n / 32)
+// column groups; `vec` says rows start on 16 bytes.
+__global__ void __launch_bounds__(kMaxThreads)
+    gf_xorsched_kernel(const int16_t* __restrict__ code, int n_ops,
+                       const int16_t* __restrict__ out_slots, int n_slots,
+                       int S, int R, int C, const uint8_t* __restrict__ x,
+                       uint8_t* __restrict__ out, long long n, int vec,
+                       uint32_t* __restrict__ digest) {
   extern __shared__ uint32_t smem[];
-  const int T = blockDim.x;
-  const int prog_len = 3 * n_ops + 8 * R;
-  int16_t* prog = reinterpret_cast<int16_t*>(smem);
-  for (int i = threadIdx.x; i < prog_len; i += T)
-    prog[i] = i < 3 * n_ops ? code[i] : out_slots[i - 3 * n_ops];
+  const int T = blockDim.x, tid = threadIdx.x;
+  uint32_t* prog = smem;                    // byte offsets of dst, a, b
+  const uint32_t* outs = prog + 3 * n_ops;  // byte offsets, or kZeroPlane
+  uint32_t* slots = smem + prog_words(n_ops, R);
+  for (int i = tid; i < 3 * n_ops + 8 * R; i += T) {
+    const int s = i < 3 * n_ops ? code[i] : out_slots[i - 3 * n_ops];
+    prog[i] = s < 0 ? kZeroPlane : (uint32_t)s * 4u;
+  }
   __syncthreads();
-  const int16_t* outs = prog + 3 * n_ops;
-  uint32_t* my = smem + (prog_len + 1) / 2 + threadIdx.x;  // slot s: my[s*T]
+  char* my = reinterpret_cast<char*>(slots + (size_t)tid * S);
+  uint32_t* dig = slots + (size_t)tid * S + n_slots;  // [C + R]
+  if (digest != nullptr)
+    for (int i = 0; i < C + R; ++i) dig[i] = 0;
 
   const long long groups = (n + 31) / 32;
-  for (long long g = blockIdx.x * (long long)T + threadIdx.x; g < groups;
+  const int n_groups = n_ops / kGroup;
+  for (long long g = blockIdx.x * (long long)T + tid; g < groups;
        g += (long long)gridDim.x * T) {
     const long long col0 = g * 32;
     const bool whole = vec && col0 + 32 <= n;
     for (int c = 0; c < C; ++c) {
       uint32_t w[8], p[8];
       load32(x + (size_t)c * n, col0, n, whole, w);
+      if (digest != nullptr) {
+        uint32_t s = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) s += byte_sum(w[q]);
+        dig[c] += s;
+      }
       bytes_to_planes(w, p);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) my[(c * 8 + j) * T] = p[j];
+      for (int j = 0; j < 8; ++j) sts(my, (uint32_t)(c * 8 + j) * 4u, p[j]);
     }
-    for (int t = 0; t < n_ops; ++t) {
-      const int d = prog[3 * t], a = prog[3 * t + 1], b = prog[3 * t + 2];
-      my[d * T] = my[a * T] ^ my[b * T];
+    for (int gi = 0; gi < n_groups; ++gi) {
+      uint32_t o[3 * kGroup];
+      read_group(prog, gi, o);
+      // every load of the group before any of its stores
+      uint32_t va[kGroup], vb[kGroup];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        va[i] = lds(my, o[3 * i + 1]);
+        vb[i] = lds(my, o[3 * i + 2]);
+      }
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) sts(my, o[3 * i], va[i] ^ vb[i]);
     }
     for (int r = 0; r < R; ++r) {
       uint32_t p[8], w[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const int s = outs[r * 8 + i];
-        p[i] = s >= 0 ? my[s * T] : 0u;
+        const uint32_t off = outs[r * 8 + i];
+        p[i] = off == kZeroPlane ? 0u : lds(my, off);
       }
       planes_to_bytes(p, w);
-      store32(out + (size_t)r * n, col0, n, whole, w);
+      if (digest != nullptr) {
+        // columns past n are zero planes, so they add nothing
+        uint32_t s = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) s += byte_sum(w[q]);
+        dig[C + r] += s;
+      }
+      if (out != nullptr) store32(out + (size_t)r * n, col0, n, whole, w);
     }
   }
+
+  if (digest != nullptr) {
+    // each warp reduces whole rows of the threads' sums
+    __syncthreads();
+    const int lane = tid & 31;
+    for (int row = tid >> 5; row < C + R; row += T >> 5) {
+      uint32_t s = 0;
+      for (int t = lane; t < T; t += 32)
+        s += slots[(size_t)t * S + n_slots + row];
+      s = __reduce_add_sync(0xFFFFFFFFu, s);
+      if (lane == 0 && s) atomicAdd(digest + row, s);
+    }
+  }
+}
+
+int launch(const int16_t* code, int n_ops, const int16_t* out_slots,
+           int n_slots, int S, int R, int C, const uint8_t* x,
+           uint8_t* out, long long n, uint32_t* digest, int threads,
+           size_t smem, int device, cudaStream_t s) {
+  const void* fn = reinterpret_cast<const void*>(&gf_xorsched_kernel);
+  cudaError_t err = swlaunch::allow_smem(fn, device);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = (n % 16 == 0) && ((uintptr_t)x % 16 == 0) &&
+                  ((uintptr_t)out % 16 == 0);
+  const long long groups = (n + 31) / 32;
+  long long blocks = (groups + threads - 1) / threads;
+  const long long wave = (long long)swlaunch::sm_count(device) *
+                         swlaunch::blocks_per_sm(fn, threads, smem, device);
+  if (blocks > wave) blocks = wave;
+  gf_xorsched_kernel<<<(unsigned)blocks, threads, smem, s>>>(
+      code, n_ops, out_slots, n_slots, S, R, C, x, out, n, vec, digest);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// code int16 [n_ops, 3] and out_slots int16 [8R] (the lowered program),
-// x [C, n] uint8 and out [R, n] uint8 are contiguous device buffers on
-// `device`; `threads` (a multiple of 32) and `smem` (bytes of dynamic
-// shared memory) come from the caller, the launch goes on `stream`.
-// Returns the cudaError_t of the launch (0 on success).
+// code int16 [n_ops, 3] and out_slots int16 [8R] (the lowered program, its
+// ops in groups of `group`, which must be 4), x [C, n] uint8 and out [R, n]
+// uint8
+// (out may be null: no output stores) are contiguous device buffers on
+// `device`; `digest` is null or C + R uint32 sums to add to. `threads` (a
+// multiple of 32, at most 512) and `smem` (bytes of dynamic shared
+// memory: prog_words(n_ops, R) words, then `threads` rows of S words,
+// S = n_slots, plus C + R with a digest, made odd) come from the caller;
+// the launch goes on `stream`. Returns the cudaError_t of the launch (0 on
+// success).
 int sw_gf_xorsched(const void* code, int n_ops, const void* out_slots,
-                   int n_slots, int R, int C, const void* x, void* out,
-                   long long n, int threads, long long smem, int device,
-                   void* stream) {
+                   int n_slots, int group, int R, int C, const void* x,
+                   void* out, long long n, void* digest, int threads,
+                   long long smem, int device, void* stream) {
+  const int S = (n_slots + (digest != nullptr ? C + R : 0)) | 1;
   if (R < 1 || C < 1 || R > kMaxRows || C > kMaxRows || n < 1 ||
       n_ops < 0 || n_slots < 8 * C || threads < 32 || threads % 32 ||
-      threads > 1024 || smem < 1)
+      threads > kMaxThreads || group != kGroup ||
+      n_ops % group || smem > swlaunch::kSmemLimit ||
+      smem < 4LL * prog_words(n_ops, R) + 4LL * threads * S)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = swlaunch::use_device(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(gf_xorsched_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const int16_t* cp = static_cast<const int16_t*>(code);
+  const int16_t* op = static_cast<const int16_t*>(out_slots);
   const uint8_t* xp = static_cast<const uint8_t*>(x);
-  uint8_t* op = static_cast<uint8_t*>(out);
-  const int vec = (n % 16 == 0) && ((uintptr_t)xp % 16 == 0) &&
-                  ((uintptr_t)op % 16 == 0);
-  const long long groups = (n + 31) / 32;
-  long long blocks = (groups + threads - 1) / threads;
-  if (blocks > 132LL * 8) blocks = 132LL * 8;
-  gf_xorsched_kernel<<<(unsigned)blocks, threads, (size_t)smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(code), n_ops,
-      static_cast<const int16_t*>(out_slots), R, C, xp, op, n, vec);
-  return (int)cudaGetLastError();
+  uint8_t* outp = static_cast<uint8_t*>(out);
+  uint32_t* dp = static_cast<uint32_t*>(digest);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return launch(cp, n_ops, op, n_slots, S, R, C, xp, outp, n, dp, threads,
+                (size_t)smem, device, s);
 }
 
 }  // extern "C"

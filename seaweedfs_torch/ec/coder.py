@@ -68,6 +68,13 @@ class ErasureCoder:
         """Block until a handle from encode_async/rec_apply_async is real."""
         return np.asarray(handle)
 
+    def row_digests(self, handle) -> Optional[np.ndarray]:
+        """The wrapping uint32 byte sums of a materialized encode handle's
+        k data rows and m parity rows, where the backend computed them
+        with the parity; None where it did not (the caller sums the rows
+        itself)."""
+        return None
+
     def reconstruct(self, shards: Sequence[Optional[np.ndarray]],
                     data_only: bool = False,
                     targets: Optional[Sequence[int]] = None
@@ -155,15 +162,20 @@ class NumpyCoder(ErasureCoder):
 class _Pending:
     """An enqueued kernel run: the D2H copy lands in `host` (page-locked)
     once `event` completes; `rows` of it are real (the rest is padding).
-    Device tensors stay referenced until then."""
+    `digest`, when the run carried the digest epilogue, is the digest
+    buffer's copy beside it, cut to the C input and `rows` output sums.
+    Device tensors stay referenced until then. On the CPU `event` is None
+    and everything is already real."""
 
-    __slots__ = ("event", "host", "rows", "keep")
+    __slots__ = ("event", "host", "rows", "keep", "digest")
 
-    def __init__(self, event, host: torch.Tensor, rows: int, keep: tuple):
+    def __init__(self, event, host: torch.Tensor, rows: int, keep: tuple,
+                 digest: Optional[torch.Tensor] = None):
         self.event = event
         self.host = host
         self.rows = rows
         self.keep = keep
+        self.digest = digest
 
 
 class _Staged:
@@ -185,16 +197,18 @@ class _Staged:
 
 
 class _Digest:
-    """A running per-row byte sum (int64, on the coder's device): real
-    once `event` (recorded after the last kernel that feeds it) is done.
-    materialize() reduces it mod 2^32, the reference's wrapping uint32
-    sum; PyTorch's uint32 arithmetic on CUDA is incomplete."""
+    """A running digest buffer (``rs_cuda.new_digest``: [C + R] int32
+    holding the kernels' wrapping uint32 sums, on the coder's device):
+    real once `event` (recorded after the last kernel that feeds it) is
+    done. Its first `skip` entries are the input rows' sums;
+    materialize() returns the R output rows' as uint32."""
 
-    __slots__ = ("acc", "event")
+    __slots__ = ("acc", "event", "skip")
 
-    def __init__(self, acc: torch.Tensor, event):
+    def __init__(self, acc: torch.Tensor, event, skip: int):
         self.acc = acc
         self.event = event
+        self.skip = skip
 
 
 class TorchCoder(ErasureCoder):
@@ -213,10 +227,16 @@ class TorchCoder(ErasureCoder):
     the device and cached under a lock (degraded reads come from many
     threads), so no failure pattern compiles anything.
 
+    Encode runs carry the kernels' digest epilogue: the handle also
+    brings back the data and parity rows' byte sums, which
+    ``row_digests`` hands the pipeline for the .ecm, so no pass over the
+    rows runs on the host. Reconstruction runs skip the epilogue.
+
     The staged-window hooks keep the batches and the digests on the
     device: stage_async enqueues the H2D copy only, the window calls
-    enqueue one kernel and one row sum per batch into an int64
-    accumulator, and only the accumulator crosses back.
+    enqueue one digest-only launch per batch (no output stores), all
+    adding into one uint32 digest buffer, and only that buffer crosses
+    back.
 
     Not ported from ``PallasCoder``: ``_shrink_tile`` and its retry
     loops (they retry after any exception, which would hide a kernel that
@@ -258,8 +278,9 @@ class TorchCoder(ErasureCoder):
         rows > R zero-pads (zero rows rebuild zeros)."""
         if self.formulation == "bitplane":
             return rs_torch.load_matrix(matrix, self.device, rows=rows)
-        return xor_schedule.lower_schedule(xor_schedule.schedule_for_matrix(
-            rs_torch.pad_rows(matrix, rows))).to(self.device)
+        return xor_schedule.lower_schedule_grouped(
+            xor_schedule.schedule_for_matrix(rs_torch.pad_rows(matrix, rows))
+        ).to(self.device)
 
     def _rec_w(self, present: tuple, missing: tuple,
                rows: Optional[int] = None):
@@ -272,35 +293,67 @@ class TorchCoder(ErasureCoder):
                 w = self._w_rec[key] = self._operand(rec, rows)
         return w
 
-    def _run(self, w, data: np.ndarray, rows: int):
-        """Enqueue the operand applied to host bytes [C, n]; returns a
-        handle."""
+    @staticmethod
+    def _digest_size(w) -> int:
+        """C + R of an operand (padding rows included): the length of its
+        digest buffer."""
+        if isinstance(w, xor_schedule.XorProgram):
+            return (w.sched.n_in + w.sched.n_rows) // 8
+        return (w.shape[0] + w.shape[1]) // 8
+
+    def _run(self, w, data: np.ndarray, rows: int, digest: bool = False):
+        """Enqueue the operand applied to host bytes [C, n], with the
+        digest epilogue when asked; returns a handle."""
         x = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
+        size = self._digest_size(w)
         if self._stream is None:
-            return self._kernel(w, x)[:rows]
+            d = rs_cuda.new_digest(size, "cpu") if digest else None
+            out = self._kernel(w, x, digest=d)
+            return _Pending(None, out, rows, (),
+                            None if d is None else d[:x.shape[0] + rows])
         with torch.cuda.stream(self._stream):
             xd = x.to(self.device, non_blocking=True)
-            out = self._kernel(w, xd)
+            dd = rs_cuda.new_digest(size, self.device) if digest else None
+            out = self._kernel(w, xd, digest=dd)
             host = torch.empty(out.shape, dtype=torch.uint8,
                                pin_memory=True)
             host.copy_(out, non_blocking=True)
+            dh = None
+            if digest:
+                dh = torch.empty(size, dtype=torch.int32, pin_memory=True)
+                dh.copy_(dd, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
-        # x (the caller's host batch) must outlive the async H2D copy
-        return _Pending(event, host, rows, (x, xd, out))
+        # x (the caller's host batch) must outlive the async H2D copy; the
+        # digest's view drops the padding rows' sums
+        return _Pending(event, host, rows, (x, xd, out, dd),
+                        None if dh is None else dh[:x.shape[0] + rows])
 
     def materialize(self, handle) -> np.ndarray:
         if isinstance(handle, _Pending):
-            handle.event.synchronize()
+            if handle.event is not None:
+                handle.event.synchronize()
             return handle.host[:handle.rows].numpy()
         if isinstance(handle, _Digest):
             if handle.event is not None:
                 handle.event.synchronize()
-            return (handle.acc.cpu().numpy() & 0xFFFFFFFF).astype(np.uint32)
+            return rs_cuda.digest_values(
+                handle.acc[handle.skip:].cpu()).numpy().astype(np.uint32)
         return handle.numpy()
 
+    def row_digests(self, handle) -> Optional[np.ndarray]:
+        """The input rows' and the first `rows` output rows' byte sums
+        ([C + rows] uint32) of a materialized handle that carried the
+        digest epilogue (every encode_async handle does); None for one
+        that did not."""
+        if not isinstance(handle, _Pending) or handle.digest is None:
+            return None
+        if handle.event is not None:
+            handle.event.synchronize()
+        return rs_cuda.digest_values(handle.digest).numpy().astype(np.uint32)
+
     def encode_async(self, data: np.ndarray):
-        return self._run(self._w_enc, data, self.m)
+        return self._run(self._w_enc, data, self.m, digest=True)
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         return self.materialize(self.encode_async(data))
@@ -332,36 +385,37 @@ class TorchCoder(ErasureCoder):
             event.record(self._stream)
         return _Staged(xd, x, event)
 
-    def _digest_window(self, w, staged: Sequence, rows: int,
+    def _digest_window(self, w, staged: Sequence,
                        acc: Optional[_Digest]) -> _Digest:
         """acc + the per-row byte sums of the operand applied to every
-        staged batch, all enqueued on the coder's stream."""
+        staged batch: one digest-only launch per batch, all adding into
+        one digest buffer, enqueued on the coder's stream."""
         on_card = self._stream is not None
         with (torch.cuda.stream(self._stream) if on_card
               else contextlib.nullcontext()):
-            total = (acc.acc if acc is not None else torch.zeros(
-                rows, dtype=torch.int64, device=self.device))
+            if acc is None:
+                acc = _Digest(rs_cuda.new_digest(self._digest_size(w),
+                                                 self.device), None, self.k)
             for b in staged:
-                total = total + self._kernel(w, b.dev).sum(
-                    dim=1, dtype=torch.int64)
+                self._kernel(w, b.dev, digest=acc.acc, out=False)
             event = torch.cuda.Event() if on_card else None
             if on_card:
                 event.record(self._stream)
-        return _Digest(total, event)
+        return _Digest(acc.acc, event, acc.skip)
 
     def encode_digest_async(self, data: np.ndarray, acc=None) -> _Digest:
         return self.encode_digest_window_async([self.stage_async(data)],
                                                acc)
 
     def encode_digest_window_async(self, staged, acc=None) -> _Digest:
-        return self._digest_window(self._w_enc, staged, self.m, acc)
+        return self._digest_window(self._w_enc, staged, acc)
 
     def rec_digest_window_async(self, present, missing, staged,
                                 acc=None) -> _Digest:
         # the exact matrix: one digest row per victim, in the caller's
         # order of `missing`
         w = self._rec_w(tuple(present), tuple(missing))
-        return self._digest_window(w, staged, len(missing), acc)
+        return self._digest_window(w, staged, acc)
 
 
 _REGISTRY: dict = {}

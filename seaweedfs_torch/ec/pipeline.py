@@ -319,6 +319,13 @@ def _run_pipeline(batches: Iterator[np.ndarray], dispatch, consume,
         raise errors[0]
 
 
+def host_row_digests(rows: Sequence[np.ndarray]) -> np.ndarray:
+    """Each row's byte sum (uint64): the digest of a batch whose coder
+    computed none."""
+    return np.array([np.sum(row, dtype=np.uint64) for row in rows],
+                    dtype=np.uint64)
+
+
 def _stream_encode_core(batches: Iterator[np.ndarray], coder: ErasureCoder,
                         shard_paths: Sequence[str],
                         op: "governor.OperatingPoint",
@@ -329,7 +336,9 @@ def _stream_encode_core(batches: Iterator[np.ndarray], coder: ErasureCoder,
     per shard file. Returns with every shard file written and fsynced;
     writes no .ecm marker. `digests` (uint64[total_shards]) accumulates
     each shard row's byte sum while the rows stream through, so the
-    marker's digests come out of the encode pass itself."""
+    marker's digests come out of the encode pass itself: from the coder's
+    kernels (``row_digests``, the fused digest epilogue on the card) where
+    it gives them, else summed here on the host (``host_row_digests``)."""
     fan = _FanOut(list(shard_paths), op.write_depth)
 
     def consume(data: np.ndarray, handle) -> None:
@@ -339,8 +348,9 @@ def _stream_encode_core(batches: Iterator[np.ndarray], coder: ErasureCoder,
         rows = [*data, *parity]
         if digests is not None:
             with observe.stage("ec.digest", tctx):
-                for i, row in enumerate(rows):
-                    digests[i] += np.sum(row, dtype=np.uint64)
+                sums = coder.row_digests(handle)
+                digests[:] += (host_row_digests(rows) if sums is None
+                               else sums)
         with observe.stage("ec.write", tctx):
             # data rows go straight from the host batch (a page-cache view
             # or a pooled staging buffer), which recycles only after every

@@ -4,9 +4,10 @@
 interface, loaded through ctypes: no PyTorch headers, so a build takes
 seconds. The build runs at first use, never at import, into
 ``seaweedfs_torch/_build/`` (listed in .gitignore); the library's file
-name carries a hash of the sources and flags, so an edited source builds
-anew and a finished build is reused. ``build()`` starts one nvcc per
-source, all at once, and links the objects in a last call.
+name carries a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an edited source builds anew and a
+finished build is reused. ``build()`` starts one nvcc per source, all at
+once, and links the objects in a last call.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def nvcc() -> str | None:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -94,16 +95,19 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.sw_gf_apply.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.sw_gf_apply.restype = ctypes.c_int
+        lib.sw_gf_mxu.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p]
-        lib.sw_gf_apply.restype = ctypes.c_int
-        lib.sw_gf_mxu.argtypes = lib.sw_gf_apply.argtypes
         lib.sw_gf_mxu.restype = ctypes.c_int
         lib.sw_gf_xorsched.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         lib.sw_gf_xorsched.restype = ctypes.c_int
         lib.sw_crc32c_update.argtypes = [
             ctypes.c_uint32, ctypes.c_char_p, ctypes.c_size_t]

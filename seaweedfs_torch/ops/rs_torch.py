@@ -27,6 +27,12 @@ does.
 schedule (``xor_schedule``) run over packed bit-plane words; its kernel
 is ``rs_cuda.gf_apply_xorsched``. ``formulation_env`` reads the
 ``WEED_EC_FORMULATION`` pin by the reference's rules.
+
+``row_digest`` is the plain version of both kernels' digest epilogue: the
+wrapping uint32 byte sum of each row (the reference's shard digest), as
+int64 values in [0, 2^32). ``gf_apply_digest`` and
+``gf_apply_xorsched_digest`` return a product with its [C + R] digest,
+the input rows' sums first, as the kernels lay it out.
 """
 
 from __future__ import annotations
@@ -190,6 +196,29 @@ def gf_apply_xorsched(sched: xor_schedule.XorSchedule,
     planes = xor_schedule.pack_planes(x)
     out = xor_schedule.run_schedule(sched, planes)
     return xor_schedule.unpack_planes(out, n)
+
+
+def row_digest(t: torch.Tensor) -> torch.Tensor:
+    """[rows, n] uint8 -> [rows] int64: each row's byte sum mod 2^32."""
+    return t.sum(dim=1, dtype=torch.int64) & 0xFFFFFFFF
+
+
+def gf_apply_digest(w: torch.Tensor,
+                    x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``gf_apply`` with its digest epilogue: (out [R, n]
+    uint8, digest [C + R] int64), the digest being the input rows' and then
+    the output rows' byte sums mod 2^32."""
+    out = gf_apply(w, x)
+    return out, torch.cat([row_digest(x), row_digest(out)])
+
+
+def gf_apply_xorsched_digest(sched: xor_schedule.XorSchedule,
+                             x: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``gf_apply_xorsched`` with its digest epilogue,
+    laid out as ``gf_apply_digest``'s."""
+    out = gf_apply_xorsched(sched, x)
+    return out, torch.cat([row_digest(x), row_digest(out)])
 
 
 def formulation_env() -> str | None:

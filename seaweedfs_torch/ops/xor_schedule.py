@@ -16,10 +16,15 @@ run over machine words:
    executes the schedule over them and ``unpack_planes`` turns the result
    back into bytes. These three are plain PyTorch, on the tensors' device,
    and make up the plain version of the kernel (``rs_torch``).
-3. ``lower_schedule`` is the port's own step: it turns a schedule into the
-   kernel's operand (``csrc/gf_xorsched.cu``), a program of (dst, a, b)
-   slot triples in which a slot is reused once the value it held is dead,
-   and a table of the output planes' slots.
+3. Lowering is the port's own step: it turns a schedule into a program of
+   (dst, a, b) slot triples in which a slot is reused once the value it
+   held is dead, and a table of the output planes' slots.
+   ``lower_schedule_grouped`` gives the kernel's operand
+   (``csrc/gf_xorsched.cu``): the ops in groups of four independent ops,
+   so that the kernel issues a group's loads before its stores, ordered to
+   keep fewer values live. ``lower_schedule`` keeps the schedule's order,
+   one op at a time: the baseline whose slot count the grouped lowering
+   must not exceed.
 
 Words are int32 tensors holding the reference's uint32 bit patterns:
 PyTorch's uint32 arithmetic is incomplete, and the bits are the same.
@@ -189,19 +194,23 @@ def run_schedule(sched: XorSchedule, planes: torch.Tensor) -> torch.Tensor:
 
 
 class XorProgram(NamedTuple):
-    """A schedule lowered to the kernel's operand.
+    """A schedule lowered to slot triples (the kernel's operand when
+    ``group`` is 4).
 
     ``code`` int16 [n_ops, 3]: op t sets slot ``code[t, 0]`` to the XOR of
     slots ``code[t, 1]`` and ``code[t, 2]``. Before the first op, slot
     ``i < n_in`` holds input plane i; ``out_slots`` int16 [n_rows] names
     the slot that holds output plane r at the end, -1 for a zero row.
-    ``n_slots`` is how many slots the program touches.
+    ``n_slots`` is how many slots the program touches. The ops run in
+    consecutive groups of ``group``: a group reads all its operands, then
+    writes all its results (``group == 1`` is one op at a time).
     """
 
     sched: XorSchedule
     code: torch.Tensor
     out_slots: torch.Tensor
     n_slots: int
+    group: int = 1
 
     def to(self, device: torch.device | str) -> "XorProgram":
         return self._replace(code=self.code.to(device),
@@ -249,3 +258,95 @@ def lower_schedule(sched: XorSchedule) -> XorProgram:
     return XorProgram(sched=sched, code=torch.from_numpy(code),
                       out_slots=torch.from_numpy(out_slots),
                       n_slots=n_slots)
+
+
+def lower_schedule_grouped(sched: XorSchedule, group: int = 4) -> XorProgram:
+    """Lower a schedule into groups of `group` independent ops, ordered to
+    keep few values live.
+
+    Each group is chosen greedily from the ops whose operands are ready:
+    first those after which the most operands are dead, then the
+    schedule's own order. Within a group no op reads a slot that another
+    op of the group writes and no two ops write one slot, so the kernel may
+    issue all of a group's loads before its stores. An op's result takes
+    the slot of an operand that dies with it and that no other op of the
+    group reads; other slots of values dead in a group are free from the
+    next group on. A short group is padded with no-ops, each XORing a free
+    slot into itself (a new slot only when too few are free)."""
+    n_in, ops = sched.n_in, sched.ops
+    keep = {v for v in sched.out_ids if v is not None}
+    uses = [0] * (n_in + len(ops))  # reads by ops not yet placed
+    readers: list[list[int]] = [[] for _ in range(n_in + len(ops))]
+    for t, (a, b) in enumerate(ops):
+        for v in (a, b):
+            uses[v] += 1
+            readers[v].append(t)
+    waiting = [sum(1 for v in (a, b) if v >= n_in) for a, b in ops]
+    ready = {t for t in range(len(ops)) if waiting[t] == 0}
+    slot_of = list(range(n_in)) + [-1] * len(ops)
+    free = [v for v in range(n_in) if uses[v] == 0 and v not in keep]
+    heapq.heapify(free)
+    n_slots = n_in
+    code: list[tuple[int, int, int]] = []
+
+    def dies_with(t: int) -> int:
+        a, b = ops[t]
+        return sum(1 for v in {a, b}
+                   if v not in keep and uses[v] == (a == v) + (b == v))
+
+    while ready:
+        chosen = sorted(ready, key=lambda t: (-dies_with(t), t))[:group]
+        reads: dict[int, int] = {}
+        for t in chosen:
+            for v in ops[t]:
+                reads[v] = reads.get(v, 0) + 1
+        dying = {v for v, c in reads.items()
+                 if v not in keep and uses[v] == c}
+        claimed: set[int] = set()
+        for t in chosen:
+            a, b = ops[t]
+            dst = -1
+            for v in (a, b):
+                if (v in dying and v not in claimed
+                        and reads[v] == (a == v) + (b == v)):
+                    dst = slot_of[v]
+                    claimed.add(v)
+                    break
+            if dst < 0:
+                if free:
+                    dst = heapq.heappop(free)
+                else:
+                    dst = n_slots
+                    n_slots += 1
+            slot_of[n_in + t] = dst
+            code.append((dst, slot_of[a], slot_of[b]))
+        # a short group's no-ops each XOR a dead slot into itself: slots
+        # free before this group, which none of its ops touches
+        spare = heapq.nsmallest(group - len(chosen), free)
+        while len(spare) < group - len(chosen):
+            spare.append(n_slots)
+            n_slots += 1
+        code.extend((d, d, d) for d in spare)
+        for d in spare:
+            if d not in free:
+                heapq.heappush(free, d)
+        for v in dying - claimed:
+            heapq.heappush(free, slot_of[v])
+        for t in chosen:
+            ready.discard(t)
+            for v in ops[t]:
+                uses[v] -= 1
+            for r in readers[n_in + t]:
+                waiting[r] -= 1
+                if waiting[r] == 0:
+                    ready.add(r)
+    arr = np.array(code, dtype=np.int64).reshape(-1, 3)
+    if n_slots > np.iinfo(np.int16).max:
+        raise ValueError(f"schedule needs {n_slots} slots, more than int16")
+    out_slots = np.array([slot_of[v] if v is not None else -1
+                          for v in sched.out_ids], dtype=np.int16)
+    return XorProgram(sched=sched,
+                      code=torch.from_numpy(arr.astype(np.int16)),
+                      out_slots=torch.from_numpy(out_slots),
+                      n_slots=n_slots, group=group)
+

@@ -110,7 +110,7 @@ def test_xorsched_kernel_matches_plain_and_gf_apply(k, m):
             rng.integers(0, 256, (k, n), dtype=np.uint8)).cuda()
         for mat in [gf256.parity_matrix(k, m), _padded_rec(k, m),
                     _padded_rec(k, m)[:1]]:
-            prog = xor_schedule.lower_schedule(
+            prog = xor_schedule.lower_schedule_grouped(
                 xor_schedule.schedule_for_matrix(mat)).to("cuda")
             got = rs_cuda.gf_apply_xorsched(prog, x)
             torch.cuda.synchronize()
@@ -126,7 +126,8 @@ def test_xorsched_kernel_takes_offset_views_and_counts():
     rng = np.random.default_rng(61)
     x = torch.from_numpy(rng.integers(0, 256, (10, 4099), dtype=np.uint8))
     pm = gf256.parity_matrix(10, 4)
-    prog = xor_schedule.lower_schedule(xor_schedule.schedule_for_matrix(pm))
+    sched = xor_schedule.schedule_for_matrix(pm)
+    prog = xor_schedule.lower_schedule_grouped(sched)
     progd = prog.to("cuda")
     before = rs_cuda.gf_apply_xorsched.launches
     got = rs_cuda.gf_apply_xorsched(progd, x.cuda()[:, 3:]).cpu()
@@ -139,6 +140,9 @@ def test_xorsched_kernel_takes_offset_views_and_counts():
         rs_cuda.gf_apply_xorsched(progd, x[:6].cuda())
     with pytest.raises(ValueError):
         rs_cuda.gf_apply_xorsched(prog, x.cuda())  # program on the CPU
+    with pytest.raises(ValueError):  # one op at a time: not the kernel's
+        rs_cuda.gf_apply_xorsched(
+            xor_schedule.lower_schedule(sched).to("cuda"), x.cuda())
 
 
 @pytest.mark.gpu
@@ -278,3 +282,47 @@ def test_governed_auto_encode_equals_pinned_run(tmp_path):
         shas[run] = [open(base + geometry.to_ext(i), "rb").read()
                      for i in range(14)]
     assert shas["pinned"] == shas["governed"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", GEOMETRIES)
+def test_kernel_digests_match_plain(k, m):
+    """Both redesigned kernels' digest epilogue ([C + R] sums, added to
+    the buffer), with and without output stores, against the plain
+    digests; the grouped XOR program also against gf_apply's output."""
+    _need_card()
+    rng = np.random.default_rng(90 + k)
+    for n in [1, 31, 1023, 1025, 1 << 20, (1 << 20) + 5]:
+        x = torch.from_numpy(
+            rng.integers(0, 256, (k, n), dtype=np.uint8)).cuda()
+        for mat in [gf256.parity_matrix(k, m), _padded_rec(k, m),
+                    _padded_rec(k, m)[:1]]:
+            w = rs_torch.load_matrix(mat, "cuda")
+            want, want_d = rs_torch.gf_apply_digest(w, x)
+            prog = xor_schedule.lower_schedule_grouped(
+                xor_schedule.schedule_for_matrix(mat)).to("cuda")
+            for kernel, operand in [(rs_cuda.gf_apply, w),
+                                    (rs_cuda.gf_apply_xorsched, prog)]:
+                d = rs_cuda.new_digest(k + mat.shape[0], "cuda")
+                got = kernel(operand, x, digest=d)
+                assert kernel(operand, x, digest=d, out=False) is None
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (kernel.__name__, n)
+                assert torch.equal(rs_cuda.digest_values(d),
+                                   (2 * want_d) & 0xFFFFFFFF), (
+                    kernel.__name__, n, mat.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("formulation", ["bitplane", "xorsched"])
+def test_cuda_coder_row_digests(formulation):
+    _need_card()
+    coder = pcoder.TorchCoder(10, 4, formulation=formulation)
+    rng = np.random.default_rng(93)
+    data = rng.integers(0, 256, (10, 100_003), dtype=np.uint8)
+    handle = coder.encode_async(data)
+    parity = coder.materialize(handle)
+    assert np.array_equal(parity, pcoder.NumpyCoder(10, 4).encode(data))
+    assert coder.row_digests(handle).tolist() == [
+        int(r.astype(np.uint64).sum()) & 0xFFFFFFFF
+        for r in [*data, *parity]]

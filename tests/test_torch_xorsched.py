@@ -135,8 +135,10 @@ def test_lowered_program_reuses_slots():
     prog = pxs.lower_schedule(sched)
     assert prog.n_slots < 0.4 * (sched.n_in + len(sched.ops))
     threads, smem = rs_cuda.xorsched_launch(prog)
-    assert threads == rs_cuda.XORSCHED_THREADS
-    assert smem <= rs_cuda.SMEM_LIMIT
+    # as many threads as the slots (209 words, an odd row each) leave
+    # room for: 256, against 128 in the first design
+    assert threads == 256 and threads <= rs_cuda.XORSCHED_THREADS
+    assert smem <= rs_cuda.SMEM_LIMIT < smem + 32 * 4 * prog.n_slots
 
 
 def test_lowered_program_with_zero_rows_and_plain_inputs():
