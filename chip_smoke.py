@@ -15,9 +15,10 @@ Phases (any failure exits non-zero before the result line):
    required, 54 cases per kernel: (2) ``gf_apply`` (bit-plane matrix
    operand), (2b) ``gf_apply_xorsched`` (the matrix's grouped XOR
    program) and (2c) ``gf_apply_mxu`` (the same operand, both products on
-   the tensor cores), which must also equal ``gf_apply`` on the same
-   inputs; the first two also with their digest epilogue, with and
-   without output stores, whose [C + R] sums must equal the plain ones;
+   the tensor cores, on wgmma and again on mma.sync), which must also
+   equal ``gf_apply`` on the same inputs; the first two also with their
+   digest epilogue, with and without output stores, whose [C + R] sums
+   must equal the plain ones;
 3. the main path at full size under the default ``bitplane``
    formulation: a 1 GiB volume (seeded needles, log-uniform 1 KiB ..
    4 MiB, about 5% deleted) written with the port's Volume,
@@ -72,7 +73,12 @@ Phases (any failure exits non-zero before the result line):
    32-bit integer rate (132 SMs x 64 per clock x the SM clock nvidia-smi
    reports): a count of the function, not of either kernel's design.
    ``gf_apply``'s own integer instructions per column, counted from the
-   built library's SASS, are reported beside it (``ops_per_column``). The
+   built library's SASS, are reported beside it (``ops_per_column``), and
+   so are the tensor-core kernel's mma and integer instructions per 16
+   columns at RS(10,4) (``sass_per_16_columns``, on wgmma and on
+   mma.sync, whose time is ``mma_sync_ms``), whose bound counts the
+   int8 operations the function needs (the GF product and the repack,
+   without the design's padding) at the tensor-core rate. The
    ``kernels`` line, the nvidia-smi line, and the result line.
 
 It needs one card, exits non-zero without one, and works in a scratch
@@ -116,10 +122,12 @@ INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor rate
 # 32-bit integer add and logic results per clock per SM at compute
 # capability 9.0 (CUDA C Programming Guide, arithmetic instructions)
 INT32_RESULTS_PER_CLOCK_PER_SM = 64
-# set in main(): the card's 32-bit integer rate (word_ops_per_s) and
-# gf_apply's SASS instruction counts (gf_apply_sass_ops)
+# set in main(): the card's 32-bit integer rate (word_ops_per_s),
+# gf_apply's SASS instruction counts and the tensor-core kernel's per 16
+# columns (sass_ops)
 WORD_OPS = [0.0]
 SASS_OPS: dict = {}
+MXU_SASS: dict = {}
 KERNELS = {
     "gf_apply": {
         "name": "gf_apply",
@@ -171,12 +179,14 @@ def word_ops_per_s() -> float:
     return sms * INT32_RESULTS_PER_CLOCK_PER_SM * mhz * 1e6
 
 
-def gf_apply_sass_ops(lib: Path) -> dict:
-    """gf_apply_vec16's integer-pipe instructions from the built library's
-    SASS (scripts/torch_sass_ops.py): the row-pair loop's (two input rows
-    of 16 columns: the loop with global loads and the most shared loads)
-    and the rest of the enclosing column-group loop's (16 columns: the
-    transposes, stores and digest)."""
+def sass_ops(lib: Path) -> tuple[dict, dict]:
+    """From the built library's SASS (scripts/torch_sass_ops.py):
+    gf_apply_vec16's integer-pipe instructions -- the row-pair loop's (two
+    input rows of 16 columns: the loop with global loads and the most
+    shared loads) and the rest of the enclosing column-group loop's (16
+    columns: the transposes, stores and digest) -- and the tensor-core
+    kernel's instructions per 16 columns and row group at RS(10,4), by
+    class (mma, alu, ...), on wgmma and on mma.sync."""
     sys.path.insert(0, str(REPO / "scripts"))
     import torch_sass_ops as so
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
@@ -196,8 +206,10 @@ def gf_apply_sass_ops(lib: Path) -> dict:
                 key=lambda sp: (count(sp, "shared"), sp[0] - sp[1]))
     outer = min((sp for sp in spans if sp != inner and sp[0] <= inner[0]
                  and inner[1] <= sp[1]), key=lambda sp: sp[1] - sp[0])
-    return {"row_pair_loop": count(inner, "alu"),
-            "column_group_rest": count(outer, "alu") - count(inner, "alu")}
+    return ({"row_pair_loop": count(inner, "alu"),
+             "column_group_rest": count(outer, "alu") - count(inner, "alu")},
+            {"wgmma": so.mxu_counts(sass, wgmma=True),
+             "mma.sync": so.mxu_counts(sass, wgmma=False)})
 
 
 def gf_apply_ops_per_column(cols: int) -> float | None:
@@ -212,10 +224,12 @@ def gf_apply_ops_per_column(cols: int) -> float | None:
 
 def bound_ms_mxu(rows: int, cols: int, n: int) -> tuple[float, str]:
     """Least time for the tensor-core variant: the same bytes, against
-    the GF product's 2*8R*8C*n and the two nibble products' 2*2*R*4R*n
-    int8 operations at the tensor-core rate."""
+    the int8 operations the function needs at the tensor-core rate: the
+    GF product's 2*8R*8C*n and the repack's 2*R*8R*n (the kernel's one u8
+    product and the reference's two nibble products 2*2*R*4R*n alike),
+    with none of the design's padding of K or N counted."""
     t_bytes = (cols + rows) * n / HBM_BYTES_PER_S * 1e3
-    t_ops = (2 * (8 * rows) * (8 * cols) * n + 2 * 2 * rows * (4 * rows) * n
+    t_ops = (2 * (8 * rows) * (8 * cols) * n + 2 * rows * (8 * rows) * n
              ) / INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -341,6 +355,7 @@ def check_kernels(device: torch.device) -> dict:
                 got = rs_cuda.gf_apply(w, x)
                 got_x = rs_cuda.gf_apply_xorsched(prog, x)
                 got_m = rs_cuda.gf_apply(w, x, repack="mxu")
+                got_s = rs_cuda.gf_apply_mxu(w, x, instr="mma")
                 torch.cuda.synchronize()
                 pairs = {"gf_apply": (got, rs_torch.gf_apply(w, x)),
                          "gf_apply_xorsched": (got_x, rs_torch.
@@ -356,7 +371,8 @@ def check_kernels(device: torch.device) -> dict:
                             f"{name} != plain at RS({k},{m}) n={n} "
                             f"matrix {mat.shape}: max abs err {err}")
                 for name, other in [("gf_apply_xorsched", got_x),
-                                    ("gf_apply_mxu", got_m)]:
+                                    ("gf_apply_mxu", got_m),
+                                    ("gf_apply_mxu on mma.sync", got_s)]:
                     if not torch.equal(got, other):
                         raise AssertionError(
                             f"{name} != gf_apply at RS({k},{m}) n={n} "
@@ -366,7 +382,8 @@ def check_kernels(device: torch.device) -> dict:
                 cases += 1
     log({"phase": "kernels_vs_plain", "cases_per_kernel": cases,
          "bit_equal": True, "xorsched_equals_gf_apply": True,
-         "mxu_equals_gf_apply": True, "max_abs_err": worst,
+         "mxu_equals_gf_apply": True, "mxu_mma_sync_equals_gf_apply": True,
+         "max_abs_err": worst,
          "digests_equal_plain": ["gf_apply", "gf_apply_xorsched"],
          "digest_only_launches_equal_plain": True})
     return {"max_abs_err": worst, "cases": cases}
@@ -426,6 +443,12 @@ def time_kernels(device: torch.device, shapes: list) -> dict:
                    "reps": reps}
             if name == "gf_apply":
                 row["ops_per_column"] = gf_apply_ops_per_column(cols)
+            if name == "gf_apply_mxu":
+                row["sass_per_16_columns"] = MXU_SASS or None
+                # the same kernel on mma.sync, beside it
+                row["mma_sync_ms"], _ = time_cuda(
+                    lambda: rs_cuda.gf_apply_mxu(w, x, instr="mma"), reps,
+                    warm=reps)
             if name in digest_runs:
                 with_d, only_d, then_sum = digest_runs[name]
                 row["digest_ms"], row["digest_host_us"] = time_cuda(
@@ -1010,13 +1033,16 @@ def main() -> int:
          "library": lib.name})
     WORD_OPS[0] = word_ops_per_s()
     try:
-        SASS_OPS.update(gf_apply_sass_ops(lib))
+        apply_ops, mxu_ops = sass_ops(lib)
+        SASS_OPS.update(apply_ops)
+        MXU_SASS.update(mxu_ops)
     except (OSError, subprocess.CalledProcessError, StopIteration,
             ValueError) as e:
         # ops_per_column then reads None
         log({"phase": "sass_ops", "error": repr(e)})
     log({"phase": "rates", "int32_ops_per_s": WORD_OPS[0],
          "gf_apply_sass_alu": SASS_OPS or "not measured",
+         "gf_apply_mxu_sass_per_16_columns": MXU_SASS or "not measured",
          "gf_apply_ops_per_column_rs10_4": gf_apply_ops_per_column(10)})
 
     checked = check_kernels(device)
@@ -1106,8 +1132,8 @@ def main() -> int:
                "launches_by_phase": by_phase, "bit_equal": True,
                "library_note": "no single PyTorch call computes a GF(2^8) "
                                "matrix product"}
-        for key in ("ops_per_column", "digest_ms", "digest_only_ms",
-                    "digest_library_ms"):
+        for key in ("ops_per_column", "sass_per_16_columns", "mma_sync_ms",
+                    "digest_ms", "digest_only_ms", "digest_library_ms"):
             if key in enc:
                 row[key] = enc[key]
         if kernel == "gf_apply_mxu":

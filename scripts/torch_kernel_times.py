@@ -2,6 +2,7 @@
 """Time the port's GF(2^8) kernels of one checkout on the card.
 
     python3 scripts/torch_kernel_times.py [--root CHECKOUT] [--label NAME]
+                                          [--kernel NAME ...]
 
 Imports ``seaweedfs_torch`` from CHECKOUT (default: this script's
 repository), builds its kernels, and prints one JSON line per kernel and
@@ -13,7 +14,9 @@ synchronize). The main path's shapes: [10, 8 MiB] -> [4, 8 MiB] and
 [20, 8 MiB] -> [4, 8 MiB] with RS(20,4)'s, [10, 8 MiB] -> [4, 8 MiB]
 with the reconstruction matrix of shards 0, 3, 7 and 12 (a rebuild),
 and [10, 64 KiB] -> [1, 64 KiB] with a one-row reconstruction matrix (a
-degraded read). Where the checkout's wrappers take a digest it also
+degraded read). The tensor-core kernel (``gf_apply_mxu``) is timed at
+each shape too, and where its wrapper takes ``instr`` also on mma.sync.
+Where the checkout's wrappers take a digest it also
 times the launch with the digest epilogue, the digest-only launch and
 the digest's second pass (``out.sum(dim=1, dtype=torch.int64)`` after
 the kernel), which is what the epilogue replaces. At the encode shape it
@@ -22,7 +25,8 @@ a warp then looks up the same product-table word (a broadcast), so the
 difference from random bytes is what the table's shared-memory bank
 conflicts cost. Running it on two checkouts in one call (parent, change,
 change, parent) compares two versions on one card. The last line is the
-card's name and power limit as nvidia-smi gives them.
+card's name and power limit as nvidia-smi gives them. --kernel (one or
+more names, as printed) times only those runs.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
+    ap.add_argument("--kernel", nargs="*", default=None,
+                    help="time only these runs (names as printed)")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -95,7 +101,11 @@ def main() -> int:
         reps = max(50, min(2000, int(2e10 // (n * (rows + cols)))))
         runs = {"gf_apply": lambda: rs_cuda.gf_apply(w, x),
                 "gf_apply_xorsched": lambda: rs_cuda.gf_apply_xorsched(
-                    prog, x)}
+                    prog, x),
+                "gf_apply_mxu": lambda: rs_cuda.gf_apply_mxu(w, x)}
+        if "instr" in inspect.signature(rs_cuda.gf_apply_mxu).parameters:
+            runs["gf_apply_mxu mma.sync"] = lambda: rs_cuda.gf_apply_mxu(
+                w, x, instr="mma")
         if label == "encode":
             xc = torch.full_like(x, 0x5A)
             runs["gf_apply constant bytes"] = lambda: rs_cuda.gf_apply(w, xc)
@@ -113,6 +123,8 @@ def main() -> int:
                 "gf_apply then sum": lambda: rs_cuda.gf_apply(w, x).sum(
                     dim=1, dtype=torch.int64)})
         for name, fn in runs.items():
+            if args.kernel is not None and name not in args.kernel:
+                continue
             ms, host_us = time_launches(fn, reps)
             print(json.dumps({"label": args.label, "kernel": name,
                               "shape": label, "in": [cols, n],

@@ -6,11 +6,14 @@
 Disassembles the built library (``cuobjdump -sass``; or reads a saved
 dump with --sass) and prints, per kernel, one JSON line per loop: the
 loop's body (a backward branch's target up to the branch) with its
-instruction count, its count by class (integer ALU, shared-memory load
-or store, global load or store, other) and its opcodes. The innermost
-loops are the main loops the kernels' operation counts per byte column
-come from (PERF.md divides a body's count by the columns and rows it
-covers). It needs the CUDA toolkit's cuobjdump unless --sass is given.
+instruction count, its count by class (integer ALU, tensor-core mma,
+shared-memory load or store, global load or store, other) and its
+opcodes. The innermost loops are the main loops the kernels' operation
+counts per byte column come from (PERF.md divides a body's count by the
+columns and rows it covers). Two last lines, ``mxu_per_16_columns``,
+give the tensor-core kernel's counts per 16 columns (one m-tile) and row
+group at RS(10,4) (``mxu_counts``), on wgmma and on mma.sync. It needs
+the CUDA toolkit's cuobjdump unless --sass is given.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
 
 def classify(op: str) -> str:
     base = op.split(".")[0]
+    if base in ("IMMA", "HMMA", "IGMMA", "HGMMA", "QGMMA"):
+        return "mma"
     if base in ("LDS", "STS", "LDSM", "ATOMS"):
         return "shared"
     if base in ("LDG", "STG", "LD", "ST", "RED", "ATOMG", "LDL", "STL"):
@@ -62,6 +67,35 @@ def loops(insns: list) -> list:
     return sorted(set(found))
 
 
+def mxu_counts(sass: str, k_tiles: int = 3, wgmma: bool = True) -> dict:
+    """The tensor-core kernel's instructions per 16 columns and row group,
+    by class, for its instantiation with `k_tiles` k-tiles (3: C = 9..12,
+    RS(10,4)) on wgmma or mma.sync: the body of its whole-span loop (the
+    loop with the most mma and no byte loads) divided by the 16-column
+    m-tiles it covers, each of which issues k_tiles + 4 wgmma or
+    4 * k_tiles + 4 mma.sync (the GF product's k-tiles, times its 4
+    n-tiles on mma.sync, and one repack product per output row)."""
+    insns = next(v for k, v in kernels(sass).items()
+                 if f"gf_mxu_kernelILi{k_tiles}ELb{int(wgmma)}E" in k)
+
+    def body(span):
+        return [op for a, op, _ in insns if span[0] <= a <= span[1]]
+
+    whole = [sp for sp in loops(insns)
+             if any(classify(op) == "mma" for op in body(sp))
+             and not any(op.startswith("LDG") and ".U8" in op
+                         for op in body(sp))]
+    span = max(whole, key=lambda sp: sum(classify(op) == "mma"
+                                         for op in body(sp)))
+    by_class = collections.Counter(classify(op) for op in body(span))
+    m_tiles = by_class["mma"] / (k_tiles + 4 if wgmma else 4 * k_tiles + 4)
+    return {"k_tiles": k_tiles, "instr": "wgmma" if wgmma else "mma.sync",
+            "loop": [hex(span[0]), hex(span[1])],
+            "columns_per_loop": 16 * m_tiles,
+            **{cls: by_class[cls] / m_tiles for cls in
+               ("mma", "alu", "global_or_local", "shared", "control")}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sass", help="a saved cuobjdump -sass dump")
@@ -87,6 +121,10 @@ def main() -> int:
                 "instructions": len(body), "by_class": dict(by_class),
                 "opcodes": dict(collections.Counter(
                     op.split(".")[0] for op in body).most_common())}))
+    if "gf_mxu_kernel" in sass:
+        for wgmma in (True, False):
+            print(json.dumps({"mxu_per_16_columns": mxu_counts(
+                sass, wgmma=wgmma)}))
     return 0
 
 

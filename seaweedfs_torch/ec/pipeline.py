@@ -147,6 +147,8 @@ class _FanOut:
                 while True:
                     item = q.get()
                     if item is _SENTINEL:
+                        # taken: a failed fsync must not drain for it
+                        stop = True
                         # sync before the .ecm marker commits the set
                         os.fsync(fd)
                         return

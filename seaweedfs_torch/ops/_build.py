@@ -100,7 +100,7 @@ def library() -> ctypes.CDLL:
         lib.sw_gf_apply.restype = ctypes.c_int
         lib.sw_gf_mxu.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
         lib.sw_gf_mxu.restype = ctypes.c_int
         lib.sw_gf_xorsched.argtypes = [

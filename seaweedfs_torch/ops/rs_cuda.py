@@ -6,8 +6,9 @@
   uint8).
 - ``gf_apply_mxu`` (``csrc/gf_mxu.cu``), counterpart of
   ``rs_pallas.py:_gf_kernel_mxu_repack``: the same operands as
-  ``gf_apply``, both products on the int8 tensor cores; reached as
-  ``gf_apply(w, x, repack="mxu")``, the reference's argument. No coder
+  ``gf_apply``, both products on the int8 tensor cores (``wgmma`` by
+  default; ``instr="mma"`` runs the same kernel on ``mma.sync``); reached
+  as ``gf_apply(w, x, repack="mxu")``, the reference's argument. No coder
   selects it.
 - ``gf_apply_xorsched`` (``csrc/gf_xorsched.cu``), counterpart of
   ``rs_pallas.py:_gf_kernel_xorsched``: takes the lowered XOR program
@@ -44,6 +45,8 @@ XORSCHED_THREADS = 512
 # the ops per group of the programs that the XOR-schedule kernel walks
 # (xor_schedule.lower_schedule_grouped's default)
 XORSCHED_GROUP = 4
+# the tensor-core kernel's instructions for its two products
+MXU_INSTRS = ("wgmma", "mma")
 
 
 def new_digest(rows: int, device: torch.device | str) -> torch.Tensor:
@@ -150,11 +153,17 @@ def gf_apply(w: torch.Tensor, x: torch.Tensor, repack: str = "vpu",
 gf_apply.launches = 0
 
 
-def gf_apply_mxu(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def gf_apply_mxu(w: torch.Tensor, x: torch.Tensor,
+                 instr: str = "wgmma") -> torch.Tensor:
     """``gf_apply`` with both the product and the byte repack on the int8
     tensor cores (``csrc/gf_mxu.cu``, counterpart of ``rs_pallas.py:
     _gf_kernel_mxu_repack``): the same operands and result; its plain
-    version is ``rs_torch.gf_apply_mxu``. Counts its own launches."""
+    version is ``rs_torch.gf_apply_mxu``. `instr` is the products'
+    instruction, "wgmma" or "mma" (mma.sync); anything else raises. Counts
+    its own launches."""
+    if instr not in MXU_INSTRS:
+        raise ValueError(f"gf_apply_mxu: unknown instr {instr!r}; have "
+                         f"{MXU_INSTRS}")
     if x.device.type == "cpu":
         return rs_torch.gf_apply_mxu(w, x)
     rows, cols, n = _check_bitplane("gf_apply_mxu", w, x)
@@ -164,7 +173,8 @@ def gf_apply_mxu(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return result
     err = _build.library().sw_gf_mxu(
         w.data_ptr(), rows, cols, x.data_ptr(), result.data_ptr(), n,
-        _device_index(x), torch.cuda.current_stream(x.device).cuda_stream)
+        int(instr == "wgmma"), _device_index(x),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"gf_apply_mxu kernel launch failed: cudaError {err}")

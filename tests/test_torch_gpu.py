@@ -218,6 +218,9 @@ def test_mxu_kernel_matches_plain_and_gf_apply(k, m):
                     w, xv.contiguous())), (n, mat.shape)
                 assert torch.equal(got, rs_cuda.gf_apply(w, xv)), (
                     n, mat.shape)
+                assert torch.equal(
+                    rs_cuda.gf_apply_mxu(w, xv, instr="mma"), got), (
+                    n, mat.shape)
 
 
 @pytest.mark.gpu
