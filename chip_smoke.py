@@ -62,9 +62,33 @@ Phases (any failure exits non-zero before the result line):
    "ec" metrics registry on one line;
 4. the same as 3/3b at a mixed-tier layout (262144 / 16384 blocks, 4 MiB
    volume), under both formulations;
+6. (run before 5) ``Store(coder_name="auto")`` under the default policy
+   (no ``WEED_EC_GEOMETRY``: ``default=10+4,archive=20+4``) and the
+   default formulation. (6a) the default collection, RS(10,4): a 1 GiB
+   volume written with ``Store.write_needle`` (phase 3's generator,
+   about 5% deleted), ``ec_generate`` (parity held against the plain
+   version over the whole volume, .ecm digests from the kernels' epilogue
+   equal to the shard files'), ``close`` and a new Store that finds the
+   EC volume with 14 shards, every needle read, ``ec_delete_shards`` of
+   {0, 3, 7, 12} and every needle read again (degraded), ``ec_blob_delete``
+   of 8 needles (refused after, journaled in .ecj), ``ec_rebuild``
+   (rebuilt shards' sha256 equal, .ecj folded into .ecx),
+   ``ec_to_volume`` (the decoded .dat equals the source up to its last
+   live needle; every needle reads from the restored volume). (6b) the
+   ``archive`` collection, RS(20,4): a 1 GiB volume of the fused
+   warm-down tests' five payload kinds, 30% tombstoned (upstream's default
+   vacuum garbageThreshold), ``ec_fused_generate`` (24 shards, a marker
+   naming RS(20,4), the decoded .dat equal to the sequential
+   per-needle-read-and-gzip chain's, parity equal to the plain version's,
+   .ecm digests equal to the files', no staging file left, every live
+   needle read back decompressed through an ``EcVolume`` with 4 shards
+   lost), with one line of the pass's wall time, GB/s of the source
+   volume, stats and ``ec.*`` span totals. Every step's launches are
+   counted: only ``gf_apply`` may run, and it must in the coder's steps;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
-   shapes the main path gives them, with and without the digest epilogue
+   shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
+   fused pass's [20, 4 MiB] too), with and without the digest epilogue
    (beside the kernel-then-``sum`` pass the epilogue replaces), and the
    bound: bytes at the memory rate, or the function's operations at their
    rate, whichever takes longer. For ``gf_apply`` and the XOR-schedule
@@ -87,6 +111,7 @@ directory inside the checkout that it removes at the end.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -107,10 +132,13 @@ from seaweedfs_torch.ec import pipeline, striping
 from seaweedfs_torch.observe import wideevents
 from seaweedfs_torch.ops import _build, gf256, rs_cuda, rs_torch
 from seaweedfs_torch.ops import xor_schedule
-from seaweedfs_torch.storage import types as st
-from seaweedfs_torch.storage.needle import Needle
+from seaweedfs_torch.storage import store as store_mod
+from seaweedfs_torch.storage import types as st_types
+from seaweedfs_torch.storage.needle import (FLAG_HAS_MIME, FLAG_HAS_NAME,
+                                            FLAG_IS_COMPRESSED, Needle)
+from seaweedfs_torch.storage.superblock import SuperBlock
 from seaweedfs_torch.storage.volume import Volume
-from seaweedfs_torch.utils import metrics
+from seaweedfs_torch.utils import compression, metrics
 
 REPO = Path(__file__).resolve().parent
 WORK = REPO / ".chip_smoke_work"
@@ -277,18 +305,20 @@ def time_cuda(fn, reps: int, warm: int = 3,
 
 
 class call_counter:
-    """Count the calls of obj.name during a block; the function itself
-    still runs."""
+    """Count the calls of obj.name during a block, and keep what they
+    returned; the function itself still runs."""
 
     def __init__(self, obj, name: str):
-        self.obj, self.name, self.calls = obj, name, 0
+        self.obj, self.name, self.calls, self.results = obj, name, 0, []
 
     def __enter__(self):
         self.real = getattr(self.obj, self.name)
 
         def counting(*args, **kwargs):
             self.calls += 1
-            return self.real(*args, **kwargs)
+            result = self.real(*args, **kwargs)
+            self.results.append(result)
+            return result
 
         setattr(self.obj, self.name, counting)
         return self
@@ -399,7 +429,8 @@ def time_kernels(device: torch.device, shapes: list) -> dict:
     for label, rows, cols, n in shapes:
         x = torch.from_numpy(
             rng.integers(0, 256, (cols, n), dtype=np.uint8)).to(device)
-        mat = (gf256.parity_matrix(cols, rows) if label.startswith("encode")
+        mat = (gf256.parity_matrix(cols, rows)
+               if label.startswith(("encode", "archive"))
                else padded_rec(cols, rows) if label == "rebuild"
                else one_row_rec(cols, 4))
         w = rs_torch.load_matrix(mat, device)
@@ -479,29 +510,36 @@ def sha256_file(path: str) -> str:
             h.update(chunk)
 
 
-def write_volume(directory: str, total: int, max_needle: int,
-                 seed: int) -> tuple[dict, set]:
-    """Seeded needles, log-uniform 1 KiB .. max_needle, until the .dat
-    holds `total` bytes; then about 5% deleted."""
+def write_needles(write, delete, size_now, total: int, max_needle: int,
+                  seed: int) -> tuple[dict, set]:
+    """Seeded needles, log-uniform 1 KiB .. max_needle, written with
+    `write` until size_now() reaches `total`; then about 5% deleted."""
     rng = np.random.default_rng(seed)
-    vol = Volume(directory, "", 1, create=True)
     sizes: dict = {}
     nid = 0
+    while size_now() < total:
+        nid += 1
+        size = int(np.exp(rng.uniform(np.log(1024), np.log(max_needle))))
+        size = min(size, total - size_now())
+        write(Needle(cookie=nid * 7919 & 0xFFFFFFFF, id=nid,
+                     data=payload(seed, nid, size)))
+        sizes[nid] = size
+    deleted = {int(i) for i in rng.choice(
+        sorted(sizes), size=max(1, len(sizes) // 20), replace=False)}
+    for d in sorted(deleted):
+        delete(Needle(cookie=d * 7919 & 0xFFFFFFFF, id=d))
+    return sizes, deleted
+
+
+def write_volume(directory: str, total: int, max_needle: int,
+                 seed: int) -> tuple[dict, set]:
+    """write_needles into volume 1 of `directory` through the Volume."""
+    vol = Volume(directory, "", 1, create=True)
     try:
-        while vol.dat_size() < total:
-            nid += 1
-            size = int(np.exp(rng.uniform(np.log(1024), np.log(max_needle))))
-            size = min(size, total - vol.dat_size())
-            vol.write_needle(Needle(cookie=nid * 7919 & 0xFFFFFFFF, id=nid,
-                                    data=payload(seed, nid, size)))
-            sizes[nid] = size
-        deleted = {int(i) for i in rng.choice(
-            sorted(sizes), size=max(1, len(sizes) // 20), replace=False)}
-        for d in sorted(deleted):
-            vol.delete_needle(Needle(cookie=d * 7919 & 0xFFFFFFFF, id=d))
+        return write_needles(vol.write_needle, vol.delete_needle,
+                             vol.data_file_size, total, max_needle, seed)
     finally:
         vol.close()
-    return sizes, deleted
 
 
 def read_all(vol, sizes: dict, deleted: set, seed: int) -> dict:
@@ -735,7 +773,7 @@ def run_main_path(work: Path, coder, g: geometry.Geometry, volume: dict,
     if (os.path.getsize(base + ".dat") != dat_size
             or sha256_file(base + ".dat") != src_sha):
         raise AssertionError("decoded .dat differs from the source")
-    found = striping.find_dat_file_size(base, st.CURRENT_VERSION)
+    found = striping.find_dat_file_size(base, st_types.CURRENT_VERSION)
     if not 0 < found <= dat_size:
         raise AssertionError(f"find_dat_file_size {found} > {dat_size}")
     launches.update(check_sinks(base, coder, g, tag))
@@ -1017,6 +1055,379 @@ def run_governed(work: Path, coder, g: geometry.Geometry, volume: dict,
     return launches
 
 
+# --- phase 6: the Store EC lifecycle and the fused warm-down -----------
+
+class StoreReader:
+    """read_all's view of one volume id of a Store."""
+
+    def __init__(self, store, vid: int):
+        self.store, self.vid = store, vid
+
+    def read_needle(self, nid: int, cookie=None):
+        return self.store.read_needle(self.vid, nid, cookie=cookie)
+
+
+# steps of phase 6 that run the coder (gf_apply must launch there); every
+# other step launches no kernel at all
+STORE_CODER_STEPS = ("store.ec_generate", "store.read_degraded",
+                     "store.ec_rebuild", "fused.ec_fused_generate",
+                     "fused.read_degraded")
+
+
+def check_store_launches(launches: dict) -> None:
+    for step, counts in launches.items():
+        others = {k: n for k, n in counts.items() if k != "gf_apply" and n}
+        if others or (step in STORE_CODER_STEPS) != (counts["gf_apply"] > 0):
+            raise AssertionError(f"{step}: launches {counts}")
+
+
+def check_ecm_digests(base: str, g: geometry.Geometry, tag: str) -> None:
+    stamped = pipeline.read_stamped_digests(base)
+    files = pipeline.shard_file_digest(base, range(g.total_shards))
+    if [stamped.get(i) for i in range(g.total_shards)] != files.tolist():
+        raise AssertionError(f"{tag}: .ecm digests {stamped} != shard "
+                             f"files {files.tolist()}")
+
+
+def run_store_default(work: Path, device: torch.device,
+                      total: int = 1 << 30,
+                      min_on_victims: int = 200) -> dict:
+    """(6a) The default collection, RS(10,4), through Store(coder_name=
+    "auto"): write, ec_generate, reopen, reads, degraded reads,
+    ec_blob_delete, ec_rebuild, ec_to_volume. Returns launches per step."""
+    work.mkdir(parents=True)
+    directory = str(work)
+    base = os.path.join(directory, "1")
+    seed = SEED + 6
+    launches = {}
+    # the governor's plan starts afresh, not from phase 3's retuning
+    governor.reset()
+    observe.reset()
+    wideevents.reset()
+    st = store_mod.Store([directory], coder_name="auto")
+    g = st.geometry_for("")
+    if (g.data_shards, g.parity_shards) != (10, 4):
+        raise AssertionError(f"default collection geometry {g}")
+    st.add_volume(1)
+    sizes, deleted = timed(
+        "store.write_volume",
+        lambda: write_needles(lambda n: st.write_needle(1, n),
+                              lambda n: st.delete_needle(1, n),
+                              st.find_volume(1).data_file_size, total,
+                              4 * MIB, seed),
+        lambda r: st.find_volume(1).data_file_size(),
+        lambda r: {"needles": len(r[0]), "deleted": len(r[1])})
+    st.find_volume(1).sync()
+    dat_size = os.path.getsize(base + ".dat")
+    shutil.copyfile(base + ".dat", str(work / "source.dat"))
+    with call_counter(pipeline, "host_row_digests") as host_sums:
+        shard_ids, launches["store.ec_generate"] = timed(
+            "store.ec_generate", lambda: counted(lambda: st.ec_generate(1)),
+            lambda r: dat_size, lambda r: {"launches": r[1]})
+    if shard_ids != list(range(14)) or host_sums.calls:
+        raise AssertionError(f"ec_generate gave {shard_ids}, "
+                             f"{host_sums.calls} host digest sums")
+    check_ecm_digests(base, g, "store.ec_generate")
+    timed("store.parity_vs_plain",
+          lambda: check_parity_with(base, g, device),
+          lambda shard: shard * g.total_shards)
+    shard_sha = shard_shas(base, g)
+    # the shards take over: the volume goes, the reopened store finds
+    # the EC volume through load_existing
+    st.delete_volume(1)
+    st.close()
+    st = store_mod.Store([directory], coder_name="auto")
+    try:
+        ev = st.find_ec_volume(1)
+        if ev is None or ev.shard_ids() != list(range(14)):
+            raise AssertionError("reopened store: EC volume 1 has shards "
+                                 f"{ev and ev.shard_ids()}")
+        reader = StoreReader(st, 1)
+        _, launches["store.read"] = timed(
+            "store.read_all_shards",
+            lambda: counted(lambda: read_all(reader, sizes, deleted, seed)),
+            lambda r: r[0]["bytes"],
+            lambda r: {"launches": r[1],
+                       **latency_summary(r[0]["latencies"])})
+        on_victims = needles_on(ev, sizes, deleted, VICTIMS)
+        st.ec_delete_shards(1, "", list(VICTIMS))
+        if ev.shard_ids() != [i for i in range(14) if i not in VICTIMS] \
+                or any(os.path.exists(base + geometry.to_ext(v))
+                       for v in VICTIMS):
+            raise AssertionError("ec_delete_shards left shards")
+        _, launches["store.read_degraded"] = timed(
+            "store.read_degraded",
+            lambda: counted(lambda: read_all(reader, sizes, deleted, seed)),
+            lambda r: r[0]["bytes"],
+            lambda r: {"launches": r[1], "needles_on_victims": on_victims,
+                       **latency_summary(r[0]["latencies"])})
+        if on_victims < min_on_victims:
+            raise AssertionError(f"{on_victims} needles on the lost shards")
+        live = sorted(n for n in sizes if n not in deleted)
+        gone = set(live[:8])
+        _, launches["store.ec_blob_delete"] = counted(
+            lambda: [st.ec_blob_delete(1, nid) for nid in sorted(gone)])
+        for nid in gone:
+            try:
+                st.read_needle(1, nid)
+            except KeyError:
+                continue
+            raise AssertionError(f"blob-deleted needle {nid} readable")
+        if os.path.getsize(base + ".ecj") != 8 * len(gone):
+            raise AssertionError(".ecj does not journal the deletes")
+        rebuilt, launches["store.ec_rebuild"] = timed(
+            "store.ec_rebuild", lambda: counted(lambda: st.ec_rebuild(1)),
+            lambda r: os.path.getsize(base + geometry.to_ext(1))
+            * g.data_shards, lambda r: {"launches": r[1]})
+        if rebuilt != list(VICTIMS) or any(
+                sha256_file(base + geometry.to_ext(v)) != shard_sha[v]
+                for v in VICTIMS):
+            raise AssertionError(f"ec_rebuild of {rebuilt} differs")
+        folded = all(st_types.size_is_deleted(ev.find_needle(nid)[1])
+                     for nid in gone)
+        if os.path.exists(base + ".ecj") or not folded:
+            raise AssertionError(".ecj not folded into the .ecx")
+        _, launches["store.ec_to_volume"] = timed(
+            "store.ec_to_volume",
+            lambda: counted(lambda: st.ec_to_volume(1)),
+            lambda r: dat_size)
+        decoded = os.path.getsize(base + ".dat")
+        # the decoded .dat ends at the last live needle (FindDatFileSize):
+        # the source's tail past it is the deletes' tombstone records
+        with open(base + ".dat", "rb") as a, \
+                open(str(work / "source.dat"), "rb") as b:
+            while True:
+                chunk = a.read(16 * MIB)
+                if chunk != b.read(len(chunk)):
+                    raise AssertionError("decoded .dat differs from the "
+                                         "source")
+                if not chunk:
+                    break
+        if st.find_volume(1) is None or st.find_ec_volume(1) is not None:
+            raise AssertionError("ec_to_volume did not restore the volume")
+        _, launches["store.read_restored"] = timed(
+            "store.read_restored",
+            lambda: counted(lambda: read_all(reader, sizes,
+                                             deleted | gone, seed)),
+            lambda r: r[0]["bytes"], lambda r: {"launches": r[1]})
+    finally:
+        st.close()
+    check_store_launches(launches)
+    log({"phase": "store.summary", "geometry": "RS(10,4)",
+         "dat_bytes": dat_size, "decoded_dat_bytes": decoded,
+         "needles": len(sizes), "deleted": len(deleted),
+         "blob_deleted": len(gone), "needles_on_victims": on_victims,
+         "reopen_found_shards": 14, "rebuilt_sha256_equal": True,
+         "decoded_equal_source_prefix": True, "launches": launches})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+@functools.cache
+def already_gzipped() -> bytes:
+    return compression.compress(b"already " * 600)
+
+
+def archive_needle(seed: int, nid: int) -> Needle:
+    """The fused warm-down tests' five payload kinds
+    (tests/test_fused_warmdown.py:95-126): compressible text, random
+    bytes, tiny, already gzipped, bulky; names and mimes on every third."""
+    rng = np.random.default_rng((seed, nid))
+    kind = nid % 5
+    if kind == 0:
+        data = b"compressible text block " * int(rng.integers(1, 400))
+    elif kind == 1:
+        data = rng.bytes(int(rng.integers(1, 9000)))
+    elif kind == 2:
+        data = b"x" * int(rng.integers(1, 7))
+    elif kind == 3:
+        data = already_gzipped()
+    else:
+        data = b"padme" * int(rng.integers(100, 5000))
+    n = Needle(cookie=nid * 7919 & 0xFFFFFFFF, id=nid, data=data)
+    if kind == 3:
+        n.set_flag(FLAG_IS_COMPRESSED)
+    if nid % 3 == 0:
+        n.name = f"file-{nid}.txt".encode()
+        n.mime = b"text/plain"
+        n.set_flag(FLAG_HAS_NAME)
+        n.set_flag(FLAG_HAS_MIME)
+    return n
+
+
+def sequential_compact(volume, dst_dat: str, gzip_level: int = 1) -> int:
+    """The chain the fused pass replaces, up to its .dat: per-needle reads
+    of the live needles in offset order and the same gzip rule
+    (tests/test_fused_warmdown.py:48-92). Returns the .dat size."""
+    with volume._lock:
+        snapshot = sorted((nv for nv in volume.nm.values()
+                           if st_types.size_is_valid(nv.size)),
+                          key=lambda nv: nv.offset)
+        sb = SuperBlock(
+            version=volume.super_block.version,
+            replica_placement=volume.super_block.replica_placement,
+            ttl=volume.super_block.ttl,
+            compaction_revision=volume.super_block.compaction_revision + 1,
+            extra=volume.super_block.extra)
+    with open(dst_dat, "wb") as dat:
+        dat.write(sb.to_bytes())
+        offset = len(sb.to_bytes())
+        for nv in snapshot:
+            n = volume.read_needle_at(st_types.stored_to_offset(nv.offset),
+                                      nv.size)
+            if n.data and not n.is_compressed:
+                head = n.data[:4096]
+                trial = compression.compress(head, level=gzip_level)
+                if len(trial) * 10 < len(head) * 9:
+                    comp = compression.compress(n.data, level=gzip_level)
+                    if len(comp) * 10 < len(n.data) * 9:
+                        n.data = comp
+                        n.set_flag(FLAG_IS_COMPRESSED)
+            pad = (-offset) % st_types.NEEDLE_PADDING_SIZE
+            dat.write(bytes(pad))
+            record = n.to_bytes(volume.version)
+            dat.write(record)
+            offset += pad + len(record)
+    return offset
+
+
+def run_store_archive(work: Path, device: torch.device,
+                      total: int = 1 << 30) -> dict:
+    """(6b) The archive collection, RS(20,4), through the fused warm-down
+    of Store(coder_name="auto"). Returns launches per step."""
+    work.mkdir(parents=True)
+    directory = str(work)
+    base = os.path.join(directory, "archive_2")
+    seed = SEED + 7
+    launches = {}
+    governor.reset()
+    observe.reset()
+    wideevents.reset()
+    st = store_mod.Store([directory], coder_name="auto")
+    try:
+        g = st.geometry_for("archive")
+        if (g.data_shards, g.parity_shards) != (20, 4):
+            raise AssertionError(f"archive collection geometry {g}")
+        vol = st.add_volume(2, collection="archive")
+
+        def fill() -> tuple[int, set]:
+            nid = 0
+            while vol.data_file_size() < total:
+                nid += 1
+                st.write_needle(2, archive_needle(seed, nid))
+            rng = np.random.default_rng(seed)
+            # upstream's default vacuum garbageThreshold, 0.3
+            gone = {int(i) + 1 for i in rng.choice(nid, size=int(0.3 * nid),
+                                                   replace=False)}
+            for d in sorted(gone):
+                st.delete_needle(2, Needle(cookie=d * 7919 & 0xFFFFFFFF,
+                                           id=d))
+            return nid, gone
+
+        count, deleted = timed(
+            "fused.write_volume", fill, lambda r: vol.data_file_size(),
+            lambda r: {"needles": r[0], "deleted": len(r[1])})
+        src_bytes = vol.data_file_size()
+        seq_size = timed(
+            "fused.sequential_reference",
+            lambda: sequential_compact(vol, str(work / "seq.dat")),
+            lambda r: src_bytes)
+        with call_counter(store_mod.ec_fused,
+                          "fused_vacuum_gzip_encode") as rec:
+            t0 = time.perf_counter()
+            shard_ids, launches["fused.ec_fused_generate"] = counted(
+                lambda: st.ec_fused_generate(2))
+            secs = time.perf_counter() - t0
+        stats = rec.results[0]
+        marker = striping.read_marker_geometry(base)
+        if shard_ids != list(range(24)) or marker != g:
+            raise AssertionError(f"ec_fused_generate gave {shard_ids}, "
+                                 f"marker {marker}")
+        log({"phase": "fused.ec_fused_generate", "seconds": secs,
+             "src_bytes": src_bytes, "gbps": src_bytes / secs / 1e9,
+             **{k: stats[k] for k in (
+                 "live_needles", "gzipped_needles", "gzip_s",
+                 "gzip_workers", "compacted_bytes", "batch_size",
+                 "readers", "commit_s")},
+             "stage_totals": last_stage_totals(),
+             "launches": launches["fused.ec_fused_generate"]})
+        if stats["live_needles"] != count - len(deleted) or \
+                not stats["gzipped_needles"]:
+            raise AssertionError(f"fused stats {stats}")
+        leftovers = [n for n in os.listdir(directory) if ".fusing" in n]
+        if leftovers:
+            raise AssertionError(f"staging files left: {leftovers}")
+        check_ecm_digests(base, g, "fused")
+        timed("fused.parity_vs_plain",
+              lambda: check_parity_with(base, g, device),
+              lambda shard: shard * g.total_shards)
+        # decode a copy of the data shards: equal to the sequential chain
+        (work / "decode").mkdir()
+        dec = str(work / "decode" / "2")
+        for i in range(g.data_shards):
+            os.link(base + geometry.to_ext(i), dec + geometry.to_ext(i))
+        with open(base + ".ecm") as f:
+            dat_size = json.load(f)["dat_size"]
+        striping.write_dat_file(dec, dat_size, g)
+        if dat_size != seq_size or \
+                sha256_file(dec + ".dat") != sha256_file(str(work /
+                                                             "seq.dat")):
+            raise AssertionError(f"fused .dat ({dat_size} bytes) differs "
+                                 f"from the sequential chain's ({seq_size})")
+        shutil.rmtree(work / "decode")
+        # every live needle through an EcVolume with 4 shards lost
+        ev = ec_volume.EcVolume(directory, "archive", 2, g,
+                                coder=st.coder(g))
+
+        def read_back() -> dict:
+            nbytes, lat, on_victims = 0, [], 0
+            for nid in range(1, count + 1):
+                if nid in deleted:
+                    try:
+                        ev.read_needle(nid)
+                    except KeyError:
+                        continue
+                    raise AssertionError(f"deleted needle {nid} readable")
+                _, _, ivs = ev.locate(nid)
+                on_victims += any(iv.to_shard_id_and_offset(g)[0]
+                                  in VICTIMS for iv in ivs)
+                t0 = time.perf_counter()
+                n = ev.read_needle(nid, cookie=nid * 7919 & 0xFFFFFFFF)
+                lat.append(time.perf_counter() - t0)
+                want = archive_needle(seed, nid)
+                got = (compression.decompress(n.data) if n.is_compressed
+                       else n.data)
+                if got != (compression.decompress(want.data)
+                           if want.is_compressed else want.data):
+                    raise AssertionError(f"needle {nid} reads back wrong")
+                nbytes += len(got)
+            return {"bytes": nbytes, "latencies": lat,
+                    "on_victims": on_victims}
+
+        try:
+            for sid in range(g.total_shards):
+                if sid not in VICTIMS:
+                    ev.add_shard(sid)
+            _, launches["fused.read_degraded"] = timed(
+                "fused.read_degraded", lambda: counted(read_back),
+                lambda r: r[0]["bytes"],
+                lambda r: {"launches": r[1],
+                           "needles_on_victims": r[0]["on_victims"],
+                           **latency_summary(r[0]["latencies"])})
+        finally:
+            ev.close()
+    finally:
+        st.close()
+    check_store_launches(launches)
+    log({"phase": "fused.summary", "geometry": "RS(20,4)",
+         "src_bytes": src_bytes, "compacted_bytes": dat_size,
+         "needles": count, "deleted": len(deleted),
+         "decoded_equal_sequential": True, "parity_equal_plain": True,
+         "ecm_digests_equal_files": True, "launches": launches})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1094,6 +1505,12 @@ def main() -> int:
                                         device, tag)
         if sha["mixed_tier."] != sha["mixed_tier.xorsched."]:
             raise AssertionError("mixed-tier xorsched shards differ")
+        shutil.rmtree(WORK, ignore_errors=True)
+        # phase 6 under the default policy and formulation
+        with env_set(WEED_EC_GEOMETRY=None, WEED_EC_FORMULATION=None,
+                     WEED_EC_MESH_DEVICES=None):
+            launches["store"] = run_store_default(WORK / "store", device)
+            launches["fused"] = run_store_archive(WORK / "fused", device)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -1108,17 +1525,21 @@ def main() -> int:
 
     # main-path shapes: encode and rebuild batches are [10, 8 MiB] (the
     # feed joins consecutive 1 MiB small-block segments up to the batch
-    # size); a degraded read is one interval, R = 1
+    # size); a degraded read is one interval, R = 1; the archive
+    # collection's RS(20,4) at 8 MiB, and at the 4 MiB the governor plans
+    # for k = 20 within its staging budget (the fused pass's batches)
     times = time_kernels(device, [("encode", 4, 10, 8 * MIB),
                                   ("rebuild", 4, 10, 8 * MIB),
                                   ("encode_1mib", 4, 10, MIB),
-                                  ("degraded_read", 1, 10, 64 * 1024)])
+                                  ("degraded_read", 1, 10, 64 * 1024),
+                                  ("archive", 4, 20, 8 * MIB),
+                                  ("archive_4mib", 4, 20, 4 * MIB)])
     log(smi)
     kernels = []
     main_steps = {**launches["bitplane"], **{
         f"xorsched.{k}": v for k, v in launches["xorsched"].items()}, **{
         f"governed.{k}": v for k, v in launches["governed"].items()
-        if k != "mxu_entry"}}
+        if k != "mxu_entry"}, **launches["store"], **launches["fused"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}
@@ -1136,6 +1557,12 @@ def main() -> int:
                     "digest_ms", "digest_only_ms", "digest_library_ms"):
             if key in enc:
                 row[key] = enc[key]
+        for label, key, shape in [
+                ("archive", "rs20_4", "[20,8MiB] -> [4,8MiB]"),
+                ("archive_4mib", "rs20_4_4mib", "[20,4MiB] -> [4,4MiB]")]:
+            arc = next(r for r in times[kernel] if r["shape"] == label)
+            row[key] = {"shape": shape, **{k: arc[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "host_us")}}
         if kernel == "gf_apply_mxu":
             # no main-path step runs it (none does in the reference): its
             # launches are those of its own entry, the repack="mxu"

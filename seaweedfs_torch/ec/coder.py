@@ -429,17 +429,23 @@ register_coder("numpy", NumpyCoder)
 register_coder("torch", TorchCoder)
 
 
-def get_coder(name: str, data_shards: int,
-              parity_shards: int) -> ErasureCoder:
+def get_coder(name: str, data_shards: int, parity_shards: int,
+              device: "str | torch.device | None" = None) -> ErasureCoder:
     """A coder by name. "auto" is the CUDA kernel coder, its formulation
-    from WEED_EC_FORMULATION; it raises where there is no card."""
+    from WEED_EC_FORMULATION; it raises where there is no card. `device`
+    goes to the "torch" coder (a card, or "cpu" for the kernels' plain
+    versions); "auto" takes only a card."""
     if name == "auto":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "get_coder('auto'): no CUDA device (the port does not fall "
                 "back to the CPU; ask for 'numpy' or "
                 "TorchCoder(device='cpu') explicitly)")
+        if device is not None and torch.device(device).type != "cuda":
+            raise ValueError(f"get_coder('auto'): {device} is not a card")
         name = "torch"
     if name not in _REGISTRY:
         raise KeyError(f"unknown coder {name!r}; have {sorted(_REGISTRY)}")
-    return _REGISTRY[name](data_shards, parity_shards)
+    if device is None:
+        return _REGISTRY[name](data_shards, parity_shards)
+    return _REGISTRY[name](data_shards, parity_shards, device=device)

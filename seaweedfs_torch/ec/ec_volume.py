@@ -181,7 +181,8 @@ class EcVolume:
         if shard_size == 0:
             raise IOError(f"ec volume {self.vid}: no local shards")
         if not self._layout_checked:
-            check_layout_marker(self.base_file_name())
+            check_layout_marker(self.base_file_name(), shard_size,
+                                self.g)
             self._layout_checked = True
         intervals = locate_data(
             self.g, self.g.data_shards * shard_size,

@@ -1,4 +1,4 @@
-"""File-level EC operations: .dat <-> .ec00..ec13 (+ .ecx/.ecm).
+"""File-level EC operations: .dat <-> .ec00..ec13 (+ .ecx/.ecj/.ecm/.idx).
 
 The port's reduced copy of seaweedfs_tpu/ec/striping.py (upstream
 weed/storage/erasure_coding/ec_encoder.go:57-306, ec_decoder.go). On-disk
@@ -9,6 +9,7 @@ artifacts are byte-identical to the reference for the same input:
   striped in small-block rows; the final row is zero-padded but written
   full-length, so shard sizes are whole multiples of the block sizes;
 - .ecx is the .idx journal folded and sorted ascending by needle id;
+- .ecj is a flat journal of deleted needle ids (8 bytes each);
 - .ecm records the layout version, the geometry and the shard digests.
 
 The bulk encode and rebuild are ec/pipeline.py's ``stream_encode`` and
@@ -19,6 +20,7 @@ simple synchronous loops kept as their reference shape.
 from __future__ import annotations
 
 import json
+import logging
 import os
 from typing import Iterator, Optional
 
@@ -169,20 +171,55 @@ def write_layout_marker(base_file_name: str, dat_size: int,
     durable.write_json_atomic(base_file_name + ".ecm", meta)
 
 
-def check_layout_marker(base_file_name: str) -> None:
-    """Refuse a shard set whose .ecm names another layout version (it was
-    encoded under another tail rule and would misaddress). An absent
-    marker is accepted."""
+def read_marker_geometry(base_file_name: str) -> Optional[Geometry]:
+    """The RS geometry stamped into the .ecm sidecar, or None (a marker
+    without one, or no marker). Rebuild, mount and decode prefer it to
+    any policy: it is the record of what the bytes are."""
     try:
         with open(base_file_name + ".ecm") as f:
             meta = json.load(f)
-    except FileNotFoundError:
+    except (OSError, ValueError):
+        return None
+    g = meta.get("geometry")
+    if not isinstance(g, dict):
+        return None
+    try:
+        return Geometry(
+            data_shards=int(g["data_shards"]),
+            parity_shards=int(g["parity_shards"]),
+            large_block_size=int(g.get("large_block_size",
+                                       DEFAULT.large_block_size)),
+            small_block_size=int(g.get("small_block_size",
+                                       DEFAULT.small_block_size)))
+    except (KeyError, ValueError):
+        return None
+
+
+def check_layout_marker(base_file_name: str, shard_size: int,
+                        g: Geometry) -> None:
+    """Detect stale striping layouts at serve time. A marker with another
+    layout version is a hard error (the set was encoded under another
+    tail rule and would misaddress). An absent marker on a shard size
+    that is a whole number of large blocks is only a warning: every
+    healthy set of whole large rows has that size too, and a missing
+    sidecar must not take valid data offline."""
+    path = base_file_name + ".ecm"
+    if os.path.exists(path):
+        with open(path) as f:
+            meta = json.load(f)
+        if meta.get("layout_version") != LAYOUT_VERSION:
+            raise IOError(
+                f"{base_file_name}: EC layout version "
+                f"{meta.get('layout_version')} != {LAYOUT_VERSION}; "
+                "re-encode this volume")
         return
-    if meta.get("layout_version") != LAYOUT_VERSION:
-        raise IOError(
-            f"{base_file_name}: EC layout version "
-            f"{meta.get('layout_version')} != {LAYOUT_VERSION}; re-encode "
-            "this volume")
+    if (shard_size and shard_size >= g.large_block_size
+            and shard_size % g.large_block_size == 0):
+        logging.getLogger("ec").warning(
+            "%s: unmarked EC shard set whose size (%d) is a whole number "
+            "of large blocks; if it was encoded before the v2 tail rule "
+            "it will misaddress — re-encode it to stamp a .ecm",
+            base_file_name, shard_size)
 
 
 def _encode_row(dat, coder: ErasureCoder, start_offset: int, block_size: int,
@@ -260,6 +297,18 @@ def iterate_ecx_file(base_file_name: str,
                                        offset_size=offset_size)
 
 
+def iterate_ecj_file(base_file_name: str) -> Iterator[int]:
+    path = base_file_name + ".ecj"
+    if not os.path.exists(path):
+        return
+    with open(path, "rb") as f:
+        while True:
+            b = f.read(t.NEEDLE_ID_SIZE)
+            if len(b) != t.NEEDLE_ID_SIZE:
+                return
+            yield t.get_u64(b)
+
+
 def find_dat_file_size(base_file_name: str, version: int,
                        offset_size: int = t.OFFSET_SIZE) -> int:
     """Infer the original .dat size from the furthest live .ecx entry
@@ -313,3 +362,19 @@ def _copy_n(src, dst, n: int) -> None:
             raise IOError("short shard file during decode")
         dst.write(chunk)
         n -= len(chunk)
+
+
+def write_idx_file_from_ec_index(base_file_name: str,
+                                 offset_size: int = t.OFFSET_SIZE) -> None:
+    """.idx = .ecx copied verbatim + tombstones for every .ecj entry
+    (WriteIdxFileFromEcIndex, ec_decoder.go:18-44)."""
+    with open(base_file_name + ".ecx", "rb") as ecx, \
+            open(base_file_name + ".idx", "wb") as out:
+        while True:
+            chunk = ecx.read(1 << 20)
+            if not chunk:
+                break
+            out.write(chunk)
+        for key in iterate_ecj_file(base_file_name):
+            out.write(idx_mod.pack_entry(key, 0, t.TOMBSTONE_FILE_SIZE,
+                                         offset_size=offset_size))

@@ -73,6 +73,13 @@ class Fault:
 KNOWN_POINTS = frozenset({
     "ec.feed.read",         # EC feed stripe/survivor reads (ec/feed.py)
     "ec.feed.stall",        # EC feed staging-buffer waits (ec/feed.py)
+    "ec.fused.read",        # fused warm-down compaction-chunk reads
+                            # (ec/fused.py); a drop fails the chunk
+    "ec.fused.gzip",        # fused warm-down payload transform; a drop
+                            # fails the gzip/splice stage
+    "ec.fused.commit",      # fused warm-down commit barrier, after the
+                            # shards, .dat, .idx and .ecx are durable and
+                            # before the .ecm marker
 })
 
 _lock = threading.Lock()

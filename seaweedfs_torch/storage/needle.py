@@ -24,6 +24,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from . import types as t
+# re-exported under the reference's names (ec/fused.py imports them here)
 from .crc import crc32c_update, crc_value
 
 FLAG_IS_COMPRESSED = 0x01

@@ -139,6 +139,10 @@ class NeedleMap:
         nv = self._map.get(key)
         return nv is not None and nv.size > 0
 
+    def values(self) -> list[NeedleValue]:
+        """All current entries (live and tombstoned), unordered."""
+        return list(self._map.values())
+
     def live_entries(self) -> list[tuple[int, int]]:
         """Live (needle_id, size) pairs — the fsck/needle-status
         inventory."""

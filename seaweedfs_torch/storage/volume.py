@@ -4,7 +4,9 @@ The port's reduced copy of seaweedfs_tpu/storage/volume.py (upstream
 weed/storage/volume.go, volume_read_write.go): create or open a volume,
 append needles, tombstone deletes, positioned reads, and the sync/close
 durability barriers. Same bytes on disk as the reference for the same
-needle sequence. Not ported: compaction, tiering to object stores,
+needle sequence. Only the in-memory needle map (``needle_map_kind``
+"memory") is ported. Not ported: compaction (the fused warm-down,
+ec/fused.py, compacts into its own output), tiering to object stores,
 replication tails, batched and group-committed writes, and the open-time
 crash-recovery scan (a volume opened here is trusted as its .idx says).
 """
@@ -43,7 +45,11 @@ class VolumeReadOnly(RuntimeError):
 class Volume:
     def __init__(self, directory: str, collection: str, vid: int,
                  superblock: Optional[SuperBlock] = None,
-                 create: bool = False):
+                 create: bool = False, needle_map_kind: str = "memory"):
+        if needle_map_kind != "memory":
+            raise NotImplementedError(
+                f"needle map kind {needle_map_kind!r}: only 'memory' is "
+                "ported")
         self.dir = directory
         self.collection = collection
         self.vid = vid
@@ -88,7 +94,7 @@ class Volume:
         prefix = f"{self.collection}_" if self.collection else ""
         return os.path.join(self.dir, f"{prefix}{self.vid}")
 
-    def dat_size(self) -> int:
+    def data_file_size(self) -> int:
         return self._append_offset
 
     # --- write path ---

@@ -329,3 +329,66 @@ def test_cuda_coder_row_digests(formulation):
     assert coder.row_digests(handle).tolist() == [
         int(r.astype(np.uint64).sum()) & 0xFFFFFFFF
         for r in [*data, *parity]]
+
+
+def _store_volume(st, vid: int, collection: str) -> None:
+    """Seeded needles of the five kinds of the fused warm-down's tests,
+    about a third of them deleted, written through the Store."""
+    from seaweedfs_torch.storage.needle import Needle
+    from seaweedfs_torch.utils import compression
+    rng = np.random.default_rng(vid)
+    st.add_volume(vid, collection=collection)
+    for i in range(400):
+        kind = i % 5
+        data = (b"compressible text block " * int(rng.integers(1, 400))
+                if kind == 0 else
+                rng.bytes(int(rng.integers(1, 9000))) if kind == 1 else
+                b"x" * int(rng.integers(1, 7)) if kind == 2 else
+                compression.compress(b"already " * 600) if kind == 3 else
+                b"padme" * int(rng.integers(100, 5000)))
+        st.write_needle(vid, Needle(cookie=i, id=i + 1, data=data))
+    for i in range(0, 400, 3):
+        st.delete_needle(vid, Needle(cookie=i, id=i + 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_auto_store_encode_equals_numpy_store(tmp_path, monkeypatch, fused):
+    """Store(coder_name="auto") encodes (ec_generate, and
+    ec_fused_generate at RS(20,4) under the default policy's archive
+    collection) on the card through gf_apply, and its files equal the
+    "numpy" Store's on a copy of the same directory."""
+    _need_card()
+    import json
+    import shutil
+    from seaweedfs_torch.ec import geometry
+    from seaweedfs_torch.storage.store import Store
+    monkeypatch.delenv("WEED_EC_GEOMETRY", raising=False)
+    monkeypatch.delenv("WEED_EC_FORMULATION", raising=False)
+    collection = "archive" if fused else ""
+    src = tmp_path / "src"
+    st = Store([str(src)], coder_name="numpy")
+    _store_volume(st, 5, collection)
+    st.close()
+    files = {}
+    for name in ("numpy", "auto"):
+        d = tmp_path / name
+        shutil.copytree(src, d)
+        st = Store([str(d)], coder_name=name)
+        before = rs_cuda.gf_apply.launches
+        try:
+            if fused:
+                assert st.ec_fused_generate(5) == list(range(24))
+            else:
+                assert st.ec_generate(5) == list(range(14))
+        finally:
+            st.close()
+        if name == "auto":
+            assert rs_cuda.gf_apply.launches > before
+        g = geometry.GeometryPolicy.from_env().for_collection(collection)
+        base = str(d / (f"{collection}_5" if collection else "5"))
+        files[name] = [open(base + ext, "rb").read() for ext in
+                       [geometry.to_ext(i) for i in range(g.total_shards)]
+                       + [".ecx"]]
+        files[name].append(json.load(open(base + ".ecm")))
+    assert files["auto"] == files["numpy"]

@@ -53,7 +53,10 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.observe.profiler",
                  "seaweedfs_torch.observe.wideevents",
                  "seaweedfs_torch.faults",
-                 "seaweedfs_torch.utils.metrics"):
+                 "seaweedfs_torch.utils.metrics",
+                 "seaweedfs_torch.ec.fused",
+                 "seaweedfs_torch.storage.store",
+                 "seaweedfs_torch.utils.compression"):
         assert name in result["names"]
     assert result["forbidden"] == []
 
