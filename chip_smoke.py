@@ -85,6 +85,27 @@ Phases (any failure exits non-zero before the result line):
    lost), with one line of the pass's wall time, GB/s of the source
    volume, stats and ``ec.*`` span totals. Every step's launches are
    counted: only ``gf_apply`` may run, and it must in the coder's steps;
+7. (run after 6) the same path through the port's servers, the EC shell
+   and the CLI, under the default policy: (7a) a master and 3 volume
+   servers in this process (``LocalCluster``, each server its own
+   directory and ``Store(coder_name="auto")``, master volume size limit
+   1024 MB), on loopback ports; one volume of collection ``ecsmoke`` grown
+   and filled over HTTP through the port's ``Client`` (phase 3's
+   generator, about 5% deleted with HTTP DELETE), its sealed .dat copied,
+   the shell's ``EcCommands.encode`` (14 shards spread 5/5/4, the volume
+   retired; the shard files gathered from the three directories: parity
+   equal to the plain version's, data shards decoding to the sealed
+   copy), every needle read over HTTP, again with one data shard of the
+   4-shard server deleted, again with that server stopped and pruned (4
+   shards lost; survivors fetched from the peer over
+   ``/admin/ec/shard_read``), ``EcCommands.rebuild`` (sha256 of the
+   rebuilt shards equal), ``EcCommands.decode`` and reads of the decoded
+   volume; every step's launches counted: ``gf_apply`` must run in the
+   encode, both degraded reads and the rebuild, and nothing else
+   anywhere; (7b) ``python3 -m seaweedfs_torch.cli`` master and ``volume
+   -coder auto`` as processes, 48 uploads into a 64 MB-limit volume,
+   ``shell ec.encode``, one shard deleted, every needle read back, the
+   processes stopped at the end;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -126,14 +147,18 @@ import numpy as np
 import torch
 
 from seaweedfs_torch import faults, observe
+from seaweedfs_torch.client import Client, ClientError
 from seaweedfs_torch.ec import coder as coder_mod
 from seaweedfs_torch.ec import ec_volume, feed, geometry, governor
 from seaweedfs_torch.ec import pipeline, striping
 from seaweedfs_torch.observe import wideevents
 from seaweedfs_torch.ops import _build, gf256, rs_cuda, rs_torch
 from seaweedfs_torch.ops import xor_schedule
+from seaweedfs_torch.server.local_cluster import LocalCluster
+from seaweedfs_torch.shell.ec_commands import EcCommands
 from seaweedfs_torch.storage import store as store_mod
 from seaweedfs_torch.storage import types as st_types
+from seaweedfs_torch.storage.file_id import FileId
 from seaweedfs_torch.storage.needle import (FLAG_HAS_MIME, FLAG_HAS_NAME,
                                             FLAG_IS_COMPRESSED, Needle)
 from seaweedfs_torch.storage.superblock import SuperBlock
@@ -1428,6 +1453,323 @@ def run_store_archive(work: Path, device: torch.device,
     return launches
 
 
+# --- phase 7: the cluster through the port's servers -------------------
+
+CLUSTER_COLLECTION = "ecsmoke"
+# steps of phase 7 that run the coder (gf_apply must launch there); every
+# other step launches no kernel at all
+CLUSTER_CODER_STEPS = ("cluster.ec_encode", "cluster.read_one_shard_lost",
+                       "cluster.read_server_lost", "cluster.ec_rebuild")
+
+
+def upload_needles(client, vid: int, size_now, total: int,
+                   max_needle: int, seed: int,
+                   collection: str) -> tuple[dict, set]:
+    """write_needles over HTTP: each needle assigned by the master and
+    POSTed to the volume server; about 5% then deleted with HTTP DELETE.
+    Returns fid -> (payload seed id, size), and the deleted fids."""
+    rng = np.random.default_rng(seed)
+    fids: dict = {}
+    nid = 0
+    while size_now() < total:
+        nid += 1
+        size = int(np.exp(rng.uniform(np.log(1024), np.log(max_needle))))
+        size = min(size, total - size_now())
+        a = client.assign(collection=collection)
+        if int(a["fid"].split(",")[0]) != vid:
+            raise AssertionError(f"assigned {a['fid']}, not volume {vid}")
+        client.upload_blob(a["url"], a["fid"], payload(seed, nid, size))
+        fids[a["fid"]] = (nid, size)
+    deleted = {str(fid) for fid in rng.choice(
+        sorted(fids), size=max(1, len(fids) // 20), replace=False)}
+    for fid in sorted(deleted):
+        client.delete(fid)
+    return fids, deleted
+
+
+def http_read_all(client, fids: dict, deleted: set, seed: int) -> dict:
+    """Every live needle read back over HTTP byte-identical (the holder
+    from the master's lookup), every deleted one refused; returns the
+    bytes read and each live read's latency."""
+    client._vid_cache.clear()
+    nbytes, lat = 0, []
+    for fid, (nid, size) in fids.items():
+        if fid in deleted:
+            try:
+                client.download(fid)
+            except ClientError as e:
+                if "HTTP 404" not in str(e):
+                    raise
+                continue
+            raise AssertionError(f"deleted needle {fid} still readable")
+        t0 = time.perf_counter()
+        data = client.download(fid)
+        lat.append(time.perf_counter() - t0)
+        if data != payload(seed, nid, size):
+            raise AssertionError(f"needle {fid} reads back wrong")
+        nbytes += size
+    return {"bytes": nbytes, "latencies": lat}
+
+
+def needles_on_shards(ev, fids: dict, deleted: set, shards) -> int:
+    return needles_on(ev, {FileId.parse(f).key: 0 for f in fids},
+                      {FileId.parse(f).key for f in deleted}, tuple(shards))
+
+
+def wait_until(cond, what: str, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def check_cluster_launches(launches: dict) -> None:
+    for step, counts in launches.items():
+        others = {k: n for k, n in counts.items() if k != "gf_apply" and n}
+        if others or (step in CLUSTER_CODER_STEPS) != (counts["gf_apply"]
+                                                       > 0):
+            raise AssertionError(f"{step}: launches {counts}")
+
+
+def run_cluster(work: Path, device: torch.device, total: int = 1 << 30,
+                pulse: float = 0.5) -> dict:
+    """(7a) A master and 3 volume servers in this process
+    (``Store(coder_name="auto")`` each) on loopback ports; the client,
+    the shell's EcCommands and every server-to-server call go over HTTP.
+    Returns launches per step."""
+    work.mkdir(parents=True)
+    seed = SEED + 8
+    col = CLUSTER_COLLECTION
+    launches = {}
+    governor.reset()
+    observe.reset()
+    wideevents.reset()
+    cl = LocalCluster(3, coder_name="auto", volume_size_limit_mb=1024,
+                      pulse=pulse, directory=str(work))
+    try:
+        client = Client(cl.master_url)
+        grown = client.grow(count=1, collection=col)
+        if grown.get("count") != 1:
+            raise AssertionError(f"/vol/grow: {grown}")
+        vid = grown["volume_ids"][0]
+        src = cl.index_of(client.lookup(vid)[0])
+        vol = cl.store(src).find_volume(vid)
+        fids, deleted = timed(
+            "cluster.upload",
+            lambda: upload_needles(client, vid, vol.data_file_size, total,
+                                   4 * MIB, seed, col),
+            lambda r: vol.data_file_size(),
+            lambda r: {"needles": len(r[0]), "deleted": len(r[1]),
+                       "volume_id": vid})
+        # the sealed .dat, copied before the encode
+        client.volume_admin(cl.url(src), "volume/readonly",
+                            {"volume_id": vid, "read_only": True})
+        vol.sync()
+        dat_size = vol.data_file_size()
+        sealed = str(work / "sealed.dat")
+        shutil.copyfile(vol.base_file_name() + ".dat", sealed)
+        shell = EcCommands(client)
+        result, launches["cluster.ec_encode"] = timed(
+            "cluster.ec_encode", lambda: counted(
+                lambda: shell.encode(vid, col)),
+            lambda r: dat_size, lambda r: {"launches": r[1]})
+        info = client.ec_lookup(vid)
+        holders: dict = {}
+        for sid, urls in info["shards"].items():
+            for u in urls:
+                holders.setdefault(u, []).append(int(sid))
+        spread = sorted(len(s) for s in holders.values())
+        if len(info["shards"]) != 14 or spread != [4, 5, 5]:
+            raise AssertionError(f"shards {info['shards']}")
+        if any(cl.store(i).find_volume(vid) is not None for i in range(3)):
+            raise AssertionError("the original volume is still mounted")
+        # the shards gathered from the three directories: the parity
+        # equals the plain version's over the data shards, and the data
+        # shards decode to the sealed copy
+        g = geometry.DEFAULT
+        gather = work / "gather"
+        gather.mkdir()
+        base = str(gather / f"{col}_{vid}")
+        for url, sids in holders.items():
+            node_base = os.path.join(cl.nodes[cl.index_of(url)][3],
+                                     f"{col}_{vid}")
+            for sid in sids:
+                os.symlink(node_base + geometry.to_ext(sid),
+                           base + geometry.to_ext(sid))
+        timed("cluster.parity_vs_plain",
+              lambda: check_parity_with(base, g, device),
+              lambda shard: shard * g.total_shards)
+        striping.write_dat_file(base, dat_size, g)
+        if sha256_file(base + ".dat") != sha256_file(sealed):
+            raise AssertionError("the data shards do not decode to the "
+                                 "sealed .dat")
+        orig_sha = shard_shas(base, g)
+        shutil.rmtree(gather)
+        os.remove(sealed)
+        log({"phase": "cluster.spread", "shards_per_server": spread,
+             "parity_equal_plain": True, "data_equal_sealed": True,
+             "volume_retired": True})
+
+        def read_step(name: str, **extra):
+            _, launches[name] = timed(
+                name, lambda: counted(
+                    lambda: http_read_all(client, fids, deleted, seed)),
+                lambda r: r[0]["bytes"],
+                lambda r: {"launches": r[1], **extra,
+                           **latency_summary(r[0]["latencies"])})
+
+        read_step("cluster.read_all_shards")
+        # one data shard of the server with 4 goes (the SURVEY section 7
+        # exit test), then that server: 4 shards lost in all
+        lost_url = next(u for u, s in holders.items() if len(s) == 4)
+        lost = cl.index_of(lost_url)
+        victim = min(holders[lost_url])
+        reader = cl.index_of(client.lookup(vid)[0])
+        on_victim = needles_on_shards(cl.store(reader).find_ec_volume(vid),
+                                      fids, deleted, [victim])
+        client.volume_admin(lost_url, "ec/delete_shards",
+                            {"volume_id": vid, "collection": col,
+                             "shard_ids": [victim]})
+        read_step("cluster.read_one_shard_lost", lost_shard=victim,
+                  needles_on_lost=on_victim)
+        on_lost = needles_on_shards(cl.store(reader).find_ec_volume(vid),
+                                    fids, deleted, holders[lost_url])
+        cl.stop_volume_server(lost)
+        wait_until(lambda: lost_url not in {
+            u for us in client.ec_lookup(vid)["shards"].values()
+            for u in us}, "the master to prune the stopped server")
+        read_step("cluster.read_server_lost", lost_shards=holders[lost_url],
+                  needles_on_lost=on_lost)
+        if on_victim < 20 or on_lost < 200:
+            raise AssertionError(f"{on_victim} / {on_lost} needles on the "
+                                 "lost shards")
+        rb, launches["cluster.ec_rebuild"] = timed(
+            "cluster.ec_rebuild", lambda: counted(
+                lambda: shell.rebuild(vid, col)),
+            lambda r: shard_size_of(r[0], cl, col, vid) * g.data_shards,
+            lambda r: {"launches": r[1], "rebuilder": r[0]["rebuilder"],
+                       "rebuilt": r[0]["rebuilt"]})
+        if sorted(rb["rebuilt"]) != sorted(holders[lost_url]):
+            raise AssertionError(f"rebuilt {rb['rebuilt']}")
+        rb_dir = cl.nodes[cl.index_of(rb["rebuilder"])][3]
+        for sid in rb["rebuilt"]:
+            got = sha256_file(os.path.join(rb_dir, f"{col}_{vid}")
+                              + geometry.to_ext(sid))
+            if got != orig_sha[sid]:
+                raise AssertionError(f"rebuilt shard {sid} differs")
+        if len(client.ec_lookup(vid)["shards"]) != 14:
+            raise AssertionError("14 shards not mounted after ec.rebuild")
+        _, launches["cluster.ec_decode"] = timed(
+            "cluster.ec_decode", lambda: counted(
+                lambda: shell.decode(vid, col)),
+            lambda r: dat_size, lambda r: {"launches": r[1]})
+        if client.ec_lookup(vid).get("shards"):
+            raise AssertionError("shards left after ec.decode")
+        read_step("cluster.read_decoded")
+    finally:
+        cl.shutdown()
+    check_cluster_launches(launches)
+    log({"phase": "cluster.summary", "servers": 3, "geometry": "RS(10,4)",
+         "volume_size_limit_mb": 1024, "dat_bytes": dat_size,
+         "needles": len(fids), "deleted": len(deleted),
+         "shards_per_server": spread, "lost_shard": victim,
+         "lost_server_shards": holders[lost_url],
+         "rebuilt_sha256_equal": True, "decoded_reads_back": True,
+         "launches": launches})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def shard_size_of(rb: dict, cl, col: str, vid: int) -> int:
+    d = cl.nodes[cl.index_of(rb["rebuilder"])][3]
+    return os.path.getsize(os.path.join(d, f"{col}_{vid}")
+                           + geometry.to_ext(rb["rebuilt"][0]))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_cli(work: Path, needles: int = 48) -> None:
+    """(7b) ``python3 -m seaweedfs_torch.cli`` master and volume (``-coder
+    auto``) as processes; uploads to a 64 MB volume, ``shell ec.encode``,
+    one shard deleted, every needle read back."""
+    work.mkdir(parents=True)
+    seed = SEED + 9
+    col = "clismoke"
+    mport, vport = free_port(), free_port()
+    cli = [sys.executable, "-m", "seaweedfs_torch.cli"]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for args in (["master", "-port", str(mport),
+                      "-volumeSizeLimitMB", "64", "-pulse", "1"],
+                     ["volume", "-port", str(vport), "-dir", str(work),
+                      "-mserver", f"127.0.0.1:{mport}", "-pulse", "1",
+                      "-coder", "auto"]):
+            procs.append(subprocess.Popen(
+                cli + args, cwd=str(REPO), stdout=subprocess.DEVNULL,
+                stderr=open(work / f"{args[0]}.log", "wb")))
+        client = Client(f"127.0.0.1:{mport}")
+
+        def listed() -> bool:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("a server process exited")
+            try:
+                return len(client.dir_status()["nodes"]) == 1
+            except (OSError, ClientError):
+                return False
+
+        wait_until(listed, "the CLI cluster", timeout=120)
+        started = time.perf_counter() - t0
+        rng = np.random.default_rng(seed)
+        fids = {}
+        for nid in range(1, needles + 1):
+            size = int(np.exp(rng.uniform(np.log(1024), np.log(MIB))))
+            fids[client.upload(payload(seed, nid, size),
+                               collection=col)] = (nid, size)
+        vids = {int(f.split(",")[0]) for f in fids}
+        if len(vids) != 1:
+            raise AssertionError(f"uploads spread over volumes {vids}")
+        vid = vids.pop()
+        t1 = time.perf_counter()
+        out = subprocess.run(
+            cli + ["shell", "-server", f"127.0.0.1:{mport}", "ec.encode",
+                   "-volumeId", str(vid), "-collection", col],
+            cwd=str(REPO), capture_output=True, text=True, timeout=300)
+        encode_s = time.perf_counter() - t1
+        if out.returncode != 0:
+            raise AssertionError(f"shell ec.encode: {out.stderr[-2000:]}")
+        plan = json.loads(out.stdout.strip().splitlines()[-1])
+        info = client.ec_lookup(vid)
+        if len(info["shards"]) != 14:
+            raise AssertionError(f"CLI encode mounted {info}")
+        client.volume_admin(f"127.0.0.1:{vport}", "ec/delete_shards",
+                            {"volume_id": vid, "collection": col,
+                             "shard_ids": [3]})
+        read = http_read_all(client, fids, set(), seed)
+        log({"phase": "cli.exit_test", "seconds": time.perf_counter() - t0,
+             "startup_s": started, "shell_ec_encode_s": encode_s,
+             "needles": len(fids), "volume_id": vid,
+             "plan": {u: len(s) for u, s in plan["plan"].items()},
+             "lost_shard": 3, "read_back": len(read["latencies"]),
+             **latency_summary(read["latencies"])})
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1511,6 +1853,10 @@ def main() -> int:
                      WEED_EC_MESH_DEVICES=None):
             launches["store"] = run_store_default(WORK / "store", device)
             launches["fused"] = run_store_archive(WORK / "fused", device)
+            # phase 7: the same path through the servers, the shell and
+            # the CLI
+            launches["cluster"] = run_cluster(WORK / "cluster", device)
+            run_cli(WORK / "cli")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -1539,7 +1885,8 @@ def main() -> int:
     main_steps = {**launches["bitplane"], **{
         f"xorsched.{k}": v for k, v in launches["xorsched"].items()}, **{
         f"governed.{k}": v for k, v in launches["governed"].items()
-        if k != "mxu_entry"}, **launches["store"], **launches["fused"]}
+        if k != "mxu_entry"}, **launches["store"], **launches["fused"],
+        **launches["cluster"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

@@ -8,3 +8,5 @@ nothing of JAX. The GF(2^8) kernels are hand-written CUDA
 built with nvcc at first use and bound through ctypes
 (``ops/_build.py``).
 """
+
+__version__ = "0.1.0"

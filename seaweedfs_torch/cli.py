@@ -1,0 +1,185 @@
+"""Command-line interface: the `weed`-equivalent entry point of the port.
+
+The port's reduced copy of seaweedfs_tpu/cli.py (upstream
+weed/command/command.go:10-33), with the reference's flags where they
+apply:
+
+  python3 -m seaweedfs_torch.cli master -port 9333 -volumeSizeLimitMB 1024
+  python3 -m seaweedfs_torch.cli volume -port 8080 -dir /data \\
+      -mserver localhost:9333 [-coder auto|torch|numpy] [-device cuda:0]
+  python3 -m seaweedfs_torch.cli shell -server localhost:9333 \\
+      ec.encode -volumeId 3 [-collection c]
+  python3 -m seaweedfs_torch.cli version
+
+``-coder`` defaults to ``auto``, the CUDA kernel coder, which raises on a
+host without a card at the volume server's first EC step (there is no
+CPU fallback); ``-coder numpy``, or ``-coder torch -device cpu`` (the
+kernels' plain versions), run EC on the host. Servers run until SIGTERM
+or SIGINT, then stop their threads and close their stores.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import signal
+import sys
+import threading
+
+
+def _serve_until_signalled(stop) -> None:
+    """Block until SIGTERM/SIGINT, then run `stop`."""
+    done = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: done.set())
+    try:
+        done.wait()
+    finally:
+        stop()
+
+
+def cmd_master(args) -> None:
+    from .server.master import run_master
+    master, server = run_master(
+        args.ip, args.port,
+        volume_size_limit_mb=args.volume_size_limit_mb,
+        default_replication=args.default_replication,
+        pulse_seconds=args.pulse,
+        url=f"{args.ip}:{args.port}")
+
+    def stop():
+        master.stop()
+        server.shutdown()
+
+    _serve_until_signalled(stop)
+
+
+def cmd_volume(args) -> None:
+    from .ec.geometry import Geometry
+    from .server.volume_server import run_volume_server
+    from .storage.store import Store
+    dirs = args.dir.split(",")
+    store = Store(dirs, max_volume_counts=[args.max] * len(dirs),
+                  coder_name=args.coder,
+                  geometry=Geometry(large_block_size=args.ec_large_block,
+                                    small_block_size=args.ec_small_block),
+                  device=args.device or None)
+    vs, server = run_volume_server(
+        args.ip, args.port, store, args.mserver,
+        url=f"{args.ip}:{args.port}", data_center=args.data_center,
+        rack=args.rack, pulse_seconds=args.pulse)
+
+    def stop():
+        vs.stop()
+        server.shutdown()
+        store.close()
+
+    _serve_until_signalled(stop)
+
+
+def cmd_shell(args) -> None:
+    """Admin shell: one-shot `shell <cmd> [args]` or an interactive REPL
+    (weed/shell/shell_liner.go)."""
+    from .client import Client
+    from .ec.geometry import Geometry
+    from .shell import commands as shell_commands
+    from .shell.commands import COMMANDS, CommandEnv, run_command
+    shell_commands._register_all()
+    argv = list(args.cmd or [])
+    if argv and args.volume:
+        argv += ["-volumeId", str(args.volume)]
+    if argv and args.collection:
+        argv += ["-collection", args.collection]
+    if argv and args.dry_run:
+        argv.append("-dryRun")
+    env = CommandEnv(Client(args.server),
+                     Geometry(large_block_size=args.ec_large_block,
+                              small_block_size=args.ec_small_block))
+    if argv:
+        print(json.dumps(run_command(env, argv), default=str))
+        return
+    print(f"seaweedfs-torch shell: {len(COMMANDS)} commands; 'help' lists "
+          "them, ctrl-d exits", file=sys.stderr)
+    while True:
+        try:
+            line = input("> ").strip()
+        except EOFError:
+            break
+        if line in ("exit", "quit"):
+            break
+        if not line:
+            continue
+        try:
+            print(json.dumps(run_command(env, line), default=str))
+        except Exception as e:
+            print(json.dumps({"error": str(e)}))
+
+
+def cmd_version(args) -> None:
+    from . import __version__
+    print(f"seaweedfs-torch {__version__}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="seaweedfs-torch")
+    p.add_argument("-v", type=int, default=0, dest="verbosity",
+                   help="log INFO and above when > 0")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    m = sub.add_parser("master", help="run a master server")
+    m.add_argument("-ip", default="127.0.0.1")
+    m.add_argument("-port", type=int, default=9333)
+    m.add_argument("-volumeSizeLimitMB", "-volume_size_limit_mb",
+                   dest="volume_size_limit_mb", type=int,
+                   default=30 * 1024)
+    m.add_argument("-defaultReplication", "-default_replication",
+                   dest="default_replication", default="000")
+    m.add_argument("-pulse", type=float, default=5.0,
+                   help="expected heartbeat interval (dead nodes are "
+                        "pruned after 5 pulses)")
+    m.set_defaults(fn=cmd_master)
+
+    v = sub.add_parser("volume", help="run a volume server")
+    v.add_argument("-ip", default="127.0.0.1")
+    v.add_argument("-port", type=int, default=8080)
+    v.add_argument("-dir", default="./data")
+    v.add_argument("-max", type=int, default=8)
+    v.add_argument("-mserver", default="127.0.0.1:9333")
+    v.add_argument("-dataCenter", dest="data_center", default="")
+    v.add_argument("-rack", default="")
+    v.add_argument("-pulse", type=float, default=5.0)
+    v.add_argument("-coder", default="auto",
+                   help="auto (the CUDA kernels), torch or numpy")
+    v.add_argument("-device", default="",
+                   help="the coder's device, e.g. cuda:0 or cpu")
+    v.add_argument("-ec_large_block", type=int, default=1024 * 1024 * 1024)
+    v.add_argument("-ec_small_block", type=int, default=1024 * 1024)
+    v.set_defaults(fn=cmd_volume)
+
+    sh = sub.add_parser("shell", help="admin shell (REPL or one-shot)")
+    sh.add_argument("-server", default="127.0.0.1:9333")
+    sh.add_argument("-volume", type=int, default=0)
+    sh.add_argument("-collection", default="")
+    sh.add_argument("-dry_run", action="store_true")
+    sh.add_argument("-ec_large_block", type=int, default=1024 * 1024 * 1024)
+    sh.add_argument("-ec_small_block", type=int, default=1024 * 1024)
+    sh.add_argument("cmd", nargs=argparse.REMAINDER,
+                    help="command + args (empty for the REPL)")
+    sh.set_defaults(fn=cmd_shell)
+
+    ver = sub.add_parser("version", help="print the version")
+    ver.set_defaults(fn=cmd_version)
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO if args.verbosity > 0 else logging.WARNING,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,184 @@
+"""Synchronous client: assign, lookup, upload, download, delete, admin.
+
+The port's reduced copy of seaweedfs_tpu/client.py (upstream
+weed/operation/: Assign, Lookup, Upload, DeleteFiles; the wdclient vid
+cache), on ``http.client`` through server/http.py's keep-alive
+connections. Used by the shell commands, the CLI and the tests. Left
+out: the bulk-assignment lease pool, the shared connection pool with its
+circuit breaker, master rotation across an HA list, replica failover to a
+second cluster, the watch stream, JWTs, batch delete, tail and query.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import urllib.parse
+import uuid
+from typing import Optional
+
+from .server import http
+
+
+class ClientError(RuntimeError):
+    pass
+
+
+def _get_json(url: str, timeout: float = 30.0) -> dict:
+    r = http.request("GET", url, timeout=timeout)
+    try:
+        return r.json()
+    except ValueError:
+        raise ClientError(f"GET {url}: HTTP {r.status}")
+
+
+def _post_json(url: str, body: dict, timeout: float = 300.0) -> dict:
+    status, detail = http.post_json(url, body, timeout)
+    if status >= 400:
+        raise ClientError(f"POST {url}: {detail.get('error')}")
+    return detail
+
+
+class _VidCache:
+    """vid -> holder urls, each entry kept for `ttl` seconds."""
+
+    def __init__(self, ttl: float = 60.0):
+        self.ttl = ttl
+        self._d: dict[int, tuple[list[str], float]] = {}
+        self._lock = threading.Lock()
+
+    def get(self, vid: int) -> Optional[list[str]]:
+        with self._lock:
+            hit = self._d.get(vid)
+            if hit is None or time.monotonic() - hit[1] > self.ttl:
+                return None
+            return hit[0]
+
+    def put(self, vid: int, urls: list[str]) -> None:
+        with self._lock:
+            self._d[vid] = (urls, time.monotonic())
+
+    def pop(self, vid: int) -> None:
+        with self._lock:
+            self._d.pop(vid, None)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._d.clear()
+
+
+class Client:
+    def __init__(self, master_url: str):
+        # the first master of a comma list: the port runs one master
+        self.master = master_url.split(",")[0].strip().rstrip("/")
+        self._vid_cache = _VidCache(ttl=60.0)
+
+    def _master_get(self, path_qs: str, timeout: float = 30.0) -> dict:
+        return _get_json(f"http://{self.master}{path_qs}", timeout)
+
+    # --- master ops ---
+    def assign(self, count: int = 1, collection: str = "",
+               replication: str = "", ttl: str = "") -> dict:
+        params = {"count": str(count)}
+        if collection:
+            params["collection"] = collection
+        if replication:
+            params["replication"] = replication
+        if ttl:
+            params["ttl"] = ttl
+        out = self._master_get("/dir/assign?"
+                               + urllib.parse.urlencode(params))
+        if "error" in out:
+            raise ClientError(out["error"])
+        return out
+
+    def lookup(self, vid: int) -> list[str]:
+        cached = self._vid_cache.get(vid)
+        if cached:
+            return cached
+        out = self._master_get(f"/dir/lookup?volumeId={vid}")
+        urls = [loc["url"] for loc in out.get("locations", [])]
+        if not urls:
+            raise ClientError(out.get("error", f"volume {vid} not found"))
+        self._vid_cache.put(vid, urls)
+        return urls
+
+    def grow(self, count: int = 1, collection: str = "",
+             replication: str = "", ttl: str = "") -> dict:
+        params = {"count": str(count), "collection": collection,
+                  "replication": replication, "ttl": ttl}
+        return self._master_get("/vol/grow?"
+                                + urllib.parse.urlencode(params))
+
+    def cluster_status(self) -> dict:
+        return self._master_get("/cluster/status")
+
+    # --- blob ops ---
+    def upload_blob(self, url: str, fid: str, data: bytes,
+                    filename: str = "", mime: str = "",
+                    ttl: str = "") -> dict:
+        boundary = uuid.uuid4().hex
+        name = filename or "file"
+        ctype = mime or "application/octet-stream"
+        body = (
+            f"--{boundary}\r\n"
+            f'Content-Disposition: form-data; name="file"; '
+            f'filename="{name}"\r\n'
+            f"Content-Type: {ctype}\r\n\r\n").encode() + data + \
+            f"\r\n--{boundary}--\r\n".encode()
+        target = f"http://{url}/{fid}"
+        if ttl:
+            target += "?" + urllib.parse.urlencode({"ttl": ttl})
+        r = http.request("POST", target, body,
+                         {"Content-Type":
+                          f"multipart/form-data; boundary={boundary}"},
+                         timeout=300)
+        if r.status >= 300:
+            raise ClientError(f"upload {fid}: HTTP {r.status} "
+                              f"{r.data[:200]!r}")
+        return r.json()
+
+    def upload(self, data: bytes, filename: str = "", mime: str = "",
+               collection: str = "", replication: str = "",
+               ttl: str = "") -> str:
+        """Assign + upload; returns the fid."""
+        a = self.assign(collection=collection, replication=replication,
+                        ttl=ttl)
+        self.upload_blob(a["url"], a["fid"], data, filename, mime, ttl)
+        return a["fid"]
+
+    def download(self, fid: str) -> bytes:
+        vid = int(fid.split(",")[0])
+        last_err: Optional[Exception] = None
+        for url in self.lookup(vid):
+            try:
+                r = http.request("GET", f"http://{url}/{fid}", timeout=300)
+            except OSError as e:  # refused etc: try the next holder
+                last_err = e
+                self._vid_cache.pop(vid)
+                continue
+            if r.status in (200, 206):
+                return r.data
+            last_err = ClientError(f"{url}/{fid}: HTTP {r.status}")
+        raise ClientError(f"download {fid} failed: {last_err}")
+
+    def delete(self, fid: str) -> None:
+        vid = int(fid.split(",")[0])
+        for url in self.lookup(vid):
+            r = http.request("DELETE", f"http://{url}/{fid}", timeout=60)
+            if r.status < 300:
+                return
+            if r.status == 404:
+                continue
+            raise ClientError(f"delete {fid}: HTTP {r.status}")
+        raise ClientError(f"delete {fid}: no replica accepted")
+
+    # --- volume-server admin (the shell commands' transport) ---
+    def volume_admin(self, server: str, op: str, body: dict) -> dict:
+        return _post_json(f"http://{server}/admin/{op}", body)
+
+    def ec_lookup(self, vid: int) -> dict:
+        return self._master_get(f"/col/lookup/ec?volumeId={vid}")
+
+    def dir_status(self) -> dict:
+        return self._master_get("/dir/status")

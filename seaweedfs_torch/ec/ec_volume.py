@@ -8,15 +8,18 @@ ec_volume_delete.go):
 - a needle decomposes into intervals (locate.py); each interval is read
   from its shard file when that shard is present, else reconstructed on
   line from k other shards through the coder;
+- an interval on a shard that is not local is fetched through the
+  caller's ``shard_reader`` (the volume server's peer read over HTTP);
+  failing that, it is reconstructed from any k other shards, local ones
+  read inline and remote survivors fetched in parallel;
 - deletes tombstone the .ecx entry in place and append the id to .ecj.
-
-Remote shard fetches (the server layer's peer reads) are not ported.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
 import numpy as np
@@ -29,6 +32,15 @@ from .coder import ErasureCoder
 from .geometry import DEFAULT, Geometry, to_ext
 from .locate import Interval, locate_data
 from .striping import check_layout_marker
+
+# remote survivor fetches of online reconstruction run here, one per
+# candidate shard (upstream recoverOneRemoteEcShardInterval fans out
+# goroutines, store_ec.go:322-376)
+_SURVIVOR_POOL = ThreadPoolExecutor(max_workers=14,
+                                    thread_name_prefix="ec-survivor")
+
+# (shard_id, offset, size) -> the bytes, or None when no peer has them
+ShardReader = Callable[[int, int, int], Optional[bytes]]
 
 
 class Singleflight:
@@ -191,45 +203,78 @@ class EcVolume:
         return offset, size, intervals
 
     # --- read path ---
-    def read_needle(self, needle_id: int,
-                    cookie: Optional[int] = None) -> Needle:
+    def read_needle(self, needle_id: int, cookie: Optional[int] = None,
+                    shard_reader: Optional[ShardReader] = None) -> Needle:
         offset, size, intervals = self.locate(needle_id)
         if t.size_is_deleted(size):
             raise KeyError(f"needle {needle_id:x} deleted")
-        record = b"".join(self._read_interval(iv) for iv in intervals)
+        record = b"".join(self._read_interval(iv, shard_reader)
+                          for iv in intervals)
         n = Needle.from_bytes(record, self.version)
         if cookie is not None and n.cookie != cookie:
             raise KeyError(f"needle {needle_id:x} cookie mismatch")
         return n
 
-    def _read_interval(self, iv: Interval) -> bytes:
+    def _read_interval(self, iv: Interval,
+                       shard_reader: Optional[ShardReader] = None) -> bytes:
         shard_id, offset = iv.to_shard_id_and_offset(self.g)
         shard = self.shards.get(shard_id)
         if shard is not None:
             data = shard.read_at(offset, iv.size)
             if len(data) == iv.size:
                 return data
-        return self.read_flight.do(
-            (shard_id, offset, iv.size),
-            lambda: self._reconstruct_interval(shard_id, offset, iv.size))
+
+        # not local: a peer's copy, else an online reconstruction; N
+        # concurrent readers of one cold interval share one flight
+        def fetch() -> bytes:
+            if shard_reader is not None:
+                data = shard_reader(shard_id, offset, iv.size)
+                if data is not None and len(data) == iv.size:
+                    return data
+            return self._reconstruct_interval(shard_id, offset, iv.size,
+                                              shard_reader)
+
+        return self.read_flight.do((shard_id, offset, iv.size), fetch)
 
     def _reconstruct_interval(self, missing_shard: int, offset: int,
-                              size: int) -> bytes:
-        """Online reconstruction of one interval from k local shards."""
+                              size: int,
+                              shard_reader: Optional[ShardReader] = None
+                              ) -> bytes:
+        """Online reconstruction of one interval from any k other shards:
+        local shards read inline, remote survivors fetched in parallel."""
         if self.coder is None:
             raise IOError(
                 f"shard {missing_shard} missing and no coder to reconstruct")
         shards: list[Optional[np.ndarray]] = [None] * self.g.total_shards
         have = 0
+        remote_candidates: list[int] = []
         for sid in range(self.g.total_shards):
-            local = self.shards.get(sid)
-            if (sid == missing_shard or local is None
-                    or have >= self.g.data_shards):
+            if sid == missing_shard:
                 continue
-            b = local.read_at(offset, size)
-            if len(b) == size:
-                shards[sid] = np.frombuffer(b, dtype=np.uint8)
-                have += 1
+            local = self.shards.get(sid)
+            if local is not None and have < self.g.data_shards:
+                b = local.read_at(offset, size)
+                if len(b) == size:
+                    shards[sid] = np.frombuffer(b, dtype=np.uint8)
+                    have += 1
+                    continue
+            remote_candidates.append(sid)
+        need = self.g.data_shards - have
+        if need > 0 and shard_reader is not None and remote_candidates:
+            futs = {sid: _SURVIVOR_POOL.submit(shard_reader, sid, offset,
+                                               size)
+                    for sid in remote_candidates}
+            for sid, fut in futs.items():
+                if have >= self.g.data_shards:
+                    fut.cancel()
+                    continue
+                try:
+                    b = fut.result()
+                except Exception:
+                    continue
+                if b is not None and len(b) == size:
+                    shards[sid] = np.frombuffer(b, dtype=np.uint8)
+                    have += 1
         if have < self.g.data_shards:
             raise IOError(
                 f"cannot reconstruct shard {missing_shard}: "

@@ -18,9 +18,12 @@ default) is the CUDA kernel coder and raises on a host without a card;
 CPU. ``WEED_EC_MESH_DEVICES`` >= 2 asks for a multi-card coder, which the
 port does not have yet: the store raises rather than run on one card.
 
-Not ported (they come with the servers): the free-space watchdog,
-tiering, vacuum, TTL expiry, replication configuration, the heartbeat
-and status payloads, and remote shard reads from peers.
+The volume server reads a store through ``heartbeat()`` and
+``status()``, and sets the ``_remote_shard_reader`` hook so that EC reads
+fetch shards that live on its peers.
+
+Not ported: the free-space watchdog, tiering, vacuum, TTL expiry and
+replication configuration.
 """
 
 from __future__ import annotations
@@ -299,7 +302,8 @@ class Store:
             return v.read_needle(needle_id, cookie=cookie)
         ev = self.find_ec_volume(vid)
         if ev is not None:
-            return ev.read_needle(needle_id, cookie=cookie)
+            return ev.read_needle(needle_id, cookie=cookie,
+                                  shard_reader=self._remote_shard_reader(ev))
         raise KeyError(f"volume {vid} not found")
 
     def delete_needle(self, vid: int, n: Needle) -> int:
@@ -307,6 +311,10 @@ class Store:
         if v is None:
             raise KeyError(f"volume {vid} not found")
         return v.delete_needle(n)
+
+    # hook the volume server replaces to fetch shards from its peers
+    def _remote_shard_reader(self, ev: EcVolume):
+        return None
 
     # --- EC lifecycle (VolumeEcShardsGenerate etc.,
     #     weed/server/volume_grpc_erasure_coding.go) ---
@@ -544,6 +552,52 @@ class Store:
             loc.volumes[vid] = Volume(
                 loc.directory, collection, vid,
                 needle_map_kind=self.needle_map_kind)
+
+    # --- heartbeat ---
+    def heartbeat(self) -> dict:
+        """The payload sent to the master (CollectHeartbeat,
+        weed/storage/store.go:198). The volume server's handler threads
+        change the maps while its heartbeat thread reads them: iterate
+        over copies."""
+        volumes = []
+        ec_shards = []
+        max_file_key = 0
+        for loc in self.locations:
+            for vid, v in list(loc.volumes.items()):
+                max_file_key = max(max_file_key, v.nm.maximum_key)
+                volumes.append({
+                    "id": vid,
+                    "collection": v.collection,
+                    "size": v.data_file_size(),
+                    "file_count": v.file_count(),
+                    "delete_count": v.nm.deleted_count,
+                    "deleted_bytes": v.nm.deleted_byte_count,
+                    "read_only": v.read_only,
+                    "replica_placement": str(
+                        v.super_block.replica_placement),
+                    "ttl": str(v.super_block.ttl),
+                    "version": v.version,
+                    # newest write (unix s): the master's TTL reference
+                    "last_modified": v.last_modified_ts,
+                })
+            for vid, ev in list(loc.ec_volumes.items()):
+                ec_shards.append({
+                    "id": vid,
+                    "collection": ev.collection,
+                    "shard_ids": ev.shard_ids(),
+                    "shard_size": ev.shard_size(),
+                })
+        return {
+            "volumes": volumes,
+            "ec_shards": ec_shards,
+            "max_file_key": max_file_key,
+            "max_volume_count": sum(loc.max_volume_count
+                                    for loc in self.locations),
+        }
+
+    def status(self) -> dict:
+        hb = self.heartbeat()
+        return {"volumes": hb["volumes"], "ec_shards": hb["ec_shards"]}
 
     def close(self) -> None:
         for loc in self.locations:

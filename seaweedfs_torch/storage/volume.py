@@ -97,6 +97,20 @@ class Volume:
     def data_file_size(self) -> int:
         return self._append_offset
 
+    def file_count(self) -> int:
+        """Live needles (the net count the heartbeat reports)."""
+        return len(self.nm)
+
+    def needle_cookie(self, needle_id: int) -> Optional[int]:
+        """The cookie of a live needle's record, None when the needle is
+        absent or deleted."""
+        with self._lock:
+            nv = self.nm.get(needle_id)
+            if nv is None or not t.size_is_valid(nv.size):
+                return None
+            head = self._read_header_at(t.stored_to_offset(nv.offset))
+        return None if head is None else head.cookie
+
     # --- write path ---
     def write_needle(self, n: Needle,
                      preserve_append_at_ns: bool = False

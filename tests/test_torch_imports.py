@@ -56,7 +56,20 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.utils.metrics",
                  "seaweedfs_torch.ec.fused",
                  "seaweedfs_torch.storage.store",
-                 "seaweedfs_torch.utils.compression"):
+                 "seaweedfs_torch.utils.compression",
+                 "seaweedfs_torch.storage.file_id",
+                 "seaweedfs_torch.topology.sequence",
+                 "seaweedfs_torch.topology.topology",
+                 "seaweedfs_torch.server.http",
+                 "seaweedfs_torch.server.master",
+                 "seaweedfs_torch.server.volume_server",
+                 "seaweedfs_torch.server.local_cluster",
+                 "seaweedfs_torch.utils.multipart",
+                 "seaweedfs_torch.client",
+                 "seaweedfs_torch.shell.commands",
+                 "seaweedfs_torch.shell.ec_commands",
+                 "seaweedfs_torch.shell.ec_shell",
+                 "seaweedfs_torch.cli"):
         assert name in result["names"]
     assert result["forbidden"] == []
 
@@ -81,3 +94,22 @@ def test_sources_name_no_jax(path):
     for word in ("import jax", "from jax", "import seaweedfs_tpu",
                  "from seaweedfs_tpu"):
         assert word not in text, word
+
+
+SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
+                  *PORT.glob("topology/*.py"), PORT / "client.py",
+                  PORT / "cli.py", PORT / "utils" / "multipart.py",
+                  PORT / "storage" / "file_id.py"])
+
+
+@pytest.mark.parametrize("path", SERVING,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_serving_layer_imports_only_stdlib_torch_numpy(path):
+    """The servers, the client, the shell and the CLI are written on the
+    standard library's HTTP server and client: they import the standard
+    library, torch, numpy and the port, nothing else. ROADMAP Queue 1.5
+    records the decision to move the servers onto aiohttp, which widens
+    this set."""
+    allowed = set(sys.stdlib_module_names) | {"torch", "numpy",
+                                              "seaweedfs_torch"}
+    assert _imported_roots(path) <= allowed
