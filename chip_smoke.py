@@ -80,9 +80,10 @@ Phases (any failure exits non-zero before the result line):
    vacuum garbageThreshold), ``ec_fused_generate`` (24 shards, a marker
    naming RS(20,4), the decoded .dat equal to the sequential
    per-needle-read-and-gzip chain's, parity equal to the plain version's,
-   .ecm digests equal to the files', no staging file left, every live
-   needle read back decompressed through an ``EcVolume`` with 4 shards
-   lost), with one line of the pass's wall time, GB/s of the source
+   .ecm digests equal to the files', no staging file left, every 8th
+   needle (a fixed sample: the first and each 8th after it) read back
+   decompressed through an ``EcVolume`` with 4 shards lost, or refused
+   when deleted), with one line of the pass's wall time, GB/s of the source
    volume, stats and ``ec.*`` span totals. Every step's launches are
    counted: only ``gf_apply`` may run, and it must in the coder's steps;
 7. (run after 6) the same path through the port's servers, the EC shell
@@ -105,7 +106,26 @@ Phases (any failure exits non-zero before the result line):
    anywhere; (7b) ``python3 -m seaweedfs_torch.cli`` master and ``volume
    -coder auto`` as processes, 48 uploads into a 64 MB-limit volume,
    ``shell ec.encode``, one shard deleted, every needle read back, the
-   processes stopped at the end;
+   processes stopped at the end. The servers are aiohttp applications on
+   one event loop, on one rack;
+8. (run inside 7a's cluster, before 7b) the hot tier in front of the
+   warm one: a fresh server takes the place of the one 7a lost; a 1 GiB
+   volume of collection ``repsmoke`` at replication ``001`` (upstream's
+   "one more copy on the same rack") filled over HTTP with phase 3's
+   generator (each 201 means both copies are written: both holders count
+   every needle, and every needle reads back from each); needles deleted
+   until ``/admin/vacuum/check`` reads at
+   least 0.3 on both holders; ``/vol/vacuum?garbageThreshold=0.3`` while
+   64 more uploads (assigned before) run against the volume, so that the
+   compaction replays writes that land during its copy; each holder's
+   .dat shrank by at least its deleted bytes; every live needle read from
+   each holder, each deleted one 404; the replica's server stopped, a
+   fresh server with an empty directory started, the shell's
+   ``volume.fix.replication -force`` copies the volume back and every
+   needle reads from the new copy; ``ec.encode`` retires both copies and
+   spreads the shards 5/5/4; reads with the 4-shard server lost;
+   ``ec.rebuild``. ``gf_apply`` must launch in the encode, the degraded
+   reads and the rebuild, and nowhere else in the phase;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -139,6 +159,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -154,7 +175,9 @@ from seaweedfs_torch.ec import pipeline, striping
 from seaweedfs_torch.observe import wideevents
 from seaweedfs_torch.ops import _build, gf256, rs_cuda, rs_torch
 from seaweedfs_torch.ops import xor_schedule
+from seaweedfs_torch.server import http
 from seaweedfs_torch.server.local_cluster import LocalCluster
+from seaweedfs_torch.shell import commands as shell_commands
 from seaweedfs_torch.shell.ec_commands import EcCommands
 from seaweedfs_torch.storage import store as store_mod
 from seaweedfs_torch.storage import types as st_types
@@ -1316,6 +1339,11 @@ def sequential_compact(volume, dst_dat: str, gzip_level: int = 1) -> int:
     return offset
 
 
+# 6b reads every 8th needle (about 21000 of 168000 live ones, the first
+# needle and each 8th after it): reading all took 135 s of the smoke
+FUSED_READ_STRIDE = 8
+
+
 def run_store_archive(work: Path, device: torch.device,
                       total: int = 1 << 30) -> dict:
     """(6b) The archive collection, RS(20,4), through the fused warm-down
@@ -1406,7 +1434,7 @@ def run_store_archive(work: Path, device: torch.device,
 
         def read_back() -> dict:
             nbytes, lat, on_victims = 0, [], 0
-            for nid in range(1, count + 1):
+            for nid in range(1, count + 1, FUSED_READ_STRIDE):
                 if nid in deleted:
                     try:
                         ev.read_needle(nid)
@@ -1456,18 +1484,24 @@ def run_store_archive(work: Path, device: torch.device,
 # --- phase 7: the cluster through the port's servers -------------------
 
 CLUSTER_COLLECTION = "ecsmoke"
-# steps of phase 7 that run the coder (gf_apply must launch there); every
-# other step launches no kernel at all
+# steps of phases 7 and 8 that run the coder (gf_apply must launch
+# there); every other step launches no kernel at all
 CLUSTER_CODER_STEPS = ("cluster.ec_encode", "cluster.read_one_shard_lost",
-                       "cluster.read_server_lost", "cluster.ec_rebuild")
+                       "cluster.read_server_lost", "cluster.ec_rebuild",
+                       "replicated.ec_encode",
+                       "replicated.read_server_lost",
+                       "replicated.ec_rebuild")
 
 
 def upload_needles(client, vid: int, size_now, total: int,
-                   max_needle: int, seed: int,
-                   collection: str) -> tuple[dict, set]:
+                   max_needle: int, seed: int, collection: str,
+                   replication: str = "",
+                   delete_share: int = 20) -> tuple[dict, set]:
     """write_needles over HTTP: each needle assigned by the master and
-    POSTed to the volume server; about 5% then deleted with HTTP DELETE.
-    Returns fid -> (payload seed id, size), and the deleted fids."""
+    POSTed to the volume server (which fans it out to the volume's other
+    holders); then one in `delete_share` deleted with HTTP DELETE, none
+    when it is 0. Returns fid -> (payload seed id, size), and the
+    deleted fids."""
     rng = np.random.default_rng(seed)
     fids: dict = {}
     nid = 0
@@ -1475,35 +1509,40 @@ def upload_needles(client, vid: int, size_now, total: int,
         nid += 1
         size = int(np.exp(rng.uniform(np.log(1024), np.log(max_needle))))
         size = min(size, total - size_now())
-        a = client.assign(collection=collection)
+        a = client.assign(collection=collection, replication=replication)
         if int(a["fid"].split(",")[0]) != vid:
             raise AssertionError(f"assigned {a['fid']}, not volume {vid}")
         client.upload_blob(a["url"], a["fid"], payload(seed, nid, size))
         fids[a["fid"]] = (nid, size)
-    deleted = {str(fid) for fid in rng.choice(
-        sorted(fids), size=max(1, len(fids) // 20), replace=False)}
+    deleted: set = set()
+    if delete_share:
+        deleted = {str(fid) for fid in rng.choice(
+            sorted(fids), size=max(1, len(fids) // delete_share),
+            replace=False)}
     for fid in sorted(deleted):
         client.delete(fid)
     return fids, deleted
 
 
-def http_read_all(client, fids: dict, deleted: set, seed: int) -> dict:
-    """Every live needle read back over HTTP byte-identical (the holder
-    from the master's lookup), every deleted one refused; returns the
-    bytes read and each live read's latency."""
+def http_read_all(client, fids: dict, deleted: set, seed: int,
+                  url: str = "") -> dict:
+    """Every live needle read back over HTTP byte-identical (from the
+    holder `url`, or the holder from the master's lookup), every deleted
+    one refused with 404; returns the bytes read and each live read's
+    latency."""
     client._vid_cache.clear()
     nbytes, lat = 0, []
     for fid, (nid, size) in fids.items():
         if fid in deleted:
             try:
-                client.download(fid)
+                client.download(fid, url=url)
             except ClientError as e:
                 if "HTTP 404" not in str(e):
                     raise
                 continue
             raise AssertionError(f"deleted needle {fid} still readable")
         t0 = time.perf_counter()
-        data = client.download(fid)
+        data = client.download(fid, url=url)
         lat.append(time.perf_counter() - t0)
         if data != payload(seed, nid, size):
             raise AssertionError(f"needle {fid} reads back wrong")
@@ -1546,7 +1585,7 @@ def run_cluster(work: Path, device: torch.device, total: int = 1 << 30,
     observe.reset()
     wideevents.reset()
     cl = LocalCluster(3, coder_name="auto", volume_size_limit_mb=1024,
-                      pulse=pulse, directory=str(work))
+                      pulse=pulse, directory=str(work), racks=1)
     try:
         client = Client(cl.master_url)
         grown = client.grow(count=1, collection=col)
@@ -1667,17 +1706,257 @@ def run_cluster(work: Path, device: torch.device, total: int = 1 << 30,
         if client.ec_lookup(vid).get("shards"):
             raise AssertionError("shards left after ec.decode")
         read_step("cluster.read_decoded")
+        log({"phase": "cluster.summary", "servers": 3,
+             "geometry": "RS(10,4)", "volume_size_limit_mb": 1024,
+             "dat_bytes": dat_size, "needles": len(fids),
+             "deleted": len(deleted), "shards_per_server": spread,
+             "lost_shard": victim, "lost_server_shards": holders[lost_url],
+             "rebuilt_sha256_equal": True, "decoded_reads_back": True,
+             "launches": dict(launches)})
+        # phase 8 in the same cluster
+        launches.update(run_replicated(cl, client, total, seed + 100))
     finally:
         cl.shutdown()
     check_cluster_launches(launches)
-    log({"phase": "cluster.summary", "servers": 3, "geometry": "RS(10,4)",
-         "volume_size_limit_mb": 1024, "dat_bytes": dat_size,
-         "needles": len(fids), "deleted": len(deleted),
-         "shards_per_server": spread, "lost_shard": victim,
-         "lost_server_shards": holders[lost_url],
-         "rebuilt_sha256_equal": True, "decoded_reads_back": True,
-         "launches": launches})
     shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+# --- phase 8: the hot tier: replication, vacuum, repair, then EC --------
+
+REPL_COLLECTION = "repsmoke"
+# upstream's "one more copy on the same rack"
+REPL_PLACEMENT = "001"
+# upstream's default -garbageThreshold
+GARBAGE_THRESHOLD = 0.3
+# uploads that run while the vacuum compacts (the makeup-diff replay)
+MAKEUP_UPLOADS = 64
+
+
+def fresh_lookup(client, vid: int) -> list:
+    client._vid_cache.clear()
+    return client.lookup(vid)
+
+
+def holder_volume(cl, url: str, vid: int):
+    return cl.store(cl.index_of(url)).find_volume(vid)
+
+
+def holders_of(info: dict) -> dict:
+    """url -> shard ids, from a /col/lookup/ec answer."""
+    out: dict = {}
+    for sid, urls in info["shards"].items():
+        for u in urls:
+            out.setdefault(u, []).append(int(sid))
+    return out
+
+
+def garbage_level(url: str, vid: int) -> float:
+    status, body = http.get_json(
+        f"http://{url}/admin/vacuum/check?volume_id={vid}")
+    if status != 200:
+        raise AssertionError(f"vacuum check on {url}: {body}")
+    return body["garbage_level"]
+
+
+def run_replicated(cl, client, total: int, seed: int) -> dict:
+    """(8) In phase 7's cluster, on one rack: a 1 GiB volume of
+    collection repsmoke at replication 001 filled over HTTP (every 201
+    means both copies are written) and read back from each holder,
+    needles deleted until both holders' garbage is at least 0.3,
+    /vol/vacuum with 64 uploads running against the volume, every live
+    needle read from each holder, one holder
+    replaced by a fresh server and restored with volume.fix.replication,
+    every needle read from the new copy, then ec.encode (both copies
+    retired, shards spread 5/5/4), reads with the 4-shard server lost and
+    ec.rebuild. Returns launches per step."""
+    col = REPL_COLLECTION
+    launches = {}
+    for _ in range(3 - cl.node_count()):
+        # phase 7 lost a server: a fresh one takes its place
+        cl.add_volume_server()
+    cl.wait_for_nodes(3)
+    grown = client.grow(count=1, collection=col, replication=REPL_PLACEMENT)
+    if grown.get("count") != 1:
+        raise AssertionError(f"/vol/grow replication 001: {grown}")
+    vid = grown["volume_ids"][0]
+    primary, replica = client.lookup(vid)
+    # fids for the uploads that run during the vacuum, assigned while
+    # the volume is writable (the vacuum parks it out of assignment)
+    late = [client.assign(collection=col, replication=REPL_PLACEMENT)
+            for _ in range(MAKEUP_UPLOADS)]
+    if any(int(a["fid"].split(",")[0]) != vid for a in late):
+        raise AssertionError("late fids on another volume")
+    vol = holder_volume(cl, primary, vid)
+    (fids, _), launches["replicated.upload"] = timed(
+        "replicated.upload", lambda: counted(lambda: upload_needles(
+            client, vid, vol.data_file_size, total, 4 * MIB, seed, col,
+            replication=REPL_PLACEMENT, delete_share=0)),
+        lambda r: vol.data_file_size(),
+        lambda r: {"needles": len(r[0][0]), "volume_id": vid,
+                   "replication": REPL_PLACEMENT, "launches": r[1]})
+    for url in (primary, replica):
+        held = holder_volume(cl, url, vid).file_count()
+        if held != len(fids):
+            raise AssertionError(f"{url} holds {held} of {len(fids)} "
+                                 "needles")
+    deleted: set = set()
+
+    def read_step(name: str, url: str = "", **extra):
+        _, launches[name] = timed(
+            name, lambda: counted(lambda: http_read_all(
+                client, fids, deleted, seed, url=url)),
+            lambda r: r[0]["bytes"],
+            lambda r: {"launches": r[1], **extra,
+                       **latency_summary(r[0]["latencies"])})
+
+    # every acknowledged write, from each holder, before the vacuum
+    read_step("replicated.read_primary_pre", primary, holder="primary")
+    read_step("replicated.read_replica_pre", replica, holder="replica")
+
+    def delete_to_threshold() -> set:
+        order = list(np.random.default_rng(seed).permutation(sorted(fids)))
+        gone: set = set()
+        while min(garbage_level(u, vid) for u in (primary, replica)) \
+                < GARBAGE_THRESHOLD:
+            if len(gone) == len(order):
+                raise AssertionError("every needle deleted, garbage under "
+                                     f"{GARBAGE_THRESHOLD}")
+            for fid in order[len(gone):len(gone) + 20]:
+                client.delete(fid)
+                gone.add(fid)
+        return gone
+
+    deleted, launches["replicated.delete"] = timed(
+        "replicated.delete", lambda: counted(delete_to_threshold), None,
+        lambda r: {"deleted": len(r[0]), "launches": r[1],
+                   "garbage_levels": [garbage_level(u, vid)
+                                      for u in (primary, replica)]})
+    before = {u: (holder_volume(cl, u, vid).data_file_size(),
+                  holder_volume(cl, u, vid).deleted_size())
+              for u in (primary, replica)}
+    rng = np.random.default_rng(seed + 1)
+    late_fids = {}
+    for j, a in enumerate(late):
+        size = int(np.exp(rng.uniform(np.log(1024), np.log(4 * MIB))))
+        late_fids[a["fid"]] = (10 ** 6 + j, size)
+    spans: list = []
+
+    def vacuum_with_uploads() -> dict:
+        box: dict = {}
+
+        def run() -> None:
+            t0 = time.perf_counter()
+            box["result"] = client.vacuum(GARBAGE_THRESHOLD)
+            box["span"] = (t0, time.perf_counter())
+
+        th = threading.Thread(target=run, name="smoke-vacuum")
+        th.start()
+        try:
+            for a in late:
+                nid, size = late_fids[a["fid"]]
+                t0 = time.perf_counter()
+                client.upload_blob(a["url"], a["fid"],
+                                   payload(seed, nid, size))
+                spans.append((t0, time.perf_counter()))
+        finally:
+            th.join()
+        return box
+
+    # GB/s of the vacuum: over both holders' .dat bytes before it
+    box, launches["replicated.vacuum"] = timed(
+        "replicated.vacuum", lambda: counted(vacuum_with_uploads),
+        lambda r: sum(size for size, _ in before.values()),
+        lambda r: {"compacted": r[0]["result"]["compacted"],
+                   "launches": r[1]})
+    if vid not in box["result"]["compacted"]:
+        raise AssertionError(f"/vol/vacuum compacted "
+                             f"{box['result']['compacted']}, not {vid}")
+    v0, v1 = box["span"]
+    overlapped = sum(1 for a, b in spans if b > v0 and a < v1)
+    fids.update(late_fids)
+    reclaimed = {}
+    for url in (primary, replica):
+        v = holder_volume(cl, url, vid)
+        if v.super_block.compaction_revision != 1:
+            raise AssertionError(f"{url}: volume {vid} not compacted")
+        sizes = dict(v.nm.live_entries())
+        added = sum(st_types.get_actual_size(
+            sizes[FileId.parse(f).key], v.version) for f in late_fids)
+        size_before, deleted_before = before[url]
+        reclaimed[url] = size_before + added - v.data_file_size()
+        if reclaimed[url] < deleted_before:
+            raise AssertionError(f"{url} reclaimed {reclaimed[url]} of "
+                                 f"{deleted_before} deleted bytes")
+        if v.file_count() != len(fids) - len(deleted):
+            raise AssertionError(f"{url} holds {v.file_count()} needles "
+                                 "after the vacuum")
+    log({"phase": "replicated.reclaimed",
+         "reclaimed_bytes": list(reclaimed.values()),
+         "deleted_bytes": [before[u][1] for u in (primary, replica)],
+         "dat_bytes_before": [before[u][0] for u in (primary, replica)],
+         "dat_bytes_after": [holder_volume(cl, u, vid).data_file_size()
+                             for u in (primary, replica)],
+         "uploads_during_vacuum": overlapped})
+    if not overlapped:
+        raise AssertionError("no upload overlapped the vacuum")
+
+    read_step("replicated.read_primary", primary, holder="primary")
+    read_step("replicated.read_replica", replica, holder="replica")
+    # the replica's server is lost; a fresh one, with an empty
+    # directory, takes its place
+    cl.stop_volume_server(cl.index_of(replica))
+    fresh = cl.add_volume_server()
+    wait_until(lambda: fresh_lookup(client, vid) == [primary]
+               and cl.node_count() == 3,
+               "the master to prune the lost holder")
+    shell_commands._register_all()
+    env = shell_commands.CommandEnv(client)
+    out, launches["replicated.fix_replication"] = timed(
+        "replicated.fix_replication", lambda: counted(
+            lambda: shell_commands.run_command(
+                env, ["volume.fix.replication", "-force"])),
+        lambda r: holder_volume(cl, primary, vid).data_file_size(),
+        lambda r: {"plan": r[0]["plan"], "launches": r[1],
+                   "fresh_server": fresh})
+    added = [a for a in out["plan"] if a["volume_id"] == vid]
+    if [a["action"] for a in added] != ["add"] or sorted(
+            fresh_lookup(client, vid)) != sorted([primary, added[0]["to"]]):
+        raise AssertionError(f"volume.fix.replication: {out}")
+    new_copy = added[0]["to"]
+    read_step("replicated.read_new_copy", new_copy,
+              holder="volume.fix.replication's copy")
+    shell = EcCommands(client)
+    dat_size = holder_volume(cl, primary, vid).data_file_size()
+    _, launches["replicated.ec_encode"] = timed(
+        "replicated.ec_encode", lambda: counted(
+            lambda: shell.encode(vid, col)),
+        lambda r: dat_size, lambda r: {"launches": r[1]})
+    holders = holders_of(client.ec_lookup(vid))
+    spread = sorted(len(s) for s in holders.values())
+    if spread != [4, 5, 5] or any(
+            n[2] is not None and n[2].find_volume(vid) is not None
+            for n in cl.nodes):
+        raise AssertionError(f"ec.encode left {holders} and the copies")
+    lost_url = next(u for u, s in holders.items() if len(s) == 4)
+    cl.stop_volume_server(cl.index_of(lost_url))
+    wait_until(lambda: lost_url not in holders_of(client.ec_lookup(vid)),
+               "the master to prune the 4-shard server")
+    read_step("replicated.read_server_lost", lost_shards=holders[lost_url])
+    rb, launches["replicated.ec_rebuild"] = timed(
+        "replicated.ec_rebuild", lambda: counted(
+            lambda: shell.rebuild(vid, col)),
+        lambda r: shard_size_of(r[0], cl, col, vid)
+        * geometry.DEFAULT.data_shards,
+        lambda r: {"launches": r[1], "rebuilt": r[0]["rebuilt"]})
+    if sorted(rb["rebuilt"]) != holders[lost_url] or \
+            len(client.ec_lookup(vid)["shards"]) != 14:
+        raise AssertionError(f"ec.rebuild: {rb}")
+    log({"phase": "replicated.summary", "replication": REPL_PLACEMENT,
+         "volume_id": vid, "needles": len(fids), "deleted": len(deleted),
+         "late_uploads": MAKEUP_UPLOADS, "uploads_during_vacuum": overlapped,
+         "reclaimed_bytes": list(reclaimed.values()),
+         "shards_per_server": spread, "launches": launches})
     return launches
 
 

@@ -4,55 +4,63 @@ The port's reduced copy of seaweedfs_tpu/cli.py (upstream
 weed/command/command.go:10-33), with the reference's flags where they
 apply:
 
-  python3 -m seaweedfs_torch.cli master -port 9333 -volumeSizeLimitMB 1024
+  python3 -m seaweedfs_torch.cli master -port 9333 -volumeSizeLimitMB 1024 \\
+      [-defaultReplication 001] [-garbageThreshold 0.3]
   python3 -m seaweedfs_torch.cli volume -port 8080 -dir /data \\
-      -mserver localhost:9333 [-coder auto|torch|numpy] [-device cuda:0]
+      -mserver localhost:9333 [-rack r1] [-coder auto|torch|numpy] \\
+      [-device cuda:0]
   python3 -m seaweedfs_torch.cli shell -server localhost:9333 \\
       ec.encode -volumeId 3 [-collection c]
+  python3 -m seaweedfs_torch.cli shell -server localhost:9333 \\
+      volume.fix.replication -force
+  python3 -m seaweedfs_torch.cli compact -dir /data -volumeId 3
   python3 -m seaweedfs_torch.cli version
 
 ``-coder`` defaults to ``auto``, the CUDA kernel coder, which raises on a
 host without a card at the volume server's first EC step (there is no
 CPU fallback); ``-coder numpy``, or ``-coder torch -device cpu`` (the
-kernels' plain versions), run EC on the host. Servers run until SIGTERM
-or SIGINT, then stop their threads and close their stores.
+kernels' plain versions), run EC on the host. Servers run on an asyncio
+loop until SIGTERM or SIGINT, then stop their background tasks and
+close their stores. ``compact`` vacuums one volume offline (the volume
+server must not have it mounted).
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import logging
 import signal
 import sys
-import threading
 
 
-def _serve_until_signalled(stop) -> None:
-    """Block until SIGTERM/SIGINT, then run `stop`."""
-    done = threading.Event()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        signal.signal(sig, lambda *_: done.set())
-    try:
-        done.wait()
-    finally:
-        stop()
+def _serve_until_signalled(start) -> None:
+    """Run `start()` (a coroutine returning the server and its runner)
+    on a fresh loop, then serve until SIGTERM/SIGINT and clean up."""
+
+    async def main() -> None:
+        _, runner = await start()
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            loop.add_signal_handler(sig, stop.set)
+        try:
+            await stop.wait()
+        finally:
+            await runner.cleanup()
+
+    asyncio.run(main())
 
 
 def cmd_master(args) -> None:
     from .server.master import run_master
-    master, server = run_master(
+    _serve_until_signalled(lambda: run_master(
         args.ip, args.port,
         volume_size_limit_mb=args.volume_size_limit_mb,
         default_replication=args.default_replication,
-        pulse_seconds=args.pulse,
-        url=f"{args.ip}:{args.port}")
-
-    def stop():
-        master.stop()
-        server.shutdown()
-
-    _serve_until_signalled(stop)
+        garbage_threshold=args.garbage_threshold,
+        pulse_seconds=args.pulse))
 
 
 def cmd_volume(args) -> None:
@@ -65,17 +73,14 @@ def cmd_volume(args) -> None:
                   geometry=Geometry(large_block_size=args.ec_large_block,
                                     small_block_size=args.ec_small_block),
                   device=args.device or None)
-    vs, server = run_volume_server(
-        args.ip, args.port, store, args.mserver,
-        url=f"{args.ip}:{args.port}", data_center=args.data_center,
-        rack=args.rack, pulse_seconds=args.pulse)
-
-    def stop():
-        vs.stop()
-        server.shutdown()
+    try:
+        _serve_until_signalled(lambda: run_volume_server(
+            args.ip, args.port, store, args.mserver,
+            data_center=args.data_center, rack=args.rack,
+            pulse_seconds=args.pulse))
+    finally:
+        # the runner's cleanup closes it; this covers a failed start
         store.close()
-
-    _serve_until_signalled(stop)
 
 
 def cmd_shell(args) -> None:
@@ -116,6 +121,21 @@ def cmd_shell(args) -> None:
             print(json.dumps({"error": str(e)}))
 
 
+def cmd_compact(args) -> None:
+    """Offline vacuum of one volume (weed compact,
+    weed/command/compact.go)."""
+    from .storage.volume import Volume
+    v = Volume(args.dir, args.collection, args.volumeId)
+    try:
+        before = v.data_file_size()
+        v.compact()
+        after = v.data_file_size()
+    finally:
+        v.close()
+    print(json.dumps({"volume": args.volumeId, "bytes_before": before,
+                      "bytes_after": after, "reclaimed": before - after}))
+
+
 def cmd_version(args) -> None:
     from . import __version__
     print(f"seaweedfs-torch {__version__}")
@@ -135,6 +155,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default=30 * 1024)
     m.add_argument("-defaultReplication", "-default_replication",
                    dest="default_replication", default="000")
+    m.add_argument("-garbageThreshold", "-garbage_threshold",
+                   dest="garbage_threshold", type=float, default=0.3,
+                   help="the periodic vacuum compacts volumes with at "
+                        "least this share of deleted bytes")
     m.add_argument("-pulse", type=float, default=5.0,
                    help="expected heartbeat interval (dead nodes are "
                         "pruned after 5 pulses)")
@@ -167,6 +191,12 @@ def build_parser() -> argparse.ArgumentParser:
     sh.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="command + args (empty for the REPL)")
     sh.set_defaults(fn=cmd_shell)
+
+    cp = sub.add_parser("compact", help="offline vacuum of one volume")
+    cp.add_argument("-dir", default="./data")
+    cp.add_argument("-collection", default="")
+    cp.add_argument("-volumeId", type=int, required=True)
+    cp.set_defaults(fn=cmd_compact)
 
     ver = sub.add_parser("version", help="print the version")
     ver.set_defaults(fn=cmd_version)

@@ -1,12 +1,16 @@
-"""Synchronous client: assign, lookup, upload, download, delete, admin.
+"""Synchronous client: assign, lookup, upload, download, delete, vacuum,
+admin.
 
 The port's reduced copy of seaweedfs_tpu/client.py (upstream
 weed/operation/: Assign, Lookup, Upload, DeleteFiles; the wdclient vid
 cache), on ``http.client`` through server/http.py's keep-alive
-connections. Used by the shell commands, the CLI and the tests. Left
-out: the bulk-assignment lease pool, the shared connection pool with its
-circuit breaker, master rotation across an HA list, replica failover to a
-second cluster, the watch stream, JWTs, batch delete, tail and query.
+connections. Used by the shell commands, the CLI and the tests. An
+upload to a replicated volume goes to the assigned holder, which fans
+it out; a download tries every holder the master lists, or reads from
+one named holder (``download(fid, url=...)``). Left out: the
+bulk-assignment lease pool, the shared connection pool with its circuit
+breaker, master rotation across an HA list, replica failover to a second
+cluster, the watch stream, JWTs, batch delete, tail and query.
 """
 
 from __future__ import annotations
@@ -113,6 +117,13 @@ class Client:
     def cluster_status(self) -> dict:
         return self._master_get("/cluster/status")
 
+    def vacuum(self, threshold: float = 0.3) -> dict:
+        """Compact every volume whose garbage is at least `threshold` on
+        all its holders (the master's /vol/vacuum); returns
+        {"ok", "compacted": [vid, ...]}."""
+        return self._master_get(
+            f"/vol/vacuum?garbageThreshold={threshold}", timeout=600)
+
     # --- blob ops ---
     def upload_blob(self, url: str, fid: str, data: bytes,
                     filename: str = "", mime: str = "",
@@ -147,19 +158,22 @@ class Client:
         self.upload_blob(a["url"], a["fid"], data, filename, mime, ttl)
         return a["fid"]
 
-    def download(self, fid: str) -> bytes:
+    def download(self, fid: str, url: str = "") -> bytes:
+        """The blob, from the first holder that serves it, or from the
+        holder `url` alone."""
         vid = int(fid.split(",")[0])
         last_err: Optional[Exception] = None
-        for url in self.lookup(vid):
+        for holder in [url] if url else self.lookup(vid):
             try:
-                r = http.request("GET", f"http://{url}/{fid}", timeout=300)
+                r = http.request("GET", f"http://{holder}/{fid}",
+                                 timeout=300)
             except OSError as e:  # refused etc: try the next holder
                 last_err = e
                 self._vid_cache.pop(vid)
                 continue
             if r.status in (200, 206):
                 return r.data
-            last_err = ClientError(f"{url}/{fid}: HTTP {r.status}")
+            last_err = ClientError(f"{holder}/{fid}: HTTP {r.status}")
         raise ClientError(f"download {fid} failed: {last_err}")
 
     def delete(self, fid: str) -> None:

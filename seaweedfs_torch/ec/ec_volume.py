@@ -157,6 +157,20 @@ class EcVolume:
             return s.size
         return 0
 
+    def live_entries(self) -> list[tuple[int, int]]:
+        """Live (needle_id, size) pairs from the sorted .ecx, tombstones
+        skipped."""
+        out = []
+        with self._lock:
+            for i in range(self.ecx_size // self._entry_size):
+                entry = os.pread(self._ecx.fileno(), self._entry_size,
+                                 i * self._entry_size)
+                key, _offset, size = idx_mod.unpack_entry(
+                    entry, offset_size=self.offset_size)
+                if not t.size_is_deleted(size):
+                    out.append((key, size))
+        return out
+
     # --- index lookup ---
     def find_needle(self, needle_id: int) -> tuple[int, int]:
         """(stored_offset, size) via on-disk binary search

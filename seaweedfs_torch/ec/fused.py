@@ -318,157 +318,163 @@ def fused_vacuum_gzip_encode(volume, dst_base: str, coder: ErasureCoder,
             ttl=volume.super_block.ttl,
             compaction_revision=volume.super_block.compaction_revision + 1,
             extra=volume.super_block.extra)
-    snapshot.sort(key=lambda e: e[1])
-    entries = [(key, off, size, t.get_actual_size(size, version))
-               for key, off, size in snapshot]
-    sb_bytes = sb.to_bytes()
-    head_len = len(sb_bytes) + ((-len(sb_bytes)) % t.NEEDLE_PADDING_SIZE)
-    # upper bound on the compacted size, known before any byte moves:
-    # gzip only ever shrinks a record and the 8-byte grain is kept
-    upper = head_len + sum(e[3] for e in entries)
-    if _op is not None:
-        op, governed = _op, False
-    else:
-        op, governed = _resolve_op(batch_size, depth, upper, g.data_shards,
-                                   coder_chips(coder))
-        if governed:
-            op = _steer_formulation(coder, op)
-    tctx = observe.ensure_ctx("ec")
-    wm = _Watermark()
-    src_fd = volume._dat.fileno()
-
-    def read_at(n: int, offset: int) -> bytes:
-        return os.pread(src_fd, n, offset)
-
-    counters = {"gzipped": 0, "gzip_s": 0.0}
-
-    chunks: list[list] = []
-    cur: list = []
-    cur_bytes = 0
-    for e in entries:
-        cur.append(e)
-        cur_bytes += e[3]
-        if cur_bytes >= _CHUNK_BYTES or len(cur) >= _CHUNK_NEEDLES:
-            chunks.append(cur)
-            cur, cur_bytes = [], 0
-    if cur:
-        chunks.append(cur)
-
-    pool = feed_mod._ReaderPool(max(1, op.gzip_workers))
-    dat_f, idx_f = striping._open_all(
-        [dst_base + ".dat", dst_base + ".idx"], "wb")
-    shard_paths = [dst_base + to_ext(i) for i in range(g.total_shards)]
-    digests = np.zeros(g.total_shards, dtype=np.uint64)
-
-    def compactor() -> None:
-        try:
-            dat_f.write(sb_bytes)
-            offset = len(sb_bytes)
-            jobs = (
-                (lambda chunk=chunk: _transform_chunk(
-                    read_at, chunk, version, gzip_level, tctx))
-                for chunk in chunks)
-            for results, gzipped, gzip_s in feed_mod.ordered_pool_map(
-                    pool, jobs, op.gzip_workers + 2):
-                counters["gzipped"] += gzipped
-                counters["gzip_s"] += gzip_s
-                buf: list = []
-                for key, body_size, rec in results:
-                    pad = (-offset) % t.NEEDLE_PADDING_SIZE
-                    if pad:
-                        buf.append(bytes(pad))
-                        offset += pad
-                    buf.append(rec)
-                    idx_f.write(idx_mod.pack_entry(
-                        key, t.offset_to_stored(offset, offset_size),
-                        body_size, offset_size=offset_size))
-                    offset += len(rec)
-                dat_f.writelines(buf)
-                # flush before advancing: the feed preads this range
-                # through its own fd as soon as the watermark covers it
-                dat_f.flush()
-                wm.advance(offset)
-            dat_f.flush()
-            wm.finish(offset)
-        except BaseException as e:
-            wm.fail(e)
-
+        # a descriptor of this .dat of the pass's own: a vacuum commit
+        # that swaps the volume's files closes the volume's descriptor,
+        # never this one, and the offsets above stay this file's
+        src_fd = os.dup(volume._dat.fileno())
     try:
-        try:
-            feed = feed_mod.PreadvFeed(
-                dst_base + ".dat", g.data_shards, op.batch_size,
-                pool_buffers=op.depth + 2, readers=op.readers,
-                odirect=False, pinned=coder.pinned_host)
-            # the file grows under the feed: the gated segments gate the
-            # reads, and this size only bounds the feed's zero-fill of
-            # offsets past the end (the final size is at most `upper`;
-            # reads between it and `upper` find EOF and zero-fill too)
-            feed.size = upper
-            compact_th = threading.Thread(target=compactor, daemon=True,
-                                          name="ec-fused-compact")
-            compact_th.start()
+        snapshot.sort(key=lambda e: e[1])
+        entries = [(key, off, size, t.get_actual_size(size, version))
+                   for key, off, size in snapshot]
+        sb_bytes = sb.to_bytes()
+        head_len = len(sb_bytes) + ((-len(sb_bytes)) % t.NEEDLE_PADDING_SIZE)
+        # upper bound on the compacted size, known before any byte moves:
+        # gzip only ever shrinks a record and the 8-byte grain is kept
+        upper = head_len + sum(e[3] for e in entries)
+        if _op is not None:
+            op, governed = _op, False
+        else:
+            op, governed = _resolve_op(batch_size, depth, upper, g.data_shards,
+                                       coder_chips(coder))
+            if governed:
+                op = _steer_formulation(coder, op)
+        tctx = observe.ensure_ctx("ec")
+        wm = _Watermark()
+
+        def read_at(n: int, offset: int) -> bytes:
+            return os.pread(src_fd, n, offset)
+
+        counters = {"gzipped": 0, "gzip_s": 0.0}
+
+        chunks: list[list] = []
+        cur: list = []
+        cur_bytes = 0
+        for e in entries:
+            cur.append(e)
+            cur_bytes += e[3]
+            if cur_bytes >= _CHUNK_BYTES or len(cur) >= _CHUNK_NEEDLES:
+                chunks.append(cur)
+                cur, cur_bytes = [], 0
+        if cur:
+            chunks.append(cur)
+
+        pool = feed_mod._ReaderPool(max(1, op.gzip_workers))
+        dat_f, idx_f = striping._open_all(
+            [dst_base + ".dat", dst_base + ".idx"], "wb")
+        shard_paths = [dst_base + to_ext(i) for i in range(g.total_shards)]
+        digests = np.zeros(g.total_shards, dtype=np.uint64)
+
+        def compactor() -> None:
             try:
-                _stream_encode_core(
-                    feed.batches(_gated_segments(g, op.batch_size, wm)),
-                    coder, shard_paths, op, tctx,
-                    recycle=feed.recycle, digests=digests)
-            finally:
-                compact_th.join()
-                feed.close()
-            if wm.error is not None:
-                raise RuntimeError(
-                    "fused compaction failed") from wm.error
-            total = wm.total or 0
-            # the shards are fsynced (fan writers); now the volume pair
-            dat_f.flush()
-            os.fsync(dat_f.fileno())
-            idx_f.flush()
-            os.fsync(idx_f.fileno())
-        finally:
-            pool.close()
-            dat_f.close()
-            idx_f.close()
-        commit_t0 = time.perf_counter()
-        striping.write_sorted_ecx_from_idx(dst_base,
-                                           offset_size=offset_size)
-        fd = os.open(dst_base + ".ecx", os.O_RDONLY)
+                dat_f.write(sb_bytes)
+                offset = len(sb_bytes)
+                jobs = (
+                    (lambda chunk=chunk: _transform_chunk(
+                        read_at, chunk, version, gzip_level, tctx))
+                    for chunk in chunks)
+                for results, gzipped, gzip_s in feed_mod.ordered_pool_map(
+                        pool, jobs, op.gzip_workers + 2):
+                    counters["gzipped"] += gzipped
+                    counters["gzip_s"] += gzip_s
+                    buf: list = []
+                    for key, body_size, rec in results:
+                        pad = (-offset) % t.NEEDLE_PADDING_SIZE
+                        if pad:
+                            buf.append(bytes(pad))
+                            offset += pad
+                        buf.append(rec)
+                        idx_f.write(idx_mod.pack_entry(
+                            key, t.offset_to_stored(offset, offset_size),
+                            body_size, offset_size=offset_size))
+                        offset += len(rec)
+                    dat_f.writelines(buf)
+                    # flush before advancing: the feed preads this range
+                    # through its own fd as soon as the watermark covers it
+                    dat_f.flush()
+                    wm.advance(offset)
+                dat_f.flush()
+                wm.finish(offset)
+            except BaseException as e:
+                wm.fail(e)
+
         try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
-        if faults.fire("ec.fused.commit"):
-            raise IOError("injected abort at ec.fused.commit")
-        # the durable commit point: everything above is on disk before
-        # the marker makes the shard set reachable
-        shard_digests = {i: int(digests[i]) & 0xFFFFFFFF
-                         for i in range(g.total_shards)}
-        striping.write_layout_marker(dst_base, total, g,
-                                     shard_digests=shard_digests)
-        commit_s = time.perf_counter() - commit_t0
-    except BaseException:
-        _cleanup_dst(dst_base, g)
-        raise
-    if governed:
-        governor.get().finish_run(tctx.trace_id, op, upper, g.data_shards)
-    wall_s = time.perf_counter() - run_t0
-    wideevents.emit_stages(
-        "ec", f"ec.fused {os.path.basename(dst_base)}", tctx.trace_id,
-        int(wall_s * 1e6), observe.stage_totals(tctx.trace_id,
-                                                prefix="ec."))
-    return {
-        "live_needles": len(entries),
-        "src_bytes": src_size,
-        "compacted_bytes": total,
-        "shard_files": g.total_shards,
-        "gzipped_needles": counters["gzipped"],
-        "gzip_s": round(counters["gzip_s"], 3),
-        "shard_digests": shard_digests,
-        "batch_size": op.batch_size,
-        "readers": op.readers,
-        "gzip_workers": op.gzip_workers,
-        "wall_s": round(wall_s, 3),
-        "commit_s": round(commit_s, 3),
-    }
+            try:
+                feed = feed_mod.PreadvFeed(
+                    dst_base + ".dat", g.data_shards, op.batch_size,
+                    pool_buffers=op.depth + 2, readers=op.readers,
+                    odirect=False, pinned=coder.pinned_host)
+                # the file grows under the feed: the gated segments gate the
+                # reads, and this size only bounds the feed's zero-fill of
+                # offsets past the end (the final size is at most `upper`;
+                # reads between it and `upper` find EOF and zero-fill too)
+                feed.size = upper
+                compact_th = threading.Thread(target=compactor, daemon=True,
+                                              name="ec-fused-compact")
+                compact_th.start()
+                try:
+                    _stream_encode_core(
+                        feed.batches(_gated_segments(g, op.batch_size, wm)),
+                        coder, shard_paths, op, tctx,
+                        recycle=feed.recycle, digests=digests)
+                finally:
+                    compact_th.join()
+                    feed.close()
+                if wm.error is not None:
+                    raise RuntimeError(
+                        "fused compaction failed") from wm.error
+                total = wm.total or 0
+                # the shards are fsynced (fan writers); now the volume pair
+                dat_f.flush()
+                os.fsync(dat_f.fileno())
+                idx_f.flush()
+                os.fsync(idx_f.fileno())
+            finally:
+                pool.close()
+                dat_f.close()
+                idx_f.close()
+            commit_t0 = time.perf_counter()
+            striping.write_sorted_ecx_from_idx(dst_base,
+                                               offset_size=offset_size)
+            fd = os.open(dst_base + ".ecx", os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+            if faults.fire("ec.fused.commit"):
+                raise IOError("injected abort at ec.fused.commit")
+            # the durable commit point: everything above is on disk before
+            # the marker makes the shard set reachable
+            shard_digests = {i: int(digests[i]) & 0xFFFFFFFF
+                             for i in range(g.total_shards)}
+            striping.write_layout_marker(dst_base, total, g,
+                                         shard_digests=shard_digests)
+            commit_s = time.perf_counter() - commit_t0
+        except BaseException:
+            _cleanup_dst(dst_base, g)
+            raise
+        if governed:
+            governor.get().finish_run(tctx.trace_id, op, upper, g.data_shards)
+        wall_s = time.perf_counter() - run_t0
+        wideevents.emit_stages(
+            "ec", f"ec.fused {os.path.basename(dst_base)}", tctx.trace_id,
+            int(wall_s * 1e6), observe.stage_totals(tctx.trace_id,
+                                                    prefix="ec."))
+        return {
+            "live_needles": len(entries),
+            "src_bytes": src_size,
+            "compacted_bytes": total,
+            "shard_files": g.total_shards,
+            "gzipped_needles": counters["gzipped"],
+            "gzip_s": round(counters["gzip_s"], 3),
+            "shard_digests": shard_digests,
+            "batch_size": op.batch_size,
+            "readers": op.readers,
+            "gzip_workers": op.gzip_workers,
+            "wall_s": round(wall_s, 3),
+            "commit_s": round(commit_s, 3),
+        }
+    finally:
+        os.close(src_fd)
 
 
 def fused_vacuum_gzip_encode_many(volumes, dst_bases, coder: ErasureCoder,

@@ -15,8 +15,9 @@ the operation; the feed turns that into a failed read), ``corrupt``
 probability ``p`` rolled on its own ``random.Random(seed)`` and an
 optional ``count`` budget after which it disarms itself.
 
-The points this package fires are ``KNOWN_POINTS``. Not ported: the
-``/admin/faults`` handler and ``fire_async`` (they come with the servers).
+The points this package fires are ``KNOWN_POINTS``; ``fire_async`` is
+``fire`` for the servers' coroutines. Not ported: the ``/admin/faults``
+handler.
 """
 
 from __future__ import annotations
@@ -80,6 +81,11 @@ KNOWN_POINTS = frozenset({
     "ec.fused.commit",      # fused warm-down commit barrier, after the
                             # shards, .dat, .idx and .ecx are durable and
                             # before the .ecm marker
+    "disk.write",           # a volume's positioned .dat writes
+                            # (storage/backend.py); a drop loses the bytes
+    "disk.sync",            # a volume's .dat fsync barrier
+    "volume.replicate",     # a volume server's write fan-out to replicas;
+                            # a drop skips it, an error fails the write
 })
 
 _lock = threading.Lock()
@@ -194,6 +200,24 @@ def fire(point: str) -> bool:
     if f.action == "error":
         raise FaultError(f"injected fault at {point}")
     return True  # drop
+
+
+async def fire_async(point: str) -> bool:
+    """fire() for coroutine call sites: a delay parks on the loop instead
+    of blocking it."""
+    f = _arm(point, _FLOW_ACTIONS)
+    if f is None:
+        return False
+    if f.action == "delay":
+        import asyncio
+
+        from .. import observe
+        with observe.span(f"fault.{point}"):
+            await asyncio.sleep(f.ms / 1000.0)
+        return False
+    if f.action == "error":
+        raise FaultError(f"injected fault at {point}")
+    return True
 
 
 def corrupt(point: str, data: bytes) -> bytes:

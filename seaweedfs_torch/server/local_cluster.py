@@ -1,17 +1,23 @@
 """A master and N volume servers in one process, on loopback ports.
 
-What ``weed server`` is to upstream, for drives and tests: each volume
-server has its own directory and its own ``Store`` (the coder named by
-``coder_name``, "auto" by default: the CUDA kernels, which need a card),
-and the servers talk to each other over HTTP exactly as separate
-processes would. Volume server i sits in data center "dc1", rack
-"rack{i % 2}".
+What ``weed server`` is to upstream, for drives and tests: the servers
+are aiohttp applications served by ``AppRunner``s on one event loop, run
+in a daemon thread (tests/cluster_util.py does the same for the
+reference), each bound to a free port. Each volume server has its own
+directory and its own ``Store`` (the coder named by ``coder_name``,
+"auto" by default: the CUDA kernels, which need a card), and the servers
+talk to each other over HTTP exactly as separate processes would. Volume
+server i sits in data center "dc1", rack "rack{i % racks}"; ``racks=1``
+puts them all on one rack. The callers drive the cluster synchronously,
+from their own threads, through the port's client.
 """
 
 from __future__ import annotations
 
+import asyncio
 import os
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -23,6 +29,8 @@ from .volume_server import run_volume_server
 
 # volumes each server may hold
 MAX_VOLUMES = 16
+# the longest a server's start or stop may take
+CALL_TIMEOUT = 120.0
 
 
 class LocalCluster:
@@ -31,24 +39,29 @@ class LocalCluster:
                  geometry: Geometry = DEFAULT,
                  volume_size_limit_mb: int = 30 * 1024,
                  pulse: float = 5.0,
-                 directory: Optional[str] = None):
+                 directory: Optional[str] = None,
+                 racks: int = 2):
         self.coder_name = coder_name
         self.device = device
         self.geometry = geometry
         self.pulse = pulse
+        self.racks = racks
         self._tmp = None
         if directory is None:
             self._tmp = tempfile.TemporaryDirectory(prefix="weedtorch_")
             directory = self._tmp.name
         self.directory = directory
-        self.master, self.master_server = run_master(
-            volume_size_limit_mb=volume_size_limit_mb,
-            pulse_seconds=pulse)
-        self.master_url = self.master_server.url
-        # [volume server, its HTTP server, its store, its directory];
-        # a stopped one keeps its slot with the servers set to None
+        self.loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self.loop.run_forever,
+                                        name="local-cluster", daemon=True)
+        self._thread.start()
+        # [volume server, its runner, its store, its directory]; a
+        # stopped one keeps its slot with the first three set to None
         self.nodes: list[list] = []
+        self.master = self.master_runner = None
         try:
+            self.start_master(volume_size_limit_mb=volume_size_limit_mb,
+                              pulse_seconds=pulse)
             for _ in range(n_volume_servers):
                 self.add_volume_server()
             self.wait_for_nodes(n_volume_servers)
@@ -56,17 +69,39 @@ class LocalCluster:
             self.shutdown()
             raise
 
+    def call(self, coro):
+        """Run a coroutine on the cluster's loop; wait for its result."""
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            CALL_TIMEOUT)
+
+    def start_master(self, port: int = 0, **kwargs) -> None:
+        """Start the master (on `port`, or a free one)."""
+        self.master, self.master_runner = self.call(
+            run_master("127.0.0.1", port, **kwargs))
+        self.master_url = self.master.url
+
+    def stop_master(self) -> None:
+        if self.master_runner is not None:
+            self.call(self.master_runner.cleanup())
+            self.master = self.master_runner = None
+
     def add_volume_server(self) -> str:
+        """Start one more volume server, on a fresh directory; returns
+        its url."""
         i = len(self.nodes)
         d = os.path.join(self.directory, f"vs{i}")
         os.makedirs(d, exist_ok=True)
         store = Store([d], max_volume_counts=[MAX_VOLUMES],
                       coder_name=self.coder_name, geometry=self.geometry,
                       device=self.device)
-        vs, server = run_volume_server(
-            "127.0.0.1", 0, store, self.master_url, data_center="dc1",
-            rack=f"rack{i % 2}", pulse_seconds=self.pulse)
-        self.nodes.append([vs, server, store, d])
+        try:
+            vs, runner = self.call(run_volume_server(
+                "127.0.0.1", 0, store, self.master_url, data_center="dc1",
+                rack=f"rack{i % self.racks}", pulse_seconds=self.pulse))
+        except BaseException:
+            store.close()
+            raise
+        self.nodes.append([vs, runner, store, d])
         return vs.url
 
     def url(self, i: int) -> str:
@@ -81,13 +116,12 @@ class LocalCluster:
 
     def stop_volume_server(self, i: int) -> None:
         """Stop one volume server as a crash would leave it to its
-        peers: no more heartbeats, its port closed."""
-        vs, server, store, _ = self.nodes[i]
+        peers: no more heartbeats, its port and kept connections closed
+        (its store is closed too)."""
+        vs, runner, _, _ = self.nodes[i]
         if vs is None:
             return
-        vs.stop()
-        server.shutdown()
-        store.close()
+        self.call(runner.cleanup())
         self.nodes[i][:3] = [None, None, None]
 
     def node_count(self) -> int:
@@ -103,9 +137,13 @@ class LocalCluster:
             time.sleep(0.05)
 
     def shutdown(self) -> None:
-        for i in range(len(self.nodes)):
-            self.stop_volume_server(i)
-        self.master.stop()
-        self.master_server.shutdown()
-        if self._tmp is not None:
-            self._tmp.cleanup()
+        try:
+            for i in range(len(self.nodes)):
+                self.stop_volume_server(i)
+            self.stop_master()
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self._thread.join(CALL_TIMEOUT)
+            self.loop.close()
+            if self._tmp is not None:
+                self._tmp.cleanup()

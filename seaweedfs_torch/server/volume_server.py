@@ -1,13 +1,21 @@
-"""Volume server: the HTTP data path, the EC admin API, the heartbeat.
+"""Volume server: the HTTP data path, replication, the admin API, the
+heartbeat.
 
 The port's reduced copy of seaweedfs_tpu/server/volume_server.py
-(upstream weed/server/volume_server_handlers_read.go / _write.go, and the
-admin RPCs of volume_grpc_*.go as JSON over HTTP), on the standard
-library's HTTP server (server/http.py). The same wire as the reference:
+(upstream weed/server/volume_server_handlers_read.go / _write.go,
+weed/topology/store_replicate.go, and the admin RPCs of
+volume_grpc_*.go as JSON over HTTP), an aiohttp application with the
+reference's wire:
 
   data:   GET/HEAD/POST/PUT/DELETE /<vid>,<fid>
   admin:  POST /admin/assign_volume       (AllocateVolume)
+          POST /admin/vacuum              (a whole compaction)
+          GET  /admin/vacuum/check?volume_id=
+          POST /admin/vacuum/compact, /commit, /cleanup
           POST /admin/volume/delete, /readonly, /mount, /unmount
+          POST /admin/volume/configure_replication
+          GET  /admin/volume/needle_ids?volume_id=
+          POST /admin/volume/copy         (VolumeCopy, pull model)
           POST /admin/ec/generate, /admin/ec/fused (VolumeEcShardsGenerate)
           POST /admin/ec/mount, /unmount, /rebuild
           POST /admin/ec/copy             (VolumeEcShardsCopy, pull model)
@@ -16,30 +24,45 @@ library's HTTP server (server/http.py). The same wire as the reference:
           GET  /admin/file_copy?volume_id=&collection=&ext=
           GET  /status, /healthz, /metrics
 
-Handlers run on the request's thread and call the Store directly; the
-EC steps run the store's coder, which is the CUDA kernel coder under
-"auto" (and raises on a host without a card: the error reaches the
-client as an HTTP 500, never as a success). Every handler that changes
-what the node holds sends its heartbeat before it answers, so the
-master's ``/col/lookup/ec`` is current when the shell's next call lands.
-EC reads fetch intervals of shards held elsewhere from their holders'
-``/admin/ec/shard_read``, and reconstruct the rest from survivors.
+A write to a replicated volume is stored here, then POSTed with
+``?type=replicate`` to every other holder the master lists; it is
+acknowledged with 201 only when every replica answered below 300, and
+answers 500 otherwise (the local copy stays, as upstream's does). When
+the master lists fewer holders than the volume's placement asks for,
+the write is refused with 500 before anything is stored, as upstream
+refuses it (the reference stores and acknowledges it). A DELETE is
+propagated the same way.
 
-Replication fan-out is not ported: a volume whose replica placement asks
-for more than one copy is refused at allocation, never stored as one
-copy. Also left out: the write batcher, image resizing, read repair,
-vacuum, tiering, tail, query, volume copy, the scrubber, the UI, guard/
+Blocking Store calls run in the loop's executor threads; every call to
+another server (replication, heartbeats, shard and volume copies, the
+EC delete's shard lookup) is an awaited aiohttp client call, so that
+many servers can share one event loop (server/local_cluster.py). The
+one synchronous client is the EC read path's peer shard reader, which
+runs in executor threads. The EC steps run the store's coder, the CUDA
+kernel coder under "auto" (which raises on a host without a card: the
+error reaches the client as an HTTP 500, never as a success). Every
+handler that changes what the node holds sends its heartbeat before it
+answers, so the master's view is current when the shell's next call
+lands.
+
+Left out: the write batcher and group commit, image resizing, read
+repair, tiering, tail, query, batch delete, the scrubber, the UI, guard/
 JWT, the fastpath listener, shard fleets and gRPC.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import os
-import threading
 import time
+import uuid
 from typing import Optional
 
+import aiohttp
+from aiohttp import web
+
+from .. import faults
 from ..ec.geometry import to_ext
 from ..storage import types as t
 from ..storage.file_id import FileId
@@ -47,8 +70,7 @@ from ..storage.needle import (FLAG_HAS_LAST_MODIFIED, FLAG_HAS_MIME,
                               FLAG_HAS_NAME, FLAG_HAS_TTL,
                               FLAG_IS_COMPRESSED, CrcError, Needle)
 from ..storage.store import Store, safe_collection
-from ..storage.superblock import ReplicaPlacement
-from ..storage.volume import VolumeReadOnly
+from ..storage.volume import Volume, VolumeCompacting, VolumeReadOnly
 from ..utils import compression, multipart
 from ..utils import metrics as metrics_mod
 from . import http
@@ -56,10 +78,18 @@ from . import http
 log = logging.getLogger("volume")
 
 MAX_NEEDLE_BYTES = 32 * 1024 * 1024
+# the largest request body (aiohttp's default is 1 MiB)
+MAX_BODY = 256 * 1024 * 1024
+COPY_CHUNK = 1 << 20
 
 
-def _error(msg: str, status: int) -> http.Response:
-    return http.json_response({"error": msg}, status)
+def _error(msg: str, status: int) -> web.Response:
+    return web.json_response({"error": msg}, status=status)
+
+
+async def _run(fn, *args):
+    """A blocking call on the loop's executor threads."""
+    return await asyncio.get_running_loop().run_in_executor(None, fn, *args)
 
 
 class VolumeServer:
@@ -74,24 +104,32 @@ class VolumeServer:
         self.pulse_seconds = pulse_seconds
         self.volume_size_limit = 30 * 1024 * 1024 * 1024
         self.metrics = metrics_mod.Registry("volume")
+        self._replica_cache: dict[int, tuple[list[str], float]] = {}
         self._shard_loc_cache: dict[int, tuple[dict, float]] = {}
+        self._session: Optional[aiohttp.ClientSession] = None
+        self._hb_task: Optional[asyncio.Task] = None
         # one heartbeat at a time: a payload built before another must
         # not land after it
-        self._hb_lock = threading.Lock()
-        self._stop = threading.Event()
-        self._hb_thread: Optional[threading.Thread] = None
+        self._hb_lock: Optional[asyncio.Lock] = None
         self.app = self._build_app()
         # the EC read path fetches missing shards from peers through this
         store._remote_shard_reader = self._make_shard_reader
 
-    def _build_app(self) -> http.App:
-        app = http.App()
-        admin = [
+    def _build_app(self) -> web.Application:
+        app = web.Application(client_max_size=MAX_BODY,
+                              middlewares=[http.errors_as_json])
+        admin_posts = [
             ("assign_volume", self.admin_assign_volume),
+            ("vacuum", self.admin_vacuum),
+            ("vacuum/compact", self.admin_vacuum_compact),
+            ("vacuum/commit", self.admin_vacuum_commit),
+            ("vacuum/cleanup", self.admin_vacuum_cleanup),
             ("volume/delete", self.admin_volume_delete),
             ("volume/readonly", self.admin_readonly),
             ("volume/mount", self.admin_volume_mount),
             ("volume/unmount", self.admin_volume_unmount),
+            ("volume/configure_replication", self.admin_volume_configure),
+            ("volume/copy", self.admin_volume_copy),
             ("ec/generate", self.admin_ec_generate),
             ("ec/fused", self.admin_ec_fused),
             ("ec/mount", self.admin_ec_mount),
@@ -102,41 +140,52 @@ class VolumeServer:
             ("ec/blob_delete", self.admin_ec_blob_delete),
             ("ec/to_volume", self.admin_ec_to_volume),
         ]
-        for path, handler in admin:
-            app.route("POST", f"/admin/{path}", handler)
-        app.route("GET", "/admin/ec/shard_read", self.admin_ec_shard_read)
-        app.route("GET", "/admin/file_copy", self.admin_file_copy)
-        app.route("GET", "/status", self.status)
-        app.route("GET", "/metrics", self.metrics_handler)
-        app.route("GET", "/healthz",
-                  lambda req: http.json_response({"ok": True}))
-        app.catch_all("fid", self.data_handler)
+        for path, handler in admin_posts:
+            app.router.add_post(f"/admin/{path}", handler)
+        app.router.add_get("/admin/vacuum/check", self.admin_vacuum_check)
+        app.router.add_get("/admin/volume/needle_ids",
+                           self.admin_needle_ids)
+        app.router.add_get("/admin/ec/shard_read", self.admin_ec_shard_read)
+        app.router.add_get("/admin/file_copy", self.admin_file_copy)
+        app.router.add_get("/status", self.status)
+        app.router.add_get("/metrics", self.metrics_handler)
+        app.router.add_get("/healthz", self.healthz)
+        app.router.add_route("*", "/{fid:[^{}]*}", self.data_handler)
+        app.on_startup.append(self._on_startup)
+        app.on_cleanup.append(self._on_cleanup)
         return app
 
+    async def _on_startup(self, app) -> None:
+        # connect and inactivity bounds with no total cap: the fan-out
+        # and heartbeats never hang on a dead peer, while volume and
+        # shard copies stream as long as bytes keep flowing
+        self._session = aiohttp.ClientSession(
+            timeout=aiohttp.ClientTimeout(total=None, sock_connect=10,
+                                          sock_read=60))
+        self._hb_lock = asyncio.Lock()
+        self._hb_task = asyncio.create_task(self._heartbeat_loop())
+
+    async def _on_cleanup(self, app) -> None:
+        if self._hb_task is not None:
+            self._hb_task.cancel()
+            try:
+                await self._hb_task
+            except asyncio.CancelledError:
+                pass
+        if self._session is not None:
+            await self._session.close()
+        await _run(self.store.close)
+
     # --- heartbeat (weed/server/volume_grpc_client_to_master.go) ---
-    def start(self) -> None:
-        """Start the heartbeat loop: one beat now, then every pulse."""
-        if self._hb_thread is None:
-            self._hb_thread = threading.Thread(
-                target=self._heartbeat_loop, name=f"heartbeat-{self.url}",
-                daemon=True)
-            self._hb_thread.start()
-
-    def stop(self) -> None:
-        self._stop.set()
-        if self._hb_thread is not None:
-            self._hb_thread.join()
-            self._hb_thread = None
-
-    def _heartbeat_loop(self) -> None:
+    async def _heartbeat_loop(self) -> None:
         while True:
             try:
-                self.send_heartbeat()
-            except Exception as e:
+                await self.send_heartbeat()
+            except (aiohttp.ClientError, asyncio.TimeoutError,
+                    RuntimeError, ValueError) as e:
                 log.warning("heartbeat to %s failed: %s", self.master_url,
                             e)
-            if self._stop.wait(self.pulse_seconds):
-                return
+            await asyncio.sleep(self.pulse_seconds)
 
     def _hb_payload(self) -> dict:
         payload = self.store.heartbeat()
@@ -149,48 +198,50 @@ class VolumeServer:
         })
         return payload
 
-    def send_heartbeat(self) -> None:
-        with self._hb_lock:
-            if self._stop.is_set():
-                return
-            status, body = http.post_json(
-                f"http://{self.master_url}/heartbeat", self._hb_payload(),
-                timeout=10)
-        if status != 200:
-            raise RuntimeError(f"heartbeat: HTTP {status} {body}")
+    async def send_heartbeat(self) -> None:
+        async with self._hb_lock:
+            async with self._session.post(
+                    f"http://{self.master_url}/heartbeat",
+                    json=self._hb_payload(),
+                    timeout=aiohttp.ClientTimeout(total=10)) as r:
+                body = await r.json()
+                if r.status != 200:
+                    raise RuntimeError(f"heartbeat: HTTP {r.status} {body}")
         self.volume_size_limit = body.get("volume_size_limit",
                                           self.volume_size_limit)
 
     # --- data path ---
-    def data_handler(self, req: http.Request) -> http.Response:
-        fid_str = req.match["fid"]
+    async def data_handler(self, request: web.Request) -> web.Response:
+        fid_str = request.match_info["fid"].lstrip("/")
         if not fid_str or "," not in fid_str:
             return _error("missing file id", 400)
         try:
             fid = FileId.parse(fid_str)
         except ValueError as e:
             return _error(str(e), 400)
-        if req.method in ("GET", "HEAD"):
-            return self._read(req, fid)
-        if req.method in ("POST", "PUT"):
-            return self._write(req, fid)
-        if req.method == "DELETE":
-            return self._delete(req, fid)
+        if request.method in ("GET", "HEAD"):
+            return await self._read(request, fid)
+        if request.method in ("POST", "PUT"):
+            return await self._write(request, fid)
+        if request.method == "DELETE":
+            return await self._delete(request, fid)
         return _error("method not allowed", 405)
 
-    def _read(self, req: http.Request, fid: FileId) -> http.Response:
+    async def _read(self, request: web.Request,
+                    fid: FileId) -> web.Response:
         """GetOrHeadHandler (volume_server_handlers_read.go:28-272)."""
         self.metrics.count("read")
         try:
-            n = self.store.read_needle(fid.volume_id, fid.key, fid.cookie)
+            n = await _run(self.store.read_needle, fid.volume_id, fid.key,
+                           fid.cookie)
         except KeyError:
             # absent, deleted, expired, a wrong cookie or no such volume
             return _error("not found", 404)
         except CrcError:
             return _error("data corruption", 500)
         etag = f'"{n.etag()}"'
-        if req.headers.get("If-None-Match") == etag:
-            return http.Response(status=304)
+        if request.headers.get("If-None-Match") == etag:
+            return web.Response(status=304)
         headers = {"ETag": etag, "Accept-Ranges": "bytes"}
         if n.has(FLAG_HAS_LAST_MODIFIED):
             headers["X-Last-Modified"] = str(n.last_modified)
@@ -202,12 +253,12 @@ class VolumeServer:
         body = n.data
         if n.is_compressed:
             # gzip verbatim only to clients that accept it
-            if "gzip" in req.headers.get("Accept-Encoding", ""):
+            if "gzip" in request.headers.get("Accept-Encoding", ""):
                 headers["Content-Encoding"] = "gzip"
             else:
                 body = compression.decompress(body)
         status = 200
-        rng = req.headers.get("Range")
+        rng = request.headers.get("Range")
         if rng and rng.startswith("bytes=") and \
                 "Content-Encoding" not in headers:
             try:
@@ -226,28 +277,30 @@ class VolumeServer:
                 if start > end:
                     raise ValueError
             except ValueError:
-                return http.Response(status=416)
+                return web.Response(status=416)
             headers["Content-Range"] = f"bytes {start}-{end}/{len(body)}"
             body = body[start:end + 1]
             status = 206
-        return http.Response(body, status, headers, content_type=mime)
+        if request.method == "HEAD":
+            headers["Content-Length"] = str(len(body))
+            return web.Response(status=status, headers=headers,
+                                content_type=mime)
+        return web.Response(status=status, body=body, headers=headers,
+                            content_type=mime)
 
-    def _write(self, req: http.Request, fid: FileId) -> http.Response:
-        """PostHandler (volume_server_handlers_write.go:19): the needle
-        gets the reference's fields (name, mime, the compression flag,
-        ttl, last-modified) from the multipart part and the query."""
+    async def _write(self, request: web.Request,
+                     fid: FileId) -> web.Response:
+        """PostHandler + ReplicatedWrite (volume_server_handlers_write.go:
+        19, weed/topology/store_replicate.go:21-161): the needle gets the
+        reference's fields (name, mime, the compression flag, ttl,
+        last-modified) from the multipart part and the query."""
         self.metrics.count("write")
-        v = self.store.find_volume(fid.volume_id)
-        if v is not None and \
-                v.super_block.replica_placement.copy_count() > 1:
-            return _error(f"volume {fid.volume_id}: replication "
-                          f"{v.super_block.replica_placement} is not "
-                          "supported by this server", 409)
         n = Needle(cookie=fid.cookie, id=fid.key)
-        raw_ct = req.headers.get("Content-Type", "")
+        raw_ct = request.headers.get("Content-Type", "")
         filename, ctype = "", ""
+        body = await request.read()
         if raw_ct[:10].lower().startswith("multipart/"):
-            part = multipart.parse_upload(req.body, raw_ct)
+            part = multipart.parse_upload(body, raw_ct)
             if part is None:
                 return _error("empty multipart body", 400)
             n.data = part.data
@@ -261,14 +314,14 @@ class VolumeServer:
                 n.mime = ctype.encode()[:255]
             already_gzipped = part.content_encoding == "gzip"
         else:
-            n.data = req.body
-            already_gzipped = req.headers.get("Content-Encoding",
-                                              "") == "gzip"
+            n.data = body
+            already_gzipped = request.headers.get("Content-Encoding",
+                                                  "") == "gzip"
         # client-gzipped payloads keep the flag; compressable content is
         # gzipped when that shrinks it; ?compress=false opts out
         if already_gzipped and compression.is_gzipped(n.data):
             n.set_flag(FLAG_IS_COMPRESSED)
-        elif req.query.get("compress") != "false":
+        elif request.query.get("compress") != "false":
             ext = os.path.splitext(filename)[1] if filename else ""
             payload, compressed = compression.maybe_compress(n.data, ext,
                                                              ctype)
@@ -277,38 +330,128 @@ class VolumeServer:
                 n.set_flag(FLAG_IS_COMPRESSED)
         if len(n.data) > MAX_NEEDLE_BYTES:
             return _error("entry too large", 413)
-        ttl_s = req.query.get("ttl", "")
+        ttl_s = request.query.get("ttl", "")
         if ttl_s:
             n.set_flag(FLAG_HAS_TTL)
             n.ttl = t.TTL.parse(ttl_s)
         n.set_flag(FLAG_HAS_LAST_MODIFIED)
         n.last_modified = int(time.time())
+        replicas: list[str] = []
+        primary = request.query.get("type") != "replicate"
+        v = self.store.find_volume(fid.volume_id)
+        if primary and v is not None:
+            # as upstream's GetWritableRemoteReplications
+            # (store_replicate.go:163-194), and unlike the reference: a
+            # write the master cannot place on every copy is refused
+            # before anything is stored
+            copies = v.super_block.replica_placement.copy_count()
+            if copies > 1:
+                replicas = await self._replica_urls(fid.volume_id)
+                if len(replicas) + 1 < copies:
+                    return _error(
+                        f"replicating operations [{len(replicas) + 1}] "
+                        f"is less than volume {fid.volume_id} "
+                        f"replication copy count [{copies}]", 500)
         try:
-            _, _, unchanged = self.store.write_needle(fid.volume_id, n)
+            _, _, unchanged = await _run(self.store.write_needle,
+                                         fid.volume_id, n)
         except VolumeReadOnly as e:
             return _error(str(e), 409)
         except KeyError:
             return _error("volume not found", 404)
         except ValueError as e:
             return _error(str(e), 409)
-        return http.json_response({
+        if primary and not await self._replicate(request, fid, n,
+                                                 replicas):
+            return _error("replication failed", 500)
+        return web.json_response({
             "name": (n.name or b"").decode("utf-8", "replace"),
             "size": len(n.data), "eTag": n.etag(),
-            "unchanged": unchanged}, 201)
+            "unchanged": unchanged}, status=201)
 
-    def _delete(self, req: http.Request, fid: FileId) -> http.Response:
+    async def _replicate(self, request: web.Request, fid: FileId,
+                         n: Needle, replicas: list[str]) -> bool:
+        """POST the stored needle to every other holder; True when each
+        answered below 300 (store_replicate.go:21-161)."""
+        try:
+            if await faults.fire_async("volume.replicate"):
+                # an injected drop skips the fan-out
+                return True
+        except faults.FaultError:
+            return False
+        if not replicas:
+            return True
+        # multipart, so that the name and mime survive on the replica and
+        # its needle matches this one; a compressed payload carries
+        # Content-Encoding so the replica flags it instead of gzipping it
+        # again
+        boundary = uuid.uuid4().hex
+        name = (n.name.decode("utf-8", "replace")
+                if n.has(FLAG_HAS_NAME) else "file")
+        ctype = (n.mime.decode("utf-8", "replace")
+                 if n.has(FLAG_HAS_MIME) else "application/octet-stream")
+        head = (f"--{boundary}\r\n"
+                f'Content-Disposition: form-data; name="file"; '
+                f'filename="{name}"\r\n'
+                f"Content-Type: {ctype}\r\n")
+        if n.is_compressed:
+            head += "Content-Encoding: gzip\r\n"
+        payload = head.encode() + b"\r\n" + n.data + \
+            f"\r\n--{boundary}--\r\n".encode()
+        params = {"type": "replicate",
+                  **{k: v for k, v in request.query.items() if k == "ttl"}}
+        results = await asyncio.gather(
+            *[self._session.post(
+                f"http://{url}/{fid}", params=params, data=payload,
+                headers={"Content-Type":
+                         f"multipart/form-data; boundary={boundary}"})
+              for url in replicas], return_exceptions=True)
+        ok = True
+        for url, res in zip(replicas, results):
+            if isinstance(res, BaseException):
+                log.warning("replicate %s to %s failed: %s", fid, url, res)
+                ok = False
+            else:
+                ok = ok and res.status < 300
+                res.release()
+        return ok
+
+    async def _replica_urls(self, vid: int) -> list[str]:
+        """The volume's other holders, from the master's lookup, cached
+        for 10 s (getWritableRemoteReplications,
+        store_replicate.go:163)."""
+        cached = self._replica_cache.get(vid)
+        if cached and time.monotonic() - cached[1] < 10.0:
+            return cached[0]
+        try:
+            async with self._session.get(
+                    f"http://{self.master_url}/dir/lookup",
+                    params={"volumeId": str(vid)}) as r:
+                if r.status != 200:
+                    return []
+                body = await r.json()
+        except (aiohttp.ClientError, asyncio.TimeoutError, ValueError):
+            return []
+        urls = [loc["url"] for loc in body.get("locations", [])
+                if loc["url"] != self.url]
+        self._replica_cache[vid] = (urls, time.monotonic())
+        return urls
+
+    async def _delete(self, request: web.Request,
+                      fid: FileId) -> web.Response:
         """DeleteHandler. The needle's cookie must match, as upstream
         checks it (volume_server_handlers_write.go); the reference does
         not."""
         self.metrics.count("delete")
-        propagate = req.query.get("type") != "replicate"
+        propagate = request.query.get("type") != "replicate"
         ev = self.store.find_ec_volume(fid.volume_id)
         if ev is not None and self.store.find_volume(fid.volume_id) is None:
             # EC delete: local tombstone, then every other shard holder.
             # Every holder has the .ecx, so each checks the cookie, the
             # holders a delete is propagated to as well.
             try:
-                n = self.store.read_needle(fid.volume_id, fid.key)
+                n = await _run(self.store.read_needle, fid.volume_id,
+                               fid.key)
             except KeyError:
                 n = None  # absent or deleted: the tombstone is a no-op
             if n is not None and n.cookie != fid.cookie:
@@ -318,105 +461,251 @@ class VolumeServer:
             except KeyError:
                 return _error("not found", 404)
             if propagate:
-                self._propagate_ec_delete(fid)
-            return http.json_response({"size": 0})
+                await self._propagate_ec_delete(fid)
+            return web.json_response({"size": 0})
         v = self.store.find_volume(fid.volume_id)
         if v is None:
             return _error("volume not found", 404)
-        cookie = v.needle_cookie(fid.key)
+        cookie = await _run(v.needle_cookie, fid.key)
         if cookie is not None and cookie != fid.cookie:
             return _error("File Random Cookie does not match.", 400)
         try:
-            size = self.store.delete_needle(fid.volume_id,
-                                            Needle(cookie=fid.cookie,
-                                                   id=fid.key))
+            size = await _run(self.store.delete_needle, fid.volume_id,
+                              Needle(cookie=fid.cookie, id=fid.key))
         except VolumeReadOnly as e:
             return _error(str(e), 409)
-        return http.json_response({"size": size})
+        except KeyError:
+            return _error("volume not found", 404)
+        if propagate:
+            for url in await self._replica_urls(fid.volume_id):
+                try:
+                    async with self._session.delete(
+                            f"http://{url}/{fid}",
+                            params={"type": "replicate"}):
+                        pass
+                except (aiohttp.ClientError, asyncio.TimeoutError) as e:
+                    log.warning("delete replicate to %s: %s", url, e)
+        return web.json_response({"size": size})
 
-    def _propagate_ec_delete(self, fid: FileId) -> None:
+    async def _propagate_ec_delete(self, fid: FileId) -> None:
         try:
-            status, body = http.get_json(
-                f"http://{self.master_url}/col/lookup/ec"
-                f"?volumeId={fid.volume_id}", timeout=10)
-        except OSError:
+            async with self._session.get(
+                    f"http://{self.master_url}/col/lookup/ec",
+                    params={"volumeId": str(fid.volume_id)}) as r:
+                if r.status != 200:
+                    return
+                shards = (await r.json()).get("shards", {})
+        except (aiohttp.ClientError, asyncio.TimeoutError, ValueError):
             return
-        if status != 200:
-            return
-        urls = {u for us in body.get("shards", {}).values() for u in us
-                if u != self.url}
+        urls = {u for us in shards.values() for u in us if u != self.url}
         for url in sorted(urls):
             try:
-                http.request("DELETE", f"http://{url}/{fid}?type=replicate",
-                             timeout=30)
-            except OSError as e:
+                async with self._session.delete(
+                        f"http://{url}/{fid}",
+                        params={"type": "replicate"}):
+                    pass
+            except (aiohttp.ClientError, asyncio.TimeoutError) as e:
                 log.warning("ec delete propagate to %s: %s", url, e)
 
     # --- admin ---
-    def admin_assign_volume(self, req: http.Request) -> http.Response:
-        body = req.json()
-        replication = body.get("replication", "000") or "000"
+    async def _beat_after_change(self) -> None:
         try:
-            copies = ReplicaPlacement.parse(replication).copy_count()
-        except ValueError as e:
-            return _error(str(e), 400)
-        if copies > 1:
-            # the fan-out is not ported: one stored copy would break the
-            # placement's promise
-            return _error(f"replication {replication} is not supported "
-                          "by this server", 409)
+            await self.send_heartbeat()
+        except (aiohttp.ClientError, asyncio.TimeoutError,
+                RuntimeError, ValueError) as e:
+            # the change itself succeeded; the next beat reports it
+            log.warning("heartbeat after a change failed: %s", e)
+
+    async def admin_assign_volume(self, request: web.Request
+                                  ) -> web.Response:
+        body = await request.json()
         try:
-            self.store.add_volume(int(body["volume_id"]),
-                                  body.get("collection", ""), replication,
-                                  body.get("ttl", ""))
+            await _run(self.store.add_volume, int(body["volume_id"]),
+                       body.get("collection", ""),
+                       body.get("replication", "000") or "000",
+                       body.get("ttl", ""))
         except (ValueError, RuntimeError) as e:
             return _error(str(e), 409)
+        await self._beat_after_change()
+        return web.json_response({"ok": True})
+
+    async def admin_vacuum(self, request: web.Request) -> web.Response:
+        body = await request.json()
+        v = self.store.find_volume(int(body["volume_id"]))
+        if v is None:
+            return _error("volume not found", 404)
+        garbage = v.garbage_level()
         try:
-            self.send_heartbeat()
-        except Exception as e:
-            # the allocation itself succeeded; the next beat reports it
-            log.warning("post-allocate heartbeat failed: %s", e)
-        return http.json_response({"ok": True})
+            await _run(v.compact)
+        except RuntimeError as e:
+            return _error(str(e), 409)
+        return web.json_response({"ok": True, "garbage_level": garbage})
 
-    def admin_volume_delete(self, req: http.Request) -> http.Response:
-        ok = self.store.delete_volume(int(req.json()["volume_id"]))
-        self.send_heartbeat()
-        return http.json_response({"ok": ok})
+    async def admin_vacuum_check(self, request: web.Request
+                                 ) -> web.Response:
+        """VacuumVolumeCheck (weed/server/volume_grpc_vacuum.go): the
+        garbage ratio the master decides on."""
+        try:
+            garbage = self.store.vacuum_check(
+                int(request.query["volume_id"]))
+        except KeyError:
+            return _error("volume not found", 404)
+        return web.json_response({"garbage_level": garbage})
 
-    def admin_readonly(self, req: http.Request) -> http.Response:
-        body = req.json()
+    async def admin_vacuum_compact(self, request: web.Request
+                                   ) -> web.Response:
+        body = await request.json()
+        try:
+            await _run(self.store.vacuum_compact, int(body["volume_id"]))
+        except KeyError:
+            return _error("volume not found", 404)
+        except RuntimeError as e:
+            return _error(str(e), 409)
+        return web.json_response({"ok": True})
+
+    async def admin_vacuum_commit(self, request: web.Request
+                                  ) -> web.Response:
+        body = await request.json()
+        try:
+            await _run(self.store.vacuum_commit, int(body["volume_id"]))
+        except KeyError:
+            return _error("volume not found", 404)
+        except RuntimeError as e:
+            return _error(str(e), 409)
+        return web.json_response({"ok": True})
+
+    async def admin_vacuum_cleanup(self, request: web.Request
+                                   ) -> web.Response:
+        body = await request.json()
+        try:
+            await _run(self.store.vacuum_cleanup, int(body["volume_id"]))
+        except KeyError:
+            return _error("volume not found", 404)
+        return web.json_response({"ok": True})
+
+    async def admin_volume_delete(self, request: web.Request
+                                  ) -> web.Response:
+        body = await request.json()
+        ok = await _run(self.store.delete_volume, int(body["volume_id"]))
+        await self.send_heartbeat()
+        return web.json_response({"ok": ok})
+
+    async def admin_readonly(self, request: web.Request) -> web.Response:
+        body = await request.json()
         ok = self.store.mark_readonly(int(body["volume_id"]),
                                       body.get("read_only", True))
-        return http.json_response({"ok": ok})
+        return web.json_response({"ok": ok})
 
-    def admin_volume_mount(self, req: http.Request) -> http.Response:
-        body = req.json()
+    async def admin_volume_mount(self, request: web.Request
+                                 ) -> web.Response:
+        """VolumeMount (weed/server/volume_grpc_admin.go)."""
+        body = await request.json()
         try:
-            v = self.store.mount_volume(int(body["volume_id"]),
-                                        body.get("collection", ""))
+            v = await _run(self.store.mount_volume, int(body["volume_id"]),
+                           body.get("collection", ""))
         except (KeyError, ValueError) as e:
             return _error(str(e), 409)
-        self.send_heartbeat()
-        return http.json_response({"ok": True,
-                                   "file_count": v.file_count()})
+        await self.send_heartbeat()
+        return web.json_response({"ok": True,
+                                  "file_count": v.file_count()})
 
-    def admin_volume_unmount(self, req: http.Request) -> http.Response:
-        ok = self.store.unmount_volume(int(req.json()["volume_id"]))
-        self.send_heartbeat()
-        return http.json_response({"ok": ok})
+    async def admin_volume_unmount(self, request: web.Request
+                                   ) -> web.Response:
+        """VolumeUnmount: stop serving, keep the files."""
+        body = await request.json()
+        ok = await _run(self.store.unmount_volume, int(body["volume_id"]))
+        await self.send_heartbeat()
+        return web.json_response({"ok": ok})
 
-    def admin_ec_generate(self, req: http.Request) -> http.Response:
+    async def admin_volume_configure(self, request: web.Request
+                                     ) -> web.Response:
+        """VolumeConfigure: rewrite the superblock's replication."""
+        body = await request.json()
+        try:
+            await _run(self.store.configure_replication,
+                       int(body["volume_id"]), body["replication"])
+        except (KeyError, ValueError) as e:
+            return _error(str(e), 400)
+        await self.send_heartbeat()
+        return web.json_response({"ok": True})
+
+    async def admin_needle_ids(self, request: web.Request) -> web.Response:
+        """The live needle inventory (command_volume_fsck.go collects the
+        same per-volume id set)."""
+        try:
+            vid = int(request.query["volume_id"])
+            entries = await _run(self.store.needle_ids, vid)
+        except KeyError as e:
+            return _error(str(e), 404)
+        return web.json_response({"volume_id": vid,
+                                  "needles": [[k, s] for k, s in entries]})
+
+    async def _pull(self, source: str, vid: int, collection: str,
+                    ext: str, path: str) -> int:
+        """Stream one file of a peer's (its /admin/file_copy) to `path`;
+        returns the peer's status (the file is written only on 200)."""
+        async with self._session.get(
+                f"http://{source}/admin/file_copy",
+                params={"volume_id": str(vid), "collection": collection,
+                        "ext": ext}) as r:
+            if r.status == 200:
+                with open(path, "wb") as f:
+                    async for chunk in r.content.iter_chunked(COPY_CHUNK):
+                        f.write(chunk)
+            return r.status
+
+    async def admin_volume_copy(self, request: web.Request
+                                ) -> web.Response:
+        """Pull a whole volume (.dat + .idx) from a source server and
+        mount it (VolumeCopy, weed/server/volume_grpc_copy.go:24-151)."""
+        body = await request.json()
+        vid = int(body["volume_id"])
+        collection = body.get("collection", "")
+        if not safe_collection(collection):
+            return _error("bad collection", 400)
+        source = body["source"]
+        if self.store.find_volume(vid) is not None:
+            return _error("volume exists", 409)
+        open_locs = [loc for loc in self.store.locations
+                     if len(loc.volumes) < loc.max_volume_count]
+        if not open_locs:
+            return _error("no free slots", 500)
+        loc = min(open_locs, key=lambda loc: len(loc.volumes))
+        prefix = f"{collection}_" if collection else ""
+        base = os.path.join(loc.directory, f"{prefix}{vid}")
+        try:
+            for ext in (".dat", ".idx"):
+                status = await self._pull(source, vid, collection, ext,
+                                          base + ext)
+                if status != 200:
+                    raise IOError(f"{source} has no {vid}{ext}: {status}")
+            v = await _run(Volume, loc.directory, collection, vid)
+            loc.volumes[vid] = v
+        except (OSError, aiohttp.ClientError, asyncio.TimeoutError,
+                ValueError) as e:
+            for ext in (".dat", ".idx", ".swm"):
+                if os.path.exists(base + ext):
+                    os.remove(base + ext)
+            return _error(str(e), 500)
+        await self.send_heartbeat()
+        return web.json_response({"ok": True,
+                                  "file_count": v.file_count()})
+
+    async def admin_ec_generate(self, request: web.Request
+                                ) -> web.Response:
         """One volume (volume_id) or a window (volume_ids) streamed
         through one governed operating point; ``"fused": true`` runs the
         one-pass warm-down instead."""
-        body = req.json()
-        return self._ec_generate_impl(body,
-                                      fused=bool(body.get("fused", False)))
+        body = await request.json()
+        return await self._ec_generate_impl(
+            body, fused=bool(body.get("fused", False)))
 
-    def admin_ec_fused(self, req: http.Request) -> http.Response:
-        return self._ec_generate_impl(req.json(), fused=True)
+    async def admin_ec_fused(self, request: web.Request) -> web.Response:
+        return await self._ec_generate_impl(await request.json(),
+                                            fused=True)
 
-    def _ec_generate_impl(self, body: dict, fused: bool) -> http.Response:
+    async def _ec_generate_impl(self, body: dict,
+                                fused: bool) -> web.Response:
         vids = ([int(v) for v in body["volume_ids"]]
                 if "volume_ids" in body else [int(body["volume_id"])])
         if not vids:
@@ -425,49 +714,54 @@ class VolumeServer:
             if len(vids) == 1:
                 gen = (self.store.ec_fused_generate if fused
                        else self.store.ec_generate)
-                shards = gen(vids[0])
+                shards = await _run(gen, vids[0])
                 per_volume = {str(vids[0]): shards}
             else:
                 gen_many = (self.store.ec_fused_generate_many if fused
                             else self.store.ec_generate_many)
-                per_volume = {str(k): v for k, v in gen_many(vids).items()}
+                per_volume = {str(k): v for k, v in
+                              (await _run(gen_many, vids)).items()}
                 shards = per_volume.get(str(vids[0]), [])
         except KeyError as e:
             return _error(str(e), 404)
-        return http.json_response({"ok": True, "shards": shards,
-                                   "fused": fused, "volumes": per_volume})
+        except VolumeCompacting as e:
+            return _error(str(e), 409)
+        return web.json_response({"ok": True, "shards": shards,
+                                  "fused": fused, "volumes": per_volume})
 
-    def admin_ec_mount(self, req: http.Request) -> http.Response:
-        body = req.json()
+    async def admin_ec_mount(self, request: web.Request) -> web.Response:
+        body = await request.json()
         try:
-            mounted = self.store.ec_mount(
-                int(body["volume_id"]), body.get("collection", ""),
+            mounted = await _run(
+                self.store.ec_mount, int(body["volume_id"]),
+                body.get("collection", ""),
                 [int(s) for s in body["shard_ids"]])
         except (KeyError, FileNotFoundError) as e:
             return _error(str(e), 404)
-        self.send_heartbeat()
-        return http.json_response({"ok": True, "mounted": mounted})
+        await self.send_heartbeat()
+        return web.json_response({"ok": True, "mounted": mounted})
 
-    def admin_ec_unmount(self, req: http.Request) -> http.Response:
-        body = req.json()
+    async def admin_ec_unmount(self, request: web.Request) -> web.Response:
+        body = await request.json()
         removed = self.store.ec_unmount(int(body["volume_id"]),
                                         [int(s) for s in body["shard_ids"]])
-        self.send_heartbeat()
-        return http.json_response({"ok": True, "unmounted": removed})
+        await self.send_heartbeat()
+        return web.json_response({"ok": True, "unmounted": removed})
 
-    def admin_ec_rebuild(self, req: http.Request) -> http.Response:
-        body = req.json()
+    async def admin_ec_rebuild(self, request: web.Request) -> web.Response:
+        body = await request.json()
         try:
-            rebuilt = self.store.ec_rebuild(int(body["volume_id"]),
-                                            body.get("collection", ""))
+            rebuilt = await _run(self.store.ec_rebuild,
+                                 int(body["volume_id"]),
+                                 body.get("collection", ""))
         except (KeyError, ValueError) as e:
             return _error(str(e), 409)
-        return http.json_response({"ok": True, "rebuilt": rebuilt})
+        return web.json_response({"ok": True, "rebuilt": rebuilt})
 
-    def admin_ec_copy(self, req: http.Request) -> http.Response:
+    async def admin_ec_copy(self, request: web.Request) -> web.Response:
         """Pull shard files from a source server (VolumeEcShardsCopy,
         volume_grpc_erasure_coding.go:104), each streamed to disk."""
-        body = req.json()
+        body = await request.json()
         vid = int(body["volume_id"])
         collection = body.get("collection", "")
         if not safe_collection(collection):
@@ -479,60 +773,66 @@ class VolumeServer:
         prefix = f"{collection}_" if collection else ""
         base = os.path.join(self.store.locations[0].directory,
                             f"{prefix}{vid}")
-        for ext in exts:
-            url = (f"http://{source}/admin/file_copy?volume_id={vid}"
-                   f"&collection={collection}&ext={ext}")
-            try:
-                status = http.download_to(url, base + ext)
-            except OSError as e:
-                return _error(str(e), 502)
-            if status == 404 and ext in (".ecj", ".ecm"):
-                continue  # the delete journal and marker are optional
-            if status != 200:
-                return _error(f"copy {ext} from {source}: {status}", 502)
-        return http.json_response({"ok": True})
+        try:
+            for ext in exts:
+                status = await self._pull(source, vid, collection, ext,
+                                          base + ext)
+                if status == 404 and ext in (".ecj", ".ecm"):
+                    continue  # the delete journal and marker are optional
+                if status != 200:
+                    return _error(f"copy {ext} from {source}: {status}",
+                                  502)
+        except (aiohttp.ClientError, asyncio.TimeoutError) as e:
+            return _error(str(e), 502)
+        return web.json_response({"ok": True})
 
-    def admin_ec_delete_shards(self, req: http.Request) -> http.Response:
-        body = req.json()
-        self.store.ec_delete_shards(int(body["volume_id"]),
-                                    body.get("collection", ""),
-                                    [int(s) for s in body["shard_ids"]])
-        self.send_heartbeat()
-        return http.json_response({"ok": True})
+    async def admin_ec_delete_shards(self, request: web.Request
+                                     ) -> web.Response:
+        body = await request.json()
+        await _run(self.store.ec_delete_shards, int(body["volume_id"]),
+                   body.get("collection", ""),
+                   [int(s) for s in body["shard_ids"]])
+        await self.send_heartbeat()
+        return web.json_response({"ok": True})
 
-    def admin_ec_blob_delete(self, req: http.Request) -> http.Response:
-        body = req.json()
+    async def admin_ec_blob_delete(self, request: web.Request
+                                   ) -> web.Response:
+        body = await request.json()
         try:
             self.store.ec_blob_delete(int(body["volume_id"]),
                                       int(body["needle_id"]))
         except KeyError as e:
             return _error(str(e), 404)
-        return http.json_response({"ok": True})
+        return web.json_response({"ok": True})
 
-    def admin_ec_to_volume(self, req: http.Request) -> http.Response:
-        body = req.json()
+    async def admin_ec_to_volume(self, request: web.Request
+                                 ) -> web.Response:
+        body = await request.json()
         try:
-            self.store.ec_to_volume(int(body["volume_id"]),
-                                    body.get("collection", ""))
+            await _run(self.store.ec_to_volume, int(body["volume_id"]),
+                       body.get("collection", ""))
         except (KeyError, FileNotFoundError) as e:
             return _error(str(e), 404)
-        self.send_heartbeat()
-        return http.json_response({"ok": True})
+        await self.send_heartbeat()
+        return web.json_response({"ok": True})
 
-    def admin_ec_shard_read(self, req: http.Request) -> http.Response:
-        q = req.query
+    async def admin_ec_shard_read(self, request: web.Request
+                                  ) -> web.Response:
+        q = request.query
         try:
             data = self.store.ec_shard_read(
                 int(q["volume"]), int(q["shard"]), int(q.get("offset", 0)),
                 int(q["size"]))
         except KeyError as e:
             return _error(str(e), 404)
-        return http.Response(data, content_type="application/octet-stream")
+        return web.Response(body=data,
+                            content_type="application/octet-stream")
 
-    def admin_file_copy(self, req: http.Request) -> http.Response:
+    async def admin_file_copy(self, request: web.Request
+                              ) -> web.StreamResponse:
         """Stream a volume or shard file to a pulling peer (CopyFile,
         weed/server/volume_grpc_copy.go:24-281)."""
-        q = req.query
+        q = request.query
         vid = int(q["volume_id"])
         collection = q.get("collection", "")
         ext = q["ext"]
@@ -543,7 +843,17 @@ class VolumeServer:
         for loc in self.store.locations:
             path = os.path.join(loc.directory, f"{prefix}{vid}{ext}")
             if os.path.exists(path):
-                return http.FileResponse(path)
+                resp = web.StreamResponse()
+                resp.headers["Content-Length"] = str(os.path.getsize(path))
+                await resp.prepare(request)
+                with open(path, "rb") as f:
+                    while True:
+                        chunk = f.read(COPY_CHUNK)
+                        if not chunk:
+                            break
+                        await resp.write(chunk)
+                await resp.write_eof()
+                return resp
         return _error("file not found", 404)
 
     # shard-location freshness tiers (store_ec.go:221-262): a missing
@@ -554,7 +864,8 @@ class VolumeServer:
 
     def _shard_locations(self, vid: int, shard_id: int,
                          force: bool = False) -> list[str]:
-        """Tiered-TTL cache of vid -> shard -> holder urls."""
+        """Tiered-TTL cache of vid -> shard -> holder urls (called from
+        executor threads)."""
         now = time.monotonic()
         cached = self._shard_loc_cache.get(vid)
         if cached is not None and not force:
@@ -578,7 +889,8 @@ class VolumeServer:
 
     def _make_shard_reader(self, ev):
         """Reader of non-local shard intervals for the EC read path
-        (store_ec.go:282-320), over the holders' /admin/ec/shard_read. A
+        (store_ec.go:282-320), over the holders' /admin/ec/shard_read.
+        Synchronous: it runs in the executor threads of the EC read. A
         total miss refreshes the location cache once, so reads survive
         shard moves and lost servers."""
 
@@ -606,23 +918,29 @@ class VolumeServer:
 
         return read
 
-    def status(self, req: http.Request) -> http.Response:
-        return http.json_response({"url": self.url, **self.store.status()})
+    async def status(self, request: web.Request) -> web.Response:
+        return web.json_response({"url": self.url, **self.store.status()})
 
-    def metrics_handler(self, req: http.Request) -> http.Response:
-        return http.Response(
-            (self.metrics.render() + metrics_mod.render_shared()).encode(),
-            content_type="text/plain; charset=utf-8")
+    async def healthz(self, request: web.Request) -> web.Response:
+        return web.json_response({"ok": True})
+
+    async def metrics_handler(self, request: web.Request) -> web.Response:
+        return web.Response(
+            text=self.metrics.render() + metrics_mod.render_shared(),
+            content_type="text/plain")
 
 
-def run_volume_server(host: str, port: int, store: Store, master_url: str,
-                      **kwargs) -> tuple[VolumeServer, http.Server]:
-    """Serve a volume server on host:port (0 picks a free port) and start
-    its heartbeat; returns the volume server and its HTTP server. Stop
-    with ``vs.stop()``, ``server.shutdown()`` and ``store.close()``."""
-    vs = VolumeServer(store, master_url, **kwargs)
-    server = http.serve(vs.app, host, port)
-    vs.url = vs.url or server.url
-    vs.start()
-    log.info("volume server on %s -> master %s", server.url, master_url)
-    return vs, server
+async def run_volume_server(host: str, port: int, store: Store,
+                            master_url: str, **kwargs
+                            ) -> tuple[VolumeServer, web.AppRunner]:
+    """Serve a volume server on host:port (0 picks a free port) on the
+    running loop, its heartbeat loop started; returns the volume server
+    (``vs.url`` is host:port) and its runner. ``await
+    runner.cleanup()`` stops it: the listener, kept connections, the
+    heartbeat, and the store."""
+    sock = http.listen_socket(host, port)
+    vs = VolumeServer(store, master_url,
+                      url=f"{host}:{sock.getsockname()[1]}", **kwargs)
+    runner = await http.start_app(vs.app, sock)
+    log.info("volume server on %s -> master %s", vs.url, master_url)
+    return vs, runner

@@ -5,11 +5,13 @@ weed/shell/commands.go:28-72): every command is a named callable over a
 shared CommandEnv holding the master client and the EC geometry pin.
 ``weed shell <name> [args...]`` and the REPL both dispatch through
 COMMANDS. The port registers the EC lifecycle (``ec.encode``,
-``ec.rebuild``, ``ec.balance``, ``ec.decode``, shell/ec_shell.py) and
-``volume.list``; the other command modules of the reference (fs,
-buckets, locks, geo, the ring, telemetry, traces and the rest of the
-volume commands) are not ported, and neither is the cluster-exclusive
-admin lock.
+``ec.rebuild``, ``ec.balance``, ``ec.decode``, shell/ec_shell.py),
+``volume.list``, and the hot tier's ``volume.fix.replication``,
+``volume.copy``, ``volume.delete``, ``volume.configure.replication`` and
+``volume.mark`` (shell/volume_commands.py); the other command modules of
+the reference (fs, buckets, locks, geo, the ring, telemetry, traces and
+the rest of the volume commands) are not ported, and neither is the
+cluster-exclusive admin lock.
 """
 
 from __future__ import annotations
@@ -76,4 +78,4 @@ def volume_list(env: CommandEnv, argv: list[str]):
 def _register_all() -> None:
     """Import every command module for its registration side effects
     (upstream does the same through init() imports, commands.go:42)."""
-    from . import ec_shell  # noqa: F401
+    from . import ec_shell, volume_commands  # noqa: F401

@@ -4,8 +4,10 @@ The port's copy of the two maps the EC slice needs from
 seaweedfs_tpu/storage/needle_map.py: ``NeedleMap``, the live per-volume
 map (a dict, journaling every mutation to the .idx file), and
 ``SortedNeedleMap``, the offline sorted map (upstream's MemDb,
-weed/storage/needle_map/memdb.go) that builds .ecx files. The compact,
-disk-backed and LevelDB-style kinds are not ported.
+weed/storage/needle_map/memdb.go) that builds .ecx files; and the two
+helpers crash recovery and compaction use, ``_truncate_torn_tail`` and
+``remove_sidecars``. The compact, disk-backed and LevelDB-style kinds are
+not ported.
 """
 
 from __future__ import annotations
@@ -133,11 +135,16 @@ class NeedleMap:
         return self._map.get(key)
 
     def __len__(self) -> int:
-        return sum(1 for nv in self._map.values() if nv.size > 0)
+        # list() copies the values in one step: the heartbeat counts on
+        # the event loop while executor threads write
+        return sum(1 for nv in list(self._map.values()) if nv.size > 0)
 
     def __contains__(self, key: int) -> bool:
         nv = self._map.get(key)
         return nv is not None and nv.size > 0
+
+    def content_size(self) -> int:
+        return self.file_byte_count
 
     def values(self) -> list[NeedleValue]:
         """All current entries (live and tombstoned), unordered."""
@@ -162,6 +169,20 @@ class NeedleMap:
         if self._index_file is not None:
             self._index_file.close()
             self._index_file = None
+
+
+def remove_sidecars(index_path: str) -> None:
+    """Drop any derived index sidecars (.sdx) of an .idx that is being
+    replaced wholesale (vacuum commit, crash recovery): the port builds
+    none, but a directory written by the reference's disk-backed map may
+    hold them, and a stale one must never outlive its journal."""
+    base = (index_path[:-4] if index_path.endswith(".idx")
+            else index_path)
+    for suffix in (".sdx", ".sdx.tmp"):
+        try:
+            os.remove(base + suffix)
+        except FileNotFoundError:
+            pass
 
 
 class SortedNeedleMap:

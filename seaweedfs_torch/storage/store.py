@@ -20,10 +20,12 @@ port does not have yet: the store raises rather than run on one card.
 
 The volume server reads a store through ``heartbeat()`` and
 ``status()``, and sets the ``_remote_shard_reader`` hook so that EC reads
-fetch shards that live on its peers.
+fetch shards that live on its peers. It also drives the hot tier's
+maintenance through it: ``configure_replication``, ``needle_ids`` and the
+vacuum steps ``vacuum_check`` / ``vacuum_compact`` / ``vacuum_commit`` /
+``vacuum_cleanup``.
 
-Not ported: the free-space watchdog, tiering, vacuum, TTL expiry and
-replication configuration.
+Not ported: the free-space watchdog, tiering and TTL expiry.
 """
 
 from __future__ import annotations
@@ -288,6 +290,44 @@ class Store:
                     return v
         raise KeyError(f"volume {vid} not found on disk")
 
+    def _volume(self, vid: int) -> Volume:
+        v = self.find_volume(vid)
+        if v is None:
+            raise KeyError(f"volume {vid} not found")
+        return v
+
+    def configure_replication(self, vid: int, replication: str) -> None:
+        """Rewrite the superblock replica placement in place
+        (VolumeConfigure, weed/server/volume_grpc_admin.go; superblock
+        byte 1, super_block.go:12-31)."""
+        self._volume(vid).configure_replication(
+            ReplicaPlacement.parse(replication))
+
+    def needle_ids(self, vid: int) -> list[tuple[int, int]]:
+        """Live (needle_id, size) pairs, of a volume or an EC volume (the
+        inventory weed/shell/command_volume_fsck.go collects)."""
+        v = self.find_volume(vid)
+        if v is not None:
+            return v.nm.live_entries()
+        ev = self.find_ec_volume(vid)
+        if ev is not None:
+            return ev.live_entries()
+        raise KeyError(f"volume {vid} not found")
+
+    # --- vacuum (VacuumVolume{Check,Compact,Commit,Cleanup},
+    #     weed/server/volume_grpc_vacuum.go) ---
+    def vacuum_check(self, vid: int) -> float:
+        return self._volume(vid).garbage_level()
+
+    def vacuum_compact(self, vid: int) -> None:
+        self._volume(vid).begin_compact()
+
+    def vacuum_commit(self, vid: int) -> None:
+        self._volume(vid).commit_compact()
+
+    def vacuum_cleanup(self, vid: int) -> None:
+        self._volume(vid).cleanup_compact()
+
     # --- needle ops ---
     def write_needle(self, vid: int, n: Needle) -> tuple[int, int, bool]:
         v = self.find_volume(vid)
@@ -319,12 +359,12 @@ class Store:
     # --- EC lifecycle (VolumeEcShardsGenerate etc.,
     #     weed/server/volume_grpc_erasure_coding.go) ---
     def _ec_seal(self, vid: int):
-        """Seal a volume for encoding; returns (volume, base, geometry)."""
+        """Seal a volume for encoding; returns (volume, base, geometry).
+        A volume with an open compaction is refused (VolumeCompacting)."""
         v = self.find_volume(vid)
         if v is None:
             raise KeyError(f"volume {vid} not found")
-        v.read_only = True
-        v.sync()
+        v.seal()
         return v, v.base_file_name(), self.geometry_for(v.collection)
 
     def _ec_finish_generate(self, v, base: str,
@@ -345,17 +385,22 @@ class Store:
     def _seal_window(self, vids: list[int]) -> tuple[dict, list]:
         """Seal a window of volumes, grouped by geometry. The whole window
         is checked first: one missing vid fails the batch before anything
-        is sealed."""
+        is sealed, and a volume that refuses its seal lifts the seals
+        applied before it."""
         absent = [vid for vid in vids if self.find_volume(vid) is None]
         if absent:
             raise KeyError(f"volume(s) {absent} not found")
         by_geometry: dict[ec_mod.Geometry, list] = {}
         sealed: list = []
-        for vid in vids:
-            was_read_only = self.find_volume(vid).read_only
-            v, base, g = self._ec_seal(vid)
-            by_geometry.setdefault(g, []).append((vid, v, base))
-            sealed.append((v, base, was_read_only))
+        try:
+            for vid in vids:
+                was_read_only = self.find_volume(vid).read_only
+                v, base, g = self._ec_seal(vid)
+                by_geometry.setdefault(g, []).append((vid, v, base))
+                sealed.append((v, base, was_read_only))
+        except BaseException:
+            self._unseal_uncommitted(sealed)
+            raise
         return by_geometry, sealed
 
     @staticmethod

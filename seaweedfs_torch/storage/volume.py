@@ -1,18 +1,25 @@
 """Append-only volume engine: one .dat file + .idx journal + in-memory map.
 
 The port's reduced copy of seaweedfs_tpu/storage/volume.py (upstream
-weed/storage/volume.go, volume_read_write.go): create or open a volume,
-append needles, tombstone deletes, positioned reads, and the sync/close
-durability barriers. Same bytes on disk as the reference for the same
-needle sequence. Only the in-memory needle map (``needle_map_kind``
-"memory") is ported. Not ported: compaction (the fused warm-down,
-ec/fused.py, compacts into its own output), tiering to object stores,
-replication tails, batched and group-committed writes, and the open-time
-crash-recovery scan (a volume opened here is trusted as its .idx says).
+weed/storage/volume.go, volume_read_write.go, volume_vacuum.go,
+volume_checking.go): create or open a volume, append needles, tombstone
+deletes, positioned reads through a ``DiskFile`` (storage/backend.py),
+the sync/close durability barriers with the ``.swm`` sync watermark, the
+open-time crash recovery of a torn ``.dat``/``.idx`` pair, the integrity
+check, and two-phase compaction (``begin_compact`` copies the live
+needles without blocking writers, ``commit_compact`` replays what landed
+meanwhile and swaps the files). Same bytes on disk as the reference for
+the same needle sequence. Only the in-memory needle map
+(``needle_map_kind`` "memory") is ported. Not ported: tiering to object
+stores, TTL expiry of whole volumes, replication tails, the compaction
+byte-rate throttle, and batched, group-committed and lock-free writes and
+reads.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import os
 import struct
 import threading
@@ -20,10 +27,22 @@ import time
 from typing import Optional
 
 from ..utils import durable
+from . import idx as idx_mod
 from . import types as t
+from .backend import DiskFile
 from .needle import FLAG_HAS_LAST_MODIFIED, FLAG_HAS_TTL, Needle
-from .needle_map import NeedleMap, NeedleValue
+from .needle_map import (NeedleMap, NeedleValue, _truncate_torn_tail,
+                         remove_sidecars)
 from .superblock import SUPER_BLOCK_SIZE, SuperBlock
+
+log = logging.getLogger("volume")
+
+
+def _remove_quiet(path: str) -> None:
+    try:
+        os.remove(path)
+    except FileNotFoundError:
+        pass
 
 
 class NeedleNotFound(KeyError):
@@ -42,6 +61,10 @@ class VolumeReadOnly(RuntimeError):
     pass
 
 
+class VolumeCompacting(RuntimeError):
+    """A seal refused: the volume has an open compaction."""
+
+
 class Volume:
     def __init__(self, directory: str, collection: str, vid: int,
                  superblock: Optional[SuperBlock] = None,
@@ -57,30 +80,35 @@ class Volume:
         self.last_append_at_ns = 0
         self.last_modified_ts = 0
         self._lock = threading.RLock()
+        self._compacting = False
+        self._compact_sb: Optional[SuperBlock] = None
+        self._compact_idx_entries = 0
 
         base = self.base_file_name()
         dat_path = base + ".dat"
         if create or not os.path.exists(dat_path):
             self.super_block = superblock or SuperBlock()
-            self._dat = open(dat_path, "w+b")
-            os.pwrite(self._dat.fileno(), self.super_block.to_bytes(), 0)
+            self._dat = DiskFile(dat_path, create=True)
+            self._dat.write_at(self.super_block.to_bytes(), 0)
+            self._dat.flush()
             # a fresh .dat invalidates any journal of an earlier volume
-            for ext in (".idx", ".swm"):
-                try:
-                    os.remove(base + ext)
-                except FileNotFoundError:
-                    pass
+            _remove_quiet(base + ".idx")
+            remove_sidecars(base + ".idx")
+            _remove_quiet(base + ".swm")
+            self.nm = NeedleMap(base + ".idx", offset_size=self.offset_size)
         else:
-            self._dat = open(dat_path, "r+b")
-            head = os.pread(self._dat.fileno(), SUPER_BLOCK_SIZE, 0)
-            self.super_block = SuperBlock.from_bytes(head)
-            extra_size = t.get_u16(head, 6)
-            if extra_size:
-                self.super_block.extra = os.pread(
-                    self._dat.fileno(), extra_size, SUPER_BLOCK_SIZE)
+            self._dat = DiskFile(dat_path)
+            self.super_block = self._read_superblock()
+            # crash recovery BEFORE the map loads: reconcile a torn .dat
+            # tail and a torn or stale .idx, so that the map is built
+            # from a consistent pair
+            self._crash_recover(base)
+            self.nm = NeedleMap(base + ".idx", offset_size=self.offset_size)
+            # the .dat mtime bounds the last write even when the index
+            # tail is a tombstone and carries no timestamp
             self.last_modified_ts = int(os.path.getmtime(dat_path))
-        self.nm = NeedleMap(base + ".idx", offset_size=self.offset_size)
-        self._append_offset = os.fstat(self._dat.fileno()).st_size
+            self.check_integrity()
+        self._append_offset = self._dat.size()
 
     @property
     def offset_size(self) -> int:
@@ -90,16 +118,17 @@ class Volume:
     def version(self) -> int:
         return self.super_block.version
 
+    def _read_superblock(self) -> SuperBlock:
+        head = self._dat.read_at(SUPER_BLOCK_SIZE, 0)
+        sb = SuperBlock.from_bytes(head)
+        extra_size = t.get_u16(head, 6)
+        if extra_size:
+            sb.extra = self._dat.read_at(extra_size, SUPER_BLOCK_SIZE)
+        return sb
+
     def base_file_name(self) -> str:
         prefix = f"{self.collection}_" if self.collection else ""
         return os.path.join(self.dir, f"{prefix}{self.vid}")
-
-    def data_file_size(self) -> int:
-        return self._append_offset
-
-    def file_count(self) -> int:
-        """Live needles (the net count the heartbeat reports)."""
-        return len(self.nm)
 
     def needle_cookie(self, needle_id: int) -> Optional[int]:
         """The cookie of a live needle's record, None when the needle is
@@ -174,9 +203,10 @@ class Volume:
         offset = self._append_offset
         offset += (-offset) % t.NEEDLE_PADDING_SIZE
         record = n.to_bytes(self.version)
-        # the record reaches the kernel before the .idx entry is appended,
-        # so the index never references bytes that were not written
-        os.pwrite(self._dat.fileno(), record, offset)
+        # an unbuffered pwrite: the record reaches the kernel before the
+        # .idx entry is appended, so the index never references bytes
+        # that were not written
+        self._dat.write_at(record, offset)
         self._append_offset = offset + len(record)
         return offset
 
@@ -209,37 +239,468 @@ class Volume:
 
     def read_needle_at(self, byte_offset: int, size: int) -> Needle:
         length = t.get_actual_size(size, self.version)
-        record = os.pread(self._dat.fileno(), length, byte_offset)
+        record = self._dat.read_at(length, byte_offset)
         return Needle.from_bytes(record, self.version)
 
     def _read_header_at(self, byte_offset: int) -> Optional[Needle]:
-        head = os.pread(self._dat.fileno(), t.NEEDLE_HEADER_SIZE,
-                        byte_offset)
+        head = self._dat.read_at(t.NEEDLE_HEADER_SIZE, byte_offset)
         if len(head) < t.NEEDLE_HEADER_SIZE:
             return None
         return Needle.parse_header(head)
 
+    # --- stats ---
+    def content_size(self) -> int:
+        return self.nm.content_size()
+
+    def deleted_size(self) -> int:
+        return self.nm.deleted_byte_count
+
+    def file_count(self) -> int:
+        """Live needles (the net count the heartbeat reports)."""
+        return len(self.nm)
+
+    def data_file_size(self) -> int:
+        return self._append_offset
+
+    def garbage_level(self) -> float:
+        """Fraction of the .dat file occupied by deleted needles
+        (volume_vacuum.go:20-26)."""
+        if self._append_offset == 0:
+            return 0.0
+        return self.nm.deleted_byte_count / self._append_offset
+
+    def configure_replication(self, rp) -> None:
+        """Rewrite the superblock's replica-placement byte in place
+        (VolumeConfigure; superblock byte 1, super_block.go:12-31),
+        durably: the byte is fsynced before the call returns."""
+        with self._lock:
+            self.super_block.replica_placement = rp
+            self._dat.write_at(bytes([rp.to_byte()]), 1)
+            self._dat.sync()
+
+    # --- crash recovery (power-loss consistency) ---
+    def _load_sync_watermark(self, base: str) -> Optional[dict]:
+        """The durable checkpoint `.swm` written by sync(): every .dat
+        byte below synced_size and every .idx byte below idx_synced_size
+        was fsynced BEFORE the checkpoint committed, so recovery only
+        scans and validates past them. None: no checkpoint (a first
+        boot, or a volume written before watermarks)."""
+        try:
+            with open(base + ".swm") as f:
+                d = json.load(f)
+            v = d.get("synced_size")
+            if not isinstance(v, int) or v < 0:
+                return None
+            iv = d.get("idx_synced_size")
+            return {"synced_size": v,
+                    "idx_synced_size": iv if isinstance(iv, int)
+                    and iv >= 0 else 0}
+        except (OSError, ValueError):
+            return None
+
+    def _save_sync_watermark(self, base: str, synced_size: int,
+                             idx_synced_size: int) -> None:
+        durable.write_json_atomic(
+            base + ".swm", {"synced_size": synced_size,
+                            "idx_synced_size": idx_synced_size})
+
+    def _scan_valid_records(self, start: int, end: int) -> tuple[int, list]:
+        """Walk .dat records in [start, end); returns (cut_offset,
+        records), where cut_offset is `end` when every record parses and
+        CRC-checks, else the offset of the first torn or invalid record.
+        records are (needle, byte_offset) for the valid prefix."""
+        offset = start
+        records = []
+        while offset + t.NEEDLE_HEADER_SIZE <= end:
+            try:
+                head = self._read_header_at(offset)
+                if head is None:
+                    return offset, records
+                # a dropped un-synced page reads back as zeros: an
+                # all-zero "record" is a hole, not a needle (real ids
+                # are never 0)
+                if head.id == 0 and head.cookie == 0 and head.size == 0:
+                    return offset, records
+                size = head.size if head.size > 0 else 0
+                length = t.get_actual_size(size, self.version)
+                if offset + length > end:
+                    return offset, records
+                record = self._dat.read_at(length, offset)
+                if len(record) < length:
+                    return offset, records
+                n = Needle.from_bytes(record, self.version)
+                records.append((n, offset))
+                offset += length
+            except Exception:
+                # any record that does not parse or fails its CRC is
+                # where the torn tail starts
+                return offset, records
+        # the loop leaves `offset` at the clean end, or at a torn partial
+        # header (under 16 bytes of tail), which the caller truncates
+        return offset, records
+
+    def _crash_recover(self, base: str) -> None:
+        """Reconcile .dat <-> .idx after a potential power loss:
+
+        1. align-truncate a torn .idx tail;
+        2. CRC-scan the un-synced .dat suffix (from the `.swm` durable
+           watermark, or from the last .idx-referenced record when there
+           is none) and truncate the first torn record and everything
+           after it;
+        3. drop .idx entries referencing truncated bytes (durable
+           rewrite);
+        4. re-derive .idx entries for valid .dat records the journal
+           never recorded (the .dat is written first, so the journal can
+           trail it).
+
+        Acked data is never touched: sync() fsyncs the .dat BEFORE the
+        watermark commits, so everything below the watermark is durable
+        and the torn region can only hold un-acked appends."""
+        idx_path = base + ".idx"
+        # an interrupted compaction commit: a surviving .cpd means the
+        # swap never reached its point of no return, so roll back (the
+        # old pair is intact); a lone .cpx means the .dat swap landed
+        # but the .idx swap did not, so roll forward
+        if os.path.exists(base + ".cpd"):
+            log.warning("volume %d: discarding interrupted compaction "
+                        "(crash recovery)", self.vid)
+            _remove_quiet(base + ".cpx")
+            _remove_quiet(base + ".cpd")
+        elif os.path.exists(base + ".cpx"):
+            log.warning("volume %d: completing interrupted compaction "
+                        "commit (crash recovery)", self.vid)
+            remove_sidecars(idx_path)
+            durable.replace_atomic(base + ".cpx", idx_path,
+                                   sync_file=False)
+        if not os.path.exists(idx_path):
+            open(idx_path, "wb").close()
+        _truncate_torn_tail(idx_path, self.offset_size)
+        dat_size = self._dat.size()
+        entry_w = t.needle_map_entry_size(self.offset_size)
+        idx_size = os.path.getsize(idx_path)
+
+        wm = self._load_sync_watermark(base)
+        if wm is not None:
+            scan_start = min(wm["synced_size"], dat_size)
+            idx_wm = min(wm["idx_synced_size"], idx_size)
+        else:
+            # no watermark: anchor the scan at the last journal-referenced
+            # record, in one streaming pass
+            last_ref = self.super_block.block_size()
+            for _key, stored_offset, _size in idx_mod.iter_index_file(
+                    idx_path, offset_size=self.offset_size):
+                if stored_offset > 0:
+                    last_ref = max(last_ref,
+                                   t.stored_to_offset(stored_offset))
+            scan_start = min(last_ref, dat_size)
+            idx_wm = 0
+        idx_wm -= idx_wm % entry_w
+        scan_start = max(scan_start, self.super_block.block_size())
+        cut, records = self._scan_valid_records(scan_start, dat_size)
+        rec_map = {off: n for n, off in records}
+
+        if cut < dat_size:
+            log.warning(
+                "volume %d: torn .dat tail, truncating %d -> %d (crash "
+                "recovery; %d valid records after watermark %s)",
+                self.vid, dat_size, cut, len(records), wm)
+            self._dat.truncate(cut)
+            self._dat.sync()
+
+        # entries below the idx watermark were fsynced and (by sync()'s
+        # order) reference only synced .dat bytes: trusted. Entries past
+        # it must check out against the scanned records or, on a
+        # watermarked volume, against the on-disk header of a synced-
+        # region reference
+        def entry_ok(key: int, stored_offset: int, size: int) -> bool:
+            if stored_offset == 0:
+                # an offset-less tombstone references no .dat bytes
+                return size == t.TOMBSTONE_FILE_SIZE
+            off = t.stored_to_offset(stored_offset)
+            if off >= cut:
+                return False
+            if off >= scan_start:
+                n = rec_map.get(off)
+                return (n is not None and n.id == key and
+                        (n.size == size or
+                         (size == t.TOMBSTONE_FILE_SIZE
+                          and len(n.data) == 0)))
+            if wm is None:
+                # without a watermark references below the anchor were
+                # always trusted
+                return True
+            head = self._read_header_at(off)
+            return head is not None and head.id == key
+
+        tail_offsets: set[int] = set()
+        dropped = 0
+        for key, stored_offset, size in idx_mod.iter_index_file(
+                idx_path, start=idx_wm, offset_size=self.offset_size):
+            if entry_ok(key, stored_offset, size):
+                if stored_offset > 0:
+                    off = t.stored_to_offset(stored_offset)
+                    if off >= scan_start:
+                        tail_offsets.add(off)
+            else:
+                dropped += 1
+        if dropped:
+            log.warning("volume %d: dropping %d un-synced .idx entries "
+                        "that reference torn or absent data (crash "
+                        "recovery)", self.vid, dropped)
+            remove_sidecars(idx_path)
+            tmp = idx_path + ".tmp"
+            with open(tmp, "wb") as out, open(idx_path, "rb") as src:
+                remaining = idx_wm
+                while remaining > 0:
+                    chunk = src.read(min(1 << 20, remaining))
+                    if not chunk:
+                        break
+                    out.write(chunk)
+                    remaining -= len(chunk)
+                for key, stored_offset, size in idx_mod.iter_index_file(
+                        idx_path, start=idx_wm,
+                        offset_size=self.offset_size):
+                    if entry_ok(key, stored_offset, size):
+                        out.write(idx_mod.pack_entry(
+                            key, stored_offset, size,
+                            offset_size=self.offset_size))
+                out.flush()
+                os.fsync(out.fileno())
+            durable.replace_atomic(tmp, idx_path, sync_file=False)
+
+        # re-derive entries the crash dropped: valid records past the
+        # journal's coverage. Zero-length records are skipped: a
+        # tombstone and an empty-body overwrite look the same on disk,
+        # both are un-acked here, and applying the wrong one could
+        # tombstone an acked value, while not applying an un-acked
+        # mutation is always a legal post-crash state
+        missing = [(n, off) for n, off in records
+                   if off not in tail_offsets and off < cut
+                   and len(n.data) > 0]
+        if missing:
+            log.warning("volume %d: re-deriving %d .idx entries from the "
+                        ".dat tail (crash recovery)", self.vid,
+                        len(missing))
+            with open(idx_path, "ab") as f:
+                for n, off in missing:
+                    f.write(idx_mod.pack_entry(
+                        n.id, t.offset_to_stored(off, self.offset_size),
+                        n.size, offset_size=self.offset_size))
+
+    def check_integrity(self) -> None:
+        """Verify that the last .idx entry points at a valid needle
+        (CheckVolumeDataIntegrity, volume_checking.go:14)."""
+        idx_path = self.base_file_name() + ".idx"
+        idx_size = os.path.getsize(idx_path)
+        if idx_size == 0:
+            return
+        entry = t.needle_map_entry_size(self.offset_size)
+        if idx_size % entry != 0:
+            raise IOError(f"index {idx_path} size {idx_size} not aligned")
+        with open(idx_path, "rb") as f:
+            f.seek(idx_size - entry)
+            key, stored_offset, size = idx_mod.unpack_entry(
+                f.read(entry), offset_size=self.offset_size)
+        if stored_offset == 0 or size == t.TOMBSTONE_FILE_SIZE:
+            return
+        n = self.read_needle_at(t.stored_to_offset(stored_offset),
+                                max(size, 0))
+        if n.id != key:
+            raise IOError(f"volume {self.vid}: index tail key {key:x} != "
+                          f"needle {n.id:x}")
+        if self.version == t.VERSION3:
+            self.last_append_at_ns = n.append_at_ns
+
+    def scan(self, visit) -> None:
+        """Walk every needle record in the .dat file in offset order:
+        visit(needle, byte_offset), tombstones (empty bodies) included,
+        under the engine lock for a consistent snapshot."""
+        with self._lock:
+            offset = self.super_block.block_size()
+            end = self.data_file_size()
+            while offset + t.NEEDLE_HEADER_SIZE <= end:
+                head = self._read_header_at(offset)
+                if head is None:
+                    return
+                size = head.size if head.size > 0 else 0
+                visit(self.read_needle_at(offset, size), offset)
+                offset += t.get_actual_size(size, self.version)
+
+    # --- compaction (volume_vacuum.go) ---
+    def compact(self) -> None:
+        """A whole vacuum cycle: the snapshot copy, then the commit with
+        the replay of concurrent writes (Compact2 + CommitCompact,
+        volume_vacuum.go:37-120)."""
+        self.begin_compact()
+        self.commit_compact()
+
+    def begin_compact(self) -> None:
+        """Phase 1 (Compact2, volume_vacuum.go:66-89): copy the live
+        needles of a map snapshot to .cpd/.cpx WITHOUT blocking writers.
+        Appends that land meanwhile go to the old .dat and are folded in
+        by commit_compact's makeup-diff replay; the copy preads records
+        below the snapshot's offsets, which appends never touch."""
+        base = self.base_file_name()
+        with self._lock:
+            if self._compacting:
+                raise RuntimeError(f"volume {self.vid} already compacting")
+            if self.read_only:
+                # a sealed volume's files are being read as they stand
+                # (an EC encode): the commit must never swap them
+                raise VolumeReadOnly(f"volume {self.vid} is read-only")
+            self._compacting = True
+            # journal high-water mark: entries after it were written
+            # during the copy and are replayed at commit
+            self._compact_idx_entries = (
+                os.path.getsize(base + ".idx")
+                // t.needle_map_entry_size(self.offset_size))
+            snapshot = [nv for nv in self.nm.values()
+                        if t.size_is_valid(nv.size)]
+            new_sb = SuperBlock(
+                version=self.super_block.version,
+                replica_placement=self.super_block.replica_placement,
+                ttl=self.super_block.ttl,
+                compaction_revision=self.super_block.compaction_revision + 1,
+                extra=self.super_block.extra,
+                offset_size=self.super_block.offset_size,
+            )
+        snapshot.sort(key=lambda nv: nv.offset)
+        try:
+            with open(base + ".cpd", "w+b") as cpd, \
+                    open(base + ".cpx", "wb") as cpx:
+                head = new_sb.to_bytes()
+                cpd.write(head)
+                offset = len(head)
+                for nv in snapshot:
+                    n = self.read_needle_at(t.stored_to_offset(nv.offset),
+                                            nv.size)
+                    record = n.to_bytes(self.version)
+                    cpd.write(record)
+                    cpx.write(idx_mod.pack_entry(
+                        nv.key, t.offset_to_stored(offset,
+                                                   self.offset_size),
+                        nv.size, offset_size=self.offset_size))
+                    offset += len(record)
+            self._compact_sb = new_sb
+        except BaseException:
+            self.cleanup_compact()
+            raise
+
+    def commit_compact(self) -> None:
+        """Phase 2 (CommitCompact + makeupDiff, volume_vacuum.go:91-240):
+        under the engine lock, replay every .idx entry appended since
+        begin_compact onto the compacted files, make them durable, then
+        swap .cpd/.cpx into place and reload. Readers take the same lock
+        for each pread, so none reads the old descriptor after the swap
+        closes it. A volume made read-only since begin_compact is
+        refused, its compaction left open for cleanup_compact."""
+        base = self.base_file_name()
+        with self._lock:
+            if not self._compacting:
+                raise RuntimeError(
+                    f"volume {self.vid} has no open compaction")
+            if self.read_only:
+                raise VolumeReadOnly(f"volume {self.vid} became read-only "
+                                     "during its compaction")
+            new_sb = self._compact_sb
+            idx_size = os.path.getsize(base + ".idx")
+            start = (self._compact_idx_entries
+                     * t.needle_map_entry_size(self.offset_size))
+            with open(base + ".cpd", "r+b") as cpd, \
+                    open(base + ".cpx", "ab") as cpx:
+                cpd.seek(0, os.SEEK_END)
+                offset = cpd.tell()
+                if start < idx_size:
+                    with open(base + ".idx", "rb") as f:
+                        f.seek(start)
+                        delta = f.read(idx_size - start)
+                    for key, stored_offset, size in \
+                            idx_mod.iter_index_bytes(
+                                delta, offset_size=self.offset_size):
+                        if stored_offset > 0 and \
+                                size != t.TOMBSTONE_FILE_SIZE:
+                            n = self.read_needle_at(
+                                t.stored_to_offset(stored_offset),
+                                max(size, 0))
+                            record = n.to_bytes(self.version)
+                            cpd.write(record)
+                            cpx.write(idx_mod.pack_entry(
+                                key, t.offset_to_stored(offset,
+                                                        self.offset_size),
+                                size, offset_size=self.offset_size))
+                            offset += len(record)
+                        else:
+                            # the .cpx journal folds tombstones on load
+                            cpx.write(idx_mod.pack_entry(
+                                key, 0, t.TOMBSTONE_FILE_SIZE,
+                                offset_size=self.offset_size))
+                # the swap replaces the only copy of every live needle:
+                # both files are on the platter before a rename makes
+                # them load-bearing
+                cpd.flush()
+                os.fsync(cpd.fileno())
+                cpx.flush()
+                os.fsync(cpx.fileno())
+            self._dat.close()
+            self.nm.close()
+            # the old watermark describes the old layout; it must not
+            # vouch for the new file's offsets in a crash window
+            _remove_quiet(base + ".swm")
+            durable.replace_atomic(base + ".cpd", base + ".dat",
+                                   sync_file=False)
+            remove_sidecars(base + ".idx")
+            durable.replace_atomic(base + ".cpx", base + ".idx",
+                                   sync_file=False)
+            self._dat = DiskFile(base + ".dat")
+            self.super_block = new_sb
+            self.nm = NeedleMap(base + ".idx", offset_size=self.offset_size)
+            self._append_offset = self._dat.size()
+            # everything in the compacted pair is already fsynced: a
+            # fresh watermark lets the next open scan nothing
+            self._save_sync_watermark(base, self._append_offset,
+                                      os.path.getsize(base + ".idx"))
+            self._compacting = False
+
+    def cleanup_compact(self) -> None:
+        """Abort: remove the leftovers (VacuumVolumeCleanup,
+        volume_vacuum.go:155-165)."""
+        base = self.base_file_name()
+        with self._lock:
+            self._compacting = False
+            _remove_quiet(base + ".cpd")
+            _remove_quiet(base + ".cpx")
+
+    def seal(self) -> None:
+        """Make the volume read-only and durable for a reader of its
+        files as they stand (an EC encode). Refused while a compaction is
+        open: its commit would swap the .dat and .idx under the reader."""
+        with self._lock:
+            if self._compacting:
+                raise VolumeCompacting(f"volume {self.vid} is compacting")
+            self.read_only = True
+            self._sync_locked()
+
     # --- durability ---
     def sync(self) -> None:
         """Durability barrier: .dat pages first, then the .idx journal,
-        then the `.swm` watermark that the reference's recovery trusts
-        (the watermark must never claim bytes still in flight)."""
+        then the `.swm` watermark that recovery trusts (the watermark
+        must never claim bytes still in flight)."""
         with self._lock:
             self._sync_locked()
 
     def _sync_locked(self) -> None:
-        os.fsync(self._dat.fileno())
+        self._dat.sync()
         self.nm.sync()
         base = self.base_file_name()
-        durable.write_json_atomic(
-            base + ".swm", {"synced_size": self._append_offset,
-                            "idx_synced_size": os.path.getsize(
-                                base + ".idx")})
+        self._save_sync_watermark(base, self._append_offset,
+                                  os.path.getsize(base + ".idx"))
 
     def close(self) -> None:
         with self._lock:
             if self._dat.closed:
                 return
+            # a clean shutdown is a barrier too: the watermark lets the
+            # next open skip the recovery scan
             if not self.read_only:
                 self._sync_locked()
             self.nm.close()

@@ -4,7 +4,9 @@ The port's reduced copy of seaweedfs_tpu/topology/topology.py (upstream
 weed/topology/): node registration from heartbeats, per-(collection,
 replication, ttl) volume layouts with writable tracking, replica-
 placement-constrained volume growth, and the EC shard registry. The
-planner logic is pure (no sockets). Left out: the per-volume access heat
+planner logic is pure (no sockets). A volume re-reported under another
+replica placement leaves its old layout, which the reference's does not.
+Left out: the per-volume access heat
 (``merge_heat``, ``heat_view`` and the heat records of ``DataNode``),
 which belongs to the lifecycle plane the port does not have yet.
 """
@@ -168,10 +170,16 @@ class Topology:
             vi = VolumeInfo.from_dict(vd)
             new_volumes[vi.id] = vi
             self.max_volume_id = max(self.max_volume_id, vi.id)
-        # unregister volumes that disappeared
+        # unregister volumes that disappeared, and volumes whose replica
+        # placement was rewritten (volume.configure.replication): the old
+        # layout must not go on listing this node (the reference keeps
+        # it, ROADMAP Queue 3, F2)
         for vid in list(node.volumes):
-            if vid not in new_volumes:
-                old = node.volumes.pop(vid)
+            old = node.volumes[vid]
+            vi = new_volumes.get(vid)
+            if vi is None:
+                node.volumes.pop(vid)
+            if vi is None or vi.replica_placement != old.replica_placement:
                 self._layout_for(old.collection, old.replica_placement,
                                  old.ttl).unregister(vid, node)
         for vi in new_volumes.values():

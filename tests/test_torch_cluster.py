@@ -18,11 +18,20 @@ device="cpu"``), at the shrunk RS(10,4) geometry of tests/cluster_util.py
 (d) the four planners, (e) the topology and (f) the sequencer against
     the reference's; (g) the multipart parser; (h) the CLI as processes.
 
+Replicated volumes (``001``, one more copy on the same rack) take part
+in (b) and (c): a write acknowledged by the primary reads back from each
+holder, deletes and the vacuum (``/vol/vacuum`` and every
+``/admin/vacuum/*`` step) answer alike, a fan-out that fails answers
+alike, and each package's shell restores a lost copy with
+``volume.fix.replication`` on the other's cluster.
+
 Also: the port's DELETE checks the cookie where the reference's does not
-(ROADMAP Queue 3), "auto" without a card fails the encode with an HTTP
-error and writes no shard, and a replication the port cannot honour is
-refused. Every server binds port 0 and every test that runs servers has
-its own deadline.
+(ROADMAP Queue 3, D1); the port refuses a write the master cannot place
+on every copy and never vacuums a read-only volume, as upstream does and
+the reference does not (D2, D3); "auto" without a card fails the encode
+with an HTTP error and writes no shard; a placement no server set can
+satisfy fails at growth. Every server binds port 0 and every test that
+runs servers has its own deadline.
 """
 
 import functools
@@ -43,20 +52,25 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from cluster_util import TEST_GEOMETRY, Cluster
+from seaweedfs_torch import faults as pfaults
 from seaweedfs_torch.client import Client as PClient
 from seaweedfs_torch.client import ClientError as PClientError
 from seaweedfs_torch.ec import geometry as pgeo
 from seaweedfs_torch.server import http
+from seaweedfs_torch.server import volume_server as pvs
 from seaweedfs_torch.server.local_cluster import LocalCluster
-from seaweedfs_torch.server.master import run_master
 from seaweedfs_torch.shell import commands as pcommands
 from seaweedfs_torch.shell import ec_commands as pec
+from seaweedfs_torch.shell import volume_commands as pvc
 from seaweedfs_torch.storage.file_id import FileId
 from seaweedfs_torch.topology import sequence as pseq
 from seaweedfs_torch.topology import topology as ptopo
 from seaweedfs_torch.utils import multipart as pmp
+from seaweedfs_tpu import faults as rfaults
 from seaweedfs_tpu.client import Client as RClient
+from seaweedfs_tpu.shell import commands as rcommands
 from seaweedfs_tpu.shell import ec_commands as rec
+from seaweedfs_tpu.shell import volume_commands as rvc
 from seaweedfs_tpu.storage.store import Store as RStore
 from seaweedfs_tpu.topology import sequence as rseq
 from seaweedfs_tpu.topology import topology as rtopo
@@ -240,6 +254,49 @@ def _encode_read_rebuild(client, shell, collection: str) -> None:
     _read_all(client, fids)
 
 
+def _holder_reads(fids: dict, holders) -> None:
+    """Every blob read back from each holder named."""
+    for fid, data in fids.items():
+        for url in holders:
+            r = http.request("GET", f"http://{url}/{fid}")
+            assert (r.status, r.data) == (200, data), (fid, url)
+
+
+def _nodes_listed(master: str) -> set:
+    return {n["url"] for n in
+            http.get_json(f"http://{master}/dir/status")[1]["nodes"]}
+
+
+def _replicate_and_fix(client, run_shell, master: str, stop, add) -> None:
+    """Upload to a 001 collection and read each blob from both holders;
+    lose one holder, start a fresh server, restore the copy with the
+    shell's volume.fix.replication and read every blob from it."""
+    rng = random.Random(11)
+    fids = {}
+    for _ in range(12):
+        data = rng.randbytes(rng.randint(100, 20000))
+        fids[client.upload(data, collection="rep",
+                           replication="001")] = data
+    vids = {int(f.split(",")[0]) for f in fids}
+    assert len(vids) == 1
+    vid = vids.pop()
+    holders = client.lookup(vid)
+    assert len(holders) == 2
+    _holder_reads(fids, holders)
+    stop(holders[1])
+    new = add()
+    _wait(lambda: holders[1] not in _nodes_listed(master)
+          and new in _nodes_listed(master),
+          "the master to prune the lost holder and list the new server")
+    out = run_shell(["volume.fix.replication", "-force"])
+    added = [a for a in out["plan"] if a["volume_id"] == vid]
+    assert out["applied"] and [a["action"] for a in added] == ["add"]
+    client._vid_cache.clear()
+    assert sorted(client.lookup(vid)) == sorted([holders[0],
+                                                 added[0]["to"]])
+    _holder_reads(fids, [added[0]["to"]])
+
+
 @within(120)
 def test_reference_client_drives_port_cluster():
     cl = _cluster(3)
@@ -247,6 +304,12 @@ def test_reference_client_drives_port_cluster():
         client = RClient(cl.master_url)
         _encode_read_rebuild(client, rec.EcCommands(client, TEST_GEOMETRY),
                              "wire")
+        rcommands._register_all()
+        env = rcommands.CommandEnv(client, TEST_GEOMETRY)
+        _replicate_and_fix(
+            client, lambda argv: rcommands.run_command(env, argv),
+            cl.master_url, lambda url: cl.stop_volume_server(
+                cl.index_of(url)), cl.add_volume_server)
     finally:
         cl.shutdown()
 
@@ -255,11 +318,22 @@ def test_reference_client_drives_port_cluster():
 def test_port_client_drives_reference_cluster():
     ref = Cluster(n_volume_servers=3, pulse=PULSE)
     try:
-        # the shell's rebuild, not the master's repair daemon
+        # the shell's rebuild and fix, not the master's repair daemon
         for m in ref.masters:
             m.repair_enabled = False
         client = PClient(ref.master_url)
         _encode_read_rebuild(client, pec.EcCommands(client, PG), "wire")
+        pcommands._register_all()
+        env = pcommands.CommandEnv(client, PG)
+
+        def stop(url: str) -> None:
+            ref.stop_volume_server(next(
+                i for i, v in enumerate(ref.volume_servers) if v.url == url))
+
+        _replicate_and_fix(
+            client, lambda argv: pcommands.run_command(env, argv),
+            f"127.0.0.1:{ref.master_port}", stop,
+            lambda: ref.add_volume_server(rack="rack0").url)
     finally:
         ref.shutdown()
 
@@ -378,7 +452,7 @@ def _settle(master: str, node: str) -> None:
 @within(120)
 def test_same_requests_same_answers():
     ref = Cluster(n_volume_servers=1, pulse=PULSE)
-    port = _cluster(1)
+    port = _cluster(1, racks=1)
     try:
         for m in ref.masters:
             m.repair_enabled = False
@@ -431,6 +505,67 @@ def test_same_requests_same_answers():
         both("DELETE", "/1,02" + COOKIE)
         both("GET", "/1,02" + COOKIE)
         both("DELETE", "/1,77" + COOKIE)
+
+        # a 001 collection on a second server of the same rack: each
+        # package's primary fans writes and deletes out, and the vacuum
+        # compacts both copies
+        ref.add_volume_server(rack="rack0")
+        port.add_volume_server()
+        ref.wait_for_nodes(2)
+        port.wait_for_nodes(2)
+        grown = both("GET", "/vol/grow?count=1&collection=r1"
+                     "&replication=001", master=True)
+        vid = grown[2]["volume_ids"][0]
+        roles = {}
+        for master, norm in ((rm, rn), (pm, pn)):
+            # the primary is the holder allocated (and listed) first
+            primary, replica = PClient(master).lookup(vid)
+            roles[master] = {"primary": primary, "replica": replica}
+            norm.urls = {master: "<master>", primary: "<primary>",
+                         replica: "<replica>"}
+
+        def on(role, method, path, body=None, headers=None):
+            a = _ask(roles[rm][role], rn, method, path, body, headers)
+            b = _ask(roles[pm][role], pn, method, path, body, headers)
+            assert a == b, (role, method, path)
+            return a
+
+        for path in (f"/dir/lookup?volumeId={vid}",
+                     "/dir/assign?collection=r1&replication=001"):
+            both("GET", path, master=True)
+        text, raw = f"/{vid},11" + COOKIE, f"/{vid},12" + COOKIE
+        on("primary", "POST", text, *_multipart(b"replicated " * 40,
+                                                "r.txt", "text/plain"))
+        on("primary", "POST", raw, b"raw replicated bytes" * 30,
+           {"Content-Type": "application/octet-stream"})
+        for role in ("primary", "replica"):
+            for path in (text, raw):
+                on(role, "GET", path)
+                on(role, "GET", path, None, {"Accept-Encoding": "gzip"})
+            on(role, "HEAD", text)
+        on("primary", "DELETE", raw)
+        for role in ("primary", "replica"):
+            on(role, "GET", raw)
+            on(role, "GET", f"/admin/vacuum/check?volume_id={vid}")
+        both("GET", "/vol/vacuum?garbageThreshold=0.01", master=True)
+        vacuum = [("POST", "/admin/vacuum/compact", {"volume_id": vid}),
+                  ("POST", "/admin/vacuum/compact", {"volume_id": vid}),
+                  ("POST", "/admin/vacuum/commit", {"volume_id": vid}),
+                  ("POST", "/admin/vacuum/commit", {"volume_id": vid}),
+                  ("POST", "/admin/vacuum/cleanup", {"volume_id": vid}),
+                  ("POST", "/admin/vacuum", {"volume_id": vid}),
+                  ("POST", "/admin/vacuum/compact", {"volume_id": 99}),
+                  ("POST", "/admin/vacuum/cleanup", {"volume_id": 99})]
+        for role in ("primary", "replica"):
+            on(role, "GET", f"/admin/vacuum/check?volume_id={vid}")
+            on(role, "GET", text)
+            on(role, "GET", raw)
+            for method, path, body in vacuum:
+                on(role, method, path, json.dumps(body).encode(),
+                   {"Content-Type": "application/json"})
+            on(role, "GET", "/admin/vacuum/check?volume_id=99")
+            on(role, "GET", text)
+        both("GET", f"/dir/lookup?volumeId={vid}", master=True)
     finally:
         ref.shutdown()
         port.shutdown()
@@ -501,23 +636,122 @@ def test_auto_coder_without_a_card_fails_the_encode():
 
 @within(60)
 def test_unsupported_replication_is_refused():
-    cl = _cluster(2)
+    """What no server set can honour fails at growth: 010 on one rack,
+    001 on one server. A 001 volume allocated by hand on a lone server
+    takes no write: the port refuses it with 500 before storing, as
+    upstream does; the reference stores and acknowledges it (ROADMAP
+    Queue 3, D2)."""
+    cl = _cluster(2, racks=1)
     try:
         client = PClient(cl.master_url)
         with pytest.raises(PClientError, match="cannot grow"):
-            client.assign(replication="001")
-        with pytest.raises(PClientError, match="not supported"):
-            client.volume_admin(cl.url(0), "assign_volume",
-                                {"volume_id": 40, "replication": "010"})
-        assert all(not cl.store(i).find_volume(40) for i in range(2))
-        assert client.dir_status()["max_volume_id"] <= 1
-        # a replicated volume already on disk takes no write either
-        cl.store(0).add_volume(41, replica_placement="001")
-        with pytest.raises(PClientError, match="HTTP 409"):
-            client.upload_blob(cl.url(0), "41,01deadbeef", b"one copy")
-        assert cl.store(0).find_volume(41).file_count() == 0
+            client.assign(replication="010")
+        assert all(not cl.store(i).find_volume(1) for i in range(2))
+        assert client.dir_status()["max_volume_id"] == 0
     finally:
         cl.shutdown()
+    ref = Cluster(n_volume_servers=1, pulse=PULSE)
+    cl = _cluster(1)
+    try:
+        for m in ref.masters:
+            m.repair_enabled = False
+        answers = []
+        for master, url, store in (
+                (f"127.0.0.1:{ref.master_port}",
+                 ref.volume_servers[0].url, ref.volume_servers[0].store),
+                (cl.master_url, cl.url(0), cl.store(0))):
+            client = PClient(master)
+            with pytest.raises(PClientError, match="cannot grow"):
+                client.assign(replication="001")
+            client.volume_admin(url, "assign_volume",
+                                {"volume_id": 41, "replication": "001"})
+            body, headers = _multipart(b"one copy")
+            r = http.request("POST", f"http://{url}/41,01deadbeef", body,
+                             headers)
+            answers.append((r.status, store.find_volume(41).file_count()))
+        assert answers == [(201, 1), (500, 0)]
+    finally:
+        ref.shutdown()
+        cl.shutdown()
+
+
+@pytest.mark.parametrize("action", ["error", "drop"])
+@within(60)
+def test_failed_fan_out_answers_alike(action):
+    """The fault point volume.replicate armed in both packages: an
+    error answers 500 and a drop 201, and either way the primary keeps
+    the needle and the replica stores none, in both packages alike (the
+    replica's store is read directly: a GET there would have the
+    reference's read repair fetch the needle from the primary)."""
+    ref = Cluster(n_volume_servers=0, pulse=PULSE)
+    port = _cluster(2, racks=1)
+    try:
+        for m in ref.masters:
+            m.repair_enabled = False
+        for _ in range(2):
+            ref.add_volume_server(rack="rack0")
+        ref.wait_for_nodes(2)
+        answers = []
+        stores = {vs.url: vs.store for vs in ref.volume_servers}
+        stores.update({port.url(i): port.store(i) for i in range(2)})
+        for master, fmod in ((f"127.0.0.1:{ref.master_port}", rfaults),
+                             (port.master_url, pfaults)):
+            client = PClient(master)
+            vid = client.grow(collection="f", replication="001")[
+                "volume_ids"][0]
+            primary, replica = client.lookup(vid)
+            fmod.set_fault("volume.replicate", action, count=1)
+            try:
+                body, headers = _multipart(b"primary only")
+                r = http.request("POST", f"http://{primary}/{vid},01"
+                                 + COOKIE, body, headers)
+            finally:
+                fmod.clear("volume.replicate")
+            answers.append((
+                r.status, json.loads(r.data).get("error"),
+                http.request("GET", f"http://{primary}/{vid},01"
+                             + COOKIE).data,
+                stores[primary].find_volume(vid).file_count(),
+                stores[replica].find_volume(vid).file_count()))
+        assert answers[0] == answers[1]
+        assert answers[0] == ((500, "replication failed") if action ==
+                              "error" else (201, None)) + (b"primary only",
+                                                           1, 0)
+    finally:
+        ref.shutdown()
+        port.shutdown()
+
+
+@within(60)
+def test_vacuum_skips_read_only_volumes():
+    """A read-only volume over the threshold: the reference's /vol/vacuum
+    compacts it, the port's skips it as upstream's vacuumOneVolumeLayout
+    does (ROADMAP Queue 3, D3), and compacts it once it is writable."""
+    ref = Cluster(n_volume_servers=1, pulse=PULSE)
+    port = _cluster(1)
+    try:
+        for m in ref.masters:
+            m.repair_enabled = False
+        compacted = []
+        for master, url in ((f"127.0.0.1:{ref.master_port}",
+                             ref.volume_servers[0].url),
+                            (port.master_url, port.url(0))):
+            client = PClient(master)
+            fids = [client.upload(b"v" * 500, collection="ro")
+                    for _ in range(6)]
+            vid = int(fids[0].split(",")[0])
+            for fid in fids[:4]:
+                client.delete(fid)
+            for read_only in (True, False):
+                client.volume_admin(url, "volume/readonly",
+                                    {"volume_id": vid,
+                                     "read_only": read_only})
+                _settle(master, url)
+                compacted.append(client.vacuum(0.1)["compacted"])
+        assert compacted == [[1], [], [], [1]]
+    finally:
+        ref.shutdown()
+        port.shutdown()
 
 
 # --- (d) the planners ----------------------------------------------------
@@ -567,6 +801,89 @@ def test_planners_match_reference(planner, nodes, vid, total):
         assert rec.plan_balance(r_nodes, total) == \
             pec.plan_balance(p_nodes, total)
         assert [vars(n) for n in r_nodes] == [vars(n) for n in p_nodes]
+
+
+_volume_topologies = st.lists(
+    st.tuples(st.sampled_from(["rack0", "rack1"]), st.integers(1, 4),
+              st.lists(st.tuples(st.integers(1, 6),
+                                 st.sampled_from(["000", "001", "010"])),
+                       max_size=4, unique_by=lambda v: v[0])),
+    max_size=5)
+
+
+def _within_placement(rp: str, racks: list) -> bool:
+    """One data center: at most Y+1 racks, at most Z+1 copies a rack."""
+    _, y, z = (int(c) for c in rp)
+    per_rack = {r: racks.count(r) for r in racks}
+    return len(per_rack) <= y + 1 and max(per_rack.values()) <= z + 1
+
+
+@settings(deadline=None, max_examples=60, database=None)
+@given(nodes=_volume_topologies)
+def test_fix_replication_planner_matches_reference(nodes):
+    """volume.fix.replication's planner on the same topologies: the same
+    adds, removes and impossibles wherever the reference's adds keep each
+    volume's placement. Where one does not (ROADMAP Queue 3, D4), the
+    port acts on the same volumes in the same order, an add of one
+    planner may be impossible in the other (the copies land elsewhere,
+    so the free slots differ), and each of the port's adds keeps the
+    placement."""
+    status = [{"url": f"10.0.0.{i}:8080", "data_center": "dc1",
+               "rack": rack, "max_volume_count": cap,
+               "volumes": [{"id": vid, "replica_placement": rp,
+                            "collection": "c"} for vid, rp in vols]}
+              for i, (rack, cap, vols) in enumerate(nodes)]
+    # one placement per volume, as the master keeps it
+    placement: dict = {}
+    for nd in status:
+        for v in nd["volumes"]:
+            v["replica_placement"] = placement.setdefault(
+                v["id"], v["replica_placement"])
+    rack_of = {nd["url"]: nd["rack"] for nd in status}
+    held = {vid: [nd["rack"] for nd in status
+                  if vid in {v["id"] for v in nd["volumes"]}]
+            for vid in placement}
+
+    def keeps(act: dict) -> bool:
+        return _within_placement(placement[act["volume_id"]],
+                                 held[act["volume_id"]]
+                                 + [rack_of[act["to"]]])
+
+    ours = pvc.plan_fix_replication(status)
+    theirs = rvc.plan_fix_replication(status)
+    if all(keeps(a) for a in theirs if a["action"] == "add"):
+        assert ours == theirs
+        return
+    assert [(a["volume_id"], a["have"], a["want"]) for a in ours] == \
+        [(a["volume_id"], a["have"], a["want"]) for a in theirs]
+    for a, b in zip(ours, theirs):
+        assert a["action"] == b["action"] or \
+            {a["action"], b["action"]} == {"add", "impossible"}
+        if a["action"] == "add" and _within_placement(
+                placement[a["volume_id"]], held[a["volume_id"]]):
+            assert keeps(a)
+
+
+def test_fix_replication_keeps_the_placement():
+    """On two racks, a lost 001 copy comes back on the holder's rack and
+    a lost 010 copy on the other rack; with no server left on the
+    holder's rack, the 001 add is impossible. The reference's planner
+    puts the 001 copy on the other rack (ROADMAP Queue 3, D4)."""
+    def node(i: int, rack: str, vols: list) -> dict:
+        return {"url": f"10.0.0.{i}:8080", "data_center": "dc1",
+                "rack": rack, "max_volume_count": 8,
+                "volumes": [{"id": vid, "replica_placement": rp,
+                             "collection": "c"} for vid, rp in vols]}
+
+    status = [node(0, "rack0", [(1, "001"), (2, "010")]),
+              node(1, "rack0", [(3, "000"), (4, "000")]),
+              node(2, "rack1", [])]
+    plan = pvc.plan_fix_replication(status)
+    assert [(a["volume_id"], a["action"], a["to"]) for a in plan] == [
+        (1, "add", "10.0.0.1:8080"), (2, "add", "10.0.0.2:8080")]
+    assert rvc.plan_fix_replication(status)[0]["to"] == "10.0.0.2:8080"
+    assert pvc.plan_fix_replication(status[:1] + status[2:])[0][
+        "action"] == "impossible"
 
 
 # --- (e) the topology ----------------------------------------------------
@@ -633,6 +950,23 @@ def test_topology_matches_reference(events):
         assert r.lookup_ec_shards(8).keys() == p.lookup_ec_shards(8).keys()
 
 
+def test_replication_change_moves_the_layout():
+    """A volume re-reported under another replica placement (after
+    volume.configure.replication) and then gone: the reference's
+    topology goes on listing the node in the old layout, the port's does
+    not (ROADMAP Queue 3, F2). Everything else the two answer alike."""
+    lookups = []
+    for mod in (rtopo, ptopo):
+        topo = mod.Topology(volume_size_limit=1000, pulse_seconds=1.0)
+        for rp, vols in (("000", [5]), ("001", [5]), ("001", [])):
+            topo.register_heartbeat(
+                "n0", "10.0.0.0:80", "", "dc1", "rack0", 8,
+                {"volumes": [{"id": v, "collection": "c",
+                              "replica_placement": rp} for v in vols]})
+        lookups.append([n.url for n in topo.lookup(5)])
+    assert lookups == [["10.0.0.0:80"], []]
+
+
 # --- (f) the sequencer ---------------------------------------------------
 
 @settings(deadline=None, max_examples=40, database=None)
@@ -659,16 +993,136 @@ def test_restarted_master_never_remints_a_key():
         keys = [FileId.parse(client.upload(b"x" * 100)).key
                 for _ in range(12)]
         assert keys == sorted(keys)
-        port = cl.master_server.port
-        cl.master.stop()
-        cl.master_server.shutdown()
-        cl.master, cl.master_server = run_master(
-            "127.0.0.1", port, volume_size_limit_mb=1, pulse_seconds=PULSE)
+        port = int(cl.master_url.rsplit(":", 1)[1])
+        cl.stop_master()
+        cl.start_master(port, volume_size_limit_mb=1, pulse_seconds=PULSE)
         cl.wait_for_nodes(1)
         a = client.assign()
         assert FileId.parse(a["fid"]).key > max(keys)
         client.upload_blob(a["url"], a["fid"], b"after the restart")
         assert client.download(a["fid"]) == b"after the restart"
+    finally:
+        cl.shutdown()
+
+
+@pytest.mark.parametrize("package", ["reference", "port"])
+@within(60)
+def test_volume_commands_drive_port_cluster(package):
+    """Each package's volume.configure.replication, volume.mark,
+    volume.copy and volume.delete on the port's cluster."""
+    cl = _cluster(3, racks=1)
+    try:
+        client = PClient(cl.master_url)
+        if package == "port":
+            pcommands._register_all()
+            env = pcommands.CommandEnv(client, PG)
+            run = functools.partial(pcommands.run_command, env)
+        else:
+            rcommands._register_all()
+            env = rcommands.CommandEnv(RClient(cl.master_url),
+                                       TEST_GEOMETRY)
+            run = functools.partial(rcommands.run_command, env)
+        fid = client.upload(b"one copy", collection="vc")
+        vid = int(fid.split(",")[0])
+        src = client.lookup(vid)[0]
+        dst = next(cl.url(i) for i in range(3) if cl.url(i) != src)
+        out = run(["volume.configure.replication", "-volumeId", str(vid),
+                   "-replication", "001"])
+        assert out["configured"] == [src]
+        vol = cl.store(cl.index_of(src)).find_volume(vid)
+        assert str(vol.super_block.replica_placement) == "001"
+        run(["volume.mark", "-volumeId", str(vid), "-node", src,
+             "-readonly"])
+        assert vol.read_only
+        run(["volume.mark", "-volumeId", str(vid), "-node", src,
+             "-writable"])
+        assert not vol.read_only
+        run(["volume.copy", "-volumeId", str(vid), "-from", src, "-to",
+             dst, "-collection", "vc"])
+        client._vid_cache.clear()
+        assert sorted(client.lookup(vid)) == sorted([src, dst])
+        _holder_reads({fid: b"one copy"}, [src, dst])
+        # the copy carries the rewritten placement
+        copy = cl.store(cl.index_of(dst)).find_volume(vid)
+        assert str(copy.super_block.replica_placement) == "001"
+        run(["volume.delete", "-volumeId", str(vid), "-node", src])
+        client._vid_cache.clear()
+        assert client.lookup(vid) == [dst]
+        assert cl.store(cl.index_of(src)).find_volume(vid) is None
+    finally:
+        cl.shutdown()
+
+
+@within(60)
+def test_master_vacuums_on_its_own():
+    """The master's periodic vacuum (every vacuum_interval_seconds, at
+    garbage_threshold) compacts a volume over the threshold with no
+    request."""
+    cl = _cluster(1)
+    try:
+        client = PClient(cl.master_url)
+        fids = [client.upload(b"w" * 700) for _ in range(8)]
+        for fid in fids[:5]:
+            client.delete(fid)
+        vid = int(fids[0].split(",")[0])
+        vol = cl.store(0).find_volume(vid)
+        assert vol.garbage_level() > 0.5
+        port = int(cl.master_url.rsplit(":", 1)[1])
+        cl.stop_master()
+        cl.start_master(port, volume_size_limit_mb=1, pulse_seconds=PULSE,
+                        garbage_threshold=0.5, vacuum_interval_seconds=0.2)
+        _wait(lambda: cl.store(0).find_volume(vid).garbage_level() == 0,
+              "the periodic vacuum")
+        assert cl.store(0).find_volume(vid).super_block \
+            .compaction_revision == 1
+        client._vid_cache.clear()
+        for fid in fids[5:]:
+            assert client.download(fid) == b"w" * 700
+    finally:
+        cl.shutdown()
+
+
+@pytest.mark.parametrize("failure", ["holder_lost", "commit_refused"])
+@within(60)
+def test_failed_vacuum_cleans_up_every_holder(failure, monkeypatch):
+    """A vacuum pass that fails midway leaves no holder compacting and
+    no .cpd/.cpx behind. holder_lost: the second holder dies right after
+    the first's compact, so the master's next POST raises. commit_refused:
+    the first holder's volume turns read-only after its compact, so its
+    commit is refused and the second holder is never asked to commit."""
+    cl = _cluster(2, racks=1)
+    try:
+        client = PClient(cl.master_url)
+        fids = [client.upload(b"r" * 700, collection="vf",
+                              replication="001") for _ in range(8)]
+        for fid in fids[:5]:
+            client.delete(fid)
+        vid = int(fids[0].split(",")[0])
+        layout = next(lay for lay in cl.master.topology.layouts.values()
+                      if vid in lay.locations)
+        first, second = [n.url for n in layout.locations[vid]]
+        store = cl.store(cl.index_of(first))
+        compact = store.vacuum_compact
+
+        def compact_then_fail(v: int) -> None:
+            compact(v)
+            if failure == "holder_lost":
+                cl.stop_volume_server(cl.index_of(second))
+            else:
+                store.mark_readonly(v)
+
+        monkeypatch.setattr(store, "vacuum_compact", compact_then_fail)
+        assert client.vacuum(0.1)["compacted"] == []
+        holders = [first] + ([] if failure == "holder_lost" else [second])
+        for url in holders:
+            i = cl.index_of(url)
+            v = cl.store(i).find_volume(vid)
+            assert not v._compacting
+            assert v.super_block.compaction_revision == 0
+            assert not [f for f in os.listdir(cl.nodes[i][3])
+                        if f.endswith((".cpd", ".cpx"))]
+        assert vid not in layout.vacuuming
+        _holder_reads({fid: b"r" * 700 for fid in fids[5:]}, holders)
     finally:
         cl.shutdown()
 
@@ -774,60 +1228,113 @@ def test_cli_master_volume_shell(tmp_path):
                 raise
 
 
+def test_cli_compact_matches_reference(tmp_path, capsys):
+    """`compact -dir -volumeId` on copies of one volume: the same answer
+    and the same files from both packages' CLI."""
+    import argparse
+
+    from seaweedfs_torch import cli as pcli
+    from seaweedfs_torch.storage.needle import Needle
+    from seaweedfs_torch.storage.volume import Volume
+    from seaweedfs_tpu import cli as rcli
+    src = tmp_path / "src"
+    src.mkdir()
+    v = Volume(str(src), "", 4, create=True)
+    for i in range(1, 30):
+        v.write_needle(Needle(cookie=i, id=i, data=bytes([i]) * 300 * i,
+                              append_at_ns=10 ** 18 + i),
+                       preserve_append_at_ns=True)
+    for i in range(1, 30, 3):
+        v.delete_needle(Needle(cookie=i, id=i, append_at_ns=2 * 10 ** 18),
+                        preserve_append_at_ns=True)
+    v.close()
+    answers = []
+    for name in ("reference", "port"):
+        d = tmp_path / name
+        shutil.copytree(src, d)
+        if name == "reference":
+            rcli.cmd_compact(argparse.Namespace(dir=str(d), collection="",
+                                                volumeId=4))
+        else:
+            pcli.main(["compact", "-dir", str(d), "-volumeId", "4"])
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        answers.append((out, (d / "4.dat").read_bytes(),
+                        (d / "4.idx").read_bytes()))
+    assert answers[0] == answers[1]
+    assert answers[1][0]["reclaimed"] > 0
+
+
 def test_shell_registry():
     pcommands._register_all()
-    assert set(pcommands.COMMANDS) == {"ec.encode", "ec.rebuild",
-                                       "ec.balance", "ec.decode",
-                                       "volume.list"}
+    assert set(pcommands.COMMANDS) == {
+        "ec.encode", "ec.rebuild", "ec.balance", "ec.decode",
+        "volume.list", "volume.fix.replication", "volume.copy",
+        "volume.delete", "volume.configure.replication", "volume.mark"}
 
 
 # --- the HTTP layer --------------------------------------------------------
 
 @within(60)
 def test_http_layer(tmp_path, monkeypatch):
-    """Keep-alive, HEAD, 404/405, a chunked request body, 413 on a body
-    over the cap whether sent with a length or in chunks, a file streamed
-    from its descriptor, and a shutdown that closes kept connections."""
-    big = tmp_path / "big.bin"
-    big.write_bytes(os.urandom(3 * 1024 * 1024 + 7))
-    app = http.App()
-    app.route("POST", "/echo", lambda req: http.Response(req.body))
-    app.route("GET", "/file", lambda req: http.FileResponse(str(big)))
-    app.route("GET", "/q", lambda req: http.json_response(req.query))
-    server = http.serve(app)
-    base = f"http://127.0.0.1:{server.port}"
+    """The aiohttp apps: keep-alive, HEAD, 404/405, a chunked request
+    body, 413 on a body over the cap whether sent with a length or in
+    chunks, a file streamed to a pulling peer in chunks, and a shutdown
+    that closes kept connections."""
+    import http.client as hc
+    cap = 64 * 1024
+    monkeypatch.setattr(pvs, "MAX_BODY", cap)
+    cl = _cluster(1)
     try:
-        assert http.get_json(base + "/q?a=1&b=&a=2") == (200, {"a": "1",
-                                                               "b": ""})
-        r = http.request("POST", base + "/echo", b"x" * 70000)
-        assert r.status == 200 and r.data == b"x" * 70000
-        import http.client as hc
-        conn = hc.HTTPConnection("127.0.0.1", server.port)
-        conn.putrequest("POST", "/echo")
-        conn.putheader("Transfer-Encoding", "chunked")
-        conn.endheaders()
-        conn.send(b"5\r\nhello\r\n6\r\n world\r\n0\r\n\r\n")
-        assert conn.getresponse().read() == b"hello world"
+        host, port = cl.url(0).split(":")
+        conn = hc.HTTPConnection(host, int(port))
+        for _ in range(2):
+            conn.request("GET", "/healthz")
+            r = conn.getresponse()
+            assert (r.status, json.loads(r.read())) == (200, {"ok": True})
+
+        def chunked(path: str, chunks: list) -> hc.HTTPResponse:
+            conn.putrequest("POST", path)
+            conn.putheader("Transfer-Encoding", "chunked")
+            conn.putheader("Content-Type", "application/octet-stream")
+            conn.endheaders()
+            for c in chunks:
+                conn.send(b"%x\r\n%s\r\n" % (len(c), c))
+            conn.send(b"0\r\n\r\n")
+            return conn.getresponse()
+
+        fid = PClient(cl.master_url).assign()["fid"]
+        r = chunked(f"/{fid}", [b"hello", b" world"])
+        assert r.status == 201, r.read()
+        r.read()
+        base = f"http://{cl.url(0)}/{fid}"
+        assert http.request("GET", base).data == b"hello world"
+        r = http.request("HEAD", base)
+        assert r.data == b"" and r.headers["Content-Length"] == "11"
+        assert http.request("GET",
+                            f"http://{cl.master_url}/nope").status == 404
+        assert http.request(
+            "GET", f"http://{cl.master_url}/heartbeat").status == 405
+        assert http.request("POST", base, b"x" * (cap + 1)).status == 413
+        r = chunked(f"/{fid}", [b"y" * 40000, b"z" * 40000])
+        assert r.status == 413
         conn.close()
-        assert http.request("HEAD", base + "/q").data == b""
-        assert http.request("GET", base + "/nope").status == 404
-        assert http.request("GET", base + "/echo").status == 405
-        dst = tmp_path / "copy.bin"
-        assert http.download_to(base + "/file", str(dst)) == 200
-        assert dst.read_bytes() == big.read_bytes()
-        monkeypatch.setattr(http, "MAX_BODY", 10)
-        assert http.request("POST", base + "/echo", b"x" * 11).status == 413
-        conn = hc.HTTPConnection("127.0.0.1", server.port)
-        conn.putrequest("POST", "/echo")
-        conn.putheader("Transfer-Encoding", "chunked")
-        conn.endheaders()
-        conn.send(b"6\r\nhello \r\n6\r\nworld!\r\n0\r\n\r\n")
-        assert conn.getresponse().status == 413
-        conn.close()
+        # a file larger than one copy chunk, streamed
+        big = os.urandom(3 * 1024 * 1024 + 7)
+        with open(os.path.join(cl.nodes[0][3], "9.bin"), "wb") as f:
+            f.write(big)
+        r = http.request("GET", f"http://{cl.url(0)}/admin/file_copy"
+                         "?volume_id=9&ext=.bin")
+        assert r.status == 200 and r.data == big
+        kept = hc.HTTPConnection(host, int(port))
+        kept.request("GET", "/healthz")
+        kept.getresponse().read()
     finally:
-        server.shutdown()
+        cl.shutdown()
     with pytest.raises(OSError):
-        http.request("GET", base + "/q")
+        kept.request("GET", "/healthz")
+        kept.getresponse()
+    with pytest.raises(OSError):
+        http.request("GET", f"http://{host}:{port}/healthz")
 
 
 def test_vid_cache_is_per_client():

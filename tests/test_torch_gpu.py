@@ -457,3 +457,79 @@ def test_auto_cluster_encode_equals_numpy_store(tmp_path, monkeypatch):
             assert client.download(fid) == data
     finally:
         cl.shutdown()
+
+
+@pytest.mark.gpu
+def test_replicated_vacuumed_cluster_encode_equals_numpy_store(
+        tmp_path, monkeypatch):
+    """A port cluster with Store(coder_name="auto") on one rack: uploads
+    to a 001 collection, deletes, a /vol/vacuum that compacts both
+    copies, then the shell's ec.encode on the card, which retires both
+    copies. The shard files equal those of a "numpy" Store over a copy of
+    the compacted, sealed volume."""
+    _need_card()
+    import json
+    import random
+    import shutil
+    from seaweedfs_torch.client import Client
+    from seaweedfs_torch.ec import geometry
+    from seaweedfs_torch.server.local_cluster import LocalCluster
+    from seaweedfs_torch.shell.ec_commands import EcCommands
+    from seaweedfs_torch.storage.store import Store
+    monkeypatch.delenv("WEED_EC_GEOMETRY", raising=False)
+    monkeypatch.delenv("WEED_EC_FORMULATION", raising=False)
+    g = geometry.Geometry(10, 4, 64 * 1024, 4 * 1024)
+    cl = LocalCluster(3, coder_name="auto", geometry=g,
+                      volume_size_limit_mb=4, pulse=0.15, racks=1,
+                      directory=str(tmp_path / "cluster"))
+    try:
+        client = Client(cl.master_url)
+        vid = client.grow(count=1, collection="c",
+                          replication="001")["volume_ids"][0]
+        rng = random.Random(6)
+        fids = {}
+        for _ in range(60):
+            a = client.assign(collection="c", replication="001")
+            assert int(a["fid"].split(",")[0]) == vid
+            fids[a["fid"]] = rng.randbytes(rng.randint(100, 40000))
+            client.upload_blob(a["url"], a["fid"], fids[a["fid"]])
+        for fid in list(fids)[::3]:
+            client.delete(fid)
+            del fids[fid]
+        assert client.vacuum(0.2)["compacted"] == [vid]
+        holders = client.lookup(vid)
+        assert len(holders) == 2
+        src = cl.index_of(holders[0])
+        for url in holders:
+            client.volume_admin(url, "volume/readonly",
+                                {"volume_id": vid, "read_only": True})
+        vol = cl.store(src).find_volume(vid)
+        assert vol.super_block.compaction_revision == 1
+        vol.sync()
+        ref = tmp_path / "numpy"
+        ref.mkdir()
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(vol.base_file_name() + ext,
+                            ref / f"c_{vid}{ext}")
+        before = rs_cuda.gf_apply.launches
+        EcCommands(client, g).encode(vid, "c")
+        assert rs_cuda.gf_apply.launches > before
+        assert all(cl.store(i).find_volume(vid) is None for i in range(3))
+        info = client.ec_lookup(vid)
+        st = Store([str(ref)], coder_name="numpy", geometry=g)
+        assert st.ec_generate(vid) == list(range(14))
+        st.close()
+        for sid, urls in info["shards"].items():
+            d = cl.nodes[cl.index_of(urls[0])][3]
+            ext = geometry.to_ext(int(sid))
+            with open(os.path.join(d, f"c_{vid}{ext}"), "rb") as got, \
+                    open(ref / f"c_{vid}{ext}", "rb") as want:
+                assert got.read() == want.read(), sid
+            with open(os.path.join(d, f"c_{vid}.ecm")) as got, \
+                    open(ref / f"c_{vid}.ecm") as want:
+                assert json.load(got) == json.load(want)
+        client._vid_cache.clear()
+        for fid, data in fids.items():
+            assert client.download(fid) == data
+    finally:
+        cl.shutdown()

@@ -69,6 +69,8 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.shell.commands",
                  "seaweedfs_torch.shell.ec_commands",
                  "seaweedfs_torch.shell.ec_shell",
+                 "seaweedfs_torch.shell.volume_commands",
+                 "seaweedfs_torch.storage.backend",
                  "seaweedfs_torch.cli"):
         assert name in result["names"]
     assert result["forbidden"] == []
@@ -105,11 +107,10 @@ SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
 @pytest.mark.parametrize("path", SERVING,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_serving_layer_imports_only_stdlib_torch_numpy(path):
-    """The servers, the client, the shell and the CLI are written on the
-    standard library's HTTP server and client: they import the standard
-    library, torch, numpy and the port, nothing else. ROADMAP Queue 1.5
-    records the decision to move the servers onto aiohttp, which widens
-    this set."""
-    allowed = set(sys.stdlib_module_names) | {"torch", "numpy",
+    """The servers are aiohttp applications; the client, the shell and
+    the CLI use the standard library's HTTP client: the serving layer
+    imports the standard library, aiohttp, torch, numpy and the port,
+    nothing else."""
+    allowed = set(sys.stdlib_module_names) | {"aiohttp", "torch", "numpy",
                                               "seaweedfs_torch"}
     assert _imported_roots(path) <= allowed
