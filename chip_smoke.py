@@ -107,7 +107,9 @@ Phases (any failure exits non-zero before the result line):
    -coder auto`` as processes, 48 uploads into a 64 MB-limit volume,
    ``shell ec.encode``, one shard deleted, every needle read back, the
    processes stopped at the end. The servers are aiohttp applications on
-   one event loop, on one rack;
+   one event loop, on one rack. The master runs with
+   ``repair_enabled=False`` (the CLI's with ``-maintenance_interval 0``):
+   the shell heals phases 7 and 8, and the repair daemon would race it;
 8. (run inside 7a's cluster, before 7b) the hot tier in front of the
    warm one: a fresh server takes the place of the one 7a lost; a 1 GiB
    volume of collection ``repsmoke`` at replication ``001`` (upstream's
@@ -126,6 +128,40 @@ Phases (any failure exits non-zero before the result line):
    spreads the shards 5/5/4; reads with the 4-shard server lost;
    ``ec.rebuild``. ``gf_apply`` must launch in the encode, the degraded
    reads and the rebuild, and nowhere else in the phase;
+9. (run after 7b) the self-driving warm tier, in its own ``LocalCluster``:
+   a master with the repair daemon and the lifecycle rules (warm after 10
+   s idle, an evaluation every 0.5 s, decode back at a decayed read rate
+   of 270 reads/s, collection ``lctmp`` expiring 3 s after its last write
+   plus 1 s of grace; heat half-life 2 s) and 4 volume servers on one
+   rack (``Store(coder_name="auto")``, the scrub loop off, pulse 0.5 s),
+   no operator command from step 2 on: (1) two volumes of ``lcsmoke``
+   allocated on one server, filled at once over HTTP with phase 3's
+   generator to 1 GiB each, 5% deleted, the first copied aside; (2) the
+   daemon seals both and warms them down in one ``ec/fused`` window of
+   two (the master's ``lifecycle_encode_windows`` counter), spreads each
+   4/4/3/3, reads 14/14 back and retires the originals; the 14 shards
+   equal by sha256 a direct ``Store.ec_fused_generate`` of the copy;
+   every needle reads back; (3) one byte of a shard flipped on disk:
+   ``/admin/ec/scrub`` reports exactly that shard, having checked every
+   shard mounted there; the master drops and rebuilds it to its sha256;
+   a scrub of every holder checks all 28 shards and finds nothing;
+   (4) the server holding 3 shards of the second volume stopped: reads of
+   that volume once the master has pruned it (degraded until the
+   rebuild), both volumes rebuilt to 14/14 on the survivors, reads of
+   both; (5) a 64 MiB volume of ``lcrep`` at ``001``, one holder's copy
+   deleted: copied back, every needle read from both holders; (6) a 64
+   MiB volume of ``lctmp`` gone from the lookup and the disks after its
+   TTL; (7) 8 threads read the first volume's 256 smallest needles until
+   the daemon decodes it (``unec``), then its needles read from the
+   decoded volume. A read of step 7 may fail only in the decode's window
+   (the volume already normal on one holder, the shard set being
+   dropped, until the decode's outcome is recorded); the failures are
+   counted, by answer, in the ``lifecycle.hot_again`` line. Steps 4 and 7 read a fixed sample: the first needle
+   and each 4th after it, in upload order. Each step's line has its
+   wall time, GB/s where bytes moved, read p50/p99, launches, the time
+   from its trigger to the daemon's action and the card's name and power
+   limit. ``gf_apply`` must launch in steps 2-4 (and in the direct
+   warm-down and the degraded reads) and nowhere else in the phase;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -152,6 +188,7 @@ directory inside the checkout that it removes at the end.
 
 from __future__ import annotations
 
+import collections
 import functools
 import hashlib
 import json
@@ -173,6 +210,7 @@ from seaweedfs_torch.ec import coder as coder_mod
 from seaweedfs_torch.ec import ec_volume, feed, geometry, governor
 from seaweedfs_torch.ec import pipeline, striping
 from seaweedfs_torch.observe import wideevents
+from seaweedfs_torch.lifecycle import LifecycleConfig
 from seaweedfs_torch.ops import _build, gf256, rs_cuda, rs_torch
 from seaweedfs_torch.ops import xor_schedule
 from seaweedfs_torch.server import http
@@ -1584,8 +1622,11 @@ def run_cluster(work: Path, device: torch.device, total: int = 1 << 30,
     governor.reset()
     observe.reset()
     wideevents.reset()
+    # the shell's rebuild and fix, not the repair daemon, heal phases 7
+    # and 8 (the daemon would race them and change what they measure)
     cl = LocalCluster(3, coder_name="auto", volume_size_limit_mb=1024,
-                      pulse=pulse, directory=str(work), racks=1)
+                      pulse=pulse, directory=str(work), racks=1,
+                      master_kwargs={"repair_enabled": False})
     try:
         client = Client(cl.master_url)
         grown = client.grow(count=1, collection=col)
@@ -1960,6 +2001,553 @@ def run_replicated(cl, client, total: int, seed: int) -> dict:
     return launches
 
 
+# --- phase 9: the self-driving warm tier ---------------------------------
+
+LC_COLLECTION = "lcsmoke"
+LC_REP = "lcrep"
+LC_TMP = "lctmp"
+# the lifecycle rules of phase 9 (LifecycleConfig)
+LC_WARM_AFTER = 10.0
+LC_INTERVAL = 0.5
+LC_TTL, LC_TTL_GRACE = 3.0, 1.0
+# decayed read rate (reads/s) at which a warm volume decodes back: above
+# what steps 2-4 drive (every needle read in turn, mean needle 0.5 MB:
+# 106-269 reads/s on the card's hosts) and below what step 7's 8 threads
+# drive on 256 small needles read from their shards' holders
+LC_HOT_READ_RATE = 400.0
+# steps 4 and 7 read a fixed sample: the first needle of each volume
+# (in upload order) and each LC_SAMPLE-th after it
+LC_SAMPLE = 4
+# the volume servers' heat half-life (WEED_LIFECYCLE_HEAT_HALFLIFE, s)
+LC_HALFLIFE = "2"
+# the longest step 7's reads may take to turn the volume hot
+LC_HOT_TIMEOUT = 300.0
+# steps of phase 9 that run the coder (gf_apply must launch there, and in
+# no other step of the phase)
+LIFECYCLE_CODER_STEPS = ("lifecycle.warm_down", "lifecycle.bit_rot",
+                         "lifecycle.holder_death")
+# launches counted beside the steps': the direct warm-down of the
+# snapshot (a check), and the degraded reads inside step 4; both must
+# run the coder, and neither adds to the main path's count
+LIFECYCLE_CHECKS = ("lifecycle.warm_down_check", "lifecycle.read_degraded")
+SMI = [""]
+
+
+def lc_log(step: str, secs: float, nbytes: int = 0, lat=None,
+           launches=None, **extra) -> None:
+    """One phase-9 line: wall s, GB/s where bytes moved, read p50/p99,
+    launches, and the card beside them."""
+    row = {"phase": step, "seconds": secs}
+    if nbytes:
+        row.update(bytes=nbytes, gbps=nbytes / secs / 1e9)
+    if lat:
+        row.update(latency_summary(lat))
+    if launches is not None:
+        row["launches"] = launches
+    row.update(extra)
+    row["card"] = SMI[0]
+    log(row)
+
+
+def fill_pair(client, url: str, vols: dict, total: int, max_needle: int,
+              seed: int) -> tuple[dict, dict]:
+    """Phase 3's generator over HTTP into two volumes of one server at
+    once, each needle to the emptier volume (the master mints its key and
+    cookie), until both hold `total` bytes; then one needle in 20 of each
+    deleted. Returns vid -> {fid: (nid, size)} and vid -> deleted fids."""
+    rng = np.random.default_rng(seed)
+    fids: dict = {vid: {} for vid in vols}
+    nid = 0
+    while True:
+        open_vids = [v for v, vol in vols.items()
+                     if vol.data_file_size() < total]
+        if not open_vids:
+            break
+        vid = min(open_vids, key=lambda v: vols[v].data_file_size())
+        nid += 1
+        size = int(np.exp(rng.uniform(np.log(1024), np.log(max_needle))))
+        size = min(size, total - vols[vid].data_file_size())
+        minted = FileId.parse(client.assign(collection=LC_COLLECTION)["fid"])
+        fid = str(FileId(vid, minted.key, minted.cookie))
+        client.upload_blob(url, fid, payload(seed, nid, size))
+        fids[vid][fid] = (nid, size)
+    deleted = {}
+    for vid, f in fids.items():
+        deleted[vid] = {str(x) for x in rng.choice(
+            sorted(f), size=max(1, len(f) // 20), replace=False)}
+        for fid in sorted(deleted[vid]):
+            client.delete(fid)
+    return fids, deleted
+
+
+def lc_read(client, step: str, fids: dict, deleted: set, seed: int,
+            vid: int, launches: dict, url: str = "",
+            stride: int = 1) -> dict:
+    """Every needle of one volume over HTTP (or the first and each
+    `stride`-th after it, in upload order), counted launches, with the
+    master's decayed read rate for the volume after it."""
+    fids = {f: v for i, (f, v) in enumerate(fids.items())
+            if i % stride == 0}
+    t0 = time.perf_counter()
+    out, launches[step] = counted(
+        lambda: http_read_all(client, fids, deleted, seed, url=url))
+    heat = client.volume_heat(vid)["volumes"]
+    lc_log(step, time.perf_counter() - t0, out["bytes"], out["latencies"],
+           launches[step], volume_id=vid,
+           reads_per_s=len(out["latencies"]) / (time.perf_counter() - t0),
+           heat_read_rate=heat[0]["read_rate"] if heat else None,
+           sampled_every=stride)
+    return out
+
+
+def ec_holders(client, vid: int) -> dict:
+    """url -> sorted shard ids of an EC volume ({} when it has none)."""
+    info = client.ec_lookup(vid)
+    if not info.get("shards"):
+        return {}
+    return {u: sorted(s) for u, s in holders_of(info).items()}
+
+
+def holds_normal(cl, vid: int) -> bool:
+    return any(n[2] is not None and n[2].find_volume(vid) is not None
+               for n in cl.nodes)
+
+
+def warm_outcomes(client) -> list:
+    return [(e["kind"], e["volume"], e["outcome"])
+            for e in client.lifecycle_status()["recent"]]
+
+
+def mounted_on(url: str) -> int:
+    return sum(len(s["shard_ids"])
+               for s in http.get_json(f"http://{url}/status")[1]
+               ["ec_shards"])
+
+
+def scrub(cl, client, url: str) -> tuple[dict, float]:
+    """One scrub pass on `url`: its answer and the shards it checked."""
+    vs = cl.nodes[cl.index_of(url)][0]
+    before = vs.metrics.value("scrub_shards_checked")
+    out = client.volume_admin(url, "ec/scrub", {"throttle_seconds": 0})
+    return out, vs.metrics.value("scrub_shards_checked") - before
+
+
+def shard_file(cl, url: str, col: str, vid: int, sid: int) -> str:
+    return os.path.join(cl.nodes[cl.index_of(url)][3],
+                        f"{col}_{vid}") + geometry.to_ext(sid)
+
+
+def run_lifecycle(work: Path, total: int = 1 << 30,
+                  small: int = 64 * MIB, max_needle: int = 4 * MIB,
+                  limit_mb: int = 1024, pulse: float = 0.5,
+                  hot_rate: float = LC_HOT_READ_RATE,
+                  coder_name: str = "auto", device=None,
+                  hot_threads: int = 8) -> dict:
+    """(9) The self-driving warm tier, in its own cluster: a master with
+    the lifecycle rules and the repair daemon, and 4 volume servers on
+    one rack (``Store(coder_name="auto")`` each, the scrub loop off). No
+    operator command from step 2 on: two full idle volumes warm down in
+    one fused window, bit rot and a dead holder heal, a lost replica
+    comes back, a TTL volume expires, a hot volume decodes back. Returns
+    launches per step; those of ``LIFECYCLE_CHECKS`` are also counted in
+    a step's or are a check's own."""
+    work.mkdir(parents=True)
+    seed = SEED + 9
+    col = LC_COLLECTION
+    launches: dict = {}
+    governor.reset()
+    observe.reset()
+    wideevents.reset()
+    cfg = LifecycleConfig(warm_after=LC_WARM_AFTER, interval=LC_INTERVAL,
+                          hot_read_rate=hot_rate,
+                          collection_ttls={LC_TMP: LC_TTL},
+                          ttl_grace=LC_TTL_GRACE)
+    with env_set(WEED_LIFECYCLE_HEAT_HALFLIFE=LC_HALFLIFE):
+        cl = LocalCluster(
+            4, coder_name=coder_name, device=device,
+            volume_size_limit_mb=limit_mb, pulse=pulse,
+            directory=str(work / "cluster"), racks=1,
+            master_kwargs={"lifecycle_config": cfg,
+                           "maintenance_interval_seconds": pulse},
+            volume_kwargs={"scrub_interval_seconds": 0})
+    try:
+        client = Client(cl.master_url)
+        m = cl.master.metrics
+        # 1. two volumes of lcsmoke on one server, filled at once
+        src = cl.url(0)
+        vids = [1, 2]
+        for vid in vids:
+            client.volume_admin(src, "assign_volume",
+                                {"volume_id": vid, "collection": col})
+        vols = {vid: cl.store(0).find_volume(vid) for vid in vids}
+        t0 = time.perf_counter()
+        (fids, deleted), launches["lifecycle.fill"] = counted(
+            lambda: fill_pair(client, src, vols, total, max_needle, seed))
+        src_bytes = sum(v.data_file_size() for v in vols.values())
+        lc_log("lifecycle.fill", time.perf_counter() - t0, src_bytes,
+               launches=launches["lifecycle.fill"],
+               volumes=vids, needles=[len(fids[v]) for v in vids],
+               deleted=[len(deleted[v]) for v in vids])
+        # the last access of both at one instant, so that both turn idle
+        # in one pass: the smallest live needle of each, read
+        for vid in vids:
+            live = [f for f in fids[vid] if f not in deleted[vid]]
+            client.download(min(live, key=lambda f: fids[vid][f][1]))
+        t_touch = time.monotonic()
+        snap = work / "snapshot"
+        snap.mkdir()
+        vols[vids[0]].sync()
+        base0 = vols[vids[0]].base_file_name()
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(base0 + ext, snap / f"{col}_{vids[0]}{ext}")
+        copied_s = time.monotonic() - t_touch
+        if copied_s >= LC_WARM_AFTER or any(v.read_only
+                                            for v in vols.values()):
+            raise AssertionError(f"the snapshot took {copied_s} s")
+
+        # 2. warm-down with no command: seal, one fused window of both,
+        # spread 4/4/3/3, 14/14 verified, the originals retired
+        def warmed() -> bool:
+            return all(len(client.ec_lookup(v).get("shards", {})) == 14
+                       and not holds_normal(cl, v) for v in vids)
+
+        def wait_warm():
+            wait_until(warmed, "the daemon's warm-down", timeout=900)
+            wait_until(lambda: sorted(o for o in warm_outcomes(client)
+                                      if o[0] == "warm")
+                       == [("warm", v, "ok") for v in vids],
+                       "the warm transitions' outcomes")
+
+        _, launches["lifecycle.warm_down"] = counted(wait_warm)
+        t_warm = time.monotonic()
+        windows = {k: m.value("lifecycle_encode_windows",
+                              {"volumes": str(k)}) for k in (1, 2)}
+        if windows != {1: 0, 2: 1}:
+            raise AssertionError(f"encode windows {windows}, want one "
+                                 "of two volumes")
+        spreads = {v: sorted(map(len, ec_holders(client, v).values()))
+                   for v in vids}
+        if any(s != [3, 3, 4, 4] for s in spreads.values()):
+            raise AssertionError(f"spreads {spreads}")
+        lc_log("lifecycle.warm_down", t_warm - t_touch, src_bytes,
+               launches=launches["lifecycle.warm_down"],
+               trigger_to_action_s=t_warm - t_touch - LC_WARM_AFTER,
+               windows_of_two=windows[2], shards_per_server=spreads[1],
+               snapshot_copy_s=copied_s)
+        # the direct warm-down of the snapshot: the same 14 shards
+        st = store_mod.Store([str(snap)], coder_name=coder_name,
+                             device=device)
+        try:
+            t0 = time.perf_counter()
+            _, launches["lifecycle.warm_down_check"] = counted(
+                lambda: st.ec_fused_generate(vids[0]))
+            check_s = time.perf_counter() - t0
+        finally:
+            st.close()
+        holders0 = ec_holders(client, vids[0])
+        for url, sids in holders0.items():
+            for sid in sids:
+                want = sha256_file(str(snap / f"{col}_{vids[0]}")
+                                   + geometry.to_ext(sid))
+                if sha256_file(shard_file(cl, url, col, vids[0],
+                                          sid)) != want:
+                    raise AssertionError(f"shard {sid} differs from "
+                                         "ec_fused_generate's")
+        shutil.rmtree(snap)
+        log({"phase": "lifecycle.warm_down_check", "seconds": check_s,
+             "shards_sha256_equal": 14,
+             "launches": launches["lifecycle.warm_down_check"],
+             "card": SMI[0]})
+        for vid in vids:
+            lc_read(client, f"lifecycle.read_warm_{vid}", fids[vid],
+                    deleted[vid], seed, vid, launches)
+        states = {v["volume"]: v["state"]
+                  for v in client.volume_heat()["volumes"]}
+        if [states.get(v) for v in vids] != ["warm", "warm"]:
+            raise AssertionError(f"volume.heat states {states}")
+
+        # 3. bit rot: one byte of a shard flipped, found by the scrub,
+        # dropped and rebuilt by the repair daemon
+        a, b = vids
+        url, sids = max(sorted(ec_holders(client, a).items()),
+                        key=lambda kv: len(kv[1]))
+        sid = sids[-1]
+        path = shard_file(cl, url, col, a, sid)
+        want = sha256_file(path)
+        ok0 = m.value("repairs_succeeded", {"kind": "ec"})
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        t_flip = time.monotonic()
+
+        def heal_rot():
+            out, checked = scrub(cl, client, url)
+            if out["bad"] != {str(a): [sid]} or \
+                    checked != mounted_on(url):
+                raise AssertionError(f"scrub of {url}: {out}, checked "
+                                     f"{checked} of {mounted_on(url)}")
+            wait_until(lambda: m.value("repairs_succeeded",
+                                       {"kind": "ec"}) > ok0
+                       and len(client.ec_lookup(a)["shards"]) == 14,
+                       "the rotten shard dropped and rebuilt",
+                       timeout=600)
+
+        _, launches["lifecycle.bit_rot"] = counted(heal_rot)
+        healed_s = time.monotonic() - t_flip
+        holder = next(u for u, s in ec_holders(client, a).items()
+                      if sid in s)
+        if sha256_file(shard_file(cl, holder, col, a, sid)) != want:
+            raise AssertionError(f"healed shard {sid} differs")
+        checked, mounted = 0, 0
+        for u in sorted({u for v in vids for u in ec_holders(client, v)}):
+            out, n = scrub(cl, client, u)
+            if out["bad"]:
+                raise AssertionError(f"scrub of {u} after healing: {out}")
+            checked += n
+            mounted += mounted_on(u)
+        if checked != mounted or mounted != 28:
+            raise AssertionError(f"scrub checked {checked} of {mounted}")
+        lc_log("lifecycle.bit_rot", healed_s,
+               launches=launches["lifecycle.bit_rot"],
+               trigger_to_action_s=healed_s, shard=sid, flipped_on=url,
+               rebuilt_on=holder, sha256_equal=True,
+               scrub_shards_checked=checked,
+               scrub_shards_dropped=m.value("scrub_shards_dropped"))
+        lc_read(client, "lifecycle.read_healed", fids[a], deleted[a], seed,
+                a, launches)
+
+        # 4. a holder dies: degraded reads, then the rebuild on the
+        # survivors with no command
+        lost_url = sorted(u for u, s in ec_holders(client, b).items()
+                          if len(s) == 3)[0]
+        lost_shards = {v: ec_holders(client, v).get(lost_url, [])
+                       for v in vids}
+        cl.stop_volume_server(cl.index_of(lost_url))
+        t_stop = time.monotonic()
+
+        def heal_death():
+            # once the master has pruned the dead holder (a deleted
+            # needle must answer 404, not a refused connection), its
+            # shards are read degraded until the rebuild mounts them; the
+            # reads' launches overlap the rebuild's and count in the step's
+            wait_until(lambda: lost_url not in ec_holders(client, b),
+                       "the master to prune the dead holder")
+            lc_read(client, "lifecycle.read_degraded", fids[b], deleted[b],
+                    seed, b, launches, stride=LC_SAMPLE)
+            wait_until(lambda: all(
+                len(client.ec_lookup(v).get("shards", {})) == 14
+                and lost_url not in ec_holders(client, v) for v in vids),
+                "the dead holder's shards rebuilt", timeout=600)
+
+        _, launches["lifecycle.holder_death"] = counted(heal_death)
+        death_s = time.monotonic() - t_stop
+        lc_log("lifecycle.holder_death", death_s,
+               launches=launches["lifecycle.holder_death"],
+               trigger_to_action_s=death_s, lost=lost_url,
+               lost_shards=lost_shards,
+               shards_per_server={v: sorted(map(len, ec_holders(
+                   client, v).values())) for v in vids})
+        for vid in vids:
+            lc_read(client, f"lifecycle.read_rebuilt_{vid}", fids[vid],
+                    deleted[vid], seed, vid, launches, stride=LC_SAMPLE)
+
+        # 5. a replica lost: the repair daemon copies it back where the
+        # placement holds
+        vid = client.grow(count=1, collection=LC_REP,
+                          replication="001")["volume_ids"][0]
+        pair = fresh_lookup(client, vid)
+        first = holder_volume(cl, pair[0], vid)
+        t0 = time.perf_counter()
+        (rfids, _), launches["lifecycle.replica_upload"] = counted(
+            lambda: upload_needles(client, vid, first.data_file_size,
+                                   small, max_needle, seed + 1, LC_REP,
+                                   "001", delete_share=0))
+        lc_log("lifecycle.replica_upload", time.perf_counter() - t0,
+               first.data_file_size(),
+               launches=launches["lifecycle.replica_upload"],
+               volume_id=vid, needles=len(rfids))
+        client.volume_admin(pair[1], "volume/delete", {"volume_id": vid})
+        t_del = time.monotonic()
+
+        def two_copies():
+            wait_until(lambda: len(fresh_lookup(client, vid)) == 2,
+                       "the lost replica copied back", timeout=300)
+
+        _, launches["lifecycle.replica_lost"] = counted(two_copies)
+        back_s = time.monotonic() - t_del
+        now = fresh_lookup(client, vid)
+        lc_log("lifecycle.replica_lost", back_s,
+               holder_volume(cl, now[0], vid).data_file_size(),
+               launches=launches["lifecycle.replica_lost"],
+               trigger_to_action_s=back_s, holders=now,
+               replaced=pair[1])
+        for i, url in enumerate(now):
+            lc_read(client, f"lifecycle.read_replica_{i}", rfids, set(),
+                    seed + 1, vid, launches, url=url)
+
+        # 6. TTL expiry of a whole volume of lctmp
+        vid = client.grow(count=1, collection=LC_TMP)["volume_ids"][0]
+        url = fresh_lookup(client, vid)[0]
+        tvol = holder_volume(cl, url, vid)
+        t0 = time.perf_counter()
+        (tfids, _), launches["lifecycle.ttl_upload"] = counted(
+            lambda: upload_needles(client, vid, tvol.data_file_size,
+                                   small, max_needle, seed + 2, LC_TMP,
+                                   delete_share=0))
+        t_last = time.monotonic()
+        lc_log("lifecycle.ttl_upload", time.perf_counter() - t0,
+               tvol.data_file_size(),
+               launches=launches["lifecycle.ttl_upload"], volume_id=vid,
+               needles=len(tfids))
+        files = [os.path.join(n[3], f"{LC_TMP}_{vid}{ext}")
+                 for n in cl.nodes if n[0] is not None
+                 for ext in (".dat", ".idx")]
+
+        def expired() -> bool:
+            r = http.request("GET", f"http://{cl.master_url}/dir/lookup"
+                             f"?volumeId={vid}")
+            return r.status == 404 and not any(map(os.path.exists, files))
+
+        def gone():
+            wait_until(expired, "the TTL volume gone", timeout=300)
+
+        _, launches["lifecycle.ttl_expiry"] = counted(gone)
+        gone_s = time.monotonic() - t_last
+        wait_until(lambda: ("expire", vid, "ok") in warm_outcomes(client),
+                   "the expiry's outcome")
+        lc_log("lifecycle.ttl_expiry", gone_s,
+               launches=launches["lifecycle.ttl_expiry"],
+               trigger_to_action_s=gone_s - LC_TTL - LC_TTL_GRACE,
+               ttl_s=LC_TTL, grace_s=LC_TTL_GRACE, volume_id=vid)
+
+        # 7. hot again: reads above the rate decode the warm volume; each
+        # of its 256 smallest one-interval needles is read from the
+        # holder of its shard, so that no read takes a peer's hop
+        local = {}
+        for u, sids in ec_holders(client, a).items():
+            ev = cl.store(cl.index_of(u)).find_ec_volume(a)
+            local.update({sid: (u, ev) for sid in sids})
+        hot = {}
+        for f in sorted((f for f in fids[a] if f not in deleted[a]),
+                        key=lambda f: fids[a][f][1]):
+            ev = next(iter(local.values()))[1]
+            ivs = ev.locate(FileId.parse(f).key)[2]
+            if len(ivs) == 1:
+                hot[f] = local[ivs[0].to_shard_id_and_offset(ev.g)[0]][0]
+            if len(hot) == 256:
+                break
+        hot_fids = sorted(hot)
+        want_hot = {f: payload(seed, *fids[a][f]) for f in hot}
+        stop = threading.Event()
+        reads = [0] * hot_threads
+        errors: list = []
+        # (unix time, holder, error) of every read that failed
+        failed: list = []
+
+        def hammer(i: int) -> None:
+            n = 0
+            while not stop.is_set():
+                fid = hot_fids[(i + n * hot_threads) % len(hot_fids)]
+                n += 1
+                try:
+                    if client.download(fid, url=hot[fid]) != want_hot[fid]:
+                        errors.append(f"{fid} reads back wrong")
+                        return
+                    reads[i] += 1
+                except ClientError as e:
+                    failed.append((time.time(), hot[fid], str(e)[:200]))
+                    # a read may fail only where it was sent to a shard
+                    # holder, and only once ec/to_volume has made the
+                    # volume normal on one holder (the shards are then
+                    # dropped everywhere); it then goes through the
+                    # master's lookup, where no read may fail
+                    if not hot[fid]:
+                        errors.append(f"{fid} failed through the "
+                                      f"lookup: {e}")
+                        return
+                    if not holds_normal(cl, a):
+                        errors.append(f"{fid} failed before the decode: "
+                                      f"{e}")
+                        return
+                    hot[fid] = ""
+                    client._vid_cache.pop(a)
+
+        def decode_hot():
+            threads = [threading.Thread(target=hammer, args=(i,),
+                                        daemon=True)
+                       for i in range(hot_threads)]
+            for t in threads:
+                t.start()
+            try:
+                wait_until(lambda: holds_normal(cl, a) and not client
+                           .ec_lookup(a).get("shards") or errors,
+                           "the hot volume decoded", timeout=LC_HOT_TIMEOUT)
+            finally:
+                stop.set()
+                for t in threads:
+                    t.join(60)
+                heat = client.volume_heat(a)["volumes"]
+                log({"phase": "lifecycle.hot_reads", "reads": sum(reads),
+                     "seconds": time.monotonic() - t_hot,
+                     "heat_read_rate": heat[0]["read_rate"] if heat
+                     else None, "card": SMI[0]})
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"hot reads: {errors[:3]}")
+
+        t_hot = time.monotonic()
+        _, launches["lifecycle.hot_again"] = counted(decode_hot)
+        hot_s = time.monotonic() - t_hot
+        wait_until(lambda: ("unec", a, "ok") in warm_outcomes(client),
+                   "the decode's outcome")
+        decoded_at = next(e["at"] for e in client.lifecycle_status()["recent"]
+                          if (e["kind"], e["volume"], e["outcome"])
+                          == ("unec", a, "ok"))
+        lc_log("lifecycle.hot_again", hot_s,
+               launches=launches["lifecycle.hot_again"],
+               trigger_to_action_s=hot_s, reads=sum(reads),
+               reads_per_s=sum(reads) / hot_s, hot_read_rate=hot_rate,
+               threads=hot_threads, failed_reads=len(failed),
+               failed_window_s=(decoded_at - failed[0][0] if failed
+                                else 0.0),
+               failed_after_outcome=sum(f[0] > decoded_at for f in failed),
+               failed_by_answer=dict(collections.Counter(
+                   f[2].rsplit(": ", 1)[-1] for f in failed)))
+        lc_read(client, "lifecycle.read_decoded", fids[a], deleted[a],
+                seed, a, launches, stride=LC_SAMPLE)
+        states = {v["volume"]: v["state"]
+                  for v in client.volume_heat()["volumes"]}
+        log({"phase": "lifecycle.summary", "servers": 4,
+             "volume_size_limit_mb": limit_mb, "volumes": vids,
+             "warm_after_s": LC_WARM_AFTER, "interval_s": LC_INTERVAL,
+             "hot_read_rate": hot_rate, "heat_halflife_s": LC_HALFLIFE,
+             "collection_ttl_s": LC_TTL, "ttl_grace_s": LC_TTL_GRACE,
+             "states": states, "outcomes": warm_outcomes(client),
+             "repairs_succeeded": {k: m.value("repairs_succeeded",
+                                              {"kind": k})
+                                   for k in ("ec", "replica")},
+             "repairs_failed": {k: m.value("repairs_failed", {"kind": k})
+                                for k in ("ec", "replica")},
+             "card": SMI[0]})
+        if states.get(a) != "hot" or states.get(b) != "warm":
+            raise AssertionError(f"states after phase 9: {states}")
+    finally:
+        cl.shutdown()
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def check_lifecycle_launches(launches: dict) -> None:
+    """gf_apply in the coder's steps (and the direct warm-down check),
+    nothing in any other step, no other kernel anywhere."""
+    for step, counts in launches.items():
+        others = {k: n for k, n in counts.items() if k != "gf_apply" and n}
+        coder = step in LIFECYCLE_CODER_STEPS + LIFECYCLE_CHECKS
+        if others or coder != (counts["gf_apply"] > 0):
+            raise AssertionError(f"{step}: launches {counts}")
+
+
 def shard_size_of(rb: dict, cl, col: str, vid: int) -> int:
     d = cl.nodes[cl.index_of(rb["rebuilder"])][3]
     return os.path.getsize(os.path.join(d, f"{col}_{vid}")
@@ -1985,8 +2573,10 @@ def run_cli(work: Path, needles: int = 48) -> None:
     procs = []
     t0 = time.perf_counter()
     try:
+        # no maintenance daemon: a deleted shard stays deleted
         for args in (["master", "-port", str(mport),
-                      "-volumeSizeLimitMB", "64", "-pulse", "1"],
+                      "-volumeSizeLimitMB", "64", "-pulse", "1",
+                      "-maintenance_interval", "0"],
                      ["volume", "-port", str(vport), "-dir", str(work),
                       "-mserver", f"127.0.0.1:{mport}", "-pulse", "1",
                       "-coder", "auto"]):
@@ -2057,6 +2647,7 @@ def main() -> int:
     card = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
+    SMI[0] = smi
     log({"phase": "device", "name": card, "count": count, "nvidia_smi": smi,
          "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.perf_counter()
@@ -2136,6 +2727,9 @@ def main() -> int:
             # the CLI
             launches["cluster"] = run_cluster(WORK / "cluster", device)
             run_cli(WORK / "cli")
+            # phase 9: the self-driving warm tier, its own cluster
+            launches["lifecycle"] = run_lifecycle(WORK / "lifecycle")
+            check_lifecycle_launches(launches["lifecycle"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -2165,7 +2759,9 @@ def main() -> int:
         f"xorsched.{k}": v for k, v in launches["xorsched"].items()}, **{
         f"governed.{k}": v for k, v in launches["governed"].items()
         if k != "mxu_entry"}, **launches["store"], **launches["fused"],
-        **launches["cluster"]}
+        **launches["cluster"], **{
+        k: v for k, v in launches["lifecycle"].items()
+        if k not in LIFECYCLE_CHECKS}}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

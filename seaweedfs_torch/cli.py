@@ -5,7 +5,8 @@ weed/command/command.go:10-33), with the reference's flags where they
 apply:
 
   python3 -m seaweedfs_torch.cli master -port 9333 -volumeSizeLimitMB 1024 \\
-      [-defaultReplication 001] [-garbageThreshold 0.3]
+      [-defaultReplication 001] [-garbageThreshold 0.3] \\
+      [-maintenance_interval S] [-repair_concurrency N]
   python3 -m seaweedfs_torch.cli volume -port 8080 -dir /data \\
       -mserver localhost:9333 [-rack r1] [-coder auto|torch|numpy] \\
       [-device cuda:0]
@@ -23,6 +24,15 @@ kernels' plain versions), run EC on the host. Servers run on an asyncio
 loop until SIGTERM or SIGINT, then stop their background tasks and
 close their stores. ``compact`` vacuums one volume offline (the volume
 server must not have it mounted).
+
+The master runs the repair daemon (every ``-maintenance_interval``
+seconds, default the pulse, 0 off; at most ``-repair_concurrency``
+repairs at once, default ``WEED_EC_ENCODE_WORKERS`` or 2) and, when a
+``WEED_LIFECYCLE_*`` rule is set (``WARM_AFTER``, ``HOT_READ_RATE``,
+``COLLECTION_TTL``; ``INTERVAL``, ``FULL_FRACTION``, ``TTL_GRACE``), the
+lifecycle daemon. A volume server scrubs its EC shards every
+``WEED_EC_SCRUB_INTERVAL`` seconds (3600; 0 off) and samples access heat
+with half-life ``WEED_LIFECYCLE_HEAT_HALFLIFE``.
 """
 
 from __future__ import annotations
@@ -60,7 +70,11 @@ def cmd_master(args) -> None:
         volume_size_limit_mb=args.volume_size_limit_mb,
         default_replication=args.default_replication,
         garbage_threshold=args.garbage_threshold,
-        pulse_seconds=args.pulse))
+        pulse_seconds=args.pulse,
+        maintenance_interval_seconds=(
+            None if args.maintenance_interval < 0
+            else args.maintenance_interval),
+        repair_concurrency=args.repair_concurrency))
 
 
 def cmd_volume(args) -> None:
@@ -162,6 +176,15 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("-pulse", type=float, default=5.0,
                    help="expected heartbeat interval (dead nodes are "
                         "pruned after 5 pulses)")
+    m.add_argument("-maintenance_interval", type=float, default=-1.0,
+                   help="seconds between maintenance-daemon passes "
+                        "(prune + repair planner; default: pulse, "
+                        "0 disables the daemon)")
+    m.add_argument("-repair_concurrency", type=int, default=None,
+                   help="max concurrent repairs (re-replication / "
+                        "auto ec.rebuild / lifecycle encodes) the "
+                        "daemon drives; default WEED_EC_ENCODE_WORKERS "
+                        "or 2")
     m.set_defaults(fn=cmd_master)
 
     v = sub.add_parser("volume", help="run a volume server")

@@ -71,11 +71,87 @@ class _VidCache:
             self._d.clear()
 
 
+class AdminLock:
+    """The master's cluster-exclusive admin lease, held for a block and
+    renewed in the background (upstream
+    wdclient/exclusive_locks/exclusive_locker.go): the shell's commands
+    that move volumes run under it, and the master's daemons launch
+    nothing while it is held. Re-entrant: a command that calls another
+    takes it once. A lock another client holds is waited for up to
+    ``WAIT_SECONDS``, then the command fails."""
+
+    NAME = "admin"
+    RENEW_SECONDS = 3.0     # the master's lease is 10 s
+    WAIT_SECONDS = 60.0
+
+    def __init__(self, master: str):
+        self.master = master
+        self.owner = f"shell-{uuid.uuid4().hex[:8]}"
+        self._mu = threading.Lock()
+        self._depth = 0
+        self._token = 0
+        self._stop = threading.Event()
+        self._renewer: Optional[threading.Thread] = None
+
+    def _lease(self, previous: int) -> dict:
+        return _post_json(f"http://{self.master}/cluster/lock",
+                          {"name": self.NAME, "client": self.owner,
+                           "previous_token": previous}, timeout=30.0)
+
+    def __enter__(self) -> "AdminLock":
+        with self._mu:
+            self._depth += 1
+            if self._depth > 1:
+                return self
+            deadline = time.monotonic() + self.WAIT_SECONDS
+            while True:
+                try:
+                    self._token = self._lease(0)["token"]
+                    break
+                except ClientError:
+                    if time.monotonic() >= deadline:
+                        self._depth -= 1
+                        raise
+                    time.sleep(0.5)
+            self._stop = threading.Event()
+            self._renewer = threading.Thread(
+                target=self._renew, args=(self._stop,), daemon=True,
+                name="admin-lock-renew")
+            self._renewer.start()
+        return self
+
+    def _renew(self, stop: threading.Event) -> None:
+        while not stop.wait(self.RENEW_SECONDS):
+            try:
+                self._lease(self._token)
+            except (ClientError, OSError):
+                # a missed renewal: the next one may land in time
+                pass
+
+    def __exit__(self, *exc) -> None:
+        with self._mu:
+            self._depth -= 1
+            if self._depth:
+                return
+            self._stop.set()
+            if self._renewer is not None:
+                self._renewer.join()
+                self._renewer = None
+            token, self._token = self._token, 0
+        try:
+            _post_json(f"http://{self.master}/cluster/unlock",
+                       {"name": self.NAME, "token": token}, timeout=30.0)
+        except (ClientError, OSError):
+            # the lease ends by itself
+            pass
+
+
 class Client:
     def __init__(self, master_url: str):
         # the first master of a comma list: the port runs one master
         self.master = master_url.split(",")[0].strip().rstrip("/")
         self._vid_cache = _VidCache(ttl=60.0)
+        self.admin_lock = AdminLock(self.master)
 
     def _master_get(self, path_qs: str, timeout: float = 30.0) -> dict:
         return _get_json(f"http://{self.master}{path_qs}", timeout)
@@ -196,3 +272,16 @@ class Client:
 
     def dir_status(self) -> dict:
         return self._master_get("/dir/status")
+
+    # --- the lifecycle plane (the shell's volume.heat, lifecycle.*) ---
+    def volume_heat(self, vid: int = 0) -> dict:
+        """Per-volume access heat and lifecycle state (/vol/heat)."""
+        return self._master_get("/vol/heat"
+                                + (f"?volumeId={vid}" if vid else ""))
+
+    def lifecycle_status(self) -> dict:
+        return self._master_get("/lifecycle/status")
+
+    def lifecycle_run(self) -> dict:
+        """One lifecycle evaluation pass now."""
+        return _post_json(f"http://{self.master}/lifecycle/run", {})

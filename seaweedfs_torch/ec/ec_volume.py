@@ -74,6 +74,50 @@ class Singleflight:
             call["event"].set()
 
 
+class Pinned:
+    """Closes a resource only once its last in-flight user has let go.
+
+    A shard or a volume is dropped (``delete_shard``, an unmount, a
+    decode) while reads run on it; closing its descriptor under a read
+    would fail that read or, once the OS hands the number to another
+    open, read another file's bytes. ``enter`` refuses once a close has
+    begun, so a late reader sees the resource as gone."""
+
+    def __init__(self, closer: Callable[[], None]):
+        self._lock = threading.Lock()
+        self._users = 0
+        self._closing = False
+        self._closer = closer
+
+    def enter(self) -> bool:
+        with self._lock:
+            if self._closing:
+                return False
+            self._users += 1
+            return True
+
+    def exit(self) -> None:
+        with self._lock:
+            self._users -= 1
+            last = self._closing and self._users == 0
+        if last:
+            self._closer()
+
+    def close(self) -> None:
+        with self._lock:
+            if self._closing:
+                return
+            self._closing = True
+            idle = self._users == 0
+        if idle:
+            self._closer()
+
+
+class EcVolumeClosed(KeyError):
+    """A read found its EC volume closed: dropped, or swapped for the
+    normal volume a decode made of it."""
+
+
 class EcShard:
     """One local .ecNN file (EcVolumeShard, ec_shard.go:16-95)."""
 
@@ -82,15 +126,21 @@ class EcShard:
         self.path = base_file_name + to_ext(shard_id)
         self._fd = os.open(self.path, os.O_RDONLY)
         self.size = os.fstat(self._fd).st_size
+        self._pin = Pinned(lambda: os.close(self._fd))
 
     def read_at(self, offset: int, size: int) -> bytes:
-        # positioned read: no shared seek state, safe under concurrency
-        return os.pread(self._fd, size, offset)
+        """Positioned read (no shared seek state, safe under
+        concurrency); b"" once the shard is closed, which every caller
+        takes as a missing shard."""
+        if not self._pin.enter():
+            return b""
+        try:
+            return os.pread(self._fd, size, offset)
+        finally:
+            self._pin.exit()
 
     def close(self) -> None:
-        if self._fd >= 0:
-            os.close(self._fd)
-            self._fd = -1
+        self._pin.close()
 
 
 class EcVolume:
@@ -115,6 +165,9 @@ class EcVolume:
         self._ecx = open(base + ".ecx", "r+b")
         self.ecx_size = os.path.getsize(base + ".ecx")
         self._ecj = open(base + ".ecj", "a+b")
+        # reads search .ecx and read shards outside the lock: a close of
+        # the whole volume waits for them
+        self._pin = Pinned(self._close_files)
         # the volume version comes from the superblock at the head of
         # .ec00 (readEcVolumeVersion, ec_decoder.go:73-90); v3 if absent
         self.version = t.CURRENT_VERSION
@@ -153,7 +206,8 @@ class EcVolume:
         return sorted(self.shards)
 
     def shard_size(self) -> int:
-        for s in self.shards.values():
+        # a copy: shards are dropped while reads run
+        for s in list(self.shards.values()):
             return s.size
         return 0
 
@@ -219,11 +273,16 @@ class EcVolume:
     # --- read path ---
     def read_needle(self, needle_id: int, cookie: Optional[int] = None,
                     shard_reader: Optional[ShardReader] = None) -> Needle:
-        offset, size, intervals = self.locate(needle_id)
-        if t.size_is_deleted(size):
-            raise KeyError(f"needle {needle_id:x} deleted")
-        record = b"".join(self._read_interval(iv, shard_reader)
-                          for iv in intervals)
+        if not self._pin.enter():
+            raise EcVolumeClosed(f"ec volume {self.vid} closed")
+        try:
+            offset, size, intervals = self.locate(needle_id)
+            if t.size_is_deleted(size):
+                raise KeyError(f"needle {needle_id:x} deleted")
+            record = b"".join(self._read_interval(iv, shard_reader)
+                              for iv in intervals)
+        finally:
+            self._pin.exit()
         n = Needle.from_bytes(record, self.version)
         if cookie is not None and n.cookie != cookie:
             raise KeyError(f"needle {needle_id:x} cookie mismatch")
@@ -316,6 +375,9 @@ class EcVolume:
             self._ecj.flush()
 
     def close(self) -> None:
+        self._pin.close()
+
+    def _close_files(self) -> None:
         with self._lock:
             for shard in self.shards.values():
                 shard.close()

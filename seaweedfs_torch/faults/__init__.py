@@ -86,6 +86,11 @@ KNOWN_POINTS = frozenset({
     "disk.sync",            # a volume's .dat fsync barrier
     "volume.replicate",     # a volume server's write fan-out to replicas;
                             # a drop skips it, an error fails the write
+    "lifecycle.warm",       # the start of a warm transition
+    "lifecycle.encode",     # a warm transition's last step: the shard set
+                            # verified mounted, the original not retired
+    "lifecycle.unec",       # the start of an un-EC (decode) transition
+    "lifecycle.expire",     # the start of a TTL expiry
 })
 
 _lock = threading.Lock()

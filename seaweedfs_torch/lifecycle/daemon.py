@@ -1,0 +1,479 @@
+"""The lifecycle daemon: executes what policy.py plans.
+
+The port's reduced copy of seaweedfs_tpu/lifecycle/daemon.py. It runs on
+the master as a sibling of the repair daemon and shares its discipline:
+
+* the same concurrency semaphore (``master._repair_sem``), so warm-downs
+  and rebuilds compete for one bounded budget;
+* the same per-key exponential backoff (``master._repair_backoff``), so
+  a transition that keeps failing retries at 2^n * interval, capped at
+  300 s.
+* the same pause: while an operator holds the admin lock (the shell's
+  commands that move volumes do), no pass runs.
+
+Transitions are crash-safe by ordering, not by a journal: the original
+volume is deleted only after every shard is verified mounted on its
+target (a ``/status`` read-back, not a trusted response), so a crash at
+any point leaves either the original volume or a complete shard set,
+never neither, and the next pass converges (shards already live: retire
+the original; shards incomplete: encode again). The fault points
+``lifecycle.warm``, ``lifecycle.encode``, ``lifecycle.unec`` and
+``lifecycle.expire`` kill a transition at its worst moment in tests.
+
+Every call to a volume server is an awaited aiohttp call on the master's
+loop. Left out: raft leadership checks (the port runs one master), the
+overload plane's background priority, spans' trace propagation, and the
+S3 pass (``_s3_pass``, ``_apply_bucket_rules``, ``_apply_object_rules``,
+``_filer_get``/``_filer_post``), which waits for a filer.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+import time
+from collections import deque
+from dataclasses import asdict
+from typing import Optional
+
+import aiohttp
+
+from .. import faults, observe
+from ..shell.ec_commands import collect_ec_nodes, plan_shard_spread
+from . import jittered
+from .policy import LifecycleConfig, Transition, plan_transitions
+
+log = logging.getLogger("lifecycle")
+
+
+class _EncodeBatcher:
+    """Warm transitions that reach their encode step together coalesce
+    into ONE multi-volume ``ec/fused`` (or ``ec/generate``) POST per
+    source server, so the volume server streams the whole window through
+    one governed pass (``Store.ec_fused_generate_many``). The window is
+    at most ``WEED_EC_ENCODE_WINDOW`` volumes (8); a short linger lets
+    near-simultaneous transitions land in one window."""
+
+    def __init__(self, daemon: "LifecycleDaemon", linger: float = 0.5):
+        self.daemon = daemon
+        self.linger = linger
+        try:
+            self.max_window = max(
+                1, int(os.environ.get("WEED_EC_ENCODE_WINDOW", "8")))
+        except ValueError:
+            self.max_window = 8
+        # (source url, fused?) -> [(vid, future)] awaiting the next
+        # window; fused and plain encodes hit different endpoints, so
+        # they window separately
+        self._waiting: dict[tuple, list] = {}
+
+    async def encode(self, source: str, vid: int,
+                     fused: bool = False) -> None:
+        fut = asyncio.get_running_loop().create_future()
+        key = (source, fused)
+        batch = self._waiting.setdefault(key, [])
+        batch.append((vid, fut))
+        if len(batch) >= self.max_window:
+            self._waiting.pop(key, None)
+            await self._post(key, batch)
+        elif len(batch) == 1:
+            task = asyncio.create_task(self._flush_after(key, batch))
+            self.daemon.tasks.add(task)
+            task.add_done_callback(self.daemon.tasks.discard)
+        await fut
+
+    async def _flush_after(self, key: tuple, batch: list) -> None:
+        await asyncio.sleep(self.linger)
+        # flush only this batch: if a full window already flushed it and
+        # a newer batch is forming, this linger must not fire that early
+        if self._waiting.get(key) is batch:
+            self._waiting.pop(key, None)
+            await self._post(key, batch)
+
+    async def _post(self, key: tuple, batch: list) -> None:
+        source, fused = key
+        vids = [vid for vid, _ in batch]
+        body = ({"volume_id": vids[0]} if len(vids) == 1
+                else {"volume_ids": vids})
+        # windows by size: what a warm-down storm coalesced into
+        self.daemon.master.metrics.count(
+            "lifecycle_encode_windows", labels={"volumes": str(len(vids))})
+        log.info("encode window on %s: volumes %s (%s)", source, vids,
+                 "fused" if fused else "plain")
+        try:
+            await self.daemon.master._admin_post(
+                source, "ec/fused" if fused else "ec/generate", body,
+                timeout=900.0 * len(vids))
+        except Exception as e:
+            # every waiter of the window fails with the window's error
+            for _, fut in batch:
+                if not fut.done():
+                    fut.set_exception(e)
+        else:
+            for _, fut in batch:
+                if not fut.done():
+                    fut.set_result(None)
+
+
+class LifecycleDaemon:
+    def __init__(self, master, cfg: Optional[LifecycleConfig] = None):
+        self.master = master
+        self.cfg = cfg or LifecycleConfig.from_env()
+        # key -> monotonic start time of the in-flight transition
+        self._inflight: dict[tuple, float] = {}
+        self.tasks: set = set()
+        self.recent: deque = deque(maxlen=64)
+        self.last_pass = 0.0
+        self.passes = 0
+        # vid -> reason: volumes to warm regardless of idleness (the
+        # reference's S3 Transition rules fill it; the port has none)
+        self.warm_requested: dict[int, str] = {}
+        self._encode_batcher = _EncodeBatcher(self)
+
+    # --- loop ---
+    async def run_loop(self) -> None:
+        while True:
+            await asyncio.sleep(jittered(self.cfg.interval))
+            if self.master.admin_lock_holder():
+                # an operator's command is moving volumes
+                continue
+            try:
+                await self.pass_once()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                # the daemon must outlive any one pass
+                log.warning("lifecycle pass failed", exc_info=True)
+
+    # --- one evaluation pass ---
+    async def pass_once(self) -> dict:
+        now = time.time()
+        self.last_pass = now
+        self.passes += 1
+        topology = self.master.topology
+        heat = topology.heat_view(now)
+        plan = plan_transitions(topology, heat, self.cfg, now,
+                                self.warm_requested)
+        launched = []
+        for tr in plan:
+            if not self._due(tr.key):
+                continue
+            self._launch(tr)
+            launched.append({"kind": tr.kind, "volume": tr.vid,
+                             "reason": tr.reason})
+        self.export_gauges(heat)
+        return {"planned": len(plan), "launched": launched, "s3": {}}
+
+    def moving_vids(self) -> set:
+        """Volumes with a transition in flight (the repair daemon leaves
+        them to it)."""
+        return {vid for _, vid in self._inflight}
+
+    def _due(self, key: tuple) -> bool:
+        if key in self._inflight:
+            return False
+        back = self.master._repair_backoff.get(key)
+        return back is None or time.monotonic() >= back[1]
+
+    def _launch(self, tr: Transition) -> None:
+        self._inflight[tr.key] = time.monotonic()
+        task = asyncio.create_task(self._run_transition(tr))
+        self.tasks.add(task)
+        task.add_done_callback(self.tasks.discard)
+
+    async def _run_transition(self, tr: Transition) -> None:
+        key = tr.key
+        fn = {"warm": self._warm, "unec": self._unec,
+              "expire": self._expire}[tr.kind]
+        try:
+            async with self.master._repair_sem:
+                worker = self.master._checkout_worker()
+                log.info("encode worker %d: lifecycle %s of volume %s",
+                         worker, tr.kind, tr.vid)
+                try:
+                    with observe.span(f"lifecycle.{tr.kind}",
+                                      tags={"vid": tr.vid,
+                                            "reason": tr.reason,
+                                            "worker": worker}):
+                        await fn(tr)
+                finally:
+                    self.master._checkin_worker(worker)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            # any failure of a step backs the transition off
+            failures = self.master._repair_backoff.get(key, (0, 0.0))[0] + 1
+            delay = min(self.cfg.interval * (2 ** failures), 300.0)
+            self.master._repair_backoff[key] = (failures,
+                                                time.monotonic() + delay)
+            self._record(tr.kind, tr.vid, "failed", error=str(e))
+            log.warning("lifecycle %s of volume %d failed (attempt %d, "
+                        "next in %.1fs): %s", tr.kind, tr.vid, failures,
+                        delay, e)
+        else:
+            self.master._repair_backoff.pop(key, None)
+            if tr.kind == "warm":
+                self.warm_requested.pop(tr.vid, None)
+            self._record(tr.kind, tr.vid, "ok", reason=tr.reason)
+            log.info("lifecycle %s of volume %d done (%s)", tr.kind,
+                     tr.vid, tr.reason)
+        finally:
+            self._inflight.pop(key, None)
+
+    def _record(self, kind: str, vid, outcome: str, reason: str = "",
+                error: str = "") -> None:
+        self.master.metrics.count("lifecycle_transitions",
+                                  labels={"kind": kind,
+                                          "outcome": outcome})
+        entry = {"kind": kind, "volume": vid, "outcome": outcome,
+                 "at": time.time()}
+        if reason:
+            entry["reason"] = reason
+        if error:
+            entry["error"] = error
+        self.recent.appendleft(entry)
+
+    async def _get_json(self, url: str, path: str,
+                        timeout: float = 30.0) -> dict:
+        async with self.master._maint_http().get(
+                f"http://{url}{path}",
+                timeout=aiohttp.ClientTimeout(total=timeout)) as r:
+            out = await r.json()
+            if r.status != 200:
+                raise RuntimeError(f"{url}{path}: "
+                                   f"{out.get('error', r.status)}")
+            return out
+
+    # --- hot -> warm: seal, warm down, spread, verify, retire ---
+    async def _warm(self, tr: Transition) -> None:
+        master = self.master
+        vid, collection = tr.vid, tr.collection
+        if await faults.fire_async("lifecycle.warm"):
+            raise RuntimeError("injected drop at lifecycle.warm")
+        total = master.ec_total_shards_for(collection)
+        # resumable finish: a prior attempt already produced the full
+        # shard set, only the original is left to retire. The topology
+        # can be stale (an un-EC that just deleted every shard still
+        # lists them until heartbeats land), so nothing is destroyed on
+        # its word: each holder's /status is read back first
+        shards = master.topology.lookup_ec_shards(vid)
+        if len(shards) >= total:
+            holders = {n.url for nodes in shards.values() for n in nodes}
+            mounted = await self._mounted_shards(vid, holders)
+            if len(mounted) < total:
+                raise RuntimeError(
+                    f"volume {vid}: topology lists a full shard set but "
+                    f"only {sorted(mounted)} verified mounted; retrying "
+                    f"after the next heartbeats")
+            await self._finish_warm(vid, tr.holders)
+            return
+        holders = tr.holders
+        if not holders:
+            raise RuntimeError(f"volume {vid} has no holders")
+        source = holders[0]
+        node = master.topology.nodes.get(source)
+        sealed = (node is not None and vid in node.volumes
+                  and node.volumes[vid].read_only)
+        if not self.cfg.ec_fused and not sealed:
+            # the chained path (WEED_EC_FUSED=0) vacuums first, when the
+            # compaction would shrink the .dat: the port compacts no
+            # read-only volume (ROADMAP Queue 3, D3), so unlike the
+            # reference it vacuums before it seals (a volume an earlier
+            # attempt sealed is encoded as it stands)
+            try:
+                garbage = (await self._get_json(
+                    source, f"/admin/vacuum/check?volume_id={vid}")
+                )["garbage_level"]
+            except (aiohttp.ClientError, asyncio.TimeoutError,
+                    RuntimeError, KeyError, ValueError):
+                garbage = 0.0
+            if garbage > 0.01:
+                await master._admin_post(source, "vacuum",
+                                         {"volume_id": vid},
+                                         timeout=600.0)
+        # 1. seal every replica: the volume takes no more writes
+        for url in holders:
+            await master._admin_post(url, "volume/readonly",
+                                     {"volume_id": vid, "read_only": True})
+        # 2+3. the fused warm-down (WEED_EC_FUSED, default on) compacts,
+        # gzips, encodes and digests in one pass on the source, else the
+        # encode alone; either through the batcher. The source volume
+        # stays untouched until the shards are verified
+        await self._encode_batcher.encode(source, vid,
+                                          fused=self.cfg.ec_fused)
+        # 4. spread with the shell's balanced plan
+        plan = plan_shard_spread(
+            collect_ec_nodes(master.topology.to_dict()), total, source)
+        for target, sids in plan.items():
+            if target != source:
+                await master._admin_post(
+                    target, "ec/copy",
+                    {"volume_id": vid, "collection": collection,
+                     "shard_ids": sids, "source": source,
+                     "copy_ecx_file": True}, timeout=600.0)
+            await master._admin_post(
+                target, "ec/mount",
+                {"volume_id": vid, "collection": collection,
+                 "shard_ids": sids})
+        # verify every shard by reading each target's /status back: a
+        # mount's answer does not tell "already mounted" from "missing"
+        mounted = await self._mounted_shards(vid, plan)
+        if len(mounted) < total:
+            raise RuntimeError(
+                f"volume {vid}: only shards {sorted(mounted)} mounted "
+                f"({len(mounted)}/{total}); keeping the original")
+        # 5. retire the original everywhere, then the source's surplus
+        # shard files (the encode left all of them there)
+        await self._finish_warm(vid, holders)
+        surplus = [s for s in range(total) if s not in plan.get(source, [])]
+        if surplus:
+            await master._admin_post(
+                source, "ec/delete_shards",
+                {"volume_id": vid, "collection": collection,
+                 "shard_ids": surplus})
+
+    async def _mounted_shards(self, vid: int, targets) -> set:
+        """Shard ids actually mounted for `vid`, read back from each
+        target's /status: the only evidence trusted before a delete."""
+        mounted: set[int] = set()
+        for target in targets:
+            st = await self._get_json(target, "/status")
+            for s in st.get("ec_shards", []):
+                if s.get("id") == vid:
+                    mounted.update(s.get("shard_ids", []))
+        return mounted
+
+    async def _finish_warm(self, vid: int, holders: list) -> None:
+        """The last step of a warm transition, shared by the fresh and
+        the resume path so both cross the same fault point: the worst
+        crash is "full shard set live, original not yet retired", where
+        both copies exist and a retry converges."""
+        if await faults.fire_async("lifecycle.encode"):
+            raise RuntimeError("injected drop at lifecycle.encode")
+        for url in holders:
+            await self.master._admin_post(url, "volume/delete",
+                                          {"volume_id": vid})
+
+    # --- warm -> hot: decode a hot EC volume (the ec.decode flow) ---
+    async def _unec(self, tr: Transition) -> None:
+        master = self.master
+        vid, collection = tr.vid, tr.collection
+        if await faults.fire_async("lifecycle.unec"):
+            raise RuntimeError("injected drop at lifecycle.unec")
+        shards = master.topology.lookup_ec_shards(vid)
+        if not shards:
+            raise RuntimeError(f"no shards for volume {vid}")
+        total = master.ec_total_shards_for(collection)
+        holder_count: dict[str, int] = {}
+        for nodes in shards.values():
+            for n in nodes:
+                holder_count[n.url] = holder_count.get(n.url, 0) + 1
+        target = max(holder_count, key=holder_count.get)
+        need = [sid for sid, nodes in sorted(shards.items())
+                if target not in {n.url for n in nodes}]
+        for sid in need:
+            await master._admin_post(
+                target, "ec/copy",
+                {"volume_id": vid, "collection": collection,
+                 "shard_ids": [sid], "source": shards[sid][0].url},
+                timeout=600.0)
+        await master._admin_post(target, "ec/to_volume",
+                                 {"volume_id": vid,
+                                  "collection": collection},
+                                 timeout=900.0)
+        # the decoded volume is live on the target: drop the shard files
+        # everywhere (the target's were consumed by the decode)
+        urls = {n.url for nodes in shards.values() for n in nodes}
+        urls.add(target)
+        for url in sorted(urls):
+            await master._admin_post(
+                url, "ec/delete_shards",
+                {"volume_id": vid, "collection": collection,
+                 "shard_ids": list(range(total))})
+
+    # --- TTL expiry: whole volumes, every holder at once ---
+    async def _expire(self, tr: Transition) -> None:
+        master = self.master
+        if await faults.fire_async("lifecycle.expire"):
+            raise RuntimeError("injected drop at lifecycle.expire")
+        for url in tr.holders:
+            await master._admin_post(url, "volume/delete",
+                                     {"volume_id": tr.vid})
+        # an expired collection that was EC-encoded loses its shards too
+        shards = master.topology.lookup_ec_shards(tr.vid)
+        urls = {n.url for nodes in shards.values() for n in nodes}
+        for url in sorted(urls):
+            await master._admin_post(
+                url, "ec/delete_shards",
+                {"volume_id": tr.vid, "collection": tr.collection,
+                 "shard_ids": list(range(
+                     master.ec_total_shards_for(tr.collection)))})
+
+    # --- observability ---
+    def export_gauges(self, heat_view: Optional[dict] = None) -> None:
+        m = self.master.metrics
+        m.gauge("lifecycle_inflight", len(self._inflight))
+        m.gauge("lifecycle_warm_requested", len(self.warm_requested))
+        if heat_view is None:
+            heat_view = self.master.topology.heat_view()
+        top = sorted(heat_view.items(),
+                     key=lambda kv: kv[1].get("read_rate", 0.0),
+                     reverse=True)[:self.cfg.heat_export_top]
+        for vid, h in top:
+            m.gauge("volume_heat_read_rate", h.get("read_rate", 0.0),
+                    labels={"volume": str(vid)})
+            m.gauge("volume_heat_reads", h.get("reads", 0),
+                    labels={"volume": str(vid)})
+
+    def status(self) -> dict:
+        now = time.monotonic()
+        return {
+            "enabled": self.cfg.enabled,
+            # one master, always the leader (the reference's raft view)
+            "is_leader": True,
+            "last_pass": self.last_pass,
+            "passes": self.passes,
+            "pending": [{"kind": k, "volume": v,
+                         "for_s": round(now - t0, 1)}
+                        for (k, v), t0 in sorted(self._inflight.items(),
+                                                 key=lambda kv: str(kv[0]))],
+            "recent": list(self.recent),
+            "warm_requested": {str(v): r
+                               for v, r in self.warm_requested.items()},
+            "config": {k: v for k, v in asdict(self.cfg).items()
+                       if k != "force_enabled"},
+        }
+
+    def heat_status(self) -> dict:
+        now = time.time()
+        topology = self.master.topology
+        heat = topology.heat_view(now)
+        vols: dict[int, dict] = {}
+        for node in topology.nodes.values():
+            for vid, vi in node.volumes.items():
+                rec = vols.setdefault(vid, {
+                    "volume": vid, "collection": vi.collection,
+                    "state": "hot", "ttl": vi.ttl, "size": vi.size,
+                    "read_only": vi.read_only, "holders": []})
+                rec["holders"].append(node.url)
+            for vid, si in node.ec_shards.items():
+                rec = vols.setdefault(vid, {
+                    "volume": vid, "collection": si.collection,
+                    "state": "warm", "ttl": "", "size": 0,
+                    "read_only": True, "holders": []})
+                if rec["state"] == "hot":
+                    rec["state"] = "transitioning"
+                if node.url not in rec["holders"]:
+                    rec["holders"].append(node.url)
+        for vid, rec in vols.items():
+            h = heat.get(vid, {})
+            rec.update({
+                "reads": h.get("reads", 0),
+                "writes": h.get("writes", 0),
+                "read_rate": h.get("read_rate", 0.0),
+                "idle_s": round(now - max(h.get("last_access", 0.0),
+                                          h.get("first_seen", now)), 1),
+            })
+        return {"now": now,
+                "volumes": [vols[v] for v in sorted(vols)]}

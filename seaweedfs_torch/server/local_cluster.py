@@ -8,8 +8,12 @@ directory and its own ``Store`` (the coder named by ``coder_name``,
 "auto" by default: the CUDA kernels, which need a card), and the servers
 talk to each other over HTTP exactly as separate processes would. Volume
 server i sits in data center "dc1", rack "rack{i % racks}"; ``racks=1``
-puts them all on one rack. The callers drive the cluster synchronously,
-from their own threads, through the port's client.
+puts them all on one rack. ``master_kwargs`` and ``volume_kwargs`` go to
+the master's and each volume server's constructor (as tests/
+cluster_util.py takes them for the reference): the lifecycle config, the
+maintenance interval, ``repair_enabled``, the scrub interval. The callers
+drive the cluster synchronously, from their own threads, through the
+port's client.
 """
 
 from __future__ import annotations
@@ -40,12 +44,15 @@ class LocalCluster:
                  volume_size_limit_mb: int = 30 * 1024,
                  pulse: float = 5.0,
                  directory: Optional[str] = None,
-                 racks: int = 2):
+                 racks: int = 2,
+                 master_kwargs: Optional[dict] = None,
+                 volume_kwargs: Optional[dict] = None):
         self.coder_name = coder_name
         self.device = device
         self.geometry = geometry
         self.pulse = pulse
         self.racks = racks
+        self.volume_kwargs = volume_kwargs or {}
         self._tmp = None
         if directory is None:
             self._tmp = tempfile.TemporaryDirectory(prefix="weedtorch_")
@@ -61,7 +68,7 @@ class LocalCluster:
         self.master = self.master_runner = None
         try:
             self.start_master(volume_size_limit_mb=volume_size_limit_mb,
-                              pulse_seconds=pulse)
+                              pulse_seconds=pulse, **(master_kwargs or {}))
             for _ in range(n_volume_servers):
                 self.add_volume_server()
             self.wait_for_nodes(n_volume_servers)
@@ -97,7 +104,8 @@ class LocalCluster:
         try:
             vs, runner = self.call(run_volume_server(
                 "127.0.0.1", 0, store, self.master_url, data_center="dc1",
-                rack=f"rack{i % self.racks}", pulse_seconds=self.pulse))
+                rack=f"rack{i % self.racks}", pulse_seconds=self.pulse,
+                **self.volume_kwargs))
         except BaseException:
             store.close()
             raise

@@ -13,35 +13,68 @@ reference's wire:
   GET  /vol/vacuum?garbageThreshold=
   GET  /vol/list
   GET  /col/lookup/ec?volumeId=
-  POST /heartbeat          (volume servers report in, JSON Store payload)
+  POST /heartbeat          (volume servers report in, JSON Store payload,
+                            with the volumes' access-heat deltas)
+  POST /ec/scrub_report    (a volume server's scrubber: rotten shards)
+  GET  /vol/heat?volumeId=, POST /vol/heat/report
+  GET  /lifecycle/status, POST /lifecycle/run
+  POST /cluster/lock, /cluster/unlock   (the admin lease)
   GET  /cluster/status, /healthz, /metrics
 
 One master, no raft: needle keys come from a ``MemorySequencer`` that
 every heartbeat raises to the volumes' largest key, so a restarted master
-never re-mints a key a volume holds. Two background tasks run on its
-loop: one prunes nodes whose heartbeats stopped (pulse x 5, as the
-reference's maintenance daemon does), so a stopped volume server leaves
-the lookups; the other vacuums, every ``vacuum_interval_seconds`` (900 s,
-upstream's 15 minutes), every volume whose garbage is at least
-``garbage_threshold`` (0.3, upstream's ``-garbageThreshold``) on all its
-replicas. Growth and the vacuum call the volume servers with awaited
-aiohttp client calls, so the master shares a loop with them safely.
+never re-mints a key a volume holds. Background tasks on its loop:
 
-Left out: raft and the metadata log, the filer ring, balance, geo,
-lifecycle, the repair daemon, collection deletion, admin locks, the
-watch stream, guard/JWT, the fastpath listener and gRPC.
+- the maintenance daemon, every ``maintenance_interval_seconds``
+  (default: the pulse; 0 disables it): it prunes nodes whose heartbeats
+  stopped (pulse x 5), so a stopped volume server leaves the lookups,
+  then, while ``repair_enabled`` (the default), plans repairs: an EC
+  volume short of live shards (scrub-flagged copies do not count) is
+  rebuilt as the shell's ``ec.rebuild`` would, and a volume short of
+  copies gains one where its placement holds. A deficit must be seen on
+  two consecutive passes; failures back off ``min(interval * 2^n,
+  300)`` s; at most ``repair_concurrency`` repairs run at once (the
+  argument, else ``WEED_EC_ENCODE_WORKERS``, else 2);
+- the cluster-exclusive admin lock (LeaseAdminToken,
+  weed/server/master_grpc_server_admin.go:21-138): a lease of
+  ``admin_lease_seconds`` (10 s) that the shell holds, renewed, while a
+  command moves volumes. While it is held, neither daemon launches
+  anything: a command's half-done states (an encode mid-spread, a
+  decode dropping shards) are not deficits. Repairs already running
+  finish;
+- the lifecycle daemon (lifecycle/daemon.py), only when a rule is
+  configured (``WEED_LIFECYCLE_*``): it warms idle full volumes down,
+  decodes hot EC volumes and expires TTL'd collections, sharing the
+  repairs' semaphore and backoff;
+- the vacuum, every ``vacuum_interval_seconds`` (900 s, upstream's 15
+  minutes), of every volume whose garbage is at least
+  ``garbage_threshold`` (0.3, upstream's ``-garbageThreshold``) on all
+  its replicas.
+
+Every call of the master to a volume server is an awaited aiohttp
+client call, so the master shares a loop with them safely.
+
+Left out: raft and the metadata log, the filer ring, balance, geo, the
+lifecycle's S3 rules, collection deletion, the watch stream, guard/JWT,
+the overload plane's priorities, the fastpath listener and gRPC.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
+import time
 from typing import Optional
 
 import aiohttp
 from aiohttp import web
 
+from .. import observe
+from ..balance.planner import pick_replica_target
 from ..ec.geometry import GeometryPolicy
+from ..lifecycle.daemon import LifecycleDaemon
+from ..lifecycle.policy import LifecycleConfig
 from ..storage.file_id import FileId, new_cookie
 from ..storage.superblock import ReplicaPlacement
 from ..topology.sequence import MemorySequencer
@@ -67,7 +100,11 @@ class MasterServer:
                  pulse_seconds: float = 5.0,
                  garbage_threshold: float = 0.3,
                  vacuum_interval_seconds: float = 900.0,
-                 url: str = ""):
+                 url: str = "",
+                 maintenance_interval_seconds: Optional[float] = None,
+                 repair_concurrency: Optional[int] = None,
+                 repair_enabled: bool = True,
+                 lifecycle_config: Optional[LifecycleConfig] = None):
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds)
@@ -78,14 +115,52 @@ class MasterServer:
         self.url = url
         # a bad WEED_EC_GEOMETRY kills the master at startup
         self.ec_policy = GeometryPolicy.from_env()
-        # the pruner's period, as the reference's maintenance daemon
-        self.maintenance_interval_seconds = max(pulse_seconds, 0.05)
+        # the maintenance daemon's period (prune + repair planner;
+        # default: the pulse; 0 disables the daemon)
+        self.maintenance_interval_seconds = (
+            maintenance_interval_seconds
+            if maintenance_interval_seconds is not None
+            else max(pulse_seconds, 0.05))
+        # WEED_EC_ENCODE_WORKERS is a default, never an override of an
+        # explicit argument (cli -repair_concurrency, tests)
+        if repair_concurrency is None:
+            try:
+                env_workers = int(
+                    os.environ.get("WEED_EC_ENCODE_WORKERS", ""))
+            except ValueError:
+                env_workers = 0
+            repair_concurrency = env_workers if env_workers > 0 else 2
+        self.repair_concurrency = max(1, repair_concurrency)
+        # pruning always runs with the daemon; the repair planner can be
+        # paused (planned maintenance, drives of the manual ec.rebuild)
+        self.repair_enabled = repair_enabled
         self.metrics = metrics_mod.Registry("master")
         # the topology is touched on the loop's thread only; growth and
         # vacuum passes await volume servers and are each serialized
         self._grow_lock: Optional[asyncio.Lock] = None
         self._vacuum_lock: Optional[asyncio.Lock] = None
         self._tasks: list[asyncio.Task] = []
+        self._maint_session: Optional[aiohttp.ClientSession] = None
+        # one budget for repairs and lifecycle transitions alike
+        self._repair_sem = asyncio.Semaphore(self.repair_concurrency)
+        # numbered worker slots, checked out under the semaphore, for
+        # the logs and the repair_workers_busy gauge
+        self._repair_worker_free = list(range(self.repair_concurrency))
+        self._repairs_inflight: set = set()     # (kind, vid) keys
+        self._repair_tasks: set = set()
+        # per-key failure backoff: key -> (failures, next attempt, mono)
+        self._repair_backoff: dict = {}
+        # deficits seen on consecutive passes (two before a repair)
+        self._ec_deficit_seen: dict[int, int] = {}
+        self._replica_deficit_seen: dict[int, int] = {}
+        # scrub-reported bad shards: vid -> holder url -> shard ids
+        self._scrub_bad: dict[int, dict[str, set]] = {}
+        # name -> (token, holder, expiry unix s): the admin leases
+        self._admin_locks: dict[str, tuple[int, str, float]] = {}
+        self.admin_lease_seconds = 10.0
+        # the lifecycle daemon runs only when a rule can fire
+        self.lifecycle = LifecycleDaemon(
+            self, lifecycle_config or LifecycleConfig.from_env())
         self.app = self._build_app()
 
     def _build_app(self) -> web.Application:
@@ -99,6 +174,13 @@ class MasterServer:
         app.router.add_get("/vol/list", self.vol_list)
         app.router.add_get("/col/lookup/ec", self.ec_lookup)
         app.router.add_post("/heartbeat", self.heartbeat)
+        app.router.add_post("/ec/scrub_report", self.ec_scrub_report)
+        app.router.add_get("/vol/heat", self.vol_heat)
+        app.router.add_post("/vol/heat/report", self.vol_heat_report)
+        app.router.add_get("/lifecycle/status", self.lifecycle_status)
+        app.router.add_post("/lifecycle/run", self.lifecycle_run)
+        app.router.add_post("/cluster/lock", self.cluster_lock)
+        app.router.add_post("/cluster/unlock", self.cluster_unlock)
         app.router.add_get("/cluster/status", self.cluster_status)
         app.router.add_get("/metrics", self.metrics_handler)
         app.router.add_get("/healthz", self.healthz)
@@ -109,24 +191,336 @@ class MasterServer:
     async def _on_startup(self, app) -> None:
         self._grow_lock = asyncio.Lock()
         self._vacuum_lock = asyncio.Lock()
-        self._tasks = [asyncio.create_task(self._maintenance_loop())]
+        self._tasks = []
+        if self.maintenance_interval_seconds > 0:
+            self._tasks.append(
+                asyncio.create_task(self._maintenance_loop()))
         if self.vacuum_interval_seconds > 0:
             self._tasks.append(asyncio.create_task(self._vacuum_loop()))
+        if self.lifecycle.cfg.enabled:
+            self._tasks.append(
+                asyncio.create_task(self.lifecycle.run_loop()))
+        if self.lifecycle.cfg.filer:
+            log.info("lifecycle: the S3 rules wait for a filer, which "
+                     "the port does not have; %s is not scanned",
+                     self.lifecycle.cfg.filer)
 
     async def _on_cleanup(self, app) -> None:
-        for task in self._tasks:
+        tasks = (self._tasks + list(self._repair_tasks)
+                 + list(self.lifecycle.tasks))
+        for task in tasks:
             task.cancel()
-        await asyncio.gather(*self._tasks, return_exceptions=True)
+        await asyncio.gather(*tasks, return_exceptions=True)
         self._tasks = []
+        if self._maint_session is not None:
+            await self._maint_session.close()
+            self._maint_session = None
 
-    # --- the dead-node pruner (the reference's maintenance loop,
-    #     weed/server/master_server.go:187-257, reduced to pruning) ---
+    # --- the maintenance daemon: prune, then plan repairs (the
+    #     reference's maintenance loop, weed/server/master_server.go:
+    #     187-257) ---
     async def _maintenance_loop(self) -> None:
         while True:
             await asyncio.sleep(self.maintenance_interval_seconds)
-            for ev in self.topology.prune_dead_nodes():
-                self.metrics.count("dead_nodes_pruned")
-                log.info("pruned dead node %s", ev["url"])
+            try:
+                await self._maintenance_pass()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                # the daemon must outlive any one pass
+                log.warning("maintenance pass failed", exc_info=True)
+
+    async def _maintenance_pass(self) -> None:
+        for ev in self.topology.prune_dead_nodes():
+            self.metrics.count("dead_nodes_pruned")
+            log.info("pruned dead node %s", ev["url"])
+        if not self.repair_enabled:
+            return
+        if self.admin_lock_holder():
+            # an operator's command is moving volumes: the deficits its
+            # steps show must be confirmed afresh once it is done
+            self._ec_deficit_seen.clear()
+            self._replica_deficit_seen.clear()
+            return
+        await self._repair_pass()
+
+    def _live_ec_shards(self, vid: int) -> set:
+        """Shard ids with at least one holder whose copy is not
+        scrub-flagged as rotten."""
+        bad = self._scrub_bad.get(vid, {})
+        live = set()
+        for sid, nodes in self.topology.lookup_ec_shards(vid).items():
+            if any(sid not in bad.get(n.url, ()) for n in nodes):
+                live.add(sid)
+        return live
+
+    def _repair_due(self, key, seen: dict, vid: int) -> bool:
+        """Deficit gating: two consecutive sightings (heartbeat lag or an
+        encode mid-spread must not trigger), the in-flight guard, and
+        the per-key backoff after failures."""
+        if key in self._repairs_inflight:
+            return False
+        count = seen.get(vid, 0) + 1
+        seen[vid] = count
+        if count < 2:
+            return False
+        back = self._repair_backoff.get(key)
+        if back is not None and time.monotonic() < back[1]:
+            return False
+        # launching: the passes right after a repair (which may still see
+        # the pre-heartbeat view) must confirm a deficit from scratch
+        seen.pop(vid, None)
+        return True
+
+    def ec_total_shards_for(self, collection: str = "") -> int:
+        """A collection's full shard count, from the policy geometry
+        (WEED_EC_GEOMETRY="20+4" must steer the daemons too, or they
+        would count 14 of 24 shards as complete)."""
+        return self.ec_policy.for_collection(collection).total_shards
+
+    async def _repair_pass(self) -> None:
+        # a volume the lifecycle daemon is moving (a warm-down mid-spread,
+        # an un-EC dropping its shards, an expiry) looks short of shards
+        # or copies for as long as the move takes: it is the transition's
+        # to finish, not the repairs' (the reference repairs it meanwhile,
+        # ROADMAP Queue 3, F3)
+        moving = self.lifecycle.moving_vids()
+        # EC volumes below their full shard count
+        ec_vids: dict[int, str] = {}
+        for node in self.topology.nodes.values():
+            for vid, info in node.ec_shards.items():
+                ec_vids.setdefault(vid, info.collection)
+        for vid in list(self._ec_deficit_seen):
+            if vid not in ec_vids:
+                self._ec_deficit_seen.pop(vid, None)
+        for vid, collection in ec_vids.items():
+            if vid in moving or len(self._live_ec_shards(vid)) >= \
+                    self.ec_total_shards_for(collection):
+                self._ec_deficit_seen.pop(vid, None)
+                self._repair_backoff.pop(("ec", vid), None)
+                continue
+            if self._repair_due(("ec", vid), self._ec_deficit_seen, vid):
+                self._launch_repair(("ec", vid), self._repair_ec, vid,
+                                    collection)
+        # volumes short of copies
+        seen_vids = set()
+        for key, layout in list(self.topology.layouts.items()):
+            need = ReplicaPlacement.parse(layout.replication).copy_count()
+            if need <= 1:
+                continue
+            for vid, nodes in list(layout.locations.items()):
+                seen_vids.add(vid)
+                if not nodes or len(nodes) >= need or vid in moving:
+                    self._replica_deficit_seen.pop(vid, None)
+                    self._repair_backoff.pop(("replica", vid), None)
+                    continue
+                if self._repair_due(("replica", vid),
+                                    self._replica_deficit_seen, vid):
+                    self._launch_repair(
+                        ("replica", vid), self._repair_replica, vid,
+                        key[0], layout.replication, list(nodes))
+        for vid in list(self._replica_deficit_seen):
+            if vid not in seen_vids:
+                self._replica_deficit_seen.pop(vid, None)
+
+    def _launch_repair(self, key, fn, *args) -> None:
+        self._repairs_inflight.add(key)
+        task = asyncio.create_task(self._run_repair(key, fn, *args))
+        self._repair_tasks.add(task)
+        task.add_done_callback(self._repair_tasks.discard)
+
+    async def _run_repair(self, key, fn, *args) -> None:
+        """One repair under the shared semaphore: waiting for a slot (a
+        warm-down window may hold both) is not a failure; a failure backs
+        the key off for min(interval * 2^n, 300) s."""
+        kind, vid = key
+        try:
+            async with self._repair_sem:
+                worker = self._checkout_worker()
+                log.info("repair worker %d: %s repair of volume %s",
+                         worker, kind, vid)
+                try:
+                    self.metrics.count("repairs_started",
+                                       labels={"kind": kind})
+                    with observe.span(f"master.repair.{kind}",
+                                      tags={"vid": vid, "worker": worker}):
+                        ok = await fn(*args)
+                finally:
+                    self._checkin_worker(worker)
+            if not ok:
+                raise RuntimeError(f"{kind} repair of {vid} incomplete")
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            # any failure of a volume server or of the plan backs off
+            failures = self._repair_backoff.get(key, (0, 0.0))[0] + 1
+            delay = min(self.maintenance_interval_seconds
+                        * (2 ** failures), 300.0)
+            self._repair_backoff[key] = (failures,
+                                         time.monotonic() + delay)
+            self.metrics.count("repairs_failed", labels={"kind": kind})
+            log.warning("%s repair of volume %d failed (attempt %d, next "
+                        "in %.1fs): %s", kind, vid, failures, delay, e)
+        else:
+            self._repair_backoff.pop(key, None)
+            self.metrics.count("repairs_succeeded", labels={"kind": kind})
+            log.info("%s repair of volume %d succeeded", kind, vid)
+        finally:
+            self._repairs_inflight.discard(key)
+
+    def _checkout_worker(self) -> int:
+        """A numbered worker slot (the caller holds _repair_sem, so the
+        list is empty only if a caller bypassed it: slot -1)."""
+        worker = (self._repair_worker_free.pop()
+                  if self._repair_worker_free else -1)
+        self.metrics.gauge("repair_workers", self.repair_concurrency)
+        self.metrics.gauge(
+            "repair_workers_busy",
+            self.repair_concurrency - len(self._repair_worker_free))
+        return worker
+
+    def _checkin_worker(self, worker: int) -> None:
+        if worker >= 0:
+            self._repair_worker_free.append(worker)
+        self.metrics.gauge(
+            "repair_workers_busy",
+            self.repair_concurrency - len(self._repair_worker_free))
+
+    def _maint_http(self) -> aiohttp.ClientSession:
+        if self._maint_session is None or self._maint_session.closed:
+            self._maint_session = aiohttp.ClientSession(
+                timeout=aiohttp.ClientTimeout(total=300))
+        return self._maint_session
+
+    async def _admin_post(self, url: str, op: str, body: dict,
+                          timeout: float = 60.0) -> dict:
+        async with self._maint_http().post(
+                f"http://{url}/admin/{op}", json=body,
+                timeout=aiohttp.ClientTimeout(total=timeout)) as r:
+            out = await r.json()
+            if r.status != 200:
+                raise RuntimeError(f"{url}/admin/{op}: "
+                                   f"{out.get('error', r.status)}")
+            return out
+
+    async def _repair_ec(self, vid: int, collection: str) -> bool:
+        """The automatic ec.rebuild: drop scrub-flagged shard copies,
+        then the shell's plan (copy survivors to the richest holder,
+        rebuild, mount, drop the borrowed copies)."""
+        from ..shell.ec_commands import collect_ec_nodes, plan_rebuild
+        bad = self._scrub_bad.get(vid, {})
+        live_urls = {n.url for n in self.topology.nodes.values()}
+        for url, sids in list(bad.items()):
+            if url not in live_urls:
+                # the flagged holder died: its rotten copies went with it
+                bad.pop(url, None)
+                continue
+            await self._admin_post(url, "ec/delete_shards",
+                                   {"volume_id": vid,
+                                    "collection": collection,
+                                    "shard_ids": sorted(sids)})
+            bad.pop(url, None)
+            self.metrics.count("scrub_shards_dropped", value=len(sids))
+        if not bad:
+            self._scrub_bad.pop(vid, None)
+        rebuilder, missing, copy_plan = plan_rebuild(
+            collect_ec_nodes(self.topology.to_dict()), vid,
+            self.ec_total_shards_for(collection))
+        if not missing:
+            return True
+        copied: list[int] = []
+        for src, sids in copy_plan.items():
+            await self._admin_post(rebuilder, "ec/copy",
+                                   {"volume_id": vid,
+                                    "collection": collection,
+                                    "shard_ids": sids, "source": src},
+                                   timeout=600.0)
+            copied.extend(sids)
+        out = await self._admin_post(rebuilder, "ec/rebuild",
+                                     {"volume_id": vid,
+                                      "collection": collection},
+                                     timeout=600.0)
+        # mount every missing shard, not only what this rebuild made: an
+        # interrupted repair may have left a shard file unmounted, and a
+        # rebuild reports only the files it had to create
+        await self._admin_post(rebuilder, "ec/mount",
+                               {"volume_id": vid,
+                                "collection": collection,
+                                "shard_ids": sorted(
+                                    set(out.get("rebuilt", []))
+                                    | set(missing))})
+        if copied:
+            await self._admin_post(rebuilder, "ec/delete_shards",
+                                   {"volume_id": vid,
+                                    "collection": collection,
+                                    "shard_ids": copied})
+        return True
+
+    async def _repair_replica(self, vid: int, collection: str,
+                              replication: str, holders: list) -> bool:
+        """Copy an under-replicated volume onto a node where the
+        placement holds (balance/planner.py); False when there is none."""
+        target = pick_replica_target(self.topology, replication, holders)
+        if target is None:
+            return False
+        await self._admin_post(target.url, "volume/copy",
+                               {"volume_id": vid,
+                                "collection": collection,
+                                "source": holders[0].url},
+                               timeout=600.0)
+        return True
+
+    async def ec_scrub_report(self, request: web.Request) -> web.Response:
+        """A volume server reports shards whose bytes no longer match
+        their stamped digest; the repair daemon drops and rebuilds them."""
+        body = await request.json()
+        try:
+            vid = int(body["volume_id"])
+            url = body["url"]
+            bad = {int(s) for s in body.get("bad_shards", [])}
+        except (KeyError, ValueError, TypeError):
+            return _error("bad report", 400)
+        if bad:
+            per_node = self._scrub_bad.setdefault(vid, {})
+            per_node[url] = per_node.get(url, set()) | bad
+            self.metrics.count("scrub_reports")
+            log.warning("scrub: %s reports bad shards %s of volume %d",
+                        url, sorted(bad), vid)
+        return web.json_response({"ok": True})
+
+    # --- the lifecycle plane: heat view and daemon state ---
+    async def vol_heat(self, request: web.Request) -> web.Response:
+        """Per-volume access heat and lifecycle state (``volume.heat``)."""
+        out = self.lifecycle.heat_status()
+        vid = request.query.get("volumeId", "")
+        if vid:
+            try:
+                want = int(vid)
+            except ValueError:
+                return _error("invalid volumeId", 400)
+            out["volumes"] = [v for v in out["volumes"]
+                              if v["volume"] == want]
+        return web.json_response(out)
+
+    async def vol_heat_report(self, request: web.Request) -> web.Response:
+        """Heat deltas delivered outside a heartbeat."""
+        try:
+            body = await request.json()
+        except ValueError:
+            return _error("bad json", 400)
+        ok = self.topology.merge_heat(body.get("node_id", ""),
+                                      body.get("heat") or [])
+        return web.json_response({"ok": ok})
+
+    async def lifecycle_status(self, request: web.Request) -> web.Response:
+        """Pending and recent transitions with outcomes
+        (``lifecycle.status``)."""
+        return web.json_response(self.lifecycle.status())
+
+    async def lifecycle_run(self, request: web.Request) -> web.Response:
+        """One evaluation pass now (``lifecycle.run``)."""
+        out = await self.lifecycle.pass_once()
+        return web.json_response({"ok": True, **out})
 
     # --- handlers ---
     async def dir_assign(self, request: web.Request) -> web.Response:
@@ -442,6 +836,55 @@ class MasterServer:
         self.sequencer.set_max(body.get("max_file_key", 0))
         return {"volume_size_limit": self.topology.volume_size_limit,
                 "leader": self.url}
+
+    # --- the admin lock (the reference's lease, upstream
+    #     master_grpc_server_admin.go:21-138) ---
+    def lease_admin_token(self, name: str, client: str,
+                          previous_token: int) -> tuple[dict, int]:
+        """Lease the lock; renew by presenting the previous token. A
+        holder that stops renewing loses it after
+        ``admin_lease_seconds``."""
+        name = name or "admin"
+        now = time.time()
+        held = self._admin_locks.get(name)
+        if held and held[2] > now and held[0] != previous_token:
+            return ({"error": f"lock {name} held by {held[1]}",
+                     "holder": held[1]}, 409)
+        token = (held[0] if held and held[0] == previous_token
+                 else int(now * 1e9))
+        expires = now + self.admin_lease_seconds
+        self._admin_locks[name] = (token, client, expires)
+        return {"token": token, "expires_at": expires}, 200
+
+    def release_admin_token(self, name: str, token: int) -> bool:
+        name = name or "admin"
+        held = self._admin_locks.get(name)
+        if held and held[0] == token:
+            del self._admin_locks[name]
+            return True
+        return False
+
+    def admin_lock_holder(self) -> Optional[str]:
+        """The holder of a live admin lease, else None."""
+        now = time.time()
+        for _token, holder, expires in self._admin_locks.values():
+            if expires > now:
+                return holder or "?"
+        return None
+
+    async def cluster_lock(self, request: web.Request) -> web.Response:
+        body = await request.json()
+        resp, status = self.lease_admin_token(
+            body.get("name", "admin"), body.get("client", ""),
+            body.get("previous_token", 0))
+        return web.json_response(resp, status=status)
+
+    async def cluster_unlock(self, request: web.Request) -> web.Response:
+        body = await request.json()
+        if self.release_admin_token(body.get("name", "admin"),
+                                    body.get("token", 0)):
+            return web.json_response({"ok": True})
+        return web.json_response({"error": "not the holder"}, status=409)
 
     async def cluster_status(self, request: web.Request) -> web.Response:
         return web.json_response({

@@ -20,6 +20,7 @@ reference's wire:
           POST /admin/ec/mount, /unmount, /rebuild
           POST /admin/ec/copy             (VolumeEcShardsCopy, pull model)
           POST /admin/ec/delete_shards, /blob_delete, /to_volume
+          POST /admin/ec/scrub            (one scrub pass now)
           GET  /admin/ec/shard_read?volume=&shard=&offset=&size=
           GET  /admin/file_copy?volume_id=&collection=&ext=
           GET  /status, /healthz, /metrics
@@ -45,14 +46,24 @@ handler that changes what the node holds sends its heartbeat before it
 answers, so the master's view is current when the shell's next call
 lands.
 
+Every read, write and delete is sampled into a ``HeatTracker``
+(lifecycle/heat.py, half-life ``WEED_LIFECYCLE_HEAT_HALFLIFE``), whose
+deltas ride the heartbeat (changed volumes only; put back when the beat
+fails). The EC scrubber re-digests every mounted shard against the
+digest stamped into its ``.ecm`` at encode, every
+``WEED_EC_SCRUB_INTERVAL`` seconds (3600; 0 disables) or on ``POST
+/admin/ec/scrub``, and reports mismatches to the master's
+``/ec/scrub_report``, whose repair daemon drops and rebuilds them.
+
 Left out: the write batcher and group commit, image resizing, read
-repair, tiering, tail, query, batch delete, the scrubber, the UI, guard/
-JWT, the fastpath listener, shard fleets and gRPC.
+repair, tiering, tail, query, batch delete, the UI, guard/JWT, the
+fastpath listener and its heat side channel, shard fleets and gRPC.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import os
 import time
@@ -62,8 +73,10 @@ from typing import Optional
 import aiohttp
 from aiohttp import web
 
-from .. import faults
+from .. import faults, observe
+from ..ec import pipeline as ec_pipeline
 from ..ec.geometry import to_ext
+from ..lifecycle.heat import HeatTracker
 from ..storage import types as t
 from ..storage.file_id import FileId
 from ..storage.needle import (FLAG_HAS_LAST_MODIFIED, FLAG_HAS_MIME,
@@ -71,7 +84,7 @@ from ..storage.needle import (FLAG_HAS_LAST_MODIFIED, FLAG_HAS_MIME,
                               FLAG_IS_COMPRESSED, CrcError, Needle)
 from ..storage.store import Store, safe_collection
 from ..storage.volume import Volume, VolumeCompacting, VolumeReadOnly
-from ..utils import compression, multipart
+from ..utils import compression, durable, multipart
 from ..utils import metrics as metrics_mod
 from . import http
 
@@ -92,10 +105,18 @@ async def _run(fn, *args):
     return await asyncio.get_running_loop().run_in_executor(None, fn, *args)
 
 
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
 class VolumeServer:
     def __init__(self, store: Store, master_url: str, url: str = "",
                  data_center: str = "", rack: str = "",
-                 pulse_seconds: float = 5.0):
+                 pulse_seconds: float = 5.0,
+                 scrub_interval_seconds: Optional[float] = None):
         self.store = store
         self.master_url = master_url.split(",")[0].strip()
         self.url = url
@@ -111,6 +132,18 @@ class VolumeServer:
         # one heartbeat at a time: a payload built before another must
         # not land after it
         self._hb_lock: Optional[asyncio.Lock] = None
+        # the EC scrubber's period (WEED_EC_SCRUB_INTERVAL; 0 disables)
+        if scrub_interval_seconds is None:
+            scrub_interval_seconds = _env_float("WEED_EC_SCRUB_INTERVAL",
+                                                3600.0)
+        self.scrub_interval_seconds = scrub_interval_seconds
+        self._scrub_task: Optional[asyncio.Task] = None
+        # per-volume access heat, drained as deltas into heartbeats;
+        # WEED_LIFECYCLE_HEAT_HALFLIFE shrinks the EWMA window so that
+        # tests and aggressive un-EC policies see rate changes quickly
+        halflife = _env_float("WEED_LIFECYCLE_HEAT_HALFLIFE", 0.0)
+        self.heat = (HeatTracker(halflife=halflife) if halflife > 0
+                     else HeatTracker())
         self.app = self._build_app()
         # the EC read path fetches missing shards from peers through this
         store._remote_shard_reader = self._make_shard_reader
@@ -139,6 +172,7 @@ class VolumeServer:
             ("ec/delete_shards", self.admin_ec_delete_shards),
             ("ec/blob_delete", self.admin_ec_blob_delete),
             ("ec/to_volume", self.admin_ec_to_volume),
+            ("ec/scrub", self.admin_ec_scrub),
         ]
         for path, handler in admin_posts:
             app.router.add_post(f"/admin/{path}", handler)
@@ -164,14 +198,17 @@ class VolumeServer:
                                           sock_read=60))
         self._hb_lock = asyncio.Lock()
         self._hb_task = asyncio.create_task(self._heartbeat_loop())
+        if self.scrub_interval_seconds > 0:
+            self._scrub_task = asyncio.create_task(self._scrub_loop())
 
     async def _on_cleanup(self, app) -> None:
-        if self._hb_task is not None:
-            self._hb_task.cancel()
-            try:
-                await self._hb_task
-            except asyncio.CancelledError:
-                pass
+        for task in (self._hb_task, self._scrub_task):
+            if task is not None:
+                task.cancel()
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
         if self._session is not None:
             await self._session.close()
         await _run(self.store.close)
@@ -196,17 +233,35 @@ class VolumeServer:
             "data_center": self.data_center,
             "rack": self.rack,
         })
+        # changed-volumes-only deltas: an idle node's heartbeat carries
+        # no heat entries at all; draining also prunes tracker state for
+        # volumes that left the node
+        held = ({v["id"] for v in payload["volumes"]}
+                | {s["id"] for s in payload["ec_shards"]})
+        deltas = self.heat.deltas(known_vids=held)
+        if deltas:
+            payload["heat"] = deltas
         return payload
 
     async def send_heartbeat(self) -> None:
         async with self._hb_lock:
-            async with self._session.post(
-                    f"http://{self.master_url}/heartbeat",
-                    json=self._hb_payload(),
-                    timeout=aiohttp.ClientTimeout(total=10)) as r:
-                body = await r.json()
-                if r.status != 200:
-                    raise RuntimeError(f"heartbeat: HTTP {r.status} {body}")
+            payload = self._hb_payload()
+            try:
+                async with self._session.post(
+                        f"http://{self.master_url}/heartbeat",
+                        json=payload,
+                        timeout=aiohttp.ClientTimeout(total=10)) as r:
+                    body = await r.json()
+                    if r.status != 200:
+                        raise RuntimeError(
+                            f"heartbeat: HTTP {r.status} {body}")
+            except BaseException:
+                # the heat deltas were drained into this payload: a
+                # failed delivery must not lose the window's accesses
+                # (a lost last_access makes an active volume look idle)
+                if payload.get("heat"):
+                    self.heat.requeue(payload["heat"])
+                raise
         self.volume_size_limit = body.get("volume_size_limit",
                                           self.volume_size_limit)
 
@@ -239,6 +294,9 @@ class VolumeServer:
             return _error("not found", 404)
         except CrcError:
             return _error("data corruption", 500)
+        # one dict update per served read (EC reads, the un-EC signal,
+        # land here too)
+        self.heat.record_read(fid.volume_id)
         etag = f'"{n.etag()}"'
         if request.headers.get("If-None-Match") == etag:
             return web.Response(status=304)
@@ -361,6 +419,7 @@ class VolumeServer:
             return _error("volume not found", 404)
         except ValueError as e:
             return _error(str(e), 409)
+        self.heat.record_write(fid.volume_id)
         if primary and not await self._replicate(request, fid, n,
                                                  replicas):
             return _error("replication failed", 500)
@@ -460,6 +519,7 @@ class VolumeServer:
                 self.store.ec_blob_delete(fid.volume_id, fid.key)
             except KeyError:
                 return _error("not found", 404)
+            self.heat.record_write(fid.volume_id)
             if propagate:
                 await self._propagate_ec_delete(fid)
             return web.json_response({"size": 0})
@@ -476,6 +536,7 @@ class VolumeServer:
             return _error(str(e), 409)
         except KeyError:
             return _error("volume not found", 404)
+        self.heat.record_write(fid.volume_id)
         if propagate:
             for url in await self._replica_urls(fid.volume_id):
                 try:
@@ -767,7 +828,8 @@ class VolumeServer:
         if not safe_collection(collection):
             return _error("bad collection", 400)
         source = body["source"]
-        exts = [to_ext(int(s)) for s in body["shard_ids"]]
+        shard_ids = [int(s) for s in body["shard_ids"]]
+        exts = [to_ext(s) for s in shard_ids]
         if body.get("copy_ecx_file", False):
             exts += [".ecx", ".ecj", ".ecm"]
         prefix = f"{collection}_" if collection else ""
@@ -782,9 +844,46 @@ class VolumeServer:
                 if status != 200:
                     return _error(f"copy {ext} from {source}: {status}",
                                   502)
+            await self._take_stamps(source, vid, collection, base,
+                                    shard_ids)
         except (aiohttp.ClientError, asyncio.TimeoutError) as e:
             return _error(str(e), 502)
         return web.json_response({"ok": True})
+
+    async def _take_stamps(self, source: str, vid: int, collection: str,
+                           base: str, shard_ids: list[int]) -> None:
+        """Make the copied shards' digest stamps travel with them: a
+        copied shard whose id the local ``.ecm`` does not stamp takes the
+        source's stamp, and a target with no ``.ecm`` takes the source's
+        whole. Without a stamp the scrubber would skip the shard, so a
+        rotten copy would never be found. A source with no marker (an
+        unstamped volume) leaves nothing to take."""
+        path = base + ".ecm"
+        stamped = ec_pipeline.read_stamped_digests(base)
+        if os.path.exists(path) and all(s in stamped for s in shard_ids):
+            return
+        tmp = path + ".src"
+        try:
+            if await self._pull(source, vid, collection, ".ecm",
+                                tmp) != 200:
+                return
+            if not os.path.exists(path):
+                durable.replace_atomic(tmp, path)
+                return
+            with open(tmp) as f:
+                theirs = json.load(f).get("shard_digests") or {}
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        with open(path) as f:
+            meta = json.load(f)
+        digests = dict(meta.get("shard_digests") or {})
+        for sid in shard_ids:
+            if str(sid) not in digests and str(sid) in theirs:
+                digests[str(sid)] = theirs[str(sid)]
+        meta["shard_digests"] = {k: digests[k]
+                                 for k in sorted(digests, key=int)}
+        durable.write_json_atomic(path, meta)
 
     async def admin_ec_delete_shards(self, request: web.Request
                                      ) -> web.Response:
@@ -815,6 +914,86 @@ class VolumeServer:
             return _error(str(e), 404)
         await self.send_heartbeat()
         return web.json_response({"ok": True})
+
+    # --- the EC scrubber: bit rot -> report -> the master's repair ---
+    async def _scrub_loop(self) -> None:
+        while True:
+            await asyncio.sleep(self.scrub_interval_seconds)
+            try:
+                await self.scrub_pass()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                # the scrubber must outlive any one pass (a malformed
+                # stamp, a shard dropped under it, a master away)
+                log.warning("ec scrub pass failed", exc_info=True)
+
+    async def scrub_pass(self, throttle_seconds: float = 0.05) -> dict:
+        """Verify every locally mounted EC shard against the digest
+        stamped into its .ecm at encode (ec/pipeline.py). Each shard
+        digests in an executor thread and the loop sleeps between
+        shards, so serving traffic is not starved. Mismatches are
+        reported to the master, whose repair daemon drops the rotten
+        copy and rebuilds it. Each shard verified counts in
+        ``scrub_shards_checked``; a volume with no stamps is skipped and
+        counts nothing. Returns {vid: [bad shard ids]}."""
+        bad_by_vid: dict[int, list[int]] = {}
+        with observe.span("volume.scrub"):
+            for loc in self.store.locations:
+                for vid, ev in list(loc.ec_volumes.items()):
+                    base = ev.base_file_name()
+                    stamped = ec_pipeline.read_stamped_digests(base)
+                    if not stamped:
+                        continue
+                    bad: list[int] = []
+                    for sid in ev.shard_ids():
+                        want = stamped.get(sid)
+                        if want is None:
+                            continue
+                        try:
+                            got = int((await _run(
+                                ec_pipeline.shard_file_digest, base,
+                                [sid]))[0])
+                        except OSError:
+                            continue  # unmounted or moved mid-scan
+                        self.metrics.count("scrub_shards_checked")
+                        if got != want:
+                            bad.append(sid)
+                            self.metrics.count("scrub_shards_bad")
+                            log.warning("scrub: shard %d of volume %d "
+                                        "digest mismatch (%d != %d)",
+                                        sid, vid, got, want)
+                        await asyncio.sleep(throttle_seconds)
+                    if bad:
+                        bad_by_vid[vid] = bad
+        for vid, bad in bad_by_vid.items():
+            await self._report_bad_shards(vid, bad)
+        return bad_by_vid
+
+    async def _report_bad_shards(self, vid: int, bad: list[int]) -> None:
+        try:
+            async with self._session.post(
+                    f"http://{self.master_url}/ec/scrub_report",
+                    json={"volume_id": vid, "url": self.url,
+                          "bad_shards": bad},
+                    timeout=aiohttp.ClientTimeout(total=10)) as r:
+                await r.read()
+        except (aiohttp.ClientError, asyncio.TimeoutError) as e:
+            log.warning("scrub report for volume %d failed: %s", vid, e)
+
+    async def admin_ec_scrub(self, request: web.Request) -> web.Response:
+        """Run one scrub pass now (operators, tests)."""
+        body = {}
+        if request.can_read_body:
+            try:
+                body = await request.json()
+            except ValueError:
+                body = {}
+        bad = await self.scrub_pass(
+            throttle_seconds=float(body.get("throttle_seconds", 0.0)))
+        return web.json_response(
+            {"ok": True,
+             "bad": {str(vid): sids for vid, sids in bad.items()}})
 
     async def admin_ec_shard_read(self, request: web.Request
                                   ) -> web.Response:

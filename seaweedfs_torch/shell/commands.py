@@ -5,13 +5,18 @@ weed/shell/commands.go:28-72): every command is a named callable over a
 shared CommandEnv holding the master client and the EC geometry pin.
 ``weed shell <name> [args...]`` and the REPL both dispatch through
 COMMANDS. The port registers the EC lifecycle (``ec.encode``,
-``ec.rebuild``, ``ec.balance``, ``ec.decode``, shell/ec_shell.py),
-``volume.list``, and the hot tier's ``volume.fix.replication``,
-``volume.copy``, ``volume.delete``, ``volume.configure.replication`` and
-``volume.mark`` (shell/volume_commands.py); the other command modules of
+``ec.warmdown``, ``ec.rebuild``, ``ec.balance``, ``ec.decode``,
+shell/ec_shell.py), ``volume.list``, the hot tier's
+``volume.fix.replication``, ``volume.copy``, ``volume.delete``,
+``volume.configure.replication`` and ``volume.mark``, and the lifecycle
+plane's ``volume.heat``, ``lifecycle.status`` and ``lifecycle.run``
+(shell/volume_commands.py); the other command modules of
 the reference (fs, buckets, locks, geo, the ring, telemetry, traces and
-the rest of the volume commands) are not ported, and neither is the
-cluster-exclusive admin lock.
+the rest of the volume commands) are not ported. A command that moves
+volumes (``destructive``) runs under the master's cluster-exclusive admin
+lock (client.AdminLock), taken and released around it; the reference's
+``lock``/``unlock`` commands, which hold it across commands, are not
+ported.
 """
 
 from __future__ import annotations
@@ -26,18 +31,23 @@ COMMANDS: dict[str, "ShellCommand"] = {}
 
 
 class ShellCommand:
-    def __init__(self, name: str, help_text: str, fn: Callable):
+    def __init__(self, name: str, help_text: str, fn: Callable,
+                 destructive: bool = False):
         self.name = name
         self.help = help_text
         self.fn = fn
+        self.destructive = destructive
 
     def __call__(self, env: "CommandEnv", argv: list[str]):
-        return self.fn(env, argv)
+        if not self.destructive:
+            return self.fn(env, argv)
+        with env.client.admin_lock:
+            return self.fn(env, argv)
 
 
-def command(name: str, help_text: str):
+def command(name: str, help_text: str, destructive: bool = False):
     def deco(fn):
-        COMMANDS[name] = ShellCommand(name, help_text, fn)
+        COMMANDS[name] = ShellCommand(name, help_text, fn, destructive)
         return fn
     return deco
 

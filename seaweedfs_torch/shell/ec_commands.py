@@ -5,11 +5,13 @@ weed/shell/command_ec_encode.go, command_ec_rebuild.go,
 command_ec_balance.go, command_ec_common.go). The planning logic is pure
 (testable with fake topologies, like upstream's command_ec_test.go
 dry-run pattern); execution drives the volume servers' admin API through
-the Client.
+the Client, under the master's admin lock (client.AdminLock), so that the
+master's repair and lifecycle daemons keep away from a move in progress.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from dataclasses import dataclass, field
 
@@ -116,6 +118,14 @@ def plan_balance(nodes: list[EcNode],
     return moves
 
 
+def _under_admin_lock(fn):
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with self.client.admin_lock:
+            return fn(self, *args, **kwargs)
+    return run
+
+
 class EcCommands:
     """Executors driving the cluster through the admin HTTP API.
 
@@ -170,6 +180,7 @@ class EcCommands:
         return self.encode_many([vid], collection, apply=apply,
                                 fused=fused)
 
+    @_under_admin_lock
     def encode_many(self, vids: list[int], collection: str = "",
                     apply: bool = True, parallel: int = 1,
                     fused: bool = False) -> dict:
@@ -261,6 +272,7 @@ class EcCommands:
         return {"sources": sources, "plans": plans,
                 "parallel": workers}
 
+    @_under_admin_lock
     def rebuild(self, vid: int, collection: str = "",
                 apply: bool = True) -> dict:
         status = self.client.dir_status()
@@ -296,6 +308,7 @@ class EcCommands:
         return {"rebuilder": rebuilder, "rebuilt": rebuilt,
                 "copied": copied}
 
+    @_under_admin_lock
     def balance(self, collection: str = "", apply: bool = True) -> list:
         status = self.client.dir_status()
         moves = plan_balance(
@@ -319,6 +332,7 @@ class EcCommands:
                  "shard_ids": [sid]})
         return moves
 
+    @_under_admin_lock
     def decode(self, vid: int, collection: str = "",
                apply: bool = True) -> dict:
         """ec.decode: collect >=k data shards onto one node, decode to a

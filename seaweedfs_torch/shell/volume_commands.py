@@ -6,12 +6,15 @@ The port's reduced copy of seaweedfs_tpu/shell/volume_commands.py:
   its pure planner ``plan_fix_replication``;
 - volume.copy / volume.delete  command_volume_copy.go, _delete.go;
 - volume.configure.replication  command_volume_configure_replication.go;
-- volume.mark  command_volume_mark.go (readonly / writable).
+- volume.mark  command_volume_mark.go (readonly / writable);
+- volume.heat, lifecycle.status, lifecycle.run: the lifecycle plane's
+  shell surface (the master's /vol/heat, /lifecycle/status and
+  /lifecycle/run).
 
 The planner is a pure function over the topology dict (dry-run
 testable); the executors drive the volume servers' admin HTTP API
 through the Client. ``volume.list`` stays in shell/commands.py. Not
-ported: volume.balance, fsck, move, mount, unmount, vacuum, heat and
+ported: volume.balance, fsck, move, mount, unmount, vacuum and
 volumeServer.evacuate.
 """
 
@@ -135,7 +138,8 @@ def plan_fix_replication(nodes: list[dict]) -> list[dict]:
 
 @command("volume.fix.replication",
          "re-replicate under/over-replicated volumes "
-         "(volume.fix.replication [-force])")
+         "(volume.fix.replication [-force])",
+         destructive=True)
 def volume_fix_replication(env: CommandEnv, argv: list[str]):
     p = parser("volume.fix.replication")
     p.add_argument("-force", action="store_true")
@@ -161,7 +165,8 @@ def volume_fix_replication(env: CommandEnv, argv: list[str]):
 
 @command("volume.copy",
          "copy a volume to another server "
-         "(volume.copy -volumeId N -from src -to dst)")
+         "(volume.copy -volumeId N -from src -to dst)",
+         destructive=True)
 def volume_copy(env: CommandEnv, argv: list[str]):
     p = parser("volume.copy")
     p.add_argument("-volumeId", type=int, required=True)
@@ -178,7 +183,8 @@ def volume_copy(env: CommandEnv, argv: list[str]):
 
 @command("volume.delete",
          "delete a volume from a server "
-         "(volume.delete -volumeId N -node url)")
+         "(volume.delete -volumeId N -node url)",
+         destructive=True)
 def volume_delete(env: CommandEnv, argv: list[str]):
     p = parser("volume.delete")
     p.add_argument("-volumeId", type=int, required=True)
@@ -190,7 +196,8 @@ def volume_delete(env: CommandEnv, argv: list[str]):
 
 @command("volume.mark",
          "mark a volume readonly/writable "
-         "(volume.mark -volumeId N -node url -readonly|-writable)")
+         "(volume.mark -volumeId N -node url -readonly|-writable)",
+         destructive=True)
 def volume_mark(env: CommandEnv, argv: list[str]):
     p = parser("volume.mark")
     p.add_argument("-volumeId", type=int, required=True)
@@ -205,7 +212,8 @@ def volume_mark(env: CommandEnv, argv: list[str]):
 
 @command("volume.configure.replication",
          "rewrite a volume's replication setting "
-         "(volume.configure.replication -volumeId N -replication XYZ)")
+         "(volume.configure.replication -volumeId N -replication XYZ)",
+         destructive=True)
 def volume_configure_replication(env: CommandEnv, argv: list[str]):
     p = parser("volume.configure.replication")
     p.add_argument("-volumeId", type=int, required=True)
@@ -221,3 +229,26 @@ def volume_configure_replication(env: CommandEnv, argv: list[str]):
     if not done:
         raise ClientError(f"volume {args.volumeId} not found")
     return {"ok": True, "configured": done}
+
+
+@command("volume.heat",
+         "per-volume access heat + lifecycle state "
+         "(volume.heat [-volumeId N])")
+def volume_heat(env: CommandEnv, argv: list[str]):
+    p = parser("volume.heat")
+    p.add_argument("-volumeId", type=int, default=0)
+    args = p.parse_args(argv)
+    return env.client.volume_heat(args.volumeId)
+
+
+@command("lifecycle.status",
+         "lifecycle daemon state: rules, pending and recent transitions "
+         "with outcomes (lifecycle.status)")
+def lifecycle_status(env: CommandEnv, argv: list[str]):
+    return env.client.lifecycle_status()
+
+
+@command("lifecycle.run",
+         "run one lifecycle evaluation pass now (lifecycle.run)")
+def lifecycle_run(env: CommandEnv, argv: list[str]):
+    return env.client.lifecycle_run()

@@ -42,7 +42,7 @@ from .. import ec as ec_mod
 from ..ec import fused as ec_fused
 from ..ec import pipeline as ec_pipeline
 from ..ec.coder import ErasureCoder
-from ..ec.ec_volume import EcVolume
+from ..ec.ec_volume import EcVolume, EcVolumeClosed
 from ..ec.striping import read_marker_geometry
 from ..utils import durable
 from . import types as t
@@ -342,8 +342,16 @@ class Store:
             return v.read_needle(needle_id, cookie=cookie)
         ev = self.find_ec_volume(vid)
         if ev is not None:
-            return ev.read_needle(needle_id, cookie=cookie,
-                                  shard_reader=self._remote_shard_reader(ev))
+            try:
+                return ev.read_needle(
+                    needle_id, cookie=cookie,
+                    shard_reader=self._remote_shard_reader(ev))
+            except EcVolumeClosed:
+                # a decode swapped the volume in since the lookup
+                v = self.find_volume(vid)
+                if v is None:
+                    raise
+                return v.read_needle(needle_id, cookie=cookie)
         raise KeyError(f"volume {vid} not found")
 
     def delete_needle(self, vid: int, n: Needle) -> int:
@@ -591,12 +599,15 @@ class Store:
             ec_mod.write_dat_file(base, dat_size,
                                   self._resolve_geometry(base, collection))
             ec_mod.write_idx_file_from_ec_index(base, offset_size=w)
-            ev = loc.ec_volumes.pop(vid, None)
-            if ev is not None:
-                ev.close()
+            # mount the decoded volume before the EC volume goes, as
+            # upstream's ec.decode mounts before it unmounts the shards:
+            # a read finds one or the other, never neither
             loc.volumes[vid] = Volume(
                 loc.directory, collection, vid,
                 needle_map_kind=self.needle_map_kind)
+            ev = loc.ec_volumes.pop(vid, None)
+            if ev is not None:
+                ev.close()
 
     # --- heartbeat ---
     def heartbeat(self) -> dict:

@@ -4,11 +4,10 @@ The port's reduced copy of seaweedfs_tpu/topology/topology.py (upstream
 weed/topology/): node registration from heartbeats, per-(collection,
 replication, ttl) volume layouts with writable tracking, replica-
 placement-constrained volume growth, and the EC shard registry. The
-planner logic is pure (no sockets). A volume re-reported under another
-replica placement leaves its old layout, which the reference's does not.
-Left out: the per-volume access heat
-(``merge_heat``, ``heat_view`` and the heat records of ``DataNode``),
-which belongs to the lifecycle plane the port does not have yet.
+planner logic is pure (no sockets), and the per-volume access heat
+(``merge_heat``, ``heat_view``) is what the lifecycle daemon plans on. A
+volume re-reported under another replica placement leaves its old
+layout, which the reference's does not.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
+from ..lifecycle.heat import VolumeHeat
 from ..storage.superblock import ReplicaPlacement
 
 
@@ -65,6 +65,10 @@ class DataNode:
         self.max_volume_count = max_volume_count
         self.volumes: dict[int, VolumeInfo] = {}
         self.ec_shards: dict[int, EcShardInfo] = {}
+        # per-volume access heat, merged from heartbeat deltas
+        # (lifecycle/heat.py); first_seen anchors idleness for volumes
+        # that have never been accessed since this master booted
+        self.heat: dict[int, VolumeHeat] = {}
         self.last_seen = last_seen if last_seen is not None else time.time()
 
     def free_slots(self) -> int:
@@ -143,7 +147,8 @@ class Topology:
         self.volume_size_limit = volume_size_limit
         self.pulse_seconds = pulse_seconds
         self.max_volume_id = 0
-        # injectable clock: every liveness timestamp flows through it
+        # injectable clock: every liveness and heat timestamp flows
+        # through it
         self._clock = clock if clock is not None else time.time
 
     # --- registration (heartbeat intake,
@@ -194,6 +199,16 @@ class Topology:
             self.max_volume_id = max(self.max_volume_id, si.id)
 
         after = set(node.volumes) | set(node.ec_shards)
+        # heat bookkeeping: every held volume has a record (first_seen
+        # anchors idleness); deltas arrive only for changed volumes, so
+        # the merge is O(changed); records of departed volumes go
+        born = self._clock()
+        for vid in after:
+            if vid not in node.heat:
+                node.heat[vid] = VolumeHeat(first_seen=born, updated=born)
+        for vid in [v for v in node.heat if v not in after]:
+            node.heat.pop(vid, None)
+        self.merge_heat(node.url, payload.get("heat", []))
         return {"url": node.url, "public_url": node.public_url,
                 "new_vids": sorted(after - before),
                 "deleted_vids": sorted(before - after)}
@@ -256,6 +271,45 @@ class Topology:
                 continue
             for sid in info.shard_ids:
                 out.setdefault(sid, []).append(node)
+        return out
+
+    # --- heat (the lifecycle plane) ---
+    def merge_heat(self, url: str, entries: list) -> bool:
+        """Fold heat deltas into a node's records. Unknown nodes and
+        volumes are ignored: the next full heartbeat establishes them."""
+        node = self.nodes.get(url)
+        if node is None:
+            return False
+        now = self._clock()
+        for entry in entries:
+            vh = node.heat.get(entry.get("id"))
+            if vh is not None:
+                vh.merge(entry, now)
+        return True
+
+    def heat_view(self, now: Optional[float] = None) -> dict[int, dict]:
+        """Cluster-wide per-volume heat, aggregated across holders:
+        counts sum (each replica saw distinct requests), last_access is
+        the max, read_rate sums (load spreads over replicas), first_seen
+        is the earliest sighting. (The reference's ``live_only`` view is
+        its balancer's, which the port does not have.)"""
+        now = now if now is not None else self._clock()
+        out: dict[int, dict] = {}
+        for node in self.nodes.values():
+            for vid, vh in node.heat.items():
+                d = vh.to_dict(now)
+                agg = out.get(vid)
+                if agg is None:
+                    out[vid] = d
+                else:
+                    agg["reads"] += d["reads"]
+                    agg["writes"] += d["writes"]
+                    agg["last_access"] = max(agg["last_access"],
+                                             d["last_access"])
+                    agg["read_rate"] = round(agg["read_rate"]
+                                             + d["read_rate"], 6)
+                    agg["first_seen"] = min(agg["first_seen"],
+                                            d["first_seen"])
         return out
 
     # --- write assignment ---

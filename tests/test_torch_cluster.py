@@ -12,9 +12,10 @@ device="cpu"``), at the shrunk RS(10,4) geometry of tests/cluster_util.py
 (b) wire compatibility both ways: the reference's Client and EcCommands
     drive the port's cluster, the port's drive the reference's;
 (c) the same requests give the same answers, key for key, from both
-    clusters (apart from ports, timestamps, cookies, and /dir/status's
-    metalog and ring, which belong to planes the port leaves out), and a
-    multipart POST stores the same needle fields;
+    clusters (apart from ports, timestamps, cookies, the heat view's
+    read rates, and /dir/status's metalog and ring, which belong to
+    planes the port leaves out), and a multipart POST stores the same
+    needle fields;
 (d) the four planners, (e) the topology and (f) the sequencer against
     the reference's; (g) the multipart parser; (h) the CLI as processes.
 
@@ -113,6 +114,11 @@ def _cluster(n: int = 3, coder: str = "numpy", **kw) -> LocalCluster:
                         pulse=PULSE, **CODERS[coder], **kw)
 
 
+# the shell's rebuild and fix, not the master's repair daemon (as the
+# reference's clusters here set repair_enabled = False)
+NO_REPAIR = {"master_kwargs": {"repair_enabled": False}}
+
+
 def _sha(path: str) -> str:
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
@@ -163,7 +169,7 @@ def _wait(cond, what: str, timeout: float = 10.0) -> None:
 @pytest.mark.parametrize("coder", sorted(CODERS))
 @within(120)
 def test_ec_lifecycle(coder, tmp_path):
-    cl = _cluster(3, coder)
+    cl = _cluster(3, coder, **NO_REPAIR)
     try:
         client = PClient(cl.master_url)
         vid, fids = _fill(client, "ecdemo")
@@ -299,7 +305,7 @@ def _replicate_and_fix(client, run_shell, master: str, stop, add) -> None:
 
 @within(120)
 def test_reference_client_drives_port_cluster():
-    cl = _cluster(3)
+    cl = _cluster(3, **NO_REPAIR)
     try:
         client = RClient(cl.master_url)
         _encode_read_rebuild(client, rec.EcCommands(client, TEST_GEOMETRY),
@@ -395,6 +401,13 @@ MASTER_REQUESTS = [
 ]
 
 
+# the heat view's clock readings, and the read rate its drains' timing sets
+HEAT_CLOCK = ("now", "first_seen", "idle_s", "last_access", "read_rate")
+# the lifecycle config's knobs of the reference's S3 pass, which waits
+# for a filer in the port
+S3_KNOBS = ("day_seconds", "scan_limit")
+
+
 class _Normal:
     """Answers with each cluster's own addresses, cookies and times
     replaced by placeholders."""
@@ -405,7 +418,8 @@ class _Normal:
     def value(self, v):
         if isinstance(v, dict):
             return {self.value(k): self.value(x) for k, x in v.items()
-                    if k not in ("last_modified", "metalog", "ring")}
+                    if k not in ("last_modified", "metalog", "ring")
+                    + HEAT_CLOCK + S3_KNOBS}
         if isinstance(v, list):
             return [self.value(x) for x in v]
         if isinstance(v, str):
@@ -452,7 +466,7 @@ def _settle(master: str, node: str) -> None:
 @within(120)
 def test_same_requests_same_answers():
     ref = Cluster(n_volume_servers=1, pulse=PULSE)
-    port = _cluster(1, racks=1)
+    port = _cluster(1, racks=1, **NO_REPAIR)
     try:
         for m in ref.masters:
             m.repair_enabled = False
@@ -505,6 +519,21 @@ def test_same_requests_same_answers():
         both("DELETE", "/1,02" + COOKIE)
         both("GET", "/1,02" + COOKIE)
         both("DELETE", "/1,77" + COOKIE)
+        # the lifecycle plane: no rule, so no daemon; the heat view once
+        # the last requests' heartbeats have landed on both masters
+        for path in ("/lifecycle/status", "/vol/heat?volumeId=x"):
+            both("GET", path, master=True)
+        for path in ("/vol/heat", "/vol/heat?volumeId=1"):
+            _wait(lambda: _ask(rm, rn, "GET", path)
+                  == _ask(pm, pn, "GET", path), f"{path} alike")
+            heat = both("GET", path, master=True)[2]
+        assert [(v["state"], v["reads"] > 0) for v in heat["volumes"]] \
+            == [("warm", True)]
+        for report in ({"volume_id": 1, "url": "x:1", "bad_shards": []},
+                       {"volume_id": 1}, {"url": "x:1"},
+                       {"volume_id": "x", "url": "x:1"}):
+            both("POST", "/ec/scrub_report", json.dumps(report).encode(),
+                 {"Content-Type": "application/json"}, master=True)
 
         # a 001 collection on a second server of the same rack: each
         # package's primary fans writes and deletes out, and the vacuum
@@ -577,7 +606,7 @@ def test_delete_checks_the_cookie():
     deletes the needle anyway (ROADMAP Queue 3, D1). The port follows
     upstream."""
     ref = Cluster(n_volume_servers=1, pulse=PULSE)
-    port = _cluster(1)
+    port = _cluster(1, **NO_REPAIR)
     try:
         for m in ref.masters:
             m.repair_enabled = False
@@ -651,7 +680,7 @@ def test_unsupported_replication_is_refused():
     finally:
         cl.shutdown()
     ref = Cluster(n_volume_servers=1, pulse=PULSE)
-    cl = _cluster(1)
+    cl = _cluster(1, **NO_REPAIR)
     try:
         for m in ref.masters:
             m.repair_enabled = False
@@ -684,7 +713,7 @@ def test_failed_fan_out_answers_alike(action):
     replica's store is read directly: a GET there would have the
     reference's read repair fetch the needle from the primary)."""
     ref = Cluster(n_volume_servers=0, pulse=PULSE)
-    port = _cluster(2, racks=1)
+    port = _cluster(2, racks=1, **NO_REPAIR)
     try:
         for m in ref.masters:
             m.repair_enabled = False
@@ -728,7 +757,7 @@ def test_vacuum_skips_read_only_volumes():
     compacts it, the port's skips it as upstream's vacuumOneVolumeLayout
     does (ROADMAP Queue 3, D3), and compacts it once it is writable."""
     ref = Cluster(n_volume_servers=1, pulse=PULSE)
-    port = _cluster(1)
+    port = _cluster(1, **NO_REPAIR)
     try:
         for m in ref.masters:
             m.repair_enabled = False
@@ -1010,7 +1039,7 @@ def test_restarted_master_never_remints_a_key():
 def test_volume_commands_drive_port_cluster(package):
     """Each package's volume.configure.replication, volume.mark,
     volume.copy and volume.delete on the port's cluster."""
-    cl = _cluster(3, racks=1)
+    cl = _cluster(3, racks=1, **NO_REPAIR)
     try:
         client = PClient(cl.master_url)
         if package == "port":
@@ -1187,7 +1216,9 @@ def test_cli_master_volume_shell(tmp_path):
     procs = [subprocess.Popen(cli + args, stdout=subprocess.DEVNULL,
                               stderr=subprocess.DEVNULL)
              for args in (["master", "-port", str(mport), "-pulse", "0.2",
-                           "-volumeSizeLimitMB", "4"],
+                           "-volumeSizeLimitMB", "4",
+                           # reads with a shard deleted, not a rebuild
+                           "-maintenance_interval", "0"],
                           ["volume", "-port", str(vport),
                            "-dir", str(tmp_path), "-pulse", "0.2",
                            "-mserver", f"127.0.0.1:{mport}",
@@ -1267,9 +1298,11 @@ def test_cli_compact_matches_reference(tmp_path, capsys):
 def test_shell_registry():
     pcommands._register_all()
     assert set(pcommands.COMMANDS) == {
-        "ec.encode", "ec.rebuild", "ec.balance", "ec.decode",
-        "volume.list", "volume.fix.replication", "volume.copy",
-        "volume.delete", "volume.configure.replication", "volume.mark"}
+        "ec.encode", "ec.warmdown", "ec.rebuild", "ec.balance",
+        "ec.decode", "volume.list", "volume.fix.replication",
+        "volume.copy", "volume.delete", "volume.configure.replication",
+        "volume.mark", "volume.heat", "lifecycle.status",
+        "lifecycle.run"}
 
 
 # --- the HTTP layer --------------------------------------------------------

@@ -533,3 +533,76 @@ def test_replicated_vacuumed_cluster_encode_equals_numpy_store(
             assert client.download(fid) == data
     finally:
         cl.shutdown()
+
+
+@pytest.mark.gpu
+def test_auto_cluster_scrub_then_heal(tmp_path, monkeypatch):
+    """The self-healing loop on the card: a 4-server port cluster with
+    Store(coder_name="auto") and the repair daemon on; a shard of an
+    encoded volume has one byte flipped, the scrubber reports exactly it
+    (having checked every shard mounted there), and the master drops and
+    rebuilds it through gf_apply to the original bytes."""
+    _need_card()
+    import hashlib
+    import random
+    import time
+    from seaweedfs_torch.client import Client
+    from seaweedfs_torch.ec import geometry
+    from seaweedfs_torch.server.local_cluster import LocalCluster
+    from seaweedfs_torch.shell.ec_commands import EcCommands
+    monkeypatch.delenv("WEED_EC_GEOMETRY", raising=False)
+    monkeypatch.delenv("WEED_EC_FORMULATION", raising=False)
+    g = geometry.Geometry(10, 4, 64 * 1024, 4 * 1024)
+    cl = LocalCluster(4, coder_name="auto", geometry=g,
+                      volume_size_limit_mb=4, pulse=0.15,
+                      directory=str(tmp_path / "cluster"))
+    try:
+        client = Client(cl.master_url)
+        rng = random.Random(8)
+        fids = {}
+        for _ in range(30):
+            data = rng.randbytes(rng.randint(100, 40000))
+            fids[client.upload(data, collection="s")] = data
+        vids = {int(f.split(",")[0]) for f in fids}
+        assert len(vids) == 1
+        vid = vids.pop()
+        # the shell's spread holds the admin lock: the repair daemon
+        # keeps away from it
+        EcCommands(client, g).encode(vid, "s")
+        holders: dict = {}
+        for sid, urls in client.ec_lookup(vid)["shards"].items():
+            for u in urls:
+                holders.setdefault(u, []).append(int(sid))
+        url, sids = sorted(holders.items())[0]
+        node = cl.nodes[cl.index_of(url)]
+        path = os.path.join(node[3], f"s_{vid}") + geometry.to_ext(sids[0])
+        with open(path, "rb") as f:
+            want = hashlib.sha256(f.read()).hexdigest()
+        with open(path, "r+b") as f:
+            f.seek(7)
+            b = f.read(1)
+            f.seek(7)
+            f.write(bytes([b[0] ^ 0x5A]))
+        checked = node[0].metrics.value("scrub_shards_checked")
+        before = rs_cuda.gf_apply.launches
+        out = client.volume_admin(url, "ec/scrub", {"throttle_seconds": 0})
+        assert out["bad"] == {str(vid): [sids[0]]}
+        assert node[0].metrics.value("scrub_shards_checked") - checked \
+            == len(sids)
+        deadline = time.monotonic() + 60
+        while cl.master.metrics.value("repairs_succeeded",
+                                      {"kind": "ec"}) < 1:
+            assert time.monotonic() < deadline, "no repair"
+            time.sleep(0.05)
+        assert rs_cuda.gf_apply.launches > before
+        info = client.ec_lookup(vid)["shards"]
+        assert len(info) == 14
+        holder = cl.nodes[cl.index_of(info[str(sids[0])][0])][3]
+        with open(os.path.join(holder, f"s_{vid}")
+                  + geometry.to_ext(sids[0]), "rb") as f:
+            assert hashlib.sha256(f.read()).hexdigest() == want
+        client._vid_cache.clear()
+        for fid, data in fids.items():
+            assert client.download(fid) == data
+    finally:
+        cl.shutdown()

@@ -71,6 +71,12 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.shell.ec_shell",
                  "seaweedfs_torch.shell.volume_commands",
                  "seaweedfs_torch.storage.backend",
+                 "seaweedfs_torch.lifecycle",
+                 "seaweedfs_torch.lifecycle.heat",
+                 "seaweedfs_torch.lifecycle.policy",
+                 "seaweedfs_torch.lifecycle.daemon",
+                 "seaweedfs_torch.balance",
+                 "seaweedfs_torch.balance.planner",
                  "seaweedfs_torch.cli"):
         assert name in result["names"]
     assert result["forbidden"] == []
@@ -99,7 +105,8 @@ def test_sources_name_no_jax(path):
 
 
 SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
-                  *PORT.glob("topology/*.py"), PORT / "client.py",
+                  *PORT.glob("topology/*.py"), *PORT.glob("lifecycle/*.py"),
+                  *PORT.glob("balance/*.py"), PORT / "client.py",
                   PORT / "cli.py", PORT / "utils" / "multipart.py",
                   PORT / "storage" / "file_id.py"])
 
@@ -107,8 +114,9 @@ SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
 @pytest.mark.parametrize("path", SERVING,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_serving_layer_imports_only_stdlib_torch_numpy(path):
-    """The servers are aiohttp applications; the client, the shell and
-    the CLI use the standard library's HTTP client: the serving layer
+    """The servers and their daemons (lifecycle, balance) are aiohttp
+    applications; the client, the shell and the CLI use the standard
+    library's HTTP client: the serving layer
     imports the standard library, aiohttp, torch, numpy and the port,
     nothing else."""
     allowed = set(sys.stdlib_module_names) | {"aiohttp", "torch", "numpy",
