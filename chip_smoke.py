@@ -162,6 +162,35 @@ Phases (any failure exits non-zero before the result line):
    from its trigger to the daemon's action and the card's name and power
    limit. ``gf_apply`` must launch in steps 2-4 (and in the direct
    warm-down and the degraded reads) and nowhere else in the phase;
+10. (run after 9) the multi-card coder and the crash sweeps, on two mesh
+   members: distinct cards where the host has two or more, else the one
+   card twice (two members, each on its own stream). Every line has the
+   card's name and power limit. (10a) ``MeshCoder`` against the kernel:
+   RS(10,4), RS(20,4) and RS(6,3); widths 1, 1023, 64 KiB + 3 and 8 MiB +
+   5 (the pad path); both formulations; the parity matrix and the rebuild
+   of victims {0, 3, 7, 12} ({0, 3, 7} at RS(6,3)); every output equal to
+   single-card ``gf_apply`` and to the plain version, and the
+   formulation's kernel launched once per member per call;
+   ``sharded_encode`` and ``sharded_rebuild`` the same bytes. (10b) a
+   1 GiB volume from phase 3's generator, ``stream_encode`` governed,
+   single-card and through the two-member mesh (bitplane, then xorsched):
+   the 14 shard files equal by sha256, the plan's ``chips`` 2 and both
+   members' staging counters grown, ``stream_rebuild`` of the four
+   victims equal by sha256, both device sinks' digests equal to the
+   shard files' and the .ecm's; only the formulation's kernel runs, once
+   per member per batch (counted); wall time and GB/s per step. (10c)
+   under ``WEED_EC_MESH_DEVICES=all``, ``Store(coder_name="auto")`` lifts
+   its coder onto a ``MeshCoder`` over every card (a ``TorchCoder`` on a
+   one-card host); ``/admin/ec/mesh_status`` of a port volume server and
+   shell ``ec.mesh.status`` answer with ``requested``, ``mesh_devices``
+   and ``devices``, which names the card. (10d) crash sweeps
+   (``seaweedfs_torch.crashsim``) at 2 seeds x 20 crash points each:
+   ``ec_encode`` (RS(10,4) at 262144 / 16384 blocks, a 64 MiB seeded .dat,
+   ``stream_encode`` with ``get_coder("auto")``), ``fused_warmdown``
+   (RS(20,4), a 64 MiB volume of phase 6b's payload kinds, 30%
+   tombstoned) and ``volume_append``: zero violations, ``gf_apply``
+   launched in both EC sweeps; points, violations and wall time per
+   workload;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -206,11 +235,16 @@ import torch
 
 from seaweedfs_torch import faults, observe
 from seaweedfs_torch.client import Client, ClientError
+from seaweedfs_torch.client import _get_json as http_get_json
+from seaweedfs_torch.crashsim import harness as crash_harness
+from seaweedfs_torch.crashsim import workloads as crash_wl
 from seaweedfs_torch.ec import coder as coder_mod
 from seaweedfs_torch.ec import ec_volume, feed, geometry, governor
 from seaweedfs_torch.ec import pipeline, striping
 from seaweedfs_torch.observe import wideevents
 from seaweedfs_torch.lifecycle import LifecycleConfig
+from seaweedfs_torch.parallel import mesh_coder as mesh_mod
+from seaweedfs_torch.parallel import sharded
 from seaweedfs_torch.ops import _build, gf256, rs_cuda, rs_torch
 from seaweedfs_torch.ops import xor_schedule
 from seaweedfs_torch.server import http
@@ -2639,6 +2673,308 @@ def run_cli(work: Path, needles: int = 48) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+# --- phase 10: the multi-card coder and the crash sweeps ----------------
+
+MESH_GEOMETRIES = ((10, 4), (20, 4), (6, 3))
+MESH_WIDTHS = (1, 1023, 64 * 1024 + 3, 8 * MIB + 5)
+# the crash sweeps: sweep_all's defaults, and the volumes' sizes
+CRASH_SEEDS, CRASH_POINTS = 2, 20
+CRASH_DAT_BYTES = 64 * MIB
+
+
+def mesh_log(row: dict) -> None:
+    log({**row, "card": SMI[0]})
+
+
+def mesh_devices(count: int) -> list:
+    """Two members: distinct cards where the host has them, else the one
+    card twice (each member still on its own stream)."""
+    return ([torch.device("cuda", i) for i in range(2)] if count >= 2
+            else [torch.device("cuda", 0)] * 2)
+
+
+def only_kernel(counts: dict, kernel: str, n: int, what: str) -> None:
+    """`kernel` launched exactly n times and no other kernel at all."""
+    if counts[kernel] != n or any(c for name, c in counts.items()
+                                  if name != kernel):
+        raise AssertionError(f"{what}: launches {counts}, want {n} of "
+                             f"{kernel} and nothing else")
+
+
+def check_mesh_kernels(devices: list) -> int:
+    """(10a) The mesh's encode and rebuild, and the batched surface,
+    bit-equal to single-card gf_apply and to the plain version; returns
+    the cases checked."""
+    dev = devices[0]
+    smesh = sharded.make_mesh(devices=devices)
+    cases = 0
+    t0 = time.perf_counter()
+    for k, m in MESH_GEOMETRIES:
+        present, victims = lost(k, m)
+        w_par = rs_torch.load_matrix(gf256.parity_matrix(k, m), dev)
+        w_rec = rs_torch.load_matrix(gf256.reconstruction_matrix(
+            k, m, present, victims), dev)
+        meshes = {f: mesh_mod.MeshCoder(k, m, devices=devices,
+                                        formulation=f)
+                  for f in FORMULATION_KERNEL}
+        for width in MESH_WIDTHS:
+            rng = np.random.default_rng((SEED, k, width))
+            data = rng.integers(0, 256, (k, width), dtype=np.uint8)
+            flipped = np.ascontiguousarray(data[::-1])
+            parity, flipped_parity = (
+                rs_cuda.gf_apply(w_par, torch.from_numpy(x).to(dev))
+                .cpu().numpy() for x in (data, flipped))
+            rows = [*data, *parity]
+            surv = np.stack([rows[i] for i in present])
+            sd = torch.from_numpy(surv).to(dev)
+            rebuilt = rs_cuda.gf_apply(w_rec, sd).cpu().numpy()
+            plain = (rs_torch.gf_apply(w_par, torch.from_numpy(data)
+                                       .to(dev)).cpu().numpy(),
+                     rs_torch.gf_apply(w_rec, sd).cpu().numpy())
+            if not (np.array_equal(parity, plain[0])
+                    and np.array_equal(rebuilt, plain[1])
+                    and np.array_equal(rebuilt, np.stack(
+                        [rows[v] for v in victims]))):
+                raise AssertionError(f"RS({k},{m}) width {width}: gf_apply "
+                                     "differs from the plain version")
+            holed = [None if i in victims else r for i, r in enumerate(rows)]
+            for f, mesh in meshes.items():
+                kernel = FORMULATION_KERNEL[f]
+                what = f"mesh RS({k},{m}) {f} width {width}"
+                got, n = counted(lambda: mesh.encode(data))
+                only_kernel(n, kernel, len(devices), what + " encode")
+                if not np.array_equal(got, parity):
+                    raise AssertionError(what + ": parity differs")
+                got, n = counted(lambda: mesh.materialize(
+                    mesh.rec_apply_async(present, victims)(surv)))
+                only_kernel(n, kernel, len(devices), what + " rebuild")
+                if not np.array_equal(got, rebuilt):
+                    raise AssertionError(what + ": rebuild differs")
+                # one stripe per member, the two kinds alternating
+                got, n = counted(lambda: sharded.sharded_encode(
+                    smesh, np.stack([(data, flipped)[i % 2]
+                                     for i in range(len(devices))]), m, f))
+                only_kernel(n, kernel, len(devices), what + " sharded")
+                if not all(np.array_equal(g, (parity, flipped_parity)[i % 2])
+                           for i, g in enumerate(got)):
+                    raise AssertionError(what + ": sharded_encode differs")
+                out, n = counted(lambda: sharded.sharded_rebuild(
+                    smesh, holed, k, m, f))
+                only_kernel(n, kernel, len(devices),
+                            what + " sharded_rebuild")
+                if not all(np.array_equal(out[v], rows[v])
+                           for v in victims):
+                    raise AssertionError(what + ": sharded_rebuild differs")
+                cases += 1
+    mesh_log({"phase": "mesh.kernels_vs_single_and_plain", "cases": cases,
+              "members": [str(d) for d in devices],
+              "geometries": [f"RS({k},{m})" for k, m in MESH_GEOMETRIES],
+              "widths": list(MESH_WIDTHS),
+              "formulations": list(FORMULATION_KERNEL),
+              "bit_equal": True, "seconds": time.perf_counter() - t0})
+    return cases
+
+
+def chip_staged(n: int) -> list:
+    reg = metrics.shared("ec")
+    return [reg.value("feed_chip_staged_bytes", {"chip": str(i)})
+            for i in range(n)]
+
+
+def run_mesh_path(work: Path, devices: list, device: torch.device,
+                  total: int = 1 << 30) -> dict:
+    """(10b) A 1 GiB volume through stream_encode single-card and through
+    the mesh over `devices` in each formulation, rebuild and sinks;
+    returns launches per step."""
+    volume = source_volume(work / "src", total, 4 * MIB, SEED + 10,
+                           "mesh.")
+    g = geometry.DEFAULT
+    members = len(devices)
+    launches = {}
+    single = coder_mod.TorchCoder(g.data_shards, g.parity_shards,
+                                  device=device)
+    shutil.copytree(volume["dir"], work / "single")
+    base = str(work / "single" / "1")
+    dat_size = os.path.getsize(base + ".dat")
+    governor.reset()
+    _, launches["mesh.single_stream_encode"] = timed(
+        "mesh.single_stream_encode",
+        lambda: counted(lambda: pipeline.stream_encode(base, single, g)),
+        lambda r: dat_size, lambda r: {"launches": r[1], "card": SMI[0]})
+    want = shard_shas(base, g)
+    shutil.rmtree(work / "single")
+    for f, kernel in FORMULATION_KERNEL.items():
+        mesh = mesh_mod.MeshCoder(g.data_shards, g.parity_shards,
+                                  devices=devices, formulation=f)
+        tag = f"mesh.{f}."
+        shutil.copytree(volume["dir"], work / f)
+        base = str(work / f / "1")
+        governor.reset()
+        op = governor.get().plan(dat_size, g.data_shards,
+                                 chips=pipeline.coder_chips(mesh))
+        before = chip_staged(members)
+        with call_counter(mesh, "_stage_cols") as staged:
+            _, n = timed(
+                f"{tag}stream_encode",
+                lambda: counted(lambda: pipeline.stream_encode(base, mesh,
+                                                               g)),
+                lambda r: dat_size,
+                lambda r: {"launches": r[1], "card": SMI[0],
+                           "plan": {"chips": op.chips,
+                                    "batch_size": op.batch_size,
+                                    "depth": op.depth}})
+        grown = [a - b for a, b in zip(chip_staged(members), before)]
+        gauge = governor.get().metrics.value("feed_mesh_devices")
+        mesh_log({"phase": f"{tag}plan", "chips": op.chips,
+                  "feed_mesh_devices": gauge, "batches": staged.calls,
+                  "chip_staged_bytes": grown})
+        if op.chips != members or gauge != members or min(grown) <= 0:
+            raise AssertionError(f"{tag}: plan chips {op.chips}, gauge "
+                                 f"{gauge}, staged per chip {grown}")
+        only_kernel(n, kernel, members * staged.calls,
+                    f"{tag}stream_encode")
+        launches[f"{tag}stream_encode"] = n
+        if shard_shas(base, g) != want:
+            raise AssertionError(f"{tag}: shards differ from the "
+                                 "single-card run's")
+        for v in VICTIMS:
+            os.remove(base + geometry.to_ext(v))
+        with call_counter(mesh, "_stage_rows") as staged:
+            (rebuilt, n) = timed(
+                f"{tag}stream_rebuild",
+                lambda: counted(lambda: pipeline.stream_rebuild(base, mesh,
+                                                                g)),
+                lambda r: os.path.getsize(base + geometry.to_ext(1))
+                * g.data_shards, lambda r: {"launches": r[1],
+                                            "card": SMI[0]})
+        only_kernel(n, kernel, members * staged.calls,
+                    f"{tag}stream_rebuild")
+        launches[f"{tag}stream_rebuild"] = n
+        if rebuilt != list(VICTIMS) or shard_shas(base, g) != want:
+            raise AssertionError(f"{tag}: rebuilt shards differ")
+        with call_counter(mesh, "_stage_cols") as staged:
+            sinks = check_sinks(base, mesh, g, tag)
+        only_kernel({k: sum(c[k] for c in sinks.values())
+                     for k in WRAPPERS}, kernel, members * staged.calls,
+                    f"{tag}device sinks")
+        launches.update({f"{tag}{k}": c for k, c in sinks.items()})
+        shutil.rmtree(work / f)
+        mesh_log({"phase": f"{tag}summary", "members":
+                  [str(d) for d in devices], "shards_sha256_equal": True,
+                  "rebuilt_sha256_equal": True, "sink_digests_equal": True})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def run_mesh_surface(work: Path, card: str, count: int) -> None:
+    """(10c) WEED_EC_MESH_DEVICES=all: the Store's lift, and the mesh
+    status over HTTP and through the shell."""
+    work.mkdir(parents=True)
+    with env_set(WEED_EC_MESH_DEVICES="all"):
+        st = store_mod.Store([str(work / "lift")], coder_name="auto")
+        try:
+            c = st.coder()
+        finally:
+            st.close()
+        lifted = (isinstance(c, mesh_mod.MeshCoder)
+                  and c.mesh_devices == count) if count >= 2 else (
+            type(c) is coder_mod.TorchCoder and c.device.type == "cuda")
+        if not lifted:
+            raise AssertionError(f"Store coder under WEED_EC_MESH_DEVICES="
+                                 f"all on {count} card(s): {c!r}")
+        cl = LocalCluster(1, coder_name="auto", volume_size_limit_mb=64,
+                          pulse=0.5, directory=str(work / "cluster"))
+        try:
+            cl.wait_for_nodes(1)
+            http_status = http_get_json(
+                f"http://{cl.url(0)}/admin/ec/mesh_status")
+            shell_commands._register_all()
+            env = shell_commands.CommandEnv(Client(cl.master_url))
+            shell = shell_commands.run_command(env, ["ec.mesh.status"])
+        finally:
+            cl.shutdown()
+    for answer in (http_status, *shell["nodes"].values()):
+        if (answer.get("requested") != "all" or "mesh_devices" not in answer
+                or card not in [d["name"] for d in answer["devices"]]):
+            raise AssertionError(f"mesh status {answer}")
+    mesh_log({"phase": "mesh.surface", "store_coder": type(c).__name__,
+              "mesh_devices": getattr(c, "mesh_devices", 1),
+              "http": {k: http_status[k] for k in
+                       ("requested", "mesh_devices", "devices")},
+              "shell_nodes": len(shell["nodes"])})
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def crash_workloads(device: torch.device) -> list:
+    """(10d) The three crash workloads at the card's sizes: ec_encode on
+    phase 4's mixed tiers, fused_warmdown on phase 6b's payload kinds,
+    volume_append at its defaults."""
+    seed = SEED + 11
+    mixed = geometry.Geometry(large_block_size=262144,
+                              small_block_size=16384)
+    ec_encode = crash_wl.make_ec_workload(
+        coder=coder_mod.get_coder("auto", 10, 4), geometry=mixed,
+        dat_size=CRASH_DAT_BYTES,
+        dat_source=lambda n: np.random.default_rng(seed).bytes(n),
+        encode=pipeline.stream_encode)
+    count, stored = 0, 0
+    while stored < CRASH_DAT_BYTES:
+        count += 1
+        stored += len(archive_needle(seed, count).data)
+    rng = np.random.default_rng(seed)
+    gone = {int(i) + 1 for i in rng.choice(count, size=int(0.3 * count),
+                                           replace=False)}
+    fused = crash_wl.make_fused_warmdown_workload(
+        coder=coder_mod.get_coder("auto", 20, 4),
+        geometry=geometry.Geometry(20, 4), needles=count, deleted=gone,
+        make_needle=lambda nid: archive_needle(seed, nid))
+    return [ec_encode, fused, crash_wl.make_volume_workload()]
+
+
+def run_crash_sweeps(work: Path, device: torch.device) -> dict:
+    """(10d) Each workload at CRASH_SEEDS x CRASH_POINTS; zero violations,
+    gf_apply launched in both EC sweeps. Returns launches per sweep."""
+    work.mkdir(parents=True)
+    launches = {}
+    for w in crash_workloads(device):
+        t0 = time.perf_counter()
+        summary, n = counted(lambda: crash_harness.sweep_all(
+            seeds=CRASH_SEEDS, points=CRASH_POINTS, workloads=[w],
+            scratch_dir=str(work)))
+        secs = time.perf_counter() - t0
+        runs = summary["workloads"][w.name]
+        mesh_log({"phase": f"crash.{w.name}", "seconds": secs,
+                  "points": summary["total_points"],
+                  "violations": summary["total_violations"],
+                  "ops": [r["ops"] for r in runs], "launches": n,
+                  "first_violations": [v for r in runs
+                                       for v in r["violations"]][:3]})
+        if not summary["ok"] or summary["total_points"] != \
+                CRASH_SEEDS * CRASH_POINTS:
+            raise AssertionError(f"crash sweep {w.name}: {summary}")
+        ec_sweep = w.name != "volume_append"
+        if (ec_sweep != (n["gf_apply"] > 0)
+                or any(c for k, c in n.items() if k != "gf_apply")):
+            raise AssertionError(f"crash.{w.name}: launches {n}")
+        launches[f"crash.{w.name}"] = n
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def run_mesh(work: Path, device: torch.device, card: str,
+             count: int) -> dict:
+    """Phase 10; returns the main path's launches per step."""
+    devices = mesh_devices(count)
+    t0 = time.perf_counter()
+    check_mesh_kernels(devices)
+    launches = run_mesh_path(work / "path", devices, device)
+    run_mesh_surface(work / "surface", card, count)
+    launches.update(run_crash_sweeps(work / "crash", device))
+    mesh_log({"phase": "mesh.summary", "seconds": time.perf_counter() - t0,
+              "members": [str(d) for d in devices], "launches": launches})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2730,6 +3066,8 @@ def main() -> int:
             # phase 9: the self-driving warm tier, its own cluster
             launches["lifecycle"] = run_lifecycle(WORK / "lifecycle")
             check_lifecycle_launches(launches["lifecycle"])
+            # phase 10: the multi-card coder and the crash sweeps
+            launches["mesh"] = run_mesh(WORK / "mesh", device, card, count)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -2761,12 +3099,15 @@ def main() -> int:
         if k != "mxu_entry"}, **launches["store"], **launches["fused"],
         **launches["cluster"], **{
         k: v for k, v in launches["lifecycle"].items()
-        if k not in LIFECYCLE_CHECKS}}
+        if k not in LIFECYCLE_CHECKS}, **launches["mesh"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}
         enc = times[kernel][0]
         row = {**KERNELS[kernel], "launches": sum(by_phase.values()),
+               "launches_mesh": sum(counts[kernel] for step, counts in
+                                    launches["mesh"].items()
+                                    if step.startswith("mesh.")),
                "max_abs_err": checked["max_abs_err"][kernel],
                "ms": enc["ms"], "plain_ms": enc["plain_ms"],
                "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],

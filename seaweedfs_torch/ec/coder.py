@@ -15,8 +15,11 @@ schedule as operand). Unset, it follows the ``WEED_EC_FORMULATION`` pin:
 xorsched when the pin says so, bitplane otherwise; an unknown pin raises.
 
 ``get_coder("auto", k, m)`` returns the CUDA ``TorchCoder`` and raises
-where there is no card: it never falls back to the CPU. All backends and
-formulations produce bit-identical shards.
+where there is no card: it never falls back to the CPU. ``"mesh"`` is the
+multi-card coder's factory (``parallel.mesh_coder.coder``): a
+``MeshCoder`` over several cards, the single-card ``TorchCoder`` on one;
+it raises without a card too. All backends and formulations produce
+bit-identical shards.
 """
 
 from __future__ import annotations
@@ -301,18 +304,25 @@ class TorchCoder(ErasureCoder):
             return (w.sched.n_in + w.sched.n_rows) // 8
         return (w.shape[0] + w.shape[1]) // 8
 
-    def _run(self, w, data: np.ndarray, rows: int, digest: bool = False):
-        """Enqueue the operand applied to host bytes [C, n], with the
-        digest epilogue when asked; returns a handle."""
-        x = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
+    def _run(self, w, data, rows: int, digest: bool = False):
+        """Enqueue the operand applied to host bytes [C, n] (an array, or
+        a CPU tensor), with the digest epilogue when asked; returns a
+        handle."""
+        staged = self.stage_async(data)
+        return self._launch(w, staged.dev, rows, digest, keep=(staged.host,))
+
+    def _launch(self, w, xd: torch.Tensor, rows: int, digest: bool = False,
+                keep: tuple = ()) -> _Pending:
+        """Enqueue the operand applied to xd [C, n] on the coder's device
+        (written on the coder's stream), then the copy back; `keep` holds
+        whatever must outlive the enqueued work."""
         size = self._digest_size(w)
         if self._stream is None:
             d = rs_cuda.new_digest(size, "cpu") if digest else None
-            out = self._kernel(w, x, digest=d)
+            out = self._kernel(w, xd, digest=d)
             return _Pending(None, out, rows, (),
-                            None if d is None else d[:x.shape[0] + rows])
+                            None if d is None else d[:xd.shape[0] + rows])
         with torch.cuda.stream(self._stream):
-            xd = x.to(self.device, non_blocking=True)
             dd = rs_cuda.new_digest(size, self.device) if digest else None
             out = self._kernel(w, xd, digest=dd)
             host = torch.empty(out.shape, dtype=torch.uint8,
@@ -324,10 +334,10 @@ class TorchCoder(ErasureCoder):
                 dh.copy_(dd, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
-        # x (the caller's host batch) must outlive the async H2D copy; the
-        # digest's view drops the padding rows' sums
-        return _Pending(event, host, rows, (x, xd, out, dd),
-                        None if dh is None else dh[:x.shape[0] + rows])
+        # the host batch must outlive the async H2D copy; the digest's
+        # view drops the padding rows' sums
+        return _Pending(event, host, rows, keep + (xd, out, dd),
+                        None if dh is None else dh[:xd.shape[0] + rows])
 
     def materialize(self, handle) -> np.ndarray:
         if isinstance(handle, _Pending):
@@ -373,10 +383,12 @@ class TorchCoder(ErasureCoder):
 
     # --- staged-window hooks ---
 
-    def stage_async(self, data: np.ndarray) -> _Staged:
-        """Enqueue the batch's H2D copy on the coder's stream; no kernel
-        runs. On the CPU the batch is wrapped as it is."""
-        x = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
+    def stage_async(self, data) -> _Staged:
+        """Enqueue the batch's H2D copy on the coder's stream (an array,
+        or a CPU tensor: a page-locked one copies asynchronously); no
+        kernel runs. On the CPU the batch is wrapped as it is."""
+        x = (data.contiguous() if isinstance(data, torch.Tensor) else
+             torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8)))
         if self._stream is None:
             return _Staged(x, None, None)
         with torch.cuda.stream(self._stream):
@@ -425,8 +437,22 @@ def register_coder(name: str, factory) -> None:
     _REGISTRY[name] = factory
 
 
+def _mesh_factory(data_shards: int, parity_shards: int,
+                  device: "str | torch.device | None" = None
+                  ) -> ErasureCoder:
+    """The mesh-or-single factory (parallel/mesh_coder.py): a MeshCoder
+    over the cards WEED_EC_MESH_DEVICES asks for (default: every card),
+    the single-card TorchCoder on a one-card host; it raises without a
+    card. Imported lazily, as the reference does."""
+    if device is not None and torch.device(device).type != "cuda":
+        raise ValueError(f"get_coder('mesh'): {device} is not a card")
+    from ..parallel import mesh_coder
+    return mesh_coder.coder(data_shards, parity_shards)
+
+
 register_coder("numpy", NumpyCoder)
 register_coder("torch", TorchCoder)
+register_coder("mesh", _mesh_factory)
 
 
 def get_coder(name: str, data_shards: int, parity_shards: int,

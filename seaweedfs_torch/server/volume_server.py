@@ -22,6 +22,7 @@ reference's wire:
           POST /admin/ec/delete_shards, /blob_delete, /to_volume
           POST /admin/ec/scrub            (one scrub pass now)
           GET  /admin/ec/shard_read?volume=&shard=&offset=&size=
+          GET  /admin/ec/mesh_status      (the multi-card coder's state)
           GET  /admin/file_copy?volume_id=&collection=&ext=
           GET  /status, /healthz, /metrics
 
@@ -77,6 +78,7 @@ from .. import faults, observe
 from ..ec import pipeline as ec_pipeline
 from ..ec.geometry import to_ext
 from ..lifecycle.heat import HeatTracker
+from ..parallel import mesh_coder
 from ..storage import types as t
 from ..storage.file_id import FileId
 from ..storage.needle import (FLAG_HAS_LAST_MODIFIED, FLAG_HAS_MIME,
@@ -180,6 +182,8 @@ class VolumeServer:
         app.router.add_get("/admin/volume/needle_ids",
                            self.admin_needle_ids)
         app.router.add_get("/admin/ec/shard_read", self.admin_ec_shard_read)
+        app.router.add_get("/admin/ec/mesh_status",
+                           self.admin_ec_mesh_status)
         app.router.add_get("/admin/file_copy", self.admin_file_copy)
         app.router.add_get("/status", self.status)
         app.router.add_get("/metrics", self.metrics_handler)
@@ -980,6 +984,14 @@ class VolumeServer:
                 await r.read()
         except (aiohttp.ClientError, asyncio.TimeoutError) as e:
             log.warning("scrub report for volume %d failed: %s", vid, e)
+
+    async def admin_ec_mesh_status(self,
+                                   request: web.Request) -> web.Response:
+        """This process's multi-card view: the requested
+        WEED_EC_MESH_DEVICES, the cards, and the per-chip staging
+        counters and governor gauges of the shared "ec" registry (the
+        JSON twin of /metrics for the ec.mesh.status shell command)."""
+        return web.json_response(await _run(mesh_coder.mesh_status))
 
     async def admin_ec_scrub(self, request: web.Request) -> web.Response:
         """Run one scrub pass now (operators, tests)."""

@@ -1,12 +1,12 @@
 """Registry adapters exposing the EC lifecycle workflows as shell commands
 (ec.encode / ec.warmdown / ec.rebuild / ec.balance / ec.decode,
-weed/shell/command_ec_*).
+weed/shell/command_ec_*) and ``ec.mesh.status``.
 
-The port's copy of seaweedfs_tpu/shell/ec_shell.py without
-``ec.mesh.status``."""
+The port's copy of seaweedfs_tpu/shell/ec_shell.py."""
 
 from __future__ import annotations
 
+from ..client import _get_json
 from .commands import CommandEnv, command, parser
 from .ec_commands import EcCommands
 
@@ -82,6 +82,29 @@ def ec_balance(env: CommandEnv, argv: list[str]):
     p.add_argument("-dryRun", action="store_true")
     args = p.parse_args(argv)
     return _ec(env).balance(args.collection, apply=not args.dryRun)
+
+
+@command("ec.mesh.status",
+         "per-node multi-card and EC-feed state: mesh size, per-chip "
+         "staged bytes/seconds, governor operating point "
+         "(ec.mesh.status [-node url])")
+def ec_mesh_status(env: CommandEnv, argv: list[str]):
+    p = parser("ec.mesh.status")
+    p.add_argument("-node", default="")
+    args = p.parse_args(argv)
+    urls = ([args.node] if args.node else
+            [nd["url"] for nd in
+             env.client.dir_status().get("nodes", [])])
+    out: dict = {"nodes": {}}
+    for url in urls:
+        try:
+            out["nodes"][url] = _get_json(
+                f"http://{url}/admin/ec/mesh_status")
+        except Exception as e:
+            # a down node is when an operator runs this: record it and
+            # survey the rest of the fleet
+            out["nodes"][url] = {"error": f"{type(e).__name__}: {e}"}
+    return out
 
 
 @command("ec.decode",

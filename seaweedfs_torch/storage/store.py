@@ -15,8 +15,9 @@ The coder is ``get_coder(coder_name, k, m, device)``: "auto" (the
 default) is the CUDA kernel coder and raises on a host without a card;
 "torch" with ``device="cpu"`` runs the kernels' plain versions and
 "numpy" the table coder, both on request only. Nothing falls back to the
-CPU. ``WEED_EC_MESH_DEVICES`` >= 2 asks for a multi-card coder, which the
-port does not have yet: the store raises rather than run on one card.
+CPU. ``WEED_EC_MESH_DEVICES`` >= 2 lifts the card coders onto a
+``MeshCoder`` over that many cards (clamped to the cards present;
+``parallel/mesh_coder.py``), as the reference's ``_maybe_mesh`` does.
 
 The volume server reads a store through ``heartbeat()`` and
 ``status()``, and sets the ``_remote_shard_reader`` hook so that EC reads
@@ -31,6 +32,7 @@ Not ported: the free-space watchdog, tiering and TTL expiry.
 from __future__ import annotations
 
 import glob
+import logging
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -44,11 +46,14 @@ from ..ec import pipeline as ec_pipeline
 from ..ec.coder import ErasureCoder
 from ..ec.ec_volume import EcVolume, EcVolumeClosed
 from ..ec.striping import read_marker_geometry
+from ..parallel import mesh_coder
 from ..utils import durable
 from . import types as t
 from .needle import Needle
 from .superblock import ReplicaPlacement, SuperBlock
 from .volume import Volume
+
+log = logging.getLogger("store")
 
 
 class DiskLocation:
@@ -132,24 +137,6 @@ def _parse_volume_file_name(name: str) -> tuple[str, Optional[int]]:
         return "", None
 
 
-def mesh_device_count() -> int:
-    """The card count WEED_EC_MESH_DEVICES asks for (0: no mesh). Any
-    request of 2 or more counts, whatever the host has: the port has no
-    multi-card coder, and the store refuses one rather than run on one
-    card."""
-    raw = os.environ.get("WEED_EC_MESH_DEVICES", "").strip().lower()
-    if not raw or raw in ("0", "1", "no", "false"):
-        return 0
-    if raw == "all":
-        n = torch.cuda.device_count()
-        return n if n > 1 else 0
-    try:
-        n = int(raw)
-    except ValueError:
-        return 0
-    return n if n > 1 else 0
-
-
 class Store:
     def __init__(self, directories: list[str],
                  max_volume_counts: Optional[list[int]] = None,
@@ -183,16 +170,36 @@ class Store:
         key = (g.data_shards, g.parity_shards)
         c = self._coders.get(key)
         if c is None:
-            if self.coder_name in ("auto", "torch"):
-                n = mesh_device_count()
-                if n:
-                    raise NotImplementedError(
-                        f"WEED_EC_MESH_DEVICES asks for {n} cards; the "
-                        "port has no multi-card coder yet")
-            c = self._coders[key] = ec_mod.get_coder(
-                self.coder_name, g.data_shards, g.parity_shards,
-                device=self.device)
+            c = self._coders[key] = (
+                self._maybe_mesh(g) or ec_mod.get_coder(
+                    self.coder_name, g.data_shards, g.parity_shards,
+                    device=self.device))
         return c
+
+    def _maybe_mesh(self, g: ec_mod.Geometry) -> Optional[ErasureCoder]:
+        """The MeshCoder that WEED_EC_MESH_DEVICES >= 2 lifts a card
+        coder onto ("auto", and "torch" on a card), over that many cards
+        clamped to the cards present, in the formulation the single coder
+        would have; every encode and rebuild of this store then splits
+        its batches over them. None keeps the single coder: no mesh asked
+        for, an explicit "numpy" or "torch" on the CPU (they stay what
+        was asked for), or a mesh that fails to build, which logs an error
+        as the reference does (encode stays on the card and on the kernel,
+        and the operator sees that the mesh is not there)."""
+        on_card = self.coder_name == "auto" or (
+            self.coder_name == "torch"
+            and torch.device(self.device or "cuda").type == "cuda")
+        n = mesh_coder.mesh_device_count() if on_card else 0
+        if n < 2:
+            return None
+        try:
+            return mesh_coder.MeshCoder(g.data_shards, g.parity_shards,
+                                        n_devices=n)
+        except Exception as e:
+            log.error("WEED_EC_MESH_DEVICES asks for %d cards but the mesh "
+                      "coder could not be built (%s: %s); keeping the "
+                      "single-card coder", n, type(e).__name__, e)
+            return None
 
     def geometry_for(self, collection: str = "") -> ec_mod.Geometry:
         """The policy geometry new encodes of this collection use."""

@@ -95,6 +95,17 @@ class Registry:
                     lines.append(f"{p}_{name}{lbl} {self._gauges[key]}")
             return "\n".join(lines) + "\n"
 
+    def snapshot(self, prefix: str = "") -> dict[str, float]:
+        """Counters and gauges as a flat {rendered key: value} dict,
+        filtered by family-name prefix: the JSON face of the registry
+        for admin status endpoints (ec.mesh.status)."""
+        with self._lock:
+            out = {k: v for k, v in self._counters.items()
+                   if k.startswith(prefix)}
+            out.update((k, v) for k, v in self._gauges.items()
+                       if k.startswith(prefix))
+            return out
+
     def is_empty(self) -> bool:
         with self._lock:
             return not (self._counters or self._gauges)

@@ -1299,7 +1299,8 @@ def test_shell_registry():
     pcommands._register_all()
     assert set(pcommands.COMMANDS) == {
         "ec.encode", "ec.warmdown", "ec.rebuild", "ec.balance",
-        "ec.decode", "volume.list", "volume.fix.replication",
+        "ec.decode", "ec.mesh.status", "volume.list",
+        "volume.fix.replication",
         "volume.copy", "volume.delete", "volume.configure.replication",
         "volume.mark", "volume.heat", "lifecycle.status",
         "lifecycle.run"}

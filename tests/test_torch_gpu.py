@@ -606,3 +606,59 @@ def test_auto_cluster_scrub_then_heal(tmp_path, monkeypatch):
             assert client.download(fid) == data
     finally:
         cl.shutdown()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("formulation", ["bitplane", "xorsched"])
+def test_mesh_coder_on_the_card_equals_single_card(formulation):
+    """A two-member MeshCoder on the card (the one card twice where there
+    is only one, each member on its own stream) gives the single-card
+    coder's parity, row digests and rebuilt rows at an odd width, its
+    formulation's kernel launched once per member per call."""
+    _need_card()
+    from seaweedfs_torch.parallel import mesh_coder
+    n = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(2)] if n >= 2
+               else [torch.device("cuda", 0)] * 2)
+    mesh = mesh_coder.MeshCoder(10, 4, devices=devices,
+                                formulation=formulation)
+    single = pcoder.TorchCoder(10, 4, formulation=formulation)
+    kernel = (rs_cuda.gf_apply_xorsched if formulation == "xorsched"
+              else rs_cuda.gf_apply)
+    rng = np.random.default_rng(71)
+    data = rng.integers(0, 256, (10, (1 << 20) + 7), dtype=np.uint8)
+    before = kernel.launches
+    handle = mesh.encode_async(data)
+    parity = mesh.materialize(handle)
+    assert kernel.launches - before == 2
+    want = single.encode_async(data)
+    assert np.array_equal(parity, single.materialize(want))
+    assert np.array_equal(mesh.row_digests(handle),
+                          single.row_digests(want))
+    rows = [*data, *parity]
+    present = tuple(i for i in range(14) if i not in VICTIMS)[:10]
+    survivors = np.stack([rows[i] for i in present])
+    got = mesh.materialize(mesh.rec_apply_async(present, VICTIMS)(survivors))
+    for row, victim in zip(got, VICTIMS):
+        assert np.array_equal(row, rows[victim]), victim
+
+
+@pytest.mark.gpu
+def test_ec_encode_crash_sweep_on_the_card():
+    """The ec_encode crash workload through stream_encode with the card's
+    coder: zero violations, gf_apply launched."""
+    _need_card()
+    from seaweedfs_torch.crashsim import sweep
+    from seaweedfs_torch.crashsim import workloads
+    from seaweedfs_torch.ec import geometry, pipeline
+    before = rs_cuda.gf_apply.launches
+    w = workloads.make_ec_workload(
+        coder=pcoder.get_coder("auto", 10, 4),
+        geometry=geometry.Geometry(large_block_size=262144,
+                                   small_block_size=16384),
+        dat_size=4 << 20,
+        dat_source=lambda n: np.random.default_rng(72).bytes(n),
+        encode=pipeline.stream_encode)
+    r = sweep(w, seed=1, points=8)
+    assert r.points == 8 and r.ok, r.violations
+    assert rs_cuda.gf_apply.launches > before

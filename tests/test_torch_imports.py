@@ -77,6 +77,15 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.lifecycle.daemon",
                  "seaweedfs_torch.balance",
                  "seaweedfs_torch.balance.planner",
+                 "seaweedfs_torch.parallel",
+                 "seaweedfs_torch.parallel.mesh_coder",
+                 "seaweedfs_torch.parallel.sharded",
+                 "seaweedfs_torch.crashsim",
+                 "seaweedfs_torch.crashsim.__main__",
+                 "seaweedfs_torch.crashsim.shim",
+                 "seaweedfs_torch.crashsim.replay",
+                 "seaweedfs_torch.crashsim.harness",
+                 "seaweedfs_torch.crashsim.workloads",
                  "seaweedfs_torch.cli"):
         assert name in result["names"]
     assert result["forbidden"] == []

@@ -11,7 +11,8 @@ ec_generate_many, mount, shard reads, reads with every shard and with two
 lost, ec_blob_delete, a reopen under a changed policy (the .ecm marker
 wins), ec_rebuild, ec_to_volume. Every file the two produce must be equal
 bytes. Also here: the geometry policy against the reference's, the
-coder's refusals (no card for "auto", WEED_EC_MESH_DEVICES), and the
+coder's refusal of "auto" without a card, the WEED_EC_MESH_DEVICES lift
+onto a MeshCoder (on a stubbed card count), and the
 absent-marker warning of check_layout_marker.
 """
 
@@ -287,14 +288,80 @@ def test_store_auto_coder_raises_without_card(tmp_path):
         st.close()
 
 
+@pytest.fixture
+def two_cards(monkeypatch):
+    """A host with two cards whose mesh members run on the CPU: the card
+    count torch reports, and the devices a card count maps to."""
+    from seaweedfs_torch.parallel import mesh_coder
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(mesh_coder, "card_devices",
+                        lambda n: [torch.device("cpu")] * n)
+    return mesh_coder
+
+
 @pytest.mark.parametrize("coder", ["auto", "torch"])
-def test_store_refuses_mesh_devices(tmp_path, monkeypatch, coder):
-    monkeypatch.setenv("WEED_EC_MESH_DEVICES", "2")
-    st = pstore.Store([str(tmp_path)], coder_name=coder,
-                      device=None if coder == "auto" else "cpu")
+def test_store_lifts_card_coder_onto_mesh(tmp_path, monkeypatch, two_cards,
+                                          coder):
+    """WEED_EC_MESH_DEVICES lifts the card coders ("auto", and "torch" on
+    a card) onto a MeshCoder over the cards asked for, as the reference's
+    _maybe_mesh does; the lifted coder encodes the numpy coder's bytes."""
+    monkeypatch.setenv("WEED_EC_MESH_DEVICES", "all")
+    st = pstore.Store([str(tmp_path)], coder_name=coder)
     try:
-        with pytest.raises(NotImplementedError, match="MESH|cards"):
-            st.coder()
+        c = st.coder()
+        assert isinstance(c, two_cards.MeshCoder)
+        assert c.mesh_devices == 2 and c.formulation == "bitplane"
+        assert st.coder() is c
+        data = np.random.default_rng(5).integers(0, 256, (10, 1001),
+                                                 dtype=np.uint8)
+        assert np.array_equal(c.encode(data),
+                              pcoder.NumpyCoder(10, 4).encode(data))
+    finally:
+        st.close()
+
+
+def test_store_mesh_request_clamps_to_one_card(tmp_path, monkeypatch,
+                                               two_cards):
+    """A request for more cards than the host has clamps to those
+    present, and a host with one card keeps the single-card coder."""
+    monkeypatch.setenv("WEED_EC_MESH_DEVICES", "8")
+    st = pstore.Store([str(tmp_path)], coder_name="auto")
+    try:
+        assert two_cards.mesh_device_count() == 2
+        assert st.coder().mesh_devices == 2
+    finally:
+        st.close()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert two_cards.mesh_device_count() == 0
+    # the card's single coder, standing in on the CPU
+    single = pcoder.TorchCoder(10, 4, device="cpu")
+    monkeypatch.setattr(pstore.ec_mod, "get_coder",
+                        lambda name, k, m, device=None: single)
+    st = pstore.Store([str(tmp_path / "one")], coder_name="auto")
+    try:
+        assert st.coder() is single
+    finally:
+        st.close()
+
+
+def test_store_keeps_single_coder_when_the_mesh_fails(tmp_path, monkeypatch,
+                                                       two_cards, caplog):
+    """A mesh that fails to build keeps the single-card coder and logs an
+    error, as the reference's _maybe_mesh does."""
+    monkeypatch.setenv("WEED_EC_MESH_DEVICES", "2")
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("peer copies unavailable")
+
+    monkeypatch.setattr(two_cards, "MeshCoder", broken)
+    single = pcoder.TorchCoder(10, 4, device="cpu")
+    monkeypatch.setattr(pstore.ec_mod, "get_coder",
+                        lambda name, k, m, device=None: single)
+    st = pstore.Store([str(tmp_path)], coder_name="auto")
+    try:
+        with caplog.at_level(logging.ERROR, logger="store"):
+            assert st.coder() is single
+        assert "peer copies unavailable" in caplog.text
     finally:
         st.close()
 
