@@ -75,7 +75,8 @@ Phases (any failure exits non-zero before the result line):
    (rebuilt shards' sha256 equal, .ecj folded into .ecx),
    ``ec_to_volume`` (the decoded .dat equals the source up to its last
    live needle; every needle reads from the restored volume). (6b) the
-   ``archive`` collection, RS(20,4): a 1 GiB volume of the fused
+   ``archive`` collection, RS(20,4): a 512 MiB volume (1 GiB before the
+   twelfth slice made room for phase 11) of the fused
    warm-down tests' five payload kinds, 30% tombstoned (upstream's default
    vacuum garbageThreshold), ``ec_fused_generate`` (24 shards, a marker
    naming RS(20,4), the decoded .dat equal to the sequential
@@ -172,7 +173,8 @@ Phases (any failure exits non-zero before the result line):
    single-card ``gf_apply`` and to the plain version, and the
    formulation's kernel launched once per member per call;
    ``sharded_encode`` and ``sharded_rebuild`` the same bytes. (10b) a
-   1 GiB volume from phase 3's generator, ``stream_encode`` governed,
+   512 MiB volume (1 GiB before phase 11) from phase 3's generator,
+   ``stream_encode`` governed,
    single-card and through the two-member mesh (bitplane, then xorsched):
    the 14 shard files equal by sha256, the plan's ``chips`` 2 and both
    members' staging counters grown, ``stream_rebuild`` of the four
@@ -184,13 +186,54 @@ Phases (any failure exits non-zero before the result line):
    one-card host); ``/admin/ec/mesh_status`` of a port volume server and
    shell ``ec.mesh.status`` answer with ``requested``, ``mesh_devices``
    and ``devices``, which names the card. (10d) crash sweeps
-   (``seaweedfs_torch.crashsim``) at 2 seeds x 20 crash points each:
-   ``ec_encode`` (RS(10,4) at 262144 / 16384 blocks, a 64 MiB seeded .dat,
+   (``seaweedfs_torch.crashsim``) at 2 seeds x 10 crash points each:
+   ``ec_encode`` (RS(10,4) at 262144 / 16384 blocks, a 32 MiB seeded .dat,
    ``stream_encode`` with ``get_coder("auto")``), ``fused_warmdown``
-   (RS(20,4), a 64 MiB volume of phase 6b's payload kinds, 30%
+   (RS(20,4), a 32 MiB volume of phase 6b's payload kinds, 30%
    tombstoned) and ``volume_append``: zero violations, ``gf_apply``
    launched in both EC sweeps; points, violations and wall time per
    workload;
+11. (run after 10) the auto-balancer and the volume server's data path,
+   in its own ``LocalCluster``: a master with the repair daemon, a
+   lifecycle daemon whose rules fire later than the phase lasts, and the
+   balancer (``WEED_BALANCE_INTERVAL=1``, cooldown 30 s; heat half-life
+   2 s), 4 volume servers on 2 racks (``Store(coder_name="auto")``, pulse
+   0.5 s), volume size limit 256 MiB, default replication ``010``,
+   ``WEED_VOLUME_GROUP_COMMIT_US=2000``. Under the operator's admin lease
+   (no daemon moves anything meanwhile): (11a) 64 clients upload phase
+   3's generator's needles (log-uniform 1 KiB .. 64 KiB; 16 keys per
+   assign) until four volumes are full: uploads/s, acknowledgement
+   p50/p99 and fsyncs per upload (``os.fsync`` counted); then, into a
+   fifth volume, about 4000 uploads with group commit off and about 4000
+   with it on, side by side; every acknowledged needle read back from
+   both holders' stores. (11b) read repair on the fifth volume: a byte
+   flipped in one holder's copy of a needle reads back good from that
+   holder, ``read_crc_repair`` and ``read_repair`` grow by one and the
+   next read is local; a needle's index entry dropped on that holder (a
+   lost write) reads back repaired. (11c) The four full volumes are
+   sealed (shell ``volume.mark -readonly``); the first of two volumes
+   held by one node is caught mid-encode there (its shard set generated
+   on the card and mounted beside its copies); 8 threads read both
+   from that node until shell ``cluster.balance.status``
+   ranks it hot (and 4 s at least), then 3 s pass with no move started;
+   the lease is released, and reads through the lookup run on while the
+   balancer confirms a move over two passes and copies, verifies and
+   retires; none may fail; every holder set keeps its two racks; no
+   plan names the mid-encode volume, nor does it move (its shards are
+   dropped after); every needle of a moved volume reads back from its new
+   holder over HTTP; a new volume grows on the coldest node, never the
+   hottest; shell ``cluster.balance.run``; moves, bytes moved and
+   seconds from the skew to the first completed move. (11d) shell
+   ``ec.encode`` of the moved volume on the card, every needle read with
+   one shard holder stopped (degraded reads; the repair daemon paused for
+   them), then the repair daemon's rebuild of the lost shards, each
+   holder's ``.ecm`` digests equal to its shard files. (11b, last) the
+   repair daemon off and the fifth volume's peer stopped: a needle corrupt on the remaining holder answers 500
+   "data corruption" in under 2 s, eight times. (11e) the crash sweep of
+   ``volume_group_commit`` at 2 seeds x 20 points (zero violations) and
+   the four clustersim scenarios at 1000 nodes (their digests).
+   ``gf_apply`` must launch in 11c's mid-encode and in 11d's encode and
+   degraded reads, and nowhere else in the phase;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -220,7 +263,10 @@ from __future__ import annotations
 import collections
 import functools
 import hashlib
+import itertools
 import json
+import multiprocessing as mp
+import queue
 import os
 import shutil
 import subprocess
@@ -235,7 +281,10 @@ import torch
 
 from seaweedfs_torch import faults, observe
 from seaweedfs_torch.client import Client, ClientError
+from seaweedfs_torch import balance as balance_mod
+from seaweedfs_torch.balance import daemon as balance_daemon
 from seaweedfs_torch.client import _get_json as http_get_json
+from seaweedfs_torch.clustersim import scenarios as sim_scenarios
 from seaweedfs_torch.crashsim import harness as crash_harness
 from seaweedfs_torch.crashsim import workloads as crash_wl
 from seaweedfs_torch.ec import coder as coder_mod
@@ -251,6 +300,7 @@ from seaweedfs_torch.server import http
 from seaweedfs_torch.server.local_cluster import LocalCluster
 from seaweedfs_torch.shell import commands as shell_commands
 from seaweedfs_torch.shell.ec_commands import EcCommands
+from seaweedfs_torch.storage import idx as idx_mod
 from seaweedfs_torch.storage import store as store_mod
 from seaweedfs_torch.storage import types as st_types
 from seaweedfs_torch.storage.file_id import FileId
@@ -2677,9 +2727,14 @@ def run_cli(work: Path, needles: int = 48) -> None:
 
 MESH_GEOMETRIES = ((10, 4), (20, 4), (6, 3))
 MESH_WIDTHS = (1, 1023, 64 * 1024 + 3, 8 * MIB + 5)
-# the crash sweeps: sweep_all's defaults, and the volumes' sizes
+# the crash sweeps: sweep_all's defaults (phase 11e), phase 10d's points
+# and source size (cut from 20 and 64 MiB to make room for phase 11)
 CRASH_SEEDS, CRASH_POINTS = 2, 20
-CRASH_DAT_BYTES = 64 * MIB
+MESH_CRASH_POINTS = 10
+CRASH_DAT_BYTES = 32 * MIB
+# phase 6b's archive volume and phase 10b's volume, cut from 1 GiB for
+# the same reason
+CUT_VOLUME_BYTES = 512 * MIB
 
 
 def mesh_log(row: dict) -> None:
@@ -2783,7 +2838,7 @@ def chip_staged(n: int) -> list:
 
 def run_mesh_path(work: Path, devices: list, device: torch.device,
                   total: int = 1 << 30) -> dict:
-    """(10b) A 1 GiB volume through stream_encode single-card and through
+    """(10b) A volume through stream_encode single-card and through
     the mesh over `devices` in each formulation, rebuild and sinks;
     returns launches per step."""
     volume = source_volume(work / "src", total, 4 * MIB, SEED + 10,
@@ -2932,14 +2987,15 @@ def crash_workloads(device: torch.device) -> list:
 
 
 def run_crash_sweeps(work: Path, device: torch.device) -> dict:
-    """(10d) Each workload at CRASH_SEEDS x CRASH_POINTS; zero violations,
-    gf_apply launched in both EC sweeps. Returns launches per sweep."""
+    """(10d) Each workload at CRASH_SEEDS x MESH_CRASH_POINTS; zero
+    violations, gf_apply launched in both EC sweeps. Returns launches per
+    sweep."""
     work.mkdir(parents=True)
     launches = {}
     for w in crash_workloads(device):
         t0 = time.perf_counter()
         summary, n = counted(lambda: crash_harness.sweep_all(
-            seeds=CRASH_SEEDS, points=CRASH_POINTS, workloads=[w],
+            seeds=CRASH_SEEDS, points=MESH_CRASH_POINTS, workloads=[w],
             scratch_dir=str(work)))
         secs = time.perf_counter() - t0
         runs = summary["workloads"][w.name]
@@ -2950,7 +3006,7 @@ def run_crash_sweeps(work: Path, device: torch.device) -> dict:
                   "first_violations": [v for r in runs
                                        for v in r["violations"]][:3]})
         if not summary["ok"] or summary["total_points"] != \
-                CRASH_SEEDS * CRASH_POINTS:
+                CRASH_SEEDS * MESH_CRASH_POINTS:
             raise AssertionError(f"crash sweep {w.name}: {summary}")
         ec_sweep = w.name != "volume_append"
         if (ec_sweep != (n["gf_apply"] > 0)
@@ -2967,12 +3023,804 @@ def run_mesh(work: Path, device: torch.device, card: str,
     devices = mesh_devices(count)
     t0 = time.perf_counter()
     check_mesh_kernels(devices)
-    launches = run_mesh_path(work / "path", devices, device)
+    launches = run_mesh_path(work / "path", devices, device,
+                             total=CUT_VOLUME_BYTES)
     run_mesh_surface(work / "surface", card, count)
     launches.update(run_crash_sweeps(work / "crash", device))
     mesh_log({"phase": "mesh.summary", "seconds": time.perf_counter() - t0,
               "members": [str(d) for d in devices], "launches": launches})
     return launches
+
+
+# --- phase 11: the auto-balancer and the volume server's data path ------
+
+BAL_COLLECTION = "balsmoke"
+BAL_AB = "balgc"          # the fifth volume: group commit off, then on
+BAL_NEW = "balnew"        # a volume grown after the moves
+# upstream's 30 GB volume size limit, cut to 256 MiB
+BAL_LIMIT_MB = 256
+BAL_FULL = 4              # the full 010 volumes of step 11a
+BAL_CLIENTS = 64
+BAL_PROCS = 4             # uploader processes (16 clients each)
+BAL_AB_NEEDLES = 4000
+BAL_MAX_NEEDLE = 64 * 1024
+BAL_ASSIGN_COUNT = 16     # keys per /dir/assign?count=
+# the balancer's and the volume servers' knobs, read at construction
+BAL_ENV = {"WEED_BALANCE_ENABLED": "1", "WEED_BALANCE_INTERVAL": "1",
+           "WEED_BALANCE_COOLDOWN": "30",
+           "WEED_LIFECYCLE_HEAT_HALFLIFE": "2",
+           "WEED_VOLUME_GROUP_COMMIT_US": "2000"}
+# a read of a corrupt needle whose only peer is down: answered within
+# this many seconds (a connect timeout would take 10)
+BAL_FAST_500_S = 2.0
+# steps of phase 11 that run the coder (gf_apply must launch there, and
+# in no other step of the phase)
+BALANCE_CODER_STEPS = ("balance.ec_mid_encode", "balance.ec_encode",
+                       "balance.read_degraded")
+
+
+def bal_log(step: str, secs: float, launches=None, **extra) -> None:
+    row = {"phase": step, "seconds": secs}
+    if launches is not None:
+        row["launches"] = launches
+    row.update(extra)
+    row["card"] = SMI[0]
+    log(row)
+
+
+class fsync_counter:
+    """Count os.fsync calls for a block (every thread of the process)."""
+
+    def __enter__(self):
+        self.count = 0
+        self._lock = threading.Lock()
+        self._real = os.fsync
+
+        def fsync(fd):
+            with self._lock:
+                self.count += 1
+            return self._real(fd)
+
+        os.fsync = fsync
+        return self
+
+    def __exit__(self, *exc):
+        os.fsync = self._real
+
+
+def bal_upload(master_url: str, collection: str, seed: int, stop,
+               limit: int, counter, threads: int = BAL_CLIENTS) -> dict:
+    """`threads` clients upload phase 3's generator's needles (log-uniform
+    1 KiB .. 64 KiB) until `stop()` or `limit` uploads; each client takes
+    a block of keys per assign (``count=``). Returns fid -> (nid, size),
+    the acknowledgement latencies and the wall seconds."""
+    acked: dict = {}
+    lat: list = []
+    lock = threading.Lock()
+    errors: list = []
+
+    def client_loop(i: int) -> None:
+        client = Client(master_url)
+        rng = np.random.default_rng((seed, i))
+        try:
+            while not stop() and len(acked) < limit:
+                a = client.assign(count=BAL_ASSIGN_COUNT,
+                                  collection=collection)
+                base = FileId.parse(a["fid"])
+                for k in range(BAL_ASSIGN_COUNT):
+                    if stop() or len(acked) >= limit:
+                        return
+                    nid = next(counter)
+                    size = int(np.exp(rng.uniform(np.log(1024),
+                                                  np.log(BAL_MAX_NEEDLE))))
+                    fid = str(FileId(base.volume_id, base.key + k,
+                                     base.cookie))
+                    t0 = time.perf_counter()
+                    client.upload_blob(a["url"], fid,
+                                       payload(seed, nid, size))
+                    dt = time.perf_counter() - t0
+                    with lock:
+                        acked[fid] = (nid, size)
+                        lat.append(dt)
+        except Exception as e:
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=client_loop, args=(i,), daemon=True)
+               for i in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    secs = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"uploads failed: {errors[:3]}")
+    return {"acked": acked, "lat": lat, "seconds": secs}
+
+
+def _upload_proc(master_url: str, collection: str, seed: int,
+                 first_nid: int, threads: int, limit: int, stop,
+                 out) -> None:
+    """One uploader process: `threads` clients of ``bal_upload``, needle
+    ids counted from `first_nid`; puts (acked, latencies, its clients'
+    seconds) on `out`."""
+    up = bal_upload(master_url, collection, seed, stop.is_set, limit,
+                    itertools.count(first_nid), threads=threads)
+    out.put((up["acked"], up["lat"], up["seconds"]))
+
+
+def bal_upload_procs(master_url: str, collection: str, seed: int, done,
+                     limit: int, run: int,
+                     procs: int = BAL_PROCS) -> dict:
+    """``BAL_CLIENTS`` clients in `procs` processes (each its own
+    interpreter, so the clients do not share the servers' GIL) until
+    `done()` holds or each process has `limit` acknowledgements; needle
+    ids are unique per (`run`, process). Returns fid -> (nid, size), the
+    latencies and the longest process's seconds from its clients' start
+    to their end (an interpreter's start is not counted)."""
+    ctx = mp.get_context("spawn")
+    stop, out = ctx.Event(), ctx.Queue()
+    workers = [ctx.Process(target=_upload_proc, args=(
+        master_url, collection, seed, 1 + (run * procs + i) * 10 ** 8,
+        BAL_CLIENTS // procs, limit, stop, out), daemon=True)
+        for i in range(procs)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    results: list = []
+    try:
+        while len(results) < procs:
+            if done():
+                stop.set()
+            try:
+                results.append(out.get(timeout=0.2))
+            except queue.Empty:
+                if not any(w.is_alive() for w in workers) and out.empty():
+                    raise AssertionError("an uploader process died")
+    finally:
+        stop.set()
+        for w in workers:
+            w.join(30)
+            if w.is_alive():
+                w.kill()
+    acked, lat = {}, []
+    for a, lt, _ in results:
+        acked.update(a)
+        lat += lt
+    return {"acked": acked, "lat": lat,
+            "seconds": max(r[2] for r in results),
+            "wall_s": time.perf_counter() - t0}
+
+
+def _verify_files(base: str, want: list, seed: int) -> dict:
+    """One holder's copy of a volume read from its files (.idx entries,
+    then each record from the .dat, CRC checked): each (key, cookie, nid,
+    size) of `want` present with the generator's bytes."""
+    with open(base + ".dat", "rb") as f:
+        sb = SuperBlock.from_bytes(f.read(8))
+        entries = {}
+        for key, off, size in idx_mod.iter_index_file(
+                base + ".idx", offset_size=sb.offset_size):
+            entries[key] = (off, size)
+        out = {"reads": 0, "bytes": 0, "failed": collections.Counter()}
+        for key, cookie, nid, size in want:
+            off, stored = entries.get(key, (0, -1))
+            if not off or not st_types.size_is_valid(stored):
+                out["failed"]["missing"] += 1
+                continue
+            f.seek(st_types.stored_to_offset(off))
+            try:
+                n = Needle.from_bytes(
+                    f.read(st_types.get_actual_size(stored, sb.version)),
+                    sb.version)
+            except ValueError:
+                out["failed"]["crc"] += 1
+                continue
+            data = compression.decompress(n.data) if n.is_compressed \
+                else n.data
+            if n.cookie != cookie or data != payload(seed, nid, size):
+                out["failed"]["wrong bytes"] += 1
+                continue
+            out["reads"] += 1
+            out["bytes"] += size
+    return out
+
+
+def bal_read_files(cl, by_vid: dict, holders: dict, collection_of,
+                   seed: int) -> dict:
+    """Every needle of every volume from each holder's files, one process
+    per (volume, holder) copy."""
+    jobs = []
+    for vid, items in by_vid.items():
+        want = [(FileId.parse(f).key, FileId.parse(f).cookie, n, s)
+                for f, n, s in items]
+        for url in holders[vid]:
+            base = os.path.join(cl.nodes[cl.index_of(url)][3],
+                                f"{collection_of(vid)}_{vid}")
+            jobs.append((base, want, seed))
+    with mp.get_context("spawn").Pool(min(8, len(jobs))) as pool:
+        parts = pool.starmap(_verify_files, jobs)
+    out = {"reads": 0, "bytes": 0, "failed": collections.Counter()}
+    for p in parts:
+        out["reads"] += p["reads"]
+        out["bytes"] += p["bytes"]
+        out["failed"].update(p["failed"])
+    return out
+
+
+def bal_read(master_url: str, items: list, seed: int, url_by_vid: dict,
+             threads: int = 8) -> dict:
+    """Each (fid, nid, size) read over HTTP from the holder
+    url_by_vid[vid] at `threads` threads, byte-compared with the
+    generator; returns bytes, latencies and failures by cause."""
+    lock = threading.Lock()
+    out = {"bytes": 0, "lat": [], "failed": collections.Counter()}
+
+    def part(chunk: list) -> None:
+        client = Client(master_url)
+        for fid, nid, size in chunk:
+            t0 = time.perf_counter()
+            try:
+                data = client.download(fid, url=url_by_vid[
+                    FileId.parse(fid).volume_id])
+            except (ClientError, OSError) as e:
+                with lock:
+                    out["failed"][str(e)[-40:]] += 1
+                continue
+            dt = time.perf_counter() - t0
+            with lock:
+                if data != payload(seed, nid, size):
+                    out["failed"]["wrong bytes"] += 1
+                else:
+                    out["bytes"] += size
+                    out["lat"].append(dt)
+
+    chunks = [items[i::threads] for i in range(threads)]
+    workers = [threading.Thread(target=part, args=(c,), daemon=True)
+               for c in chunks]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    return out
+
+
+def bal_read_procs(master_url: str, items: list, seed: int,
+                   url_by_vid: dict, procs: int = BAL_PROCS) -> dict:
+    """``bal_read`` over `procs` processes (8 client threads each), so
+    the readers do not share the servers' GIL."""
+    with mp.get_context("spawn").Pool(procs) as pool:
+        parts = pool.starmap(bal_read, [
+            (master_url, items[i::procs], seed, url_by_vid)
+            for i in range(procs)])
+    out = {"bytes": 0, "lat": [], "failed": collections.Counter()}
+    for p in parts:
+        out["bytes"] += p["bytes"]
+        out["lat"] += p["lat"]
+        out["failed"].update(p["failed"])
+    return out
+
+
+def bal_full_vids(cl, collection: str) -> list:
+    """Volumes of `collection` the master lists at or past the size
+    limit."""
+    limit = cl.master.topology.volume_size_limit
+    full = set()
+    for node in list(cl.master.topology.nodes.values()):
+        for vid, vi in list(node.volumes.items()):
+            if vi.collection == collection and vi.size >= limit:
+                full.add(vid)
+    return sorted(full)
+
+
+def bal_holders(cl, vid: int) -> list:
+    return sorted(n.url for n in cl.master.topology.lookup(vid))
+
+
+def flip_needle_byte(cl, url: str, vid: int, fid: str) -> None:
+    """Flip one byte of a needle's data in one holder's .dat (bit rot
+    under a live volume)."""
+    v = holder_volume(cl, url, vid)
+    nv = v.nm.get(FileId.parse(fid).key)
+    off = st_types.stored_to_offset(nv.offset) + \
+        st_types.NEEDLE_HEADER_SIZE + 4 + min(10, nv.size - 5)
+    path = v.base_file_name() + ".dat"
+    fd = os.open(path, os.O_RDWR)
+    try:
+        b = os.pread(fd, 1, off)
+        os.pwrite(fd, bytes([b[0] ^ 0xFF]), off)
+    finally:
+        os.close(fd)
+
+
+def vs_metric(cl, url: str, name: str) -> float:
+    return cl.nodes[cl.index_of(url)][0].metrics.value(name)
+
+
+def run_balance(work: Path, limit_mb: int = BAL_LIMIT_MB,
+                ab_needles: int = BAL_AB_NEEDLES, pulse: float = 0.5,
+                coder_name: str = "auto", device=None,
+                sim_nodes: int = 1000) -> dict:
+    """(11) The auto-balancer and the volume server's data path, in its
+    own cluster: a master with the repair daemon (off for the last read
+    only), a lifecycle daemon whose rules do not fire within the phase,
+    and the balancer (a pass every second), 4 volume servers on 2 racks,
+    default replication 010, group commit at 2 ms. Returns launches per
+    step."""
+    work.mkdir(parents=True)
+    seed = SEED + 12
+    launches: dict = {}
+    observe.reset()
+    cfg = LifecycleConfig(warm_after=3600.0, interval=LC_INTERVAL)
+    with env_set(**BAL_ENV):
+        cl = LocalCluster(
+            4, coder_name=coder_name, device=device,
+            volume_size_limit_mb=limit_mb, pulse=pulse,
+            directory=str(work / "cluster"), racks=2,
+            master_kwargs={"lifecycle_config": cfg,
+                           "default_replication": "010",
+                           "maintenance_interval_seconds": pulse},
+            volume_kwargs={"scrub_interval_seconds": 0})
+    try:
+        client = Client(cl.master_url)
+        env = shell_commands.CommandEnv(client, geometry.DEFAULT)
+        shell_commands._register_all()
+        # the operator's admin lease over the bulk load, its checks and
+        # the heat of 11c: no daemon moves a volume read from a named
+        # holder meanwhile
+        lease = client.admin_lock
+        lease.__enter__()
+
+        # (11a) group-commit fill until four 010 volumes are full
+        def fill():
+            with fsync_counter() as fc:
+                up = bal_upload_procs(
+                    cl.master_url, BAL_COLLECTION, seed,
+                    lambda: len(bal_full_vids(cl, BAL_COLLECTION))
+                    >= BAL_FULL, 1 << 40, run=0)
+            up["fsyncs"] = fc.count
+            return up
+
+        up, launches["balance.fill"] = counted(fill)
+        acked = up["acked"]
+        full = bal_full_vids(cl, BAL_COLLECTION)[:BAL_FULL]
+        by_vid: dict = collections.defaultdict(list)
+        for fid, (nid, size) in acked.items():
+            by_vid[FileId.parse(fid).volume_id].append((fid, nid, size))
+        bal_log("balance.fill", up["seconds"], launches["balance.fill"],
+                uploads=len(acked),
+                uploads_per_s=len(acked) / up["seconds"],
+                bytes=sum(s for _, s in acked.values()),
+                **{"ack_" + k: v for k, v in
+                   latency_summary(up["lat"]).items() if k != "reads"},
+                fsyncs=up["fsyncs"],
+                fsyncs_per_upload=up["fsyncs"] / len(acked),
+                full_volumes=full, clients=BAL_CLIENTS,
+                volumes={str(v): len(by_vid[v]) for v in sorted(by_vid)})
+        if len(full) < BAL_FULL:
+            raise AssertionError(f"full volumes {full}")
+        # group commit off, then on, into a fifth volume
+        rates = {}
+        ab: dict = {}
+        for run, tag, us in ((1, "off", 0), (2, "on", int(BAL_ENV[
+                "WEED_VOLUME_GROUP_COMMIT_US"]))):
+            for node in cl.nodes:
+                node[0]._batcher.group_commit_us = us
+            with fsync_counter() as fc:
+                r, n = counted(lambda: bal_upload_procs(
+                    cl.master_url, BAL_AB, seed, lambda: False,
+                    ab_needles // BAL_PROCS, run=run))
+            launches[f"balance.group_commit_{tag}"] = n
+            ab.update(r["acked"])
+            rates[tag] = {"uploads": len(r["acked"]),
+                          "uploads_per_s": len(r["acked"]) / r["seconds"],
+                          "fsyncs": fc.count,
+                          **{"ack_" + k: v for k, v in latency_summary(
+                              r["lat"]).items() if k != "reads"}}
+        ab_vids = sorted({FileId.parse(f).volume_id for f in ab})
+        bal_log("balance.group_commit_ab", 0.0, rates=rates,
+                volumes=ab_vids,
+                launches={t: launches[f"balance.group_commit_{t}"]
+                          for t in rates})
+        for fid, (nid, size) in ab.items():
+            by_vid[FileId.parse(fid).volume_id].append((fid, nid, size))
+        # every acknowledged needle, from both holders' files
+        holders = {v: bal_holders(cl, v) for v in by_vid}
+        if any(len(h) != 2 for h in holders.values()):
+            raise AssertionError(f"holders {holders}")
+        t0 = time.perf_counter()
+        got, launches["balance.read_both_holders"] = counted(
+            lambda: bal_read_files(
+                cl, by_vid, holders,
+                lambda v: BAL_AB if v in ab_vids else BAL_COLLECTION,
+                seed))
+        want = 2 * sum(len(x) for x in by_vid.values())
+        if got["failed"] or got["reads"] != want:
+            raise AssertionError(f"read back {got['reads']} of {want}: "
+                                 f"{dict(got['failed'])}")
+        bal_log("balance.read_both_holders", time.perf_counter() - t0,
+                launches["balance.read_both_holders"], reads=got["reads"],
+                bytes=got["bytes"])
+
+        # (11b) read repair on the writable fifth volume
+        def repair_reads():
+            vid = ab_vids[0]
+            a, b = holders[vid]
+            rot, lost = by_vid[vid][0], by_vid[vid][1]
+            before = {k: vs_metric(cl, a, k)
+                      for k in ("read_crc_repair", "read_repair")}
+            flip_needle_byte(cl, a, vid, rot[0])
+            t0 = time.perf_counter()
+            if client.download(rot[0], url=a) != payload(seed, rot[1],
+                                                          rot[2]):
+                raise AssertionError("read repair served wrong bytes")
+            crc_s = time.perf_counter() - t0
+            after = {k: vs_metric(cl, a, k) for k in before}
+            client.download(rot[0], url=a)
+            local = vs_metric(cl, a, "read_repair") == after["read_repair"]
+            if [after[k] - before[k] for k in before] != [1, 1] \
+                    or not local:
+                raise AssertionError(f"crc repair counters {before} -> "
+                                     f"{after}, next read local {local}")
+            holder_volume(cl, a, vid).nm._map.pop(FileId.parse(lost[0]).key)
+            t0 = time.perf_counter()
+            if client.download(lost[0], url=a) != payload(
+                    seed, lost[1], lost[2]):
+                raise AssertionError("lost write repaired wrong")
+            lost_s = time.perf_counter() - t0
+            if vs_metric(cl, a, "read_repair") != after["read_repair"] + 1:
+                raise AssertionError("lost write not repaired")
+            return {"volume": vid, "holder": a, "peer": b,
+                    "crc_repair_s": crc_s, "lost_write_repair_s": lost_s}
+
+        t0 = time.perf_counter()
+        rep, launches["balance.read_repair"] = counted(repair_reads)
+        bal_log("balance.read_repair", time.perf_counter() - t0,
+                launches["balance.read_repair"], **rep)
+
+        # (11c) the balancer: sealed volumes, one node read hot
+        t0 = time.perf_counter()
+        for vid in full:
+            for url in holders[vid]:
+                shell_commands.run_command(
+                    env, ["volume.mark", "-volumeId", str(vid), "-node",
+                          url, "-readonly"])
+        per_node = collections.Counter(u for v in full for u in holders[v])
+        hot = max(sorted(per_node), key=per_node.get)
+        hot_vids = [v for v in full if hot in holders[v]][:2]
+        if len(hot_vids) < 2:
+            raise AssertionError(f"no node holds two full volumes: "
+                                 f"{holders}")
+        # one of the two caught mid-encode: its shard set generated and
+        # mounted on the hot node beside its copies, as an ec.encode
+        # shows it before the copies go. It stays among the volumes read
+        # hot, so only the planner's EC rule keeps it where it is
+        mid_vid = hot_vids[0]
+
+        def mid_encode() -> None:
+            client.volume_admin(hot, "ec/generate",
+                                {"volume_id": mid_vid,
+                                 "collection": BAL_COLLECTION})
+            client.volume_admin(hot, "ec/mount", {
+                "volume_id": mid_vid, "collection": BAL_COLLECTION,
+                "shard_ids": list(range(geometry.DEFAULT.total_shards))})
+            wait_until(lambda: cl.master.topology.lookup_ec_shards(
+                mid_vid), "the mid-encode shards in the topology")
+
+        _, launches["balance.ec_mid_encode"] = counted(mid_encode)
+        plans: list = []
+        plan_moves = balance_daemon.plan_moves
+
+        def recorded_plan(*args, **kwargs):
+            out = plan_moves(*args, **kwargs)
+            plans.append([mv.vid for mv in out])
+            return out
+
+        balance_daemon.plan_moves = recorded_plan
+        heat_items = [x for v in hot_vids for x in by_vid[v][:2000]]
+        ranked = threading.Event()
+        reads = collections.Counter()
+
+        def heat_loop(i: int) -> None:
+            c = Client(cl.master_url)
+            mine = heat_items[i::8]
+            k = 0
+            while not ranked.is_set():
+                fid = mine[k % len(mine)][0]
+                k += 1
+                c.download(fid, url=hot)
+                reads[i] += 1
+
+        heaters = [threading.Thread(target=heat_loop, args=(i,),
+                                    daemon=True) for i in range(8)]
+        for h in heaters:
+            h.start()
+
+        def is_hot() -> bool:
+            st = shell_commands.run_command(
+                env, ["cluster.balance.status", "-hot", "1"])
+            top = st["node_rates"]
+            rates = client.balance_status()["node_rates"]
+            mean = sum(rates.values()) / max(len(rates), 1)
+            cut = max(mean * st["config"]["hot_ratio"],
+                      st["config"]["min_rate"])
+            return list(top) == [hot] and top[hot] > cut
+
+        # hot, and read for two half-lives at least: the rate the node
+        # reports then stands well above what the probe below adds. The
+        # operator's lease is still held, 3 s past that too: no move may
+        # start under it
+        heat_min = time.monotonic() + 2 * float(
+            BAL_ENV["WEED_LIFECYCLE_HEAT_HALFLIFE"])
+        wait_until(lambda: is_hot() and time.monotonic() > heat_min,
+                   "the node ranked hot", timeout=300)
+        hot_rates = client.balance_status()["node_rates"]
+        ranked.set()
+        for h in heaters:
+            h.join()
+        heat_s = time.perf_counter() - t0
+        lease_pending = []
+        end = time.monotonic() + 3.0
+        while time.monotonic() < end:
+            lease_pending += client.balance_status()["pending"]
+            time.sleep(0.1)
+        under_lease = client.balance_status()
+        if lease_pending or under_lease["moves_done"]:
+            raise AssertionError(f"moves under the admin lease: "
+                                 f"{under_lease['recent']}")
+        # reads through the lookup all through the moves, each from a
+        # holder the lookup lists, at about 20 a second (a faster probe
+        # would itself make a node hot)
+        probe_stop = threading.Event()
+        probe = collections.Counter()
+
+        def probe_loop() -> None:
+            c = Client(cl.master_url)
+            rng = np.random.default_rng((seed, 99))
+            pool = [x for v in full for x in by_vid[v]]
+            while not probe_stop.is_set():
+                fid, nid, size = pool[int(rng.integers(len(pool)))]
+                vid = FileId.parse(fid).volume_id
+                c._vid_cache.pop(vid)
+                try:
+                    urls = c.lookup(vid)
+                    got = c.download(fid, url=urls[int(rng.integers(
+                        len(urls)))])
+                    probe["ok" if got == payload(seed, nid, size)
+                          else "wrong bytes"] += 1
+                except (ClientError, OSError) as e:
+                    probe[f"failed: {str(e)[-40:]}"] += 1
+                probe_stop.wait(0.05)
+
+        probes = [threading.Thread(target=probe_loop, daemon=True)]
+        for p in probes:
+            p.start()
+        # the skew is the balancer's to see from here
+        lease.__exit__(None, None, None)
+        t_skew = time.time()
+
+        def moved() -> bool:
+            st = client.balance_status()
+            return st["moves_done"] >= 1 and not st["pending"]
+
+        def balance_wait():
+            try:
+                wait_until(moved, "a completed balance move", timeout=300)
+            except AssertionError:
+                # what the balancer saw, for the report
+                m = cl.master
+                bal_log("balance.stuck", 300.0,
+                        status=client.balance_status(),
+                        plan=[mv.to_dict() for mv in balance_mod.plan_moves(
+                            m.topology, m.balancer.cfg, time.time())],
+                        daemon_jobs=sorted(map(str, m.daemon_jobs())),
+                        holders={str(v): bal_holders(cl, v) for v in full},
+                        racks={n.url: n.rack
+                               for n in m.topology.nodes.values()})
+                raise
+
+        _, launches["balance.move"] = counted(balance_wait)
+        status = client.balance_status()
+        oks = [e for e in status["recent"] if e["outcome"] == "ok"]
+        first_move_s = min(e["at"] for e in oks) - t_skew
+        moved_vids = sorted({e["volume"] for e in oks})
+        for e in oks:
+            wait_until(lambda e=e: bal_holders(cl, e["volume"]).count(
+                e["src"]) == 0 and e["dst"] in bal_holders(cl, e["volume"]),
+                f"volume {e['volume']} on its new holder only")
+        probe_stop.set()
+        for p in probes:
+            p.join()
+        ran = shell_commands.run_command(env, "cluster.balance.run")
+        # placement, EC, every needle from every new holder
+        racks = {n.url: (n.data_center, n.rack)
+                 for n in cl.master.topology.nodes.values()}
+        for vid in full:
+            h = bal_holders(cl, vid)
+            if len(h) != 2 or len({racks[u] for u in h}) != 2:
+                raise AssertionError(f"volume {vid} holders {h}")
+        balance_daemon.plan_moves = plan_moves
+        if any(cl.master.topology.lookup_ec_shards(v) for v in moved_vids):
+            raise AssertionError("an EC volume moved")
+        mid_heat = cl.master.topology.nodes[hot].heat.get(mid_vid)
+        mid_rate = mid_heat.rate_now(time.time()) if mid_heat else 0.0
+        if (any(mid_vid in p for p in plans) or mid_vid in moved_vids
+                or bal_holders(cl, mid_vid) != holders[mid_vid]
+                or not mid_rate):
+            raise AssertionError(
+                f"mid-encode volume {mid_vid}: planned "
+                f"{sum(mid_vid in p for p in plans)} times, holders "
+                f"{bal_holders(cl, mid_vid)}, rate {mid_rate}")
+        # the shard set goes again: the volume is a normal one from here
+        client.volume_admin(hot, "ec/delete_shards", {
+            "volume_id": mid_vid, "collection": BAL_COLLECTION,
+            "shard_ids": list(range(geometry.DEFAULT.total_shards))})
+        wait_until(lambda: not cl.master.topology.lookup_ec_shards(
+            mid_vid), "the mid-encode shards gone from the topology")
+        bad_probe = {k: n for k, n in probe.items() if k != "ok"}
+        if bad_probe or not probe["ok"]:
+            raise AssertionError(f"reads during the moves: {dict(probe)}")
+        t1 = time.perf_counter()
+        new_reads, launches["balance.read_moved"] = counted(
+            lambda: bal_read_procs(
+                cl.master_url, [x for e in oks for x in by_vid[e["volume"]]],
+                seed, {e["volume"]: e["dst"] for e in oks}))
+        if new_reads["failed"]:
+            raise AssertionError(f"moved volumes: "
+                                 f"{dict(new_reads['failed'])}")
+        rank = cl.master.balancer.assign_rank()
+        new_fid = client.upload(b"n" * 4096, collection=BAL_NEW)
+        new_holders = bal_holders(cl, FileId.parse(new_fid).volume_id)
+        # the coldest node takes the new volume, the hottest never
+        hottest = max(sorted(rank), key=rank.get)
+        coldest = min(rank.values())
+        if hottest in new_holders or \
+                all(rank[u] > coldest for u in new_holders):
+            raise AssertionError(f"assign placed {new_holders} on rank "
+                                 f"{rank}")
+        bal_log("balance.balancer", time.perf_counter() - t0,
+                launches["balance.move"], hot_node=hot,
+                hot_volumes=hot_vids, heat_reads=sum(reads.values()),
+                rates_when_hot=hot_rates,
+                seconds_to_hot=heat_s,
+                seconds_lease_release_to_first_move=first_move_s,
+                moves=len(oks), moved_volumes=moved_vids,
+                mid_encode_volume=mid_vid, mid_encode_rate=mid_rate,
+                passes_recorded=len(plans),
+                mid_encode_launches=launches["balance.ec_mid_encode"],
+                bytes_moved=status["moved_bytes"],
+                recent=status["recent"][:4], probe_reads=dict(probe),
+                moved_needles_read=len(new_reads["lat"]),
+                moved_read_seconds=time.perf_counter() - t1,
+                read_moved_launches=launches["balance.read_moved"],
+                admin_lease_pending=lease_pending,
+                passes_under_lease=under_lease["passes"],
+                shell_balance_run=ran, assign_rank=rank,
+                new_volume_holders=new_holders)
+
+        # (11d) a balanced volume on the card: encode, degraded reads
+        vid = oks[0]["volume"]
+        t0 = time.perf_counter()
+        _, launches["balance.ec_encode"] = counted(
+            lambda: EcCommands(client, geometry.DEFAULT).encode(
+                vid, BAL_COLLECTION))
+        enc_s = time.perf_counter() - t0
+        spread = ec_holders(client, vid)
+        # a shard holder that is neither holder of the fifth volume, whose
+        # pair the last step of 11b needs as it is
+        gone = min((u for u in spread
+                    if u not in (rep["holder"], rep["peer"])),
+                   key=lambda u: (len(spread[u]), u))
+        # the repair daemon paused while the needles are read, so every
+        # read of a lost shard reconstructs; then it rebuilds them
+        cl.master.repair_enabled = False
+        cl.stop_volume_server(cl.index_of(gone))
+        alive = sorted(u for u in spread if u != gone)
+        t0 = time.perf_counter()
+        m = cl.master.metrics
+        heal0 = m.value("repairs_succeeded", labels={"kind": "ec"})
+
+        def degraded():
+            t1 = time.perf_counter()
+            out = bal_read_procs(cl.master_url, by_vid[vid], seed,
+                                 {vid: alive[0]})
+            out["read_s"] = time.perf_counter() - t1
+            cl.master.repair_enabled = True
+            wait_until(lambda: m.value("repairs_succeeded",
+                                       labels={"kind": "ec"}) > heal0,
+                       "the repair daemon's rebuild", timeout=300)
+            out["rebuild_s"] = time.perf_counter() - t1 - out["read_s"]
+            return out
+
+        deg, launches["balance.read_degraded"] = counted(degraded)
+        if deg["failed"] or len(deg["lat"]) != len(by_vid[vid]):
+            raise AssertionError(f"degraded reads {dict(deg['failed'])}")
+        checked = 0
+        for url in alive:
+            base = os.path.join(cl.nodes[cl.index_of(url)][3],
+                                f"{BAL_COLLECTION}_{vid}")
+            stamped = pipeline.read_stamped_digests(base)
+            sids = [s for s in range(geometry.DEFAULT.total_shards)
+                    if os.path.exists(base + geometry.to_ext(s))]
+            files = pipeline.shard_file_digest(base, sids).tolist()
+            if [stamped.get(s) for s in sids] != files:
+                raise AssertionError(f"{url}: .ecm {stamped} != {files}")
+            checked += len(sids)
+        bal_log("balance.ec_on_card", time.perf_counter() - t0 + enc_s,
+                {k: launches[k] for k in BALANCE_CODER_STEPS},
+                volume=vid, encode_s=enc_s, spread=spread,
+                stopped=gone, reads=len(deg["lat"]), bytes=deg["bytes"],
+                read_s=deg["read_s"], rebuild_after_reads_s=deg["rebuild_s"],
+                **{k: v for k, v in latency_summary(deg["lat"]).items()
+                   if k != "reads"}, ecm_shards_checked=checked)
+
+        # (11b, last) the peer down: a corrupt needle answers 500 at once
+        def no_peer():
+            # the repair daemon off: a fresh copy of the volume elsewhere
+            # would give the holder a live peer again
+            cl.master.repair_enabled = False
+            a, b = sorted(bal_holders(cl, rep["volume"]),
+                          key=lambda u: u != rep["holder"])
+            cl.stop_volume_server(cl.index_of(b))
+            fid = by_vid[rep["volume"]][2][0]
+            flip_needle_byte(cl, a, rep["volume"], fid)
+            times = []
+            for _ in range(8):
+                t0 = time.perf_counter()
+                r = http.request("GET", f"http://{a}/{fid}", timeout=60)
+                times.append(time.perf_counter() - t0)
+                if r.status != 500 or b"data corruption" not in r.data:
+                    raise AssertionError(f"{r.status} {r.data[:80]!r}")
+            if max(times) > BAL_FAST_500_S:
+                raise AssertionError(f"500 after {max(times)} s")
+            return times
+
+        times, launches["balance.read_no_peer"] = counted(no_peer)
+        bal_log("balance.read_no_peer", sum(times),
+                launches["balance.read_no_peer"], reads=len(times),
+                max_s=max(times), bound_s=BAL_FAST_500_S)
+    finally:
+        cl.shutdown()
+    shutil.rmtree(work / "cluster", ignore_errors=True)
+
+    # (11e) the crash sweep of group commit, and clustersim at 1000 nodes
+    t0 = time.perf_counter()
+    summary, launches["balance.crash"] = counted(
+        lambda: crash_harness.sweep_all(
+            seeds=CRASH_SEEDS, points=CRASH_POINTS,
+            workloads=[crash_wl.make_group_commit_workload()],
+            scratch_dir=str(work)))
+    bal_log("balance.crash_group_commit", time.perf_counter() - t0,
+            launches["balance.crash"], points=summary["total_points"],
+            violations=summary["total_violations"])
+    if not summary["ok"] or summary["total_points"] != \
+            CRASH_SEEDS * CRASH_POINTS:
+        raise AssertionError(f"group-commit sweep: {summary}")
+    t0 = time.perf_counter()
+    reports, launches["balance.clustersim"] = counted(
+        lambda: [sim_scenarios.run_scenario(name, 0, nodes=sim_nodes)
+                 for name in sim_scenarios.SCENARIOS])
+    bal_log("balance.clustersim", time.perf_counter() - t0,
+            launches["balance.clustersim"], nodes=sim_nodes,
+            digests={r["scenario"]: r["digest"] for r in reports},
+            moves={r["scenario"]: r["moves"] for r in reports},
+            repairs={r["scenario"]: r["repairs"] for r in reports})
+    bad = {r["scenario"]: r["violations"] for r in reports
+           if r["violations"]}
+    if bad:
+        raise AssertionError(f"clustersim violations {bad}")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def check_balance_launches(launches: dict) -> None:
+    """gf_apply in 11d's steps, nothing in any other step of the phase,
+    no other kernel anywhere."""
+    for step, counts in launches.items():
+        others = {k: n for k, n in counts.items() if k != "gf_apply" and n}
+        if others or (step in BALANCE_CODER_STEPS) != (counts["gf_apply"]
+                                                       > 0):
+            raise AssertionError(f"{step}: launches {counts}")
 
 
 def main() -> int:
@@ -3058,7 +3906,8 @@ def main() -> int:
         with env_set(WEED_EC_GEOMETRY=None, WEED_EC_FORMULATION=None,
                      WEED_EC_MESH_DEVICES=None):
             launches["store"] = run_store_default(WORK / "store", device)
-            launches["fused"] = run_store_archive(WORK / "fused", device)
+            launches["fused"] = run_store_archive(
+                WORK / "fused", device, total=CUT_VOLUME_BYTES)
             # phase 7: the same path through the servers, the shell and
             # the CLI
             launches["cluster"] = run_cluster(WORK / "cluster", device)
@@ -3068,6 +3917,10 @@ def main() -> int:
             check_lifecycle_launches(launches["lifecycle"])
             # phase 10: the multi-card coder and the crash sweeps
             launches["mesh"] = run_mesh(WORK / "mesh", device, card, count)
+            # phase 11: the auto-balancer and the volume server's data
+            # path, its own cluster
+            launches["balance"] = run_balance(WORK / "balance")
+            check_balance_launches(launches["balance"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -3099,7 +3952,8 @@ def main() -> int:
         if k != "mxu_entry"}, **launches["store"], **launches["fused"],
         **launches["cluster"], **{
         k: v for k, v in launches["lifecycle"].items()
-        if k not in LIFECYCLE_CHECKS}, **launches["mesh"]}
+        if k not in LIFECYCLE_CHECKS}, **launches["mesh"],
+        **launches["balance"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

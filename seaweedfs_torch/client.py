@@ -7,7 +7,14 @@ cache), on ``http.client`` through server/http.py's keep-alive
 connections. Used by the shell commands, the CLI and the tests. An
 upload to a replicated volume goes to the assigned holder, which fans
 it out; a download tries every holder the master lists, or reads from
-one named holder (``download(fid, url=...)``). Left out: the
+one named holder (``download(fid, url=...)``).
+
+Every call carries the ambient deadline budget (``X-Seaweed-Deadline``,
+utils/retry.py) and caps its socket timeout to it. The master's calls
+follow the reference's failure discipline for one master: a connection
+error is retried once after a ``RetryPolicy`` backoff, and a shed answer
+(429/503 with ``X-Seaweed-Shed: 1``) once after its ``Retry-After``
+(capped at 5 s); any other 429/502/503/504 is an error. Left out: the
 bulk-assignment lease pool, the shared connection pool with its circuit
 breaker, master rotation across an HA list, replica failover to a second
 cluster, the watch stream, JWTs, batch delete, tail and query.
@@ -22,14 +29,25 @@ import uuid
 from typing import Optional
 
 from .server import http
+from .utils.retry import (RETRYABLE_STATUSES, RetryPolicy, cap_timeout,
+                          inject_deadline, is_shed, parse_retry_after)
 
 
 class ClientError(RuntimeError):
     pass
 
 
+def _request(method: str, url: str, body: Optional[bytes] = None,
+             headers: Optional[dict] = None,
+             timeout: float = 30.0) -> http.ClientResponse:
+    """One call with the ambient deadline budget: its remaining seconds
+    ride the deadline header, and the socket timeout is capped to it."""
+    return http.request(method, url, body, inject_deadline(dict(
+        headers or {})), cap_timeout(timeout))
+
+
 def _get_json(url: str, timeout: float = 30.0) -> dict:
-    r = http.request("GET", url, timeout=timeout)
+    r = _request("GET", url, timeout=timeout)
     try:
         return r.json()
     except ValueError:
@@ -37,7 +55,8 @@ def _get_json(url: str, timeout: float = 30.0) -> dict:
 
 
 def _post_json(url: str, body: dict, timeout: float = 300.0) -> dict:
-    status, detail = http.post_json(url, body, timeout)
+    status, detail = http.post_json(url, body, cap_timeout(timeout),
+                                    headers=inject_deadline({}))
     if status >= 400:
         raise ClientError(f"POST {url}: {detail.get('error')}")
     return detail
@@ -94,9 +113,11 @@ class AdminLock:
         self._renewer: Optional[threading.Thread] = None
 
     def _lease(self, previous: int) -> dict:
+        # a fresh lease may wait up to 30 s on the master for the
+        # daemons' jobs in flight
         return _post_json(f"http://{self.master}/cluster/lock",
                           {"name": self.NAME, "client": self.owner,
-                           "previous_token": previous}, timeout=30.0)
+                           "previous_token": previous}, timeout=60.0)
 
     def __enter__(self) -> "AdminLock":
         with self._mu:
@@ -152,9 +173,37 @@ class Client:
         self.master = master_url.split(",")[0].strip().rstrip("/")
         self._vid_cache = _VidCache(ttl=60.0)
         self.admin_lock = AdminLock(self.master)
+        self._retry = RetryPolicy(base_delay=0.05, max_delay=1.0)
 
     def _master_get(self, path_qs: str, timeout: float = 30.0) -> dict:
-        return _get_json(f"http://{self.master}{path_qs}", timeout)
+        """GET from the master: a connection error is retried once after
+        a backoff, a shed answer once after its Retry-After (the
+        reference's discipline for one master,
+        seaweedfs_tpu/client.py:91-160)."""
+        url = f"http://{self.master}{path_qs}"
+        attempts = 2
+        for attempt in range(attempts):
+            last = attempt == attempts - 1
+            try:
+                r = _request("GET", url, timeout=timeout)
+            except OSError:
+                if last:
+                    raise
+                time.sleep(self._retry.backoff(attempt))
+                continue
+            if r.status in RETRYABLE_STATUSES:
+                if is_shed(r.status, r.headers) and not last:
+                    # the master is alive and asked for a pause
+                    delay = parse_retry_after(r.headers.get("Retry-After"))
+                    time.sleep(min(delay if delay is not None
+                                   else self._retry.backoff(attempt), 5.0))
+                    continue
+                raise ClientError(f"master {self.master}: HTTP {r.status}")
+            try:
+                return r.json()
+            except ValueError:
+                raise ClientError(f"GET {url}: HTTP {r.status}")
+        raise AssertionError("unreachable")
 
     # --- master ops ---
     def assign(self, count: int = 1, collection: str = "",
@@ -216,7 +265,7 @@ class Client:
         target = f"http://{url}/{fid}"
         if ttl:
             target += "?" + urllib.parse.urlencode({"ttl": ttl})
-        r = http.request("POST", target, body,
+        r = _request("POST", target, body,
                          {"Content-Type":
                           f"multipart/form-data; boundary={boundary}"},
                          timeout=300)
@@ -241,7 +290,7 @@ class Client:
         last_err: Optional[Exception] = None
         for holder in [url] if url else self.lookup(vid):
             try:
-                r = http.request("GET", f"http://{holder}/{fid}",
+                r = _request("GET", f"http://{holder}/{fid}",
                                  timeout=300)
             except OSError as e:  # refused etc: try the next holder
                 last_err = e
@@ -255,7 +304,7 @@ class Client:
     def delete(self, fid: str) -> None:
         vid = int(fid.split(",")[0])
         for url in self.lookup(vid):
-            r = http.request("DELETE", f"http://{url}/{fid}", timeout=60)
+            r = _request("DELETE", f"http://{url}/{fid}", timeout=60)
             if r.status < 300:
                 return
             if r.status == 404:
@@ -285,3 +334,12 @@ class Client:
     def lifecycle_run(self) -> dict:
         """One lifecycle evaluation pass now."""
         return _post_json(f"http://{self.master}/lifecycle/run", {})
+
+    # --- the balance plane (the shell's cluster.balance.*) ---
+    def balance_status(self) -> dict:
+        return self._master_get("/balance/status")
+
+    def balance_run(self) -> dict:
+        """One balance planning pass now."""
+        return _post_json(f"http://{self.master}/balance/run", {},
+                          timeout=120.0)

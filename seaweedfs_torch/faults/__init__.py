@@ -91,6 +91,10 @@ KNOWN_POINTS = frozenset({
                             # verified mounted, the original not retired
     "lifecycle.unec",       # the start of an un-EC (decode) transition
     "lifecycle.expire",     # the start of a TTL expiry
+    "master.balance.plan",  # a balancer planning pass; a drop skips it
+    "master.balance.move",  # a balance move, before its copy step
+    "sim.heartbeat",        # one clustersim node's heartbeat; a drop
+                            # loses the beat (flap drills)
 })
 
 _lock = threading.Lock()

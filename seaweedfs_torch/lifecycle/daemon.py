@@ -135,8 +135,8 @@ class LifecycleDaemon:
     async def run_loop(self) -> None:
         while True:
             await asyncio.sleep(jittered(self.cfg.interval))
-            if self.master.admin_lock_holder():
-                # an operator's command is moving volumes
+            if self.master.daemons_paused():
+                # an operator's command is moving volumes, or will
                 continue
             try:
                 await self.pass_once()
@@ -188,6 +188,12 @@ class LifecycleDaemon:
               "expire": self._expire}[tr.kind]
         try:
             async with self.master._repair_sem:
+                paused = self.master.daemons_paused()
+                if paused:
+                    # queued when an operator asked for the lease
+                    log.info("lifecycle %s of volume %s deferred: %s",
+                             tr.kind, tr.vid, paused)
+                    return
                 worker = self.master._checkout_worker()
                 log.info("encode worker %d: lifecycle %s of volume %s",
                          worker, tr.kind, tr.vid)

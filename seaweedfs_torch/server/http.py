@@ -141,10 +141,11 @@ def get_json(url: str, timeout: float = 30.0) -> tuple[int, dict]:
     return r.status, r.json()
 
 
-def post_json(url: str, body: dict,
-              timeout: float = 300.0) -> tuple[int, dict]:
+def post_json(url: str, body: dict, timeout: float = 300.0,
+              headers: Optional[dict] = None) -> tuple[int, dict]:
     r = request("POST", url, json.dumps(body).encode(),
-                {"Content-Type": "application/json"}, timeout)
+                {**(headers or {}), "Content-Type": "application/json"},
+                timeout)
     try:
         return r.status, r.json()
     except ValueError:

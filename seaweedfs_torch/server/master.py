@@ -18,6 +18,7 @@ reference's wire:
   POST /ec/scrub_report    (a volume server's scrubber: rotten shards)
   GET  /vol/heat?volumeId=, POST /vol/heat/report
   GET  /lifecycle/status, POST /lifecycle/run
+  GET  /balance/status, POST /balance/run
   POST /cluster/lock, /cluster/unlock   (the admin lease)
   GET  /cluster/status, /healthz, /metrics
 
@@ -38,14 +39,25 @@ never re-mints a key a volume holds. Background tasks on its loop:
 - the cluster-exclusive admin lock (LeaseAdminToken,
   weed/server/master_grpc_server_admin.go:21-138): a lease of
   ``admin_lease_seconds`` (10 s) that the shell holds, renewed, while a
-  command moves volumes. While it is held, neither daemon launches
-  anything: a command's half-done states (an encode mid-spread, a
-  decode dropping shards) are not deficits. Repairs already running
-  finish;
+  command moves volumes. While it is held, no daemon launches anything:
+  a command's half-done states (an encode mid-spread, a decode dropping
+  shards) are not deficits. A fresh lease waits, up to
+  ``admin_lease_wait_seconds`` (30 s), for the daemons' jobs in flight
+  (repairs, lifecycle transitions, balance moves) to finish, so a shell
+  command never acts on a volume a daemon is moving; while it waits the
+  daemons start nothing (a job queued for a slot gives way); while jobs
+  still run past that bound it is refused as a lease another client
+  holds (the reference grants it at once, ROADMAP Queue 3, F5). Direct
+  ``/admin/*`` calls stay unguarded, as in the reference (D6);
 - the lifecycle daemon (lifecycle/daemon.py), only when a rule is
   configured (``WEED_LIFECYCLE_*``): it warms idle full volumes down,
   decodes hot EC volumes and expires TTL'd collections, sharing the
   repairs' semaphore and backoff;
+- the balancer (balance/daemon.py), on unless
+  ``WEED_BALANCE_ENABLED=0``: every ``WEED_BALANCE_INTERVAL`` it moves
+  sealed volumes off nodes whose read rate is hot, with the repairs'
+  semaphore and backoff; while it is on, ``/dir/assign`` grows new
+  volumes on the coldest nodes first;
 - the vacuum, every ``vacuum_interval_seconds`` (900 s, upstream's 15
   minutes), of every volume whose garbage is at least
   ``garbage_threshold`` (0.3, upstream's ``-garbageThreshold``) on all
@@ -54,7 +66,7 @@ never re-mints a key a volume holds. Background tasks on its loop:
 Every call of the master to a volume server is an awaited aiohttp
 client call, so the master shares a loop with them safely.
 
-Left out: raft and the metadata log, the filer ring, balance, geo, the
+Left out: raft and the metadata log, the filer ring, geo, the
 lifecycle's S3 rules, collection deletion, the watch stream, guard/JWT,
 the overload plane's priorities, the fastpath listener and gRPC.
 """
@@ -71,6 +83,8 @@ import aiohttp
 from aiohttp import web
 
 from .. import observe
+from ..balance import BalanceConfig
+from ..balance.daemon import BalancerDaemon
 from ..balance.planner import pick_replica_target
 from ..ec.geometry import GeometryPolicy
 from ..lifecycle.daemon import LifecycleDaemon
@@ -104,7 +118,8 @@ class MasterServer:
                  maintenance_interval_seconds: Optional[float] = None,
                  repair_concurrency: Optional[int] = None,
                  repair_enabled: bool = True,
-                 lifecycle_config: Optional[LifecycleConfig] = None):
+                 lifecycle_config: Optional[LifecycleConfig] = None,
+                 balance_config: Optional[BalanceConfig] = None):
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds)
@@ -158,9 +173,18 @@ class MasterServer:
         # name -> (token, holder, expiry unix s): the admin leases
         self._admin_locks: dict[str, tuple[int, str, float]] = {}
         self.admin_lease_seconds = 10.0
+        # how long a fresh lease waits for the daemons' jobs in flight,
+        # and how many fresh leases wait now (the daemons launch nothing
+        # meanwhile, as under a held lease)
+        self.admin_lease_wait_seconds = 30.0
+        self._lease_waiters = 0
         # the lifecycle daemon runs only when a rule can fire
         self.lifecycle = LifecycleDaemon(
             self, lifecycle_config or LifecycleConfig.from_env())
+        # the balancer moves sealed volumes off heat-hot nodes; its
+        # planner's node rates also make /dir/assign heat-aware
+        self.balancer = BalancerDaemon(
+            self, balance_config or BalanceConfig.from_env())
         self.app = self._build_app()
 
     def _build_app(self) -> web.Application:
@@ -179,6 +203,8 @@ class MasterServer:
         app.router.add_post("/vol/heat/report", self.vol_heat_report)
         app.router.add_get("/lifecycle/status", self.lifecycle_status)
         app.router.add_post("/lifecycle/run", self.lifecycle_run)
+        app.router.add_get("/balance/status", self.balance_status)
+        app.router.add_post("/balance/run", self.balance_run)
         app.router.add_post("/cluster/lock", self.cluster_lock)
         app.router.add_post("/cluster/unlock", self.cluster_unlock)
         app.router.add_get("/cluster/status", self.cluster_status)
@@ -200,6 +226,9 @@ class MasterServer:
         if self.lifecycle.cfg.enabled:
             self._tasks.append(
                 asyncio.create_task(self.lifecycle.run_loop()))
+        if self.balancer.cfg.enabled:
+            self._tasks.append(
+                asyncio.create_task(self.balancer.run_loop()))
         if self.lifecycle.cfg.filer:
             log.info("lifecycle: the S3 rules wait for a filer, which "
                      "the port does not have; %s is not scanned",
@@ -207,7 +236,7 @@ class MasterServer:
 
     async def _on_cleanup(self, app) -> None:
         tasks = (self._tasks + list(self._repair_tasks)
-                 + list(self.lifecycle.tasks))
+                 + list(self.lifecycle.tasks) + list(self.balancer.tasks))
         for task in tasks:
             task.cancel()
         await asyncio.gather(*tasks, return_exceptions=True)
@@ -236,7 +265,7 @@ class MasterServer:
             log.info("pruned dead node %s", ev["url"])
         if not self.repair_enabled:
             return
-        if self.admin_lock_holder():
+        if self.daemons_paused():
             # an operator's command is moving volumes: the deficits its
             # steps show must be confirmed afresh once it is done
             self._ec_deficit_seen.clear()
@@ -283,8 +312,9 @@ class MasterServer:
         # an un-EC dropping its shards, an expiry) looks short of shards
         # or copies for as long as the move takes: it is the transition's
         # to finish, not the repairs' (the reference repairs it meanwhile,
-        # ROADMAP Queue 3, F3)
-        moving = self.lifecycle.moving_vids()
+        # ROADMAP Queue 3, F3); the same for a balance move
+        moving = (self.lifecycle.moving_vids()
+                  | self.balancer.moving_vids())
         # EC volumes below their full shard count
         ec_vids: dict[int, str] = {}
         for node in self.topology.nodes.values():
@@ -323,6 +353,16 @@ class MasterServer:
             if vid not in seen_vids:
                 self._replica_deficit_seen.pop(vid, None)
 
+    def daemon_jobs(self) -> set:
+        """(kind, vid) of every daemon job in flight: repairs, lifecycle
+        transitions and balance moves, queued or running."""
+        return (set(self._repairs_inflight) | set(self.lifecycle._inflight)
+                | set(self.balancer._inflight))
+
+    def daemon_moving_vids(self) -> set:
+        """Volumes some daemon job is moving."""
+        return {vid for _, vid in self.daemon_jobs()}
+
     def _launch_repair(self, key, fn, *args) -> None:
         self._repairs_inflight.add(key)
         task = asyncio.create_task(self._run_repair(key, fn, *args))
@@ -336,6 +376,13 @@ class MasterServer:
         kind, vid = key
         try:
             async with self._repair_sem:
+                paused = self.daemons_paused()
+                if paused:
+                    # queued when an operator asked for the lease: the
+                    # next passes see the deficit again afterwards
+                    log.info("%s repair of volume %s deferred: %s", kind,
+                             vid, paused)
+                    return
                 worker = self._checkout_worker()
                 log.info("repair worker %d: %s repair of volume %s",
                          worker, kind, vid)
@@ -522,6 +569,18 @@ class MasterServer:
         out = await self.lifecycle.pass_once()
         return web.json_response({"ok": True, **out})
 
+    # --- the balance plane ---
+    async def balance_status(self, request: web.Request) -> web.Response:
+        """Per-node heat rates, pending and recent moves, the two-pass
+        and cooldown bookkeeping (``cluster.balance.status``)."""
+        return web.json_response(self.balancer.status())
+
+    async def balance_run(self, request: web.Request) -> web.Response:
+        """One planning pass now, the timer's (``cluster.balance.run``);
+        confirmed moves launch through the shared worker slots."""
+        out = await self.balancer.pass_once()
+        return web.json_response({"ok": True, **out})
+
     # --- handlers ---
     async def dir_assign(self, request: web.Request) -> web.Response:
         """Assign a write target (dirAssignHandler,
@@ -640,11 +699,14 @@ class MasterServer:
         holds _grow_lock; each volume server's allocation heartbeat lands
         here while the call is awaited."""
         grown: list[int] = []
+        # heat-aware placement while the balancer is on: new volumes go
+        # to the coldest nodes, so no heat lands that it must move later
+        heat_rank = self.balancer.assign_rank()
         async with aiohttp.ClientSession(
                 timeout=aiohttp.ClientTimeout(total=30)) as session:
             for _ in range(count):
-                nodes = self.topology.find_empty_slots(replication,
-                                                       data_center)
+                nodes = self.topology.find_empty_slots(
+                    replication, data_center, heat_rank=heat_rank)
                 if not nodes:
                     break
                 vid = self.topology.next_volume_id()
@@ -843,13 +905,21 @@ class MasterServer:
                           previous_token: int) -> tuple[dict, int]:
         """Lease the lock; renew by presenting the previous token. A
         holder that stops renewing loses it after
-        ``admin_lease_seconds``."""
+        ``admin_lease_seconds``. A fresh lease is refused, as one another
+        client holds, while a daemon job is in flight (F5;
+        ``cluster_lock`` waits for them first)."""
         name = name or "admin"
         now = time.time()
         held = self._admin_locks.get(name)
         if held and held[2] > now and held[0] != previous_token:
             return ({"error": f"lock {name} held by {held[1]}",
                      "holder": held[1]}, 409)
+        renewal = bool(held and held[2] > now and previous_token)
+        jobs = self.daemon_jobs()
+        if jobs and not renewal:
+            return ({"error": f"lock {name} held by daemon jobs "
+                              f"{sorted(jobs, key=str)}",
+                     "holder": "daemons"}, 409)
         token = (held[0] if held and held[0] == previous_token
                  else int(now * 1e9))
         expires = now + self.admin_lease_seconds
@@ -872,9 +942,45 @@ class MasterServer:
                 return holder or "?"
         return None
 
+    def daemons_paused(self) -> Optional[str]:
+        """Why no daemon may start a job now, else None: a live admin
+        lease, or a fresh one waiting for the jobs in flight (F5). The
+        daemons check it before they plan, and each job again once it
+        holds its slot of ``_repair_sem``, so a job queued for a slot
+        when the lease is asked for gives way instead of running."""
+        holder = self.admin_lock_holder()
+        if holder:
+            return f"admin lease held by {holder}"
+        if self._lease_waiters:
+            return "an admin lease waits for the daemons' jobs"
+        return None
+
+    async def _daemon_jobs_drained(self, bound: float) -> None:
+        """Until no daemon job is in flight, or `bound` seconds."""
+        deadline = time.monotonic() + bound
+        while self.daemon_jobs() and time.monotonic() < deadline:
+            await asyncio.sleep(0.05)
+
+    async def request_admin_lease(self, name: str, client: str,
+                                  previous_token: int
+                                  ) -> tuple[dict, int]:
+        """``lease_admin_token`` for ``/cluster/lock``: a fresh lease
+        that no one holds first waits, up to ``admin_lease_wait_seconds``,
+        for the daemons' jobs in flight, and pauses the daemons while it
+        waits, so their backlog cannot hold it off."""
+        held = self._admin_locks.get(name or "admin")
+        if not previous_token and not (held and held[2] > time.time()):
+            self._lease_waiters += 1
+            try:
+                await self._daemon_jobs_drained(
+                    self.admin_lease_wait_seconds)
+            finally:
+                self._lease_waiters -= 1
+        return self.lease_admin_token(name, client, previous_token)
+
     async def cluster_lock(self, request: web.Request) -> web.Response:
         body = await request.json()
-        resp, status = self.lease_admin_token(
+        resp, status = await self.request_admin_lease(
             body.get("name", "admin"), body.get("client", ""),
             body.get("previous_token", 0))
         return web.json_response(resp, status=status)

@@ -15,6 +15,8 @@ reference's wire:
           POST /admin/volume/delete, /readonly, /mount, /unmount
           POST /admin/volume/configure_replication
           GET  /admin/volume/needle_ids?volume_id=
+          GET  /admin/needle_raw?fid=      (a needle's record, for read
+                                            repair)
           POST /admin/volume/copy         (VolumeCopy, pull model)
           POST /admin/ec/generate, /admin/ec/fused (VolumeEcShardsGenerate)
           POST /admin/ec/mount, /unmount, /rebuild
@@ -25,6 +27,24 @@ reference's wire:
           GET  /admin/ec/mesh_status      (the multi-card coder's state)
           GET  /admin/file_copy?volume_id=&collection=&ext=
           GET  /status, /healthz, /metrics
+
+Writes go through a per-volume ``WriteBatcher``: up to 128 requests or
+4 MB land in one engine call (small batches write on the loop, the rest
+in an executor thread); with ``WEED_VOLUME_GROUP_COMMIT_US`` > 0 the
+batch stays open that many microseconds and is written with one
+gathered pwritev and one fsync before any of its writes is
+acknowledged. Reads of needles up to 64 KiB are served on the loop when
+the volume's lock is free. A read of a hosted volume that misses the
+needle (a lost local write) or finds it corrupt (a CRC error) repairs it
+from a replica: the needle's raw record is fetched over ``GET
+/admin/needle_raw`` and appended here, behind a negative cache (10 s)
+and a cap of 8 repairs at once, with the shared circuit breaker
+skipping a replica that keeps refusing; the ``read_repair`` and
+``read_crc_repair`` counters count them. An expired needle is never
+repaired. A read of an EC volume whose shards cannot be reached answers
+404, so a client goes on to another holder (upstream's read handler;
+the reference answers 500, ROADMAP Queue 3, D7). A request's
+``X-Seaweed-Deadline`` bounds the calls it makes.
 
 A write to a replicated volume is stored here, then POSTed with
 ``?type=replicate`` to every other holder the master lists; it is
@@ -56,14 +76,16 @@ digest stamped into its ``.ecm`` at encode, every
 /admin/ec/scrub``, and reports mismatches to the master's
 ``/ec/scrub_report``, whose repair daemon drops and rebuilds them.
 
-Left out: the write batcher and group commit, image resizing, read
-repair, tiering, tail, query, batch delete, the UI, guard/JWT, the
-fastpath listener and its heat side channel, shard fleets and gRPC.
+Left out: image resizing, read redirects, tiering, tail, query, batch
+delete, the UI, guard/JWT, the fastpath listener (with
+``needle_sendfile_extent``) and its heat side channel, shard fleets and
+gRPC.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import json
 import logging
 import os
@@ -85,8 +107,9 @@ from ..storage.needle import (FLAG_HAS_LAST_MODIFIED, FLAG_HAS_MIME,
                               FLAG_HAS_NAME, FLAG_HAS_TTL,
                               FLAG_IS_COMPRESSED, CrcError, Needle)
 from ..storage.store import Store, safe_collection
-from ..storage.volume import Volume, VolumeCompacting, VolumeReadOnly
-from ..utils import compression, durable, multipart
+from ..storage.volume import (NeedleDeleted, NeedleExpired, NeedleNotFound,
+                              Volume, VolumeCompacting, VolumeReadOnly)
+from ..utils import compression, durable, multipart, retry
 from ..utils import metrics as metrics_mod
 from . import http
 
@@ -114,7 +137,137 @@ def _env_float(name: str, default: float) -> float:
         return default
 
 
+class WriteBatcher:
+    """Per-volume write coalescing, the server half of upstream's
+    batching worker (volume_read_write.go:297-327): up to 128 requests
+    or 4 MB land in one engine call, so concurrent small writes stop
+    paying a thread hop each. Batches up to 256 KiB write on the loop
+    (``write_needles_batch_nowait``, which declines when the volume's
+    lock is taken). Group commit (``group_commit_us`` > 0, else
+    ``WEED_VOLUME_GROUP_COMMIT_US``, default 0: off) holds a batch open
+    that long so concurrent writes share one gathered pwritev and one
+    fsync; its acks come only after that barrier. A worker exits after
+    30 s without writes."""
+
+    MAX_BATCH = 128
+    MAX_BYTES = 4 * 1024 * 1024
+    INLINE_BYTES = 256 * 1024
+    IDLE_SECONDS = 30.0
+
+    def __init__(self, store: Store, group_commit_us: Optional[int] = None):
+        self.store = store
+        self._queues: dict[int, asyncio.Queue] = {}
+        self._workers: dict[int, asyncio.Task] = {}
+        if group_commit_us is None:
+            try:
+                group_commit_us = int(os.environ.get(
+                    "WEED_VOLUME_GROUP_COMMIT_US", "0") or 0)
+            except ValueError:
+                group_commit_us = 0
+        self.group_commit_us = max(0, group_commit_us)
+
+    async def write(self, vid: int, needle) -> tuple[int, int, bool]:
+        q = self._queues.get(vid)
+        if q is None:
+            q = self._queues[vid] = asyncio.Queue()
+            self._workers[vid] = asyncio.create_task(self._worker(vid, q))
+        fut = asyncio.get_running_loop().create_future()
+        q.put_nowait((needle, fut))
+        result = await fut
+        if isinstance(result, Exception):
+            raise result
+        return result
+
+    def _retire(self, vid: int) -> None:
+        self._queues.pop(vid, None)
+        self._workers.pop(vid, None)
+
+    async def _worker(self, vid: int, q: asyncio.Queue) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            try:
+                needle, fut = await asyncio.wait_for(
+                    q.get(), timeout=self.IDLE_SECONDS)
+            except asyncio.TimeoutError:
+                # write() puts with no await after its lookup, so an
+                # empty queue here means no writer can still be headed
+                # to this worker
+                if q.empty():
+                    self._retire(vid)
+                    return
+                continue
+            batch = [(needle, fut)]
+            size = len(needle.data)
+            while (len(batch) < self.MAX_BATCH and size < self.MAX_BYTES
+                   and not q.empty()):
+                n2, f2 = q.get_nowait()
+                batch.append((n2, f2))
+                size += len(n2.data)
+            if self.group_commit_us > 0:
+                # hold the commit window open: what arrives before the
+                # deadline rides this group's one fsync
+                deadline = loop.time() + self.group_commit_us / 1e6
+                while (len(batch) < self.MAX_BATCH
+                       and size < self.MAX_BYTES):
+                    remaining = deadline - loop.time()
+                    if remaining <= 0:
+                        break
+                    try:
+                        n2, f2 = await asyncio.wait_for(q.get(), remaining)
+                    except asyncio.TimeoutError:
+                        break
+                    batch.append((n2, f2))
+                    size += len(n2.data)
+                    while (len(batch) < self.MAX_BATCH
+                           and size < self.MAX_BYTES and not q.empty()):
+                        n3, f3 = q.get_nowait()
+                        batch.append((n3, f3))
+                        size += len(n3.data)
+            v = self.store.find_volume(vid)
+            if v is None:
+                # a deleted or unmounted volume: fail the batch, and
+                # retire the worker once nothing more is queued
+                err = KeyError(f"volume {vid} not found")
+                for _, f in batch:
+                    if not f.done():
+                        f.set_exception(err)
+                if q.empty():
+                    self._retire(vid)
+                    return
+                continue
+            try:
+                ns = [n for n, _ in batch]
+                results = None
+                if self.group_commit_us > 0:
+                    # the group ends in an fsync: never on the loop
+                    results = await loop.run_in_executor(
+                        None, functools.partial(
+                            v.write_needles_batch, ns, group_commit=True))
+                elif size <= self.INLINE_BYTES:
+                    results = v.write_needles_batch_nowait(ns)
+                if results is None:
+                    results = await loop.run_in_executor(
+                        None, v.write_needles_batch, ns)
+            except Exception as e:
+                results = [e] * len(batch)
+            for (_, f), res in zip(batch, results):
+                if not f.done():
+                    # engine errors come back in place, one per request
+                    f.set_result(res)
+
+    async def stop(self) -> None:
+        tasks = list(self._workers.values())
+        for task in tasks:
+            task.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+
+
 class VolumeServer:
+    # read repair: a fid whose repair found no replica is not tried
+    # again for this long; at most this many repairs run at once
+    _REPAIR_NEG_TTL = 10.0
+    _REPAIR_MAX_INFLIGHT = 8
+
     def __init__(self, store: Store, master_url: str, url: str = "",
                  data_center: str = "", rack: str = "",
                  pulse_seconds: float = 5.0,
@@ -146,6 +299,11 @@ class VolumeServer:
         halflife = _env_float("WEED_LIFECYCLE_HEAT_HALFLIFE", 0.0)
         self.heat = (HeatTracker(halflife=halflife) if halflife > 0
                      else HeatTracker())
+        self._batcher: Optional[WriteBatcher] = None
+        # read repair's negative cache (fid -> monotonic time of a
+        # repair that found no replica) and its in-flight count
+        self._repair_neg: dict[str, float] = {}
+        self._repair_inflight = 0
         self.app = self._build_app()
         # the EC read path fetches missing shards from peers through this
         store._remote_shard_reader = self._make_shard_reader
@@ -181,6 +339,7 @@ class VolumeServer:
         app.router.add_get("/admin/vacuum/check", self.admin_vacuum_check)
         app.router.add_get("/admin/volume/needle_ids",
                            self.admin_needle_ids)
+        app.router.add_get("/admin/needle_raw", self.admin_needle_raw)
         app.router.add_get("/admin/ec/shard_read", self.admin_ec_shard_read)
         app.router.add_get("/admin/ec/mesh_status",
                            self.admin_ec_mesh_status)
@@ -201,6 +360,7 @@ class VolumeServer:
             timeout=aiohttp.ClientTimeout(total=None, sock_connect=10,
                                           sock_read=60))
         self._hb_lock = asyncio.Lock()
+        self._batcher = WriteBatcher(self.store)
         self._hb_task = asyncio.create_task(self._heartbeat_loop())
         if self.scrub_interval_seconds > 0:
             self._scrub_task = asyncio.create_task(self._scrub_loop())
@@ -213,6 +373,8 @@ class VolumeServer:
                     await task
                 except asyncio.CancelledError:
                     pass
+        if self._batcher is not None:
+            await self._batcher.stop()
         if self._session is not None:
             await self._session.close()
         await _run(self.store.close)
@@ -278,26 +440,69 @@ class VolumeServer:
             fid = FileId.parse(fid_str)
         except ValueError as e:
             return _error(str(e), 400)
-        if request.method in ("GET", "HEAD"):
-            return await self._read(request, fid)
-        if request.method in ("POST", "PUT"):
-            return await self._write(request, fid)
-        if request.method == "DELETE":
-            return await self._delete(request, fid)
-        return _error("method not allowed", 405)
+        # the caller's deadline budget bounds the calls this request
+        # makes (read repair's fetches)
+        token = retry.bind_deadline(request.headers)
+        try:
+            if request.method in ("GET", "HEAD"):
+                return await self._read(request, fid)
+            if request.method in ("POST", "PUT"):
+                return await self._write(request, fid)
+            if request.method == "DELETE":
+                return await self._delete(request, fid)
+            return _error("method not allowed", 405)
+        finally:
+            retry.reset_deadline(token)
 
     async def _read(self, request: web.Request,
                     fid: FileId) -> web.Response:
         """GetOrHeadHandler (volume_server_handlers_read.go:28-272)."""
         self.metrics.count("read")
+        vol = self.store.find_volume(fid.volume_id)
         try:
-            n = await _run(self.store.read_needle, fid.volume_id, fid.key,
-                           fid.cookie)
-        except KeyError:
-            # absent, deleted, expired, a wrong cookie or no such volume
+            # small needles read on the loop: a page-cache pread takes
+            # microseconds, an executor hop far longer; the nowait read
+            # declines (None) big needles and a taken lock
+            n = (vol.read_needle_nowait(fid.key, fid.cookie)
+                 if vol is not None else None)
+            if n is None:
+                n = await _run(self.store.read_needle, fid.volume_id,
+                               fid.key, fid.cookie)
+        except NeedleExpired:
+            # TTL expiry is not data loss: never repaired back
             return _error("not found", 404)
-        except CrcError:
-            return _error("data corruption", 500)
+        except NeedleNotFound:
+            # a lost local write on a volume this server hosts: a replica
+            # may still have the needle
+            if (self.store.find_volume(fid.volume_id) is None
+                    or not self._repair_permitted(str(fid))):
+                return _error("not found", 404)
+            n = await self._read_repair(fid)
+            if n is None:
+                return _error("not found", 404)
+        except KeyError:
+            # deleted, or no such volume
+            return _error("not found", 404)
+        except CrcError as rot:
+            # on-disk corruption: serve the replica's good copy, which
+            # the repair appends here (the rotten record becomes garbage)
+            self.metrics.count("read_crc_repair")
+            log.error("volume %d: CRC mismatch on needle %s (%s); "
+                      "attempting read repair from replicas",
+                      fid.volume_id, fid, rot)
+            n = None
+            if self._repair_permitted(str(fid)):
+                n = await self._read_repair(fid)
+            if n is None:
+                return _error("data corruption", 500)
+        except OSError as e:
+            if self.store.find_ec_volume(fid.volume_id) is None:
+                raise
+            # an EC read whose shards cannot be reached (holders that
+            # dropped them mid-decode): 404, so the client tries another
+            # holder, as upstream answers (the reference answers 500,
+            # ROADMAP Queue 3, D7)
+            return _error(f"not found: {e}", 404)
         # one dict update per served read (EC reads, the un-EC signal,
         # land here too)
         self.heat.record_read(fid.volume_id)
@@ -349,6 +554,86 @@ class VolumeServer:
                                 content_type=mime)
         return web.Response(status=status, body=body, headers=headers,
                             content_type=mime)
+
+    def _repair_permitted(self, fid_str: str) -> bool:
+        """Not for a fid whose repair found no replica in the last
+        ``_REPAIR_NEG_TTL`` s, nor past ``_REPAIR_MAX_INFLIGHT`` repairs
+        at once: scans of bogus fids must not become replica storms."""
+        now = time.monotonic()
+        if len(self._repair_neg) > 4096:
+            self._repair_neg = {k: v for k, v in self._repair_neg.items()
+                                if now - v < self._REPAIR_NEG_TTL}
+        seen = self._repair_neg.get(fid_str)
+        if seen is not None and now - seen < self._REPAIR_NEG_TTL:
+            return False
+        return self._repair_inflight < self._REPAIR_MAX_INFLIGHT
+
+    async def _read_repair(self, fid: FileId) -> Optional[Needle]:
+        """Fetch a needle this server lost or holds corrupt from a
+        replica, append it here and return it; None when no replica has
+        it."""
+        self._repair_inflight += 1
+        try:
+            with observe.span("volume.read_repair",
+                              tags={"fid": str(fid)}):
+                return await self._read_repair_inner(fid)
+        finally:
+            self._repair_inflight -= 1
+
+    async def _read_repair_inner(self, fid: FileId) -> Optional[Needle]:
+        """The reference's repair (seaweedfs_tpu/server/volume_server.py:
+        859): each replica in turn over ``/admin/needle_raw``; a replica
+        whose breaker is open is skipped without a dial, and connection
+        failures feed the breaker."""
+        breaker = retry.shared_breaker()
+        for url in await self._replica_urls(fid.volume_id):
+            try:
+                breaker.check(url)
+            except retry.BreakerOpen:
+                continue
+            try:
+                async with self._session.get(
+                        f"http://{url}/admin/needle_raw",
+                        params={"fid": str(fid)},
+                        headers=retry.inject_deadline({}),
+                        timeout=aiohttp.ClientTimeout(
+                            total=retry.cap_timeout(10.0))) as r:
+                    if r.status != 200:
+                        breaker.record_success(url)  # the host is alive
+                        continue
+                    raw = await r.read()
+                breaker.record_success(url)
+                v = self.store.find_volume(fid.volume_id)
+                if v is None:
+                    return None
+                n = Needle.from_bytes(raw, v.version)
+                await _run(functools.partial(v.write_needle, n,
+                                             preserve_append_at_ns=True))
+                log.info("read-repaired needle %s from %s", fid, url)
+                self.metrics.count("read_repair")
+                return n
+            except Exception as e:
+                if isinstance(e, (aiohttp.ClientConnectionError, OSError,
+                                  asyncio.TimeoutError)):
+                    breaker.record_failure(url)
+                log.warning("read repair of %s from %s failed: %s", fid,
+                            url, e)
+        self._repair_neg[str(fid)] = time.monotonic()
+        return None
+
+    async def admin_needle_raw(self, request: web.Request) -> web.Response:
+        """A needle's raw record, for a peer's read repair."""
+        try:
+            fid = FileId.parse(request.query["fid"])
+            v = self.store.find_volume(fid.volume_id)
+            if v is None:
+                return _error("no volume", 404)
+            n = await _run(functools.partial(v.read_needle, fid.key,
+                                             cookie=fid.cookie))
+            return web.Response(body=n.to_bytes(v.version),
+                                content_type="application/octet-stream")
+        except (NeedleNotFound, NeedleDeleted, KeyError, ValueError) as e:
+            return _error(str(e), 404)
 
     async def _write(self, request: web.Request,
                      fid: FileId) -> web.Response:
@@ -415,8 +700,7 @@ class VolumeServer:
                         f"is less than volume {fid.volume_id} "
                         f"replication copy count [{copies}]", 500)
         try:
-            _, _, unchanged = await _run(self.store.write_needle,
-                                         fid.volume_id, n)
+            _, _, unchanged = await self._batcher.write(fid.volume_id, n)
         except VolumeReadOnly as e:
             return _error(str(e), 409)
         except KeyError:
@@ -656,10 +940,17 @@ class VolumeServer:
         return web.json_response({"ok": ok})
 
     async def admin_readonly(self, request: web.Request) -> web.Response:
+        """Flip a volume's write gate; answers whether it was read-only
+        before, so a caller lifts only the seal it set. The flip waits
+        for a write in flight, and the beat tells the master at once."""
         body = await request.json()
-        ok = self.store.mark_readonly(int(body["volume_id"]),
-                                      body.get("read_only", True))
-        return web.json_response({"ok": ok})
+        vid = int(body["volume_id"])
+        v = self.store.find_volume(vid)
+        was = v is not None and v.read_only
+        ok = await _run(self.store.mark_readonly, vid,
+                        body.get("read_only", True))
+        await self._beat_after_change()
+        return web.json_response({"ok": ok, "was_read_only": was})
 
     async def admin_volume_mount(self, request: web.Request
                                  ) -> web.Response:

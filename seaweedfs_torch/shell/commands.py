@@ -10,7 +10,9 @@ shell/ec_shell.py), ``volume.list``, the hot tier's
 ``volume.fix.replication``, ``volume.copy``, ``volume.delete``,
 ``volume.configure.replication`` and ``volume.mark``, and the lifecycle
 plane's ``volume.heat``, ``lifecycle.status`` and ``lifecycle.run``
-(shell/volume_commands.py); the other command modules of
+(shell/volume_commands.py), and the balancer's
+``cluster.balance.status`` and ``cluster.balance.run``
+(shell/balance_commands.py); the other command modules of
 the reference (fs, buckets, locks, geo, the ring, telemetry, traces and
 the rest of the volume commands) are not ported. A command that moves
 volumes (``destructive``) runs under the master's cluster-exclusive admin
@@ -88,4 +90,4 @@ def volume_list(env: CommandEnv, argv: list[str]):
 def _register_all() -> None:
     """Import every command module for its registration side effects
     (upstream does the same through init() imports, commands.go:42)."""
-    from . import ec_shell, volume_commands  # noqa: F401
+    from . import balance_commands, ec_shell, volume_commands  # noqa: F401

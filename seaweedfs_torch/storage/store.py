@@ -268,7 +268,7 @@ class Store:
         v = self.find_volume(vid)
         if v is None:
             return False
-        v.read_only = read_only
+        v.set_read_only(read_only)
         return True
 
     def unmount_volume(self, vid: int) -> bool:

@@ -6,14 +6,19 @@ volume_checking.go): create or open a volume, append needles, tombstone
 deletes, positioned reads through a ``DiskFile`` (storage/backend.py),
 the sync/close durability barriers with the ``.swm`` sync watermark, the
 open-time crash recovery of a torn ``.dat``/``.idx`` pair, the integrity
-check, and two-phase compaction (``begin_compact`` copies the live
-needles without blocking writers, ``commit_compact`` replays what landed
-meanwhile and swaps the files). Same bytes on disk as the reference for
-the same needle sequence. Only the in-memory needle map
-(``needle_map_kind`` "memory") is ported. Not ported: tiering to object
-stores, TTL expiry of whole volumes, replication tails, the compaction
-byte-rate throttle, and batched, group-committed and lock-free writes and
-reads.
+check, two-phase compaction (``begin_compact`` copies the live needles
+without blocking writers, ``commit_compact`` replays what landed
+meanwhile and swaps the files), batched writes
+(``write_needles_batch``), group commit (one gathered ``pwritev`` and one
+fsync for a batch, then its index entries) and the event loop's
+non-blocking writes and reads (``write_needles_batch_nowait``,
+``read_needle_nowait``). Same bytes on disk as the reference for the
+same needle sequence. Only the in-memory needle map (``needle_map_kind``
+"memory") is ported; it never flushes, so the reference's
+``flush_imminent`` check of the nowait write has nothing to decline on.
+Not ported: tiering to object stores, TTL expiry of whole volumes,
+replication tails, the compaction byte-rate throttle and
+``needle_sendfile_extent``.
 """
 
 from __future__ import annotations
@@ -152,20 +157,9 @@ class Volume:
         preserve_append_at_ns keeps the needle's own timestamp instead of
         stamping the local clock."""
         with self._lock:
-            if self.read_only:
-                raise VolumeReadOnly(f"volume {self.vid} is read-only")
-            if self.super_block.ttl.minutes() and not n.ttl.minutes():
-                n.set_flag(FLAG_HAS_TTL)
-                n.ttl = self.super_block.ttl
-            nv = self.nm.get(n.id)
-            if nv is not None and self._is_unchanged(n, nv):
-                return t.stored_to_offset(nv.offset), nv.size, True
-            if nv is not None:
-                existing = self._read_header_at(t.stored_to_offset(nv.offset))
-                if existing is not None and existing.cookie != n.cookie:
-                    raise ValueError(
-                        f"needle {n.id:x}: cookie mismatch "
-                        f"{existing.cookie:#x} != {n.cookie:#x}")
+            unchanged, nv = self._admit(n)
+            if unchanged is not None:
+                return unchanged
             if not (preserve_append_at_ns and n.append_at_ns):
                 n.append_at_ns = time.time_ns()
             offset = self._append(n)
@@ -177,6 +171,28 @@ class Volume:
             if n.last_modified > self.last_modified_ts:
                 self.last_modified_ts = n.last_modified
             return offset, n.size, False
+
+    def _admit(self, n: Needle) -> tuple:
+        """The checks a write passes before its append, under the lock:
+        the read-only gate, the volume's TTL on a needle without one,
+        unchanged content (its result), and the cookie of an existing
+        entry. Returns (the unchanged result or None, the prior map
+        entry or None)."""
+        if self.read_only:
+            raise VolumeReadOnly(f"volume {self.vid} is read-only")
+        if self.super_block.ttl.minutes() and not n.ttl.minutes():
+            n.set_flag(FLAG_HAS_TTL)
+            n.ttl = self.super_block.ttl
+        nv = self.nm.get(n.id)
+        if nv is not None and self._is_unchanged(n, nv):
+            return (t.stored_to_offset(nv.offset), nv.size, True), nv
+        if nv is not None:
+            existing = self._read_header_at(t.stored_to_offset(nv.offset))
+            if existing is not None and existing.cookie != n.cookie:
+                raise ValueError(
+                    f"needle {n.id:x}: cookie mismatch "
+                    f"{existing.cookie:#x} != {n.cookie:#x}")
+        return None, nv
 
     def delete_needle(self, n: Needle,
                       preserve_append_at_ns: bool = False) -> int:
@@ -210,6 +226,98 @@ class Volume:
         self._append_offset = offset + len(record)
         return offset
 
+    def write_needles_batch(self, needles: list[Needle],
+                            group_commit: bool = False) -> list:
+        """Append many needles under one lock acquisition (upstream's
+        write batching, volume_read_write.go:297-327); each needle's
+        result is (offset, size, unchanged) or its exception, in place.
+        ``group_commit=True`` is ``_write_needles_group``: a successful
+        result then means the needle's bytes are durable."""
+        if group_commit:
+            return self._write_needles_group(needles)
+        out: list = []
+        with self._lock:
+            for n in needles:
+                try:
+                    out.append(self.write_needle(n))
+                except Exception as e:
+                    out.append(e)
+        return out
+
+    def _write_needles_group(self, needles: list[Needle]) -> list:
+        """Group commit: stage every record, one pwritev, one fsync, then
+        the index entries. The .dat bytes are durable before any index
+        entry names them; a crash after the barrier but before (or
+        during) the index appends is repaired at open, where the crash
+        recovery re-derives the entries from the .dat past the sync
+        watermark. Padding between records is written as zero bytes so
+        the gathered buffers stay contiguous. A failed write or fsync
+        fails the whole group: none of it may be acknowledged or
+        indexed."""
+        out: list = [None] * len(needles)
+        with self._lock:
+            staged: list = []      # (result slot, needle, offset, old nv)
+            bufs: list = []
+            base = self._append_offset
+            cur = base
+            for i, n in enumerate(needles):
+                try:
+                    unchanged, nv = self._admit(n)
+                    if unchanged is not None:
+                        out[i] = unchanged
+                        continue
+                    n.append_at_ns = time.time_ns()
+                    pad = (-cur) % t.NEEDLE_PADDING_SIZE
+                    if pad:
+                        bufs.append(b"\x00" * pad)
+                        cur += pad
+                    record = n.to_bytes(self.version)
+                    staged.append((i, n, cur, nv))
+                    bufs.append(record)
+                    cur += len(record)
+                except Exception as e:
+                    out[i] = e
+            if not staged:
+                return out
+            try:
+                self._dat.writev_at(bufs, base)
+                self._append_offset = cur
+                self._dat.sync()           # the group barrier
+            except Exception as e:
+                for i, _n, _off, _nv in staged:
+                    out[i] = e
+                return out
+            for i, n, offset, nv in staged:
+                self.last_append_at_ns = n.append_at_ns
+                if nv is None or t.stored_to_offset(nv.offset) < offset:
+                    self.nm.put(n.id, t.offset_to_stored(
+                        offset, self.offset_size), n.size)
+                if n.last_modified > self.last_modified_ts:
+                    self.last_modified_ts = n.last_modified
+                out[i] = (offset, n.size, False)
+        return out
+
+    def write_needles_batch_nowait(self, needles: list[Needle]
+                                   ) -> Optional[list]:
+        """write_needles_batch for event-loop callers, or None ("use the
+        executor") unless the file is on local disk, the lock is free
+        (a compaction holds it for seconds) and no needle overwrites an
+        entry over 64 KiB (whose unchanged-content check would re-read
+        it from disk)."""
+        if not self._dat.is_local:
+            return None
+        if not self._lock.acquire(blocking=False):
+            return None
+        try:
+            for n in needles:
+                nv = self.nm.get(n.id)
+                if (nv is not None and t.size_is_valid(nv.size)
+                        and nv.size > 64 * 1024):
+                    return None
+            return self.write_needles_batch(needles)
+        finally:
+            self._lock.release()
+
     def _is_unchanged(self, n: Needle, nv: NeedleValue) -> bool:
         if not t.size_is_valid(nv.size):
             return False
@@ -223,12 +331,22 @@ class Volume:
     def read_needle(self, needle_id: int, cookie: Optional[int] = None,
                     now: Optional[float] = None) -> Needle:
         with self._lock:
-            nv = self.nm.get(needle_id)
-            if nv is None or nv.offset == 0:
-                raise NeedleNotFound(f"needle {needle_id:x} not found")
-            if t.size_is_deleted(nv.size):
-                raise NeedleDeleted(f"needle {needle_id:x} deleted")
+            nv = self._lookup(needle_id)
             n = self.read_needle_at(t.stored_to_offset(nv.offset), nv.size)
+        return self._check_read(n, needle_id, cookie, now)
+
+    def _lookup(self, needle_id: int) -> NeedleValue:
+        """A live needle's map entry, under the lock; raises not-found
+        and deleted."""
+        nv = self.nm.get(needle_id)
+        if nv is None or nv.offset == 0:
+            raise NeedleNotFound(f"needle {needle_id:x} not found")
+        if t.size_is_deleted(nv.size):
+            raise NeedleDeleted(f"needle {needle_id:x} deleted")
+        return nv
+
+    def _check_read(self, n: Needle, needle_id: int,
+                    cookie: Optional[int], now: Optional[float]) -> Needle:
         if cookie is not None and n.cookie != cookie:
             raise NeedleNotFound(f"needle {needle_id:x} cookie mismatch")
         if n.ttl.minutes() and n.has(FLAG_HAS_LAST_MODIFIED):
@@ -236,6 +354,27 @@ class Volume:
             if (now if now is not None else time.time()) >= deadline:
                 raise NeedleExpired(f"needle {needle_id:x} expired")
         return n
+
+    def read_needle_nowait(self, needle_id: int,
+                           cookie: Optional[int] = None,
+                           max_size: int = 64 * 1024) -> Optional[Needle]:
+        """read_needle for event-loop callers, or None ("use the
+        executor") unless the file is on local disk, the lock is free
+        and the stored needle is at most `max_size` bytes, so a
+        page-cache pread cannot stall the loop. Raises read_needle's
+        not-found, deleted and expired errors."""
+        if not self._dat.is_local:
+            return None
+        if not self._lock.acquire(blocking=False):
+            return None
+        try:
+            nv = self._lookup(needle_id)
+            if nv.size > max_size:
+                return None
+            n = self.read_needle_at(t.stored_to_offset(nv.offset), nv.size)
+        finally:
+            self._lock.release()
+        return self._check_read(n, needle_id, cookie, None)
 
     def read_needle_at(self, byte_offset: int, size: int) -> Needle:
         length = t.get_actual_size(size, self.version)
@@ -669,6 +808,13 @@ class Volume:
             self._compacting = False
             _remove_quiet(base + ".cpd")
             _remove_quiet(base + ".cpx")
+
+    def set_read_only(self, read_only: bool) -> None:
+        """Flip the write gate under the lock: a write in flight lands
+        first, so a reader of the files after this returns sees every
+        write the volume accepted."""
+        with self._lock:
+            self.read_only = read_only
 
     def seal(self) -> None:
         """Make the volume read-only and durable for a reader of its

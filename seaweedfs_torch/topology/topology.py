@@ -235,9 +235,14 @@ class Topology:
                 if now - n.last_seen > timeout]
         events = []
         for nid in dead:
+            node = self.nodes.get(nid)
             ev = self.unregister_node(nid)
             if ev:
                 events.append(ev)
+            # the pruned node's decayed rates go with it: a planner that
+            # kept last pass's node objects must not rank a dead node
+            if node is not None:
+                node.heat.clear()
         return events
 
     def _layout_for(self, collection: str, replication: str,
@@ -291,8 +296,9 @@ class Topology:
         """Cluster-wide per-volume heat, aggregated across holders:
         counts sum (each replica saw distinct requests), last_access is
         the max, read_rate sums (load spreads over replicas), first_seen
-        is the earliest sighting. (The reference's ``live_only`` view is
-        its balancer's, which the port does not have.)"""
+        is the earliest sighting. Every registered node counts (the
+        lifecycle policy evaluates idleness far in the future); the
+        balancer ranks live nodes only (balance/planner.node_rates)."""
         now = now if now is not None else self._clock()
         out: dict[int, dict] = {}
         for node in self.nodes.values():
@@ -323,15 +329,24 @@ class Topology:
 
     # --- growth (weed/topology/volume_growth.go:113-208) ---
     def find_empty_slots(self, replication: str,
-                         data_center: str = "") -> list[DataNode]:
+                         data_center: str = "",
+                         heat_rank: Optional[dict] = None
+                         ) -> list[DataNode]:
         """Pick copy_count nodes satisfying the XYZ placement constraints.
-        Returns [] if impossible."""
+        Returns [] if impossible. ``heat_rank`` (node id -> heat score,
+        balance/planner.node_rates) tries the coldest candidates first,
+        then those with the most free slots, then by id, instead of a
+        shuffle; the placement constraints apply either way."""
         rp = ReplicaPlacement.parse(replication)
         candidates = [n for n in self.nodes.values() if n.free_slots() > 0
                       and (not data_center or n.data_center == data_center)]
         if not candidates:
             return []
-        random.shuffle(candidates)
+        if heat_rank is not None:
+            candidates.sort(key=lambda n: (heat_rank.get(n.id, 0.0),
+                                           -n.free_slots(), n.id))
+        else:
+            random.shuffle(candidates)
         for main in candidates:
             picked = [main]
             used_nodes = {main.id}

@@ -1303,7 +1303,7 @@ def test_shell_registry():
         "volume.fix.replication",
         "volume.copy", "volume.delete", "volume.configure.replication",
         "volume.mark", "volume.heat", "lifecycle.status",
-        "lifecycle.run"}
+        "lifecycle.run", "cluster.balance.status", "cluster.balance.run"}
 
 
 # --- the HTTP layer --------------------------------------------------------

@@ -180,9 +180,11 @@ def _stream_ec_workload():
 @pytest.mark.parametrize("make", [wl.make_volume_workload,
                                   wl.make_ec_workload,
                                   wl.make_fused_warmdown_workload,
-                                  _stream_ec_workload],
+                                  _stream_ec_workload,
+                                  wl.make_group_commit_workload],
                          ids=["volume_append", "ec_encode",
-                              "fused_warmdown", "ec_encode_stream"])
+                              "fused_warmdown", "ec_encode_stream",
+                              "volume_group_commit"])
 def test_subsystem_sweep_zero_violations(make):
     """Per-subsystem power-loss sweep: every acked write survives, no
     corrupt state loads silently, recovery converges."""
@@ -202,8 +204,9 @@ def test_sweep_all_counts_points():
     assert list(summary["workloads"]) == ["volume_append"]
     summary = harness.sweep_all(seeds=2, points=2)
     assert sorted(summary["workloads"]) == ["ec_encode", "fused_warmdown",
-                                            "volume_append"]
-    assert summary["total_points"] == 12 and summary["ok"]
+                                            "volume_append",
+                                            "volume_group_commit"]
+    assert summary["total_points"] == 16 and summary["ok"]
 
 
 def test_crashsim_cli_json(capsys):
@@ -454,3 +457,52 @@ def test_workloads_ack_the_reference_bytes(tmp_path, name):
         acks[root.name] = [(key, value) for _m, _s, key, value in log.acks]
     assert acks["p"] == acks["r"]
     assert any(key == "ecm" for key, _ in acks["p"])
+
+
+def test_group_commit_log_replays_identically_in_both(tmp_path,
+                                                      monkeypatch):
+    """The group-commit workload: the port and the reference record the
+    same acknowledgements and the same operation log (the append clock
+    pinned, each run on its own copy of one setup), and both packages'
+    build_crash_state make the same trees from the port's log."""
+    state = {"t": 0}
+
+    def time_ns():
+        state["t"] += 1000
+        return 1_700_000_000_000_000_000 + state["t"]
+
+    monkeypatch.setattr("time.time_ns", time_ns)
+    mine = wl.make_group_commit_workload()
+    theirs = {w.name: w for w in rwl.registry()}["volume_group_commit"]
+    p_root, r_root = tmp_path / "p", tmp_path / "r"
+    p_root.mkdir()
+    mine.setup(str(p_root))
+    shutil.copytree(p_root, r_root)
+    runs = {}
+    for w, root, recorder, acklog in ((mine, p_root, DiskRecorder, AckLog),
+                                      (theirs, r_root, RDiskRecorder,
+                                       RAckLog)):
+        state["t"] = 0
+        rec = recorder(str(root))
+        log = acklog(rec)
+        with rec:
+            w.run(str(root), log, random.Random(3))
+        runs[root.name] = (rec, [(k, v) for _m, _s, k, v in log.acks])
+    rec, acks = runs["p"]
+    assert acks == runs["r"][1] and len(acks) > 3
+    ops = [(op.kind, op.path, op.offset, op.data) for op in rec.ops]
+    assert ops == [(op.kind, op.path, op.offset, op.data)
+                   for op in runs["r"][0].ops]
+    # one barrier per acknowledged group (four), one for the tail
+    assert sum(op.kind == "fsync" for op in rec.ops) >= 5
+    rng = random.Random(5)
+    points = [0, len(rec.ops)] + [rng.randrange(len(rec.ops) + 1)
+                                  for _ in range(12)]
+    for i, crash in enumerate(points):
+        seed = (9 << 20) ^ (crash * 2654435761)
+        a, b = tmp_path / f"pa{i}", tmp_path / f"rb{i}"
+        build_crash_state(rec.baseline, rec.ops, crash,
+                          random.Random(seed), str(a))
+        r_build_crash_state(rec.baseline, rec.ops, crash,
+                            random.Random(seed), str(b))
+        assert _tree(a) == _tree(b), crash

@@ -15,6 +15,7 @@ against the JAX reference by the other tests/test_torch_*.py files.)
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -662,3 +663,111 @@ def test_ec_encode_crash_sweep_on_the_card():
     r = sweep(w, seed=1, points=8)
     assert r.points == 8 and r.ok, r.violations
     assert rs_cuda.gf_apply.launches > before
+
+
+@pytest.mark.gpu
+def test_balanced_volume_encodes_and_reads_degraded_on_the_card(
+        tmp_path, monkeypatch):
+    """Phase 11d on a small cluster: a balance move (copy, verify,
+    retire) of a sealed 010 volume, then the shell's ec.encode of the
+    moved volume on the card, whose shards equal a "numpy" Store's on a
+    copy of the moved volume, digests stamped in each holder's .ecm
+    equal to its shard files, and every needle read with one shard
+    holder stopped (degraded reads through the kernel)."""
+    _need_card()
+    import random
+    import shutil
+    from seaweedfs_torch.balance.planner import Move
+    from seaweedfs_torch.client import Client
+    from seaweedfs_torch.ec import geometry, pipeline
+    from seaweedfs_torch.server.local_cluster import LocalCluster
+    from seaweedfs_torch.shell.ec_commands import EcCommands
+    from seaweedfs_torch.storage.store import Store
+    monkeypatch.delenv("WEED_EC_GEOMETRY", raising=False)
+    monkeypatch.delenv("WEED_EC_FORMULATION", raising=False)
+    monkeypatch.setenv("WEED_BALANCE_INTERVAL", "3600")
+    g = geometry.Geometry(10, 4, 64 * 1024, 4 * 1024)
+    cl = LocalCluster(4, coder_name="auto", geometry=g,
+                      volume_size_limit_mb=4, pulse=0.15, racks=2,
+                      directory=str(tmp_path / "cluster"),
+                      master_kwargs={"default_replication": "010",
+                                     "repair_enabled": False})
+    try:
+        client = Client(cl.master_url)
+        rng = random.Random(11)
+        fids = {}
+        for _ in range(60):
+            data = rng.randbytes(rng.randint(100, 40000))
+            fids[client.upload(data, collection="b")] = data
+        vid = int(next(iter(fids)).split(",")[0])
+        holders = client.lookup(vid)
+        assert len(holders) == 2
+        for url in holders:
+            client.volume_admin(url, "volume/readonly",
+                                {"volume_id": vid, "read_only": True})
+        topo = cl.master.topology
+        racks = {n.url: n.rack for n in topo.nodes.values()}
+        src = holders[0]
+        deadline = time.monotonic() + 30
+        while not topo.nodes[src].volumes[vid].read_only:
+            assert time.monotonic() < deadline, "the seal's heartbeat"
+            time.sleep(0.05)
+        dst = next(u for u in racks if u not in holders
+                   and racks[u] == racks[src])
+        size = topo.nodes[src].volumes[vid].size
+        mv = Move(vid=vid, collection="b", src=src, dst=dst, src_url=src,
+                  dst_url=dst, bytes=size, rate=1.0, reason="test")
+        cl.call(cl.master.balancer._run_move(mv))
+        assert cl.master.balancer.moves_done == 1
+        client._vid_cache.clear()
+        assert sorted(client.lookup(vid)) == sorted([holders[1], dst])
+        assert cl.store(cl.index_of(dst)).find_volume(vid).read_only
+        # the two copies differ (each stamps its own append times): a
+        # numpy encode of each, to find the one the shell encoded
+        refs = []
+        for url in (holders[1], dst):
+            vol = cl.store(cl.index_of(url)).find_volume(vid)
+            ref = tmp_path / f"numpy{len(refs)}"
+            ref.mkdir()
+            for ext in (".dat", ".idx"):
+                shutil.copyfile(vol.base_file_name() + ext,
+                                ref / f"b_{vid}{ext}")
+            refs.append(ref)
+        before = rs_cuda.gf_apply.launches
+        EcCommands(client, g).encode(vid, "b")
+        assert rs_cuda.gf_apply.launches > before
+        for ref in refs:
+            st = Store([str(ref)], coder_name="numpy", geometry=g)
+            assert st.ec_generate(vid) == list(range(14))
+            st.close()
+        info = client.ec_lookup(vid)
+        url0 = info["shards"]["0"][0]
+        with open(os.path.join(cl.nodes[cl.index_of(url0)][3],
+                               f"b_{vid}.ec00"), "rb") as f:
+            shard0 = f.read()
+        ref = next(r for r in refs
+                   if (r / f"b_{vid}.ec00").read_bytes() == shard0)
+        spread: dict = {}
+        for sid, urls in info["shards"].items():
+            for u in urls:
+                spread.setdefault(u, []).append(int(sid))
+        for url, sids in spread.items():
+            base = os.path.join(cl.nodes[cl.index_of(url)][3], f"b_{vid}")
+            stamped = pipeline.read_stamped_digests(base)
+            assert [stamped[s] for s in sorted(sids)] == \
+                pipeline.shard_file_digest(base, sorted(sids)).tolist()
+            for s in sids:
+                ext = geometry.to_ext(s)
+                with open(base + ext, "rb") as got, \
+                        open(ref / f"b_{vid}{ext}", "rb") as want:
+                    assert got.read() == want.read(), s
+        gone = min(spread, key=lambda u: (len(spread[u]), u))
+        alive = next(u for u in spread if u != gone)
+        cl.stop_volume_server(cl.index_of(gone))
+        before = rs_cuda.gf_apply.launches
+        for fid, data in fids.items():
+            if int(fid.split(",")[0]) == vid:
+                assert client.download(fid, url=alive) == data
+        assert rs_cuda.gf_apply.launches > before
+    finally:
+        cl.shutdown()

@@ -77,6 +77,16 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.lifecycle.daemon",
                  "seaweedfs_torch.balance",
                  "seaweedfs_torch.balance.planner",
+                 "seaweedfs_torch.balance.daemon",
+                 "seaweedfs_torch.shell.balance_commands",
+                 "seaweedfs_torch.clustersim",
+                 "seaweedfs_torch.clustersim.__main__",
+                 "seaweedfs_torch.clustersim.clock",
+                 "seaweedfs_torch.clustersim.sim",
+                 "seaweedfs_torch.clustersim.scenarios",
+                 "seaweedfs_torch.metaring",
+                 "seaweedfs_torch.metaring.ring",
+                 "seaweedfs_torch.utils.retry",
                  "seaweedfs_torch.parallel",
                  "seaweedfs_torch.parallel.mesh_coder",
                  "seaweedfs_torch.parallel.sharded",
@@ -115,7 +125,9 @@ def test_sources_name_no_jax(path):
 
 SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
                   *PORT.glob("topology/*.py"), *PORT.glob("lifecycle/*.py"),
-                  *PORT.glob("balance/*.py"), PORT / "client.py",
+                  *PORT.glob("balance/*.py"), *PORT.glob("clustersim/*.py"),
+                  *PORT.glob("metaring/*.py"), PORT / "utils" / "retry.py",
+                  PORT / "client.py",
                   PORT / "cli.py", PORT / "utils" / "multipart.py",
                   PORT / "storage" / "file_id.py"])
 
@@ -124,7 +136,8 @@ SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_serving_layer_imports_only_stdlib_torch_numpy(path):
     """The servers and their daemons (lifecycle, balance) are aiohttp
-    applications; the client, the shell and the CLI use the standard
+    applications, and clustersim runs the same control plane on a
+    virtual clock; the client, the shell and the CLI use the standard
     library's HTTP client: the serving layer
     imports the standard library, aiohttp, torch, numpy and the port,
     nothing else."""
