@@ -92,8 +92,9 @@ Phases (any failure exits non-zero before the result line):
    servers in this process (``LocalCluster``, each server its own
    directory and ``Store(coder_name="auto")``, master volume size limit
    1024 MB), on loopback ports; one volume of collection ``ecsmoke`` grown
-   and filled over HTTP through the port's ``Client`` (phase 3's
-   generator, about 5% deleted with HTTP DELETE), its sealed .dat copied,
+   and filled to 512 MiB (1 GiB before phase 12) over HTTP through the
+   port's ``Client`` (phase 3's generator, about 5% deleted with HTTP
+   DELETE), its sealed .dat copied,
    the shell's ``EcCommands.encode`` (14 shards spread 5/5/4, the volume
    retired; the shard files gathered from the three directories: parity
    equal to the plain version's, data shards decoding to the sealed
@@ -112,8 +113,8 @@ Phases (any failure exits non-zero before the result line):
    ``repair_enabled=False`` (the CLI's with ``-maintenance_interval 0``):
    the shell heals phases 7 and 8, and the repair daemon would race it;
 8. (run inside 7a's cluster, before 7b) the hot tier in front of the
-   warm one: a fresh server takes the place of the one 7a lost; a 1 GiB
-   volume of collection ``repsmoke`` at replication ``001`` (upstream's
+   warm one: a fresh server takes the place of the one 7a lost; a 512 MiB
+   volume (1 GiB before phase 12) of collection ``repsmoke`` at replication ``001`` (upstream's
    "one more copy on the same rack") filled over HTTP with phase 3's
    generator (each 201 means both copies are written: both holders count
    every needle, and every needle reads back from each); needles deleted
@@ -137,7 +138,8 @@ Phases (any failure exits non-zero before the result line):
    rack (``Store(coder_name="auto")``, the scrub loop off, pulse 0.5 s),
    no operator command from step 2 on: (1) two volumes of ``lcsmoke``
    allocated on one server, filled at once over HTTP with phase 3's
-   generator to 1 GiB each, 5% deleted, the first copied aside; (2) the
+   generator to 512 MiB each (the size limit; 1 GiB before phase 12), 5%
+   deleted, the first copied aside; (2) the
    daemon seals both and warms them down in one ``ec/fused`` window of
    two (the master's ``lifecycle_encode_windows`` counter), spreads each
    4/4/3/3, reads 14/14 back and retires the originals; the 14 shards
@@ -198,7 +200,7 @@ Phases (any failure exits non-zero before the result line):
    lifecycle daemon whose rules fire later than the phase lasts, and the
    balancer (``WEED_BALANCE_INTERVAL=1``, cooldown 30 s; heat half-life
    2 s), 4 volume servers on 2 racks (``Store(coder_name="auto")``, pulse
-   0.5 s), volume size limit 256 MiB, default replication ``010``,
+   0.5 s), volume size limit 192 MiB (256 MiB before phase 12), default replication ``010``,
    ``WEED_VOLUME_GROUP_COMMIT_US=2000``. Under the operator's admin lease
    (no daemon moves anything meanwhile): (11a) 64 clients upload phase
    3's generator's needles (log-uniform 1 KiB .. 64 KiB; 16 keys per
@@ -224,9 +226,9 @@ Phases (any failure exits non-zero before the result line):
    holder over HTTP; a new volume grows on the coldest node, never the
    hottest; shell ``cluster.balance.run``; moves, bytes moved and
    seconds from the skew to the first completed move. (11d) shell
-   ``ec.encode`` of the moved volume on the card, every needle read with
-   one shard holder stopped (degraded reads; the repair daemon paused for
-   them), then the repair daemon's rebuild of the lost shards, each
+   ``ec.encode`` of the moved volume on the card, every 4th needle read
+   with one shard holder stopped (degraded reads; the repair daemon
+   paused for them; every needle before phase 12), then the repair daemon's rebuild of the lost shards, each
    holder's ``.ecm`` digests equal to its shard files. (11b, last) the
    repair daemon off and the fifth volume's peer stopped: a needle corrupt on the remaining holder answers 500
    "data corruption" in under 2 s, eight times. (11e) the crash sweep of
@@ -234,6 +236,42 @@ Phases (any failure exits non-zero before the result line):
    the four clustersim scenarios at 1000 nodes (their digests).
    ``gf_apply`` must launch in 11c's mid-encode and in 11d's encode and
    degraded reads, and nowhere else in the phase;
+12. (run after 11) the rest of the storage engine, with phase 3's
+   generator at log-uniform 1-16 KiB: (12a) a 1 GiB volume (about 194k
+   needles, 5% deleted) under ``needle_map_kind="leveldb"`` written with
+   ``Store.write_needle`` (the segment flushes counted), the ``.sdx``
+   bytes, each kind's open time and RSS growth (``/proc/self/status``),
+   the reopen adopting the ``.sdx`` with fewer than ``FLUSH_THRESHOLD``
+   entries folded, the (key, offset, size) set equal under ``memory``,
+   ``compact`` and ``leveldb``, every 16th live needle read,
+   ``ec_generate`` on the card (``.ecm`` digests equal to the shard
+   files) with the 14 shards and the ``.ecx`` equal by sha256 to
+   ``ec_generate`` of a copy opened as ``memory``, every 16th needle read
+   with shards {0, 3, 7, 12} deleted; (12b) an ``archive`` RS(20,4)
+   volume of 256 MiB of 6b's payload kinds under ``leveldb``, closed (its
+   delta flushed), reopened (adopted), 30% tombstoned in the delta over
+   the segment, ``ec_fused_generate`` on the card, the 24 shards and the
+   decoded compacted .dat equal by sha256 to a ``memory`` copy's;
+   (12c) a ``LocalCluster`` of 2 volume servers at ``-index leveldb``:
+   64 MiB uploaded by 8 HTTP clients (5% deleted), CLI ``backup``, 500
+   uploads and 100 deletes, ``backup`` again applying exactly those 600
+   records, the live set equal, and equal again after ``fix`` of the
+   backup without its .idx; shell ``volume.tier.upload -dest
+   local_store:``: the local .dat gone, every needle read over HTTP
+   through ``RemoteFile``, and again after the holder restarts (tiered
+   from its ``.vif``); ``volume.tier.download``, shell ``ec.encode`` on
+   the card, every 8th needle read with shards {0, 3, 7, 12} deleted;
+   the watchdog (``min_free_space_percent=101`` on one server seals its
+   volumes, uploads go to the other; back at 0 only its own seal lifts,
+   an operator's seal and D9's watchdog-sealed then ec-generated volume
+   stay); ``/admin/vacuum/compact`` on a 64 MiB volume 30% deleted,
+   first at no rate (then cleaned up), then at a
+   ``compaction_byte_per_second`` planned for twice that copy's wall: at
+   least bytes/rate of wall, 4 HTTP readers meanwhile, none waiting
+   1 s; (12d) the
+   ``needle_map_flush`` crash sweep at 2 seeds x 10 points, 0
+   violations. ``gf_apply`` must launch in the generates, ``ec.encode``
+   and the degraded reads of the phase and nowhere else in it;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -252,7 +290,8 @@ Phases (any failure exits non-zero before the result line):
    mma.sync, whose time is ``mma_sync_ms``), whose bound counts the
    int8 operations the function needs (the GF product and the repack,
    without the design's padding) at the tensor-core rate. The
-   ``kernels`` line, the nvidia-smi line, and the result line.
+   ``phase_seconds`` line (each phase's wall time), the ``kernels``
+   line, the nvidia-smi line, and the result line.
 
 It needs one card, exits non-zero without one, and works in a scratch
 directory inside the checkout that it removes at the end.
@@ -306,6 +345,7 @@ from seaweedfs_torch.storage import types as st_types
 from seaweedfs_torch.storage.file_id import FileId
 from seaweedfs_torch.storage.needle import (FLAG_HAS_MIME, FLAG_HAS_NAME,
                                             FLAG_IS_COMPRESSED, Needle)
+from seaweedfs_torch.storage.needle_map import DiskNeedleMap
 from seaweedfs_torch.storage.superblock import SuperBlock
 from seaweedfs_torch.storage.volume import Volume
 from seaweedfs_torch.utils import compression, metrics
@@ -1885,7 +1925,7 @@ def garbage_level(url: str, vid: int) -> float:
 
 
 def run_replicated(cl, client, total: int, seed: int) -> dict:
-    """(8) In phase 7's cluster, on one rack: a 1 GiB volume of
+    """(8) In phase 7's cluster, on one rack: a volume of `total` bytes of
     collection repsmoke at replication 001 filled over HTTP (every 201
     means both copies are written) and read back from each holder,
     needles deleted until both holders' garbage is at least 0.3,
@@ -2733,7 +2773,8 @@ CRASH_SEEDS, CRASH_POINTS = 2, 20
 MESH_CRASH_POINTS = 10
 CRASH_DAT_BYTES = 32 * MIB
 # phase 6b's archive volume and phase 10b's volume, cut from 1 GiB for
-# the same reason
+# the same reason; phases 7-8's and 9's volumes too, to make room for
+# phase 12 (the smoke took about 1115 s on one H100 with them at 1 GiB)
 CUT_VOLUME_BYTES = 512 * MIB
 
 
@@ -3038,7 +3079,9 @@ BAL_COLLECTION = "balsmoke"
 BAL_AB = "balgc"          # the fifth volume: group commit off, then on
 BAL_NEW = "balnew"        # a volume grown after the moves
 # upstream's 30 GB volume size limit, cut to 256 MiB
-BAL_LIMIT_MB = 256
+# cut from 256 MiB to make room for phase 12 (the fifth volume's about
+# 120 MiB of group-commit uploads stay under 0.9 of it)
+BAL_LIMIT_MB = 192
 BAL_FULL = 4              # the full 010 volumes of step 11a
 BAL_CLIENTS = 64
 BAL_PROCS = 4             # uploader processes (16 clients each)
@@ -3053,6 +3096,9 @@ BAL_ENV = {"WEED_BALANCE_ENABLED": "1", "WEED_BALANCE_INTERVAL": "1",
 # a read of a corrupt needle whose only peer is down: answered within
 # this many seconds (a connect timeout would take 10)
 BAL_FAST_500_S = 2.0
+# 11d reads every 4th needle of the moved volume with a holder stopped
+# (every needle before phase 12: 18416 reads, 101.5 s on one H100)
+BAL_DEGRADED_STRIDE = 4
 # steps of phase 11 that run the coder (gf_apply must launch there, and
 # in no other step of the phase)
 BALANCE_CODER_STEPS = ("balance.ec_mid_encode", "balance.ec_encode",
@@ -3720,9 +3766,11 @@ def run_balance(work: Path, limit_mb: int = BAL_LIMIT_MB,
         m = cl.master.metrics
         heal0 = m.value("repairs_succeeded", labels={"kind": "ec"})
 
+        sample = by_vid[vid][::BAL_DEGRADED_STRIDE]
+
         def degraded():
             t1 = time.perf_counter()
-            out = bal_read_procs(cl.master_url, by_vid[vid], seed,
+            out = bal_read_procs(cl.master_url, sample, seed,
                                  {vid: alive[0]})
             out["read_s"] = time.perf_counter() - t1
             cl.master.repair_enabled = True
@@ -3733,7 +3781,7 @@ def run_balance(work: Path, limit_mb: int = BAL_LIMIT_MB,
             return out
 
         deg, launches["balance.read_degraded"] = counted(degraded)
-        if deg["failed"] or len(deg["lat"]) != len(by_vid[vid]):
+        if deg["failed"] or len(deg["lat"]) != len(sample):
             raise AssertionError(f"degraded reads {dict(deg['failed'])}")
         checked = 0
         for url in alive:
@@ -3823,6 +3871,734 @@ def check_balance_launches(launches: dict) -> None:
             raise AssertionError(f"{step}: launches {counts}")
 
 
+# --- phase 12: the rest of the storage engine ----------------------------
+
+STOR_MAX_NEEDLE = 16 * 1024   # phase 3's generator, log-uniform 1-16 KiB
+STOR_DISK_BYTES = 1 << 30     # 12a's volume
+STOR_FUSED_BYTES = 256 * MIB  # 12b's archive volume
+STOR_UPLOAD_BYTES = 64 * MIB  # 12c's uploads, and its vacuumed volume
+STOR_MORE, STOR_MORE_DELETES = 500, 100
+STOR_READ_STRIDE = 16         # 12a's reads, healthy and degraded
+STOR_EC_READ_STRIDE = 8       # 12c's degraded reads
+STOR_THREADS = 8              # 12c's HTTP clients
+STOR_VACUUM_SLOWDOWN = 2.0    # the throttled copy's plan, in free copies
+STOR_COLLECTION = "storsmoke"
+# steps of phase 12 that run the coder (gf_apply must launch there, and
+# in no other step of the phase)
+STORAGE_CODER_STEPS = ("storage.ec_generate", "storage.ec_generate_memory",
+                       "storage.read_degraded", "storage.fused_generate",
+                       "storage.fused_generate_memory",
+                       "storage.cluster_ec_encode",
+                       "storage.cluster_read_degraded",
+                       "storage.d9_ec_generate")
+
+
+def rss_mb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) / 1024
+    return float("nan")
+
+
+def map_triples(directory: str, collection: str, vid: int,
+                kind: str) -> tuple:
+    """Open the volume under `kind`; its (key, offset, size) set, the map,
+    the open's seconds and its RSS growth."""
+    import gc
+    gc.collect()
+    before = rss_mb()
+    t0 = time.perf_counter()
+    v = Volume(directory, collection, vid, needle_map_kind=kind)
+    secs = time.perf_counter() - t0
+    grown = rss_mb() - before
+    try:
+        triples = sorted((nv.key, nv.offset, nv.size)
+                         for nv in v.nm.values())
+        info = {"kind": kind, "open_s": secs, "rss_growth_mb": grown,
+                "map": type(v.nm).__name__,
+                "adopted": getattr(v.nm, "adopted", None),
+                "replayed": getattr(v.nm, "replayed", None)}
+    finally:
+        v.close()
+    return triples, info
+
+
+def read_stride(reader, sizes: dict, deleted: set, seed: int,
+                stride: int) -> dict:
+    """read_all over the first needle and every `stride`-th after it."""
+    ids = sorted(sizes)[::stride]
+    return read_all(reader, {n: sizes[n] for n in ids}, deleted, seed)
+
+
+def copy_volume(src_base: str, dst_dir: Path, name: str) -> str:
+    dst_dir.mkdir(parents=True, exist_ok=True)
+    dst = str(dst_dir / name)
+    for ext in (".dat", ".idx"):
+        shutil.copyfile(src_base + ext, dst + ext)
+    return dst
+
+
+def run_storage_disk_map(work: Path, coder_name: str, device,
+                         total: int, launches: dict) -> None:
+    """(12a) A volume under needle_map_kind="leveldb" through the Store:
+    write, flushes, reopen (the .sdx adopted), the map kinds agree, reads,
+    ec_generate on the card against a "memory" copy's, degraded reads."""
+    seed = SEED + 13
+    directory = str(work / "disk")
+    base = os.path.join(directory, "1")
+    st = store_mod.Store([directory], coder_name=coder_name, device=device,
+                         needle_map_kind="leveldb")
+    try:
+        vol = st.add_volume(1)
+        (sizes, deleted), launches["storage.write_volume"] = counted(
+            lambda: timed(
+                "storage.write_volume",
+                lambda: write_needles(
+                    lambda n: st.write_needle(1, n),
+                    lambda n: st.delete_needle(1, n), vol.data_file_size,
+                    total, STOR_MAX_NEEDLE, seed),
+                lambda r: vol.data_file_size(),
+                lambda r: {"needles": len(r[0]), "deleted": len(r[1]),
+                           "flushes": vol.nm.flushes,
+                           "delta_entries": len(vol.nm._map),
+                           "segment_entries": vol.nm._count}))
+        flushes = vol.nm.flushes
+        # at least one merge for each FLUSH_THRESHOLD needles written
+        if flushes < len(sizes) // DiskNeedleMap.FLUSH_THRESHOLD:
+            raise AssertionError(f"the disk map flushed {flushes} times")
+    finally:
+        st.close()
+    sdx_bytes = os.path.getsize(base + ".sdx")
+    kinds, infos = {}, {}
+    for kind in ("leveldb", "memory", "compact"):
+        kinds[kind], infos[kind] = map_triples(directory, "", 1, kind)
+    if not infos["leveldb"]["adopted"] or \
+            infos["leveldb"]["replayed"] >= DiskNeedleMap.FLUSH_THRESHOLD:
+        raise AssertionError(f"the reopen did not adopt the .sdx: "
+                             f"{infos['leveldb']}")
+    if not kinds["leveldb"] == kinds["memory"] == kinds["compact"]:
+        raise AssertionError("the map kinds disagree on (key, offset, size)")
+    bal_log("storage.maps", 0.0, flushes=flushes, sdx_bytes=sdx_bytes,
+            entries=len(kinds["memory"]), opens=infos,
+            triples_equal=True)
+    st = store_mod.Store([directory], coder_name=coder_name, device=device,
+                         needle_map_kind="leveldb")
+    try:
+        reader = StoreReader(st, 1)
+        _, launches["storage.read"] = counted(lambda: timed(
+            "storage.read", lambda: read_stride(
+                reader, sizes, deleted, seed, STOR_READ_STRIDE),
+            lambda r: r["bytes"],
+            lambda r: latency_summary(r["latencies"])))
+        st.find_volume(1).seal()
+        mem = copy_volume(base, work / "disk_memory", "1")
+        g = st.geometry_for("")
+        dat_size = os.path.getsize(base + ".dat")
+        _, launches["storage.ec_generate"] = counted(lambda: timed(
+            "storage.ec_generate", lambda: st.ec_generate(1),
+            lambda r: dat_size))
+        check_ecm_digests(base, g, "storage.ec_generate")
+        sha = shard_shas(base, g)
+    finally:
+        st.close()
+    mst = store_mod.Store([os.path.dirname(mem)], coder_name=coder_name,
+                          device=device, needle_map_kind="memory")
+    try:
+        _, launches["storage.ec_generate_memory"] = counted(lambda: timed(
+            "storage.ec_generate_memory", lambda: mst.ec_generate(1),
+            lambda r: dat_size))
+    finally:
+        mst.close()
+    if shard_shas(mem, g) != sha or \
+            sha256_file(mem + ".ecx") != sha256_file(base + ".ecx"):
+        raise AssertionError("shards of the leveldb volume differ from the "
+                             "memory copy's")
+    shutil.rmtree(work / "disk_memory", ignore_errors=True)
+    # the shards take over; a reopen finds the EC volume
+    os.remove(base + ".dat")
+    st = store_mod.Store([directory], coder_name=coder_name, device=device,
+                         needle_map_kind="leveldb")
+    try:
+        ev = st.find_ec_volume(1)
+        if st.find_volume(1) is not None or ev is None:
+            raise AssertionError("the reopen did not find the EC volume")
+        st.ec_delete_shards(1, "", list(VICTIMS))
+        on_victims = needles_on(ev, {n: 0 for n in sorted(sizes)[
+            ::STOR_READ_STRIDE]}, deleted, VICTIMS)
+        reader = StoreReader(st, 1)
+        _, launches["storage.read_degraded"] = counted(lambda: timed(
+            "storage.read_degraded", lambda: read_stride(
+                reader, sizes, deleted, seed, STOR_READ_STRIDE),
+            lambda r: r["bytes"],
+            lambda r: {"needles_on_victims": on_victims,
+                       **latency_summary(r["latencies"])}))
+    finally:
+        st.close()
+    bal_log("storage.disk_summary", 0.0, needles=len(sizes),
+            deleted=len(deleted), dat_bytes=dat_size, flushes=flushes,
+            sdx_bytes=sdx_bytes, shards_sha256_equal_memory=True,
+            needles_on_victims=on_victims)
+    shutil.rmtree(work / "disk", ignore_errors=True)
+
+
+def run_storage_fused(work: Path, coder_name: str, device, total: int,
+                      launches: dict) -> None:
+    """(12b) The archive collection's RS(20,4) fused warm-down of a
+    leveldb volume whose tombstones sit in the delta over segment
+    entries, against a "memory" copy's."""
+    seed = SEED + 14
+    directory = str(work / "fused")
+    base = os.path.join(directory, "archive_2")
+    st = store_mod.Store([directory], coder_name=coder_name, device=device,
+                         needle_map_kind="leveldb")
+    try:
+        vol = st.add_volume(2, collection="archive")
+
+        def fill() -> int:
+            nid = 0
+            while vol.data_file_size() < total:
+                nid += 1
+                st.write_needle(2, archive_needle(seed, nid))
+            return nid
+
+        count, launches["storage.fused_write"] = counted(lambda: timed(
+            "storage.fused_write", fill, lambda r: vol.data_file_size(),
+            lambda r: {"needles": r}))
+    finally:
+        st.close()     # the delta lands in the .sdx
+    st = store_mod.Store([directory], coder_name=coder_name, device=device,
+                         needle_map_kind="leveldb")
+    try:
+        vol = st.find_volume(2)
+        if not vol.nm.adopted or vol.nm._count != count:
+            raise AssertionError(f"archive reopen: adopted "
+                                 f"{vol.nm.adopted}, segment {vol.nm._count}")
+        rng = np.random.default_rng(seed)
+        gone = {int(i) + 1 for i in rng.choice(count, size=int(0.3 * count),
+                                               replace=False)}
+        for d in sorted(gone):
+            st.delete_needle(2, Needle(cookie=d * 7919 & 0xFFFFFFFF, id=d))
+        delta_tombstones = sum(1 for nv in vol.nm._map.values()
+                               if nv.size < 0)
+        if delta_tombstones != len(gone) or vol.nm._count != count:
+            raise AssertionError(f"{delta_tombstones} tombstones in the "
+                                 f"delta for {len(gone)} deletes")
+        vol.sync()
+        mem = copy_volume(base, work / "fused_memory", "archive_2")
+        g = st.geometry_for("archive")
+        src_bytes = vol.data_file_size()
+        _, launches["storage.fused_generate"] = counted(lambda: timed(
+            "storage.fused_generate", lambda: st.ec_fused_generate(2),
+            lambda r: src_bytes,
+            lambda r: {"delta_tombstones": delta_tombstones}))
+        check_ecm_digests(base, g, "storage.fused_generate")
+    finally:
+        st.close()
+    mst = store_mod.Store([os.path.dirname(mem)], coder_name=coder_name,
+                          device=device, needle_map_kind="memory")
+    try:
+        _, launches["storage.fused_generate_memory"] = counted(
+            lambda: timed("storage.fused_generate_memory",
+                          lambda: mst.ec_fused_generate(2),
+                          lambda r: src_bytes))
+    finally:
+        mst.close()
+    if shard_shas(mem, g) != shard_shas(base, g):
+        raise AssertionError("fused shards differ from the memory copy's")
+    dats = []
+    for b in (base, mem):
+        with open(b + ".ecm") as f:
+            dat_size = json.load(f)["dat_size"]
+        dec = b + ".decoded"
+        for i in range(g.data_shards):
+            os.link(b + geometry.to_ext(i), dec + geometry.to_ext(i))
+        striping.write_dat_file(dec, dat_size, g)
+        dats.append(sha256_file(dec + ".dat"))
+    if dats[0] != dats[1]:
+        raise AssertionError("compacted .dat differs from the memory copy's")
+    bal_log("storage.fused_summary", 0.0, needles=count,
+            deleted=len(gone), src_bytes=src_bytes,
+            compacted_bytes=dat_size, delta_tombstones=delta_tombstones,
+            shards_sha256_equal_memory=True,
+            compacted_dat_sha256_equal_memory=True)
+    shutil.rmtree(work / "fused", ignore_errors=True)
+    shutil.rmtree(work / "fused_memory", ignore_errors=True)
+
+
+def stor_upload(master_url: str, collection: str, seed: int, first: int,
+                count: int = 0, total: int = 0,
+                threads: int = STOR_THREADS) -> dict:
+    """Needles of phase 3's generator (log-uniform 1-16 KiB, sized by
+    their id) uploaded over HTTP by `threads` clients, ids from `first`,
+    until `count` needles or `total` bytes; fid -> (nid, size)."""
+    ids = itertools.count(first)
+    lock = threading.Lock()
+    out: dict = {}
+    sent = [0, 0]
+    errors: list = []
+
+    def size_of(nid: int) -> int:
+        rng = np.random.default_rng((seed, nid, 1))
+        return int(np.exp(rng.uniform(np.log(1024),
+                                      np.log(STOR_MAX_NEEDLE))))
+
+    def worker() -> None:
+        client = Client(master_url)
+        try:
+            while True:
+                with lock:
+                    if (count and sent[0] >= count) or \
+                            (total and sent[1] >= total):
+                        return
+                    nid = next(ids)
+                    size = size_of(nid)
+                    sent[0] += 1
+                    sent[1] += size
+                fid = client.upload(payload(seed, nid, size),
+                                    collection=collection)
+                with lock:
+                    out[fid] = (nid, size)
+        except Exception as e:
+            errors.append(e)
+
+    ths = [threading.Thread(target=worker) for _ in range(threads)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def stor_read(master_url: str, fids: dict, deleted: set, seed: int,
+              threads: int = STOR_THREADS) -> dict:
+    """Every fid read over HTTP by `threads` clients: live ones equal to
+    their payload, deleted ones 404. Returns bytes and latencies."""
+    items = sorted(fids.items())
+    lat: list = []
+    nbytes = [0]
+    lock = threading.Lock()
+    errors: list = []
+
+    def part(chunk) -> None:
+        client = Client(master_url)
+        try:
+            for fid, (nid, size) in chunk:
+                if fid in deleted:
+                    try:
+                        client.download(fid)
+                    except ClientError as e:
+                        if "HTTP 404" not in str(e):
+                            raise
+                        continue
+                    raise AssertionError(f"deleted {fid} still readable")
+                t0 = time.perf_counter()
+                data = client.download(fid)
+                dt = time.perf_counter() - t0
+                if data != payload(seed, nid, size):
+                    raise AssertionError(f"needle {fid} reads back wrong")
+                with lock:
+                    lat.append(dt)
+                    nbytes[0] += size
+        except Exception as e:
+            errors.append(e)
+
+    ths = [threading.Thread(target=part, args=(items[i::threads],))
+           for i in range(threads)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    if errors:
+        raise errors[0]
+    return {"bytes": nbytes[0], "latencies": lat}
+
+
+def run_cli_json(*argv) -> dict:
+    """One CLI command through the port's entry point, in this process;
+    its last stdout line as JSON."""
+    import contextlib
+    import io
+
+    from seaweedfs_torch import cli as cli_mod
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_mod.main(list(argv))
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def backup_live(directory: str, collection: str, vid: int) -> dict:
+    v = Volume(directory, collection, vid)
+    try:
+        return {k: v.read_needle(k).data for k, _ in v.nm.live_entries()}
+    finally:
+        v.close()
+
+
+def run_storage_cluster(work: Path, coder_name: str, device,
+                        upload_bytes: int, launches: dict) -> None:
+    """(12c) Two volume servers at -index leveldb: uploads, CLI backup
+    twice and fix, tier upload / restart / download through the shell,
+    ec.encode on the card and degraded reads, the watchdog (and D9), a
+    vacuum at a byte rate with reads during it."""
+    seed = SEED + 15
+    col = STOR_COLLECTION
+    cl = LocalCluster(2, coder_name=coder_name, device=device,
+                      volume_size_limit_mb=1024, pulse=0.5,
+                      directory=str(work / "cluster"), racks=1,
+                      master_kwargs={"repair_enabled": False},
+                      volume_kwargs={"scrub_interval_seconds": 0},
+                      store_kwargs={"needle_map_kind": "leveldb"})
+    try:
+        client = Client(cl.master_url)
+        env = shell_commands.CommandEnv(client, geometry.DEFAULT)
+        shell_commands._register_all()
+        vid = client.grow(count=1, collection=col)["volume_ids"][0]
+        holder = cl.index_of(client.lookup(vid)[0])
+
+        # (12c.1) the uploads, then 5% deleted
+        def upload() -> tuple:
+            fids = stor_upload(cl.master_url, col, seed, 1,
+                               total=upload_bytes)
+            rng = np.random.default_rng(seed)
+            gone = {str(f) for f in rng.choice(
+                sorted(fids), size=len(fids) // 20, replace=False)}
+            for fid in sorted(gone):
+                client.delete(fid)
+            return fids, gone
+
+        (fids, deleted), launches["storage.upload"] = counted(
+            lambda: timed("storage.upload", upload,
+                          lambda r: sum(s for _, s in r[0].values()),
+                          lambda r: {"needles": len(r[0]),
+                                     "deleted": len(r[1])}))
+        if {FileId.parse(f).volume_id for f in fids} != {vid}:
+            raise AssertionError("uploads spread over volumes")
+
+        # (12c.2) CLI backup, then 500 uploads and 100 deletes, again
+        bdir = str(work / "backup")
+        bargs = ("backup", "-server", cl.master_url, "-dir", bdir,
+                 "-collection", col, "-volumeId", str(vid))
+        first, launches["storage.backup"] = counted(lambda: timed(
+            "storage.backup", lambda: run_cli_json(*bargs),
+            extra=lambda r: r))
+        if first["applied"] != len(fids) + len(deleted):
+            raise AssertionError(f"backup applied {first}")
+        more = stor_upload(cl.master_url, col, seed, 10**6,
+                           count=STOR_MORE)
+        rng = np.random.default_rng(seed + 1)
+        live_old = sorted(f for f in fids if f not in deleted)
+        gone = {str(f) for f in rng.choice(live_old, size=STOR_MORE_DELETES,
+                                           replace=False)}
+        for fid in sorted(gone):
+            client.delete(fid)
+        fids.update(more)
+        deleted |= gone
+        second, launches["storage.backup_incremental"] = counted(
+            lambda: timed("storage.backup_incremental",
+                          lambda: run_cli_json(*bargs), extra=lambda r: r))
+        if second["applied"] != STOR_MORE + STOR_MORE_DELETES:
+            raise AssertionError(f"incremental backup applied {second}")
+        src = cl.store(holder).find_volume(vid)
+        want = {k: src.read_needle(k).data for k, _ in
+                src.nm.live_entries()}
+        if backup_live(bdir, col, vid) != want:
+            raise AssertionError("the backup's live needles differ")
+        os.remove(os.path.join(bdir, f"{col}_{vid}.idx"))
+        fixed, launches["storage.fix"] = counted(lambda: timed(
+            "storage.fix", lambda: run_cli_json(
+                "fix", "-dir", bdir, "-collection", col, "-volumeId",
+                str(vid)), extra=lambda r: r))
+        if backup_live(bdir, col, vid) != want:
+            raise AssertionError("the live set after fix differs")
+        shutil.rmtree(bdir, ignore_errors=True)
+
+        # (12c.3) the shell's tier upload: reads through RemoteFile
+        bucket = str(work / "bucket")
+        _, launches["storage.tier_upload"] = counted(lambda: timed(
+            "storage.tier_upload", lambda: shell_commands.run_command(
+                env, ["volume.tier.upload", "-volumeId", str(vid), "-dest",
+                      f"local_store:{bucket}"]),
+            lambda r: os.path.getsize(os.path.join(
+                bucket, f"{col}_{vid}.dat"))))
+        v = cl.store(holder).find_volume(vid)
+        if not v.is_remote or os.path.exists(v.base_file_name() + ".dat"):
+            raise AssertionError("the tiered volume kept its local .dat")
+
+        def read_step(name: str, **extra) -> None:
+            client._vid_cache.clear()
+            _, launches[name] = counted(lambda: timed(
+                name, lambda: stor_read(cl.master_url, fids, deleted, seed),
+                lambda r: r["bytes"],
+                lambda r: {**extra, **latency_summary(r["latencies"])}))
+
+        read_step("storage.read_tiered", remote=True)
+        # (12c.4) the holder restarts: tiered again from its .vif
+        timed("storage.restart_holder",
+              lambda: cl.restart_volume_server(holder))
+        cl.wait_for_nodes(2)
+        if not cl.store(holder).find_volume(vid).is_remote:
+            raise AssertionError("the restarted volume is not tiered")
+        read_step("storage.read_tiered_restarted", remote=True)
+        # (12c.5) download, ec.encode on the card, degraded reads
+        _, launches["storage.tier_download"] = counted(lambda: timed(
+            "storage.tier_download", lambda: shell_commands.run_command(
+                env, ["volume.tier.download", "-volumeId", str(vid)])))
+        if cl.store(holder).find_volume(vid).is_remote:
+            raise AssertionError("the download left the volume tiered")
+        _, launches["storage.cluster_ec_encode"] = counted(lambda: timed(
+            "storage.cluster_ec_encode", lambda: shell_commands.run_command(
+                env, ["ec.encode", "-volumeId", str(vid), "-collection",
+                      col])))
+        info = client.ec_lookup(vid)
+        if len(info["shards"]) != 14:
+            raise AssertionError(f"ec.encode mounted {info}")
+        for sid in VICTIMS:
+            for url in info["shards"][str(sid)]:
+                client.volume_admin(url, "ec/delete_shards",
+                                    {"volume_id": vid, "collection": col,
+                                     "shard_ids": [sid]})
+        sample = dict(sorted(fids.items())[::STOR_EC_READ_STRIDE])
+        client._vid_cache.clear()
+        _, launches["storage.cluster_read_degraded"] = counted(
+            lambda: timed("storage.cluster_read_degraded",
+                          lambda: stor_read(cl.master_url, sample, deleted,
+                                            seed),
+                          lambda r: r["bytes"],
+                          lambda r: {"lost": list(VICTIMS),
+                                     **latency_summary(r["latencies"])}))
+
+        # (12c.6) the watchdog on one server, D9 there
+        launches.update(run_storage_watchdog(cl, client, seed))
+        # (12c.7) a vacuum at a byte rate, reads during it
+        launches.update(run_storage_vacuum(cl, client, seed,
+                                           upload_bytes))
+    finally:
+        cl.shutdown()
+    shutil.rmtree(work / "cluster", ignore_errors=True)
+    shutil.rmtree(work / "bucket", ignore_errors=True)
+
+
+def fill_store_volume(st, vid: int, collection: str, total: int,
+                      seed: int) -> tuple:
+    """Phase 3's generator at 1-16 KiB written into a server's Store
+    directly (the volume server reports it at its next beat)."""
+    v = st.add_volume(vid, collection=collection)
+    sizes, _ = write_needles(lambda n: st.write_needle(vid, n),
+                             lambda n: None, v.data_file_size, total,
+                             STOR_MAX_NEEDLE, seed)
+    return sizes
+
+
+def run_storage_watchdog(cl, client, seed: int) -> dict:
+    """(12c.6) min_free_space_percent=101 on server 0 seals its writable
+    volumes; uploads go to server 1; an operator's seal and D9's sequence
+    (a watchdog-sealed volume then ec-generated) stay sealed when the
+    threshold is back at 0, and only the watchdog's own seal lifts."""
+    launches = {}
+    col = "stor_wd"
+    st_a, st_b = cl.store(0), cl.store(1)
+    base_vid = 9000
+    w, o, e, b = base_vid, base_vid + 1, base_vid + 2, base_vid + 3
+    for st, vid in ((st_a, w), (st_a, o), (st_a, e), (st_b, b)):
+        fill_store_volume(st, vid, col, 2 * MIB, seed + vid)
+    client.volume_admin(cl.url(0), "volume/readonly",
+                        {"volume_id": o, "read_only": True})
+    # the master knows all four (the grown vids come after them), B's
+    # writable, before the threshold moves
+    wait_until(lambda: {v["id"]: v["read_only"] for nd in
+                        client.dir_status()["nodes"] for v in nd["volumes"]
+                        if v["id"] >= base_vid} == {
+        w: False, o: True, e: False, b: False}, "the four volumes' beats",
+        timeout=30)
+    t0 = time.perf_counter()
+    st_a.min_free_space_percent = 101.0
+    wait_until(lambda: st_a.find_volume(w).read_only
+               and st_a.find_volume(e).read_only, "the watchdog's seal",
+               timeout=30)
+    seal_s = time.perf_counter() - t0
+    vols = {vid: st_a.find_volume(vid) for vid in (w, o, e)}
+    if not (vols[w].watchdog_sealed and vols[e].watchdog_sealed
+            and not vols[o].watchdog_sealed):
+        raise AssertionError("the watchdog sealed what it must not")
+    # the master sees the seals at the next beat: then uploads go to B
+    wait_until(lambda: all(
+        v["read_only"] for nd in client.dir_status()["nodes"]
+        if nd["url"] == cl.url(0) for v in nd["volumes"]
+        if v["id"] in (w, e)), "the sealed beat", timeout=30)
+    ups = stor_upload(cl.master_url, col, seed, 5 * 10**6, count=40,
+                      threads=2)
+    where = {FileId.parse(f).volume_id for f in ups}
+    on_a = {vid for vid in where if st_a.find_volume(vid) is not None}
+    if on_a:
+        raise AssertionError(f"uploads landed on the low server: {on_a}")
+    # D9: the watchdog-sealed volume is ec-generated, then space is back
+    _, launches["storage.d9_ec_generate"] = counted(
+        lambda: client.volume_admin(cl.url(0), "ec/generate",
+                                    {"volume_id": e, "collection": col}))
+    st_a.min_free_space_percent = 0.0
+    t0 = time.perf_counter()
+    wait_until(lambda: not st_a.find_volume(w).read_only,
+               "the watchdog's lift", timeout=30)
+    lift_s = time.perf_counter() - t0
+    time.sleep(2 * cl.pulse)
+    states = {vid: st_a.find_volume(vid).read_only for vid in (w, o, e)}
+    if states != {w: False, o: True, e: True}:
+        raise AssertionError(f"after the lift: {states}")
+    bal_log("storage.watchdog", seal_s + lift_s,
+            launches["storage.d9_ec_generate"], seal_s=seal_s,
+            lift_s=lift_s, uploads_while_low=len(ups),
+            upload_volumes=sorted(where),
+            read_only_after_lift={"watchdog": states[w],
+                                  "operator": states[o],
+                                  "d9_ec_generated": states[e]})
+    return launches
+
+
+def run_storage_vacuum(cl, client, seed: int, total: int) -> dict:
+    """(12c.7) /admin/vacuum/compact with compaction_byte_per_second on a
+    volume 30% deleted, HTTP reads of it from 4 clients during the copy.
+    The rate is planned from a copy at no rate (cleaned up after) so that
+    the throttled copy must take STOR_VACUUM_SLOWDOWN times as long: it
+    takes at least its bytes over the rate, which a copy that never
+    sleeps would not, and no read waits 1 s."""
+    launches = {}
+    col, vid = "stor_vac", 9100
+    st = cl.store(1)
+    sizes = fill_store_volume(st, vid, col, total, seed + 7)
+    rng = np.random.default_rng(seed + 7)
+    gone = {int(i) for i in rng.choice(sorted(sizes), size=int(
+        0.3 * len(sizes)), replace=False)}
+    for nid in sorted(gone):
+        st.delete_needle(vid, Needle(cookie=nid * 7919 & 0xFFFFFFFF,
+                                     id=nid))
+    live = sorted(n for n in sizes if n not in gone)
+    live_bytes = sum(st_types.get_actual_size(sizes[n], 3) for n in live)
+    url = cl.url(1)
+    base = st.find_volume(vid).base_file_name()
+    wait_until(lambda: any(v["id"] == vid for nd in
+                           client.dir_status()["nodes"]
+                           for v in nd["volumes"]), "the vacuum volume")
+    stop = threading.Event()
+    lat: list = []
+    errors: list = []
+
+    def reader(i: int) -> None:
+        c = Client(cl.master_url)
+        k = i
+        try:
+            while not stop.is_set():
+                nid = live[k % len(live)]
+                fid = str(FileId(vid, nid, nid * 7919 & 0xFFFFFFFF))
+                t0 = time.perf_counter()
+                data = c.download(fid, url=url)
+                lat.append(time.perf_counter() - t0)
+                if data != payload(seed + 7, nid, sizes[nid]):
+                    raise AssertionError(f"{fid} reads back wrong")
+                k += 4
+        except Exception as e:
+            errors.append(e)
+
+    ths = [threading.Thread(target=reader, args=(i,)) for i in range(4)]
+    for th in ths:
+        th.start()
+    try:
+        def compact(rate: int):
+            client.volume_admin(url, "vacuum/compact",
+                                {"volume_id": vid,
+                                 "compaction_byte_per_second": rate})
+            return os.path.getsize(base + ".cpd")
+
+        t0 = time.perf_counter()
+        _, launches["storage.vacuum_free"] = counted(lambda: compact(0))
+        wall_free = time.perf_counter() - t0
+        client.volume_admin(url, "vacuum/cleanup", {"volume_id": vid})
+        rate = int(live_bytes / (STOR_VACUUM_SLOWDOWN * wall_free))
+        t0 = time.perf_counter()
+        cpd, launches["storage.vacuum_throttled"] = counted(
+            lambda: compact(rate))
+        wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        for th in ths:
+            th.join()
+    if errors:
+        raise errors[0]
+    client.volume_admin(url, "vacuum/commit", {"volume_id": vid})
+    copied = cpd - 8
+    worst = max(lat)
+    if wall < copied / rate or worst >= 1.0:
+        raise AssertionError(f"throttled vacuum {wall:.3f} s for {copied} "
+                             f"bytes at {rate} B/s (at no rate "
+                             f"{wall_free:.3f} s), slowest read "
+                             f"{worst:.3f} s")
+    after = {n: sizes[n] for n in live[::STOR_EC_READ_STRIDE]}
+    reader_v = StoreReader(st, vid)
+    read_all(reader_v, after, set(), seed + 7)
+    bal_log("storage.vacuum_throttled", wall,
+            launches["storage.vacuum_throttled"], rate_bps=rate,
+            copied_bytes=copied, floor_s=copied / rate,
+            free_copy_s=wall_free, slowdown=wall / wall_free,
+            reads_during=len(lat), **{"read_" + k: v for k, v in
+                                      latency_summary(lat).items()},
+            garbage_before=0.3)
+    return launches
+
+
+def run_storage_crash(work: Path, launches: dict,
+                      points: int = MESH_CRASH_POINTS) -> None:
+    """(12d) needle_map_flush at CRASH_SEEDS x `points`: 0 violations."""
+    t0 = time.perf_counter()
+    w = crash_wl.make_needle_map_workload()
+    summary, launches["crash.needle_map_flush"] = counted(
+        lambda: crash_harness.sweep_all(seeds=CRASH_SEEDS, points=points,
+                                        workloads=[w],
+                                        scratch_dir=str(work)))
+    runs = summary["workloads"][w.name]
+    bal_log("crash.needle_map_flush", time.perf_counter() - t0,
+            launches["crash.needle_map_flush"],
+            points=summary["total_points"],
+            violations=summary["total_violations"],
+            ops=[r["ops"] for r in runs])
+    if not summary["ok"] or summary["total_points"] != CRASH_SEEDS * points:
+        raise AssertionError(f"crash sweep needle_map_flush: {summary}")
+
+
+def check_storage_launches(launches: dict) -> None:
+    """gf_apply in the coder steps of phase 12 and nowhere else in it,
+    no other kernel anywhere."""
+    for step, counts in launches.items():
+        others = {k: n for k, n in counts.items() if k != "gf_apply" and n}
+        if others or (step in STORAGE_CODER_STEPS) != (counts["gf_apply"]
+                                                       > 0):
+            raise AssertionError(f"{step}: launches {counts}")
+
+
+def run_storage(work: Path, coder_name: str = "auto", device=None,
+                disk_bytes: int = STOR_DISK_BYTES,
+                fused_bytes: int = STOR_FUSED_BYTES,
+                upload_bytes: int = STOR_UPLOAD_BYTES) -> dict:
+    """Phase 12; returns launches per step. On the card the launches are
+    held to the phase's rule; ``coder_name="torch", device="cpu"`` at a
+    few MB runs it on a host without one (no launch is counted there)."""
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    observe.reset()
+    governor.reset()
+    launches: dict = {}
+    run_storage_disk_map(work, coder_name, device, disk_bytes, launches)
+    run_storage_fused(work, coder_name, device, fused_bytes, launches)
+    run_storage_cluster(work, coder_name, device, upload_bytes, launches)
+    run_storage_crash(work / "crash", launches)
+    if coder_name == "auto":
+        check_storage_launches(launches)
+    bal_log("storage.summary", time.perf_counter() - t0, launches)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3852,7 +4628,17 @@ def main() -> int:
          "gf_apply_mxu_sass_per_16_columns": MXU_SASS or "not measured",
          "gf_apply_ops_per_column_rs10_4": gf_apply_ops_per_column(10)})
 
+    # wall seconds of each phase, logged before the kernels line
+    phase_seconds: dict = {}
+    since = [t0]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_seconds[name] = now - since[0]
+        since[0] = now
+
     checked = check_kernels(device)
+    mark("1-2")
     with env_set(WEED_EC_FORMULATION=None):
         coder = coder_mod.get_coder("auto", 10, 4)
     with env_set(WEED_EC_FORMULATION="xorsched"):
@@ -3902,25 +4688,37 @@ def main() -> int:
         if sha["mixed_tier."] != sha["mixed_tier.xorsched."]:
             raise AssertionError("mixed-tier xorsched shards differ")
         shutil.rmtree(WORK, ignore_errors=True)
+        mark("3-4")
         # phase 6 under the default policy and formulation
         with env_set(WEED_EC_GEOMETRY=None, WEED_EC_FORMULATION=None,
                      WEED_EC_MESH_DEVICES=None):
             launches["store"] = run_store_default(WORK / "store", device)
             launches["fused"] = run_store_archive(
                 WORK / "fused", device, total=CUT_VOLUME_BYTES)
+            mark("6")
             # phase 7: the same path through the servers, the shell and
             # the CLI
-            launches["cluster"] = run_cluster(WORK / "cluster", device)
+            launches["cluster"] = run_cluster(WORK / "cluster", device,
+                                              total=CUT_VOLUME_BYTES)
             run_cli(WORK / "cli")
+            mark("7-8")
             # phase 9: the self-driving warm tier, its own cluster
-            launches["lifecycle"] = run_lifecycle(WORK / "lifecycle")
+            launches["lifecycle"] = run_lifecycle(
+                WORK / "lifecycle", total=CUT_VOLUME_BYTES,
+                limit_mb=CUT_VOLUME_BYTES // MIB)
             check_lifecycle_launches(launches["lifecycle"])
+            mark("9")
             # phase 10: the multi-card coder and the crash sweeps
             launches["mesh"] = run_mesh(WORK / "mesh", device, card, count)
+            mark("10")
             # phase 11: the auto-balancer and the volume server's data
             # path, its own cluster
             launches["balance"] = run_balance(WORK / "balance")
             check_balance_launches(launches["balance"])
+            mark("11")
+            # phase 12: the rest of the storage engine
+            launches["storage"] = run_storage(WORK / "storage")
+            mark("12")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -3938,6 +4736,8 @@ def main() -> int:
     # size); a degraded read is one interval, R = 1; the archive
     # collection's RS(20,4) at 8 MiB, and at the 4 MiB the governor plans
     # for k = 20 within its staging budget (the fused pass's batches)
+    log({"phase": "phase_seconds", **phase_seconds,
+         "total_so_far": time.perf_counter() - t0, "card": SMI[0]})
     times = time_kernels(device, [("encode", 4, 10, 8 * MIB),
                                   ("rebuild", 4, 10, 8 * MIB),
                                   ("encode_1mib", 4, 10, MIB),
@@ -3953,7 +4753,7 @@ def main() -> int:
         **launches["cluster"], **{
         k: v for k, v in launches["lifecycle"].items()
         if k not in LIFECYCLE_CHECKS}, **launches["mesh"],
-        **launches["balance"]}
+        **launches["balance"], **launches["storage"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

@@ -9,12 +9,16 @@ apply:
       [-maintenance_interval S] [-repair_concurrency N]
   python3 -m seaweedfs_torch.cli volume -port 8080 -dir /data \\
       -mserver localhost:9333 [-rack r1] [-coder auto|torch|numpy] \\
-      [-device cuda:0]
+      [-device cuda:0] [-index memory|compact|leveldb|leveldbMedium|\\
+      leveldbLarge] [-minFreeSpacePercent 1] [-preallocate MB]
   python3 -m seaweedfs_torch.cli shell -server localhost:9333 \\
       ec.encode -volumeId 3 [-collection c]
   python3 -m seaweedfs_torch.cli shell -server localhost:9333 \\
       volume.fix.replication -force
   python3 -m seaweedfs_torch.cli compact -dir /data -volumeId 3
+  python3 -m seaweedfs_torch.cli backup -server localhost:9333 \\
+      -dir /backup -volumeId 3 [-collection c]
+  python3 -m seaweedfs_torch.cli fix -dir /backup -volumeId 3
   python3 -m seaweedfs_torch.cli version
 
 ``-coder`` defaults to ``auto``, the CUDA kernel coder, which raises on a
@@ -23,7 +27,17 @@ CPU fallback); ``-coder numpy``, or ``-coder torch -device cpu`` (the
 kernels' plain versions), run EC on the host. Servers run on an asyncio
 loop until SIGTERM or SIGINT, then stop their background tasks and
 close their stores. ``compact`` vacuums one volume offline (the volume
-server must not have it mounted).
+server must not have it mounted). ``backup`` pulls what a volume gained
+since the local copy's last record from its holder's ``/admin/tail``
+into a replica in ``-dir`` (creating it on the first run); ``fix``
+rebuilds a volume's .idx from its .dat.
+
+A volume server's ``-index`` is the needle map kind of its volumes
+(``memory``; ``compact``, 16 bytes an entry; the ``leveldb`` kinds, a
+disk-resident map with a bounded delta of 100k / 400k / 1M entries).
+Below ``-minFreeSpacePercent`` free on a data disk (default 1) its
+volumes seal read-only until space is back; ``-preallocate`` reserves
+that many MB for each new volume.
 
 The master runs the repair daemon (every ``-maintenance_interval``
 seconds, default the pulse, 0 off; at most ``-repair_concurrency``
@@ -86,6 +100,9 @@ def cmd_volume(args) -> None:
                   coder_name=args.coder,
                   geometry=Geometry(large_block_size=args.ec_large_block,
                                     small_block_size=args.ec_small_block),
+                  needle_map_kind=args.index,
+                  min_free_space_percent=args.min_free_space_percent,
+                  preallocate=args.preallocate * 1024 * 1024,
                   device=args.device or None)
     try:
         _serve_until_signalled(lambda: run_volume_server(
@@ -150,6 +167,39 @@ def cmd_compact(args) -> None:
                       "bytes_after": after, "reclaimed": before - after}))
 
 
+def cmd_backup(args) -> None:
+    """Incrementally pull a volume into a local replica directory
+    (weed backup, weed/command/backup.go:64)."""
+    import os
+
+    from .client import Client
+    from .storage import volume_backup
+    from .storage.volume import Volume
+    client = Client(args.server)
+    os.makedirs(args.dir, exist_ok=True)
+    prefix = f"{args.collection}_" if args.collection else ""
+    create = not os.path.exists(
+        os.path.join(args.dir, f"{prefix}{args.volumeId}.dat"))
+    v = Volume(args.dir, args.collection, args.volumeId, create=create)
+    try:
+        applied = volume_backup.incremental_backup(
+            v, 0, lambda since: client.tail_volume(args.volumeId, since))
+        count = v.file_count()
+    finally:
+        v.close()
+    print(json.dumps({"volume": args.volumeId, "applied": applied,
+                      "file_count": count}))
+
+
+def cmd_fix(args) -> None:
+    """Rebuild a volume's .idx by scanning its .dat (weed fix,
+    weed/command/fix.go:61)."""
+    from .storage import volume_backup
+    count = volume_backup.rebuild_idx(args.dir, args.collection,
+                                      args.volumeId)
+    print(json.dumps({"volume": args.volumeId, "live_needles": count}))
+
+
 def cmd_version(args) -> None:
     from . import __version__
     print(f"seaweedfs-torch {__version__}")
@@ -202,6 +252,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the coder's device, e.g. cuda:0 or cpu")
     v.add_argument("-ec_large_block", type=int, default=1024 * 1024 * 1024)
     v.add_argument("-ec_small_block", type=int, default=1024 * 1024)
+    v.add_argument("-index", default="memory",
+                   choices=["memory", "compact", "leveldb", "leveldbMedium",
+                            "leveldbLarge"],
+                   help="needle map kind (weed volume -index)")
+    v.add_argument("-minFreeSpacePercent", dest="min_free_space_percent",
+                   type=float, default=1.0,
+                   help="seal the volumes of a disk with less free space")
+    v.add_argument("-preallocate", type=int, default=0,
+                   help="MB to reserve for each new volume "
+                        "(volume_create_linux.go)")
     v.set_defaults(fn=cmd_volume)
 
     sh = sub.add_parser("shell", help="admin shell (REPL or one-shot)")
@@ -220,6 +280,20 @@ def build_parser() -> argparse.ArgumentParser:
     cp.add_argument("-collection", default="")
     cp.add_argument("-volumeId", type=int, required=True)
     cp.set_defaults(fn=cmd_compact)
+
+    bk = sub.add_parser("backup", help="incrementally pull a volume "
+                                       "into a local replica")
+    bk.add_argument("-server", default="127.0.0.1:9333")
+    bk.add_argument("-dir", default="./backup")
+    bk.add_argument("-collection", default="")
+    bk.add_argument("-volumeId", type=int, required=True)
+    bk.set_defaults(fn=cmd_backup)
+
+    fx = sub.add_parser("fix", help="rebuild a volume's .idx from its .dat")
+    fx.add_argument("-dir", default="./data")
+    fx.add_argument("-collection", default="")
+    fx.add_argument("-volumeId", type=int, required=True)
+    fx.set_defaults(fn=cmd_fix)
 
     ver = sub.add_parser("version", help="print the version")
     ver.set_defaults(fn=cmd_version)

@@ -17,11 +17,13 @@ error is retried once after a ``RetryPolicy`` backoff, and a shed answer
 (capped at 5 s); any other 429/502/503/504 is an error. Left out: the
 bulk-assignment lease pool, the shared connection pool with its circuit
 breaker, master rotation across an HA list, replica failover to a second
-cluster, the watch stream, JWTs, batch delete, tail and query.
+cluster, the watch stream, JWTs, batch delete and query. The volume
+tail (``tail_volume``) streams on a connection of its own.
 """
 
 from __future__ import annotations
 
+import http.client as http_client
 import threading
 import time
 import urllib.parse
@@ -315,6 +317,32 @@ class Client:
     # --- volume-server admin (the shell commands' transport) ---
     def volume_admin(self, server: str, op: str, body: dict) -> dict:
         return _post_json(f"http://{server}/admin/{op}", body)
+
+    def tail_volume(self, vid: int, since_ns: int = 0,
+                    timeout: float = 300.0):
+        """Yield the needle records appended to volume `vid` after
+        since_ns, from its first holder's /admin/tail, as they stream
+        (operation.TailVolume, weed/operation/tail_volume.go)."""
+        from .storage import types as t
+        from .storage.needle import Needle
+        urls = self.lookup(vid)
+        conn = http_client.HTTPConnection(urls[0],
+                                          timeout=cap_timeout(timeout))
+        try:
+            conn.request("GET", f"/admin/tail?volume_id={vid}"
+                                f"&since_ns={since_ns}")
+            r = conn.getresponse()
+            if r.status != 200:
+                raise ClientError(f"tail of volume {vid} on {urls[0]}: "
+                                  f"HTTP {r.status}")
+            while True:
+                head = r.read(4)
+                if len(head) < 4:
+                    return
+                rec = r.read(int.from_bytes(head, "big"))
+                yield Needle.from_bytes(rec, t.CURRENT_VERSION)
+        finally:
+            conn.close()
 
     def ec_lookup(self, vid: int) -> dict:
         return self._master_get(f"/col/lookup/ec?volumeId={vid}")

@@ -10,7 +10,8 @@ or revoke a rename that no directory fsync followed. Three layers:
 - :mod:`.replay` rebuilds the disk state a crash at any point of that
   log could have left, honouring only synced ordering;
 - :mod:`.harness` / :mod:`.workloads` run the port's persistence paths
-  (volume append, group commit, EC encode, the fused warm-down), ack
+  (volume append, group commit, the disk needle map's flushes, EC
+  encode, the fused warm-down), ack
   state at their durability barriers, reopen the subsystem on each
   crash tree and hold it to the contract: every acked write present
   and intact, no torn state loaded silently, recovery converges.

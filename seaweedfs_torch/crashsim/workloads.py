@@ -10,6 +10,11 @@ the subsystem on the reconstructed crash tree:
 - volume_group_commit -- the group commit's one pwritev and one fsync
                     barrier: acked groups survive crashes between the
                     barrier and the index appends;
+- needle_map_flush -- the disk needle map's delta merges into its .sdx
+                    (temp file, fsync, one rename) beside the .idx
+                    journal: a crash anywhere leaves a sidecar that is
+                    adopted only while it matches the journal, and every
+                    synced entry;
 - ec_encode      -- shard files + the .ecm commit marker, written by
                     ``striping.write_ec_files`` (or any encoder with its
                     signature, such as ``pipeline.stream_encode``, whose
@@ -22,7 +27,7 @@ The EC workloads take the coder, the geometry and the source size; their
 defaults are the reference's own (RS(3,2) with 8192 / 1024 blocks, a
 41,000-byte .dat, 24 needles, ``NumpyCoder``), so at the defaults they
 ack the reference's bytes. Not ported yet (their modules are not):
-needle_map_flush, raft_snapshot, offset_commit and filer_kv.
+raft_snapshot, offset_commit and filer_kv.
 """
 
 from __future__ import annotations
@@ -186,6 +191,64 @@ def make_group_commit_workload() -> CrashWorkload:
         return observed
 
     return CrashWorkload("volume_group_commit", setup, run, recover)
+
+
+# ----------------------------------------------------------- needle map
+
+def make_needle_map_workload() -> CrashWorkload:
+    """A crash around the disk needle map's flushes: a threshold of 8
+    merges the delta into a new .sdx every few puts, each round is acked
+    at its journal fsync, and the crash lands anywhere, a torn or
+    revoked sidecar rename included."""
+    from ..storage.needle_map import DiskNeedleMap
+
+    def _open(root):
+        nm = DiskNeedleMap(os.path.join(root, "1.idx"))
+        nm.FLUSH_THRESHOLD = 8
+        return nm
+
+    def setup(root):
+        nm = _open(root)
+        for key in range(1, 5):
+            nm.put(key, key * 16, 100 + key)
+        nm.sync()
+        nm.close()   # close() flushes the delta into a durable .sdx
+
+    def run(root, ack, rng):
+        nm = _open(root)
+        for key in range(1, 5):
+            ack(f"k{key}", (key * 16, 100 + key))
+        key = 100
+        for _round in range(5):
+            batch = {}
+            for _ in range(4):
+                key += 1
+                off, size = key * 8, rng.randrange(50, 4000)
+                batch[key] = (off, size)
+                ack.candidate(f"k{key}", (off, size))
+                nm.put(key, off, size)
+            nm.sync()
+            for k, v in batch.items():
+                ack(f"k{k}", v)
+        ack.candidate("k1", None)
+        nm.delete(1, tombstone_offset=999)
+        nm.sync()
+        ack("k1", None)
+        for _ in range(3):      # an un-synced tail
+            key += 1
+            ack.candidate(f"k{key}", (key * 8, 64))
+            nm.put(key, key * 8, 64)
+        nm._index_file.close()  # the crash: no sync, no flush
+
+    def recover(crash_dir):
+        nm = _open(crash_dir)
+        observed = {f"k{nv.key}": ((nv.offset, nv.size) if nv.size > 0
+                                   else None)
+                    for nv in nm.values()}
+        nm.close()
+        return observed
+
+    return CrashWorkload("needle_map_flush", setup, run, recover)
 
 
 # ------------------------------------------------------------ EC encode
@@ -404,6 +467,7 @@ def registry() -> list:
     return [
         make_volume_workload(),
         make_group_commit_workload(),
+        make_needle_map_workload(),
         make_ec_workload(),
         make_fused_warmdown_workload(),
     ]

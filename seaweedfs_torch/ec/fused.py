@@ -320,8 +320,12 @@ def fused_vacuum_gzip_encode(volume, dst_base: str, coder: ErasureCoder,
             extra=volume.super_block.extra)
         # a descriptor of this .dat of the pass's own: a vacuum commit
         # that swaps the volume's files closes the volume's descriptor,
-        # never this one, and the offsets above stay this file's
-        src_fd = os.dup(volume._dat.fileno())
+        # never this one, and the offsets above stay this file's. A
+        # tiered .dat has no descriptor: it is read through its object
+        # store, as the reference reads it (and it is never compacted)
+        src_fd = (os.dup(volume._dat.fileno()) if volume._dat.is_local
+                  else None)
+        remote_read_at = volume._dat.read_at
     try:
         snapshot.sort(key=lambda e: e[1])
         entries = [(key, off, size, t.get_actual_size(size, version))
@@ -342,6 +346,8 @@ def fused_vacuum_gzip_encode(volume, dst_base: str, coder: ErasureCoder,
         wm = _Watermark()
 
         def read_at(n: int, offset: int) -> bytes:
+            if src_fd is None:
+                return remote_read_at(n, offset)
             return os.pread(src_fd, n, offset)
 
         counters = {"gzipped": 0, "gzip_s": 0.0}
@@ -474,7 +480,8 @@ def fused_vacuum_gzip_encode(volume, dst_base: str, coder: ErasureCoder,
             "commit_s": round(commit_s, 3),
         }
     finally:
-        os.close(src_fd)
+        if src_fd is not None:
+            os.close(src_fd)
 
 
 def fused_vacuum_gzip_encode_many(volumes, dst_bases, coder: ErasureCoder,

@@ -11,7 +11,11 @@ server i sits in data center "dc1", rack "rack{i % racks}"; ``racks=1``
 puts them all on one rack. ``master_kwargs`` and ``volume_kwargs`` go to
 the master's and each volume server's constructor (as tests/
 cluster_util.py takes them for the reference): the lifecycle config, the
-maintenance interval, ``repair_enabled``, the scrub interval. The callers
+maintenance interval, ``repair_enabled``, the scrub interval;
+``store_kwargs`` go to each server's ``Store`` (its ``needle_map_kind``,
+``min_free_space_percent``, ``preallocate``). ``restart_volume_server``
+brings a stopped server back on its directory and its port, as a
+process restart would. The callers
 drive the cluster synchronously, from their own threads, through the
 port's client.
 """
@@ -46,13 +50,15 @@ class LocalCluster:
                  directory: Optional[str] = None,
                  racks: int = 2,
                  master_kwargs: Optional[dict] = None,
-                 volume_kwargs: Optional[dict] = None):
+                 volume_kwargs: Optional[dict] = None,
+                 store_kwargs: Optional[dict] = None):
         self.coder_name = coder_name
         self.device = device
         self.geometry = geometry
         self.pulse = pulse
         self.racks = racks
         self.volume_kwargs = volume_kwargs or {}
+        self.store_kwargs = store_kwargs or {}
         self._tmp = None
         if directory is None:
             self._tmp = tempfile.TemporaryDirectory(prefix="weedtorch_")
@@ -65,6 +71,7 @@ class LocalCluster:
         # [volume server, its runner, its store, its directory]; a
         # stopped one keeps its slot with the first three set to None
         self.nodes: list[list] = []
+        self._stopped_urls: dict[int, str] = {}
         self.master = self.master_runner = None
         try:
             self.start_master(volume_size_limit_mb=volume_size_limit_mb,
@@ -98,19 +105,32 @@ class LocalCluster:
         i = len(self.nodes)
         d = os.path.join(self.directory, f"vs{i}")
         os.makedirs(d, exist_ok=True)
+        self.nodes.append([None, None, None, d])
+        return self._start_volume_server(i, 0)
+
+    def _start_volume_server(self, i: int, port: int) -> str:
+        d = self.nodes[i][3]
         store = Store([d], max_volume_counts=[MAX_VOLUMES],
                       coder_name=self.coder_name, geometry=self.geometry,
-                      device=self.device)
+                      device=self.device, **self.store_kwargs)
         try:
             vs, runner = self.call(run_volume_server(
-                "127.0.0.1", 0, store, self.master_url, data_center="dc1",
-                rack=f"rack{i % self.racks}", pulse_seconds=self.pulse,
-                **self.volume_kwargs))
+                "127.0.0.1", port, store, self.master_url,
+                data_center="dc1", rack=f"rack{i % self.racks}",
+                pulse_seconds=self.pulse, **self.volume_kwargs))
         except BaseException:
             store.close()
             raise
-        self.nodes.append([vs, runner, store, d])
+        self.nodes[i][:3] = [vs, runner, store]
         return vs.url
+
+    def restart_volume_server(self, i: int) -> str:
+        """Stop server i (if it runs) and start it again on the same
+        directory and port: its store reopens every volume from disk."""
+        url = self.nodes[i][0].url if self.nodes[i][0] is not None \
+            else self._stopped_urls[i]
+        self.stop_volume_server(i)
+        return self._start_volume_server(i, int(url.rsplit(":", 1)[1]))
 
     def url(self, i: int) -> str:
         return self.nodes[i][0].url
@@ -129,6 +149,7 @@ class LocalCluster:
         vs, runner, _, _ = self.nodes[i]
         if vs is None:
             return
+        self._stopped_urls[i] = vs.url
         self.call(runner.cleanup())
         self.nodes[i][:3] = [None, None, None]
 

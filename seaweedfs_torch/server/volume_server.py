@@ -18,6 +18,14 @@ reference's wire:
           GET  /admin/needle_raw?fid=      (a needle's record, for read
                                             repair)
           POST /admin/volume/copy         (VolumeCopy, pull model)
+          POST /admin/tier/upload, /admin/tier/download
+                                          (VolumeTierMoveDatToRemote /
+                                           FromRemote)
+          GET  /admin/tail?volume_id=&since_ns=
+                                          (VolumeTailSender: needle
+                                           records appended after since_ns,
+                                           each framed by a u32 big-endian
+                                           length)
           POST /admin/ec/generate, /admin/ec/fused (VolumeEcShardsGenerate)
           POST /admin/ec/mount, /unmount, /rebuild
           POST /admin/ec/copy             (VolumeEcShardsCopy, pull model)
@@ -76,7 +84,14 @@ digest stamped into its ``.ecm`` at encode, every
 /admin/ec/scrub``, and reports mismatches to the master's
 ``/ec/scrub_report``, whose repair daemon drops and rebuilds them.
 
-Left out: image resizing, read redirects, tiering, tail, query, batch
+Before each heartbeat the server runs its storage maintenance: TTL
+volumes past their grace are deleted, then the free-space watchdog seals
+the volumes of a disk with less than the store's
+``min_free_space_percent`` free, and lifts only its own seals when space
+is back. ``/admin/vacuum/compact`` takes the reference's
+``compaction_byte_per_second`` and holds the copy to that rate.
+
+Left out: image resizing, read redirects, query, batch
 delete, the UI, guard/JWT, the fastpath listener (with
 ``needle_sendfile_extent``) and its heat side channel, shard fleets and
 gRPC.
@@ -102,10 +117,12 @@ from ..ec.geometry import to_ext
 from ..lifecycle.heat import HeatTracker
 from ..parallel import mesh_coder
 from ..storage import types as t
+from ..storage import volume_backup
 from ..storage.file_id import FileId
 from ..storage.needle import (FLAG_HAS_LAST_MODIFIED, FLAG_HAS_MIME,
                               FLAG_HAS_NAME, FLAG_HAS_TTL,
                               FLAG_IS_COMPRESSED, CrcError, Needle)
+from ..storage.needle_map import remove_sidecars
 from ..storage.store import Store, safe_collection
 from ..storage.volume import (NeedleDeleted, NeedleExpired, NeedleNotFound,
                               Volume, VolumeCompacting, VolumeReadOnly)
@@ -323,6 +340,8 @@ class VolumeServer:
             ("volume/unmount", self.admin_volume_unmount),
             ("volume/configure_replication", self.admin_volume_configure),
             ("volume/copy", self.admin_volume_copy),
+            ("tier/upload", self.admin_tier_upload),
+            ("tier/download", self.admin_tier_download),
             ("ec/generate", self.admin_ec_generate),
             ("ec/fused", self.admin_ec_fused),
             ("ec/mount", self.admin_ec_mount),
@@ -344,6 +363,7 @@ class VolumeServer:
         app.router.add_get("/admin/ec/mesh_status",
                            self.admin_ec_mesh_status)
         app.router.add_get("/admin/file_copy", self.admin_file_copy)
+        app.router.add_get("/admin/tail", self.admin_tail)
         app.router.add_get("/status", self.status)
         app.router.add_get("/metrics", self.metrics_handler)
         app.router.add_get("/healthz", self.healthz)
@@ -383,12 +403,25 @@ class VolumeServer:
     async def _heartbeat_loop(self) -> None:
         while True:
             try:
+                await self._periodic_maintenance()
                 await self.send_heartbeat()
             except (aiohttp.ClientError, asyncio.TimeoutError,
-                    RuntimeError, ValueError) as e:
+                    RuntimeError, ValueError, OSError) as e:
                 log.warning("heartbeat to %s failed: %s", self.master_url,
                             e)
             await asyncio.sleep(self.pulse_seconds)
+
+    async def _periodic_maintenance(self) -> None:
+        """TTL expiry, then the free-space watchdog: volumes on a filling
+        disk seal before it is full (disk_location.go:304), so the beat
+        that follows reports them read-only."""
+        expired = await _run(self.store.delete_expired_volumes)
+        if expired:
+            log.info("deleted expired TTL volumes %s", expired)
+        was_low = self.store.low_disk_space
+        low = await _run(self.store.check_free_space)
+        if low != was_low:
+            log.warning("low disk space: %s", low)
 
     def _hb_payload(self) -> dict:
         payload = self.store.heartbeat()
@@ -903,9 +936,13 @@ class VolumeServer:
 
     async def admin_vacuum_compact(self, request: web.Request
                                    ) -> web.Response:
+        """VacuumVolumeCompact; ``compaction_byte_per_second`` (> 0)
+        holds the copy to that rate."""
         body = await request.json()
+        rate = int(body.get("compaction_byte_per_second", 0) or 0)
         try:
-            await _run(self.store.vacuum_compact, int(body["volume_id"]))
+            await _run(self.store.vacuum_compact, int(body["volume_id"]),
+                       rate)
         except KeyError:
             return _error("volume not found", 404)
         except RuntimeError as e:
@@ -1035,17 +1072,79 @@ class VolumeServer:
                                           base + ext)
                 if status != 200:
                     raise IOError(f"{source} has no {vid}{ext}: {status}")
-            v = await _run(Volume, loc.directory, collection, vid)
+            # the pulled .idx replaced any journal here wholesale: a
+            # sidecar derived from an earlier one must go with it
+            remove_sidecars(base + ".idx")
+            v = await _run(functools.partial(
+                Volume, loc.directory, collection, vid,
+                needle_map_kind=self.store.needle_map_kind))
             loc.volumes[vid] = v
         except (OSError, aiohttp.ClientError, asyncio.TimeoutError,
                 ValueError) as e:
-            for ext in (".dat", ".idx", ".swm"):
+            for ext in (".dat", ".idx", ".swm", ".sdx"):
                 if os.path.exists(base + ext):
                     os.remove(base + ext)
             return _error(str(e), 500)
         await self.send_heartbeat()
         return web.json_response({"ok": True,
                                   "file_count": v.file_count()})
+
+    async def admin_tier_upload(self, request: web.Request
+                                ) -> web.Response:
+        """Move a volume's .dat to an object-store tier
+        (VolumeTierMoveDatToRemote, volume_grpc_tier_upload.go:14)."""
+        body = await request.json()
+        try:
+            info = await _run(functools.partial(
+                self.store.tier_upload, int(body["volume_id"]),
+                body["backend"]))
+        except (KeyError, ValueError, VolumeCompacting) as e:
+            return _error(str(e), 400)
+        except OSError as e:
+            # the object store failed: the volume's seal is rolled back
+            return _error(str(e), 502)
+        await self._beat_after_change()
+        return web.json_response({"ok": True, "info": info})
+
+    async def admin_tier_download(self, request: web.Request
+                                  ) -> web.Response:
+        """Bring a tiered .dat back to local disk
+        (VolumeTierMoveDatFromRemote)."""
+        body = await request.json()
+        try:
+            out = await _run(self.store.tier_download,
+                             int(body["volume_id"]))
+        except (KeyError, ValueError) as e:
+            return _error(str(e), 400)
+        await self._beat_after_change()
+        return web.json_response({"ok": True, **out})
+
+    async def admin_tail(self, request: web.Request) -> web.StreamResponse:
+        """Stream the needle records appended after since_ns, each framed
+        by its u32 big-endian length (VolumeTailSender,
+        weed/server/volume_grpc_tail.go:16-79). Records are read one at a
+        time in an executor thread, so a whole volume streams in the
+        memory of one record."""
+        q = request.query
+        v = self.store.find_volume(int(q["volume_id"]))
+        if v is None:
+            return _error("volume not found", 404)
+        resp = web.StreamResponse()
+        resp.headers["Content-Type"] = "application/octet-stream"
+        await resp.prepare(request)
+        it = volume_backup.iter_needles_since(v, int(q.get("since_ns", 0)))
+
+        def next_record() -> Optional[bytes]:
+            n = next(it, None)
+            return None if n is None else n.to_bytes(v.version)
+
+        while True:
+            rec = await _run(next_record)
+            if rec is None:
+                break
+            await resp.write(len(rec).to_bytes(4, "big") + rec)
+        await resp.write_eof()
+        return resp
 
     async def admin_ec_generate(self, request: web.Request
                                 ) -> web.Response:

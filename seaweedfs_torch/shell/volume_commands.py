@@ -9,7 +9,12 @@ The port's reduced copy of seaweedfs_tpu/shell/volume_commands.py:
 - volume.mark  command_volume_mark.go (readonly / writable);
 - volume.heat, lifecycle.status, lifecycle.run: the lifecycle plane's
   shell surface (the master's /vol/heat, /lifecycle/status and
-  /lifecycle/run).
+  /lifecycle/run);
+- volume.tier.upload / volume.tier.download
+  command_volume_tier_upload.go, _download.go: a volume's .dat to an
+  object store (``-dest local_store:/dir`` or ``s3:http://host/bucket``,
+  whose keys come from ``WEED_S3_ACCESS_KEY`` / ``WEED_S3_SECRET_KEY``,
+  the environment overrides of the reference's security.toml) and back.
 
 The planner is a pure function over the topology dict (dry-run
 testable); the executors drive the volume servers' admin HTTP API
@@ -20,6 +25,7 @@ volumeServer.evacuate.
 
 from __future__ import annotations
 
+import os
 from collections import defaultdict
 
 from ..client import ClientError
@@ -252,3 +258,47 @@ def lifecycle_status(env: CommandEnv, argv: list[str]):
          "run one lifecycle evaluation pass now (lifecycle.run)")
 def lifecycle_run(env: CommandEnv, argv: list[str]):
     return env.client.lifecycle_run()
+
+
+# --- volume.tier.* (command_volume_tier_upload.go, _download.go) ---
+
+@command("volume.tier.upload",
+         "move a volume's .dat to an object-store tier "
+         "(volume.tier.upload -volumeId N -dest local_store:/dir | "
+         "s3:http://endpoint/bucket)", destructive=True)
+def volume_tier_upload(env: CommandEnv, argv: list[str]):
+    p = parser("volume.tier.upload")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-dest", required=True)
+    args = p.parse_args(argv)
+    spec = _parse_backend_dest(args.dest)
+    results = [env.client.volume_admin(
+        url, "tier/upload", {"volume_id": args.volumeId, "backend": spec})
+        for url in env.client.lookup(args.volumeId)]
+    return {"ok": True, "results": results}
+
+
+@command("volume.tier.download",
+         "bring a tiered volume's .dat back to local disk "
+         "(volume.tier.download -volumeId N)", destructive=True)
+def volume_tier_download(env: CommandEnv, argv: list[str]):
+    p = parser("volume.tier.download")
+    p.add_argument("-volumeId", type=int, required=True)
+    args = p.parse_args(argv)
+    results = [env.client.volume_admin(url, "tier/download",
+                                       {"volume_id": args.volumeId})
+               for url in env.client.lookup(args.volumeId)]
+    return {"ok": True, "results": results}
+
+
+def _parse_backend_dest(dest: str) -> dict:
+    """'local_store:/path' or 's3:http://endpoint/bucket'."""
+    kind, _, rest = dest.partition(":")
+    if kind == "local_store":
+        return {"type": "local_store", "directory": rest}
+    if kind == "s3":
+        endpoint, _, bucket = rest.rpartition("/")
+        return {"type": "s3", "endpoint": endpoint, "bucket": bucket,
+                "access_key": os.environ.get("WEED_S3_ACCESS_KEY", ""),
+                "secret_key": os.environ.get("WEED_S3_SECRET_KEY", "")}
+    raise ClientError(f"unknown tier destination {dest!r}")

@@ -24,9 +24,17 @@ The volume server reads a store through ``heartbeat()`` and
 fetch shards that live on its peers. It also drives the hot tier's
 maintenance through it: ``configure_replication``, ``needle_ids`` and the
 vacuum steps ``vacuum_check`` / ``vacuum_compact`` / ``vacuum_commit`` /
-``vacuum_cleanup``.
+``vacuum_cleanup`` (the copy held to a byte rate when asked).
 
-Not ported: the free-space watchdog, tiering and TTL expiry.
+The rest of the storage engine: each volume opens with the store's needle
+map kind (``needle_map_kind``); a new volume reserves ``preallocate``
+bytes; ``check_free_space`` is the free-space watchdog (below
+``min_free_space_percent`` free on a location's disk, its writable
+volumes seal, and when space is back only the watchdog's own seals
+lift); ``tier_upload`` / ``tier_download`` move a volume's .dat to an
+object store and back (storage/backend.py; the ``.vif`` brings a tiered
+volume back at the next start); ``delete_expired_volumes`` drops TTL
+volumes past their grace.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from ..ec.ec_volume import EcVolume, EcVolumeClosed
 from ..ec.striping import read_marker_geometry
 from ..parallel import mesh_coder
 from ..utils import durable
+from . import backend as backend_mod
 from . import types as t
 from .needle import Needle
 from .superblock import ReplicaPlacement, SuperBlock
@@ -68,9 +77,11 @@ class DiskLocation:
         self.needle_map_kind = needle_map_kind
         self.volumes: dict[int, Volume] = {}
         self.ec_volumes: dict[int, EcVolume] = {}
+        self.low_space = False
 
     def load_existing(self, coder_factory, geometry) -> None:
-        """Open every volume (``<collection>_<vid>.dat``) and every EC
+        """Open every volume (``<collection>_<vid>.dat``, or its ``.vif``
+        when the .dat is tiered) and every EC
         volume (``.ecx`` with at least one shard) in the directory.
         geometry: a Geometry, or a resolver (base_path, collection) ->
         Geometry; the store passes its marker-or-policy resolver, so a
@@ -79,6 +90,9 @@ class DiskLocation:
         raises."""
         names = {os.path.basename(p)[:-4]
                  for p in glob.glob(os.path.join(self.directory, "*.dat"))}
+        # a tiered volume has no local .dat: its .vif names it
+        names |= {os.path.basename(p)[:-4]
+                  for p in glob.glob(os.path.join(self.directory, "*.vif"))}
 
         def load_one(name: str):
             collection, vid = _parse_volume_file_name(name)
@@ -143,6 +157,8 @@ class Store:
                  coder_name: str = "auto",
                  geometry: ec_mod.Geometry = ec_mod.DEFAULT,
                  needle_map_kind: str = "memory",
+                 min_free_space_percent: float = 1.0,
+                 preallocate: int = 0,
                  geometry_policy: "ec_mod.GeometryPolicy | None" = None,
                  device: Optional[str] = None):
         # per-collection RS(k,m): explicit policy > WEED_EC_GEOMETRY env;
@@ -155,6 +171,9 @@ class Store:
         self.coder_name = coder_name
         self.device = device
         self.needle_map_kind = needle_map_kind
+        self.min_free_space_percent = min_free_space_percent
+        self.preallocate = preallocate
+        self.low_disk_space = False
         self._coders: dict[tuple[int, int], ErasureCoder] = {}
         counts = max_volume_counts or [8] * len(directories)
         self.locations = [DiskLocation(d, c, needle_map_kind)
@@ -162,6 +181,30 @@ class Store:
         self._lock = threading.RLock()
         for loc in self.locations:
             loc.load_existing(self.coder, self._resolve_geometry)
+
+    def check_free_space(self) -> bool:
+        """The free-space watchdog (disk_location.go:304, statfs as in
+        weed/stats/disk_supported.go): when a location's disk has less
+        than min_free_space_percent free, its writable volumes seal;
+        when space is back, only the seals the watchdog set lift (a seal
+        set since, by an operator, an encode, a move or a tier upload,
+        stays). Returns whether any location is low."""
+        low_any = False
+        for loc in self.locations:
+            st = os.statvfs(loc.directory)
+            free_pct = st.f_bavail / max(st.f_blocks, 1) * 100.0
+            low = free_pct < self.min_free_space_percent
+            low_any = low_any or low
+            if low and not loc.low_space:
+                loc.low_space = True
+                for v in list(loc.volumes.values()):
+                    v.watchdog_seal()
+            elif not low and loc.low_space:
+                loc.low_space = False
+                for v in list(loc.volumes.values()):
+                    v.lift_watchdog_seal()
+        self.low_disk_space = low_any
+        return low_any
 
     def coder(self, geometry: Optional[ec_mod.Geometry] = None
               ) -> ErasureCoder:
@@ -247,7 +290,8 @@ class Store:
                 replica_placement=ReplicaPlacement.parse(replica_placement),
                 ttl=t.TTL.parse(ttl))
             v = Volume(loc.directory, collection, vid, superblock=sb,
-                       create=True, needle_map_kind=self.needle_map_kind)
+                       create=True, needle_map_kind=self.needle_map_kind,
+                       preallocate=self.preallocate)
             loc.volumes[vid] = v
             return v
 
@@ -258,7 +302,10 @@ class Store:
                 if v is not None:
                     base = v.base_file_name()
                     v.close()
-                    for ext in (".dat", ".idx", ".swm"):
+                    # the .sdx and a tiered volume's .vif go too: a
+                    # .vif left behind would bring the volume back at
+                    # the next start
+                    for ext in (".dat", ".idx", ".swm", ".sdx", ".vif"):
                         if os.path.exists(base + ext):
                             os.remove(base + ext)
                     return True
@@ -283,14 +330,16 @@ class Store:
         return False
 
     def mount_volume(self, vid: int, collection: str = "") -> Volume:
-        """Load an on-disk volume back into serving (VolumeMount)."""
+        """Load an on-disk volume back into serving (VolumeMount); a
+        tiered volume (a .vif, no local .dat) mounts too."""
         with self._lock:
             if self.find_volume(vid) is not None:
                 raise ValueError(f"volume {vid} already mounted")
             prefix = f"{collection}_" if collection else ""
             for loc in self.locations:
                 base = os.path.join(loc.directory, f"{prefix}{vid}")
-                if os.path.exists(base + ".dat"):
+                if os.path.exists(base + ".dat") or \
+                        os.path.exists(backend_mod.vif_path(base)):
                     v = Volume(loc.directory, collection, vid,
                                needle_map_kind=self.needle_map_kind)
                     loc.volumes[vid] = v
@@ -310,6 +359,78 @@ class Store:
         self._volume(vid).configure_replication(
             ReplicaPlacement.parse(replication))
 
+    # --- the object-store tier (volume_tier.go:15-50,
+    #     volume_grpc_tier_upload.go / _download.go) ---
+    def tier_upload(self, vid: int, backend_spec: dict) -> dict:
+        """Move a volume's .dat to an object store; the .idx stays local
+        and reads go through the store. The volume is sealed first (which
+        supersedes a watchdog seal, and is refused during a compaction),
+        and a `.vif` records where the .dat went, so the volume opens
+        tiered after a restart. The local .dat's handle stays open until
+        the volume closes, for reads that took it before the swap."""
+        v = self._volume(vid)
+        if v.is_remote:
+            raise ValueError(f"volume {vid} is already tiered")
+        was_read_only = v.read_only
+        v.seal()
+        base = v.base_file_name()
+        try:
+            store = backend_mod.open_store(backend_spec)
+            key = f"{os.path.basename(base)}.dat"
+            store.put(key, base + ".dat")
+            size = os.path.getsize(base + ".dat")
+            info = {"volume_id": vid, "version": v.version,
+                    "files": [{"backend": store.spec(), "key": key,
+                               "file_size": size,
+                               "modified_at": int(os.path.getmtime(
+                                   base + ".dat"))}]}
+            backend_mod.save_volume_info(base, info)
+        except BaseException:
+            # the volume keeps taking writes if it did before
+            if not was_read_only:
+                v.set_read_only(False)
+            raise
+        with v._lock:
+            v._retired_dat = v._dat
+            v._dat = backend_mod.RemoteFile(store, key, size)
+        os.remove(base + ".dat")
+        return info
+
+    def tier_download(self, vid: int) -> dict:
+        """Bring a tiered volume's .dat back to local disk and drop the
+        `.vif` (VolumeTierMoveDatFromRemote); the volume reopens from its
+        local files, read-only as it was."""
+        v = self._volume(vid)
+        if not v.is_remote:
+            raise ValueError(f"volume {vid} is not tiered")
+        base = v.base_file_name()
+        spec = backend_mod.load_volume_info(base)["files"][0]
+        store = backend_mod.open_store(spec["backend"])
+        store.get_to_file(spec["key"], base + ".dat")
+        with self._lock:
+            for loc in self.locations:
+                if loc.volumes.get(vid) is v:
+                    v.close()
+                    os.remove(backend_mod.vif_path(base))
+                    fresh = Volume(loc.directory, v.collection, vid,
+                                   needle_map_kind=self.needle_map_kind)
+                    fresh.set_read_only(True)
+                    loc.volumes[vid] = fresh
+                    break
+        return {"volume_id": vid, "bytes": spec["file_size"]}
+
+    def delete_expired_volumes(self, max_delay_minutes: int = 10
+                               ) -> list[int]:
+        """Drop the TTL volumes whose grace has passed
+        (Store.DeleteExpiredVolumes)."""
+        expired = [vid for loc in self.locations
+                   for vid, v in list(loc.volumes.items())
+                   if v.is_expired()
+                   and v.is_expired_long_enough(max_delay_minutes)]
+        for vid in expired:
+            self.delete_volume(vid)
+        return expired
+
     def needle_ids(self, vid: int) -> list[tuple[int, int]]:
         """Live (needle_id, size) pairs, of a volume or an EC volume (the
         inventory weed/shell/command_volume_fsck.go collects)."""
@@ -326,8 +447,9 @@ class Store:
     def vacuum_check(self, vid: int) -> float:
         return self._volume(vid).garbage_level()
 
-    def vacuum_compact(self, vid: int) -> None:
-        self._volume(vid).begin_compact()
+    def vacuum_compact(self, vid: int,
+                       compaction_bytes_per_second: int = 0) -> None:
+        self._volume(vid).begin_compact(compaction_bytes_per_second)
 
     def vacuum_commit(self, vid: int) -> None:
         self._volume(vid).commit_compact()
@@ -425,7 +547,7 @@ class Store:
         can be retried."""
         for v, base, was_read_only in sealed:
             if not was_read_only and not os.path.exists(base + ".ecm"):
-                v.read_only = False
+                v.set_read_only(False)
 
     def ec_generate_many(self, vids: list[int]) -> dict[int, list[int]]:
         """Encode a window of volumes back to back: the volumes of one

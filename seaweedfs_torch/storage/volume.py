@@ -13,12 +13,23 @@ meanwhile and swaps the files), batched writes
 fsync for a batch, then its index entries) and the event loop's
 non-blocking writes and reads (``write_needles_batch_nowait``,
 ``read_needle_nowait``). Same bytes on disk as the reference for the
-same needle sequence. Only the in-memory needle map (``needle_map_kind``
-"memory") is ported; it never flushes, so the reference's
-``flush_imminent`` check of the nowait write has nothing to decline on.
-Not ported: tiering to object stores, TTL expiry of whole volumes,
-replication tails, the compaction byte-rate throttle and
-``needle_sendfile_extent``.
+same needle sequence.
+
+The needle map is any kind of storage/needle_map.py
+(``needle_map_kind``: "memory", "compact", "leveldb", "leveldbMedium",
+"leveldbLarge"), at every open, a compaction's commit included; the
+nowait write declines a batch that would trigger a disk map's segment
+merge (``flush_imminent``). A new volume may reserve its space
+(``preallocate`` bytes). A volume whose .dat was moved to an object store
+(``Store.tier_upload``) opens from its ``.vif`` with a ``RemoteFile``
+backend: read-only, read through the store, with no file descriptor
+(``is_remote``). A TTL volume expires as a whole (``is_expired``,
+``is_expired_long_enough``). The compaction's copy may be held to a byte
+rate (``begin_compact(compaction_bytes_per_second)``), sleeping outside
+the lock. ``watchdog_sealed`` marks a seal the free-space watchdog set
+(``watchdog_seal``); only such a seal is lifted when space comes back
+(``lift_watchdog_seal``), and every other seal or unseal clears it.
+Not ported: ``needle_sendfile_extent``.
 """
 
 from __future__ import annotations
@@ -32,12 +43,13 @@ import time
 from typing import Optional
 
 from ..utils import durable
+from . import backend as backend_mod
 from . import idx as idx_mod
 from . import types as t
 from .backend import DiskFile
 from .needle import FLAG_HAS_LAST_MODIFIED, FLAG_HAS_TTL, Needle
-from .needle_map import (NeedleMap, NeedleValue, _truncate_torn_tail,
-                         remove_sidecars)
+from .needle_map import (NeedleValue, _truncate_torn_tail,
+                         create_needle_map, remove_sidecars)
 from .superblock import SUPER_BLOCK_SIZE, SuperBlock
 
 log = logging.getLogger("volume")
@@ -73,34 +85,48 @@ class VolumeCompacting(RuntimeError):
 class Volume:
     def __init__(self, directory: str, collection: str, vid: int,
                  superblock: Optional[SuperBlock] = None,
-                 create: bool = False, needle_map_kind: str = "memory"):
-        if needle_map_kind != "memory":
-            raise NotImplementedError(
-                f"needle map kind {needle_map_kind!r}: only 'memory' is "
-                "ported")
+                 create: bool = False, needle_map_kind: str = "memory",
+                 preallocate: int = 0):
         self.dir = directory
         self.collection = collection
         self.vid = vid
+        self.needle_map_kind = needle_map_kind
         self.read_only = False
+        self.watchdog_sealed = False  # set only by the free-space watchdog
         self.last_append_at_ns = 0
         self.last_modified_ts = 0
         self._lock = threading.RLock()
+        # the local .dat a tier upload replaced, kept open until close so
+        # that a read which took it before the swap never meets a closed
+        # descriptor
+        self._retired_dat = None
         self._compacting = False
         self._compact_sb: Optional[SuperBlock] = None
         self._compact_idx_entries = 0
 
         base = self.base_file_name()
         dat_path = base + ".dat"
-        if create or not os.path.exists(dat_path):
+        has_local = os.path.exists(dat_path)
+        has_vif = backend_mod.load_volume_info(base) is not None
+        if create or (not has_local and not has_vif):
             self.super_block = superblock or SuperBlock()
-            self._dat = DiskFile(dat_path, create=True)
+            self._dat = DiskFile(dat_path, create=True,
+                                 preallocate=preallocate)
             self._dat.write_at(self.super_block.to_bytes(), 0)
             self._dat.flush()
             # a fresh .dat invalidates any journal of an earlier volume
             _remove_quiet(base + ".idx")
             remove_sidecars(base + ".idx")
             _remove_quiet(base + ".swm")
-            self.nm = NeedleMap(base + ".idx", offset_size=self.offset_size)
+            self.nm = self._open_map(base)
+        elif not has_local:
+            # a tiered volume: the .dat lives in an object store and the
+            # .idx stays local (volume_tier.go:15-50); reads go through
+            # the store, writes are refused
+            self._dat = backend_mod.open_remote_dat(base)
+            self.read_only = True
+            self.super_block = self._read_superblock()
+            self.nm = self._open_map(base)
         else:
             self._dat = DiskFile(dat_path)
             self.super_block = self._read_superblock()
@@ -108,16 +134,25 @@ class Volume:
             # tail and a torn or stale .idx, so that the map is built
             # from a consistent pair
             self._crash_recover(base)
-            self.nm = NeedleMap(base + ".idx", offset_size=self.offset_size)
+            self.nm = self._open_map(base)
             # the .dat mtime bounds the last write even when the index
             # tail is a tombstone and carries no timestamp
             self.last_modified_ts = int(os.path.getmtime(dat_path))
             self.check_integrity()
         self._append_offset = self._dat.size()
 
+    def _open_map(self, base: str):
+        return create_needle_map(self.needle_map_kind, base + ".idx",
+                                 offset_size=self.offset_size)
+
     @property
     def offset_size(self) -> int:
         return self.super_block.offset_size
+
+    @property
+    def is_remote(self) -> bool:
+        """Whether the .dat lives in an object store (tiered)."""
+        return not self._dat.writable
 
     @property
     def version(self) -> int:
@@ -301,14 +336,20 @@ class Volume:
                                    ) -> Optional[list]:
         """write_needles_batch for event-loop callers, or None ("use the
         executor") unless the file is on local disk, the lock is free
-        (a compaction holds it for seconds) and no needle overwrites an
-        entry over 64 KiB (whose unchanged-content check would re-read
-        it from disk)."""
-        if not self._dat.is_local:
-            return None
+        (a compaction holds it for seconds), the batch does not bring a
+        disk map to its segment merge, and no needle overwrites an entry
+        over 64 KiB (whose unchanged-content check would re-read it from
+        disk)."""
         if not self._lock.acquire(blocking=False):
             return None
         try:
+            if not self._dat.is_local:
+                return None
+            if self.nm.flush_imminent(len(needles)):
+                # a disk map merges its delta into a new segment at the
+                # threshold: an O(n) sort and rewrite that must not run
+                # on the event loop
+                return None
             for n in needles:
                 nv = self.nm.get(n.id)
                 if (nv is not None and t.size_is_valid(nv.size)
@@ -363,11 +404,12 @@ class Volume:
         and the stored needle is at most `max_size` bytes, so a
         page-cache pread cannot stall the loop. Raises read_needle's
         not-found, deleted and expired errors."""
-        if not self._dat.is_local:
-            return None
         if not self._lock.acquire(blocking=False):
             return None
         try:
+            # under the lock: a tier upload swaps the backend under it
+            if not self._dat.is_local:
+                return None
             nv = self._lookup(needle_id)
             if nv.size > max_size:
                 return None
@@ -627,8 +669,14 @@ class Volume:
                         n.size, offset_size=self.offset_size))
 
     def check_integrity(self) -> None:
-        """Verify that the last .idx entry points at a valid needle
-        (CheckVolumeDataIntegrity, volume_checking.go:14)."""
+        """Verify that the last .idx entry points at a valid needle and
+        take the volume's last append time from it
+        (CheckVolumeDataIntegrity, volume_checking.go:14). A tombstone
+        entry that names its record (a delete's empty needle) gives its
+        append time too, as upstream's verifyDeletedNeedleIntegrity does:
+        the reference skips it and leaves the time at 0, so a backup whose
+        last record is a delete pulls the whole volume again at its next
+        run (ROADMAP Queue 3, D10)."""
         idx_path = self.base_file_name() + ".idx"
         idx_size = os.path.getsize(idx_path)
         if idx_size == 0:
@@ -640,7 +688,19 @@ class Volume:
             f.seek(idx_size - entry)
             key, stored_offset, size = idx_mod.unpack_entry(
                 f.read(entry), offset_size=self.offset_size)
-        if stored_offset == 0 or size == t.TOMBSTONE_FILE_SIZE:
+        if stored_offset == 0:
+            return
+        if size == t.TOMBSTONE_FILE_SIZE:
+            # a decoded EC volume's .idx keeps a deleted needle's own
+            # offset, where no delete record lies: only a record that is
+            # this key's empty needle gives the time, and nothing else
+            # fails the open
+            try:
+                n = self.read_needle_at(t.stored_to_offset(stored_offset), 0)
+            except (ValueError, IndexError, OSError, struct.error):
+                return
+            if n.id == key and not n.data and self.version == t.VERSION3:
+                self.last_append_at_ns = n.append_at_ns
             return
         n = self.read_needle_at(t.stored_to_offset(stored_offset),
                                 max(size, 0))
@@ -673,14 +733,21 @@ class Volume:
         self.begin_compact()
         self.commit_compact()
 
-    def begin_compact(self) -> None:
+    def begin_compact(self, compaction_bytes_per_second: int = 0) -> None:
         """Phase 1 (Compact2, volume_vacuum.go:66-89): copy the live
         needles of a map snapshot to .cpd/.cpx WITHOUT blocking writers.
         Appends that land meanwhile go to the old .dat and are folded in
         by commit_compact's makeup-diff replay; the copy preads records
-        below the snapshot's offsets, which appends never touch."""
+        below the snapshot's offsets, which appends never touch. A
+        positive `compaction_bytes_per_second` holds the copy to that
+        rate (upstream's WriteThrottler, weed/util/throttler.go): it
+        sleeps between records, never under the lock, so reads and
+        writes go on meanwhile."""
         base = self.base_file_name()
         with self._lock:
+            if self.is_remote:
+                raise VolumeReadOnly(
+                    f"volume {self.vid} is tiered remote; download first")
             if self._compacting:
                 raise RuntimeError(f"volume {self.vid} already compacting")
             if self.read_only:
@@ -704,6 +771,8 @@ class Volume:
                 offset_size=self.super_block.offset_size,
             )
         snapshot.sort(key=lambda nv: nv.offset)
+        throttle_t0 = time.monotonic()
+        copied = 0
         try:
             with open(base + ".cpd", "w+b") as cpd, \
                     open(base + ".cpx", "wb") as cpx:
@@ -720,6 +789,12 @@ class Volume:
                                                    self.offset_size),
                         nv.size, offset_size=self.offset_size))
                     offset += len(record)
+                    copied += len(record)
+                    if compaction_bytes_per_second > 0:
+                        ahead = (copied / compaction_bytes_per_second
+                                 - (time.monotonic() - throttle_t0))
+                        if ahead > 0:
+                            time.sleep(ahead)
             self._compact_sb = new_sb
         except BaseException:
             self.cleanup_compact()
@@ -792,7 +867,7 @@ class Volume:
                                    sync_file=False)
             self._dat = DiskFile(base + ".dat")
             self.super_block = new_sb
-            self.nm = NeedleMap(base + ".idx", offset_size=self.offset_size)
+            self.nm = self._open_map(base)
             self._append_offset = self._dat.size()
             # everything in the compacted pair is already fsynced: a
             # fresh watermark lets the next open scan nothing
@@ -812,19 +887,75 @@ class Volume:
     def set_read_only(self, read_only: bool) -> None:
         """Flip the write gate under the lock: a write in flight lands
         first, so a reader of the files after this returns sees every
-        write the volume accepted."""
+        write the volume accepted. A seal or unseal that is not the
+        watchdog's supersedes the watchdog's: space coming back must
+        never lift it."""
         with self._lock:
             self.read_only = read_only
+            self.watchdog_sealed = False
 
     def seal(self) -> None:
         """Make the volume read-only and durable for a reader of its
-        files as they stand (an EC encode). Refused while a compaction is
-        open: its commit would swap the .dat and .idx under the reader."""
+        files as they stand (an EC encode, a tier upload, a move). Refused
+        while a compaction is open: its commit would swap the .dat and
+        .idx under the reader. Like set_read_only it supersedes a
+        watchdog seal, so the files' reader keeps the volume sealed when
+        space comes back."""
         with self._lock:
             if self._compacting:
                 raise VolumeCompacting(f"volume {self.vid} is compacting")
             self.read_only = True
+            self.watchdog_sealed = False
             self._sync_locked()
+
+    def watchdog_seal(self) -> bool:
+        """The free-space watchdog's seal (disk_location.go:304): a
+        writable volume turns read-only and remembers who sealed it.
+        Returns whether it sealed."""
+        with self._lock:
+            if self.read_only:
+                return False
+            self.read_only = True
+            self.watchdog_sealed = True
+            return True
+
+    def lift_watchdog_seal(self) -> bool:
+        """Space is back: lift the seal only if the watchdog set it and
+        nothing sealed the volume since. Returns whether it lifted."""
+        with self._lock:
+            lift = self.watchdog_sealed and not self.is_remote
+            if lift:
+                self.read_only = False
+            self.watchdog_sealed = False
+            return lift
+
+    # --- TTL expiry of the whole volume (volume.go expired()) ---
+    def _freshness_ts(self) -> float:
+        return self.last_modified_ts or (self.last_append_at_ns / 1e9)
+
+    def is_expired(self, now: Optional[float] = None) -> bool:
+        """A TTL volume whose last write is older than its TTL is garbage
+        as a whole. A volume of unknown age never expires: deleting live
+        data on a guess is worse than keeping an empty volume."""
+        minutes = self.super_block.ttl.minutes()
+        ref_ts = self._freshness_ts()
+        if not minutes or ref_ts == 0:
+            return False
+        return (now if now is not None else time.time()) >= \
+            ref_ts + minutes * 60
+
+    def is_expired_long_enough(self, max_delay_minutes: int,
+                               now: Optional[float] = None) -> bool:
+        """The grace before an expired TTL volume is removed
+        (volume.go expiredLongEnough): a tenth of the TTL, at least a
+        minute and at most `max_delay_minutes`."""
+        minutes = self.super_block.ttl.minutes()
+        ref_ts = self._freshness_ts()
+        if not minutes or ref_ts == 0:
+            return False
+        removal_delay = min(max(minutes // 10, 1), max_delay_minutes)
+        return (now if now is not None else time.time()) >= \
+            ref_ts + (minutes + removal_delay) * 60
 
     # --- durability ---
     def sync(self) -> None:
@@ -837,9 +968,11 @@ class Volume:
     def _sync_locked(self) -> None:
         self._dat.sync()
         self.nm.sync()
-        base = self.base_file_name()
-        self._save_sync_watermark(base, self._append_offset,
-                                  os.path.getsize(base + ".idx"))
+        if self._dat.writable:
+            # a tiered .dat has no local bytes for a watermark to vouch for
+            base = self.base_file_name()
+            self._save_sync_watermark(base, self._append_offset,
+                                      os.path.getsize(base + ".idx"))
 
     def close(self) -> None:
         with self._lock:
@@ -850,4 +983,7 @@ class Volume:
             if not self.read_only:
                 self._sync_locked()
             self.nm.close()
+            if self._retired_dat is not None:
+                self._retired_dat.close()
+                self._retired_dat = None
             self._dat.close()

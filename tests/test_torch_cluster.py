@@ -1303,7 +1303,8 @@ def test_shell_registry():
         "volume.fix.replication",
         "volume.copy", "volume.delete", "volume.configure.replication",
         "volume.mark", "volume.heat", "lifecycle.status",
-        "lifecycle.run", "cluster.balance.status", "cluster.balance.run"}
+        "lifecycle.run", "cluster.balance.status", "cluster.balance.run",
+        "volume.tier.upload", "volume.tier.download"}
 
 
 # --- the HTTP layer --------------------------------------------------------

@@ -181,10 +181,11 @@ def _stream_ec_workload():
                                   wl.make_ec_workload,
                                   wl.make_fused_warmdown_workload,
                                   _stream_ec_workload,
-                                  wl.make_group_commit_workload],
+                                  wl.make_group_commit_workload,
+                                  wl.make_needle_map_workload],
                          ids=["volume_append", "ec_encode",
                               "fused_warmdown", "ec_encode_stream",
-                              "volume_group_commit"])
+                              "volume_group_commit", "needle_map_flush"])
 def test_subsystem_sweep_zero_violations(make):
     """Per-subsystem power-loss sweep: every acked write survives, no
     corrupt state loads silently, recovery converges."""
@@ -204,9 +205,10 @@ def test_sweep_all_counts_points():
     assert list(summary["workloads"]) == ["volume_append"]
     summary = harness.sweep_all(seeds=2, points=2)
     assert sorted(summary["workloads"]) == ["ec_encode", "fused_warmdown",
+                                            "needle_map_flush",
                                             "volume_append",
                                             "volume_group_commit"]
-    assert summary["total_points"] == 16 and summary["ok"]
+    assert summary["total_points"] == 20 and summary["ok"]
 
 
 def test_crashsim_cli_json(capsys):

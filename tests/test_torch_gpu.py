@@ -771,3 +771,101 @@ def test_balanced_volume_encodes_and_reads_degraded_on_the_card(
         assert rs_cuda.gf_apply.launches > before
     finally:
         cl.shutdown()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_leveldb_volume_encodes_on_auto_like_numpy_store(tmp_path,
+                                                         monkeypatch, fused):
+    """A volume under needle_map_kind="leveldb" (its segment flushed at a
+    small threshold, more entries and tombstones in the delta) encodes on
+    the card through gf_apply, and its files equal a "numpy" Store's
+    under the "memory" map on a copy of the same directory."""
+    _need_card()
+    import json
+    import shutil
+    from seaweedfs_torch.ec import geometry
+    from seaweedfs_torch.storage.needle import Needle
+    from seaweedfs_torch.storage.store import Store
+    monkeypatch.delenv("WEED_EC_GEOMETRY", raising=False)
+    monkeypatch.delenv("WEED_EC_FORMULATION", raising=False)
+    collection = "archive" if fused else ""
+    src = tmp_path / "src"
+    st = Store([str(src)], coder_name="numpy", needle_map_kind="leveldb")
+    st.add_volume(6, collection=collection)
+    st.find_volume(6).nm.FLUSH_THRESHOLD = 100
+    rng = np.random.default_rng(6)
+    for i in range(1, 350):
+        st.write_needle(6, Needle(cookie=i, id=i,
+                                  data=rng.bytes(int(rng.integers(1, 9000)))))
+    for i in range(1, 350, 3):
+        st.delete_needle(6, Needle(cookie=i, id=i))
+    assert st.find_volume(6).nm.flushes > 0
+    st.close()
+    files = {}
+    for name, kind in (("numpy", "memory"), ("auto", "leveldb")):
+        d = tmp_path / name
+        shutil.copytree(src, d)
+        st = Store([str(d)], coder_name=name, needle_map_kind=kind)
+        before = rs_cuda.gf_apply.launches
+        try:
+            gen = st.ec_fused_generate if fused else st.ec_generate
+            gen(6)
+        finally:
+            st.close()
+        if name == "auto":
+            assert rs_cuda.gf_apply.launches > before
+        g = geometry.GeometryPolicy.from_env().for_collection(collection)
+        base = str(d / (f"{collection}_6" if collection else "6"))
+        files[name] = [open(base + ext, "rb").read() for ext in
+                       [geometry.to_ext(i) for i in range(g.total_shards)]
+                       + [".ecx"]]
+        files[name].append(json.load(open(base + ".ecm")))
+    assert files["auto"] == files["numpy"]
+
+
+@pytest.mark.gpu
+def test_tiered_volume_downloads_and_encodes_on_the_card(tmp_path,
+                                                         monkeypatch):
+    """Tier upload, reads through the object store, a restart that finds
+    the volume tiered, the download, then ec_generate on the card: the
+    shards equal a "numpy" Store's of the untiered volume; ec_generate of
+    the volume while tiered fails on its absent .dat, as the
+    reference's does."""
+    _need_card()
+    import shutil
+    from seaweedfs_torch.ec import geometry
+    from seaweedfs_torch.storage.store import Store
+    monkeypatch.delenv("WEED_EC_GEOMETRY", raising=False)
+    monkeypatch.delenv("WEED_EC_FORMULATION", raising=False)
+    src = tmp_path / "src"
+    st = Store([str(src)], coder_name="numpy")
+    _store_volume(st, 7, "")
+    st.close()
+    shutil.copytree(src, tmp_path / "numpy")
+    st = Store([str(tmp_path / "numpy")], coder_name="numpy")
+    st.ec_generate(7)
+    st.close()
+    d = tmp_path / "auto"
+    shutil.copytree(src, d)
+    spec = {"type": "local_store", "directory": str(tmp_path / "bucket")}
+    st = Store([str(d)], coder_name="auto")
+    want = {i: st.read_needle(7, i).data for i in range(1, 401)
+            if st.find_volume(7).nm.get(i).size > 0}
+    st.tier_upload(7, spec)
+    with pytest.raises(FileNotFoundError):
+        st.ec_generate(7)
+    st.close()
+    st = Store([str(d)], coder_name="auto")
+    try:
+        assert st.find_volume(7).is_remote
+        assert {i: st.read_needle(7, i).data for i in want} == want
+        st.tier_download(7)
+        before = rs_cuda.gf_apply.launches
+        assert st.ec_generate(7) == list(range(14))
+        assert rs_cuda.gf_apply.launches > before
+    finally:
+        st.close()
+    for ext in [geometry.to_ext(i) for i in range(14)] + [".ecx"]:
+        assert open(d / f"7{ext}", "rb").read() == \
+            open(tmp_path / "numpy" / f"7{ext}", "rb").read()

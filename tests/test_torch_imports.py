@@ -96,6 +96,10 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.crashsim.replay",
                  "seaweedfs_torch.crashsim.harness",
                  "seaweedfs_torch.crashsim.workloads",
+                 "seaweedfs_torch.storage.needle_map",
+                 "seaweedfs_torch.storage.volume_backup",
+                 "seaweedfs_torch.s3",
+                 "seaweedfs_torch.s3.sigv4",
                  "seaweedfs_torch.cli"):
         assert name in result["names"]
     assert result["forbidden"] == []

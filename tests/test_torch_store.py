@@ -377,14 +377,51 @@ def test_store_mesh_env_leaves_explicit_numpy_coder(tmp_path, monkeypatch):
         st.close()
 
 
-def test_store_rejects_other_needle_map_kinds(tmp_path):
-    st = pstore.Store([str(tmp_path)], coder_name="numpy",
-                      needle_map_kind="compact")
+@pytest.mark.parametrize("kind", ["compact", "leveldb"])
+def test_store_runs_every_needle_map_kind(source, tmp_path, kind):
+    """The source opened under another map kind by both packages' Stores:
+    the same reads and heartbeat, the same shard set and .ecx from
+    ec_generate and ec_fused_generate, and the kind kept by every volume
+    (the disk kind's .sdx adopted at the reopen)."""
+    rdir, pdir = str(tmp_path / "ref"), str(tmp_path / "port")
+    shutil.copytree(source["dir"], rdir)
+    shutil.copytree(source["dir"], pdir)
+    stores = {}
+    for d in (rdir, pdir):
+        mod, geo = (rstore, rgeo) if d == rdir else (pstore, pgeo)
+        stores[d] = mod.Store([d], coder_name="numpy",
+                              geometry_policy=_policy(geo),
+                              needle_map_kind=kind)
+    rs, ps = stores[rdir], stores[pdir]
     try:
-        with pytest.raises(NotImplementedError):
-            st.add_volume(1)
+        assert {type(v.nm).__name__ for loc in ps.locations
+                for v in loc.volumes.values()} == {
+            "CompactNeedleMap" if kind == "compact" else "DiskNeedleMap"}
+        _read_all((rs, ps), source, VOLUMES)
+
+        def beat(st):
+            return sorted((h["id"], h["file_count"], h["delete_count"],
+                           h["deleted_bytes"], h["size"])
+                          for h in st.heartbeat()["volumes"])
+
+        assert beat(ps) == beat(rs)
+        assert ps.ec_generate(1) == rs.ec_generate(1)
+        assert ps.ec_fused_generate(2) == rs.ec_fused_generate(2)
+        for vid in (1, 2):
+            _assert_same(rdir, pdir, vid,
+                         _shard_exts(vid) + [".ecx", ".ecm"])
     finally:
-        st.close()
+        rs.close()
+        ps.close()
+    ps = pstore.Store([pdir], coder_name="numpy",
+                      geometry_policy=_policy(pgeo), needle_map_kind=kind)
+    try:
+        if kind == "leveldb":
+            assert all(v.nm.adopted for loc in ps.locations
+                       for v in loc.volumes.values())
+        _read_all((ps,), source, (3,))
+    finally:
+        ps.close()
 
 
 # ------------------------------------------------------------- geometry
