@@ -75,8 +75,8 @@ Phases (any failure exits non-zero before the result line):
    (rebuilt shards' sha256 equal, .ecj folded into .ecx),
    ``ec_to_volume`` (the decoded .dat equals the source up to its last
    live needle; every needle reads from the restored volume). (6b) the
-   ``archive`` collection, RS(20,4): a 512 MiB volume (1 GiB before the
-   twelfth slice made room for phase 11) of the fused
+   ``archive`` collection, RS(20,4): a 256 MiB volume (1 GiB before
+   phase 11, 512 MiB before phase 13) of the fused
    warm-down tests' five payload kinds, 30% tombstoned (upstream's default
    vacuum garbageThreshold), ``ec_fused_generate`` (24 shards, a marker
    naming RS(20,4), the decoded .dat equal to the sequential
@@ -138,7 +138,8 @@ Phases (any failure exits non-zero before the result line):
    rack (``Store(coder_name="auto")``, the scrub loop off, pulse 0.5 s),
    no operator command from step 2 on: (1) two volumes of ``lcsmoke``
    allocated on one server, filled at once over HTTP with phase 3's
-   generator to 512 MiB each (the size limit; 1 GiB before phase 12), 5%
+   generator to 256 MiB each (the size limit; 1 GiB before phase 12, 512
+   MiB before phase 13), 5%
    deleted, the first copied aside; (2) the
    daemon seals both and warms them down in one ``ec/fused`` window of
    two (the master's ``lifecycle_encode_windows`` counter), spreads each
@@ -175,7 +176,8 @@ Phases (any failure exits non-zero before the result line):
    single-card ``gf_apply`` and to the plain version, and the
    formulation's kernel launched once per member per call;
    ``sharded_encode`` and ``sharded_rebuild`` the same bytes. (10b) a
-   512 MiB volume (1 GiB before phase 11) from phase 3's generator,
+   256 MiB volume (1 GiB before phase 11, 512 MiB before phase 13) from
+   phase 3's generator,
    ``stream_encode`` governed,
    single-card and through the two-member mesh (bitplane, then xorsched):
    the 14 shard files equal by sha256, the plan's ``chips`` 2 and both
@@ -192,15 +194,17 @@ Phases (any failure exits non-zero before the result line):
    ``ec_encode`` (RS(10,4) at 262144 / 16384 blocks, a 32 MiB seeded .dat,
    ``stream_encode`` with ``get_coder("auto")``), ``fused_warmdown``
    (RS(20,4), a 32 MiB volume of phase 6b's payload kinds, 30%
-   tombstoned) and ``volume_append``: zero violations, ``gf_apply``
-   launched in both EC sweeps; points, violations and wall time per
-   workload;
+   tombstoned), ``volume_append`` and ``raft_snapshot`` (a master's raft
+   state with the metadata log's snapshot folds): zero violations,
+   ``gf_apply`` launched in both EC sweeps and in no other; points,
+   violations and wall time per workload;
 11. (run after 10) the auto-balancer and the volume server's data path,
    in its own ``LocalCluster``: a master with the repair daemon, a
    lifecycle daemon whose rules fire later than the phase lasts, and the
    balancer (``WEED_BALANCE_INTERVAL=1``, cooldown 30 s; heat half-life
    2 s), 4 volume servers on 2 racks (``Store(coder_name="auto")``, pulse
-   0.5 s), volume size limit 192 MiB (256 MiB before phase 12), default replication ``010``,
+   0.5 s), volume size limit 160 MiB (256 MiB before phase 12, 192 MiB
+   before phase 13), default replication ``010``,
    ``WEED_VOLUME_GROUP_COMMIT_US=2000``. Under the operator's admin lease
    (no daemon moves anything meanwhile): (11a) 64 clients upload phase
    3's generator's needles (log-uniform 1 KiB .. 64 KiB; 16 keys per
@@ -253,7 +257,8 @@ Phases (any failure exits non-zero before the result line):
    the segment, ``ec_fused_generate`` on the card, the 24 shards and the
    decoded compacted .dat equal by sha256 to a ``memory`` copy's;
    (12c) a ``LocalCluster`` of 2 volume servers at ``-index leveldb``:
-   64 MiB uploaded by 8 HTTP clients (5% deleted), CLI ``backup``, 500
+   32 MiB (64 MiB before phase 13) uploaded by 8 HTTP clients (5%
+   deleted), CLI ``backup``, 500
    uploads and 100 deletes, ``backup`` again applying exactly those 600
    records, the live set equal, and equal again after ``fix`` of the
    backup without its .idx; shell ``volume.tier.upload -dest
@@ -264,7 +269,7 @@ Phases (any failure exits non-zero before the result line):
    the watchdog (``min_free_space_percent=101`` on one server seals its
    volumes, uploads go to the other; back at 0 only its own seal lifts,
    an operator's seal and D9's watchdog-sealed then ec-generated volume
-   stay); ``/admin/vacuum/compact`` on a 64 MiB volume 30% deleted,
+   stay); ``/admin/vacuum/compact`` on a 32 MiB volume 30% deleted,
    first at no rate (then cleaned up), then at a
    ``compaction_byte_per_second`` planned for twice that copy's wall: at
    least bytes/rate of wall, 4 HTTP readers meanwhile, none waiting
@@ -272,6 +277,38 @@ Phases (any failure exits non-zero before the result line):
    ``needle_map_flush`` crash sweep at 2 seeds x 10 points, 0
    violations. ``gf_apply`` must launch in the generates, ``ec.encode``
    and the degraded reads of the phase and nowhere else in it;
+13. (run after 12) HA masters, upstream's ``weed master -peers`` layout:
+   a ``LocalCluster`` of 3 masters, each with its own raft state
+   directory, at the reference's raft timings (elections 0.3-0.6 s,
+   heartbeats 0.1 s, ``max_log_entries`` 256), with the repair daemon;
+   4 volume servers on 2 racks (``Store(coder_name="auto")``, pulse 0.5
+   s) given the masters' list; volume size limit 256 MiB. (13a) the
+   election's seconds; 16 client threads in 4 processes, each a
+   ``Client`` over the list, assign and upload phase 3's needles (log-
+   uniform 1 KiB .. 4 MiB) into collection ``hasmoke`` until one volume
+   is full, while one thread sends 2000 ``/dir/assign?count=1..16``
+   round-robin to the three masters (followers proxy; a refused call is
+   sent again every 0.02 s); assigns/s and p50/p99 straight to the
+   leader and through a follower; the log compacts. (13b) the leader
+   stopped once the stream has made 1000 calls or the volume is half
+   full: seconds to a new leader and to the first assign sent after the
+   stop; no key handed out twice over the phase (every assigned range);
+   the first key of the new leader's term equals the old leader's
+   applied counter plus the in-flight batches of the old term the new
+   leader kept; every acknowledged upload read back from its holder's
+   files (every holder's). (13c) the old leader restarted on its state directory (its
+   snapshot loaded): a follower whose metadata log equals the others'
+   within 10 s, its catch-up seconds. (13d) shell ``ec.encode`` of the
+   full volume sent to a follower's URL (proxied, its admin lease taken
+   on the leader), shards {0, 3, 7, 12} dropped on their holders with
+   the repair daemon paused, every needle read over HTTP (4 reader
+   threads, degraded), the repair daemon resumed: it rebuilds the four
+   (sha256 equal to the dropped files), then every needle read again.
+   A new leader answers assigns 503 for three pulses rather than grow on
+   its partial topology, and its daemons wait an admin lease period
+   (10 s); the summary line's ``final_term`` counts the elections (2:
+   none but 13b's). ``gf_apply`` must launch in 13d's encode, degraded
+   reads and rebuild, and in no other step of the phase;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -2772,10 +2809,13 @@ MESH_WIDTHS = (1, 1023, 64 * 1024 + 3, 8 * MIB + 5)
 CRASH_SEEDS, CRASH_POINTS = 2, 20
 MESH_CRASH_POINTS = 10
 CRASH_DAT_BYTES = 32 * MIB
-# phase 6b's archive volume and phase 10b's volume, cut from 1 GiB for
-# the same reason; phases 7-8's and 9's volumes too, to make room for
-# phase 12 (the smoke took about 1115 s on one H100 with them at 1 GiB)
+# phases 7-8's volumes, cut from 1 GiB to make room for phase 12 (the
+# smoke took about 1115 s on one H100 with them at 1 GiB)
 CUT_VOLUME_BYTES = 512 * MIB
+# phase 6b's archive volume, phase 9's and phase 10b's volumes, cut from
+# 1 GiB for phases 11 and 12, then from 512 MiB to make room for phase
+# 13 (the smoke took about 1175 s on one H100 with them at 512 MiB)
+SMALL_VOLUME_BYTES = 256 * MIB
 
 
 def mesh_log(row: dict) -> None:
@@ -3002,9 +3042,9 @@ def run_mesh_surface(work: Path, card: str, count: int) -> None:
 
 
 def crash_workloads(device: torch.device) -> list:
-    """(10d) The three crash workloads at the card's sizes: ec_encode on
-    phase 4's mixed tiers, fused_warmdown on phase 6b's payload kinds,
-    volume_append at its defaults."""
+    """(10d) The crash workloads at the card's sizes: ec_encode on phase
+    4's mixed tiers, fused_warmdown on phase 6b's payload kinds,
+    volume_append and raft_snapshot at their defaults."""
     seed = SEED + 11
     mixed = geometry.Geometry(large_block_size=262144,
                               small_block_size=16384)
@@ -3024,13 +3064,14 @@ def crash_workloads(device: torch.device) -> list:
         coder=coder_mod.get_coder("auto", 20, 4),
         geometry=geometry.Geometry(20, 4), needles=count, deleted=gone,
         make_needle=lambda nid: archive_needle(seed, nid))
-    return [ec_encode, fused, crash_wl.make_volume_workload()]
+    return [ec_encode, fused, crash_wl.make_volume_workload(),
+            crash_wl.make_raft_workload()]
 
 
 def run_crash_sweeps(work: Path, device: torch.device) -> dict:
     """(10d) Each workload at CRASH_SEEDS x MESH_CRASH_POINTS; zero
-    violations, gf_apply launched in both EC sweeps. Returns launches per
-    sweep."""
+    violations, gf_apply launched in both EC sweeps and in no other.
+    Returns launches per sweep."""
     work.mkdir(parents=True)
     launches = {}
     for w in crash_workloads(device):
@@ -3049,7 +3090,7 @@ def run_crash_sweeps(work: Path, device: torch.device) -> dict:
         if not summary["ok"] or summary["total_points"] != \
                 CRASH_SEEDS * MESH_CRASH_POINTS:
             raise AssertionError(f"crash sweep {w.name}: {summary}")
-        ec_sweep = w.name != "volume_append"
+        ec_sweep = w.name in ("ec_encode", "fused_warmdown")
         if (ec_sweep != (n["gf_apply"] > 0)
                 or any(c for k, c in n.items() if k != "gf_apply")):
             raise AssertionError(f"crash.{w.name}: launches {n}")
@@ -3065,7 +3106,7 @@ def run_mesh(work: Path, device: torch.device, card: str,
     t0 = time.perf_counter()
     check_mesh_kernels(devices)
     launches = run_mesh_path(work / "path", devices, device,
-                             total=CUT_VOLUME_BYTES)
+                             total=SMALL_VOLUME_BYTES)
     run_mesh_surface(work / "surface", card, count)
     launches.update(run_crash_sweeps(work / "crash", device))
     mesh_log({"phase": "mesh.summary", "seconds": time.perf_counter() - t0,
@@ -3078,10 +3119,10 @@ def run_mesh(work: Path, device: torch.device, card: str,
 BAL_COLLECTION = "balsmoke"
 BAL_AB = "balgc"          # the fifth volume: group commit off, then on
 BAL_NEW = "balnew"        # a volume grown after the moves
-# upstream's 30 GB volume size limit, cut to 256 MiB
-# cut from 256 MiB to make room for phase 12 (the fifth volume's about
+# upstream's 30 GB volume size limit, cut to 256 MiB, then to 192 MiB
+# for phase 12 and to 160 MiB for phase 13 (the fifth volume's about
 # 120 MiB of group-commit uploads stay under 0.9 of it)
-BAL_LIMIT_MB = 192
+BAL_LIMIT_MB = 160
 BAL_FULL = 4              # the full 010 volumes of step 11a
 BAL_CLIENTS = 64
 BAL_PROCS = 4             # uploader processes (16 clients each)
@@ -3876,7 +3917,8 @@ def check_balance_launches(launches: dict) -> None:
 STOR_MAX_NEEDLE = 16 * 1024   # phase 3's generator, log-uniform 1-16 KiB
 STOR_DISK_BYTES = 1 << 30     # 12a's volume
 STOR_FUSED_BYTES = 256 * MIB  # 12b's archive volume
-STOR_UPLOAD_BYTES = 64 * MIB  # 12c's uploads, and its vacuumed volume
+# 12c's uploads, and its vacuumed volume (cut from 64 MiB for phase 13)
+STOR_UPLOAD_BYTES = 32 * MIB
 STOR_MORE, STOR_MORE_DELETES = 500, 100
 STOR_READ_STRIDE = 16         # 12a's reads, healthy and degraded
 STOR_EC_READ_STRIDE = 8       # 12c's degraded reads
@@ -4599,6 +4641,482 @@ def run_storage(work: Path, coder_name: str = "auto", device=None,
     return launches
 
 
+# --- phase 13: HA masters -------------------------------------------------
+
+HA_COLLECTION = "hasmoke"
+HA_LIMIT_MB = 256         # the phase's volume size limit
+HA_CLIENTS = 16           # upload clients (threads), in HA_PROCS processes
+HA_PROCS = 4
+HA_MAX_NEEDLE = 4 * MIB   # phase 3's generator: log-uniform 1 KiB .. 4 MiB
+HA_ASSIGNS = 2000         # the assign stream's calls, round-robin
+HA_KILL_AT = 1000         # the leader stops once the stream made these,
+#                           or once the volume is half full
+HA_PULSE = 0.5
+HA_CATCH_UP_S = 10.0      # the restarted master's bound to equal captures
+HA_READERS = 4            # 13d's HTTP reader threads
+# steps of phase 13 that run the coder (gf_apply must launch there, and
+# in no other step of the phase)
+HA_CODER_STEPS = ("ha.ec_encode", "ha.read_degraded", "ha.rebuild")
+
+
+def _ha_upload_proc(master_url: str, collection: str, seed: int,
+                    first_nid: int, threads: int, max_needle: int, stop,
+                    out) -> None:
+    """One uploader process: `threads` clients, each a ``Client`` over the
+    masters' list, assign one key and upload one of phase 3's needles
+    until `stop`; an assign refused or unanswered (a failover) is retried
+    every 0.05 s for up to 30 s. Puts (acked [(fid, nid, size)], assigned
+    [(key, 1)], assign latencies, the longest assign wait, errors) on
+    `out`."""
+    lock = threading.Lock()
+    acked, assigned, lat, errors = [], [], [], []
+    nids = itertools.count(first_nid)
+
+    def loop(i: int) -> None:
+        client = Client(master_url)
+        rng = np.random.default_rng((seed, first_nid, i))
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    a = client.assign(collection=collection)
+                    break
+                except (ClientError, OSError) as e:
+                    if time.perf_counter() - t0 > 30:
+                        errors.append(f"assign: {e!r}")
+                        return
+                    time.sleep(0.05)
+            dt = time.perf_counter() - t0
+            with lock:
+                nid = next(nids)
+                assigned.append((FileId.parse(a["fid"]).key, 1))
+                lat.append(dt)
+            size = int(np.exp(rng.uniform(np.log(1024),
+                                          np.log(max_needle))))
+            try:
+                client.upload_blob(a["url"], a["fid"],
+                                   payload(seed, nid, size))
+            except (ClientError, OSError) as e:
+                errors.append(f"upload {a['fid']}: {e!r}")
+                return
+            with lock:
+                acked.append((a["fid"], nid, size))
+
+    workers = [threading.Thread(target=loop, args=(i,), daemon=True)
+               for i in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    out.put((acked, assigned, lat, max(lat, default=0.0), errors))
+
+
+def ha_assign_stream(cl, n: int, kill_at: int, reached: threading.Event,
+                     rows: list) -> None:
+    """`n` GET /dir/assign?count=1..16 round-robin over the three
+    masters, one at a time. A refused call (a follower with no leader, a
+    leader mid-election) is sent again to the same master every 0.02 s,
+    for up to 10 s; a master that is down (its connection refused) is
+    passed over. Each try is a row: (monotonic end, the target's role
+    when sent, HTTP status (0: no answer), seconds, first key, count,
+    error, monotonic send). Sets `reached` after `kill_at` calls."""
+    rng = np.random.default_rng(SEED + 13)
+    urls = cl.master_url.split(",")
+    for i in range(n):
+        if i == kill_at:
+            reached.set()
+        url = urls[i % len(urls)]
+        count = int(rng.integers(1, 17))
+        deadline = time.monotonic() + 10
+        while True:
+            m = next((m for m in cl.masters
+                      if m is not None and m.url == url), None)
+            role = ("down" if m is None else
+                    "leader" if m.raft.is_leader else "follower")
+            sent = time.monotonic()
+            t0 = time.perf_counter()
+            try:
+                status, out = http.get_json(
+                    f"http://{url}/dir/assign?count={count}", timeout=30)
+            except (OSError, ValueError) as e:
+                status, out = 0, {"error": type(e).__name__}
+            key = FileId.parse(out["fid"]).key if status == 200 else None
+            rows.append((time.monotonic(), role, status,
+                         time.perf_counter() - t0, key, count,
+                         out.get("error", ""), sent))
+            if status in (0, 200) or time.monotonic() > deadline:
+                break
+            time.sleep(0.02)
+
+
+def ha_record_assigns(master) -> list:
+    """(index, entry term, count, first key) of every assign batch the
+    master's raft applies from now on."""
+    rec: list = []
+    node, apply = master.raft, master.raft.apply_fn
+
+    def recording(cmd: dict):
+        out = apply(cmd)
+        if "assign_batch" in cmd:
+            rec.append((node.last_applied, node._term_at(node.last_applied),
+                        max(1, int(cmd["assign_batch"]["count"])), out))
+        return out
+
+    node.apply_fn = recording
+    return rec
+
+
+def ha_overlaps(ranges: list) -> int:
+    """Keys handed out twice among (first key, count) ranges."""
+    dup, end = 0, 0
+    for key, count in sorted(ranges):
+        if key < end:
+            dup += min(end, key + count) - key
+        end = max(end, key + count)
+    return dup
+
+
+def ha_term(cl) -> int:
+    """The highest raft term among the running masters."""
+    return max(m.raft.term for m in cl.masters if m is not None)
+
+
+def ha_captures_equal(cl) -> bool:
+    caps = [m.metalog.capture() for m in cl.masters]
+    return all(c == caps[0] for c in caps)
+
+
+def ha_shard_paths(cl, info: dict, vid: int) -> dict:
+    """sid -> the shard file of its first holder."""
+    return {int(sid): os.path.join(
+        cl.nodes[cl.index_of(urls[0])][3],
+        f"{HA_COLLECTION}_{vid}{geometry.to_ext(int(sid))}")
+        for sid, urls in info["shards"].items()}
+
+
+def run_ha(work: Path, seed: int = SEED + 13, coder_name: str = "auto",
+           device=None, limit_mb: int = HA_LIMIT_MB,
+           max_needle: int = HA_MAX_NEEDLE, assigns: int = HA_ASSIGNS,
+           kill_at: int = HA_KILL_AT) -> dict:
+    """Phase 13; returns the launches per step. On the card they are held
+    to the phase's rule (gf_apply in 13d's encode, degraded reads and
+    rebuild only; no other kernel); ``coder_name="torch", device="cpu"``
+    at a few MB runs it on a host without one (no launch is counted
+    there)."""
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    terms = [0]
+    limit = limit_mb * MIB
+    # (13a) three masters, the reference's raft timings, elected on the
+    # cluster's loop; then four volume servers on two racks
+    t0 = time.monotonic()
+    (cl, launches["ha.elect"]) = counted(lambda: LocalCluster(
+        0, coder_name=coder_name, device=device,
+        volume_size_limit_mb=limit_mb, pulse=HA_PULSE,
+        directory=str(work), racks=2, n_masters=3))
+    try:
+        leader = cl.wait_for_leader()
+        elect_s = leader.raft.leader_since - t0
+        records = {m.url: ha_record_assigns(m) for m in cl.masters}
+        for _ in range(4):
+            cl.add_volume_server()
+        cl.wait_for_nodes(4)
+        bal_log("ha.elect", elect_s, launches["ha.elect"],
+                masters=cl.master_url, leader=leader.url,
+                term=leader.raft.term,
+                election_timeout=list(leader.raft.election_timeout),
+                heartbeat=leader.raft.heartbeat_interval)
+        client = Client(cl.master_url)
+        vid = client.grow(count=1, collection=HA_COLLECTION)[
+            "volume_ids"][0]
+        holder = client.lookup(vid)[0]
+        vol = cl.store(cl.index_of(holder)).find_volume(vid)
+
+        def fill_and_fail_over():
+            ctx = mp.get_context("spawn")
+            stop, out = ctx.Event(), ctx.Queue()
+            procs = [ctx.Process(target=_ha_upload_proc, args=(
+                cl.master_url, HA_COLLECTION, seed, 1 + i * 10 ** 8,
+                HA_CLIENTS // HA_PROCS, max_needle, stop, out),
+                daemon=True)
+                for i in range(HA_PROCS)]
+            rows: list = []
+            reached = threading.Event()
+            stream = threading.Thread(target=ha_assign_stream, args=(
+                cl, assigns, kill_at, reached, rows), daemon=True)
+            t_start = time.perf_counter()
+            for p in procs:
+                p.start()
+            stream.start()
+            deadline = time.monotonic() + 300
+            while not reached.is_set() and \
+                    vol.data_file_size() < limit // 2:
+                if time.monotonic() > deadline:
+                    raise AssertionError("13a did not reach its middle")
+                time.sleep(0.02)
+            # (13b) the leader stopped in the middle of the stream
+            old = cl.leader()
+            idx = cl.masters.index(old)
+            old_term = old.raft.term
+            t_kill = time.monotonic()
+            cl.stop_master(idx)
+            t_stopped = time.monotonic()
+            new = cl.wait_for_leader(timeout=60, exclude=(old,))
+            to_leader = new.raft.leader_since - t_kill
+            results: list = []
+            full_at = None
+            try:
+                while len(results) < HA_PROCS:
+                    if full_at is None and vol.data_file_size() >= limit:
+                        full_at = time.perf_counter() - t_start
+                        stop.set()
+                    try:
+                        results.append(out.get(timeout=0.2))
+                    except queue.Empty:
+                        if not any(p.is_alive() for p in procs) \
+                                and out.empty():
+                            raise AssertionError("an uploader died")
+                    if time.perf_counter() - t_start > 600:
+                        raise AssertionError("the fill did not end")
+            finally:
+                stop.set()
+                for p in procs:
+                    p.join(30)
+                    if p.is_alive():
+                        p.kill()
+            stream.join(120)
+            return {"rows": rows, "results": results, "old": old,
+                    "idx": idx, "old_term": old_term, "new": new,
+                    "t_kill": t_kill, "t_stopped": t_stopped,
+                    "to_leader": to_leader,
+                    "full_at": full_at,
+                    "wall": time.perf_counter() - t_start}
+
+        fo, launches["ha.fill_failover"] = counted(fill_and_fail_over)
+        old, new, rows = fo["old"], fo["new"], fo["rows"]
+        acked, assigned, up_lat, stalls, errors = [], [], [], [], []
+        for a, r, lt, stall, err in fo["results"]:
+            acked += a
+            assigned += r
+            up_lat += lt
+            stalls.append(stall)
+            errors += err
+        if errors:
+            raise AssertionError(f"uploads failed: {errors[:3]}")
+        before = [r for r in rows if r[0] < fo["t_kill"] and r[2] == 200]
+        after = [r for r in rows if r[0] >= fo["t_kill"] and r[2] == 200]
+        ranges = assigned + [(r[4], r[5]) for r in rows if r[2] == 200]
+        dup = ha_overlaps(ranges)
+        # exact replay: the first key of the new leader's term is the old
+        # leader's applied counter plus the batches of its term that were
+        # in flight at the stop and that the new leader's log kept
+        old_next = old.metalog.next_key
+        old_commit = old.raft.commit_index
+        mine = records[new.url]
+        kept = sum(c for i, t, c, _ in mine
+                   if i > old_commit and t <= fo["old_term"])
+        first_new = next((k for i, t, c, k in mine if t > fo["old_term"]),
+                         None)
+        exact = first_new == old_next + kept
+        lead = [r[3] for r in before if r[1] == "leader"]
+        foll = [r[3] for r in before if r[1] == "follower"]
+        stream_wall = (rows[-1][0] - rows[0][0]) if rows else 0.0
+        bal_log("ha.fill", fo["full_at"] or fo["wall"],
+                launches["ha.fill_failover"],
+                uploads=len(acked), bytes=sum(s for _, _, s in acked),
+                uploads_per_s=len(acked) / fo["wall"],
+                upload_assign_p50_ms=float(np.percentile(up_lat, 50)) * 1e3,
+                upload_assign_p99_ms=float(np.percentile(up_lat, 99)) * 1e3,
+                upload_longest_assign_wait_s=max(stalls),
+                stream_calls=len(rows),
+                stream_assigns_ok=len(before) + len(after),
+                stream_assigns_per_s=(len(before) + len(after))
+                / max(stream_wall, 1e-9),
+                to_leader=latency_summary(lead),
+                through_follower=latency_summary(foll),
+                refused=dict(collections.Counter(
+                    f"{r[2]} {r[6][:60]}" for r in rows if r[2] != 200)),
+                log_snap_index=new.raft.snap_index)
+        # the first assign sent once the old leader was down
+        first_ok = min((r[0] for r in after if r[7] >= fo["t_stopped"]),
+                       default=None)
+        bal_log("ha.failover", fo["to_leader"], None,
+                old_leader=old.url, new_leader=new.url,
+                new_term=new.raft.term, seconds_to_new_leader=fo["to_leader"],
+                seconds_to_first_assign=(first_ok - fo["t_kill"]
+                                         if first_ok else None),
+                committed_next_key=old_next, inflight_kept_keys=kept,
+                first_key_new_term=first_new, replay_exact=exact,
+                keys_handed_out=sum(c for _, c in ranges),
+                keys_repeated=dup)
+        if dup or not exact or not after or new.raft.snap_index <= 0:
+            raise AssertionError(
+                f"13b: {dup} keys repeated, replay exact {exact}, "
+                f"{len(after)} assigns after the stop, snap_index "
+                f"{new.raft.snap_index}")
+
+        # every acknowledged upload reads back, from its holder's files
+        def read_acked():
+            by_vid: dict = {}
+            for fid, nid, size in acked:
+                f = FileId.parse(fid)
+                by_vid.setdefault(f.volume_id, []).append(
+                    (f.key, f.cookie, nid, size))
+            out = {"reads": 0, "failed": collections.Counter()}
+            for v, want in by_vid.items():
+                for url in client.lookup(v):
+                    part = _verify_files(os.path.join(
+                        cl.nodes[cl.index_of(url)][3],
+                        f"{HA_COLLECTION}_{v}"), want, seed)
+                    out["reads"] += part["reads"]
+                    out["failed"].update(part["failed"])
+            return out
+
+        t = time.perf_counter()
+        got, launches["ha.read_acked"] = counted(read_acked)
+        bal_log("ha.read_acked", time.perf_counter() - t,
+                launches["ha.read_acked"],
+                reads=got["reads"], failed=dict(got["failed"]))
+        if got["failed"] or got["reads"] != len(acked):
+            raise AssertionError(f"13b reads: {got}")
+
+        # (13c) the old leader restarts on its state directory: a
+        # follower, its metadata log equal to the others' within a few
+        # heartbeats (F6: its snapshot is applied state, never replayed)
+        def restart():
+            t = time.perf_counter()
+            back = cl.restart_master(fo["idx"])
+            wait_until(lambda: ha_captures_equal(cl)
+                       and back.raft.leader_id == cl.leader().url
+                       and not back.raft.is_leader,
+                       "the restarted master's catch-up", HA_CATCH_UP_S)
+            return back, time.perf_counter() - t
+
+        (back, catch_up), launches["ha.restart"] = counted(restart)
+        bal_log("ha.restart", catch_up, launches["ha.restart"],
+                master=back.url, term=ha_term(cl),
+                snap_index=back.raft.snap_index,
+                next_key=back.metalog.next_key,
+                captures_equal=ha_captures_equal(cl))
+        if back.raft.snap_index <= 0:
+            raise AssertionError("13c: the restarted master loaded no "
+                                 "snapshot")
+
+        # (13d) EC through the new leader: shell ec.encode sent to a
+        # follower's URL (proxied, under the admin lease)
+        leader = cl.leader()
+        follower = next(m for m in cl.masters if m is not leader)
+        fclient = Client(follower.url)
+        owners: list = []
+        lease = leader.lease_admin_token
+
+        def leased(name, owner, previous):
+            owners.append(owner)
+            return lease(name, owner, previous)
+
+        leader.lease_admin_token = leased
+        vol_bytes = vol.data_file_size()
+        t = time.perf_counter()
+        try:
+            _, launches["ha.ec_encode"] = counted(lambda: EcCommands(
+                fclient, geometry.DEFAULT).encode(vid, HA_COLLECTION))
+        finally:
+            leader.lease_admin_token = lease
+        secs = time.perf_counter() - t
+        bal_log("ha.ec_encode", secs, launches["ha.ec_encode"],
+                through=follower.url, leader=leader.url, term=ha_term(cl),
+                bytes=vol_bytes,
+                gbps=vol_bytes / secs / 1e9)
+        if fclient.admin_lock.owner not in owners:
+            raise AssertionError("13d: the encode's lease missed the "
+                                 "leader")
+        info = fclient.ec_lookup(vid)
+        if len(info["shards"]) != 14:
+            raise AssertionError(f"13d: shards {info}")
+        mine_items = [(f, n, s) for f, n, s in acked
+                      if FileId.parse(f).volume_id == vid]
+        # the repair daemon waits while the degraded reads run
+        for m in cl.masters:
+            m.repair_enabled = False
+        paths = ha_shard_paths(cl, info, vid)
+        dropped = {sid: sha256_file(paths[sid]) for sid in VICTIMS}
+
+        def drop():
+            by_url: dict = {}
+            for sid in VICTIMS:
+                by_url.setdefault(info["shards"][str(sid)][0], []).append(
+                    sid)
+            for url, sids in by_url.items():
+                fclient.volume_admin(url, "ec/delete_shards", {
+                    "volume_id": vid, "collection": HA_COLLECTION,
+                    "shard_ids": sids})
+            wait_until(lambda: len(fclient.ec_lookup(vid)["shards"]) == 10,
+                       "the lookup drops the four shards")
+
+        _, launches["ha.drop"] = counted(drop)
+
+        def reads(step: str):
+            t = time.perf_counter()
+            got = bal_read(cl.master_url, mine_items, seed, {vid: ""},
+                           threads=HA_READERS)
+            secs = time.perf_counter() - t
+            bal_log(step, secs, None, term=ha_term(cl),
+                    needles=len(mine_items),
+                    bytes=got["bytes"],
+                    gbps=got["bytes"] / secs / 1e9,
+                    failed=dict(got["failed"]),
+                    **latency_summary(got["lat"]))
+            if got["failed"] or len(got["lat"]) != len(mine_items):
+                raise AssertionError(f"{step}: {dict(got['failed'])}")
+
+        _, launches["ha.read_degraded"] = counted(
+            lambda: reads("ha.read_degraded"))
+
+        def rebuild():
+            t = time.perf_counter()
+            for m in cl.masters:
+                m.repair_enabled = True
+            wait_until(lambda: len(fclient.ec_lookup(vid)["shards"]) == 14
+                       and not cl.leader()._repairs_inflight,
+                       "the repair daemon's rebuild", 120)
+            return time.perf_counter() - t
+
+        secs, launches["ha.rebuild"] = counted(rebuild)
+        info = fclient.ec_lookup(vid)
+        paths = ha_shard_paths(cl, info, vid)
+        rebuilt = {sid: sha256_file(paths[sid]) for sid in VICTIMS}
+        bal_log("ha.rebuild", secs, launches["ha.rebuild"],
+                term=ha_term(cl), rebuilder=sorted({info["shards"][str(s)][0]
+                                  for s in VICTIMS}),
+                sha256_equal=rebuilt == dropped,
+                repairs=cl.leader().metrics.value(
+                    "repairs_succeeded", {"kind": "ec"}))
+        if rebuilt != dropped:
+            raise AssertionError("13d: rebuilt shards differ")
+        # the volume servers forget the shard locations they cached
+        # while four were lost (they would re-poll after 11 s)
+        for node in cl.nodes:
+            node[0]._shard_loc_cache.clear()
+        _, launches["ha.read_back"] = counted(lambda: reads("ha.read_back"))
+        # 1 at the start, 2 after 13b's stop; any more were elections of
+        # a loaded loop
+        terms[0] = ha_term(cl)
+    finally:
+        cl.shutdown()
+    if coder_name == "auto":
+        for step, counts in launches.items():
+            others = {k: n for k, n in counts.items()
+                      if k != "gf_apply" and n}
+            if others or (step in HA_CODER_STEPS) != (counts["gf_apply"]
+                                                      > 0):
+                raise AssertionError(f"{step}: launches {counts}")
+    bal_log("ha.summary", time.perf_counter() - t_phase, launches,
+            final_term=terms[0])
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4694,7 +5212,7 @@ def main() -> int:
                      WEED_EC_MESH_DEVICES=None):
             launches["store"] = run_store_default(WORK / "store", device)
             launches["fused"] = run_store_archive(
-                WORK / "fused", device, total=CUT_VOLUME_BYTES)
+                WORK / "fused", device, total=SMALL_VOLUME_BYTES)
             mark("6")
             # phase 7: the same path through the servers, the shell and
             # the CLI
@@ -4704,8 +5222,8 @@ def main() -> int:
             mark("7-8")
             # phase 9: the self-driving warm tier, its own cluster
             launches["lifecycle"] = run_lifecycle(
-                WORK / "lifecycle", total=CUT_VOLUME_BYTES,
-                limit_mb=CUT_VOLUME_BYTES // MIB)
+                WORK / "lifecycle", total=SMALL_VOLUME_BYTES,
+                limit_mb=SMALL_VOLUME_BYTES // MIB)
             check_lifecycle_launches(launches["lifecycle"])
             mark("9")
             # phase 10: the multi-card coder and the crash sweeps
@@ -4719,6 +5237,9 @@ def main() -> int:
             # phase 12: the rest of the storage engine
             launches["storage"] = run_storage(WORK / "storage")
             mark("12")
+            # phase 13: HA masters, its own cluster
+            launches["ha"] = run_ha(WORK / "ha")
+            mark("13")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -4753,7 +5274,7 @@ def main() -> int:
         **launches["cluster"], **{
         k: v for k, v in launches["lifecycle"].items()
         if k not in LIFECYCLE_CHECKS}, **launches["mesh"],
-        **launches["balance"], **launches["storage"]}
+        **launches["balance"], **launches["storage"], **launches["ha"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

@@ -15,7 +15,12 @@ discipline:
   are not moved. The reference's balancer checks neither, and seals
   nothing before it copies (ROADMAP Queue 3, D8);
 * two-pass confirmation, cooldown and the ping-pong veto in
-  ``PlannerState``, the object clustersim replays.
+  ``PlannerState``, the object clustersim replays;
+* the same leadership: a pass runs on the raft leader alone, once its
+  term's no-op has committed and while its lease is live
+  (``master.leader_ready``; a deposed leader forgets its two-pass
+  sightings), and a move re-checks leadership before each step that
+  changes a volume server.
 
 Moves are crash-safe by ordering, not by a journal: seal every holder
 read-only (the copy is a snapshot with no tail: a write acknowledged
@@ -31,8 +36,7 @@ live: retire the source; incomplete: copy again).
 The fault points ``master.balance.plan`` (a planning pass) and
 ``master.balance.move`` (each move, before its copy) kill a pass or a
 move at its worst moment in tests; each move runs in a ``balance.move``
-span. Left out: the overload plane's background priority, and raft's
-leadership checks (the port runs one master).
+span. Left out: the overload plane's background priority.
 """
 
 from __future__ import annotations
@@ -91,6 +95,10 @@ class BalancerDaemon:
     # --- one planning pass ---
     async def pass_once(self) -> dict:
         master = self.master
+        if not await master.leader_ready():
+            # a re-elected leader confirms its moves from scratch
+            self.state.reset()
+            return {"skipped": "not leader"}
         if await faults.fire_async("master.balance.plan"):
             return {"skipped": "injected drop at master.balance.plan"}
         paused = master.daemons_paused()
@@ -206,10 +214,15 @@ class BalancerDaemon:
                 return v
         return None
 
+    def _check_leader(self) -> None:
+        if not self.master.raft.is_leader:
+            raise RuntimeError("lost leadership mid-move")
+
     async def _set_read_only(self, url: str, vid: int,
                              read_only: bool) -> bool:
         """Flip one holder's write gate; returns whether the holder was
         read-only before."""
+        self._check_leader()
         out = await self.master._admin_post(
             url, "volume/readonly", {"volume_id": vid,
                                      "read_only": read_only})
@@ -262,6 +275,7 @@ class BalancerDaemon:
             # whole volume and only the retire is left (volume/copy
             # would answer 409 on it)
             if dst is None:
+                self._check_leader()
                 await master._admin_post(mv.dst_url, "volume/copy",
                                          {"volume_id": mv.vid,
                                           "collection": mv.collection,
@@ -291,6 +305,7 @@ class BalancerDaemon:
                     f"volume {mv.vid}: destination {mv.dst} verified on "
                     f"disk but its heartbeat never registered the copy; "
                     f"keeping the source")
+            self._check_leader()
             await master._admin_post(mv.src_url, "volume/delete",
                                      {"volume_id": mv.vid})
         except Exception:
@@ -314,8 +329,7 @@ class BalancerDaemon:
         now = time.monotonic()
         return {
             "enabled": self.cfg.enabled,
-            # one master, always the leader (the reference's raft view)
-            "is_leader": True,
+            "is_leader": self.master.raft.is_leader,
             "last_pass": self.last_pass,
             "passes": self.passes,
             "moves_done": self.moves_done,

@@ -6,12 +6,13 @@ apply:
 
   python3 -m seaweedfs_torch.cli master -port 9333 -volumeSizeLimitMB 1024 \\
       [-defaultReplication 001] [-garbageThreshold 0.3] \\
-      [-maintenance_interval S] [-repair_concurrency N]
+      [-maintenance_interval S] [-repair_concurrency N] \\
+      [-peers h1:9333,h2:9333,h3:9333 -mdir /state]
   python3 -m seaweedfs_torch.cli volume -port 8080 -dir /data \\
-      -mserver localhost:9333 [-rack r1] [-coder auto|torch|numpy] \\
+      -mserver h1:9333[,h2:9333,...] [-rack r1] [-coder auto|torch|numpy] \\
       [-device cuda:0] [-index memory|compact|leveldb|leveldbMedium|\\
       leveldbLarge] [-minFreeSpacePercent 1] [-preallocate MB]
-  python3 -m seaweedfs_torch.cli shell -server localhost:9333 \\
+  python3 -m seaweedfs_torch.cli shell -master h1:9333[,h2:9333,...] \\
       ec.encode -volumeId 3 [-collection c]
   python3 -m seaweedfs_torch.cli shell -server localhost:9333 \\
       volume.fix.replication -force
@@ -31,6 +32,13 @@ server must not have it mounted). ``backup`` pulls what a volume gained
 since the local copy's last record from its holder's ``/admin/tail``
 into a replica in ``-dir`` (creating it on the first run); ``fix``
 rebuilds a volume's .idx from its .dat.
+
+Masters of an HA group (upstream's ``weed master -peers``, at most 5)
+each take every master's ``ip:port`` in ``-peers`` (their own included)
+and a directory of their own in ``-mdir`` for the raft state (created if
+missing); a master without ``-peers`` is alone and needs no ``-mdir``.
+Volume servers (``-mserver``) and the shell (``-master``, or ``-server``)
+take the group's comma list and follow its leader.
 
 A volume server's ``-index`` is the needle map kind of its volumes
 (``memory``; ``compact``, 16 bytes an entry; the ``leveldb`` kinds, a
@@ -78,9 +86,16 @@ def _serve_until_signalled(start) -> None:
 
 
 def cmd_master(args) -> None:
+    import os
+
     from .server.master import run_master
+    peers = [p.strip() for p in args.peers.split(",") if p.strip()]
+    if args.mdir:
+        os.makedirs(args.mdir, exist_ok=True)
     _serve_until_signalled(lambda: run_master(
         args.ip, args.port,
+        peers=peers or None,
+        raft_state_dir=args.mdir or None,
         volume_size_limit_mb=args.volume_size_limit_mb,
         default_replication=args.default_replication,
         garbage_threshold=args.garbage_threshold,
@@ -230,6 +245,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds between maintenance-daemon passes "
                         "(prune + repair planner; default: pulse, "
                         "0 disables the daemon)")
+    m.add_argument("-peers", default="",
+                   help="comma-separated ip:port of every master of the "
+                        "HA group, this one included (weed master "
+                        "-peers)")
+    m.add_argument("-mdir", default="",
+                   help="directory of this master's raft state")
     m.add_argument("-repair_concurrency", type=int, default=None,
                    help="max concurrent repairs (re-replication / "
                         "auto ec.rebuild / lifecycle encodes) the "
@@ -242,7 +263,8 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("-port", type=int, default=8080)
     v.add_argument("-dir", default="./data")
     v.add_argument("-max", type=int, default=8)
-    v.add_argument("-mserver", default="127.0.0.1:9333")
+    v.add_argument("-mserver", default="127.0.0.1:9333",
+                   help="the master, or an HA group's comma list")
     v.add_argument("-dataCenter", dest="data_center", default="")
     v.add_argument("-rack", default="")
     v.add_argument("-pulse", type=float, default=5.0)
@@ -265,7 +287,9 @@ def build_parser() -> argparse.ArgumentParser:
     v.set_defaults(fn=cmd_volume)
 
     sh = sub.add_parser("shell", help="admin shell (REPL or one-shot)")
-    sh.add_argument("-server", default="127.0.0.1:9333")
+    sh.add_argument("-master", "-server", dest="server",
+                    default="127.0.0.1:9333",
+                    help="the master, or an HA group's comma list")
     sh.add_argument("-volume", type=int, default=0)
     sh.add_argument("-collection", default="")
     sh.add_argument("-dry_run", action="store_true")

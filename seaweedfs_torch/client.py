@@ -10,20 +10,28 @@ it out; a download tries every holder the master lists, or reads from
 one named holder (``download(fid, url=...)``).
 
 Every call carries the ambient deadline budget (``X-Seaweed-Deadline``,
-utils/retry.py) and caps its socket timeout to it. The master's calls
-follow the reference's failure discipline for one master: a connection
-error is retried once after a ``RetryPolicy`` backoff, and a shed answer
-(429/503 with ``X-Seaweed-Shed: 1``) once after its ``Retry-After``
-(capped at 5 s); any other 429/502/503/504 is an error. Left out: the
-bulk-assignment lease pool, the shared connection pool with its circuit
-breaker, master rotation across an HA list, replica failover to a second
-cluster, the watch stream, JWTs, batch delete and query. The volume
-tail (``tail_volume``) streams on a connection of its own.
+utils/retry.py) and caps its socket timeout to it. ``Client`` takes the
+master, or an HA group's comma list, and follows the reference's failure
+discipline (seaweedfs_tpu/client.py:67-161). With one master a
+connection error is retried once after a ``RetryPolicy`` backoff, and a
+shed answer (429/503 with ``X-Seaweed-Shed: 1``) once after its
+``Retry-After`` (capped at 5 s); any other 429/502/503/504 is an error.
+With a list, a connection error or any 429/502/503/504 (a follower with
+no leader answers 503 "no leader elected", a leader that lost its term
+503) moves to the next master, with a backoff after each full round, for
+four rounds. The admin lease (``AdminLock``) and its renewals go through
+the same rotation; a renewal that lands on a new leader hands it the
+lease's token, which it adopts. Left out: the bulk-assignment lease
+pool, the shared connection pool with its circuit breaker, replica
+failover to a second cluster, the watch stream and the leader hints it
+pushes, JWTs, batch delete and query. The volume tail (``tail_volume``)
+streams on a connection of its own.
 """
 
 from __future__ import annotations
 
 import http.client as http_client
+import json
 import threading
 import time
 import urllib.parse
@@ -99,14 +107,15 @@ class AdminLock:
     that move volumes run under it, and the master's daemons launch
     nothing while it is held. Re-entrant: a command that calls another
     takes it once. A lock another client holds is waited for up to
-    ``WAIT_SECONDS``, then the command fails."""
+    ``WAIT_SECONDS``, then the command fails. Its calls go through the
+    client's master rotation, so the lease follows the leader."""
 
     NAME = "admin"
     RENEW_SECONDS = 3.0     # the master's lease is 10 s
     WAIT_SECONDS = 60.0
 
-    def __init__(self, master: str):
-        self.master = master
+    def __init__(self, client: "Client"):
+        self.client = client
         self.owner = f"shell-{uuid.uuid4().hex[:8]}"
         self._mu = threading.Lock()
         self._depth = 0
@@ -117,9 +126,9 @@ class AdminLock:
     def _lease(self, previous: int) -> dict:
         # a fresh lease may wait up to 30 s on the master for the
         # daemons' jobs in flight
-        return _post_json(f"http://{self.master}/cluster/lock",
-                          {"name": self.NAME, "client": self.owner,
-                           "previous_token": previous}, timeout=60.0)
+        return self.client._master_post(
+            "/cluster/lock", {"name": self.NAME, "client": self.owner,
+                              "previous_token": previous}, timeout=60.0)
 
     def __enter__(self) -> "AdminLock":
         with self._mu:
@@ -146,7 +155,7 @@ class AdminLock:
     def _renew(self, stop: threading.Event) -> None:
         while not stop.wait(self.RENEW_SECONDS):
             try:
-                self._lease(self._token)
+                self._token = self._lease(self._token)["token"]
             except (ClientError, OSError):
                 # a missed renewal: the next one may land in time
                 pass
@@ -162,50 +171,107 @@ class AdminLock:
                 self._renewer = None
             token, self._token = self._token, 0
         try:
-            _post_json(f"http://{self.master}/cluster/unlock",
-                       {"name": self.NAME, "token": token}, timeout=30.0)
+            self.client._master_post("/cluster/unlock",
+                                     {"name": self.NAME, "token": token},
+                                     timeout=30.0)
         except (ClientError, OSError):
             # the lease ends by itself
             pass
 
 
 class Client:
+    # full rounds of an HA list before a call fails
+    ROUNDS = 4
+
     def __init__(self, master_url: str):
-        # the first master of a comma list: the port runs one master
-        self.master = master_url.split(",")[0].strip().rstrip("/")
+        # one master, or an HA group's comma list
+        self.masters = [m.strip().rstrip("/") for m in master_url.split(",")
+                        if m.strip()]
+        self._master_i = 0
         self._vid_cache = _VidCache(ttl=60.0)
-        self.admin_lock = AdminLock(self.master)
-        self._retry = RetryPolicy(base_delay=0.05, max_delay=1.0)
+        self.admin_lock = AdminLock(self)
+        self._retry = RetryPolicy(base_delay=0.1, max_delay=1.0)
+
+    @property
+    def master(self) -> str:
+        """The master calls go to now."""
+        return self.masters[self._master_i]
+
+    def _after_failure(self, attempt: int) -> None:
+        """One master: back off. A list: the next master, and a backoff
+        after each full round."""
+        n = len(self.masters)
+        if n == 1:
+            time.sleep(self._retry.backoff(attempt))
+            return
+        self._master_i = (self._master_i + 1) % n
+        if (attempt + 1) % n == 0:
+            time.sleep(self._retry.backoff(attempt // n))
+
+    def _master_call(self, method: str, path_qs: str,
+                     body: Optional[dict] = None,
+                     timeout: float = 30.0) -> http.ClientResponse:
+        """One call to the master under the failure discipline above;
+        the answer of the first master that gives one that is neither a
+        connection error nor a retryable status."""
+        data = json.dumps(body).encode() if body is not None else None
+        headers = {"Content-Type": "application/json"} if data else None
+        ha = len(self.masters) > 1
+        attempts = self.ROUNDS * len(self.masters) if ha else 2
+        last: Optional[Exception] = None
+        for attempt in range(attempts):
+            final = attempt == attempts - 1
+            try:
+                r = _request(method, f"http://{self.master}{path_qs}",
+                             data, headers, timeout=timeout)
+            except OSError as e:
+                if final:
+                    if ha:
+                        raise ClientError(f"all masters failed: {e}")
+                    raise
+                last = e
+                self._after_failure(attempt)
+                continue
+            if r.status not in RETRYABLE_STATUSES:
+                return r
+            last = ClientError(f"master {self.master}: HTTP {r.status} "
+                               f"{r.data[:200]!r}")
+            if final:
+                raise (ClientError(f"all masters failed: {last}") if ha
+                       else last)
+            if ha:
+                # a shed master is alive but busy: another is idle
+                if is_shed(r.status, r.headers):
+                    self._master_i = (self._master_i + 1) % len(self.masters)
+                else:
+                    self._after_failure(attempt)
+                continue
+            if not is_shed(r.status, r.headers):
+                raise last
+            # the one master is alive and asked for a pause
+            delay = parse_retry_after(r.headers.get("Retry-After"))
+            time.sleep(min(delay if delay is not None
+                           else self._retry.backoff(attempt), 5.0))
+        raise ClientError(f"master call failed: {last}")
 
     def _master_get(self, path_qs: str, timeout: float = 30.0) -> dict:
-        """GET from the master: a connection error is retried once after
-        a backoff, a shed answer once after its Retry-After (the
-        reference's discipline for one master,
-        seaweedfs_tpu/client.py:91-160)."""
-        url = f"http://{self.master}{path_qs}"
-        attempts = 2
-        for attempt in range(attempts):
-            last = attempt == attempts - 1
-            try:
-                r = _request("GET", url, timeout=timeout)
-            except OSError:
-                if last:
-                    raise
-                time.sleep(self._retry.backoff(attempt))
-                continue
-            if r.status in RETRYABLE_STATUSES:
-                if is_shed(r.status, r.headers) and not last:
-                    # the master is alive and asked for a pause
-                    delay = parse_retry_after(r.headers.get("Retry-After"))
-                    time.sleep(min(delay if delay is not None
-                                   else self._retry.backoff(attempt), 5.0))
-                    continue
-                raise ClientError(f"master {self.master}: HTTP {r.status}")
-            try:
-                return r.json()
-            except ValueError:
-                raise ClientError(f"GET {url}: HTTP {r.status}")
-        raise AssertionError("unreachable")
+        r = self._master_call("GET", path_qs, timeout=timeout)
+        try:
+            return r.json()
+        except ValueError:
+            raise ClientError(f"GET {self.master}{path_qs}: HTTP {r.status}")
+
+    def _master_post(self, path: str, body: dict,
+                     timeout: float = 300.0) -> dict:
+        r = self._master_call("POST", path, body, timeout=timeout)
+        try:
+            detail = r.json()
+        except ValueError:
+            detail = {"error": f"HTTP {r.status}"}
+        if r.status >= 400:
+            raise ClientError(f"POST {self.master}{path}: "
+                              f"{detail.get('error')}")
+        return detail
 
     # --- master ops ---
     def assign(self, count: int = 1, collection: str = "",
@@ -361,7 +427,7 @@ class Client:
 
     def lifecycle_run(self) -> dict:
         """One lifecycle evaluation pass now."""
-        return _post_json(f"http://{self.master}/lifecycle/run", {})
+        return self._master_post("/lifecycle/run", {})
 
     # --- the balance plane (the shell's cluster.balance.*) ---
     def balance_status(self) -> dict:
@@ -369,5 +435,4 @@ class Client:
 
     def balance_run(self) -> dict:
         """One balance planning pass now."""
-        return _post_json(f"http://{self.master}/balance/run", {},
-                          timeout=120.0)
+        return self._master_post("/balance/run", {}, timeout=120.0)

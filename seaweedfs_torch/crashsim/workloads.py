@@ -21,13 +21,17 @@ the subsystem on the reconstructed crash tree:
                     ``_FanOut`` writer threads append with ``os.writev``);
 - fused_warmdown -- the one-pass warm-down (ec/fused.py) through staging
                     and the store's promote: a crash anywhere leaves the
-                    source volume readable or a fully committed shard set.
+                    source volume readable or a fully committed shard set;
+- raft_snapshot  -- a master's raft state (cluster/raft.py): term, vote,
+                    log and the metadata log's snapshot folds, each save
+                    a barrier; a crash leaves the last acked state or the
+                    one being saved, never a torn or older file.
 
 The EC workloads take the coder, the geometry and the source size; their
 defaults are the reference's own (RS(3,2) with 8192 / 1024 blocks, a
 41,000-byte .dat, 24 needles, ``NumpyCoder``), so at the defaults they
 ack the reference's bytes. Not ported yet (their modules are not):
-raft_snapshot, offset_commit and filer_kv.
+offset_commit and filer_kv.
 """
 
 from __future__ import annotations
@@ -461,6 +465,64 @@ def make_fused_warmdown_workload(
     return CrashWorkload("fused_warmdown", setup, run, recover, check)
 
 
+# --------------------------------------------------------- raft snapshot
+
+def make_raft_workload() -> CrashWorkload:
+    from ..cluster.raft import RaftNode
+
+    def state(node) -> dict:
+        return {"term": node.term, "voted_for": node.voted_for,
+                "log": json.loads(json.dumps(node.log)),
+                "snap_index": node.snap_index,
+                "snap_term": node.snap_term,
+                "snap_state": json.loads(json.dumps(node.snap_state))}
+
+    def node(root):
+        d = os.path.join(root, "raft")
+        os.makedirs(d, exist_ok=True)
+        return RaftNode("n1:1", [], apply_fn=lambda cmd: None, state_dir=d)
+
+    def setup(root):
+        n = node(root)
+        n.term = 1
+        n._save_state()
+        n._save_exec.shutdown(wait=False)
+
+    def run(root, ack, rng):
+        n = node(root)
+        ack("state", state(n))
+        for rnd in range(6):
+            n.term += 1
+            n.voted_for = f"peer{rnd}"
+            n.log.append({"term": n.term,
+                          "cmd": {"assign_batch": {"count": rnd * 10 + 1}}})
+            if rnd % 2:
+                # a compaction: the metadata log's state into the
+                # snapshot, the log emptied
+                n.snap_index += len(n.log)
+                n.snap_term = n.term
+                n.snap_state = {"max_volume_id": rnd,
+                                "metalog": {
+                                    "next_key": rnd * 1000,
+                                    "assign_batches": rnd,
+                                    "volumes": {str(v): {"collection": ""}
+                                                for v in range(rnd)},
+                                    "geometry": {"": "10+4"}}}
+                n.log = []
+            ack.candidate("state", state(n))
+            n._save_state()
+            ack("state", state(n))
+        n._save_exec.shutdown(wait=False)
+
+    def recover(crash_dir):
+        n = node(crash_dir)
+        out = {"state": state(n)}
+        n._save_exec.shutdown(wait=False)
+        return out
+
+    return CrashWorkload("raft_snapshot", setup, run, recover)
+
+
 def registry() -> list:
     """Fresh workload instances at their defaults (closures hold
     per-recording state)."""
@@ -470,4 +532,5 @@ def registry() -> list:
         make_needle_map_workload(),
         make_ec_workload(),
         make_fused_warmdown_workload(),
+        make_raft_workload(),
     ]

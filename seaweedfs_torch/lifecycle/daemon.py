@@ -9,7 +9,12 @@ the master as a sibling of the repair daemon and shares its discipline:
   a transition that keeps failing retries at 2^n * interval, capped at
   300 s.
 * the same pause: while an operator holds the admin lock (the shell's
-  commands that move volumes do), no pass runs.
+  commands that move volumes do), no pass runs;
+* the same leadership: a pass runs on the raft leader alone, once its
+  term's no-op has committed and while its lease is live
+  (``master.leader_ready``), and a transition re-checks leadership
+  between its steps, so a deposed leader stops instead of racing the new
+  one.
 
 Transitions are crash-safe by ordering, not by a journal: the original
 volume is deleted only after every shard is verified mounted on its
@@ -21,9 +26,8 @@ the original; shards incomplete: encode again). The fault points
 ``lifecycle.expire`` kill a transition at its worst moment in tests.
 
 Every call to a volume server is an awaited aiohttp call on the master's
-loop. Left out: raft leadership checks (the port runs one master), the
-overload plane's background priority, spans' trace propagation, and the
-S3 pass (``_s3_pass``, ``_apply_bucket_rules``, ``_apply_object_rules``,
+loop. Left out: the overload plane's background priority, spans' trace
+propagation, and the S3 pass (``_s3_pass``, ``_apply_bucket_rules``, ``_apply_object_rules``,
 ``_filer_get``/``_filer_post``), which waits for a filer.
 """
 
@@ -148,6 +152,8 @@ class LifecycleDaemon:
 
     # --- one evaluation pass ---
     async def pass_once(self) -> dict:
+        if not await self.master.leader_ready():
+            return {"skipped": "not leader"}
         now = time.time()
         self.last_pass = now
         self.passes += 1
@@ -240,6 +246,10 @@ class LifecycleDaemon:
             entry["error"] = error
         self.recent.appendleft(entry)
 
+    def _check_leader(self) -> None:
+        if not self.master.raft.is_leader:
+            raise RuntimeError("lost leadership mid-transition")
+
     async def _get_json(self, url: str, path: str,
                         timeout: float = 30.0) -> dict:
         async with self.master._maint_http().get(
@@ -300,18 +310,21 @@ class LifecycleDaemon:
                                          timeout=600.0)
         # 1. seal every replica: the volume takes no more writes
         for url in holders:
+            self._check_leader()
             await master._admin_post(url, "volume/readonly",
                                      {"volume_id": vid, "read_only": True})
         # 2+3. the fused warm-down (WEED_EC_FUSED, default on) compacts,
         # gzips, encodes and digests in one pass on the source, else the
         # encode alone; either through the batcher. The source volume
         # stays untouched until the shards are verified
+        self._check_leader()
         await self._encode_batcher.encode(source, vid,
                                           fused=self.cfg.ec_fused)
         # 4. spread with the shell's balanced plan
         plan = plan_shard_spread(
             collect_ec_nodes(master.topology.to_dict()), total, source)
         for target, sids in plan.items():
+            self._check_leader()
             if target != source:
                 await master._admin_post(
                     target, "ec/copy",
@@ -358,6 +371,7 @@ class LifecycleDaemon:
         if await faults.fire_async("lifecycle.encode"):
             raise RuntimeError("injected drop at lifecycle.encode")
         for url in holders:
+            self._check_leader()
             await self.master._admin_post(url, "volume/delete",
                                           {"volume_id": vid})
 
@@ -379,11 +393,13 @@ class LifecycleDaemon:
         need = [sid for sid, nodes in sorted(shards.items())
                 if target not in {n.url for n in nodes}]
         for sid in need:
+            self._check_leader()
             await master._admin_post(
                 target, "ec/copy",
                 {"volume_id": vid, "collection": collection,
                  "shard_ids": [sid], "source": shards[sid][0].url},
                 timeout=600.0)
+        self._check_leader()
         await master._admin_post(target, "ec/to_volume",
                                  {"volume_id": vid,
                                   "collection": collection},
@@ -404,6 +420,7 @@ class LifecycleDaemon:
         if await faults.fire_async("lifecycle.expire"):
             raise RuntimeError("injected drop at lifecycle.expire")
         for url in tr.holders:
+            self._check_leader()
             await master._admin_post(url, "volume/delete",
                                      {"volume_id": tr.vid})
         # an expired collection that was EC-encoded loses its shards too
@@ -436,8 +453,7 @@ class LifecycleDaemon:
         now = time.monotonic()
         return {
             "enabled": self.cfg.enabled,
-            # one master, always the leader (the reference's raft view)
-            "is_leader": True,
+            "is_leader": self.master.raft.is_leader,
             "last_pass": self.last_pass,
             "passes": self.passes,
             "pending": [{"kind": k, "volume": v,

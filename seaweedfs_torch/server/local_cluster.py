@@ -1,4 +1,4 @@
-"""A master and N volume servers in one process, on loopback ports.
+"""Masters and N volume servers in one process, on loopback ports.
 
 What ``weed server`` is to upstream, for drives and tests: the servers
 are aiohttp applications served by ``AppRunner``s on one event loop, run
@@ -15,9 +15,19 @@ maintenance interval, ``repair_enabled``, the scrub interval;
 ``store_kwargs`` go to each server's ``Store`` (its ``needle_map_kind``,
 ``min_free_space_percent``, ``preallocate``). ``restart_volume_server``
 brings a stopped server back on its directory and its port, as a
-process restart would. The callers
-drive the cluster synchronously, from their own threads, through the
-port's client.
+process restart would.
+
+``n_masters`` > 1 starts an HA group (upstream's ``weed master -peers``):
+every master knows every other's address, keeps its raft state in its
+own directory (``m{i}`` under the cluster's), and the volume servers and
+``master_url`` get the whole comma list. ``master`` is the first master
+(``masters[i]`` each, None while stopped), ``leader()`` the one that
+leads now, ``wait_for_leader`` waits for one; ``stop_master(i)`` stops
+master i as a crash would leave it to its peers (raft first, then its
+listener), ``restart_master(i)`` starts it again on its directory and
+port. Raft's timings go in ``master_kwargs`` (``election_timeout``,
+``raft_heartbeat``). The callers drive the cluster synchronously, from
+their own threads, through the port's client.
 """
 
 from __future__ import annotations
@@ -51,7 +61,8 @@ class LocalCluster:
                  racks: int = 2,
                  master_kwargs: Optional[dict] = None,
                  volume_kwargs: Optional[dict] = None,
-                 store_kwargs: Optional[dict] = None):
+                 store_kwargs: Optional[dict] = None,
+                 n_masters: int = 1):
         self.coder_name = coder_name
         self.device = device
         self.geometry = geometry
@@ -73,9 +84,15 @@ class LocalCluster:
         self.nodes: list[list] = []
         self._stopped_urls: dict[int, str] = {}
         self.master = self.master_runner = None
+        # per master: [server, runner, port, its constructor's kwargs]
+        self.master_slots: list[list] = []
         try:
-            self.start_master(volume_size_limit_mb=volume_size_limit_mb,
-                              pulse_seconds=pulse, **(master_kwargs or {}))
+            base = dict(volume_size_limit_mb=volume_size_limit_mb,
+                        pulse_seconds=pulse, **(master_kwargs or {}))
+            if n_masters == 1:
+                self.start_master(**base)
+            else:
+                self._start_group(n_masters, base)
             for _ in range(n_volume_servers):
                 self.add_volume_server()
             self.wait_for_nodes(n_volume_servers)
@@ -88,16 +105,82 @@ class LocalCluster:
         return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
             CALL_TIMEOUT)
 
+    @property
+    def masters(self) -> list:
+        return [slot[0] for slot in self.master_slots]
+
     def start_master(self, port: int = 0, **kwargs) -> None:
-        """Start the master (on `port`, or a free one)."""
+        """Start the one master (on `port`, or a free one)."""
         self.master, self.master_runner = self.call(
             run_master("127.0.0.1", port, **kwargs))
         self.master_url = self.master.url
+        self.master_slots = [[self.master, self.master_runner,
+                              int(self.master.url.rsplit(":", 1)[1]),
+                              kwargs]]
 
-    def stop_master(self) -> None:
-        if self.master_runner is not None:
-            self.call(self.master_runner.cleanup())
+    def _start_group(self, n: int, kwargs: dict) -> None:
+        socks = [http.listen_socket("127.0.0.1", 0) for _ in range(n)]
+        urls = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+        self.master_url = ",".join(urls)
+        for i, sock in enumerate(socks):
+            state_dir = os.path.join(self.directory, f"m{i}")
+            os.makedirs(state_dir, exist_ok=True)
+            slot_kwargs = dict(kwargs, peers=urls, raft_state_dir=state_dir)
+            self.master_slots.append(
+                [None, None, sock.getsockname()[1], slot_kwargs])
+        for i, sock in enumerate(socks):
+            self._run_slot(i, sock)
+        self.master = self.master_slots[0][0]
+        self.master_runner = self.master_slots[0][1]
+        self.wait_for_leader()
+
+    def _run_slot(self, i: int, sock=None) -> None:
+        slot = self.master_slots[i]
+        slot[0], slot[1] = self.call(run_master(
+            "127.0.0.1", slot[2], sock=sock, **slot[3]))
+
+    def leader(self):
+        """The master that leads now, else None."""
+        return next((m for m in self.masters
+                     if m is not None and m.raft.is_leader), None)
+
+    def wait_for_leader(self, timeout: float = 30.0, exclude=()):
+        """Until one running master leads (not one of `exclude`);
+        returns it."""
+        deadline = time.monotonic() + timeout
+        while True:
+            m = self.leader()
+            if m is not None and m not in exclude:
+                return m
+            if time.monotonic() > deadline:
+                raise TimeoutError("no master leads")
+            time.sleep(0.02)
+
+    def stop_master(self, i: int = 0) -> None:
+        """Stop master i: raft first (a leader whose listener is gone
+        must not go on heartbeating), then its listener and tasks."""
+        slot = self.master_slots[i] if self.master_slots else None
+        if slot is None or slot[1] is None:
+            return
+        master, runner = slot[0], slot[1]
+
+        async def halt() -> None:
+            await master.raft.stop()
+            await runner.cleanup()
+
+        self.call(halt())
+        slot[0] = slot[1] = None
+        if i == 0:
             self.master = self.master_runner = None
+
+    def restart_master(self, i: int):
+        """Stop master i if it runs, then start it again on its port and
+        its state directory, as a process restart would; returns it."""
+        self.stop_master(i)
+        self._run_slot(i)
+        if i == 0:
+            self.master, self.master_runner = self.master_slots[0][:2]
+        return self.master_slots[i][0]
 
     def add_volume_server(self) -> str:
         """Start one more volume server, on a fresh directory; returns
@@ -154,8 +237,15 @@ class LocalCluster:
         self.nodes[i][:3] = [None, None, None]
 
     def node_count(self) -> int:
-        _, body = http.get_json(f"http://{self.master_url}/dir/status")
-        return len(body.get("nodes", []))
+        """The volume servers the leader lists (through any master)."""
+        for url in self.master_url.split(","):
+            try:
+                status, body = http.get_json(f"http://{url}/dir/status")
+            except OSError:
+                continue
+            if status == 200:
+                return len(body.get("nodes", []))
+        return -1
 
     def wait_for_nodes(self, n: int, timeout: float = 30.0) -> None:
         """Until the master lists exactly n volume servers."""
@@ -169,7 +259,8 @@ class LocalCluster:
         try:
             for i in range(len(self.nodes)):
                 self.stop_volume_server(i)
-            self.stop_master()
+            for i in range(len(self.master_slots)):
+                self.stop_master(i)
         finally:
             self.loop.call_soon_threadsafe(self.loop.stop)
             self._thread.join(CALL_TIMEOUT)

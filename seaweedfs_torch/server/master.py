@@ -1,14 +1,15 @@
 """Master server: assignment, lookup, topology, growth, vacuum, the EC
-registry.
+registry, and the raft plane of an HA group.
 
 The port's reduced copy of seaweedfs_tpu/server/master.py (upstream
 weed/server/master_server.go:113-129, master_server_handlers.go,
-weed/topology/topology_vacuum.go), an aiohttp application with the
-reference's wire:
+weed/server/raft_server.go, weed/topology/topology_vacuum.go), an aiohttp
+application with the reference's wire:
 
   GET  /dir/assign?count&collection&replication&ttl&dataCenter
   GET  /dir/lookup?volumeId=|fileId=&collection=   (every replica)
-  GET  /dir/status         (topology + the EC geometry policy)
+  GET  /dir/status         (topology, the EC geometry policy, the
+                            metadata log's status)
   GET  /vol/grow?count&collection&replication&ttl&dataCenter
   GET  /vol/vacuum?garbageThreshold=
   GET  /vol/list
@@ -20,11 +21,30 @@ reference's wire:
   GET  /lifecycle/status, POST /lifecycle/run
   GET  /balance/status, POST /balance/run
   POST /cluster/lock, /cluster/unlock   (the admin lease)
-  GET  /cluster/status, /healthz, /metrics
+  GET  /cluster/status     (is_leader, leader, peers, raft_term)
+  POST /cluster/raft/vote, /cluster/raft/append   (raft, peers only)
+  GET  /healthz, /metrics
 
-One master, no raft: needle keys come from a ``MemorySequencer`` that
-every heartbeat raises to the volumes' largest key, so a restarted master
-never re-mints a key a volume holds. Background tasks on its loop:
+Masters form a raft group (``peers``: every master's host:port, at most
+5 as upstream's ``weed master -peers``; cluster/raft.py), each with its
+state in ``raft_state_dir`` (``-mdir``). A master alone elects itself at
+once. Followers answer ``/healthz``, ``/metrics``, ``/cluster/status`` and
+raft themselves and proxy every other request to the leader (503 "no
+leader elected" while there is none). The replicated state is the
+metadata log (metaring/masterlog.py): each ``/dir/assign`` batch is a log
+entry whose apply mints the keys, growth logs ``max_volume_id`` and the
+volume's registry row before it allocates, a collection's first assign
+stamps its EC geometry, and a heartbeat key above the counter is logged
+as a floor. A leader killed mid-assign therefore never lets its successor
+re-issue or skip a key. The topology is rebuilt on the leader from the
+heartbeats, which the volume servers send to the leader the replies name.
+
+Background tasks on its loop, each acting only on the leader, once it
+has led for ``settle_seconds()`` (in a group: three pulses, and at least
+one admin lease period, so the volume servers have beaten to it and a
+lease held at its predecessor has been renewed here), after its first
+no-op of the term has committed, and while a majority answered it within
+an election timeout (``RaftNode.lease_valid``):
 
 - the maintenance daemon, every ``maintenance_interval_seconds``
   (default: the pulse; 0 disables it): it prunes nodes whose heartbeats
@@ -35,7 +55,8 @@ never re-mints a key a volume holds. Background tasks on its loop:
   copies gains one where its placement holds. A deficit must be seen on
   two consecutive passes; failures back off ``min(interval * 2^n,
   300)`` s; at most ``repair_concurrency`` repairs run at once (the
-  argument, else ``WEED_EC_ENCODE_WORKERS``, else 2);
+  argument, else ``WEED_EC_ENCODE_WORKERS``, else 2); a repair re-checks
+  leadership between its steps;
 - the cluster-exclusive admin lock (LeaseAdminToken,
   weed/server/master_grpc_server_admin.go:21-138): a lease of
   ``admin_lease_seconds`` (10 s) that the shell holds, renewed, while a
@@ -47,8 +68,11 @@ never re-mints a key a volume holds. Background tasks on its loop:
   command never acts on a volume a daemon is moving; while it waits the
   daemons start nothing (a job queued for a slot gives way); while jobs
   still run past that bound it is refused as a lease another client
-  holds (the reference grants it at once, ROADMAP Queue 3, F5). Direct
-  ``/admin/*`` calls stay unguarded, as in the reference (D6);
+  holds (the reference grants it at once, ROADMAP Queue 3, F5). The lease
+  lives in the leader's memory, as upstream's: a new leader adopts it at
+  the holder's next renewal, which presents its token, and starts no
+  daemon job before that renewal can have come (ROADMAP Queue 3, D14).
+  Direct ``/admin/*`` calls stay unguarded, as in the reference (D6);
 - the lifecycle daemon (lifecycle/daemon.py), only when a rule is
   configured (``WEED_LIFECYCLE_*``): it warms idle full volumes down,
   decodes hot EC volumes and expires TTL'd collections, sharing the
@@ -61,14 +85,17 @@ never re-mints a key a volume holds. Background tasks on its loop:
 - the vacuum, every ``vacuum_interval_seconds`` (900 s, upstream's 15
   minutes), of every volume whose garbage is at least
   ``garbage_threshold`` (0.3, upstream's ``-garbageThreshold``) on all
-  its replicas.
+  its replicas. Only the leader vacuums, as upstream; the reference
+  vacuums from every master, a deposed one's stale topology included
+  (ROADMAP Queue 3, D13).
 
-Every call of the master to a volume server is an awaited aiohttp
-client call, so the master shares a loop with them safely.
+Every call of the master to a volume server or a peer is an awaited
+aiohttp client call, so masters and volume servers share a loop safely.
 
-Left out: raft and the metadata log, the filer ring, geo, the
-lifecycle's S3 rules, collection deletion, the watch stream, guard/JWT,
-the overload plane's priorities, the fastpath listener and gRPC.
+Left out: the filer ring and its raft commands, ``KvSequencer``, geo, the
+lifecycle's S3 rules, collection deletion, the watch stream
+(``/cluster/watch``) and the gRPC leader hints, guard/JWT, the overload
+plane's priorities, the fastpath listener and gRPC.
 """
 
 from __future__ import annotations
@@ -86,12 +113,14 @@ from .. import observe
 from ..balance import BalanceConfig
 from ..balance.daemon import BalancerDaemon
 from ..balance.planner import pick_replica_target
+from ..cluster.raft import RaftNode, _endpoint_ips
 from ..ec.geometry import GeometryPolicy
 from ..lifecycle.daemon import LifecycleDaemon
 from ..lifecycle.policy import LifecycleConfig
+from ..metaring import MasterMetaLog
 from ..storage.file_id import FileId, new_cookie
 from ..storage.superblock import ReplicaPlacement
-from ..topology.sequence import MemorySequencer
+from ..topology.sequence import LogSequencer
 from ..topology.topology import Topology
 from ..utils import metrics as metrics_mod
 from . import http
@@ -102,6 +131,11 @@ log = logging.getLogger("master")
 MAX_ASSIGN_COUNT = 10000
 # the largest request body
 MAX_BODY = 64 * 1024 * 1024
+
+# the routes every master answers itself; a follower proxies every other
+# request to the leader (proxyToLeader, weed/server/master_server.go:156)
+_LOCAL_PATHS = ("/healthz", "/metrics", "/cluster/status",
+                "/cluster/raft/vote", "/cluster/raft/append")
 
 
 def _error(msg: str, status: int) -> web.Response:
@@ -119,15 +153,37 @@ class MasterServer:
                  repair_concurrency: Optional[int] = None,
                  repair_enabled: bool = True,
                  lifecycle_config: Optional[LifecycleConfig] = None,
-                 balance_config: Optional[BalanceConfig] = None):
+                 balance_config: Optional[BalanceConfig] = None,
+                 peers: Optional[list[str]] = None,
+                 raft_state_dir: Optional[str] = None,
+                 election_timeout: tuple[float, float] = (0.3, 0.6),
+                 raft_heartbeat: float = 0.1):
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds)
-        self.sequencer = MemorySequencer()
+        # the replicated metadata log: assign batches, the volume
+        # registry and the geometry stamps ride raft, so a new leader
+        # replays to the exact assignment state; the sequencer is its
+        # read-only face (minting is an assign_batch entry)
+        self.metalog = MasterMetaLog()
+        self.sequencer = LogSequencer(self.metalog)
+        # one seq_floor proposal at a time
+        self._floor_inflight = False
         self.default_replication = default_replication
         self.garbage_threshold = garbage_threshold
         self.vacuum_interval_seconds = vacuum_interval_seconds
         self.url = url
+        self.raft = RaftNode(url or "self", peers or [], self._raft_apply,
+                             election_timeout=election_timeout,
+                             heartbeat_interval=raft_heartbeat,
+                             state_dir=raft_state_dir,
+                             capture_fn=self._raft_capture,
+                             restore_fn=self._raft_restore)
+        # raft's RPCs are accepted from the configured peers alone
+        self._peer_strings = list(peers or [])
+        self._peer_ips = self._resolve_peer_ips(self._peer_strings)
+        self._peer_resolve_ts = 0.0
+        self._proxy_session: Optional[aiohttp.ClientSession] = None
         # a bad WEED_EC_GEOMETRY kills the master at startup
         self.ec_policy = GeometryPolicy.from_env()
         # the maintenance daemon's period (prune + repair planner;
@@ -187,9 +243,55 @@ class MasterServer:
             self, balance_config or BalanceConfig.from_env())
         self.app = self._build_app()
 
+    # --- the replicated state machine ---
+    _METALOG_CMDS = ("assign_batch", "seq_floor", "volume_create",
+                     "volume_retire", "geometry_stamp")
+
+    def _raft_apply(self, cmd: dict):
+        """Apply one committed entry: the volume-id counter (upstream's
+        MaxVolumeIdCommand, weed/topology/cluster_commands.go:8-31) and
+        the metadata log's commands; returns an assign batch's first key.
+        A reference log's key ceiling (``max_file_key``, from before its
+        metadata log) folds in as a floor."""
+        if "max_volume_id" in cmd:
+            self.topology.max_volume_id = max(self.topology.max_volume_id,
+                                              cmd["max_volume_id"])
+        if cmd.get("max_file_key"):
+            self.metalog.apply({"seq_floor": cmd["max_file_key"]})
+        if any(k in cmd for k in self._METALOG_CMDS):
+            return self.metalog.apply(cmd)
+        return None
+
+    def _raft_capture(self) -> dict:
+        """The applied state, for log compaction."""
+        return {"max_volume_id": self.topology.max_volume_id,
+                "metalog": self.metalog.capture()}
+
+    def _raft_restore(self, state: dict) -> None:
+        """Reinstate a snapshot, the reference's too (its ``ring`` is
+        ignored: the filer ring waits for the filer slice)."""
+        self.topology.max_volume_id = max(self.topology.max_volume_id,
+                                          state.get("max_volume_id", 0))
+        if state.get("metalog"):
+            self.metalog.restore(state["metalog"])
+        if state.get("max_file_key"):
+            self.metalog.apply({"seq_floor": state["max_file_key"]})
+
     def _build_app(self) -> web.Application:
+        @web.middleware
+        async def leader_proxy_mw(request: web.Request, handler):
+            # followers proxy to the leader (proxyToLeader,
+            # weed/server/master_server.go:156-180)
+            if self.raft.is_leader or request.path in _LOCAL_PATHS:
+                return await handler(request)
+            leader = self.raft.leader_id
+            if not leader or leader == self.raft.id:
+                return _error("no leader elected", 503)
+            return await self._proxy_to(leader, request)
+
         app = web.Application(client_max_size=MAX_BODY,
-                              middlewares=[http.errors_as_json])
+                              middlewares=[http.errors_as_json,
+                                           leader_proxy_mw])
         app.router.add_get("/dir/assign", self.dir_assign)
         app.router.add_get("/dir/lookup", self.dir_lookup)
         app.router.add_get("/dir/status", self.dir_status)
@@ -208,9 +310,14 @@ class MasterServer:
         app.router.add_post("/cluster/lock", self.cluster_lock)
         app.router.add_post("/cluster/unlock", self.cluster_unlock)
         app.router.add_get("/cluster/status", self.cluster_status)
+        app.router.add_post("/cluster/raft/vote", self.raft_vote)
+        app.router.add_post("/cluster/raft/append", self.raft_append)
         app.router.add_get("/metrics", self.metrics_handler)
         app.router.add_get("/healthz", self.healthz)
         app.on_startup.append(self._on_startup)
+        # raft stops first: a leader whose listener is gone must not go
+        # on heartbeating its peers
+        app.on_shutdown.append(self._on_shutdown)
         app.on_cleanup.append(self._on_cleanup)
         return app
 
@@ -218,6 +325,7 @@ class MasterServer:
         self._grow_lock = asyncio.Lock()
         self._vacuum_lock = asyncio.Lock()
         self._tasks = []
+        await self.raft.start()
         if self.maintenance_interval_seconds > 0:
             self._tasks.append(
                 asyncio.create_task(self._maintenance_loop()))
@@ -241,9 +349,132 @@ class MasterServer:
             task.cancel()
         await asyncio.gather(*tasks, return_exceptions=True)
         self._tasks = []
-        if self._maint_session is not None:
-            await self._maint_session.close()
-            self._maint_session = None
+        for attr in ("_maint_session", "_proxy_session"):
+            session = getattr(self, attr)
+            if session is not None:
+                await session.close()
+                setattr(self, attr, None)
+        if not self.raft._stopped:
+            await self.raft.stop()
+
+    async def _on_shutdown(self, app) -> None:
+        await self.raft.stop()
+
+    async def leader_ready(self) -> bool:
+        """The gate of every leader-only pass: this master leads, has led
+        for ``settle_seconds()``, its term's no-op has committed (every
+        earlier entry is applied) and its lease is live, so a leader cut
+        off from the majority stops acting on its stale topology."""
+        return (self.raft.is_leader
+                and time.monotonic() - self.raft.leader_since
+                >= self.settle_seconds()
+                and await self.raft.ensure_ready()
+                and self.raft.lease_valid())
+
+    def settle_seconds(self) -> float:
+        """How long a newly elected master of a group waits before its
+        daemons act: its topology fills from the volume servers' next
+        beats (three pulses), and an admin lease its predecessor held is
+        renewed here, and adopted, within one lease period (D14), so no
+        daemon job starts under an operator's command. A master alone
+        waits for nothing."""
+        if not self.raft.peers:
+            return 0.0
+        return max(3 * self.topology.pulse_seconds,
+                   self.admin_lease_seconds)
+
+    def _awaiting_heartbeats(self) -> bool:
+        """Whether this master has led for less than three pulses: the
+        volume servers of a failover may not have beaten to it yet."""
+        return (len(self.raft.peers) > 0 and time.monotonic()
+                - self.raft.leader_since < 3 * self.topology.pulse_seconds)
+
+    def _unheard_volumes(self, collection: str, replication: str,
+                         ttl: str) -> list[int]:
+        """Volumes of this layout in the replicated registry that no
+        volume server has reported to this master."""
+        rp = str(ReplicaPlacement.parse(replication))
+        return [vid for vid, rec in self.metalog.volumes.items()
+                if rec.get("collection", "") == collection
+                and rec.get("ttl", "") == ttl
+                and str(ReplicaPlacement.parse(
+                    rec.get("replication") or "000")) == rp
+                and not self.topology.lookup(vid)
+                and not self.topology.lookup_ec_shards(vid)]
+
+    # --- the raft plane's plumbing ---
+    @staticmethod
+    def _resolve_peer_ips(peers) -> set:
+        """Every configured peer's host, literal and resolved: a
+        request's remote is an address, and peers may be named."""
+        ips = set()
+        for p in peers:
+            ips |= _endpoint_ips(p)[0]
+        return ips
+
+    async def _refresh_peer_ips(self, remote: str) -> bool:
+        """Resolve the peers again (a rescheduled peer may have a new
+        address), at most every 2 s and off the loop; whether `remote`
+        is a peer now. Merged, never replaced: a resolver's blip must not
+        evict a known peer."""
+        if not self._peer_strings:
+            return False
+        now = time.monotonic()
+        if now - self._peer_resolve_ts < 2.0:
+            return False
+        self._peer_resolve_ts = now
+        resolved = await asyncio.get_running_loop().run_in_executor(
+            None, self._resolve_peer_ips, self._peer_strings)
+        self._peer_ips |= resolved
+        return remote in self._peer_ips
+
+    async def _raft_peer_check(self, request: web.Request):
+        """Raft's RPCs come from configured peers only (a master alone
+        refuses them all): anyone else could depose a leader or inject
+        entries."""
+        remote = request.remote or ""
+        if remote not in self._peer_ips and \
+                not await self._refresh_peer_ips(remote):
+            return _error("not a raft peer", 403)
+        return None
+
+    async def raft_vote(self, request: web.Request) -> web.Response:
+        denied = await self._raft_peer_check(request)
+        if denied is not None:
+            return denied
+        return web.json_response(
+            await self.raft.handle_vote(await request.json()))
+
+    async def raft_append(self, request: web.Request) -> web.Response:
+        denied = await self._raft_peer_check(request)
+        if denied is not None:
+            return denied
+        return web.json_response(
+            await self.raft.handle_append(await request.json()))
+
+    async def _proxy_to(self, leader: str,
+                        request: web.Request) -> web.Response:
+        """Forward a request to the leader and return its answer; 503
+        when the leader cannot be reached, so clients rotate."""
+        body = await request.read()
+        if self._proxy_session is None or self._proxy_session.closed:
+            # one keep-alive pool for the follower -> leader hop; a long
+            # timeout: a proxied admin lease may wait 30 s for daemons
+            self._proxy_session = aiohttp.ClientSession(
+                timeout=aiohttp.ClientTimeout(total=600))
+        try:
+            async with self._proxy_session.request(
+                    request.method, f"http://{leader}{request.path_qs}",
+                    data=body or None,
+                    headers={k: v for k, v in request.headers.items()
+                             if k.lower() not in ("host",
+                                                  "content-length")}) as r:
+                payload = await r.read()
+                return web.Response(
+                    body=payload, status=r.status,
+                    content_type=r.content_type or "application/json")
+        except (aiohttp.ClientError, asyncio.TimeoutError, OSError) as e:
+            return _error(f"leader proxy to {leader} failed: {e}", 503)
 
     # --- the maintenance daemon: prune, then plan repairs (the
     #     reference's maintenance loop, weed/server/master_server.go:
@@ -260,6 +491,14 @@ class MasterServer:
                 log.warning("maintenance pass failed", exc_info=True)
 
     async def _maintenance_pass(self) -> None:
+        """Prune, then plan repairs: on the leader alone. A follower's
+        topology is empty or stale, and two masters must never repair one
+        volume."""
+        if not await self.leader_ready():
+            # a re-elected leader confirms its deficits from scratch
+            self._ec_deficit_seen.clear()
+            self._replica_deficit_seen.clear()
+            return
         for ev in self.topology.prune_dead_nodes():
             self.metrics.count("dead_nodes_pruned")
             log.info("pruned dead node %s", ev["url"])
@@ -462,6 +701,8 @@ class MasterServer:
                 # the flagged holder died: its rotten copies went with it
                 bad.pop(url, None)
                 continue
+            if not self.raft.is_leader:
+                return False
             await self._admin_post(url, "ec/delete_shards",
                                    {"volume_id": vid,
                                     "collection": collection,
@@ -477,12 +718,17 @@ class MasterServer:
             return True
         copied: list[int] = []
         for src, sids in copy_plan.items():
+            # a deposed leader stops between steps, not racing the new one
+            if not self.raft.is_leader:
+                return False
             await self._admin_post(rebuilder, "ec/copy",
                                    {"volume_id": vid,
                                     "collection": collection,
                                     "shard_ids": sids, "source": src},
                                    timeout=600.0)
             copied.extend(sids)
+        if not self.raft.is_leader:
+            return False
         out = await self._admin_post(rebuilder, "ec/rebuild",
                                      {"volume_id": vid,
                                       "collection": collection},
@@ -508,7 +754,7 @@ class MasterServer:
         """Copy an under-replicated volume onto a node where the
         placement holds (balance/planner.py); False when there is none."""
         target = pick_replica_target(self.topology, replication, holders)
-        if target is None:
+        if target is None or not self.raft.is_leader:
             return False
         await self._admin_post(target.url, "volume/copy",
                                {"volume_id": vid,
@@ -586,6 +832,8 @@ class MasterServer:
         """Assign a write target (dirAssignHandler,
         weed/server/master_server_handlers.go:96-150)."""
         self.metrics.count("assign")
+        if not await self.raft.ensure_ready():
+            return _error("not the leader / not ready", 503)
         q = request.query
         try:
             count = int(q.get("count", 1))
@@ -609,13 +857,24 @@ class MasterServer:
             return {"error": f"count exceeds {MAX_ASSIGN_COUNT}"}, 400
         replication = replication or self.default_replication
         picked = self.topology.pick_for_write(collection, replication, ttl)
+        if picked is None and self._awaiting_heartbeats() and \
+                self._unheard_volumes(collection, replication, ttl):
+            # a new leader learns the volumes from the servers' next
+            # beats: growing now would add a volume beside a writable
+            # one the log registered and no server has reported yet
+            return ({"error": "new leader: waiting for the volume "
+                              "servers' heartbeats"}, 503)
         if picked is None:
             async with self._grow_lock:
                 picked = self.topology.pick_for_write(collection,
                                                       replication, ttl)
                 if picked is None:
-                    if not await self._grow(1, collection, replication,
-                                            ttl, data_center):
+                    grown = await self._grow(1, collection, replication,
+                                             ttl, data_center)
+                    if grown is None:
+                        return ({"error": "lost leadership during grow"},
+                                503)
+                    if not grown:
                         return ({"error":
                                  "no writable volumes and cannot grow"},
                                 500)
@@ -625,7 +884,18 @@ class MasterServer:
             return {"error": "no writable volumes"}, 500
         vid, nodes = picked
         g = self.ec_policy.for_collection(collection)
-        key = self.sequencer.next_file_id(count)
+        geometry = f"{g.data_shards}+{g.parity_shards}"
+        # the batch is a log entry whose apply mints the keys: a leader
+        # killed now either committed it (its successor replays past it)
+        # or consumed nothing; a collection's first assign under its
+        # geometry stamps it in the same entry
+        cmd: dict = {"assign_batch": {"count": count}}
+        if self.metalog.geometry.get(collection or "") != geometry:
+            cmd["geometry_stamp"] = {"collection": collection or "",
+                                     "geometry": geometry}
+        ok, key = await self.raft.propose_apply(cmd)
+        if not ok or key is None:
+            return {"error": "lost leadership during assign"}, 503
         fid = FileId(vid, key, new_cookie())
         node = nodes[0]
         return {
@@ -635,7 +905,7 @@ class MasterServer:
             "count": count,
             "replicas": [n.url for n in nodes[1:]],
             # the RS(k,m) this collection's volumes will seal into
-            "ecGeometry": f"{g.data_shards}+{g.parity_shards}",
+            "ecGeometry": geometry,
         }, 200
 
     async def dir_lookup(self, request: web.Request) -> web.Response:
@@ -672,6 +942,7 @@ class MasterServer:
     async def dir_status(self, request: web.Request) -> web.Response:
         d = self.topology.to_dict()
         d["ec_geometry"] = self.ec_policy.to_dict()
+        d["metalog"] = self.metalog.status()
         return web.json_response(d)
 
     async def vol_grow(self, request: web.Request) -> web.Response:
@@ -687,18 +958,26 @@ class MasterServer:
                 count, q.get("collection", ""),
                 q.get("replication", self.default_replication),
                 q.get("ttl", ""), q.get("dataCenter", ""))
+        if grown is None:
+            return _error("lost leadership during grow", 503)
         if not grown:
             return _error("growth failed", 500)
         return web.json_response({"count": len(grown),
                                   "volume_ids": grown})
 
     async def _grow(self, count: int, collection: str, replication: str,
-                    ttl: str, data_center: str = "") -> list[int]:
+                    ttl: str, data_center: str = "") -> Optional[list[int]]:
         """AutomaticGrowByType (weed/topology/volume_growth.go:70-208):
-        pick placement-satisfying nodes, allocate on each. The caller
-        holds _grow_lock; each volume server's allocation heartbeat lands
-        here while the call is awaited."""
+        pick placement-satisfying nodes, log the new volume id and its
+        registry row through raft, allocate on each node. None when
+        leadership is lost (the callers answer 503, so clients rotate).
+        The caller holds _grow_lock; each volume server's allocation
+        heartbeat lands here while the call is awaited."""
         grown: list[int] = []
+        # every earlier term's max_volume_id is applied before the next
+        # id is chosen, so no id repeats across a failover
+        if not await self.raft.ensure_ready():
+            return None
         # heat-aware placement while the balancer is on: new volumes go
         # to the coldest nodes, so no heat lands that it must move later
         heat_rank = self.balancer.assign_rank()
@@ -709,7 +988,19 @@ class MasterServer:
                     replication, data_center, heat_rank=heat_rank)
                 if not nodes:
                     break
-                vid = self.topology.next_volume_id()
+                # MaxVolumeIdCommand (weed/topology/cluster_commands.go:
+                # 8-31) with the registry row, committed before the
+                # allocation
+                vid = self.topology.max_volume_id + 1
+                if not await self.raft.propose(
+                        {"max_volume_id": vid,
+                         "volume_create": {"vid": vid,
+                                           "collection": collection,
+                                           "replication": replication,
+                                           "ttl": ttl}}):
+                    log.warning("lost leadership while growing volume %d",
+                                vid)
+                    return None
                 ok = True
                 for node in nodes:
                     try:
@@ -771,6 +1062,10 @@ class MasterServer:
         every 15 minutes)."""
         while True:
             await asyncio.sleep(self.vacuum_interval_seconds)
+            if not await self.leader_ready():
+                # as upstream (topology_event_handling.go: only the leader
+                # vacuums); the reference vacuums from every master (D13)
+                continue
             try:
                 await self._vacuum_pass(self.garbage_threshold)
             except (aiohttp.ClientError, asyncio.TimeoutError) as e:
@@ -893,11 +1188,36 @@ class MasterServer:
             rack=body.get("rack", ""),
             max_volume_count=body.get("max_volume_count", 8),
             payload=body)
-        # the volumes' largest key raises the sequencer: a restarted
-        # master never re-mints a key a volume already holds
-        self.sequencer.set_max(body.get("max_file_key", 0))
+        # a key a volume holds above the replicated counter (a cold start
+        # over existing volumes) is logged as a floor
+        self._maybe_propose_floor(body.get("max_file_key", 0))
         return {"volume_size_limit": self.topology.volume_size_limit,
-                "leader": self.url}
+                "leader": self.raft.leader_id or ""}
+
+    def _maybe_propose_floor(self, seen: int) -> None:
+        """Log a heartbeat's key as a ``seq_floor`` when it would raise
+        the counter: rare, one proposal at a time, its failure logged."""
+        if not seen or seen < self.sequencer.peek() \
+                or not self.raft.is_leader or self._floor_inflight:
+            return
+        self._floor_inflight = True
+
+        async def run() -> None:
+            try:
+                if not await self.raft.propose({"seq_floor": seen}):
+                    log.warning("seq_floor(%d) lost leadership", seen)
+            finally:
+                self._floor_inflight = False
+
+        def done(t: asyncio.Task) -> None:
+            if t in self._tasks:
+                self._tasks.remove(t)
+            if not t.cancelled() and t.exception() is not None:
+                log.error("seq_floor(%d) failed: %s", seen, t.exception())
+
+        task = asyncio.get_running_loop().create_task(run())
+        self._tasks.append(task)
+        task.add_done_callback(done)
 
     # --- the admin lock (the reference's lease, upstream
     #     master_grpc_server_admin.go:21-138) ---
@@ -907,21 +1227,25 @@ class MasterServer:
         holder that stops renewing loses it after
         ``admin_lease_seconds``. A fresh lease is refused, as one another
         client holds, while a daemon job is in flight (F5;
-        ``cluster_lock`` waits for them first)."""
+        ``cluster_lock`` waits for them first). A renewal that finds no
+        live lease here (a new leader: the lease lived in its
+        predecessor's memory) adopts the presented token, so the holder's
+        next renewals keep it (D14); while a daemon job runs it is
+        refused as a fresh lease would be."""
         name = name or "admin"
         now = time.time()
         held = self._admin_locks.get(name)
-        if held and held[2] > now and held[0] != previous_token:
+        live = bool(held and held[2] > now)
+        if live and held[0] != previous_token:
             return ({"error": f"lock {name} held by {held[1]}",
                      "holder": held[1]}, 409)
-        renewal = bool(held and held[2] > now and previous_token)
+        renewal = bool(live and previous_token)
         jobs = self.daemon_jobs()
         if jobs and not renewal:
             return ({"error": f"lock {name} held by daemon jobs "
                               f"{sorted(jobs, key=str)}",
                      "holder": "daemons"}, 409)
-        token = (held[0] if held and held[0] == previous_token
-                 else int(now * 1e9))
+        token = previous_token or int(now * 1e9)
         expires = now + self.admin_lease_seconds
         self._admin_locks[name] = (token, client, expires)
         return {"token": token, "expires_at": expires}, 200
@@ -994,8 +1318,11 @@ class MasterServer:
 
     async def cluster_status(self, request: web.Request) -> web.Response:
         return web.json_response({
-            "is_leader": True, "leader": self.url, "peers": [],
-            "raft_term": 0, "topology": self.topology.to_dict()})
+            "is_leader": self.raft.is_leader,
+            "leader": self.raft.leader_id or "",
+            "peers": self.raft.peers,
+            "raft_term": self.raft.term,
+            "topology": self.topology.to_dict()})
 
     async def healthz(self, request: web.Request) -> web.Response:
         return web.json_response({"ok": True})
@@ -1007,11 +1334,15 @@ class MasterServer:
 
 
 async def run_master(host: str = "127.0.0.1", port: int = 0,
-                     **kwargs) -> tuple[MasterServer, web.AppRunner]:
-    """Serve a master on host:port (0 picks a free port) on the running
-    loop; returns the master (``master.url`` is host:port) and its
-    runner. ``await runner.cleanup()`` stops it."""
-    sock = http.listen_socket(host, port)
+                     sock=None, **kwargs
+                     ) -> tuple[MasterServer, web.AppRunner]:
+    """Serve a master on host:port (0 picks a free port), or on `sock`, a
+    socket bound already (an HA group needs every port before the first
+    master starts), on the running loop; returns the master
+    (``master.url`` is host:port) and its runner. ``await
+    runner.cleanup()`` stops it, raft first."""
+    if sock is None:
+        sock = http.listen_socket(host, port)
     master = MasterServer(url=f"{host}:{sock.getsockname()[1]}", **kwargs)
     runner = await http.start_app(master.app, sock)
     log.info("master listening on %s", master.url)

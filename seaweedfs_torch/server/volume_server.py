@@ -84,6 +84,14 @@ digest stamped into its ``.ecm`` at encode, every
 /admin/ec/scrub``, and reports mismatches to the master's
 ``/ec/scrub_report``, whose repair daemon drops and rebuilds them.
 
+The master may be an HA group: ``master_url`` is a comma list (``volume
+-mserver a,b,c``). Heartbeats go to ``master_url``, the current one,
+which follows the ``leader`` a reply names (a follower proxies the beat
+to its leader, whose reply names itself) and moves to the next master of
+the list when a beat fails (weed/server/volume_grpc_client_to_master.go:
+50-86). Lookups, ``/col/lookup/ec`` and scrub reports go to the current
+master too; a follower proxies them.
+
 Before each heartbeat the server runs its storage maintenance: TTL
 volumes past their grace are deleted, then the free-space watchdog seals
 the volumes of a disk with less than the store's
@@ -290,7 +298,10 @@ class VolumeServer:
                  pulse_seconds: float = 5.0,
                  scrub_interval_seconds: Optional[float] = None):
         self.store = store
-        self.master_url = master_url.split(",")[0].strip()
+        # the HA list; master_url is the current master
+        self.masters = [m.strip() for m in master_url.split(",")
+                        if m.strip()]
+        self.master_url = self.masters[0]
         self.url = url
         self.data_center = data_center
         self.rack = rack
@@ -411,6 +422,13 @@ class VolumeServer:
                             e)
             await asyncio.sleep(self.pulse_seconds)
 
+    def _rotate_master(self) -> None:
+        """The next master of the list, after a failed beat."""
+        if len(self.masters) > 1:
+            i = (self.masters.index(self.master_url)
+                 if self.master_url in self.masters else -1)
+            self.master_url = self.masters[(i + 1) % len(self.masters)]
+
     async def _periodic_maintenance(self) -> None:
         """TTL expiry, then the free-space watchdog: volumes on a filling
         disk seal before it is full (disk_location.go:304), so the beat
@@ -443,17 +461,20 @@ class VolumeServer:
         return payload
 
     async def send_heartbeat(self) -> None:
+        """One beat to the current master; on a failure the next masters
+        of the list are tried, once each, before it raises."""
         async with self._hb_lock:
             payload = self._hb_payload()
             try:
-                async with self._session.post(
-                        f"http://{self.master_url}/heartbeat",
-                        json=payload,
-                        timeout=aiohttp.ClientTimeout(total=10)) as r:
-                    body = await r.json()
-                    if r.status != 200:
-                        raise RuntimeError(
-                            f"heartbeat: HTTP {r.status} {body}")
+                for attempt in range(len(self.masters)):
+                    try:
+                        body = await self._post_heartbeat(payload)
+                        break
+                    except (aiohttp.ClientError, asyncio.TimeoutError,
+                            RuntimeError, ValueError, OSError):
+                        if attempt == len(self.masters) - 1:
+                            raise
+                        self._rotate_master()
             except BaseException:
                 # the heat deltas were drained into this payload: a
                 # failed delivery must not lose the window's accesses
@@ -463,6 +484,21 @@ class VolumeServer:
                 raise
         self.volume_size_limit = body.get("volume_size_limit",
                                           self.volume_size_limit)
+        # follow the leader, which owns the topology
+        leader = body.get("leader", "")
+        if leader and leader != self.master_url:
+            log.info("heartbeat: following master leader %s", leader)
+            self.master_url = leader
+
+    async def _post_heartbeat(self, payload: dict) -> dict:
+        async with self._session.post(
+                f"http://{self.master_url}/heartbeat", json=payload,
+                timeout=aiohttp.ClientTimeout(total=10)) as r:
+            body = await r.json()
+            if r.status != 200:
+                raise RuntimeError(f"heartbeat to {self.master_url}: "
+                                   f"HTTP {r.status} {body}")
+            return body
 
     # --- data path ---
     async def data_handler(self, request: web.Request) -> web.Response:

@@ -4,7 +4,8 @@ holds the reference's.
 
 Shim and replay mechanics (round trip, dropped or torn un-synced writes,
 revocable renames), the negative control (the sweep flags a non-durable
-writer), the sweep over the port's three workloads with zero violations,
+writer), the sweep over the port's workloads with zero violations
+(raft_snapshot beside the reference's),
 torn-tail volume recovery, the disk.* fault points; then the port's own
 seams (the EC fan-out's os.writev writer threads, a deferred close of a
 pinned shard) and two cases against the reference: one op log replayed by
@@ -37,6 +38,7 @@ from seaweedfs_torch.storage.volume import Volume
 from seaweedfs_torch.utils import durable
 from seaweedfs_tpu.crashsim import DiskRecorder as RDiskRecorder
 from seaweedfs_tpu.crashsim import build_crash_state as r_build_crash_state
+from seaweedfs_tpu.crashsim import harness as rharness
 from seaweedfs_tpu.crashsim import workloads as rwl
 from seaweedfs_tpu.crashsim.harness import AckLog as RAckLog
 
@@ -206,9 +208,25 @@ def test_sweep_all_counts_points():
     summary = harness.sweep_all(seeds=2, points=2)
     assert sorted(summary["workloads"]) == ["ec_encode", "fused_warmdown",
                                             "needle_map_flush",
+                                            "raft_snapshot",
                                             "volume_append",
                                             "volume_group_commit"]
-    assert summary["total_points"] == 20 and summary["ok"]
+    assert summary["total_points"] == 24 and summary["ok"]
+
+
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_raft_snapshot_sweep_has_no_violations(package):
+    """raft_snapshot (term, vote, log and the metadata log's snapshot
+    folds, each save a barrier) at 2 seeds x 20 crash points: zero
+    violations in the port, beside the reference's sweep of its own
+    workload of that name."""
+    run = harness if package == "port" else rharness
+    summary = run.sweep_all(seeds=2, points=20,
+                            workload_names=["raft_snapshot"])
+    assert list(summary["workloads"]) == ["raft_snapshot"]
+    assert summary["ok"], summary
+    assert summary["total_points"] == 40
+    assert summary["total_violations"] == 0
 
 
 def test_crashsim_cli_json(capsys):

@@ -128,6 +128,7 @@ def test_sources_name_no_jax(path):
 
 
 SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
+                  *PORT.glob("cluster/*.py"),
                   *PORT.glob("topology/*.py"), *PORT.glob("lifecycle/*.py"),
                   *PORT.glob("balance/*.py"), *PORT.glob("clustersim/*.py"),
                   *PORT.glob("metaring/*.py"), PORT / "utils" / "retry.py",
