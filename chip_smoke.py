@@ -75,8 +75,9 @@ Phases (any failure exits non-zero before the result line):
    (rebuilt shards' sha256 equal, .ecj folded into .ecx),
    ``ec_to_volume`` (the decoded .dat equals the source up to its last
    live needle; every needle reads from the restored volume). (6b) the
-   ``archive`` collection, RS(20,4): a 256 MiB volume (1 GiB before
-   phase 11, 512 MiB before phase 13) of the fused
+   ``archive`` collection, RS(20,4): a 128 MiB volume (1 GiB before
+   phase 11, 512 MiB before phase 13, 256 MiB before phase 14) of the
+   fused
    warm-down tests' five payload kinds, 30% tombstoned (upstream's default
    vacuum garbageThreshold), ``ec_fused_generate`` (24 shards, a marker
    naming RS(20,4), the decoded .dat equal to the sequential
@@ -92,7 +93,8 @@ Phases (any failure exits non-zero before the result line):
    servers in this process (``LocalCluster``, each server its own
    directory and ``Store(coder_name="auto")``, master volume size limit
    1024 MB), on loopback ports; one volume of collection ``ecsmoke`` grown
-   and filled to 512 MiB (1 GiB before phase 12) over HTTP through the
+   and filled to 256 MiB (1 GiB before phase 12, 512 MiB before phase
+   14) over HTTP through the
    port's ``Client`` (phase 3's generator, about 5% deleted with HTTP
    DELETE), its sealed .dat copied,
    the shell's ``EcCommands.encode`` (14 shards spread 5/5/4, the volume
@@ -113,8 +115,9 @@ Phases (any failure exits non-zero before the result line):
    ``repair_enabled=False`` (the CLI's with ``-maintenance_interval 0``):
    the shell heals phases 7 and 8, and the repair daemon would race it;
 8. (run inside 7a's cluster, before 7b) the hot tier in front of the
-   warm one: a fresh server takes the place of the one 7a lost; a 512 MiB
-   volume (1 GiB before phase 12) of collection ``repsmoke`` at replication ``001`` (upstream's
+   warm one: a fresh server takes the place of the one 7a lost; a 256 MiB
+   volume (1 GiB before phase 12, 512 MiB before phase 14) of collection
+   ``repsmoke`` at replication ``001`` (upstream's
    "one more copy on the same rack") filled over HTTP with phase 3's
    generator (each 201 means both copies are written: both holders count
    every needle, and every needle reads back from each); needles deleted
@@ -138,8 +141,8 @@ Phases (any failure exits non-zero before the result line):
    rack (``Store(coder_name="auto")``, the scrub loop off, pulse 0.5 s),
    no operator command from step 2 on: (1) two volumes of ``lcsmoke``
    allocated on one server, filled at once over HTTP with phase 3's
-   generator to 256 MiB each (the size limit; 1 GiB before phase 12, 512
-   MiB before phase 13), 5%
+   generator to 128 MiB each (the size limit; 1 GiB before phase 12, 512
+   MiB before phase 13, 256 MiB before phase 14), 5%
    deleted, the first copied aside; (2) the
    daemon seals both and warms them down in one ``ec/fused`` window of
    two (the master's ``lifecycle_encode_windows`` counter), spreads each
@@ -176,7 +179,8 @@ Phases (any failure exits non-zero before the result line):
    single-card ``gf_apply`` and to the plain version, and the
    formulation's kernel launched once per member per call;
    ``sharded_encode`` and ``sharded_rebuild`` the same bytes. (10b) a
-   256 MiB volume (1 GiB before phase 11, 512 MiB before phase 13) from
+   128 MiB volume (1 GiB before phase 11, 512 MiB before phase 13, 256
+   MiB before phase 14) from
    phase 3's generator,
    ``stream_encode`` governed,
    single-card and through the two-member mesh (bitplane, then xorsched):
@@ -194,8 +198,10 @@ Phases (any failure exits non-zero before the result line):
    ``ec_encode`` (RS(10,4) at 262144 / 16384 blocks, a 32 MiB seeded .dat,
    ``stream_encode`` with ``get_coder("auto")``), ``fused_warmdown``
    (RS(20,4), a 32 MiB volume of phase 6b's payload kinds, 30%
-   tombstoned), ``volume_append`` and ``raft_snapshot`` (a master's raft
-   state with the metadata log's snapshot folds): zero violations,
+   tombstoned), ``volume_append``, ``raft_snapshot`` (a master's raft
+   state with the metadata log's snapshot folds) and ``filer_kv`` (the
+   filer's LevelDbStore, its segment compaction the barrier): zero
+   violations,
    ``gf_apply`` launched in both EC sweeps and in no other; points,
    violations and wall time per workload;
 11. (run after 10) the auto-balancer and the volume server's data path,
@@ -203,15 +209,16 @@ Phases (any failure exits non-zero before the result line):
    lifecycle daemon whose rules fire later than the phase lasts, and the
    balancer (``WEED_BALANCE_INTERVAL=1``, cooldown 30 s; heat half-life
    2 s), 4 volume servers on 2 racks (``Store(coder_name="auto")``, pulse
-   0.5 s), volume size limit 160 MiB (256 MiB before phase 12, 192 MiB
-   before phase 13), default replication ``010``,
+   0.5 s), volume size limit 96 MiB (256 MiB before phase 12, 192 MiB
+   before phase 13, 160 MiB before phase 14), default replication
+   ``010``,
    ``WEED_VOLUME_GROUP_COMMIT_US=2000``. Under the operator's admin lease
    (no daemon moves anything meanwhile): (11a) 64 clients upload phase
    3's generator's needles (log-uniform 1 KiB .. 64 KiB; 16 keys per
    assign) until four volumes are full: uploads/s, acknowledgement
    p50/p99 and fsyncs per upload (``os.fsync`` counted); then, into a
-   fifth volume, about 4000 uploads with group commit off and about 4000
-   with it on, side by side; every acknowledged needle read back from
+   fifth volume, about 2000 uploads with group commit off and about 2000
+   with it on (4000 each before phase 14), side by side; every acknowledged needle read back from
    both holders' stores. (11b) read repair on the fifth volume: a byte
    flipped in one holder's copy of a needle reads back good from that
    holder, ``read_crc_repair`` and ``read_repair`` grow by one and the
@@ -241,8 +248,9 @@ Phases (any failure exits non-zero before the result line):
    ``gf_apply`` must launch in 11c's mid-encode and in 11d's encode and
    degraded reads, and nowhere else in the phase;
 12. (run after 11) the rest of the storage engine, with phase 3's
-   generator at log-uniform 1-16 KiB: (12a) a 1 GiB volume (about 194k
-   needles, 5% deleted) under ``needle_map_kind="leveldb"`` written with
+   generator at log-uniform 1-16 KiB: (12a) a 640 MiB volume (about
+   121k needles; 1 GiB before phase 14), 5% deleted, under
+   ``needle_map_kind="leveldb"`` written with
    ``Store.write_needle`` (the segment flushes counted), the ``.sdx``
    bytes, each kind's open time and RSS growth (``/proc/self/status``),
    the reopen adopting the ``.sdx`` with fewer than ``FLUSH_THRESHOLD``
@@ -252,7 +260,8 @@ Phases (any failure exits non-zero before the result line):
    files) with the 14 shards and the ``.ecx`` equal by sha256 to
    ``ec_generate`` of a copy opened as ``memory``, every 16th needle read
    with shards {0, 3, 7, 12} deleted; (12b) an ``archive`` RS(20,4)
-   volume of 256 MiB of 6b's payload kinds under ``leveldb``, closed (its
+   volume of 128 MiB (256 MiB before phase 14) of 6b's payload kinds
+   under ``leveldb``, closed (its
    delta flushed), reopened (adopted), 30% tombstoned in the delta over
    the segment, ``ec_fused_generate`` on the card, the 24 shards and the
    decoded compacted .dat equal by sha256 to a ``memory`` copy's;
@@ -309,6 +318,47 @@ Phases (any failure exits non-zero before the result line):
    (10 s); the summary line's ``final_term`` counts the elections (2:
    none but 13b's). ``gf_apply`` must launch in 13d's encode, degraded
    reads and rebuild, and in no other step of the phase;
+14. (run after 13) the filer and the S3 lifecycle, in its own
+   ``LocalCluster``: a master whose lifecycle daemon scans filer A
+   (``WEED_LIFECYCLE_FILER``, an evaluation every 0.5 s, a "day" of 1 s;
+   the repair daemon off), 4 volume servers on 2 racks
+   (``Store(coder_name="auto")``, pulse 0.5 s), volume size limit 64
+   MiB, replication ``000``; filer A on ``sqlite`` with 8 MiB chunks,
+   filer B on ``memory`` with 64 KiB chunks. (14a) 8 writer threads PUT
+   phase 3's generator's files (log-uniform 1 KiB .. 32 MiB) through A
+   with ``?collection=b1``: 160 MiB under ``/buckets/b1/arc/``, 8 MiB
+   under ``old/``, 32 MiB under ``keep/``; one 80 MiB file through B
+   (1280 chunks, folded into one manifest of 1000 and 280 data chunks);
+   every file read back whole and by 3 ranges across chunk boundaries
+   (B's also across the manifest's edge), equal by sha256; GB/s, p50/p99
+   per file, the lease pool's hit rate. (14b) the bucket's rules put on
+   its entry through ``/__meta__/update_entry`` (expire ``old/`` after 1
+   day, transition ``arc/`` to WARM at 0) while a writer PUTs ``keep2/``
+   files; once the ``arc/`` volumes are warm, the writer parks, a late
+   4 KiB ``arc/`` file takes a fid from its live lease, and the writer
+   resumes when the daemon has sealed that volume: its next chunk POST
+   must bounce to a fresh fid (``upload_stale_assignment`` > 0, the
+   lease younger than its TTL at the seal); every ``old/`` file answers
+   404 and each of its chunks 404 on
+   its volume server; every ``arc/`` entry carries WARM; every volume
+   holding an ``arc/`` chunk is warmed down by the daemon to 14 shards
+   and no server keeps its normal copy; every acknowledged ``keep2/``
+   PUT reads back, none refused; seconds
+   from the rules' PUT to the first and the last warm ``ok``. (14c)
+   shards {0, 3, 7, 12} of each warm volume dropped from their holders
+   (kept aside), every ``arc/``, ``keep/`` and ``keep2/`` file read
+   through A whole, by a range and chunk by chunk (p50/p99 per file and
+   per chunk), then the shards put back and mounted. (14d) the shell's
+   ``fs.*`` commands against A: ``fs.ls -l``, ``fs.du`` (the bytes
+   written less those expired), ``fs.cat``, ``fs.mv`` of ``keep/`` (its
+   files read back), ``fs.rm -r keep2/`` (its chunks freed);
+   ``fs.meta.save`` from A and ``fs.meta.load`` into B: equal listings.
+   (14e) A restarted on its sqlite file (the listing equal, a read
+   equal); ``python3 -m seaweedfs_torch.cli filer -store leveldb2`` as a
+   process: one PUT, GET, and ``shell -filer ... fs.ls``; B's 80 MiB file
+   deleted: its 1280 data chunks and its manifest freed. ``gf_apply``
+   must launch in 14b (the warm-downs) and 14c (the degraded reads), and
+   in no other step of the phase;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -2810,12 +2860,16 @@ CRASH_SEEDS, CRASH_POINTS = 2, 20
 MESH_CRASH_POINTS = 10
 CRASH_DAT_BYTES = 32 * MIB
 # phases 7-8's volumes, cut from 1 GiB to make room for phase 12 (the
-# smoke took about 1115 s on one H100 with them at 1 GiB)
-CUT_VOLUME_BYTES = 512 * MIB
+# smoke took about 1115 s on one H100 with them at 1 GiB), then from 512
+# MiB for phase 14 (not below: 7a's check wants 200 needles on the lost
+# server's shards; a 256 MiB volume of this seed puts 211 there, a 192
+# MiB one 159)
+CUT_VOLUME_BYTES = 256 * MIB
 # phase 6b's archive volume, phase 9's and phase 10b's volumes, cut from
 # 1 GiB for phases 11 and 12, then from 512 MiB to make room for phase
-# 13 (the smoke took about 1175 s on one H100 with them at 512 MiB)
-SMALL_VOLUME_BYTES = 256 * MIB
+# 13 (the smoke took about 1175 s on one H100 with them at 512 MiB), then
+# from 256 MiB for phase 14
+SMALL_VOLUME_BYTES = 128 * MIB
 
 
 def mesh_log(row: dict) -> None:
@@ -3044,7 +3098,7 @@ def run_mesh_surface(work: Path, card: str, count: int) -> None:
 def crash_workloads(device: torch.device) -> list:
     """(10d) The crash workloads at the card's sizes: ec_encode on phase
     4's mixed tiers, fused_warmdown on phase 6b's payload kinds,
-    volume_append and raft_snapshot at their defaults."""
+    volume_append, raft_snapshot and filer_kv at their defaults."""
     seed = SEED + 11
     mixed = geometry.Geometry(large_block_size=262144,
                               small_block_size=16384)
@@ -3065,7 +3119,7 @@ def crash_workloads(device: torch.device) -> list:
         geometry=geometry.Geometry(20, 4), needles=count, deleted=gone,
         make_needle=lambda nid: archive_needle(seed, nid))
     return [ec_encode, fused, crash_wl.make_volume_workload(),
-            crash_wl.make_raft_workload()]
+            crash_wl.make_raft_workload(), crash_wl.make_filer_kv_workload()]
 
 
 def run_crash_sweeps(work: Path, device: torch.device) -> dict:
@@ -3120,13 +3174,14 @@ BAL_COLLECTION = "balsmoke"
 BAL_AB = "balgc"          # the fifth volume: group commit off, then on
 BAL_NEW = "balnew"        # a volume grown after the moves
 # upstream's 30 GB volume size limit, cut to 256 MiB, then to 192 MiB
-# for phase 12 and to 160 MiB for phase 13 (the fifth volume's about
-# 120 MiB of group-commit uploads stay under 0.9 of it)
-BAL_LIMIT_MB = 160
+# for phase 12, to 160 MiB for phase 13 and to 96 MiB for phase 14 (the
+# fifth volume's about 60 MiB of group-commit uploads stay under 0.9 of
+# it)
+BAL_LIMIT_MB = 96
 BAL_FULL = 4              # the full 010 volumes of step 11a
 BAL_CLIENTS = 64
 BAL_PROCS = 4             # uploader processes (16 clients each)
-BAL_AB_NEEDLES = 4000
+BAL_AB_NEEDLES = 2000       # 4000 before phase 14
 BAL_MAX_NEEDLE = 64 * 1024
 BAL_ASSIGN_COUNT = 16     # keys per /dir/assign?count=
 # the balancer's and the volume servers' knobs, read at construction
@@ -3915,8 +3970,11 @@ def check_balance_launches(launches: dict) -> None:
 # --- phase 12: the rest of the storage engine ----------------------------
 
 STOR_MAX_NEEDLE = 16 * 1024   # phase 3's generator, log-uniform 1-16 KiB
-STOR_DISK_BYTES = 1 << 30     # 12a's volume
-STOR_FUSED_BYTES = 256 * MIB  # 12b's archive volume
+# 12a's volume (1 GiB, and 12b's 256 MiB, before phase 14, then 768
+# MiB; 12a keeps more than FLUSH_THRESHOLD needles, about 121k, so its
+# map flushes)
+STOR_DISK_BYTES = 640 * MIB
+STOR_FUSED_BYTES = 128 * MIB  # 12b's archive volume
 # 12c's uploads, and its vacuumed volume (cut from 64 MiB for phase 13)
 STOR_UPLOAD_BYTES = 32 * MIB
 STOR_MORE, STOR_MORE_DELETES = 500, 100
@@ -5117,6 +5175,686 @@ def run_ha(work: Path, seed: int = SEED + 13, coder_name: str = "auto",
     return launches
 
 
+# --- phase 14: the filer and the S3 lifecycle -----------------------------
+
+FS_BUCKET = "/buckets/b1"
+FS_COLLECTION = "b1"
+FS_LIMIT_MB = 64
+FS_ARC_BYTES = 160 * MIB
+FS_OLD_BYTES = 8 * MIB
+FS_KEEP_BYTES = 32 * MIB
+FS_MAX_FILE = 32 * MIB        # phase 3's generator: log-uniform 1 KiB ..
+FS_CHUNK_A = 8 * MIB          # filer A's chunks, the CLI's default
+FS_CHUNK_B = 64 * 1024        # filer B's chunks
+FS_BIG_CHUNKS = 1280          # filer B's file: one manifest of 1000 + 280
+FS_KEEP2_MAX = 2 * MIB        # the files written while the daemon works
+FS_WRITERS = 8                # HTTP writer and reader threads
+FS_CODER_STEPS = ("filer.rules", "filer.read_degraded")
+FS_RULES = (b"<LifecycleConfiguration>"
+            b"<Rule><ID>old</ID><Filter><Prefix>old/</Prefix></Filter>"
+            b"<Status>Enabled</Status>"
+            b"<Expiration><Days>1</Days></Expiration></Rule>"
+            b"<Rule><ID>arc</ID><Filter><Prefix>arc/</Prefix></Filter>"
+            b"<Status>Enabled</Status>"
+            b"<Transition><Days>0</Days><StorageClass>WARM"
+            b"</StorageClass></Transition></Rule>"
+            b"</LifecycleConfiguration>")
+
+
+def fs_sizes(rng, total: int, lo: int, hi: int) -> list:
+    """Log-uniform sizes in [lo, hi] summing to `total`."""
+    sizes = []
+    while total > 0:
+        size = min(total, int(np.exp(rng.uniform(np.log(lo), np.log(hi)))))
+        sizes.append(size)
+        total -= size
+    return sizes
+
+
+def fs_ranges(rng, size: int, chunk: int, n: int = 3) -> list:
+    """n (start, end) byte ranges, each across a chunk boundary when the
+    file has one."""
+    bounds = list(range(chunk, size, chunk))
+    out = []
+    for _ in range(n):
+        if bounds:
+            b = bounds[int(rng.integers(len(bounds)))]
+            start = b - int(rng.integers(1, min(chunk, b) + 1))
+            end = b + int(rng.integers(0, min(chunk, size - b)))
+        else:
+            start = int(rng.integers(size))
+            end = int(rng.integers(start, size))
+        out.append((start, end))
+    return out
+
+
+class FsFiles:
+    """The phase's files: path -> (nid, size), bytes from phase 3's
+    generator."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self.files: dict = {}
+        self.next_nid = 1
+
+    def add(self, path: str, size: int) -> bytes:
+        self.files[path] = (self.next_nid, size)
+        self.next_nid += 1
+        return self.data(path)
+
+    def data(self, path: str) -> bytes:
+        nid, size = self.files[path]
+        return payload(self.seed, nid, size)
+
+    def under(self, prefix: str) -> list:
+        return [p for p in self.files if p.startswith(prefix)]
+
+    def nbytes(self, prefix: str) -> int:
+        return sum(self.files[p][1] for p in self.under(prefix))
+
+
+def fs_put(filer: str, path: str, data: bytes, query: str = "") -> tuple:
+    t0 = time.perf_counter()
+    r = http.request("PUT", f"http://{filer}{path}{query}", data,
+                     {"Content-Type": "application/octet-stream"},
+                     timeout=600)
+    return r.status, time.perf_counter() - t0, r.data
+
+
+def fs_get(filer: str, path: str, rng: tuple = None):
+    headers = {"Range": f"bytes={rng[0]}-{rng[1]}"} if rng else {}
+    t0 = time.perf_counter()
+    r = http.request("GET", f"http://{filer}{path}", headers=headers,
+                     timeout=600)
+    return r, time.perf_counter() - t0
+
+
+def fs_meta(filer: str, route: str, **params) -> dict:
+    qs = "&".join(f"{k}={v}" for k, v in params.items())
+    status, body = http.get_json(f"http://{filer}/__meta__/{route}?{qs}")
+    if status != 200:
+        raise AssertionError(f"{route} {params}: {status} {body}")
+    return body
+
+
+def fs_walk(filer: str, root: str) -> dict:
+    """path -> entry JSON of everything under `root`."""
+    out = {}
+    start = ""
+    while True:
+        entries = fs_meta(filer, "list", dir=root, start=start,
+                          limit=1024)["entries"]
+        for e in entries:
+            out[e["path"]] = e
+            if e["attr"]["mode"] & 0o40000:
+                out.update(fs_walk(filer, e["path"]))
+        if len(entries) < 1024:
+            return out
+        start = entries[-1]["path"].rsplit("/", 1)[-1]
+
+
+def fs_check_reads(filer: str, files: FsFiles, paths: list, chunk: int,
+                   seed: int, ranges: int = 3, per_chunk: bool = False,
+                   threads: int = FS_WRITERS) -> dict:
+    """Every path read whole and by `ranges` ranges across chunk
+    boundaries (and, with per_chunk, each chunk on its own), equal by
+    sha256; latencies per file and per chunk."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(path: str) -> tuple:
+        want = files.data(path)
+        r, secs = fs_get(filer, path)
+        if r.status != 200 or hashlib.sha256(r.data).digest() != \
+                hashlib.sha256(want).digest():
+            raise AssertionError(f"{filer}{path}: {r.status}, "
+                                 f"{len(r.data)} of {len(want)} bytes")
+        rng = np.random.default_rng((seed, files.files[path][0]))
+        views = fs_ranges(rng, len(want), chunk, ranges)
+        if per_chunk and len(want) > chunk:
+            views += [(s, min(s + chunk, len(want)) - 1)
+                      for s in range(0, len(want), chunk)]
+        chunk_lat = [secs] if len(want) <= chunk else []
+        for i, (s, e) in enumerate(views):
+            rr, rs = fs_get(filer, path, (s, e))
+            if rr.status != 206 or rr.data != want[s:e + 1]:
+                raise AssertionError(f"{filer}{path} [{s}, {e}]: "
+                                     f"{rr.status}")
+            if i >= ranges:
+                chunk_lat.append(rs)
+        return secs, len(want), chunk_lat
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as ex:
+        got = list(ex.map(one, paths))
+    secs = time.perf_counter() - t0
+    out = {"files": len(got), "bytes": sum(g[1] for g in got),
+           "seconds": secs,
+           "per_file": latency_summary([g[0] for g in got])}
+    chunk_lat = [x for g in got for x in g[2]]
+    if per_chunk and chunk_lat:
+        out["per_chunk"] = latency_summary(chunk_lat)
+    return out
+
+
+def fs_fid_status(master: str, fid: str) -> int:
+    """The fid's GET status on every holder the master lists: 404 when
+    each answers 404 (a freed chunk), else the first other status."""
+    status, body = http.get_json(f"http://{master}/dir/lookup?fileId={fid}")
+    if status == 404:
+        return 404
+    for loc in body.get("locations", []):
+        r = http.request("GET", f"http://{loc['url']}/{fid}", timeout=60)
+        if r.status != 404:
+            return r.status
+    return 404
+
+
+def fs_deleted(fs) -> float:
+    """Chunks the filer's deletion worker is done with: freed, or given
+    up on."""
+    return fs.metrics.value("chunks_freed") + \
+        fs.metrics.value("chunks_not_freed")
+
+
+def fs_wait_freed(master: str, fids: list, what: str,
+                  timeout: float = 120.0, done=None) -> float:
+    """Seconds until every fid answers 404 on every holder. ``done``, a
+    predicate on the filer's deletion counters, is waited on first:
+    polling each fid's holders while the worker frees them loads the
+    servers' one event loop and slows the worker down."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.monotonic()
+    while done is not None and not done() and \
+            time.monotonic() - t0 < timeout:
+        time.sleep(0.25)
+    left = list(fids)
+    while left:
+        with ThreadPoolExecutor(FS_WRITERS) as ex:
+            status = list(ex.map(lambda f: fs_fid_status(master, f), left))
+        left = [f for f, st in zip(left, status) if st != 404]
+        if left and time.monotonic() - t0 > timeout:
+            raise AssertionError(f"{what}: {len(left)} of {len(fids)} "
+                                 f"chunks not freed, e.g. {left[:3]}")
+        if left:
+            time.sleep(0.25)
+    return time.monotonic() - t0
+
+
+def run_filer(work: Path, seed: int = SEED + 14, coder_name: str = "auto",
+              device=None, limit_mb: int = FS_LIMIT_MB,
+              arc_bytes: int = FS_ARC_BYTES, old_bytes: int = FS_OLD_BYTES,
+              keep_bytes: int = FS_KEEP_BYTES,
+              max_file: int = FS_MAX_FILE, chunk_a: int = FS_CHUNK_A,
+              chunk_b: int = FS_CHUNK_B, big_chunks: int = FS_BIG_CHUNKS,
+              keep2_max: int = FS_KEEP2_MAX) -> dict:
+    """Phase 14; returns the launches per step. On the card they are held
+    to the phase's rule (gf_apply in 14b's warm-downs and 14c's degraded
+    reads only; no other kernel); ``coder_name="torch", device="cpu"`` at
+    a few MB runs it on a host without one (no launch is counted
+    there)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_torch.lifecycle import s3_rules
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    files = FsFiles(seed)
+    rng = np.random.default_rng(seed)
+    port_a = free_port()
+    # the daemon's knobs from the environment, as a deployment sets them
+    with env_set(WEED_LIFECYCLE_FILER=f"127.0.0.1:{port_a}",
+                 WEED_LIFECYCLE_INTERVAL="0.5",
+                 WEED_LIFECYCLE_DAY_SECONDS="1",
+                 WEED_LIFECYCLE_WARM_AFTER=None,
+                 WEED_LIFECYCLE_HOT_READ_RATE=None,
+                 WEED_LIFECYCLE_COLLECTION_TTL=None):
+        lc_cfg = LifecycleConfig.from_env()
+    cl = LocalCluster(4, coder_name=coder_name, device=device,
+                      volume_size_limit_mb=limit_mb, pulse=0.5,
+                      directory=str(work / "cluster"), racks=2,
+                      master_kwargs={"repair_enabled": False,
+                                     "lifecycle_config": lc_cfg})
+    procs = []
+    try:
+        fs_a = cl.add_filer("sqlite", chunk_a,
+                            {"path": str(work / "filer_a.db")}, port=port_a)
+        fs_b = cl.add_filer("memory", chunk_b)
+        wait_until(lambda: fs_a.watch_messages and fs_b.watch_messages,
+                   "the filers' watch snapshots")
+        master = cl.master_url
+        daemon = cl.master.lifecycle
+
+        # (14a) uploads through filer A, the super-chunked file through B
+        items = []
+        for sub, total in (("arc", arc_bytes), ("old", old_bytes),
+                           ("keep", keep_bytes)):
+            for i, size in enumerate(fs_sizes(rng, total, 1024, max_file)):
+                items.append(f"{FS_BUCKET}/{sub}/f{i:04d}.bin")
+                files.add(items[-1], size)
+        big = "/big/blob.bin"
+        files.add(big, big_chunks * chunk_b)
+
+        def upload() -> dict:
+            def put(path: str) -> float:
+                status, secs, body = fs_put(fs_a.url, path, files.data(path),
+                                            f"?collection={FS_COLLECTION}")
+                if status != 201:
+                    raise AssertionError(f"PUT {path}: {status} {body!r}")
+                return secs
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(FS_WRITERS) as ex:
+                lat = list(ex.map(put, items))
+            wall = time.perf_counter() - t0
+            status, big_s, body = fs_put(fs_b.url, big, files.data(big))
+            if status != 201:
+                raise AssertionError(f"PUT {big}: {status} {body!r}")
+            return {"wall": wall, "lat": lat, "big_s": big_s}
+
+        up, launches["filer.upload"] = counted(upload)
+        entry = fs_meta(fs_b.url, "lookup", path=big)
+        manifests = [c for c in entry["chunks"] if c.get("is_chunk_manifest")]
+        big_data = fs_meta(fs_b.url, "resolve_chunks",
+                           path=big)["chunks"]
+        if len(big_data) != big_chunks or len(manifests) != \
+                big_chunks // 1000:
+            raise AssertionError(f"{big}: {len(big_data)} data chunks, "
+                                 f"{len(manifests)} manifests")
+        hits = fs_a.metrics.value("assign_lease_hit")
+        misses = fs_a.metrics.value("assign_lease_miss")
+        nbytes = sum(files.files[p][1] for p in items)
+        bal_log("filer.upload", up["wall"], launches["filer.upload"],
+               files=len(items), bytes=nbytes,
+               gbps=nbytes / up["wall"] / 1e9,
+               per_file=latency_summary(up["lat"]),
+               lease_hits=hits, lease_misses=misses,
+               lease_hit_rate=hits / max(hits + misses, 1),
+               big_file={"bytes": files.files[big][1],
+                         "seconds": up["big_s"],
+                         "gbps": files.files[big][1] / up["big_s"] / 1e9,
+                         "chunks": len(entry["chunks"]),
+                         "data_chunks": len(big_data),
+                         "manifests": len(manifests)})
+
+        def read_back() -> dict:
+            a = fs_check_reads(fs_a.url, files, items, chunk_a, seed)
+            b = fs_check_reads(fs_b.url, files, [big], chunk_b, seed,
+                               ranges=4)
+            # and across the manifest's edge
+            edge = 1000 * chunk_b
+            r, _ = fs_get(fs_b.url, big, (edge - 100, edge + 100))
+            if r.data != files.data(big)[edge - 100:edge + 101]:
+                raise AssertionError("read across the manifest edge")
+            return {"a": a, "b": b}
+
+        got, launches["filer.read_back"] = counted(read_back)
+        bal_log("filer.read_back", got["a"]["seconds"] + got["b"]["seconds"],
+               launches["filer.read_back"], filer_a=got["a"],
+               filer_b=got["b"])
+
+        # (14b) the rules on the bucket; keep2/ written meanwhile
+        arc_fids = {p: [c["fid"] for c in fs_meta(fs_a.url, "lookup",
+                                                  path=p)["chunks"]]
+                    for p in files.under(f"{FS_BUCKET}/arc/")}
+        arc_vids = sorted({int(f.split(",")[0]) for fl in arc_fids.values()
+                           for f in fl})
+        old_paths = files.under(f"{FS_BUCKET}/old/")
+        old_fids = [c["fid"] for p in old_paths
+                    for c in fs_meta(fs_a.url, "lookup", path=p)["chunks"]]
+        records: list = []
+        real_record = daemon._record
+
+        def record(kind, vid, outcome, **kw):
+            records.append((time.monotonic(), kind, vid, outcome,
+                            kw.get("error", "")))
+            return real_record(kind, vid, outcome, **kw)
+
+        def warm_ok() -> dict:
+            return {r[2]: r[0] for r in list(records)
+                    if r[1] == "warm" and r[3] == "ok"}
+
+        keep2: list = []
+        keep2_failed: list = []
+        stop = threading.Event()
+        # the writer parks between files while ``go`` is clear
+        go, parked = threading.Event(), threading.Event()
+        go.set()
+
+        def writer() -> None:
+            wrng = np.random.default_rng(seed + 1)
+            i = 0
+            while not stop.is_set():
+                if not go.is_set():
+                    parked.set()
+                    go.wait()
+                    parked.clear()
+                    continue
+                path = f"{FS_BUCKET}/keep2/f{i:05d}.bin"
+                size = int(np.exp(wrng.uniform(np.log(1024),
+                                               np.log(keep2_max))))
+                data = files.add(path, size)
+                status, _, body = fs_put(fs_a.url, path, data,
+                                         f"?collection={FS_COLLECTION}")
+                if status == 201:
+                    keep2.append(path)
+                else:
+                    keep2_failed.append((path, status, body[:200]))
+                    files.files.pop(path)
+                i += 1
+
+        def rules() -> dict:
+            bucket = fs_meta(fs_a.url, "lookup", path=FS_BUCKET)
+            bucket["extended"] = {s3_rules.BUCKET_ATTR: s3_rules.rules_to_json(
+                s3_rules.parse_lifecycle_xml(FS_RULES))}
+            daemon._record = record
+            t0 = time.monotonic()
+            status, out = http.post_json(
+                f"http://{fs_a.url}/__meta__/update_entry",
+                {"entry": bucket})
+            if status != 200:
+                raise AssertionError(f"rules: {out}")
+            w = threading.Thread(target=writer, name="keep2-writer")
+            w.start()
+            try:
+                wait_until(lambda: set(arc_vids) <= set(warm_ok()),
+                           "the daemon's warm-downs of the arc/ volumes",
+                           timeout=600)
+                late = late_arc()
+                # every old/ object gone, and its chunks freed
+                wait_until(lambda: all(
+                    fs_get(fs_a.url, p)[0].status == 404
+                    for p in old_paths), "old/ expired", timeout=120)
+                freed_s = fs_wait_freed(master, old_fids, "old/ chunks")
+            finally:
+                stop.set()
+                go.set()
+                w.join()
+                daemon._record = real_record
+            return {"t0": t0, "freed_s": freed_s,
+                    "secs": time.monotonic() - t0, **late}
+
+        def late_arc() -> dict:
+            """A warm-down under a live lease: with the writer parked, a
+            late arc/ file takes its fid from the lease the writer draws
+            on, so the daemon seals that leased volume (the file is due
+            at once). The writer's next chunk POST meets the sealed
+            volume, must bounce and land on a fresh fid."""
+            pool = fs_a._assign_pool
+            go.clear()
+            if not parked.wait(120):
+                raise AssertionError("the keep2/ writer did not park")
+            stale0 = fs_a.metrics.value("upload_stale_assignment")
+            for k in range(4):
+                path = f"{FS_BUCKET}/arc/late{k}.bin"
+                status, _, body = fs_put(fs_a.url, path,
+                                         files.add(path, 4096),
+                                         f"?collection={FS_COLLECTION}")
+                if status != 201:
+                    raise AssertionError(f"PUT {path}: {status} {body!r}")
+                fid = fs_meta(fs_a.url, "lookup", path=path)["chunks"][0][
+                    "fid"]
+                vid = int(fid.split(",")[0])
+                arc_fids[path] = [fid]
+                lease = pool._leases.get((FS_COLLECTION, "", ""))
+                if lease is not None and lease.vid == vid and \
+                        lease.next_i < lease.count:
+                    break
+            else:
+                raise AssertionError("no live lease holds a late arc/ fid")
+            t_late = time.monotonic()
+
+            def sealed() -> bool:
+                return all(v is None or v.read_only
+                           for v in (cl.store(i).find_volume(vid)
+                                     for i in range(len(cl.nodes))))
+
+            wait_until(sealed, f"the warm-down's seal of volume {vid}",
+                       timeout=60)
+            seal_s = time.monotonic() - t_late
+            lease_age = time.monotonic() - lease.born
+            go.set()
+            if lease_age >= pool.ttl:
+                raise AssertionError(
+                    f"volume {vid} sealed {lease_age:.2f} s after its lease "
+                    f"was filled, past the lease's {pool.ttl} s")
+            wait_until(lambda: fs_a.metrics.value(
+                "upload_stale_assignment") > stale0,
+                f"a keep2/ chunk POST into sealed volume {vid}", timeout=60)
+            wait_until(lambda: vid in warm_ok(),
+                       f"the warm-down of volume {vid}", timeout=120)
+            return {"late_vid": vid, "late_files": k + 1,
+                    "late_seal_s": seal_s, "late_lease_age_s": lease_age}
+
+        rs, launches["filer.rules"] = counted(rules)
+        oks = warm_ok()
+        first_warm_s = min(oks[v] for v in arc_vids) - rs["t0"]
+        last_warm_s = max(oks[v] for v in arc_vids) - rs["t0"]
+        if rs["late_vid"] not in arc_vids:
+            arc_vids.append(rs["late_vid"])
+        failed = [r for r in records if r[3] != "ok"]
+        for p in arc_fids:
+            ext = fs_meta(fs_a.url, "lookup", path=p).get("extended") or {}
+            if ext.get(s3_rules.STORAGE_CLASS_ATTR) != s3_rules.WARM_CLASS:
+                raise AssertionError(f"{p} not WARM: {ext}")
+        for vid in arc_vids:
+            shards = http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+            holders = [i for i in range(len(cl.nodes))
+                       if cl.store(i).find_volume(vid) is not None]
+            if len(shards.get("shards", {})) != 14 or holders:
+                raise AssertionError(f"volume {vid}: shards {shards}, "
+                                     f"normal copies on {holders}")
+        keep2_read = fs_check_reads(fs_a.url, files, keep2, chunk_a, seed,
+                                    ranges=1)
+        stale = fs_a.metrics.value("upload_stale_assignment")
+        bal_log("filer.rules", rs["secs"], launches["filer.rules"],
+               warm_volumes=len(arc_vids),
+               first_warm_s=first_warm_s, last_warm_s=last_warm_s,
+               late_vid=rs["late_vid"], late_files=rs["late_files"],
+               late_seal_s=rs["late_seal_s"],
+               late_lease_age_s=rs["late_lease_age_s"],
+               failed_records=[r[1:] for r in failed][:5],
+               expired=len(old_paths), old_chunks_freed=len(old_fids),
+               old_freed_s=rs["freed_s"],
+               s3_records=sum(r[1].startswith("s3_") for r in records),
+               keep2_acknowledged=len(keep2),
+               keep2_refused=keep2_failed[:3],
+               keep2_bytes=files.nbytes(f"{FS_BUCKET}/keep2/"),
+               keep2_read=keep2_read, stale_assignments=stale,
+               lease_invalidations=fs_a.metrics.value(
+                   "assign_lease_invalidate"))
+        if keep2_failed:
+            raise AssertionError(f"keep2/ PUTs refused: {keep2_failed[:3]}")
+
+        # (14c) shards {0, 3, 7, 12} of every warm volume dropped (kept
+        # aside), every file read through filer A, the shards restored
+        aside = work / "aside"
+        aside.mkdir()
+        dropped: list = []
+
+        def drop() -> None:
+            for vid in arc_vids:
+                info = http.get_json(
+                    f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+                for sid in VICTIMS:
+                    url = info["shards"][str(sid)][0]
+                    name = f"{FS_COLLECTION}_{vid}{geometry.to_ext(sid)}"
+                    src = os.path.join(cl.nodes[cl.index_of(url)][3], name)
+                    shutil.copy2(src, aside / name)
+                    status, out = http.post_json(
+                        f"http://{url}/admin/ec/delete_shards",
+                        {"volume_id": vid, "collection": FS_COLLECTION,
+                         "shard_ids": [sid]})
+                    if status != 200:
+                        raise AssertionError(f"drop {vid}.{sid}: {out}")
+                    dropped.append((vid, sid, url, src, name))
+            wait_until(lambda: all(len(http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={v}")[1][
+                    "shards"]) == 14 - len(VICTIMS) for v in arc_vids),
+                "the lookup drops the four shards")
+
+        _, launches["filer.drop_shards"] = counted(drop)
+        readable = (files.under(f"{FS_BUCKET}/arc/")
+                    + files.under(f"{FS_BUCKET}/keep/") + keep2)
+        got, launches["filer.read_degraded"] = counted(
+            lambda: fs_check_reads(fs_a.url, files, readable, chunk_a, seed,
+                                   ranges=1, per_chunk=True))
+        bal_log("filer.read_degraded", got["seconds"],
+               launches["filer.read_degraded"], lost_shards=list(VICTIMS),
+               volumes=len(arc_vids), **got,
+               gbps=got["bytes"] / got["seconds"] / 1e9)
+
+        def restore() -> None:
+            for vid, sid, url, src, name in dropped:
+                shutil.copy2(aside / name, src)
+                status, out = http.post_json(
+                    f"http://{url}/admin/ec/mount",
+                    {"volume_id": vid, "collection": FS_COLLECTION,
+                     "shard_ids": [sid]})
+                if status != 200:
+                    raise AssertionError(f"restore {vid}.{sid}: {out}")
+            wait_until(lambda: all(len(http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={v}")[1][
+                    "shards"]) == 14 for v in arc_vids),
+                "the lookup lists the restored shards")
+
+        _, launches["filer.restore_shards"] = counted(restore)
+        shutil.rmtree(aside, ignore_errors=True)
+
+        # (14d) the shell's fs.* commands against filer A, then B
+        shell_commands._register_all()
+        env = shell_commands.CommandEnv(Client(master), filer=fs_a.url)
+        env_b = shell_commands.CommandEnv(Client(master), filer=fs_b.url)
+
+        def run(e, *argv):
+            return shell_commands.run_command(e, list(argv))
+
+        def shell() -> dict:
+            t0 = time.perf_counter()
+            ls = run(env, "fs.ls", "-l", FS_BUCKET)
+            du = run(env, "fs.du", FS_BUCKET)
+            want = sum(files.nbytes(f"{FS_BUCKET}/{s}/")
+                       for s in ("arc", "keep", "keep2"))
+            if du["bytes"] != want:
+                raise AssertionError(f"fs.du {du} != {want} bytes")
+            one = files.under(f"{FS_BUCKET}/arc/")[0]
+            if run(env, "fs.cat", one) != files.data(one):
+                raise AssertionError(f"fs.cat {one}")
+            run(env, "fs.mv", f"{FS_BUCKET}/keep", f"{FS_BUCKET}/kept")
+            for p in files.under(f"{FS_BUCKET}/keep/"):
+                files.files[p.replace("/keep/", "/kept/")] = \
+                    files.files.pop(p)
+            moved = fs_check_reads(fs_a.url, files,
+                                   files.under(f"{FS_BUCKET}/kept/"),
+                                   chunk_a, seed, ranges=0)
+            keep2_fids = [c["fid"] for p in keep2
+                          for c in fs_meta(fs_a.url, "lookup",
+                                           path=p)["chunks"]]
+            base = fs_deleted(fs_a)
+            run(env, "fs.rm", "-r", f"{FS_BUCKET}/keep2")
+            freed_s = fs_wait_freed(
+                master, keep2_fids, "keep2/ chunks",
+                done=lambda: fs_deleted(fs_a) - base >= len(keep2_fids))
+            for p in keep2:
+                files.files.pop(p)
+            saved = run(env, "fs.meta.save", "-o",
+                        str(work / "meta.jsonl"), "/buckets")
+            loaded = run(env_b, "fs.meta.load", str(work / "meta.jsonl"))
+            if fs_walk(fs_a.url, "/buckets") != fs_walk(fs_b.url,
+                                                         "/buckets"):
+                raise AssertionError("fs.meta.load: listings differ")
+            return {"secs": time.perf_counter() - t0,
+                    "ls": len(ls["entries"]), "du": du, "moved": moved,
+                    "keep2_chunks_freed": len(keep2_fids),
+                    "freed_s": freed_s, "saved": saved["entries"],
+                    "loaded": loaded["entries"]}
+
+        sh, launches["filer.shell"] = counted(shell)
+        bal_log("filer.shell", sh.pop("secs"), launches["filer.shell"], **sh)
+
+        # (14e) filer A restarted on its sqlite file; the CLI filer on
+        # leveldb2; filer B's super-chunked file deleted
+        def restart() -> dict:
+            nonlocal fs_a
+            t0 = time.perf_counter()
+            before = fs_walk(fs_a.url, "/buckets")
+            fs_a = cl.restart_filer(fs_a)
+            wait_until(lambda: fs_a.watch_messages, "filer A's snapshot")
+            restart_s = time.perf_counter() - t0
+            if fs_walk(fs_a.url, "/buckets") != before:
+                raise AssertionError("the restarted filer lists otherwise")
+            one = files.under(f"{FS_BUCKET}/kept/")[0]
+            if fs_get(fs_a.url, one)[0].data != files.data(one):
+                raise AssertionError(f"after the restart: {one}")
+            port_c = free_port()
+            cli = [sys.executable, "-m", "seaweedfs_torch.cli"]
+            procs.append(subprocess.Popen(
+                cli + ["filer", "-port", str(port_c), "-mserver", master,
+                       "-store", "leveldb2", "-store_path",
+                       str(work / "filer_c")],
+                cwd=str(REPO), stdout=subprocess.DEVNULL,
+                stderr=open(work / "filer_c.log", "wb")))
+            url_c = f"127.0.0.1:{port_c}"
+
+            def up() -> bool:
+                if procs[-1].poll() is not None:
+                    raise AssertionError("the CLI filer exited")
+                try:
+                    return http.get_json(f"http://{url_c}/healthz")[0] == 200
+                except OSError:
+                    return False
+
+            wait_until(up, "the CLI filer", timeout=120)
+            cli_file = "/cli/one.bin"
+            data = files.add(cli_file, chunk_a + 12345)
+            status, _, body = fs_put(url_c, cli_file, data)
+            if status != 201 or fs_get(url_c, cli_file)[0].data != data:
+                raise AssertionError(f"CLI filer: {status} {body!r}")
+            out = subprocess.run(
+                cli + ["shell", "-master", master, "-filer", url_c,
+                       "fs.ls", "/cli"],
+                cwd=str(REPO), capture_output=True, text=True, timeout=120)
+            listed = json.loads(out.stdout.strip().splitlines()[-1])
+            if out.returncode != 0 or listed["entries"] != ["one.bin"]:
+                raise AssertionError(f"shell -filer fs.ls: {out.stderr}")
+            big_fids = [c["fid"] for c in big_data] + \
+                [c["fid"] for c in manifests]
+            base = fs_deleted(fs_b)
+            r = http.request("DELETE", f"http://{fs_b.url}{big}")
+            if r.status != 202:
+                raise AssertionError(f"DELETE {big}: {r.status}")
+            freed_s = fs_wait_freed(
+                master, big_fids, "the big file's chunks",
+                done=lambda: fs_deleted(fs_b) - base >= len(big_fids))
+            return {"restart_s": restart_s, "listed": len(before),
+                    "cli_filer": url_c, "big_chunks_freed": len(big_fids),
+                    "freed_s": freed_s,
+                    "secs": time.perf_counter() - t0}
+
+        re_, launches["filer.restart"] = counted(restart)
+        bal_log("filer.restart", re_.pop("secs"), launches["filer.restart"],
+               **re_)
+    finally:
+        for p in procs:
+            p.terminate()
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        cl.shutdown()
+    if coder_name == "auto":
+        for step, counts in launches.items():
+            others = {k: n for k, n in counts.items()
+                      if k != "gf_apply" and n}
+            if others or (step in FS_CODER_STEPS) != (counts["gf_apply"]
+                                                      > 0):
+                raise AssertionError(f"{step}: launches {counts}")
+    bal_log("filer.summary", time.perf_counter() - t_phase, launches)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5240,6 +5978,9 @@ def main() -> int:
             # phase 13: HA masters, its own cluster
             launches["ha"] = run_ha(WORK / "ha")
             mark("13")
+            # phase 14: the filer and the S3 lifecycle, its own cluster
+            launches["filer"] = run_filer(WORK / "filer")
+            mark("14")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -5274,7 +6015,8 @@ def main() -> int:
         **launches["cluster"], **{
         k: v for k, v in launches["lifecycle"].items()
         if k not in LIFECYCLE_CHECKS}, **launches["mesh"],
-        **launches["balance"], **launches["storage"], **launches["ha"]}
+        **launches["balance"], **launches["storage"], **launches["ha"],
+        **launches["filer"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

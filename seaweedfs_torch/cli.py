@@ -16,6 +16,12 @@ apply:
       ec.encode -volumeId 3 [-collection c]
   python3 -m seaweedfs_torch.cli shell -server localhost:9333 \\
       volume.fix.replication -force
+  python3 -m seaweedfs_torch.cli filer -port 8888 -mserver h1:9333 \\
+      [-store sqlite|memory|leveldb|leveldb2] [-store_path ./filer.db] \\
+      [-chunk_size_mb 8] [-default_replication 000] [-collection c] \\
+      [-meta_log events.jsonl]
+  python3 -m seaweedfs_torch.cli shell -master h1:9333 -filer h:8888 \\
+      fs.ls -l /buckets
   python3 -m seaweedfs_torch.cli compact -dir /data -volumeId 3
   python3 -m seaweedfs_torch.cli backup -server localhost:9333 \\
       -dir /backup -volumeId 3 [-collection c]
@@ -27,7 +33,12 @@ host without a card at the volume server's first EC step (there is no
 CPU fallback); ``-coder numpy``, or ``-coder torch -device cpu`` (the
 kernels' plain versions), run EC on the host. Servers run on an asyncio
 loop until SIGTERM or SIGINT, then stop their background tasks and
-close their stores. ``compact`` vacuums one volume offline (the volume
+close their stores. A filer (``filer``) keeps its namespace in ``-store`` (``sqlite`` at
+``-store_path`` by default; ``leveldb`` and ``leveldb2`` keep a
+directory there; ``memory`` keeps nothing) and cuts uploads into
+``-chunk_size_mb`` chunks; the network stores (``-store_servers``) are
+not ported, and asking for one raises. The shell's ``fs.*`` commands
+need ``-filer``. ``compact`` vacuums one volume offline (the volume
 server must not have it mounted). ``backup`` pulls what a volume gained
 since the local copy's last record from its holder's ``/admin/tail``
 into a replica in ``-dir`` (creating it on the first run); ``fix``
@@ -129,6 +140,23 @@ def cmd_volume(args) -> None:
         store.close()
 
 
+def cmd_filer(args) -> None:
+    from .server.filer_server import run_filer
+    if args.store_servers:
+        raise SystemExit("-store_servers: the network stores are not "
+                         "ported; use sqlite, leveldb, leveldb2 or memory")
+    store_kwargs = {}
+    if args.store in ("sqlite", "leveldb", "leveldb2"):
+        store_kwargs["path"] = args.store_path
+    _serve_until_signalled(lambda: run_filer(
+        args.ip, args.port, args.mserver, store_name=args.store,
+        store_kwargs=store_kwargs,
+        chunk_size=args.chunk_size_mb * 1024 * 1024,
+        default_replication=args.default_replication,
+        default_collection=args.collection,
+        meta_log_path=args.meta_log))
+
+
 def cmd_shell(args) -> None:
     """Admin shell: one-shot `shell <cmd> [args]` or an interactive REPL
     (weed/shell/shell_liner.go)."""
@@ -146,9 +174,16 @@ def cmd_shell(args) -> None:
         argv.append("-dryRun")
     env = CommandEnv(Client(args.server),
                      Geometry(large_block_size=args.ec_large_block,
-                              small_block_size=args.ec_small_block))
+                              small_block_size=args.ec_small_block),
+                     filer=args.filer)
     if argv:
-        print(json.dumps(run_command(env, argv), default=str))
+        out = run_command(env, argv)
+        if isinstance(out, bytes):
+            # fs.cat: the file's bytes, as they are
+            sys.stdout.buffer.write(out)
+            sys.stdout.flush()
+            return
+        print(json.dumps(out, default=str))
         return
     print(f"seaweedfs-torch shell: {len(COMMANDS)} commands; 'help' lists "
           "them, ctrl-d exits", file=sys.stderr)
@@ -290,6 +325,8 @@ def build_parser() -> argparse.ArgumentParser:
     sh.add_argument("-master", "-server", dest="server",
                     default="127.0.0.1:9333",
                     help="the master, or an HA group's comma list")
+    sh.add_argument("-filer", default="",
+                    help="the filer host:port of the fs.* commands")
     sh.add_argument("-volume", type=int, default=0)
     sh.add_argument("-collection", default="")
     sh.add_argument("-dry_run", action="store_true")
@@ -298,6 +335,24 @@ def build_parser() -> argparse.ArgumentParser:
     sh.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="command + args (empty for the REPL)")
     sh.set_defaults(fn=cmd_shell)
+
+    f = sub.add_parser("filer", help="run a filer server")
+    f.add_argument("-ip", default="127.0.0.1")
+    f.add_argument("-port", type=int, default=8888)
+    f.add_argument("-mserver", default="127.0.0.1:9333",
+                   help="the master, or an HA group's comma list")
+    f.add_argument("-store", default="sqlite",
+                   help="metadata store: sqlite | memory | leveldb | "
+                        "leveldb2")
+    f.add_argument("-store_path", default="./filer.db")
+    f.add_argument("-store_servers", default="",
+                   help="host:port of a network store (not ported)")
+    f.add_argument("-chunk_size_mb", type=int, default=8)
+    f.add_argument("-default_replication", default="")
+    f.add_argument("-collection", default="")
+    f.add_argument("-meta_log", default="",
+                   help="path for the persisted metadata event log")
+    f.set_defaults(fn=cmd_filer)
 
     cp = sub.add_parser("compact", help="offline vacuum of one volume")
     cp.add_argument("-dir", default="./data")

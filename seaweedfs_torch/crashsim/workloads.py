@@ -25,13 +25,16 @@ the subsystem on the reconstructed crash tree:
 - raft_snapshot  -- a master's raft state (cluster/raft.py): term, vote,
                     log and the metadata log's snapshot folds, each save
                     a barrier; a crash leaves the last acked state or the
-                    one being saved, never a torn or older file.
+                    one being saved, never a torn or older file;
+- filer_kv       -- the filer's LevelDbStore: KV puts into its flushed
+                    WAL, each segment compaction (temp file, fsync, one
+                    rename) a barrier; every compacted key survives.
 
 The EC workloads take the coder, the geometry and the source size; their
 defaults are the reference's own (RS(3,2) with 8192 / 1024 blocks, a
 41,000-byte .dat, 24 needles, ``NumpyCoder``), so at the defaults they
-ack the reference's bytes. Not ported yet (their modules are not):
-offset_commit and filer_kv.
+ack the reference's bytes. Not ported yet (its module is not):
+offset_commit.
 """
 
 from __future__ import annotations
@@ -523,6 +526,61 @@ def make_raft_workload() -> CrashWorkload:
     return CrashWorkload("raft_snapshot", setup, run, recover)
 
 
+# ------------------------------------------------------------- filer KV
+
+def make_filer_kv_workload() -> CrashWorkload:
+    """The filer's LevelDbStore: KV puts into its WAL, the segment
+    compaction as the durability barrier (the WAL is flushed, not
+    fsynced: a bounded loss by design), an un-compacted tail of
+    candidates only."""
+    from ..filer.leveldb_store import LevelDbStore
+
+    def _store(root):
+        return LevelDbStore(os.path.join(root, "filer.ldb"),
+                            wal_flush_entries=1_000_000)
+
+    def setup(root):
+        st = _store(root)
+        st.kv_put("ring_handoff/v0", b"0")
+        st._compact()
+        st._wal.close()
+
+    def run(root, ack, rng):
+        st = _store(root)
+        ack("ring_handoff/v0", b"0")
+        for rnd in range(1, 5):
+            for j in range(3):
+                key = f"watermark/{rnd}/{j}"
+                val = f"offset-{rnd * 100 + j}".encode()
+                ack.candidate(key, val)
+                st.kv_put(key, val)
+            st._compact()
+            for j in range(3):
+                key = f"watermark/{rnd}/{j}"
+                ack(key, f"offset-{rnd * 100 + j}".encode())
+        for j in range(4):
+            key = f"watermark/tail/{j}"
+            ack.candidate(key, b"x")
+            st.kv_put(key, b"x")
+        st._wal.close()
+
+    def recover(crash_dir):
+        st = _store(crash_dir)
+        out: dict = {}
+        keys = (["ring_handoff/v0"]
+                + [f"watermark/{r}/{j}"
+                   for r in range(1, 5) for j in range(3)]
+                + [f"watermark/tail/{j}" for j in range(4)])
+        for key in keys:
+            v = st.kv_get(key)
+            if v is not None:
+                out[key] = v
+        st._wal.close()
+        return out
+
+    return CrashWorkload("filer_kv", setup, run, recover)
+
+
 def registry() -> list:
     """Fresh workload instances at their defaults (closures hold
     per-recording state)."""
@@ -533,4 +591,5 @@ def registry() -> list:
         make_ec_workload(),
         make_fused_warmdown_workload(),
         make_raft_workload(),
+        make_filer_kv_workload(),
     ]

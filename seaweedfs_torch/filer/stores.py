@@ -1,0 +1,192 @@
+"""FilerStore plugins: the pluggable metadata backend.
+
+The port's reduced copy of seaweedfs_tpu/filer/stores.py. One interface,
+several implementations, as the reference's FilerStore contract
+(weed/filer/filerstore.go:20-43) and its plugin model (a store selected
+by name, weed/filer/configuration.go:14-37):
+
+- ``memory``   : dict-backed (tests, ephemeral filers)
+- ``sqlite``   : stdlib sqlite3 over the abstract-SQL layer
+                 (abstract_sql.py), the CLI filer's default
+- ``leveldb``  : the embedded LSM (leveldb_store.py)
+- ``leveldb2`` : eight LSMs sharded by the parent directory's hash
+                 (leveldb2_store.py)
+
+Each supports the same contract: entry CRUD by full path, ordered
+directory listing with prefix and pagination, a subtree purge, and a KV
+face for system metadata. Asking ``create_store`` for any other name
+(the network stores are not ported) raises the reference's KeyError.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Optional
+
+from .entry import Entry
+
+_STORES: dict[str, Callable[..., "FilerStore"]] = {}
+
+
+def register_store(name: str, factory) -> None:
+    _STORES[name] = factory
+
+
+def create_store(name: str, **kwargs) -> "FilerStore":
+    if name not in _STORES:
+        raise KeyError(f"unknown filer store {name!r}; have {sorted(_STORES)}")
+    return _STORES[name](**kwargs)
+
+
+class FilerStore:
+    name = "base"
+
+    def insert_entry(self, entry: Entry) -> None:
+        raise NotImplementedError
+
+    def update_entry(self, entry: Entry) -> None:
+        raise NotImplementedError
+
+    def find_entry(self, path: str) -> Optional[Entry]:
+        raise NotImplementedError
+
+    def delete_entry(self, path: str) -> None:
+        raise NotImplementedError
+
+    def delete_folder_children(self, path: str) -> None:
+        raise NotImplementedError
+
+    def list_directory_entries(self, dir_path: str, start_file_name: str = "",
+                               include_start: bool = False,
+                               limit: int = 1024,
+                               prefix: str = "") -> list[Entry]:
+        raise NotImplementedError
+
+    def kv_put(self, key: str, value: bytes) -> None:
+        raise NotImplementedError
+
+    def kv_get(self, key: str) -> Optional[bytes]:
+        raise NotImplementedError
+
+    def begin(self) -> None:  # transaction hooks (AtomicRenameEntry)
+        pass
+
+    def commit(self) -> None:
+        pass
+
+    def rollback(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _split(path: str) -> tuple[str, str]:
+    path = path.rstrip("/") or "/"
+    if path == "/":
+        return "", "/"
+    d, _, name = path.rpartition("/")
+    return d or "/", name
+
+
+class MemoryStore(FilerStore):
+    name = "memory"
+
+    def __init__(self, **_):
+        # dir -> {name -> Entry}
+        self._dirs: dict[str, dict[str, Entry]] = {}
+        self._kv: dict[str, bytes] = {}
+        self._lock = threading.RLock()
+        self._snapshot: Optional[dict] = None
+
+    def begin(self) -> None:
+        with self._lock:
+            self._snapshot = {d: dict(names)
+                              for d, names in self._dirs.items()}
+
+    def commit(self) -> None:
+        self._snapshot = None
+
+    def rollback(self) -> None:
+        with self._lock:
+            if self._snapshot is not None:
+                self._dirs = self._snapshot
+                self._snapshot = None
+
+    def insert_entry(self, entry: Entry) -> None:
+        d, name = _split(entry.full_path)
+        with self._lock:
+            self._dirs.setdefault(d, {})[name] = entry
+
+    update_entry = insert_entry
+
+    def find_entry(self, path: str) -> Optional[Entry]:
+        d, name = _split(path)
+        if name == "/":
+            return None
+        with self._lock:
+            return self._dirs.get(d, {}).get(name)
+
+    def delete_entry(self, path: str) -> None:
+        d, name = _split(path)
+        with self._lock:
+            self._dirs.get(d, {}).pop(name, None)
+
+    def delete_folder_children(self, path: str) -> None:
+        path = path.rstrip("/") or "/"
+        with self._lock:
+            doomed = [d for d in self._dirs
+                      if d == path or d.startswith(path + "/")
+                      or (path == "/" and d)]
+            for d in doomed:
+                self._dirs.pop(d, None)
+
+    def list_directory_entries(self, dir_path: str, start_file_name: str = "",
+                               include_start: bool = False,
+                               limit: int = 1024,
+                               prefix: str = "") -> list[Entry]:
+        dir_path = dir_path.rstrip("/") or "/"
+        with self._lock:
+            names = sorted(self._dirs.get(dir_path, {}))
+            out = []
+            for n in names:
+                if prefix and not n.startswith(prefix):
+                    continue
+                if start_file_name:
+                    if n < start_file_name:
+                        continue
+                    if n == start_file_name and not include_start:
+                        continue
+                out.append(self._dirs[dir_path][n])
+                if len(out) >= limit:
+                    break
+            return out
+
+    def kv_put(self, key: str, value: bytes) -> None:
+        self._kv[key] = value
+
+    def kv_get(self, key: str) -> Optional[bytes]:
+        return self._kv.get(key)
+
+
+# the SQL store and the embedded LSMs register lazily: their modules
+# import this one
+def _sqlite(**kw):
+    from .abstract_sql import SqliteStore
+    return SqliteStore(**kw)
+
+
+def _leveldb(**kw):
+    from .leveldb_store import LevelDbStore
+    return LevelDbStore(**kw)
+
+
+def _leveldb2(**kw):
+    from .leveldb2_store import Leveldb2Store
+    return Leveldb2Store(**kw)
+
+
+register_store("memory", MemoryStore)
+register_store("sqlite", _sqlite)
+register_store("leveldb", _leveldb)
+register_store("leveldb2", _leveldb2)

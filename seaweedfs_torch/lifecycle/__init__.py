@@ -17,9 +17,13 @@ The port's reduced copy of seaweedfs_tpu/lifecycle/, in two layers:
    collection expire whole. Transitions are resumable: a crash leaves
    either the original volume or the full shard set, never neither.
 
-Left out: the S3 half (``s3_rules.py`` and the daemon's filer pass,
-which need a filer the port does not have), raft leadership checks (the
-port runs one master) and the overload plane's background priority.
+3. **S3 bucket rules** (s3_rules.py and the daemon's S3 pass): with
+   ``WEED_LIFECYCLE_FILER`` set, each pass walks ``/buckets`` through the
+   filer's ``/__meta__`` API, expires objects past a rule's Expiration
+   and marks those past its Transition ``WARM``, nudging the volumes that
+   hold their chunks into the warm tier on the next pass.
+
+Left out: the overload plane's background priority.
 """
 
 from __future__ import annotations

@@ -25,10 +25,19 @@ the original; shards incomplete: encode again). The fault points
 ``lifecycle.warm``, ``lifecycle.encode``, ``lifecycle.unec`` and
 ``lifecycle.expire`` kill a transition at its worst moment in tests.
 
-Every call to a volume server is an awaited aiohttp call on the master's
-loop. Left out: the overload plane's background priority, spans' trace
-propagation, and the S3 pass (``_s3_pass``, ``_apply_bucket_rules``, ``_apply_object_rules``,
-``_filer_get``/``_filer_post``), which waits for a filer.
+The S3 pass (``_s3_pass``), with ``cfg.filer`` set, runs first in each
+pass: it pages through ``/buckets`` on the filer's ``/__meta__/list``, and
+for a bucket entry whose ``extended`` attribute holds enabled rules
+(s3_rules.py) walks its objects (at most ``cfg.scan_limit`` a pass): one
+past its rule's Expiration days (``cfg.day_seconds`` each) is deleted
+through ``/__meta__/delete`` (the filer frees its chunks), one past its
+Transition days is marked ``WARM`` through ``/__meta__/update_entry`` and
+its chunks' volumes join ``warm_requested``, so the same pass plans their
+warm-down. Each action is recorded as ``s3_expire`` / ``s3_transition``.
+
+Every call to a volume server or the filer is an awaited aiohttp call on
+the master's loop. Left out: the overload plane's background priority
+and spans' trace propagation.
 """
 
 from __future__ import annotations
@@ -45,7 +54,9 @@ import aiohttp
 
 from .. import faults, observe
 from ..shell.ec_commands import collect_ec_nodes, plan_shard_spread
+from ..storage.file_id import FileId
 from . import jittered
+from . import s3_rules
 from .policy import LifecycleConfig, Transition, plan_transitions
 
 log = logging.getLogger("lifecycle")
@@ -130,8 +141,8 @@ class LifecycleDaemon:
         self.recent: deque = deque(maxlen=64)
         self.last_pass = 0.0
         self.passes = 0
-        # vid -> reason: volumes to warm regardless of idleness (the
-        # reference's S3 Transition rules fill it; the port has none)
+        # vid -> reason: volumes to warm regardless of idleness, fed by
+        # S3 Transition rules
         self.warm_requested: dict[int, str] = {}
         self._encode_batcher = _EncodeBatcher(self)
 
@@ -157,6 +168,15 @@ class LifecycleDaemon:
         now = time.time()
         self.last_pass = now
         self.passes += 1
+        s3 = {}
+        if self.cfg.filer:
+            try:
+                s3 = await self._s3_pass(now)
+            except Exception as e:
+                # a bucket's malformed rules must not stall the heat-
+                # and TTL-driven transitions planned below
+                log.warning("lifecycle s3 pass failed: %s", e)
+                s3 = {"error": str(e)}
         topology = self.master.topology
         heat = topology.heat_view(now)
         plan = plan_transitions(topology, heat, self.cfg, now,
@@ -169,7 +189,7 @@ class LifecycleDaemon:
             launched.append({"kind": tr.kind, "volume": tr.vid,
                              "reason": tr.reason})
         self.export_gauges(heat)
-        return {"planned": len(plan), "launched": launched, "s3": {}}
+        return {"planned": len(plan), "launched": launched, "s3": s3}
 
     def moving_vids(self) -> set:
         """Volumes with a transition in flight (the repair daemon leaves
@@ -432,6 +452,118 @@ class LifecycleDaemon:
                 {"volume_id": tr.vid, "collection": tr.collection,
                  "shard_ids": list(range(
                      master.ec_total_shards_for(tr.collection)))})
+
+    # --- S3 bucket rules: Expiration and Transition(WARM), via the filer
+    async def _filer_get(self, path: str, params: dict) -> tuple[int, dict]:
+        async with self.master._maint_http().get(
+                f"http://{self.cfg.filer}{path}", params=params,
+                timeout=aiohttp.ClientTimeout(total=60)) as r:
+            return r.status, await r.json()
+
+    async def _filer_post(self, path: str, body: dict) -> tuple[int, dict]:
+        async with self.master._maint_http().post(
+                f"http://{self.cfg.filer}{path}", json=body,
+                timeout=aiohttp.ClientTimeout(total=60)) as r:
+            return r.status, await r.json()
+
+    async def _s3_pass(self, now: float) -> dict:
+        stats = {"expired": 0, "transitioned": 0, "scanned": 0}
+        # the bucket listing pages too: a rule on bucket 1001 is
+        # enforced like one on bucket 1
+        start = ""
+        while True:
+            status, body = await self._filer_get(
+                "/__meta__/list", {"dir": "/buckets", "start": start,
+                                   "limit": "512"})
+            if status != 200:
+                return stats
+            entries = body.get("entries", [])
+            for bucket_entry in entries:
+                name = bucket_entry["path"].rsplit("/", 1)[-1]
+                if name.startswith("."):
+                    continue
+                raw = (bucket_entry.get("extended") or {}).get(
+                    s3_rules.BUCKET_ATTR)
+                if not raw:
+                    continue
+                rules = [r for r in s3_rules.rules_from_json(raw)
+                         if r.get("status") == "Enabled"]
+                if not rules:
+                    continue
+                with observe.span("lifecycle.s3", tags={"bucket": name}):
+                    await self._apply_bucket_rules(
+                        name, bucket_entry["path"], rules, now, stats)
+            if len(entries) < 512:
+                return stats
+            start = entries[-1]["path"].rsplit("/", 1)[-1]
+
+    async def _apply_bucket_rules(self, bucket: str, base: str,
+                                  rules: list, now: float,
+                                  stats: dict) -> None:
+
+        async def walk(dir_path: str, key_prefix: str) -> None:
+            start = ""
+            while True:
+                if stats["scanned"] >= self.cfg.scan_limit:
+                    # a bounded pass: the rest ages into the next one
+                    log.info("lifecycle s3 scan limit %d hit in %s",
+                             self.cfg.scan_limit, bucket)
+                    return
+                status, body = await self._filer_get(
+                    "/__meta__/list", {"dir": dir_path, "start": start,
+                                       "limit": "512"})
+                entries = body.get("entries", []) if status == 200 else []
+                for e in entries:
+                    name = e["path"].rsplit("/", 1)[-1]
+                    if bool(e.get("attr", {}).get("mode", 0) & 0o40000):
+                        await walk(e["path"], key_prefix + name + "/")
+                        continue
+                    stats["scanned"] += 1
+                    await self._apply_object_rules(
+                        bucket, key_prefix + name, e, rules, now, stats)
+                if len(entries) < 512:
+                    return
+                start = entries[-1]["path"].rsplit("/", 1)[-1]
+
+        await walk(base, "")
+
+    async def _apply_object_rules(self, bucket: str, key: str, entry: dict,
+                                  rules: list, now: float,
+                                  stats: dict) -> None:
+        mtime = float(entry.get("attr", {}).get("mtime", 0) or 0)
+        age = now - mtime if mtime else 0.0
+        for rule in rules:
+            prefix = rule.get("prefix") or ""
+            if prefix and not key.startswith(prefix):
+                continue
+            exp = rule.get("expire_days")
+            if exp is not None and age >= exp * self.cfg.day_seconds:
+                await self._filer_post("/__meta__/delete",
+                                       {"path": entry["path"]})
+                self._record("s3_expire", f"{bucket}/{key}", "ok")
+                stats["expired"] += 1
+                return  # the entry is gone; no further rule applies
+            tdays = rule.get("transition_days")
+            ext = entry.get("extended") or {}
+            if (tdays is not None
+                    and age >= tdays * self.cfg.day_seconds
+                    and ext.get(s3_rules.STORAGE_CLASS_ATTR)
+                    != s3_rules.WARM_CLASS):
+                ext[s3_rules.STORAGE_CLASS_ATTR] = s3_rules.WARM_CLASS
+                entry["extended"] = ext
+                await self._filer_post("/__meta__/update_entry",
+                                       {"entry": entry})
+                # the warm tier is volume-grained: every volume holding
+                # one of the object's chunks warms down whole
+                for c in entry.get("chunks", []):
+                    try:
+                        vid = FileId.parse(c["fid"]).volume_id
+                    except (KeyError, ValueError):
+                        continue
+                    self.warm_requested.setdefault(
+                        vid, f"s3 transition {bucket}/{prefix or '*'}")
+                self._record("s3_transition", f"{bucket}/{key}", "ok")
+                stats["transitioned"] += 1
 
     # --- observability ---
     def export_gauges(self, heat_view: Optional[dict] = None) -> None:

@@ -13,8 +13,8 @@ Rules, all tuned by WEED_LIFECYCLE_* env knobs (see LifecycleConfig):
   max(last_access, first_seen)) is sealed and warmed down into the
   14-shard EC tier: the manual ``ec.encode`` / ``ec.warmdown`` flow made
   time-driven. ``warm_requested`` (vid -> reason) nudges volumes there
-  regardless of idleness; the reference fills it from S3 Transition
-  rules, which wait for a filer in the port, so it is empty there.
+  regardless of idleness: the daemon's S3 pass fills it from bucket
+  Transition rules (the volumes holding a transitioned object's chunks).
 * warm -> hot: an EC volume whose decayed read rate reaches
   WEED_LIFECYCLE_HOT_READ_RATE (reads/s; 0 disables) is decoded back to
   a normal volume (``ec.decode``).
@@ -66,13 +66,13 @@ class LifecycleConfig:
     warm_after: float = 0.0          # WEED_LIFECYCLE_WARM_AFTER (0=off)
     hot_read_rate: float = 0.0       # WEED_LIFECYCLE_HOT_READ_RATE (0=off)
     interval: float = 60.0           # WEED_LIFECYCLE_INTERVAL
-    # WEED_LIFECYCLE_FILER: the S3 rules' filer; the port's daemon has
-    # no S3 pass yet and logs that it waits for one
-    filer: str = ""
+    filer: str = ""                  # WEED_LIFECYCLE_FILER (S3 rules)
+    day_seconds: float = 86400.0     # WEED_LIFECYCLE_DAY_SECONDS
     full_fraction: float = 0.9       # WEED_LIFECYCLE_FULL_FRACTION
     ttl_grace: float = 60.0          # WEED_LIFECYCLE_TTL_GRACE
     collection_ttls: dict[str, float] = field(default_factory=dict)
     heat_export_top: int = 64        # WEED_LIFECYCLE_HEAT_EXPORT_TOP
+    scan_limit: int = 10000          # WEED_LIFECYCLE_S3_SCAN_LIMIT
     force_enabled: Optional[bool] = None  # WEED_LIFECYCLE_ENABLED override
     # WEED_EC_FUSED (default on): warm transitions use the one-pass
     # fused warm-down (compact + gzip + encode + digest, ec/fused.py)
@@ -101,6 +101,9 @@ class LifecycleConfig:
             interval=max(parse_duration(
                 env.get("WEED_LIFECYCLE_INTERVAL", "60"), 60.0), 0.05),
             filer=env.get("WEED_LIFECYCLE_FILER", ""),
+            day_seconds=max(parse_duration(
+                env.get("WEED_LIFECYCLE_DAY_SECONDS", "86400"),
+                86400.0), 0.001),
             full_fraction=float(
                 env.get("WEED_LIFECYCLE_FULL_FRACTION", "0.9") or 0.9),
             ttl_grace=parse_duration(
@@ -109,6 +112,8 @@ class LifecycleConfig:
                 env.get("WEED_LIFECYCLE_COLLECTION_TTL", "")),
             heat_export_top=int(
                 env.get("WEED_LIFECYCLE_HEAT_EXPORT_TOP", "64") or 64),
+            scan_limit=int(
+                env.get("WEED_LIFECYCLE_S3_SCAN_LIMIT", "10000") or 10000),
             force_enabled=(None if force == ""
                            else force not in ("0", "false", "no")),
             ec_fused=env.get("WEED_EC_FUSED", "1") not in ("0", "false",

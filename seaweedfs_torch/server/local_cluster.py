@@ -26,8 +26,12 @@ leads now, ``wait_for_leader`` waits for one; ``stop_master(i)`` stops
 master i as a crash would leave it to its peers (raft first, then its
 listener), ``restart_master(i)`` starts it again on its directory and
 port. Raft's timings go in ``master_kwargs`` (``election_timeout``,
-``raft_heartbeat``). The callers drive the cluster synchronously, from
-their own threads, through the port's client.
+``raft_heartbeat``). ``add_filer(store_name=, chunk_size=,
+store_kwargs=, port=)`` starts a filer (server/filer_server.py) against
+the masters (after tests/cluster_util.py's ``add_filer``),
+``restart_filer(fs)`` starts it again on its port and store (a process
+restart), ``stop_filer(fs)`` stops it. The callers drive the cluster
+synchronously, from their own threads, through the port's client.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Optional
 from ..ec.geometry import DEFAULT, Geometry
 from ..storage.store import Store
 from . import http
+from .filer_server import run_filer
 from .master import run_master
 from .volume_server import run_volume_server
 
@@ -84,6 +89,8 @@ class LocalCluster:
         self.nodes: list[list] = []
         self._stopped_urls: dict[int, str] = {}
         self.master = self.master_runner = None
+        # filer -> [its runner, its port, its constructor's kwargs]
+        self.filers: dict = {}
         # per master: [server, runner, port, its constructor's kwargs]
         self.master_slots: list[list] = []
         try:
@@ -255,8 +262,41 @@ class LocalCluster:
                 raise TimeoutError(f"the master did not list {n} nodes")
             time.sleep(0.05)
 
+    def add_filer(self, store_name: str = "memory",
+                  chunk_size: int = 16 * 1024,
+                  store_kwargs: Optional[dict] = None, port: int = 0,
+                  **kwargs):
+        """Start a filer on `port` (0: a free one) with the named store
+        (a sqlite or leveldb store's ``path`` goes in `store_kwargs`);
+        returns it (``fs.url`` is host:port)."""
+        kwargs = dict(kwargs, store_name=store_name, chunk_size=chunk_size,
+                      store_kwargs=store_kwargs)
+        fs, runner = self.call(run_filer("127.0.0.1", port,
+                                         self.master_url, **kwargs))
+        self.filers[fs] = [runner, int(fs.url.rsplit(":", 1)[1]), kwargs]
+        return fs
+
+    def stop_filer(self, fs) -> None:
+        """Stop a filer: its listener, its tasks, then its store."""
+        runner = self.filers[fs][0]
+        if runner is not None:
+            self.call(runner.cleanup())
+            self.filers[fs][0] = None
+
+    def restart_filer(self, fs):
+        """Stop `fs` and start a new filer on its port and its store, as
+        a process restart would; returns the new one."""
+        self.stop_filer(fs)
+        _, port, kwargs = self.filers.pop(fs)
+        new, runner = self.call(run_filer("127.0.0.1", port,
+                                          self.master_url, **kwargs))
+        self.filers[new] = [runner, port, kwargs]
+        return new
+
     def shutdown(self) -> None:
         try:
+            for fs in list(self.filers):
+                self.stop_filer(fs)
             for i in range(len(self.nodes)):
                 self.stop_volume_server(i)
             for i in range(len(self.master_slots)):

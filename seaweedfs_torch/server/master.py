@@ -22,6 +22,7 @@ application with the reference's wire:
   GET  /balance/status, POST /balance/run
   POST /cluster/lock, /cluster/unlock   (the admin lease)
   GET  /cluster/status     (is_leader, leader, peers, raft_term)
+  GET  /cluster/watch      (ndjson: a location snapshot, then deltas)
   POST /cluster/raft/vote, /cluster/raft/append   (raft, peers only)
   GET  /healthz, /metrics
 
@@ -92,15 +93,26 @@ an election timeout (``RaftNode.lease_valid``):
 Every call of the master to a volume server or a peer is an awaited
 aiohttp client call, so masters and volume servers share a loop safely.
 
-Left out: the filer ring and its raft commands, ``KvSequencer``, geo, the
-lifecycle's S3 rules, collection deletion, the watch stream
-(``/cluster/watch``) and the gRPC leader hints, guard/JWT, the overload
-plane's priorities, the fastpath listener and gRPC.
+The watch stream (KeepConnected's location half, upstream
+weed/server/master_grpc_server.go:178-233): ``GET /cluster/watch`` sends
+a snapshot of every volume's holders (normal and EC), then one
+``update`` line ({url, new_vids, deleted_vids}) per heartbeat or prune
+that changed a node's set. A subscriber that falls
+``watch_queue_depth`` lines behind is dropped with a ``resync`` line and
+redials for a snapshot. Followers answer it with a 307 to the leader.
+The filer's vid cache follows it.
+
+Left out: the filer ring and its raft commands (with the watch stream's
+``ring`` lines), the KeepConnected push to clients and volume servers,
+``KvSequencer``, geo, collection deletion, the gRPC leader hints,
+guard/JWT, the overload plane's priorities, the fastpath listener and
+gRPC.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import os
 import time
@@ -134,7 +146,9 @@ MAX_BODY = 64 * 1024 * 1024
 
 # the routes every master answers itself; a follower proxies every other
 # request to the leader (proxyToLeader, weed/server/master_server.go:156)
-_LOCAL_PATHS = ("/healthz", "/metrics", "/cluster/status",
+# (/cluster/watch streams: a follower answers it with a 307 to the leader
+# rather than buffer the stream through its proxy)
+_LOCAL_PATHS = ("/healthz", "/metrics", "/cluster/status", "/cluster/watch",
                 "/cluster/raft/vote", "/cluster/raft/append")
 
 
@@ -241,6 +255,9 @@ class MasterServer:
         # planner's node rates also make /dir/assign heat-aware
         self.balancer = BalancerDaemon(
             self, balance_config or BalanceConfig.from_env())
+        # the watch stream's subscriber queues, each bounded
+        self.watch_queue_depth = 1024
+        self._watchers: set = set()
         self.app = self._build_app()
 
     # --- the replicated state machine ---
@@ -310,6 +327,7 @@ class MasterServer:
         app.router.add_post("/cluster/lock", self.cluster_lock)
         app.router.add_post("/cluster/unlock", self.cluster_unlock)
         app.router.add_get("/cluster/status", self.cluster_status)
+        app.router.add_get("/cluster/watch", self.cluster_watch)
         app.router.add_post("/cluster/raft/vote", self.raft_vote)
         app.router.add_post("/cluster/raft/append", self.raft_append)
         app.router.add_get("/metrics", self.metrics_handler)
@@ -337,10 +355,6 @@ class MasterServer:
         if self.balancer.cfg.enabled:
             self._tasks.append(
                 asyncio.create_task(self.balancer.run_loop()))
-        if self.lifecycle.cfg.filer:
-            log.info("lifecycle: the S3 rules wait for a filer, which "
-                     "the port does not have; %s is not scanned",
-                     self.lifecycle.cfg.filer)
 
     async def _on_cleanup(self, app) -> None:
         tasks = (self._tasks + list(self._repair_tasks)
@@ -359,6 +373,9 @@ class MasterServer:
 
     async def _on_shutdown(self, app) -> None:
         await self.raft.stop()
+        # end the watch streams: their subscribers redial another master
+        for q in list(self._watchers):
+            self._push(q, None)
 
     async def leader_ready(self) -> bool:
         """The gate of every leader-only pass: this master leads, has led
@@ -502,6 +519,7 @@ class MasterServer:
         for ev in self.topology.prune_dead_nodes():
             self.metrics.count("dead_nodes_pruned")
             log.info("pruned dead node %s", ev["url"])
+            self._broadcast_location(ev)
         if not self.repair_enabled:
             return
         if self.daemons_paused():
@@ -1180,7 +1198,7 @@ class MasterServer:
         return web.json_response(self.apply_heartbeat(await request.json()))
 
     def apply_heartbeat(self, body: dict) -> dict:
-        self.topology.register_heartbeat(
+        event = self.topology.register_heartbeat(
             node_id=body["node_id"],
             url=body["url"],
             public_url=body.get("public_url", body["url"]),
@@ -1191,6 +1209,7 @@ class MasterServer:
         # a key a volume holds above the replicated counter (a cold start
         # over existing volumes) is logged as a floor
         self._maybe_propose_floor(body.get("max_file_key", 0))
+        self._broadcast_location(event)
         return {"volume_size_limit": self.topology.volume_size_limit,
                 "leader": self.raft.leader_id or ""}
 
@@ -1326,6 +1345,88 @@ class MasterServer:
 
     async def healthz(self, request: web.Request) -> web.Response:
         return web.json_response({"ok": True})
+
+    # --- the watch stream (KeepConnected's location half,
+    #     weed/server/master_grpc_server.go:178-233,
+    #     wdclient/masterclient.go) ---
+    @staticmethod
+    def _push(q: asyncio.Queue, msg: Optional[dict]) -> None:
+        """Queue `msg`, dropping the oldest line when full, so a closing
+        marker always fits."""
+        try:
+            q.put_nowait(msg)
+        except asyncio.QueueFull:
+            try:
+                q.get_nowait()
+            except asyncio.QueueEmpty:
+                pass
+            q.put_nowait(msg)
+
+    def _broadcast_location(self, event: Optional[dict]) -> None:
+        """Push a location delta to every subscriber. A subscriber whose
+        queue is full is dropped with a trailing ``resync`` line: deltas
+        are incremental, so a skipped one would leave its cache wrong,
+        while a redial fetches a fresh snapshot."""
+        if not event or (not event["new_vids"]
+                         and not event["deleted_vids"]):
+            return
+        msg = dict(event)
+        msg["type"] = "update"
+        for q in list(self._watchers):
+            try:
+                q.put_nowait(msg)
+            except asyncio.QueueFull:
+                self._watchers.discard(q)
+                self.metrics.count("watchers_overflowed")
+                self._push(q, {"type": "resync"})
+
+    def _location_snapshot(self) -> dict:
+        """Every volume's holders, normal and EC: the stream's first
+        line."""
+        vols: dict[str, list] = {}
+        for node in self.topology.nodes.values():
+            for vid in node.volumes:
+                vols.setdefault(str(vid), []).append(
+                    {"url": node.url, "publicUrl": node.public_url})
+            for vid in node.ec_shards:
+                entry = {"url": node.url, "publicUrl": node.public_url}
+                if entry not in vols.setdefault(str(vid), []):
+                    vols[str(vid)].append(entry)
+        return {"type": "snapshot", "volumes": vols,
+                "leader": self.raft.leader_id or ""}
+
+    async def cluster_watch(self, request: web.Request
+                            ) -> web.StreamResponse:
+        """A long-lived JSON-lines stream of location deltas; followers
+        answer with a 307 to the leader (they get no heartbeats)."""
+        if not self.raft.is_leader:
+            leader = self.raft.leader_id
+            if not leader or leader == self.raft.id:
+                return _error("no leader elected", 503)
+            raise web.HTTPTemporaryRedirect(
+                location=f"http://{leader}/cluster/watch")
+        resp = web.StreamResponse(
+            headers={"Content-Type": "application/x-ndjson"})
+        await resp.prepare(request)
+        q: asyncio.Queue = asyncio.Queue(maxsize=self.watch_queue_depth)
+        self._watchers.add(q)
+        try:
+            await resp.write(
+                json.dumps(self._location_snapshot()).encode() + b"\n")
+            while True:
+                msg = await q.get()
+                if msg is None:
+                    break
+                await resp.write(json.dumps(msg).encode() + b"\n")
+                if msg.get("type") == "resync":
+                    # the broadcaster dropped this subscriber: end the
+                    # stream so it redials for a snapshot
+                    break
+        except (ConnectionResetError, asyncio.CancelledError):
+            pass
+        finally:
+            self._watchers.discard(q)
+        return resp
 
     async def metrics_handler(self, request: web.Request) -> web.Response:
         return web.Response(

@@ -10,11 +10,13 @@ shell/ec_shell.py), ``volume.list``, the hot tier's
 ``volume.fix.replication``, ``volume.copy``, ``volume.delete``,
 ``volume.configure.replication`` and ``volume.mark``, and the lifecycle
 plane's ``volume.heat``, ``lifecycle.status`` and ``lifecycle.run``
-(shell/volume_commands.py), and the balancer's
-``cluster.balance.status`` and ``cluster.balance.run``
-(shell/balance_commands.py); the other command modules of
-the reference (fs, buckets, locks, geo, the ring, telemetry, traces and
-the rest of the volume commands) are not ported. A command that moves
+(shell/volume_commands.py), the balancer's ``cluster.balance.status``
+and ``cluster.balance.run`` (shell/balance_commands.py), and the filer
+namespace's ``fs.*`` commands (shell/fs_commands.py), which talk to the
+filer that ``CommandEnv(filer=)`` names (shell ``-filer``) and resolve
+relative paths against ``env.cwd``; the other command modules of the
+reference (buckets, locks, geo, the ring, telemetry, traces and the rest
+of the volume commands) are not ported. A command that moves
 volumes (``destructive``) runs under the master's cluster-exclusive admin
 lock (client.AdminLock), taken and released around it; the reference's
 ``lock``/``unlock`` commands, which hold it across commands, are not
@@ -25,9 +27,10 @@ from __future__ import annotations
 
 import argparse
 import shlex
+import urllib.parse
 from typing import Callable
 
-from ..client import Client, ClientError
+from ..client import Client, ClientError, _get_json, _post_json
 
 COMMANDS: dict[str, "ShellCommand"] = {}
 
@@ -57,10 +60,42 @@ def command(name: str, help_text: str, destructive: bool = False):
 class CommandEnv:
     """Shared state across shell commands (weed/shell/commands.go:28-33)."""
 
-    def __init__(self, client: Client, geometry=None):
+    def __init__(self, client: Client, geometry=None, filer: str = ""):
         from ..ec.geometry import DEFAULT
         self.client = client
         self.geometry = geometry or DEFAULT
+        self.filer = filer.rstrip("/")
+        self.cwd = "/"
+
+    # --- the filer's meta API, for the fs.* commands ---
+    def filer_get(self, path: str, params: dict) -> dict:
+        """GET a filer meta route; an error status raises ClientError."""
+        qs = urllib.parse.urlencode(params)
+        out = _get_json(f"http://{self.filer}{path}?{qs}", timeout=60)
+        if "error" in out:
+            raise ClientError(f"GET {path}: {out['error']}")
+        return out
+
+    def filer_post(self, path: str, body: dict) -> dict:
+        return _post_json(f"http://{self.filer}{path}", body)
+
+    def resolve(self, path: str) -> str:
+        """A possibly relative filer path against the shell's cwd, with
+        "." and ".." folded."""
+        if not path or path == ".":
+            return self.cwd
+        if not path.startswith("/"):
+            path = f"{self.cwd.rstrip('/')}/{path}"
+        parts: list[str] = []
+        for seg in path.split("/"):
+            if seg in ("", "."):
+                continue
+            if seg == "..":
+                if parts:
+                    parts.pop()
+                continue
+            parts.append(seg)
+        return "/" + "/".join(parts)
 
 
 def parser(prog: str) -> argparse.ArgumentParser:
@@ -90,4 +125,5 @@ def volume_list(env: CommandEnv, argv: list[str]):
 def _register_all() -> None:
     """Import every command module for its registration side effects
     (upstream does the same through init() imports, commands.go:42)."""
-    from . import balance_commands, ec_shell, volume_commands  # noqa: F401
+    from . import (balance_commands, ec_shell, fs_commands,  # noqa: F401
+                   volume_commands)

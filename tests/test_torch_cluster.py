@@ -1304,7 +1304,10 @@ def test_shell_registry():
         "volume.copy", "volume.delete", "volume.configure.replication",
         "volume.mark", "volume.heat", "lifecycle.status",
         "lifecycle.run", "cluster.balance.status", "cluster.balance.run",
-        "volume.tier.upload", "volume.tier.download"}
+        "volume.tier.upload", "volume.tier.download",
+        "fs.pwd", "fs.cd", "fs.ls", "fs.du", "fs.cat", "fs.mv", "fs.rm",
+        "fs.mkdir", "fs.tree", "fs.meta.cat", "fs.meta.save",
+        "fs.meta.load"}
 
 
 # --- the HTTP layer --------------------------------------------------------

@@ -5,7 +5,7 @@ holds the reference's.
 Shim and replay mechanics (round trip, dropped or torn un-synced writes,
 revocable renames), the negative control (the sweep flags a non-durable
 writer), the sweep over the port's workloads with zero violations
-(raft_snapshot beside the reference's),
+(raft_snapshot and filer_kv beside the reference's),
 torn-tail volume recovery, the disk.* fault points; then the port's own
 seams (the EC fan-out's os.writev writer threads, a deferred close of a
 pinned shard) and two cases against the reference: one op log replayed by
@@ -184,10 +184,12 @@ def _stream_ec_workload():
                                   wl.make_fused_warmdown_workload,
                                   _stream_ec_workload,
                                   wl.make_group_commit_workload,
-                                  wl.make_needle_map_workload],
+                                  wl.make_needle_map_workload,
+                                  wl.make_filer_kv_workload],
                          ids=["volume_append", "ec_encode",
                               "fused_warmdown", "ec_encode_stream",
-                              "volume_group_commit", "needle_map_flush"])
+                              "volume_group_commit", "needle_map_flush",
+                              "filer_kv"])
 def test_subsystem_sweep_zero_violations(make):
     """Per-subsystem power-loss sweep: every acked write survives, no
     corrupt state loads silently, recovery converges."""
@@ -206,12 +208,13 @@ def test_sweep_all_counts_points():
     assert summary["total_points"] == 3
     assert list(summary["workloads"]) == ["volume_append"]
     summary = harness.sweep_all(seeds=2, points=2)
-    assert sorted(summary["workloads"]) == ["ec_encode", "fused_warmdown",
+    assert sorted(summary["workloads"]) == ["ec_encode", "filer_kv",
+                                            "fused_warmdown",
                                             "needle_map_flush",
                                             "raft_snapshot",
                                             "volume_append",
                                             "volume_group_commit"]
-    assert summary["total_points"] == 24 and summary["ok"]
+    assert summary["total_points"] == 28 and summary["ok"]
 
 
 @pytest.mark.parametrize("package", ["reference", "port"])
@@ -454,7 +457,23 @@ def test_both_replays_build_identical_trees(tmp_path):
         assert _tree(mine) == _tree(theirs), crash
 
 
-@pytest.mark.parametrize("name", ["ec_encode", "fused_warmdown"])
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_filer_kv_sweep_has_no_violations(package):
+    """filer_kv (the filer's LevelDbStore: KV puts in its flushed WAL,
+    each segment compaction a barrier) at 2 seeds x 20 crash points:
+    zero violations in the port, beside the reference's sweep of its
+    own workload of that name."""
+    run = harness if package == "port" else rharness
+    summary = run.sweep_all(seeds=2, points=20,
+                            workload_names=["filer_kv"])
+    assert list(summary["workloads"]) == ["filer_kv"]
+    assert summary["ok"], summary
+    assert summary["total_points"] == 40
+    assert summary["total_violations"] == 0
+
+
+@pytest.mark.parametrize("name", ["ec_encode", "fused_warmdown",
+                                  "filer_kv"])
 def test_workloads_ack_the_reference_bytes(tmp_path, name):
     """The port's EC workloads at their defaults ack the reference's
     bytes: one source tree (the port's setup), copied, each package's run
@@ -476,7 +495,11 @@ def test_workloads_ack_the_reference_bytes(tmp_path, name):
             w.run(str(root), log, random.Random(1))
         acks[root.name] = [(key, value) for _m, _s, key, value in log.acks]
     assert acks["p"] == acks["r"]
-    assert any(key == "ecm" for key, _ in acks["p"])
+    if name == "filer_kv":
+        # every compacted watermark is acked, the WAL tail is not
+        assert len(acks["p"]) == 13
+    else:
+        assert any(key == "ecm" for key, _ in acks["p"])
 
 
 def test_group_commit_log_replays_identically_in_both(tmp_path,

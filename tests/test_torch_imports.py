@@ -100,7 +100,24 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.storage.volume_backup",
                  "seaweedfs_torch.s3",
                  "seaweedfs_torch.s3.sigv4",
-                 "seaweedfs_torch.cli"):
+                 "seaweedfs_torch.cli",
+                 "seaweedfs_torch.cache",
+                 "seaweedfs_torch.cache.ttl",
+                 "seaweedfs_torch.cache.singleflight",
+                 "seaweedfs_torch.filer",
+                 "seaweedfs_torch.filer.chunks",
+                 "seaweedfs_torch.filer.entry",
+                 "seaweedfs_torch.filer.stores",
+                 "seaweedfs_torch.filer.abstract_sql",
+                 "seaweedfs_torch.filer.leveldb_store",
+                 "seaweedfs_torch.filer.leveldb2_store",
+                 "seaweedfs_torch.filer.filer",
+                 "seaweedfs_torch.filer.manifest",
+                 "seaweedfs_torch.filer.assign_lease",
+                 "seaweedfs_torch.filer.upload_window",
+                 "seaweedfs_torch.server.filer_server",
+                 "seaweedfs_torch.lifecycle.s3_rules",
+                 "seaweedfs_torch.shell.fs_commands"):
         assert name in result["names"]
     assert result["forbidden"] == []
 
@@ -131,7 +148,8 @@ SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
                   *PORT.glob("cluster/*.py"),
                   *PORT.glob("topology/*.py"), *PORT.glob("lifecycle/*.py"),
                   *PORT.glob("balance/*.py"), *PORT.glob("clustersim/*.py"),
-                  *PORT.glob("metaring/*.py"), PORT / "utils" / "retry.py",
+                  *PORT.glob("metaring/*.py"), *PORT.glob("filer/*.py"),
+                  *PORT.glob("cache/*.py"), PORT / "utils" / "retry.py",
                   PORT / "client.py",
                   PORT / "cli.py", PORT / "utils" / "multipart.py",
                   PORT / "storage" / "file_id.py"])

@@ -297,10 +297,6 @@ def test_vacuuming_volume_never_warms(clock):
                                     10.0) == []
 
 
-# the reference's knobs of the S3 pass, which waits for a filer
-S3_KNOBS = ("day_seconds", "scan_limit")
-
-
 @pytest.mark.parametrize("env", [
     {},
     {"WEED_LIFECYCLE_WARM_AFTER": "15m", "WEED_LIFECYCLE_INTERVAL": "30s",
@@ -314,10 +310,8 @@ S3_KNOBS = ("day_seconds", "scan_limit")
 def test_config_from_env_matches_reference(env):
     r = rlc.LifecycleConfig.from_env(env)
     p = plc.LifecycleConfig.from_env(env)
-    # the port has no S3 pass, and so none of its knobs
-    assert {k: v for k, v in asdict(r).items() if k not in S3_KNOBS} \
-        == asdict(p)
-    assert not set(S3_KNOBS) & set(asdict(p))
+    # every knob, the S3 pass's day_seconds and scan_limit included
+    assert asdict(r) == asdict(p)
     assert r.enabled == p.enabled
     for s in ("", "90", "90s", "15m", "6h", "7d", "x", "3.5m"):
         assert rlc.parse_duration(s, 1.0) == plc.parse_duration(s, 1.0)
