@@ -209,16 +209,18 @@ Phases (any failure exits non-zero before the result line):
    lifecycle daemon whose rules fire later than the phase lasts, and the
    balancer (``WEED_BALANCE_INTERVAL=1``, cooldown 30 s; heat half-life
    2 s), 4 volume servers on 2 racks (``Store(coder_name="auto")``, pulse
-   0.5 s), volume size limit 96 MiB (256 MiB before phase 12, 192 MiB
-   before phase 13, 160 MiB before phase 14), default replication
+   0.5 s), volume size limit 64 MiB (256 MiB before phase 12, 192 MiB
+   before phase 13, 160 MiB before phase 14, 96 MiB before phase 15),
+   default replication
    ``010``,
    ``WEED_VOLUME_GROUP_COMMIT_US=2000``. Under the operator's admin lease
    (no daemon moves anything meanwhile): (11a) 64 clients upload phase
    3's generator's needles (log-uniform 1 KiB .. 64 KiB; 16 keys per
    assign) until four volumes are full: uploads/s, acknowledgement
    p50/p99 and fsyncs per upload (``os.fsync`` counted); then, into a
-   fifth volume, about 2000 uploads with group commit off and about 2000
-   with it on (4000 each before phase 14), side by side; every acknowledged needle read back from
+   fifth volume, about 1500 uploads with group commit off and about 1500
+   with it on (4000 each before phase 14, 2000 before phase 15), side
+   by side; every acknowledged needle read back from
    both holders' stores. (11b) read repair on the fifth volume: a byte
    flipped in one holder's copy of a needle reads back good from that
    holder, ``read_crc_repair`` and ``read_repair`` grow by one and the
@@ -266,7 +268,8 @@ Phases (any failure exits non-zero before the result line):
    the segment, ``ec_fused_generate`` on the card, the 24 shards and the
    decoded compacted .dat equal by sha256 to a ``memory`` copy's;
    (12c) a ``LocalCluster`` of 2 volume servers at ``-index leveldb``:
-   32 MiB (64 MiB before phase 13) uploaded by 8 HTTP clients (5%
+   16 MiB (64 MiB before phase 13, 32 MiB before phase 15) uploaded by
+   8 HTTP clients (5%
    deleted), CLI ``backup``, 500
    uploads and 100 deletes, ``backup`` again applying exactly those 600
    records, the live set equal, and equal again after ``fix`` of the
@@ -278,7 +281,7 @@ Phases (any failure exits non-zero before the result line):
    the watchdog (``min_free_space_percent=101`` on one server seals its
    volumes, uploads go to the other; back at 0 only its own seal lifts,
    an operator's seal and D9's watchdog-sealed then ec-generated volume
-   stay); ``/admin/vacuum/compact`` on a 32 MiB volume 30% deleted,
+   stay); ``/admin/vacuum/compact`` on a 16 MiB volume 30% deleted,
    first at no rate (then cleaned up), then at a
    ``compaction_byte_per_second`` planned for twice that copy's wall: at
    least bytes/rate of wall, 4 HTTP readers meanwhile, none waiting
@@ -359,6 +362,43 @@ Phases (any failure exits non-zero before the result line):
    deleted: its 1280 data chunks and its manifest freed. ``gf_apply``
    must launch in 14b (the warm-downs) and 14c (the degraded reads), and
    in no other step of the phase;
+15. (run after 14) the filer ring, in its own ``LocalCluster``: a master
+   whose lifecycle daemon scans filer A (as in 14), 4 volume servers on
+   2 racks (``Store(coder_name="auto")``, 64 MiB volumes), and three
+   filers on ``sqlite`` at 8 MiB chunks in one ring (64 vnodes, 2
+   replicas): A in this process, B and C each ``python3 -m
+   seaweedfs_torch.cli filer -ring_peers ...``; the membership set
+   through ``/dir/ring/join``. (15a) 16 clients in 4 processes create
+   8000 metadata-only entries in 400 directories (20000 in 1000 before
+   its first full runs) through
+   ``/__meta__/create_entry``, each op to a random member (about 2/3
+   proxied), while a fifth process PUTs 96 MiB of phase 3's generator's
+   files (log-uniform 1 KiB .. 8 MiB) under ``/buckets/ring/arc/``
+   through random members; an op a member refuses goes again to
+   another, a member that refuses connections is dropped by the client;
+   creates/s and p50/p99 at the owner and proxied, upload GB/s. (15b) C
+   killed (SIGKILL) once 40% of the creates are acknowledged and removed
+   with shell ``filer.ring.leave``: seconds from the kill to the last op
+   a live member refused; once the survivors' handoff is done, every
+   acknowledged entry looked up through each survivor (0 lost) and
+   every acknowledged file read back by sha256. (15c) C restarted on
+   its store and joined again with shell ``filer.ring.join``; A's
+   handoff of the join runs under the ``ring.handoff`` fault, armed
+   once A has moved a third of its directories: it fails; cleared, a
+   rerun resumes after the watermark (the directories it skipped
+   printed, and exactly those after it moved); C's own store holds every
+   acknowledged entry of each directory whose replica set it is in;
+   shell ``filer.ring.status`` equals ``/dir/ring``. (15d) a recursive
+   delete of a tree across partitions (no member's store keeps an entry
+   or a child of it, every chunk freed) and a rename across partitions
+   (every moved file read back by sha256, the old paths 404); an entry
+   cached by the member outside its replica set and changed through its
+   owner is seen there within 1 s, long before the 5 s TTL. (15e) a
+   bucket rule warms ``arc/`` down to the EC tier on the card; with
+   shards {0, 3, 7, 12} of each warm volume dropped, every ``arc/`` file
+   read through the member outside its directory's replica set (p50/p99
+   per file). ``gf_apply`` must launch in 15e's warm-down and degraded
+   reads, and in no other step of the phase;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -377,8 +417,9 @@ Phases (any failure exits non-zero before the result line):
    mma.sync, whose time is ``mma_sync_ms``), whose bound counts the
    int8 operations the function needs (the GF product and the repack,
    without the design's padding) at the tensor-core rate. The
-   ``phase_seconds`` line (each phase's wall time), the ``kernels``
-   line, the nvidia-smi line, and the result line.
+   nvidia-smi line, the ``kernels`` line, the ``phase_seconds`` line
+   (each phase's wall seconds, the kernels' times as "5"), and the
+   result line.
 
 It needs one card, exits non-zero without one, and works in a scratch
 directory inside the checkout that it removes at the end.
@@ -386,8 +427,10 @@ directory inside the checkout that it removes at the end.
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import functools
+import gc
 import hashlib
 import itertools
 import json
@@ -3174,14 +3217,14 @@ BAL_COLLECTION = "balsmoke"
 BAL_AB = "balgc"          # the fifth volume: group commit off, then on
 BAL_NEW = "balnew"        # a volume grown after the moves
 # upstream's 30 GB volume size limit, cut to 256 MiB, then to 192 MiB
-# for phase 12, to 160 MiB for phase 13 and to 96 MiB for phase 14 (the
-# fifth volume's about 60 MiB of group-commit uploads stay under 0.9 of
-# it)
-BAL_LIMIT_MB = 96
+# for phase 12, to 160 MiB for phase 13, to 96 MiB for phase 14 and to
+# 64 MiB for phase 15 (the fifth volume's about 45 MiB of group-commit
+# uploads stay under 0.9 of it)
+BAL_LIMIT_MB = 64
 BAL_FULL = 4              # the full 010 volumes of step 11a
 BAL_CLIENTS = 64
 BAL_PROCS = 4             # uploader processes (16 clients each)
-BAL_AB_NEEDLES = 2000       # 4000 before phase 14
+BAL_AB_NEEDLES = 1500    # 4000 before phase 14, 2000 before phase 15
 BAL_MAX_NEEDLE = 64 * 1024
 BAL_ASSIGN_COUNT = 16     # keys per /dir/assign?count=
 # the balancer's and the volume servers' knobs, read at construction
@@ -3975,8 +4018,9 @@ STOR_MAX_NEEDLE = 16 * 1024   # phase 3's generator, log-uniform 1-16 KiB
 # map flushes)
 STOR_DISK_BYTES = 640 * MIB
 STOR_FUSED_BYTES = 128 * MIB  # 12b's archive volume
-# 12c's uploads, and its vacuumed volume (cut from 64 MiB for phase 13)
-STOR_UPLOAD_BYTES = 32 * MIB
+# 12c's uploads, and its vacuumed volume (cut from 64 MiB for phase 13,
+# from 32 MiB for phase 15)
+STOR_UPLOAD_BYTES = 16 * MIB
 STOR_MORE, STOR_MORE_DELETES = 500, 100
 STOR_READ_STRIDE = 16         # 12a's reads, healthy and degraded
 STOR_EC_READ_STRIDE = 8       # 12c's degraded reads
@@ -5293,20 +5337,22 @@ def fs_walk(filer: str, root: str) -> dict:
         start = entries[-1]["path"].rsplit("/", 1)[-1]
 
 
-def fs_check_reads(filer: str, files: FsFiles, paths: list, chunk: int,
+def fs_check_reads(filer, files: FsFiles, paths: list, chunk: int,
                    seed: int, ranges: int = 3, per_chunk: bool = False,
                    threads: int = FS_WRITERS) -> dict:
     """Every path read whole and by `ranges` ranges across chunk
     boundaries (and, with per_chunk, each chunk on its own), equal by
-    sha256; latencies per file and per chunk."""
+    sha256, through `filer` (a host:port, or a path -> host:port dict);
+    latencies per file and per chunk."""
     from concurrent.futures import ThreadPoolExecutor
 
     def one(path: str) -> tuple:
+        target = filer[path] if isinstance(filer, dict) else filer
         want = files.data(path)
-        r, secs = fs_get(filer, path)
+        r, secs = fs_get(target, path)
         if r.status != 200 or hashlib.sha256(r.data).digest() != \
                 hashlib.sha256(want).digest():
-            raise AssertionError(f"{filer}{path}: {r.status}, "
+            raise AssertionError(f"{target}{path}: {r.status}, "
                                  f"{len(r.data)} of {len(want)} bytes")
         rng = np.random.default_rng((seed, files.files[path][0]))
         views = fs_ranges(rng, len(want), chunk, ranges)
@@ -5315,9 +5361,9 @@ def fs_check_reads(filer: str, files: FsFiles, paths: list, chunk: int,
                       for s in range(0, len(want), chunk)]
         chunk_lat = [secs] if len(want) <= chunk else []
         for i, (s, e) in enumerate(views):
-            rr, rs = fs_get(filer, path, (s, e))
+            rr, rs = fs_get(target, path, (s, e))
             if rr.status != 206 or rr.data != want[s:e + 1]:
-                raise AssertionError(f"{filer}{path} [{s}, {e}]: "
+                raise AssertionError(f"{target}{path} [{s}, {e}]: "
                                      f"{rr.status}")
             if i >= ranges:
                 chunk_lat.append(rs)
@@ -5855,6 +5901,811 @@ def run_filer(work: Path, seed: int = SEED + 14, coder_name: str = "auto",
     return launches
 
 
+RING_BUCKET = "/buckets/ring"
+RING_COLLECTION = "ring"          # the arc/ uploads
+RING_OPS_COLLECTION = "ringops"   # 15d's files, on volumes never warmed
+RING_META = "/ringmeta"           # the metadata-only creates
+RING_LIMIT_MB = 64
+# 20000 entries in 1000 directories took 184.0-244.5 s of phase on an
+# H100 host (the creates alone 57.4-85.3 s), past the smoke's room: cut
+# to 8000 in 400 (20 a directory, as there)
+RING_ENTRIES = 8000
+RING_DIRS = 400
+RING_CLIENTS = 16                 # create clients, in RING_PROCS processes
+RING_PROCS = 4
+RING_UPLOAD_BYTES = 96 * MIB
+RING_MAX_FILE = 8 * MIB           # phase 3's generator: log-uniform 1 KiB ..
+RING_CHUNK = 8 * MIB              # the CLI filer's chunks
+RING_UPLOADERS = 4                # upload threads, in their own process
+RING_STOP_AT = 0.4                # acknowledged share when a filer dies
+RING_OP_FILES = 48                # 15d's files, 4-64 KiB
+RING_INVALIDATIONS = 20           # 15d's cached entries mutated
+RING_ENTRY_TTL = 5.0              # the filers' entry-cache TTL (default)
+RING_SWEEP_BOUND = 1.0            # a swept entry is seen within this
+RING_CODER_STEPS = ("ring.warm_down", "ring.read_degraded")
+RING_HOP = {"X-Seaweed-Ring-Hop": "1"}   # a request answered locally
+RING_RULES = (b"<LifecycleConfiguration>"
+              b"<Rule><ID>arc</ID><Filter><Prefix>arc/</Prefix></Filter>"
+              b"<Status>Enabled</Status>"
+              b"<Transition><Days>0</Days><StorageClass>WARM"
+              b"</StorageClass></Transition></Rule>"
+              b"</LifecycleConfiguration>")
+
+
+def ring_entry_path(i: int, dirs: int) -> str:
+    return f"{RING_META}/d{i % dirs:04d}/f{i:05d}.txt"
+
+
+class RingOp:
+    """One op of a ring client, sent to a random live peer until one
+    acknowledges it (at most 120 s): a peer that refuses the connection
+    is dropped from this client's choices (it died), a live peer's
+    refusal (its ring has not dropped the dead owner yet) is tried again
+    0.05 s later."""
+
+    def __init__(self, peers: list, rng):
+        self.peers = list(peers)
+        self.rng = rng
+
+    def run(self, send) -> tuple:
+        """send(peer) -> acknowledged; returns (acknowledged, tries, wall
+        time of a live peer's first refusal or None, the acknowledging
+        peer)."""
+        tries, refused, deadline = 0, None, time.time() + 120
+        while time.time() < deadline:
+            tries += 1
+            peer = self.peers[int(self.rng.integers(len(self.peers)))]
+            try:
+                if send(peer):
+                    return True, tries, refused, peer
+                if refused is None:
+                    refused = time.time()
+            except ConnectionRefusedError:
+                if len(self.peers) > 1:
+                    self.peers.remove(peer)
+                continue
+            except Exception:
+                # a peer that died mid-request
+                pass
+            time.sleep(0.05)
+        return False, tries, refused, ""
+
+
+def _ring_create_proc(peers: list, todo: list, dirs: int, seed: int,
+                      threads: int, progress, out) -> None:
+    """One create process: `threads` clients POST /__meta__/create_entry
+    for their share of `todo` (entry numbers) through ``RingOp``. Puts
+    (acks [(i, ack wall time, latency s, edge, tries, first refusal)],
+    entries never acknowledged) on `out`."""
+    from seaweedfs_torch.filer.entry import new_file
+    lock = threading.Lock()
+    acks, lost = [], []
+
+    def loop(k: int) -> None:
+        op = RingOp(peers, np.random.default_rng((seed, k, len(todo))))
+        for i in todo[k::threads]:
+            body = json.dumps({"entry": json.loads(new_file(
+                ring_entry_path(i, dirs)).to_json())}).encode()
+            t0 = time.perf_counter()
+            ok, tries, refused, edge = op.run(lambda peer: http.request(
+                "POST", f"http://{peer}/__meta__/create_entry", body,
+                {"Content-Type": "application/json"},
+                timeout=30).status == 200)
+            with lock:
+                if ok:
+                    acks.append((i, time.time(), time.perf_counter() - t0,
+                                 edge, tries, refused))
+                else:
+                    lost.append(i)
+            if ok:
+                with progress.get_lock():
+                    progress.value += 1
+
+    workers = [threading.Thread(target=loop, args=(k,), daemon=True)
+               for k in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    out.put(("create", acks, lost))
+
+
+def _ring_upload_proc(peers: list, files: list, seed: int, threads: int,
+                      out) -> None:
+    """The upload process: `threads` writers PUT `files` [(path, nid,
+    size)] of phase 3's generator through ``RingOp``
+    (``?collection=ring``). Puts (acks [(path, ack wall time, latency s,
+    tries, first refusal)], files never acknowledged, the writers'
+    seconds) on `out`."""
+    lock = threading.Lock()
+    acks, lost = [], []
+
+    def loop(k: int) -> None:
+        op = RingOp(peers, np.random.default_rng((seed, k)))
+        for path, nid, size in files[k::threads]:
+            data = payload(seed, nid, size)
+            t0 = time.perf_counter()
+            ok, tries, refused, _ = op.run(lambda peer: http.request(
+                "PUT", f"http://{peer}{path}?collection={RING_COLLECTION}",
+                data, {"Content-Type": "application/octet-stream"},
+                timeout=300).status == 201)
+            with lock:
+                if ok:
+                    acks.append((path, time.time(),
+                                 time.perf_counter() - t0, tries, refused))
+                else:
+                    lost.append(path)
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=loop, args=(k,), daemon=True)
+               for k in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    out.put(("upload", acks, lost, time.perf_counter() - t0))
+
+
+def _ring_lookup_proc(peers: list, paths: list, threads: int, out) -> None:
+    """Each path looked up through every peer of `peers`; puts the
+    (peer, path, status) of each lookup that did not answer the path."""
+    import urllib.parse
+    lock = threading.Lock()
+    missing = []
+
+    def loop(k: int) -> None:
+        for path in paths[k::threads]:
+            q = urllib.parse.quote(path)
+            for peer in peers:
+                try:
+                    status, body = http.get_json(
+                        f"http://{peer}/__meta__/lookup?path={q}")
+                except OSError as e:
+                    status, body = repr(e), {}
+                if status != 200 or body.get("path") != path:
+                    with lock:
+                        missing.append((peer, path, status))
+
+    workers = [threading.Thread(target=loop, args=(k,), daemon=True)
+               for k in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    out.put(("lookup", missing))
+
+
+def ring_procs(jobs: list, timeout: float = 600.0) -> list:
+    """Run (target, args) jobs in spawned processes, each given a result
+    queue as its last argument; returns their results in the order they
+    come."""
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=t, args=(*a, out), daemon=True)
+             for t, a in jobs]
+    for p in procs:
+        p.start()
+    results = []
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) < len(procs):
+            try:
+                results.append(out.get(timeout=0.2))
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    raise AssertionError("a ring client process timed out")
+                if not any(p.is_alive() for p in procs) and out.empty():
+                    raise AssertionError("a ring client process died")
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+    return results
+
+
+class CliFiler:
+    """A ring member as its own process: ``python3 -m seaweedfs_torch.cli
+    filer -store sqlite -ring_peers ...`` (8 MiB chunks), logging to its
+    work directory."""
+
+    def __init__(self, work: Path, port: int, master: str, peers: list):
+        self.url = f"127.0.0.1:{port}"
+        self.work = work
+        self.args = [sys.executable, "-m", "seaweedfs_torch.cli", "filer",
+                     "-port", str(port), "-mserver", master,
+                     "-store", "sqlite", "-store_path",
+                     str(work / f"ring_{port}.db"),
+                     "-chunk_size_mb", str(RING_CHUNK // MIB),
+                     "-ring_peers", ",".join(peers)]
+        self.proc = None
+
+    def start(self) -> None:
+        with open(self.work / f"filer_{self.url.split(':')[1]}.log",
+                  "ab") as err:
+            self.proc = subprocess.Popen(self.args, cwd=str(REPO),
+                                         stdout=subprocess.DEVNULL,
+                                         stderr=err)
+
+    def up(self) -> bool:
+        if self.proc.poll() is not None:
+            raise AssertionError(f"filer {self.url} exited "
+                                 f"{self.proc.returncode}")
+        try:
+            return http.get_json(f"http://{self.url}/healthz")[0] == 200
+        except OSError:
+            return False
+
+    def kill(self) -> None:
+        """A death: SIGKILL, nothing flushed or closed."""
+        self.proc.kill()
+        self.proc.wait()
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def ring_status(url: str) -> dict:
+    status, body = http.get_json(f"http://{url}/__meta__/ring/status")
+    if status != 200:
+        raise AssertionError(f"{url} ring status: {status} {body}")
+    return body
+
+
+def ring_adopted(urls: list, version: int) -> bool:
+    """Every filer follows ring `version` and its handoff pass is over
+    (a filer marks its pass running before it shows the new ring)."""
+    for url in urls:
+        st = ring_status(url)
+        if st["ring"]["version"] != version:
+            return False
+        if st["handoff"]["state"] not in ("done", "idle"):
+            if st["handoff"]["state"] == "failed":
+                raise AssertionError(f"{url}: handoff failed: "
+                                     f"{st['handoff']}")
+            return False
+    return True
+
+
+async def _state(runner) -> str:
+    """A handoff runner's state, read on its loop."""
+    return runner.state
+
+
+def ring_moved(urls: list) -> int:
+    return sum(ring_status(u)["handoff"]["moved_dirs"] for u in urls)
+
+
+def ring_freed(urls: list) -> float:
+    """Chunks the filers' deletion workers are done with (freed or given
+    up on), from their /metrics."""
+    total = 0.0
+    for url in urls:
+        text = http.request("GET", f"http://{url}/metrics").data.decode()
+        for line in text.splitlines():
+            name, _, value = line.partition(" ")
+            if name in ("seaweedfs_tpu_filer_chunks_freed_total",
+                        "seaweedfs_tpu_filer_chunks_not_freed_total"):
+                total += float(value)
+    return total
+
+
+def ring_local(url: str, route: str, **params) -> tuple:
+    """A hop-marked meta GET: the peer answers from its own store."""
+    import urllib.parse
+    r = http.request("GET", f"http://{url}/__meta__/{route}?"
+                     + urllib.parse.urlencode(params), headers=RING_HOP)
+    return r.status, r.json()
+
+
+def fs_meta_status(filer: str, path: str) -> int:
+    """The status of a lookup of `path` through `filer`."""
+    import urllib.parse
+    return http.get_json(f"http://{filer}/__meta__/lookup?path="
+                         f"{urllib.parse.quote(path)}")[0]
+
+
+def run_ring(work: Path, seed: int = SEED + 15, coder_name: str = "auto",
+             device=None, limit_mb: int = RING_LIMIT_MB,
+             entries: int = RING_ENTRIES, dirs: int = RING_DIRS,
+             upload_bytes: int = RING_UPLOAD_BYTES,
+             max_file: int = RING_MAX_FILE, chunk: int = RING_CHUNK,
+             op_files: int = RING_OP_FILES) -> dict:
+    """Phase 15; returns the launches per step. On the card they are held
+    to the phase's rule (gf_apply in 15e's warm-down and degraded reads
+    only; no other kernel); ``coder_name="torch", device="cpu"`` at a few
+    MB runs it on a host without one (no launch is counted there)."""
+    from seaweedfs_torch.filer.entry import new_file
+    from seaweedfs_torch.lifecycle import s3_rules
+    from seaweedfs_torch.metaring import DirectoryRing
+    from seaweedfs_torch.metaring import handoff as handoff_mod
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    files = FsFiles(seed)
+    rng = np.random.default_rng(seed)
+    socks = LocalCluster.ring_sockets(3)
+    ports = [s.getsockname()[1] for s in socks]
+    peers = [f"127.0.0.1:{p}" for p in ports]
+    with env_set(WEED_LIFECYCLE_FILER=peers[0],
+                 WEED_LIFECYCLE_INTERVAL="0.5",
+                 WEED_LIFECYCLE_DAY_SECONDS="1",
+                 WEED_LIFECYCLE_WARM_AFTER=None,
+                 WEED_LIFECYCLE_HOT_READ_RATE=None,
+                 WEED_LIFECYCLE_COLLECTION_TTL=None):
+        lc_cfg = LifecycleConfig.from_env()
+    cl = LocalCluster(4, coder_name=coder_name, device=device,
+                      volume_size_limit_mb=limit_mb, pulse=0.5,
+                      directory=str(work / "cluster"), racks=2,
+                      master_kwargs={"repair_enabled": False,
+                                     "lifecycle_config": lc_cfg})
+    # A in the smoke's process (the lifecycle daemon's filer, and the
+    # handoff drill's), B and C each a CLI process of their own
+    b, c = (CliFiler(work, p, cl.master_url, peers) for p in ports[1:])
+    try:
+        master = cl.master_url
+        for s in socks[1:]:
+            s.close()       # each CLI filer binds its own
+        b.start()
+        c.start()
+        fs_a = cl.add_filer("sqlite", chunk,
+                            {"path": str(work / f"ring_{ports[0]}.db")},
+                            sock=socks[0], ring_peers=peers)
+        wait_until(lambda: b.up() and c.up(), "the CLI filers", timeout=120)
+        # the membership through the master, as an operator sets it
+        for p in peers:
+            status, out = http.post_json(f"http://{master}/dir/ring/join",
+                                         {"peer": p})
+            if status != 200:
+                raise AssertionError(f"join {p}: {out}")
+        ring3 = DirectoryRing.from_dict(out["ring"])
+        wait_until(lambda: ring_adopted(peers, ring3.version),
+                   "the filers adopt the joined ring")
+        survivors = peers[:2]
+        shell_commands._register_all()
+        env = shell_commands.CommandEnv(Client(master))
+
+        # (15a) metadata-only creates by 16 clients in 4 processes, and
+        # phase 3's files through another, each op to a random peer;
+        # (15b) filer C killed once 40% of the creates are acknowledged
+        # and removed with filer.ring.leave
+        for i, size in enumerate(fs_sizes(rng, upload_bytes, 1024,
+                                          max_file)):
+            files.add(f"{RING_BUCKET}/arc/p{i % 8}/f{i:04d}.bin", size)
+        arc = sorted(files.files)
+        order = [int(x) for x in rng.permutation(entries)]
+        progress = mp.get_context("spawn").Value("i", 0)
+        stopped: dict = {}
+
+        def stopper() -> None:
+            wait_until(lambda: progress.value >= RING_STOP_AT * entries,
+                       f"{RING_STOP_AT:.0%} of the creates", timeout=600)
+            c.kill()
+            stopped["t"] = time.time()
+            stopped["acked_at_stop"] = progress.value
+            out = shell_commands.run_command(
+                env, ["filer.ring.leave", "-peer", c.url])
+            stopped["leave_s"] = time.time() - stopped["t"]
+            stopped["ring"] = DirectoryRing.from_dict(out["ring"])
+
+        def traffic() -> list:
+            jobs = [(_ring_create_proc, (peers, order[k::RING_PROCS], dirs,
+                                         seed, RING_CLIENTS // RING_PROCS,
+                                         progress))
+                    for k in range(RING_PROCS)]
+            jobs.append((_ring_upload_proc, (
+                peers, [(p, *files.files[p]) for p in arc], seed,
+                RING_UPLOADERS)))
+            s = threading.Thread(target=stopper, name="ring-stopper")
+            s.start()
+            try:
+                return ring_procs(jobs)
+            finally:
+                s.join()
+
+        t0 = time.time()
+        results, launches["ring.traffic"] = counted(traffic)
+        if "ring" not in stopped:
+            raise AssertionError("filer C was never removed")
+        t_stop = stopped["t"]
+        acks = [a for r in results if r[0] == "create" for a in r[1]]
+        lost_creates = [i for r in results if r[0] == "create"
+                        for i in r[2]]
+        up = next(r for r in results if r[0] == "upload")
+        if lost_creates or up[2]:
+            raise AssertionError(f"never acknowledged: {len(lost_creates)} "
+                                 f"creates, {up[2][:3]} uploads")
+        create_wall = max(a[1] for a in acks) - t0
+
+        def first_try(owned: bool) -> list:
+            """Latencies of the creates acknowledged at their first try
+            before the death, sent to the directory's owner or not."""
+            return [a[2] for a in acks if a[1] < t_stop and a[4] == 1
+                    and (ring3.owner(ring_entry_path(a[0], dirs).rsplit(
+                        "/", 1)[0]) == a[3]) == owned]
+
+        owner_lat, proxied_lat = first_try(True), first_try(False)
+        # the ops a live peer refused after the death (its ring still
+        # routed to the dead owner), and when the last of them converged
+        refused = [a[1] for a in acks if a[5] is not None] + \
+            [a[1] for a in up[1] if a[4] is not None]
+        converged_s = max(refused + [t_stop]) - t_stop
+        up_bytes = sum(files.files[a[0]][1] for a in up[1])
+        bal_log("ring.creates", create_wall, launches["ring.traffic"],
+                entries=len(acks), dirs=dirs, clients=RING_CLIENTS,
+                processes=RING_PROCS, creates_per_s=len(acks) / create_wall,
+                all=latency_summary([a[2] for a in acks]),
+                owner=latency_summary(owner_lat),
+                proxied=latency_summary(proxied_lat),
+                proxied_share=len(proxied_lat) / max(
+                    len(owner_lat) + len(proxied_lat), 1),
+                tried_again=sum(a[4] > 1 for a in acks))
+        bal_log("ring.uploads", up[3], files=len(up[1]), bytes=up_bytes,
+                gbps=up_bytes / up[3] / 1e9,
+                per_file=latency_summary([a[2] for a in up[1]]),
+                tried_again=sum(a[3] > 1 for a in up[1]))
+        bal_log("ring.peer_death", converged_s, killed=c.url,
+                acked_at_kill=stopped["acked_at_stop"],
+                leave_s=stopped["leave_s"], ops_refused_after=len(refused),
+                stop_to_last_converged_s=converged_s,
+                traffic_wall_s=time.time() - t0)
+
+        # (15b) every acknowledged entry through each survivor, every
+        # acknowledged file by sha256, once the survivors' handoff is done
+        def loss_check() -> dict:
+            t1 = time.perf_counter()
+            wait_until(lambda: ring_adopted(survivors,
+                                            stopped["ring"].version),
+                       "the survivors' handoff after the leave",
+                       timeout=300)
+            handoff_s = time.perf_counter() - t1
+            paths = [ring_entry_path(a[0], dirs) for a in acks]
+            missing = [m for r in ring_procs([
+                (_ring_lookup_proc, (survivors, paths[k::RING_PROCS], 4))
+                for k in range(RING_PROCS)]) for m in r[1]]
+            reads = fs_check_reads({p: survivors[k % 2]
+                                    for k, p in enumerate(arc)}, files,
+                                   arc, chunk, seed, ranges=1)
+            return {"handoff_s": handoff_s, "missing": missing,
+                    "reads": reads, "lookups": len(paths) * len(survivors),
+                    "secs": time.perf_counter() - t1}
+
+        lc, launches["ring.loss_check"] = counted(loss_check)
+        bal_log("ring.loss_check", lc["secs"], launches["ring.loss_check"],
+                acknowledged_entries=len(acks), lookups=lc["lookups"],
+                acknowledged_entries_lost=len(lc["missing"]),
+                missing=lc["missing"][:5], acknowledged_files=len(up[1]),
+                files_read=lc["reads"]["files"],
+                read_per_file=lc["reads"]["per_file"],
+                leave_handoff_s=lc["handoff_s"],
+                leave_moved_dirs=ring_moved(survivors))
+        if lc["missing"]:
+            raise AssertionError(f"acknowledged entries lost: "
+                                 f"{len(lc['missing'])}, e.g. "
+                                 f"{lc['missing'][:3]}")
+
+        # (15c) C restarted on its store and joined again once it answers:
+        # the handoff moves its directories back. A's pass of the join
+        # runs under the ring.handoff fault, armed once it has moved a
+        # third of its directories; cleared, a rerun resumes after the
+        # watermark
+        def handoff() -> dict:
+            t1 = time.perf_counter()
+            leave = stopped["ring"]
+            c.start()
+            wait_until(c.up, "the restarted filer", timeout=120)
+            restart_s = time.perf_counter() - t1
+            ring5 = DirectoryRing(peers=leave.peers + [c.url],
+                                  vnodes=leave.vnodes,
+                                  replicas=leave.replicas,
+                                  version=leave.version + 1)
+            moving = [d for d in sorted(fs_a.filer.store.iter_directories())
+                      if leave.owners(d) != ring5.owners(d)
+                      or fs_a.url not in ring5.owners(d)]
+            first = max(1, len(moving) // 3)
+            runner = fs_a.ring_handoff
+            moved_b = ring_status(b.url)["handoff"]["moved_dirs"]
+
+            async def arm() -> int:
+                base = runner.moved_dirs
+                while fs_a.ring.version != ring5.version or \
+                        runner.moved_dirs - base < first:
+                    await asyncio.sleep(0.01)
+                faults.set_fault("ring.handoff", "error", count=1)
+                return base
+
+            armed = asyncio.run_coroutine_threadsafe(arm(), cl.loop)
+            t2 = time.perf_counter()
+            try:
+                out = shell_commands.run_command(
+                    env, ["filer.ring.join", "-peer", c.url])
+                if out["ring"] != ring5.to_dict():
+                    raise AssertionError(f"join: {out}")
+                base = armed.result(timeout=300)
+                wait_until(lambda: cl.call(_state(runner)) == "failed",
+                           "A's pass to fail at the armed fault",
+                           timeout=300)
+            finally:
+                armed.cancel()
+                faults.clear("ring.handoff")
+            first_moved = runner.moved_dirs - base
+            mark = handoff_mod.read_watermark(fs_a.filer.store,
+                                              ring5.version)
+            t3 = time.perf_counter()
+            resumed = cl.call(runner.run_once(ring5, leave))
+            resume_s = time.perf_counter() - t3
+            wait_until(lambda: ring_adopted(peers, ring5.version),
+                       "every filer's handoff after the join", timeout=300)
+            join_s = time.perf_counter() - t2
+            skipped = sum(d <= mark for d in moving)
+            if resumed != sum(d > mark for d in moving) or \
+                    skipped != first_moved or not 0 < skipped < len(moving):
+                raise AssertionError(
+                    f"the rerun after the fault: {resumed} moved, "
+                    f"{skipped} skipped, {first_moved} before the fault, "
+                    f"{len(moving)} to move")
+            # C's own store holds every acknowledged entry of each
+            # directory whose replica set it is in
+            want: dict = {}
+            for a in acks:
+                path = ring_entry_path(a[0], dirs)
+                want.setdefault(path.rsplit("/", 1)[0], set()).add(path)
+            mine = [d for d in sorted(want) if c.url in ring5.owners(d)]
+            short = [d for d in mine if {e["path"] for e in ring_local(
+                c.url, "list", dir=d, limit=1 << 20)[1]["entries"]}
+                != want[d]]
+            if short:
+                raise AssertionError(f"the join's handoff left "
+                                     f"{len(short)} of C's {len(mine)} "
+                                     f"directories short, e.g. {short[:3]}")
+            # the shell's view agrees with the master's
+            st = shell_commands.run_command(env, ["filer.ring.status"])
+            if st["ring"] != http.get_json(f"http://{master}/dir/ring")[1] \
+                    or sorted(st["peers"]) != sorted(peers) or any(
+                        "error" in row for row in st["peers"].values()):
+                raise AssertionError(f"filer.ring.status: {st}")
+            return {"restart_s": restart_s, "join_handoff_s": join_s,
+                    "join_moved_dirs": {
+                        "a": first_moved + resumed,
+                        "b": ring_status(b.url)["handoff"]["moved_dirs"]
+                        - moved_b,
+                        "c": ring_status(c.url)["handoff"]["moved_dirs"]},
+                    "c_dirs": len(mine), "a_dirs_to_move": len(moving),
+                    "a_moved_before_fault": first_moved,
+                    "rerun_skipped_dirs": skipped,
+                    "rerun_moved_dirs": resumed, "rerun_s": resume_s,
+                    "shell_owned_dirs": {p: row["owned_dirs"] for p, row
+                                         in st["peers"].items()},
+                    "secs": time.perf_counter() - t1}
+
+        ho, launches["ring.handoff"] = counted(handoff)
+        bal_log("ring.handoff", ho.pop("secs"), launches["ring.handoff"],
+                **ho)
+
+        # (15d) a recursive delete and a rename across partitions, and
+        # the cross-peer cache sweep
+        def cross_partition() -> dict:
+            t1 = time.perf_counter()
+            ops = {}
+            for i in range(op_files):
+                size = int(np.exp(rng.uniform(np.log(4096),
+                                              np.log(64 * 1024))))
+                side = "rm" if i % 2 else "mv/src"
+                path = f"/ringops/{side}/s{i % 3}/t{i % 5}/f{i:03d}.bin"
+                ops[path] = files.add(path, size)
+            for k, (path, data) in enumerate(sorted(ops.items())):
+                status, _, body = fs_put(peers[k % 3], path, data,
+                                         f"?collection={RING_OPS_COLLECTION}")
+                if status != 201:
+                    raise AssertionError(f"PUT {path}: {status} {body!r}")
+            rm = [p for p in ops if p.startswith("/ringops/rm/")]
+            fids = [ch["fid"] for p in rm
+                    for ch in fs_meta(peers[0], "lookup", path=p)["chunks"]]
+            freed0 = ring_freed(peers)
+            r = http.request("DELETE", f"http://{peers[1]}/ringops/rm"
+                             "?recursive=true")
+            if r.status != 202:
+                raise AssertionError(f"DELETE /ringops/rm: {r.status}")
+            subdirs = sorted({p.rsplit("/", 1)[0] for p in rm} | {
+                p.rsplit("/", 2)[0] for p in rm} | {"/ringops/rm"})
+            # no member's own store keeps a child of the tree, or the
+            # entry of one of its directories (hop-marked listings read
+            # the store, not the entry cache)
+            orphans = [(u, d) for u in peers for d in subdirs
+                       if ring_local(u, "list", dir=d, limit=1)[1]["entries"]
+                       or d in {e["path"] for e in ring_local(
+                           u, "list", dir=d.rsplit("/", 1)[0],
+                           limit=1 << 20)[1]["entries"]}]
+            if orphans:
+                raise AssertionError(f"the recursive delete left {orphans[:3]}")
+            # and every member answers 404 for all of it once the other
+            # members' cached answers are swept (within the cache's TTL)
+            wait_until(lambda: all(fs_meta_status(u, p) == 404
+                                   for p in rm + subdirs for u in peers),
+                       "every member to answer 404 for the deleted tree",
+                       timeout=RING_ENTRY_TTL)
+            freed_s = fs_wait_freed(
+                master, fids, "the recursive delete's chunks",
+                done=lambda: ring_freed(peers) - freed0 >= len(fids))
+            freed = ring_freed(peers) - freed0
+            mv = [p for p in ops if p.startswith("/ringops/mv/src/")]
+            r = http.request("POST", f"http://{peers[2]}/ringops/mv/src"
+                             "?mv.to=/ringops/mv/dst")
+            if r.status != 200:
+                raise AssertionError(f"rename: {r.status} {r.data!r}")
+            for p in mv:
+                files.files[p.replace("/src/", "/dst/")] = files.files.pop(p)
+            moved = fs_check_reads(peers[0], files,
+                                   files.under("/ringops/mv/dst/"), chunk,
+                                   seed, ranges=0)
+            wait_until(lambda: all(fs_meta_status(u, p) == 404
+                                   for p in mv for u in peers),
+                       "every member to answer 404 for the renamed paths",
+                       timeout=RING_ENTRY_TTL)
+            return {"rm_files": len(rm), "rm_dirs": len(subdirs),
+                    "rm_chunks": len(fids), "chunks_freed": freed,
+                    "freed_s": freed_s, "mv_files": len(mv),
+                    "mv_read": moved, "secs": time.perf_counter() - t1}
+
+        xp, launches["ring.cross_partition"] = counted(cross_partition)
+        bal_log("ring.cross_partition", xp.pop("secs"),
+                launches["ring.cross_partition"], **xp)
+
+        def invalidation() -> dict:
+            """An entry cached by the peer outside its replica set, then
+            changed through its owner: the peer serves the change within
+            RING_SWEEP_BOUND s, long before its entry cache's TTL."""
+            t1 = time.perf_counter()
+            lat = []
+            swept0 = sum(ring_status(u)["invalidation"]["swept"]
+                         for u in peers)
+            for k in range(RING_INVALIDATIONS):
+                path = ring_entry_path(acks[k][0], dirs)
+                owners = fs_a.ring.owners(path.rsplit("/", 1)[0])
+                observer = next(u for u in peers if u not in owners)
+                e = new_file(path)
+                e.extended = {"v": f"old{k}"}
+                status, out = http.post_json(
+                    f"http://{owners[0]}/__meta__/update_entry",
+                    {"entry": json.loads(e.to_json())})
+                wait_until(lambda: fs_meta(observer, "lookup", path=path)
+                           .get("extended", {}).get("v") == f"old{k}",
+                           f"{observer} caches {path}",
+                           timeout=RING_ENTRY_TTL + 5)
+                e.extended = {"v": f"new{k}"}
+                t2 = time.perf_counter()
+                status, out = http.post_json(
+                    f"http://{owners[0]}/__meta__/update_entry",
+                    {"entry": json.loads(e.to_json())})
+                if status != 200:
+                    raise AssertionError(f"update {path}: {out}")
+                wait_until(lambda: fs_meta(observer, "lookup", path=path)
+                           .get("extended", {}).get("v") == f"new{k}",
+                           f"{observer} sees the update of {path}",
+                           timeout=RING_SWEEP_BOUND)
+                lat.append(time.perf_counter() - t2)
+            swept = sum(ring_status(u)["invalidation"]["swept"]
+                        for u in peers) - swept0
+            if not swept:
+                raise AssertionError("no peer swept its cache")
+            return {"entries": len(lat), "seen": latency_summary(lat),
+                    "bound_s": RING_SWEEP_BOUND, "ttl_s": RING_ENTRY_TTL,
+                    "swept": swept, "secs": time.perf_counter() - t1}
+
+        iv, launches["ring.invalidation"] = counted(invalidation)
+        bal_log("ring.invalidation", iv.pop("secs"),
+                launches["ring.invalidation"], **iv)
+
+        # (15e) the bucket's rule warms arc/ down to the EC tier on the
+        # card; the files read through a non-owner with 4 shards lost
+        daemon = cl.master.lifecycle
+        arc_vids = sorted({int(ch["fid"].split(",")[0]) for p in arc
+                           for ch in fs_meta(peers[0], "lookup",
+                                             path=p)["chunks"]})
+        records: list = []
+        real_record = daemon._record
+
+        def record(kind, vid, outcome, **kw):
+            records.append((time.monotonic(), kind, vid, outcome))
+            return real_record(kind, vid, outcome, **kw)
+
+        def warm_ok() -> dict:
+            return {r[2]: r[0] for r in list(records)
+                    if r[1] == "warm" and r[3] == "ok"}
+
+        def warm_down() -> dict:
+            bucket = fs_meta(peers[1], "lookup", path=RING_BUCKET)
+            bucket["extended"] = {s3_rules.BUCKET_ATTR: s3_rules.rules_to_json(
+                s3_rules.parse_lifecycle_xml(RING_RULES))}
+            daemon._record = record
+            t1 = time.monotonic()
+            try:
+                status, out = http.post_json(
+                    f"http://{peers[1]}/__meta__/update_entry",
+                    {"entry": bucket})
+                if status != 200:
+                    raise AssertionError(f"rules: {out}")
+                wait_until(lambda: set(arc_vids) <= set(warm_ok()),
+                           "the warm-downs of the arc/ volumes", timeout=600)
+            finally:
+                daemon._record = real_record
+            return {"first_s": min(warm_ok()[v] for v in arc_vids) - t1,
+                    "last_s": max(warm_ok()[v] for v in arc_vids) - t1}
+
+        wd, launches["ring.warm_down"] = counted(warm_down)
+        for p in arc:
+            ext = fs_meta(peers[2], "lookup", path=p).get("extended") or {}
+            if ext.get(s3_rules.STORAGE_CLASS_ATTR) != s3_rules.WARM_CLASS:
+                raise AssertionError(f"{p} not WARM: {ext}")
+        for vid in arc_vids:
+            shards = http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+            holders = [i for i in range(len(cl.nodes))
+                       if cl.store(i).find_volume(vid) is not None]
+            if len(shards.get("shards", {})) != 14 or holders:
+                raise AssertionError(f"volume {vid}: shards {shards}, "
+                                     f"normal copies on {holders}")
+        bal_log("ring.warm_down", wd["last_s"], launches["ring.warm_down"],
+                volumes=len(arc_vids), first_warm_s=wd["first_s"],
+                last_warm_s=wd["last_s"])
+
+        def drop() -> None:
+            for vid in arc_vids:
+                info = http.get_json(
+                    f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+                for sid in VICTIMS:
+                    url = info["shards"][str(sid)][0]
+                    status, out = http.post_json(
+                        f"http://{url}/admin/ec/delete_shards",
+                        {"volume_id": vid, "collection": RING_COLLECTION,
+                         "shard_ids": [sid]})
+                    if status != 200:
+                        raise AssertionError(f"drop {vid}.{sid}: {out}")
+            wait_until(lambda: all(len(http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={v}")[1][
+                    "shards"]) == 14 - len(VICTIMS) for v in arc_vids),
+                "the lookup drops the four shards")
+
+        _, launches["ring.drop_shards"] = counted(drop)
+
+        def read_degraded() -> dict:
+            # each file through the one peer outside its directory's
+            # replica set: the lookup is proxied, the chunks read degraded
+            outside = {p: next(u for u in peers if u not in fs_a.ring.owners(
+                p.rsplit("/", 1)[0])) for p in arc}
+            got = fs_check_reads(outside, files, arc, chunk, seed, ranges=1)
+            got["peers"] = sorted(set(outside.values()))
+            return got
+
+        rd, launches["ring.read_degraded"] = counted(read_degraded)
+        bal_log("ring.read_degraded", rd["seconds"],
+                launches["ring.read_degraded"], lost_shards=list(VICTIMS),
+                volumes=len(arc_vids), **rd,
+                gbps=rd["bytes"] / rd["seconds"] / 1e9)
+    finally:
+        faults.clear("ring.handoff")
+        b.stop()
+        c.stop()
+        cl.shutdown()
+    if coder_name == "auto":
+        for step, counts in launches.items():
+            others = {k: n for k, n in counts.items()
+                      if k != "gf_apply" and n}
+            if others or (step in RING_CODER_STEPS) != (counts["gf_apply"]
+                                                        > 0):
+                raise AssertionError(f"{step}: launches {counts}")
+    bal_log("ring.summary", time.perf_counter() - t_phase, launches,
+            gf_apply_per_step={k: v["gf_apply"] for k, v in launches.items()})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5981,6 +6832,17 @@ def main() -> int:
             # phase 14: the filer and the S3 lifecycle, its own cluster
             launches["filer"] = run_filer(WORK / "filer")
             mark("14")
+            # phase 15: the filer ring, its own cluster. What the earlier
+            # phases left alive moves out of the collector's way for it:
+            # filer A shares this process, and a full collection of a
+            # large heap stalls its loop
+            gc.collect()
+            gc.freeze()
+            try:
+                launches["ring"] = run_ring(WORK / "ring")
+            finally:
+                gc.unfreeze()
+            mark("15")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -5998,14 +6860,13 @@ def main() -> int:
     # size); a degraded read is one interval, R = 1; the archive
     # collection's RS(20,4) at 8 MiB, and at the 4 MiB the governor plans
     # for k = 20 within its staging budget (the fused pass's batches)
-    log({"phase": "phase_seconds", **phase_seconds,
-         "total_so_far": time.perf_counter() - t0, "card": SMI[0]})
     times = time_kernels(device, [("encode", 4, 10, 8 * MIB),
                                   ("rebuild", 4, 10, 8 * MIB),
                                   ("encode_1mib", 4, 10, MIB),
                                   ("degraded_read", 1, 10, 64 * 1024),
                                   ("archive", 4, 20, 8 * MIB),
                                   ("archive_4mib", 4, 20, 4 * MIB)])
+    mark("5")
     log(smi)
     kernels = []
     main_steps = {**launches["bitplane"], **{
@@ -6016,7 +6877,7 @@ def main() -> int:
         k: v for k, v in launches["lifecycle"].items()
         if k not in LIFECYCLE_CHECKS}, **launches["mesh"],
         **launches["balance"], **launches["storage"], **launches["ha"],
-        **launches["filer"]}
+        **launches["filer"], **launches["ring"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}
@@ -6052,6 +6913,9 @@ def main() -> int:
             row["launches_entry"] = row["launches"]
         kernels.append(row)
     log({"kernels": kernels})
+    # each phase's wall seconds, on the line before the last
+    log({"phase": "phase_seconds", **phase_seconds,
+         "total": time.perf_counter() - t0, "card": SMI[0]})
     log({"ok": True, "device": {"platform": "gpu", "kind": card,
                                 "count": count}})
     return 0

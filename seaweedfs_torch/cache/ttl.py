@@ -1,8 +1,8 @@
 """Bounded TTL lookup cache with pinned entries.
 
 The port's reduced copy of seaweedfs_tpu/cache/ttl.py, to what the
-filer uses (the metaring's batch invalidation ``drop_paths`` and the
-introspection helpers are left out). The wdclient vid-location cache
+filer and its ring use (``is_pinned``, ``__len__`` and ``stats`` are left
+out). The wdclient vid-location cache
 shape (weed/wdclient/vid_map.go): polled lookups expire after a TTL;
 entries fed by the master's watch stream are *pinned*, authoritative
 until the stream says otherwise. Used for the filer's volume locations
@@ -88,6 +88,15 @@ class TTLCache:
             else:
                 del self._data[victim]
 
+    def __contains__(self, key) -> bool:
+        """A live entry, without touching the hit and miss counters or
+        the LRU order."""
+        with self._lock:
+            hit = self._data.get(key, _MISS)
+            if hit is _MISS:
+                return False
+            return hit[1] is None or hit[1] > time.monotonic()
+
     def pop(self, key, default=None):
         """Drop `key`; returns its live value or `default` (dict.pop
         shape — call sites treat this cache like the dict it replaced)."""
@@ -100,6 +109,15 @@ class TTLCache:
             if expires is not None and expires <= time.monotonic():
                 return default
             return value
+
+    def drop_paths(self, keys) -> None:
+        """Invalidate a batch of keys under ONE generation bump: the ring's
+        cross-peer sweep drops both sides of a remote mutation at once, so
+        a fill that raced it is discarded whichever key it filled."""
+        with self._lock:
+            self.generation += 1
+            for k in keys:
+                self._data.pop(k, None)
 
     def drop_prefix(self, prefix: str) -> None:
         """Invalidate every string key under `prefix` (recursive

@@ -19,7 +19,7 @@ apply:
   python3 -m seaweedfs_torch.cli filer -port 8888 -mserver h1:9333 \\
       [-store sqlite|memory|leveldb|leveldb2] [-store_path ./filer.db] \\
       [-chunk_size_mb 8] [-default_replication 000] [-collection c] \\
-      [-meta_log events.jsonl]
+      [-meta_log events.jsonl] [-ring_peers h:8888,h:8889,h:8890]
   python3 -m seaweedfs_torch.cli shell -master h1:9333 -filer h:8888 \\
       fs.ls -l /buckets
   python3 -m seaweedfs_torch.cli compact -dir /data -volumeId 3
@@ -38,7 +38,12 @@ close their stores. A filer (``filer``) keeps its namespace in ``-store`` (``sql
 directory there; ``memory`` keeps nothing) and cuts uploads into
 ``-chunk_size_mb`` chunks; the network stores (``-store_servers``) are
 not ported, and asking for one raises. The shell's ``fs.*`` commands
-need ``-filer``. ``compact`` vacuums one volume offline (the volume
+need ``-filer``. ``-ring_peers`` makes the filer a member of the filer
+ring of those filers (every member's ``ip:port``, its own included; the
+vnodes and replicas come from ``WEED_FILER_RING_VNODES`` /
+``_REPLICAS``, 64 and 2); the shell's ``filer.ring.join -peer`` and
+``filer.ring.leave -peer`` change the master's membership, which the
+members follow. ``compact`` vacuums one volume offline (the volume
 server must not have it mounted). ``backup`` pulls what a volume gained
 since the local copy's last record from its holder's ``/admin/tail``
 into a replica in ``-dir`` (creating it on the first run); ``fix``
@@ -148,13 +153,20 @@ def cmd_filer(args) -> None:
     store_kwargs = {}
     if args.store in ("sqlite", "leveldb", "leveldb2"):
         store_kwargs["path"] = args.store_path
+    ring_config = None
+    if args.ring_peers:
+        from .metaring import RingConfig
+        base = RingConfig.from_env()
+        ring_config = RingConfig(
+            peers=[p for p in args.ring_peers.split(",") if p],
+            vnodes=base.vnodes, replicas=base.replicas)
     _serve_until_signalled(lambda: run_filer(
         args.ip, args.port, args.mserver, store_name=args.store,
         store_kwargs=store_kwargs,
         chunk_size=args.chunk_size_mb * 1024 * 1024,
         default_replication=args.default_replication,
         default_collection=args.collection,
-        meta_log_path=args.meta_log))
+        meta_log_path=args.meta_log, ring_config=ring_config))
 
 
 def cmd_shell(args) -> None:
@@ -352,6 +364,9 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("-collection", default="")
     f.add_argument("-meta_log", default="",
                    help="path for the persisted metadata event log")
+    f.add_argument("-ring_peers", default="",
+                   help="the filer ring's members, host:port each "
+                        "(this filer's own included)")
     f.set_defaults(fn=cmd_filer)
 
     cp = sub.add_parser("compact", help="offline vacuum of one volume")

@@ -49,7 +49,20 @@ Differences from the reference:
 - ``leader_since``, when this node last won (a new leader's grace
   periods, server/master.py); ``stop`` waits for the queued state
   writes; a proposal stopped or deposed during its fsync returns at
-  once instead of waiting out its timeout.
+  once instead of waiting out its timeout;
+- a replication round sends nothing once its leader was deposed: each
+  AppendEntries goes out only while the node still leads at the round's
+  term. The reference builds each request from the node's current term,
+  so a leader deposed by a RequestVote while its round is in flight sends
+  a heartbeat at the candidate's term under its own name, and the
+  candidate steps down (ROADMAP Queue 3, F7);
+- a follower that refuses AppendEntries because ``prev_log_index`` lies
+  past its log's end says where its log ends (``last_index`` in the
+  reply), and the leader moves ``next_index`` there at once. The
+  reference steps back one entry a heartbeat, so a node restarted behind
+  a leader elected while it was down catches up one entry each 0.1 s
+  (ROADMAP Queue 3, D19). A reply without the key, as the reference's
+  are, still steps back by one.
 """
 
 from __future__ import annotations
@@ -371,12 +384,17 @@ class RaftNode:
             await asyncio.sleep(self.heartbeat_interval)
 
     async def _replicate_round(self) -> None:
+        term = self.term
         await asyncio.gather(
-            *[self._replicate_to(p) for p in self.peers],
+            *[self._replicate_to(p, term) for p in self.peers],
             return_exceptions=True)
         self._advance_commit()
 
-    async def _replicate_to(self, peer: str) -> None:
+    async def _replicate_to(self, peer: str, term: int) -> None:
+        if self.role != LEADER or self.term != term:
+            # deposed since the round began: a request built now would
+            # carry a term this node never won
+            return
         nxt = self.next_index.get(peer, self._last_index() + 1)
         if nxt <= self.snap_index:
             # the follower is behind the compacted log: the snapshot
@@ -384,7 +402,6 @@ class RaftNode:
             nxt = self.snap_index + 1
         prev = nxt - 1
         entries = self.log[nxt - self.snap_index - 1:]
-        term = self.term
         req = {"term": term, "leader_id": self.id,
                "prev_log_index": prev, "prev_log_term": self._term_at(prev),
                "entries": entries, "leader_commit": self.commit_index}
@@ -405,7 +422,12 @@ class RaftNode:
             self.match_index[peer] = prev + len(entries)
             self.next_index[peer] = self.match_index[peer] + 1
         else:
-            self.next_index[peer] = max(1, nxt - 1)
+            nxt -= 1
+            hint = r.get("last_index")
+            if isinstance(hint, int):
+                # the follower's log ends before prev: probe its end next
+                nxt = min(nxt, hint + 1)
+            self.next_index[peer] = max(1, nxt)
 
     def _advance_commit(self) -> None:
         if self.role != LEADER:
@@ -552,8 +574,11 @@ class RaftNode:
         if prev < self.snap_index:
             # below this node's snapshot floor: all of that is committed
             return {"term": self.term, "success": False}
-        if prev > 0 and (prev > self._last_index()
-                         or self._term_at(prev) != req["prev_log_term"]):
+        if prev > self._last_index():
+            # where this log ends, so the leader skips the gap (D19)
+            return {"term": self.term, "success": False,
+                    "last_index": self._last_index()}
+        if prev > 0 and self._term_at(prev) != req["prev_log_term"]:
             return {"term": self.term, "success": False}
         # append, truncating at the first conflict
         idx = prev

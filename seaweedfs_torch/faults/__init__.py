@@ -95,6 +95,10 @@ KNOWN_POINTS = frozenset({
     "master.balance.move",  # a balance move, before its copy step
     "sim.heartbeat",        # one clustersim node's heartbeat; a drop
                             # loses the beat (flap drills)
+    "ring.proxy",           # a filer ring hop (proxy, mirror, handoff
+                            # push); a drop is a peer gone mid-request
+    "ring.handoff",         # a handoff's move of one directory; an error
+                            # or drop is a runner that died mid-pass
 })
 
 _lock = threading.Lock()

@@ -168,6 +168,12 @@ class AbstractSqlStore(FilerStore):
         row = cur.fetchone()
         return bytes(row[0]) if row else None
 
+    def iter_directories(self):
+        cur = self._conn().cursor()
+        cur.execute("SELECT DISTINCT dir FROM entries "
+                    "WHERE dir != '' ORDER BY dir")
+        return iter([r[0] for r in cur.fetchall()])
+
     def close(self) -> None:
         conn = getattr(self._local, "conn", None)
         if conn is not None:

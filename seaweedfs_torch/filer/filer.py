@@ -8,18 +8,22 @@ freed chunks to ``on_delete_chunks``, hard-link reference counts in the
 store's KV face (shared chunks are freed with the last link), rename as
 a store transaction (rolled back whole on failure), and a metadata event
 log every mutation feeds: a bounded in-memory ring, optionally persisted
-as JSON lines that either package replays.
+as JSON lines that either package replays, with subscribers (the
+server's ``/__meta__/subscribe`` streams, the ring's parent-existence
+cache) and one shared ndjson wire form per event. ``apply_event``
+replays an event another filer applied (a stream's line), its
+``signatures`` keeping loops out; ``create_entry(ensure_parents=False)``
+leaves the ancestors to the filer ring, which creates each on its own
+partition's owner.
 
-Left out: the log's subscribers and the events' shared wire form (the
-streaming ``/__meta__/subscribe`` and the notifier), replaying a peer
-filer's events (``apply_event``; both the metadata-sync plane's), the
-ring's ``ensure_parents=False``, and the reference's
-``WEED_FILER_ENTRY_CACHE_TTL`` knob (its 5 s default is the argument's).
+Left out: the reference's ``WEED_FILER_ENTRY_CACHE_TTL`` knob (its 5 s
+default is the argument's), with ``utils/config`` in slice 9.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import random
 import threading
@@ -32,6 +36,7 @@ from .chunks import FileChunk
 from .entry import Entry, new_directory
 from .stores import FilerStore
 
+log = logging.getLogger("filer")
 
 
 @dataclass
@@ -58,6 +63,16 @@ class MetaEvent:
             "signatures": list(self.signatures),
         }
 
+    def wire(self) -> bytes:
+        """The compact ndjson line, serialized once however many
+        subscriber streams carry the event."""
+        cached = getattr(self, "_wire", None)
+        if cached is None:
+            cached = json.dumps(self.to_dict(),
+                                separators=(",", ":")).encode() + b"\n"
+            self._wire = cached
+        return cached
+
     @classmethod
     def from_dict(cls, d: dict) -> "MetaEvent":
         old = d.get("old")
@@ -72,9 +87,10 @@ class MetaEvent:
 
 
 class MetaLog:
-    """Bounded in-memory event log with optional on-disk persistence
-    (the role of weed/util/log_buffer and filer_notify.go: a memory tail
-    of ``CAPACITY`` events and a replayable persisted log)."""
+    """Bounded in-memory event log with subscriber fan-out and optional
+    on-disk persistence (the role of weed/util/log_buffer and
+    filer_notify.go: a memory tail of ``CAPACITY`` events and a
+    replayable persisted log)."""
 
     CAPACITY = 8192
 
@@ -82,6 +98,7 @@ class MetaLog:
         self.persist_path = persist_path
         self._events: list[MetaEvent] = []
         self._lock = threading.Lock()
+        self._subscribers: list[Callable[[MetaEvent], None]] = []
         self._persist_f = None
         if persist_path:
             os.makedirs(os.path.dirname(persist_path) or ".", exist_ok=True)
@@ -97,6 +114,23 @@ class MetaLog:
                     json.dumps(event.to_dict(), separators=(",", ":"))
                     + "\n")
                 self._persist_f.flush()
+            subs = list(self._subscribers)
+        for fn in subs:
+            try:
+                fn(event)
+            except Exception:
+                log.exception("meta subscriber failed")
+
+    def subscribe(self, fn: Callable[[MetaEvent], None]) -> None:
+        """Call `fn(event)` after every append (on the appending
+        thread)."""
+        with self._lock:
+            self._subscribers.append(fn)
+
+    def unsubscribe(self, fn: Callable[[MetaEvent], None]) -> None:
+        with self._lock:
+            if fn in self._subscribers:
+                self._subscribers.remove(fn)
 
     def read_persisted_since(self, tsns: int, prefix: str = "/"):
         """Replay the on-disk log lazily (ReadPersistedLogBuffer,
@@ -154,11 +188,15 @@ class Filer:
 
     # --- CRUD ---
     def create_entry(self, entry: Entry, o_excl: bool = False,
-                     signatures: tuple[int, ...] = ()) -> Entry:
+                     signatures: tuple[int, ...] = (),
+                     ensure_parents: bool = True) -> Entry:
         """Insert with parent auto-creation (Filer.CreateEntry,
-        weed/filer/filer.go:119-186)."""
+        weed/filer/filer.go:119-186). ``ensure_parents=False`` skips it:
+        in a ring each ancestor's entry belongs to its own partition's
+        owner, which the ring creates it on."""
         with self._lock:
-            self._ensure_parents(entry.parent)
+            if ensure_parents:
+                self._ensure_parents(entry.parent)
             old = self.store.find_entry(entry.full_path)
             if old is not None:
                 if o_excl:
@@ -380,6 +418,38 @@ class Filer:
                 tsns=time.time_ns(), directory=old.parent,
                 old_entry=old, new_entry=None, delete_chunks=False,
                 signatures=sigs))
+
+    def apply_event(self, event: MetaEvent) -> bool:
+        """Replay a mutation another filer applied
+        (MetaAggregator.MaybeReplicateMetadataChange,
+        weed/filer/meta_aggregator.go:31-207); False when skipped because
+        this filer's signature is on it already."""
+        if self.signature in event.signatures:
+            return False
+        sigs = event.signatures
+        old, new = event.old_entry, event.new_entry
+        if new is not None and old is not None \
+                and old.full_path != new.full_path:
+            # a rename: the old path goes metadata-only, the new upserts
+            try:
+                self.delete_entry(old.full_path, recursive=True,
+                                  free_chunks=False, signatures=sigs)
+            except FileNotFoundError:
+                pass
+            self.create_entry(new, signatures=sigs)
+        elif new is not None:
+            if self.store.find_entry(new.full_path) is None:
+                self.create_entry(new, signatures=sigs)
+            else:
+                self.update_entry(new, signatures=sigs)
+        elif old is not None:
+            try:
+                # the chunks belong to the origin: a replay never frees
+                self.delete_entry(old.full_path, recursive=True,
+                                  free_chunks=False, signatures=sigs)
+            except FileNotFoundError:
+                pass
+        return True
 
     def close(self) -> None:
         self.meta_log.close()

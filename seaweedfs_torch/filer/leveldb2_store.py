@@ -84,6 +84,14 @@ class Leveldb2Store(FilerStore):
         return self._for_dir(dir_path).list_directory_entries(
             dir_path, start_file_name, include_start, limit, prefix)
 
+    def iter_directories(self):
+        """Every shard's directories, merged in order (a directory's
+        children live in one shard)."""
+        dirs = set()
+        for shard in self._shards:
+            dirs.update(shard.iter_directories())
+        return iter(sorted(dirs))
+
     # --- KV face: hash the key itself ---
     def kv_put(self, key: str, value: bytes) -> None:
         self._shards[_shard_of(key, self.db_count)].kv_put(key, value)

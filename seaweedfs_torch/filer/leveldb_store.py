@@ -219,6 +219,20 @@ class LevelDbStore(FilerStore):
                 break
         return out
 
+    def iter_directories(self):
+        """The directories with a live child in the memtable or the
+        segment, sorted (the ring handoff's walk; the reference's store
+        cannot enumerate, ROADMAP Queue 3, D17)."""
+        with self._lock:
+            live: dict[str, bool] = {}
+            for k, v in zip(self._seg_keys, self._seg_vals):
+                live[k] = v is not None
+            for k, v in self._mem.items():
+                live[k] = v is not None
+        dirs = {k.split(_SEP, 1)[0] for k, alive in live.items()
+                if alive and not k.startswith(_KV) and _SEP in k}
+        return iter(sorted(d for d in dirs if d))
+
     # --- kv face ---
     def kv_put(self, key: str, value: bytes) -> None:
         import base64

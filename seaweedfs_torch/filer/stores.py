@@ -13,15 +13,17 @@ by name, weed/filer/configuration.go:14-37):
                  (leveldb2_store.py)
 
 Each supports the same contract: entry CRUD by full path, ordered
-directory listing with prefix and pagination, a subtree purge, and a KV
-face for system metadata. Asking ``create_store`` for any other name
+directory listing with prefix and pagination, a subtree purge, a KV
+face for system metadata, and ``iter_directories``, the walk of the
+filer ring's handoff (the reference's leveldb stores cannot enumerate;
+the port's can, ROADMAP Queue 3, D17). Asking ``create_store`` for any other name
 (the network stores are not ported) raises the reference's KeyError.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 from .entry import Entry
 
@@ -67,6 +69,13 @@ class FilerStore:
 
     def kv_get(self, key: str) -> Optional[bytes]:
         raise NotImplementedError
+
+    def iter_directories(self) -> Iterator[str]:
+        """Every directory with at least one stored child, sorted: the
+        walk of the ring's partition handoff (a walk from the root cannot
+        see subtrees whose parents live on other peers)."""
+        raise NotImplementedError(
+            f"store {self.name!r} cannot enumerate directories")
 
     def begin(self) -> None:  # transaction hooks (AtomicRenameEntry)
         pass
@@ -167,6 +176,12 @@ class MemoryStore(FilerStore):
 
     def kv_get(self, key: str) -> Optional[bytes]:
         return self._kv.get(key)
+
+    def iter_directories(self) -> Iterator[str]:
+        with self._lock:
+            dirs = sorted(d for d, names in self._dirs.items()
+                          if names and d)
+        return iter(dirs)
 
 
 # the SQL store and the embedded LSMs register lazily: their modules

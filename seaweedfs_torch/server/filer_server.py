@@ -14,6 +14,8 @@ with the reference's wire:
   DELETE /path[?recursive=true]
   GET    /__meta__/{lookup,list,info,assign,lookup_volume,
                     resolve_chunks,events}
+  GET    /__meta__/subscribe?since=&prefix=&exclude_sig=   (ndjson tail)
+  GET    /__meta__/ring/status
   POST   /__meta__/{create_entry,update_entry,delete,rename}
   GET    /healthz, /metrics
 
@@ -34,14 +36,36 @@ says otherwise); concurrent lookups of one volume and fetches of one
 chunk range are coalesced (cache/singleflight.py). The master list
 rotates on failure.
 
-Every namespace call goes straight to the local ``Filer``. Left out,
-each with its later home: the filer ring and its routes (the metadata
-scale-out), admission and the reserved ops routes (the overload plane),
-the chunk cache, chunk encryption (``cipher``), the guard and JWTs, gRPC,
-the status UI, the SO_REUSEPORT shard context, the notifier, peer filer
-aggregation and ``/__meta__/subscribe`` (the metadata-sync plane) and
-``/__meta__/brokers``. The reference's ``WEED_FILER_UPLOAD_CONCURRENCY``
-and ``WEED_ASSIGN_LEASE*`` knobs are left out too: their defaults are
+``/__meta__/subscribe`` streams the metadata log as ndjson lines (one
+``MetaEvent.to_dict()`` each, the reference's form, so either package's
+stream replays through the other's ``Filer.apply_event``): the persisted
+log and the memory tail since ``?since`` (nanoseconds), then every live
+mutation under ``?prefix``, without the events ``?exclude_sig`` already
+signed.
+
+With ``ring_config`` (else ``WEED_FILER_RING_*``) naming peers, the filer
+is a member of the filer ring (metaring/): every namespace op of the
+meta API and the file API is keyed on its parent directory and runs on
+the directory's ring owner (a peer that is not the owner proxies it one
+hop, marked so the receiver never routes it again), the owner mirrors a
+write to its ring successors before it answers, a parent directory's
+entry is created on its own owner, reads fall back down the replica
+list, recursive deletes and renames fan out through the coordinator,
+the other members' subscribe streams sweep the entry cache, and a ring
+line of the master's watch stream (a newer version) re-routes and starts
+the partition handoff. ``GET /__meta__/ring/status`` is the member's
+view (``filer.ring.status``). Without peers every namespace call goes
+straight to the local ``Filer``.
+
+Left out, each with its later home (ROADMAP Queue 1 A): the notifier,
+peer filer aggregation and ``/__meta__/brokers`` (slice 8, the
+cross-cluster planes); admission and the reserved ops routes, and with
+them the ring hop's admission class, the chunk cache, the pooled
+``cache/http_pool`` client (the ring's hops ride this server's aiohttp
+session), chunk encryption (``cipher``), the guard and JWTs, gRPC, the
+status UI and the SO_REUSEPORT shard context (slice 9, the serving
+tiers). The reference's ``WEED_FILER_UPLOAD_CONCURRENCY`` and
+``WEED_ASSIGN_LEASE*`` knobs are left out too: their defaults are
 constants here. Without the chunk cache every view is read from a
 volume server, as the reference reads with its cache off.
 """
@@ -66,6 +90,12 @@ from ..filer.entry import Entry, new_directory, new_file
 from ..filer.filer import Filer, _norm
 from ..filer.stores import create_store
 from ..filer.upload_window import UploadWindow
+from ..metaring import DirectoryRing, RingConfig
+from ..metaring.coordinator import FanoutCoordinator
+from ..metaring.handoff import HandoffRunner
+from ..metaring.invalidation import PeerInvalidator
+from ..metaring.router import (RING_HOP_HEADER, RING_REPLICA_HEADER,
+                               RingProxyError, RingRouter)
 from ..utils import metrics as metrics_mod
 from ..utils.retry import RETRYABLE_STATUSES, is_shed, parse_retry_after
 from . import http
@@ -106,6 +136,16 @@ def _parse_signatures(request: web.Request) -> tuple[int, ...]:
 UPLOAD_WINDOW = 4
 
 
+@web.middleware
+async def _ring_errors(request: web.Request, handler):
+    """A ring hop's failure as its own status (502: the owner cannot be
+    reached), not a 500 with a traceback per op while a peer is down."""
+    try:
+        return await handler(request)
+    except RingProxyError as e:
+        return web.json_response({"error": str(e)}, status=e.status)
+
+
 class FilerServer:
     def __init__(self, master_url: str, store_name: str = "memory",
                  store_kwargs: Optional[dict] = None,
@@ -113,7 +153,8 @@ class FilerServer:
                  default_replication: str = "",
                  default_collection: str = "",
                  meta_log_path: str = "",
-                 url: str = ""):
+                 url: str = "",
+                 ring_config: Optional[RingConfig] = None):
         # the comma-separated master list rotates on failure
         # (wdclient/masterclient.go)
         self.masters = [m.strip() for m in master_url.split(",")
@@ -151,11 +192,37 @@ class FilerServer:
                                    name="vid")
         # the watch stream's snapshots and updates applied
         self.watch_messages = 0
+        # the open /__meta__/subscribe streams' queues, ended at shutdown
+        self._subscribers: set = set()
+        # the filer ring (metaring/): off unless peers are configured
+        self.ring_cfg = ring_config or RingConfig.from_env()
+        self.ring: Optional[DirectoryRing] = None
+        if self.ring_cfg.enabled:
+            self.ring = DirectoryRing(peers=self.ring_cfg.peers,
+                                      vnodes=self.ring_cfg.vnodes,
+                                      replicas=self.ring_cfg.replicas)
+            self.ring_router = RingRouter(self.ring, self.url,
+                                          lambda: self._session,
+                                          metrics=self.metrics)
+            self.ring_coordinator = FanoutCoordinator(self)
+            self.ring_invalidator = PeerInvalidator(
+                self, lambda: [p for p in self.ring.peers if p != self.url])
+            self.ring_handoff = HandoffRunner(self, self.ring_router)
+            # parent-directory existence for the ring's parent checks: the
+            # entry cache's generation moves with every file create, so a
+            # parent lookup would never stay cached under write load;
+            # directories change far less often, and their events (local
+            # and from peers) sweep this set
+            self._ring_dir_cache = TTLCache(ttl=5.0, max_entries=8192,
+                                            metrics=self.metrics,
+                                            name="ringdir")
+            self.filer.meta_log.subscribe(self._ring_dir_event)
         self.app = self._build_app()
 
     def _build_app(self) -> web.Application:
         app = web.Application(client_max_size=1024 * 1024 * 1024,
-                              middlewares=[http.errors_as_json])
+                              middlewares=[http.errors_as_json,
+                                           _ring_errors])
         # reserved for every method, so a PUT /healthz is no file write
         app.router.add_route("*", "/healthz", self.healthz)
         app.router.add_route("*", "/metrics", self.metrics_handler)
@@ -169,6 +236,9 @@ class FilerServer:
         app.router.add_post("/__meta__/delete", self.meta_delete)
         app.router.add_post("/__meta__/rename", self.meta_rename)
         app.router.add_route("*", "/__meta__/events", self.meta_events)
+        app.router.add_route("*", "/__meta__/subscribe",
+                             self.meta_subscribe)
+        app.router.add_get("/__meta__/ring/status", self.meta_ring_status)
         app.router.add_get("/__meta__/info", self.meta_info)
         app.router.add_get("/__meta__/assign", self.meta_assign)
         app.router.add_get("/__meta__/lookup_volume",
@@ -177,6 +247,7 @@ class FilerServer:
                            self.meta_resolve_chunks)
         app.router.add_route("*", "/{path:.*}", self.dispatch)
         app.on_startup.append(self._on_startup)
+        app.on_shutdown.append(self._on_shutdown)
         app.on_cleanup.append(self._on_cleanup)
         return app
 
@@ -186,44 +257,311 @@ class FilerServer:
     async def _create(self, entry: Entry, o_excl: bool = False,
                       signatures: tuple = (),
                       free_old_chunks: bool = True) -> None:
-        """Create or overwrite; a replaced entry's chunks that the new
-        one does not keep are freed (hard-link aware)."""
-        old = await self._exec(
-            lambda: self.filer.find_entry(entry.full_path)) \
-            if free_old_chunks else None
-        await self._exec(lambda: self.filer.create_entry(
-            entry, o_excl=o_excl, signatures=signatures))
-        if free_old_chunks:
+        """Create or overwrite in the local store; a replaced entry's
+        chunks that the new one does not keep are freed (hard-link
+        aware). In a ring the ancestors were created through the ring,
+        each on its own partition's owner."""
+        def apply() -> list:
+            # one executor hop for the lookup, the create and the freeable
+            # chunks
+            old = self.filer.find_entry(entry.full_path) \
+                if free_old_chunks else None
+            self.filer.create_entry(entry, o_excl=o_excl,
+                                    signatures=signatures,
+                                    ensure_parents=self.ring is None)
+            if not free_old_chunks:
+                return []
             new_fids = {c.fid for c in entry.chunks}
-            self._queue_chunk_deletes(
-                [c for c in self.filer.freeable_replaced_chunks(old)
-                 if c.fid not in new_fids])
+            return [c for c in self.filer.freeable_replaced_chunks(old)
+                    if c.fid not in new_fids]
+
+        self._queue_chunk_deletes(await self._exec(apply))
+
+    # --- the ring face: owner-routed namespace ops (metaring/) ---
+    #
+    # Without a ring each goes straight to the local Filer. With one, the
+    # parent directory's owner runs it (a proxy hop when that is a peer),
+    # the owner mirrors to its successors, and proxied lookups fill the
+    # local entry cache under its generation guard, so the peers' sweeps
+    # keep them honest.
+    _MISS = object()
+
+    def _ring_drop_cached(self, path: str, subtree: bool = False) -> None:
+        """Drop this peer's cached view of a path it just changed through
+        a hop (a generation bump: a racing fill is dropped too)."""
+        cache = self.filer._entry_cache
+        if cache is not None:
+            cache.pop(path)
+            if subtree:
+                cache.drop_prefix(path.rstrip("/") + "/")
+        if subtree:
+            self._ring_dir_cache.pop(path)
+            self._ring_dir_cache.drop_prefix(path.rstrip("/") + "/")
+
+    def _ring_dir_event(self, event) -> None:
+        """The local log's hook: a directory deleted or moved leaves the
+        parent-existence cache (file events do not touch it)."""
+        old = event.old_entry
+        if old is not None and old.is_directory and (
+                event.new_entry is None
+                or event.new_entry.full_path != old.full_path):
+            self._ring_dir_cache.pop(old.full_path)
+            self._ring_dir_cache.drop_prefix(old.full_path.rstrip("/") + "/")
+
+    async def _ring_ensure_parents(self, dir_path: str) -> None:
+        """Create each missing ancestor's entry on the ancestor's own
+        partition owner (the local Filer's auto-create would put it on
+        the leaf's owner)."""
+        if dir_path in ("", "/") or self._ring_dir_cache.get(dir_path):
+            return
+        entry = await self.ring_find(dir_path)
+        if entry is not None:
+            if not entry.is_directory:
+                # creating under a file is a 409, ring or no ring
+                raise NotADirectoryError(dir_path)
+            self._ring_dir_cache.put(dir_path, True)
+            return
+        await self._ring_ensure_parents(dir_path.rsplit("/", 1)[0] or "/")
+        try:
+            await self.ring_create(new_directory(dir_path),
+                                   ensure_parents=False)
+        except FileExistsError:
+            pass  # a racing create made it
+        self._ring_dir_cache.put(dir_path, True)
+
+    async def ring_find(self, path: str) -> Optional[Entry]:
+        path = _norm(path)
+        if self.ring is None:
+            return await self._exec(lambda: self.filer.find_entry(path))
+        directory = path.rsplit("/", 1)[0] or "/"
+        if self.ring_router.is_owner(directory):
+            return await self._exec(lambda: self.filer.find_entry(path))
+        if self.ring_router.is_replica(directory):
+            # the synchronous mirror keeps a replica current, except just
+            # after a ring change made it one (before the handoff pushed):
+            # a local miss asks the owner, and an owner that cannot be
+            # reached leaves the local answer standing
+            entry = await self._exec(lambda: self.filer.find_entry(path))
+            if entry is not None:
+                return entry
+            try:
+                return await self._ring_map(
+                    self.ring_router.find_entry(path))
+            except (RingProxyError, FileNotFoundError):
+                return None
+        cache = self.filer._entry_cache
+        if cache is not None:
+            hit = cache.get(path, self._MISS)
+            if hit is not self._MISS:
+                return hit
+            gen = cache.generation
+        entry = await self._ring_map(self.ring_router.find_entry(path))
+        if cache is not None:
+            # a sweep between the read and the fill drops the value
+            cache.put_if_fresh(path, entry, gen)
+        return entry
+
+    async def ring_list(self, dir_path: str, start: str = "",
+                        include_start: bool = False, limit: int = 1024,
+                        prefix: str = "") -> list:
+        def local() -> list:
+            return self.filer.list_directory(dir_path, start,
+                                             include_start, limit, prefix)
+
+        if self.ring is None or self.ring_router.is_owner(dir_path):
+            return await self._exec(local)
+        if self.ring_router.is_replica(dir_path):
+            out = await self._exec(local)
+            if out:
+                return out
+            # an empty local view may be a new successor's gap: ask the
+            # owner, and if it is down empty is the best answer there is
+            try:
+                return await self._ring_map(
+                    self.ring_router.list_directory(
+                        dir_path, start, include_start, limit, prefix))
+            except (RingProxyError, FileNotFoundError):
+                return out
+        return await self._ring_map(self.ring_router.list_directory(
+            dir_path, start, include_start, limit, prefix))
+
+    async def ring_create(self, entry: Entry, o_excl: bool = False,
+                          signatures: tuple = (),
+                          free_old_chunks: bool = True,
+                          force_local: bool = False, mirror: bool = True,
+                          ensure_parents: bool = True) -> None:
+        if self.ring is None:
+            await self._create(entry, o_excl, signatures, free_old_chunks)
+            return
+        if ensure_parents:
+            await self._ring_ensure_parents(entry.parent)
+        directory = entry.parent
+        if not force_local and not self.ring_router.is_owner(directory):
+            await self._ring_map(self.ring_router.create_entry(
+                entry, o_excl=o_excl, signatures=signatures,
+                free_old_chunks=free_old_chunks))
+            # read-your-writes at the edge: this peer may have cached a
+            # negative lookup a moment ago, and the owner's sweep comes
+            # later, over the stream
+            self._ring_drop_cached(entry.full_path)
+            return
+        local = self._create(entry, o_excl, signatures, free_old_chunks)
+        if not mirror or not self.ring_router.mirror_targets(directory):
+            await local
+            return
+        # the owner's signature rides the mirror, so the replica's event
+        # carries it and the owner's own watcher skips the echo
+        copy = self.ring_router.mirror(
+            directory, "/__meta__/create_entry",
+            {"entry": json.loads(entry.to_json()), "o_excl": False,
+             "signatures": list(signatures) + [self.filer.signature],
+             "free_old_chunks": False}, idempotent=True)
+        if o_excl:
+            # the replica's copy must not land before the owner's verdict
+            await local
+            await copy
+        else:
+            # the acknowledgement waits for both, which overlap
+            await asyncio.gather(local, copy)
+
+    async def ring_update(self, entry: Entry, signatures: tuple = (),
+                          force_local: bool = False,
+                          mirror: bool = True) -> None:
+        if self.ring is None:
+            await self._exec(lambda: self.filer.update_entry(
+                entry, signatures=signatures))
+            return
+        directory = entry.parent
+        if not force_local and not self.ring_router.is_owner(directory):
+            await self._ring_map(self.ring_router.update_entry(
+                entry, signatures=signatures))
+            self._ring_drop_cached(entry.full_path)
+            return
+        local = self._exec(lambda: self.filer.update_entry(
+            entry, signatures=signatures))
+        if not mirror:
+            await local
+            return
+        await asyncio.gather(local, self.ring_router.mirror(
+            directory, "/__meta__/update_entry",
+            {"entry": json.loads(entry.to_json()),
+             "signatures": list(signatures) + [self.filer.signature]},
+            idempotent=True))
+
+    async def ring_delete(self, path: str, recursive: bool = False,
+                          free_chunks: bool = True, signatures: tuple = (),
+                          force_local: bool = False,
+                          mirror: bool = True) -> None:
+        if self.ring is None:
+            await self._exec(lambda: self.filer.delete_entry(
+                path, recursive=recursive, free_chunks=free_chunks,
+                signatures=signatures))
+            return
+        directory = path.rstrip("/").rsplit("/", 1)[0] or "/"
+        if not force_local and not self.ring_router.is_owner(directory):
+            await self._ring_map(self.ring_router.delete_entry(
+                path, recursive=recursive, free_chunks=free_chunks,
+                signatures=signatures))
+            self._ring_drop_cached(path, subtree=recursive)
+            return
+        await self._exec(lambda: self.filer.delete_entry(
+            path, recursive=recursive, free_chunks=free_chunks,
+            signatures=signatures))
+        if mirror:
+            await self.ring_router.mirror(
+                directory, "/__meta__/delete",
+                # replicas never free chunks: the owner's deletion queue
+                # frees them, a second free would delete the fids twice
+                {"path": path, "recursive": recursive, "free_chunks": False,
+                 "signatures": list(signatures) + [self.filer.signature]})
+
+    async def ring_delete_entry_point(self, path: str,
+                                      recursive: bool = False,
+                                      free_chunks: bool = True,
+                                      signatures: tuple = ()) -> None:
+        """A delete that entered at this peer. The emptiness check asks
+        the DIRECTORY's owner (its children live there), and a populated
+        subtree fans out through the coordinator, each partition's share
+        on its owner."""
+        path = _norm(path)
+        entry = await self.ring_find(path)
+        if entry is None:
+            raise FileNotFoundError(path)
+        if entry.is_directory:
+            children = await self.ring_list(path, limit=2)
+            if children and not recursive:
+                raise OSError(f"directory {path} not empty")
+            if children:
+                await self.ring_coordinator.delete_subtree(
+                    path, free_chunks=free_chunks, signatures=signatures)
+                return
+        await self.ring_delete(path, recursive=recursive,
+                               free_chunks=free_chunks,
+                               signatures=signatures)
+
+    async def _ring_map(self, awaitable):
+        """A hop's HTTP verdict as the local exceptions the handlers and
+        the coordinator speak."""
+        try:
+            return await awaitable
+        except RingProxyError as e:
+            err = (e.body or {}).get("error", "")
+            if e.status == 404:
+                raise FileNotFoundError(err or "not found") from e
+            if e.status == 409:
+                if err == "exists":
+                    raise FileExistsError(err) from e
+                raise OSError(err or "conflict") from e
+            raise
+
+    @staticmethod
+    def _hop_flags(request: web.Request) -> tuple[bool, bool]:
+        """(a ring hop, a replica mirror) from the request's headers."""
+        return (request.headers.get(RING_HOP_HEADER) == "1",
+                request.headers.get(RING_REPLICA_HEADER) == "1")
 
     # --- meta API handlers ---
     async def meta_lookup(self, request: web.Request) -> web.Response:
-        entry = await self._exec(lambda: self.filer.find_entry(
-            request.query["path"]))
+        hop, _ = self._hop_flags(request)
+        path = request.query["path"]
+        if self.ring is not None and not hop:
+            try:
+                entry = await self.ring_find(path)
+            except FileNotFoundError:
+                entry = None
+        else:
+            entry = await self._exec(lambda: self.filer.find_entry(path))
         if entry is None:
             return web.json_response({"error": "not found"}, status=404)
         return web.json_response(json.loads(entry.to_json()))
 
     async def meta_list(self, request: web.Request) -> web.Response:
         q = request.query
-        entries = await self._exec(
-            lambda: self.filer.list_directory(
-                q["dir"], q.get("start", ""),
+        hop, _ = self._hop_flags(request)
+        args = (q["dir"], q.get("start", ""),
                 q.get("include_start") == "true",
-                int(q.get("limit", 1024)), q.get("prefix", "")))
+                int(q.get("limit", 1024)), q.get("prefix", ""))
+        if self.ring is not None and not hop:
+            entries = await self.ring_list(*args)
+        else:
+            entries = await self._exec(
+                lambda: self.filer.list_directory(*args))
         return web.json_response(
             {"entries": [json.loads(e.to_json()) for e in entries]})
 
     async def meta_create(self, request: web.Request) -> web.Response:
         body = await request.json()
         entry = Entry.from_json(json.dumps(body["entry"]))
+        # filers that already applied this mutation (loop prevention)
         sigs = tuple(int(s) for s in body.get("signatures") or ())
+        hop, replica = self._hop_flags(request)
         try:
-            await self._create(entry, body.get("o_excl", False), sigs,
-                               body.get("free_old_chunks", True))
+            await self.ring_create(
+                entry, o_excl=body.get("o_excl", False), signatures=sigs,
+                free_old_chunks=body.get("free_old_chunks", True),
+                force_local=hop, mirror=not replica,
+                # the edge peer made the ancestors before its hop
+                ensure_parents=not (hop or replica))
         except FileExistsError:
             return web.json_response({"error": "exists"}, status=409)
         except (IsADirectoryError, NotADirectoryError) as e:
@@ -234,9 +572,10 @@ class FilerServer:
         body = await request.json()
         entry = Entry.from_json(json.dumps(body["entry"]))
         sigs = tuple(int(s) for s in body.get("signatures") or ())
+        hop, replica = self._hop_flags(request)
         try:
-            await self._exec(lambda: self.filer.update_entry(
-                entry, signatures=sigs))
+            await self.ring_update(entry, signatures=sigs, force_local=hop,
+                                   mirror=not replica)
         except FileNotFoundError:
             return web.json_response({"error": "not found"}, status=404)
         return web.json_response({"ok": True})
@@ -244,11 +583,16 @@ class FilerServer:
     async def meta_delete(self, request: web.Request) -> web.Response:
         body = await request.json()
         sigs = tuple(int(s) for s in body.get("signatures") or ())
+        hop, replica = self._hop_flags(request)
+        args = dict(recursive=body.get("recursive", False),
+                    free_chunks=body.get("free_chunks", True),
+                    signatures=sigs)
         try:
-            await self._exec(lambda: self.filer.delete_entry(
-                body["path"], recursive=body.get("recursive", False),
-                free_chunks=body.get("free_chunks", True),
-                signatures=sigs))
+            if self.ring is not None and not hop:
+                await self.ring_delete_entry_point(body["path"], **args)
+            else:
+                await self.ring_delete(body["path"], force_local=hop,
+                                       mirror=not replica, **args)
         except FileNotFoundError:
             return web.json_response({"error": "not found"}, status=404)
         except OSError as e:
@@ -257,12 +601,99 @@ class FilerServer:
 
     async def meta_rename(self, request: web.Request) -> web.Response:
         body = await request.json()
+        hop, _ = self._hop_flags(request)
         try:
-            await self._exec(lambda: self.filer.rename(body["from"],
-                                                       body["to"]))
+            if self.ring is not None and not hop:
+                await self.ring_coordinator.rename(_norm(body["from"]),
+                                                   _norm(body["to"]))
+            else:
+                await self._exec(lambda: self.filer.rename(body["from"],
+                                                           body["to"]))
         except FileNotFoundError:
             return web.json_response({"error": "not found"}, status=404)
         return web.json_response({"ok": True})
+
+    async def meta_ring_status(self, request: web.Request) -> web.Response:
+        """This member's ring view: the membership, the proxy and mirror
+        counters, the handoff, the invalidation sweeps, and the local and
+        owned directory counts (``filer.ring.status``)."""
+        if self.ring is None:
+            return web.json_response({"enabled": False})
+        local_dirs = await self._exec(
+            lambda: list(self.filer.store.iter_directories()))
+        return web.json_response({
+            "enabled": True,
+            "self": self.url,
+            "ring": self.ring.to_dict(),
+            "router": self.ring_router.status(),
+            "handoff": self.ring_handoff.status(),
+            "invalidation": self.ring_invalidator.status(),
+            "local_dirs": len(local_dirs),
+            "owned_dirs": sum(1 for d in local_dirs
+                              if self.ring_router.is_owner(d)),
+        })
+
+    async def meta_subscribe(self, request: web.Request
+                             ) -> web.StreamResponse:
+        """The metadata log as a stream (SubscribeMetadata,
+        weed/server/filer_grpc_server_sub_meta.go): the persisted and the
+        in-memory events since ?since, then every live mutation under
+        ?prefix, one ndjson line each; ?exclude_sig=N leaves out what
+        filer N signed."""
+        since = int(request.query.get("since", 0))
+        prefix = request.query.get("prefix", "/")
+        exclude_sig = int(request.query.get("exclude_sig", 0))
+        resp = web.StreamResponse(
+            headers={"Content-Type": "application/x-ndjson"})
+        await resp.prepare(request)
+        queue: asyncio.Queue = asyncio.Queue()
+        loop = asyncio.get_running_loop()
+
+        def on_event(e) -> None:
+            # mutations run on executor threads
+            loop.call_soon_threadsafe(queue.put_nowait, e)
+
+        def admit(e) -> bool:
+            return not (exclude_sig and exclude_sig in e.signatures)
+
+        self._subscribers.add(queue)
+        self.filer.meta_log.subscribe(on_event)
+        try:
+            seen = set()
+            # the replay: the persisted log, then the memory tail
+            replay = await self._exec(lambda: list(
+                self.filer.meta_log.read_persisted_since(since, prefix)))
+            replay += self.filer.meta_log.events_since(since, prefix)
+            for e in replay:
+                if e.tsns in seen:
+                    continue
+                seen.add(e.tsns)
+                if admit(e):
+                    await resp.write(e.wire())
+            # the live tail, drained greedily into one write per wakeup;
+            # `seen` keeps an event that raced into the replay and the
+            # queue from going out twice
+            while True:
+                batch = [await queue.get()]
+                while len(batch) < 256:
+                    try:
+                        batch.append(queue.get_nowait())
+                    except asyncio.QueueEmpty:
+                        break
+                if None in batch:
+                    break
+                payload = b"".join(
+                    e.wire() for e in batch
+                    if e.tsns not in seen
+                    and e.directory.startswith(prefix) and admit(e))
+                if payload:
+                    await resp.write(payload)
+        except (ConnectionResetError, asyncio.CancelledError):
+            pass
+        finally:
+            self.filer.meta_log.unsubscribe(on_event)
+            self._subscribers.discard(queue)
+        return resp
 
     async def meta_events(self, request: web.Request) -> web.Response:
         """Poll-based metadata subscription (SubscribeMetadata)."""
@@ -367,12 +798,22 @@ class FilerServer:
                                           sock_read=60))
         self._tasks = [asyncio.create_task(self._deletion_worker()),
                        asyncio.create_task(self._watch_master())]
+        if self.ring is not None:
+            self.ring_invalidator.start()
+
+    async def _on_shutdown(self, app) -> None:
+        # end the subscribe streams: their subscribers redial
+        for q in list(self._subscribers):
+            q.put_nowait(None)
 
     async def _on_cleanup(self, app) -> None:
         for task in self._tasks:
             task.cancel()
         await asyncio.gather(*self._tasks, return_exceptions=True)
         self._tasks = []
+        if self.ring is not None:
+            await self.ring_invalidator.stop()
+            await self.ring_handoff.stop()
         if self._session is not None:
             await self._session.close()
         await self._exec(self.filer.close)
@@ -401,8 +842,12 @@ class FilerServer:
                                 self._vid_cache.put(
                                     int(vid), [x["url"] for x in locs],
                                     pin=True)
+                            if msg.get("ring"):
+                                self._apply_ring_update(msg["ring"])
                         elif msg.get("type") == "update":
                             self._apply_location_update(msg)
+                        elif msg.get("type") == "ring":
+                            self._apply_ring_update(msg.get("ring") or {})
             except asyncio.CancelledError:
                 return
             except Exception as e:
@@ -410,6 +855,21 @@ class FilerServer:
                 log.info("watch stream from %s: %r", self.master_url, e)
             self._master_i = (self._master_i + 1) % len(self.masters)
             await asyncio.sleep(0.2)
+
+    def _apply_ring_update(self, ring_dict: dict) -> None:
+        """Adopt a ring the master pushed when its version is newer (the
+        configured view is version 0, so any join or leave supersedes
+        it): re-route, reshape the invalidation tails and start the
+        partition handoff from the old view to the new."""
+        if self.ring is None or not ring_dict.get("peers") or \
+                ring_dict.get("version", 0) <= self.ring.version:
+            return
+        old, new = self.ring, DirectoryRing.from_dict(ring_dict)
+        # the pass is marked running before the new view shows
+        self.ring_handoff.trigger(new, old)
+        self.ring = self.ring_router.ring = new
+        log.info("ring v%d adopted: %s", new.version, new.peers)
+        self.ring_invalidator.reconcile()
 
     def _apply_location_update(self, msg: dict) -> None:
         url = msg["url"]
@@ -673,7 +1133,10 @@ class FilerServer:
     async def handle_read(self, request: web.Request,
                           path: str) -> web.StreamResponse:
         self.metrics.count("read")
-        entry = await self._exec(lambda: self.filer.find_entry(path))
+        try:
+            entry = await self.ring_find(path)
+        except FileNotFoundError:
+            entry = None
         if entry is None:
             return web.json_response({"error": "not found"}, status=404)
         if entry.is_directory:
@@ -751,9 +1214,9 @@ class FilerServer:
                         path: str) -> web.Response:
         q = request.query
         limit = int(q.get("limit", 1024))
-        entries = await self._exec(lambda: self.filer.list_directory(
+        entries = await self.ring_list(
             _norm(path), q.get("lastFileName", ""), False, limit,
-            q.get("prefix", "")))
+            q.get("prefix", ""))
         return web.json_response({
             "Path": _norm(path),
             "Entries": [{
@@ -797,7 +1260,9 @@ class FilerServer:
         attempted: list[FileChunk] = []
         offset = 0
         name_hint = path.rsplit("/", 1)[-1]
-        old_entry = await self._exec(lambda: self.filer.find_entry(path))
+        # in a ring the owner's create looks the replaced entry up
+        old_entry = None if self.ring is not None else \
+            await self._exec(lambda: self.filer.find_entry(path))
 
         async def upload(index: int, data: bytes, at: int) -> FileChunk:
             return await self._upload_chunk(
@@ -852,13 +1317,19 @@ class FilerServer:
             from ..storage.types import TTL
             entry.attr.ttl_sec = TTL.parse(ttl).minutes() * 60
         sigs = _parse_signatures(request)
-        await self._exec(lambda: self.filer.create_entry(
-            entry, signatures=sigs))
-        if request.query.get("free_old_chunks") != "false":
-            # ?free_old_chunks=false keeps the replaced entry's chunks
-            # (a caller that archived them first)
-            self._queue_chunk_deletes(
-                self.filer.freeable_replaced_chunks(old_entry))
+        # ?free_old_chunks=false keeps the replaced entry's chunks (a
+        # caller that archived them first)
+        free_old = request.query.get("free_old_chunks") != "false"
+        if self.ring is not None:
+            # the owner frees what the entry replaced
+            await self.ring_create(entry, signatures=sigs,
+                                   free_old_chunks=free_old)
+        else:
+            await self._exec(lambda: self.filer.create_entry(
+                entry, signatures=sigs))
+            if free_old:
+                self._queue_chunk_deletes(
+                    self.filer.freeable_replaced_chunks(old_entry))
         return web.json_response(
             {"name": entry.name, "size": offset,
              "chunks": len(chunks)}, status=201)
@@ -866,14 +1337,20 @@ class FilerServer:
     async def handle_mkdir(self, request: web.Request,
                            path: str) -> web.Response:
         entry = new_directory(_norm(path))
-        await self._create(entry, signatures=_parse_signatures(request))
+        await self.ring_create(entry, signatures=_parse_signatures(request))
         return web.json_response({"name": entry.full_path}, status=201)
 
     async def handle_rename(self, request: web.Request,
                             path: str) -> web.Response:
         to = request.query["mv.to"]
         try:
-            await self._exec(lambda: self.filer.rename(path, to))
+            if self.ring is not None:
+                # the two parents' partitions may differ, and a moved
+                # directory's levels too: the coordinator creates each
+                # entry at its new owner, then drops the old metadata-only
+                await self.ring_coordinator.rename(_norm(path), _norm(to))
+            else:
+                await self._exec(lambda: self.filer.rename(path, to))
         except FileNotFoundError:
             return web.json_response({"error": "not found"}, status=404)
         return web.json_response({"from": _norm(path), "to": _norm(to)})
@@ -884,8 +1361,12 @@ class FilerServer:
         recursive = request.query.get("recursive") == "true"
         sigs = _parse_signatures(request)
         try:
-            await self._exec(lambda: self.filer.delete_entry(
-                path, recursive=recursive, signatures=sigs))
+            if self.ring is not None:
+                await self.ring_delete_entry_point(
+                    path, recursive=recursive, signatures=sigs)
+            else:
+                await self.ring_delete(path, recursive=recursive,
+                                       signatures=sigs)
         except FileNotFoundError:
             return web.json_response({"error": "not found"}, status=404)
         except OSError as e:

@@ -30,8 +30,15 @@ port. Raft's timings go in ``master_kwargs`` (``election_timeout``,
 store_kwargs=, port=)`` starts a filer (server/filer_server.py) against
 the masters (after tests/cluster_util.py's ``add_filer``),
 ``restart_filer(fs)`` starts it again on its port and store (a process
-restart), ``stop_filer(fs)`` stops it. The callers drive the cluster
-synchronously, from their own threads, through the port's client.
+restart), ``stop_filer(fs)`` stops it. A filer ring: ``ring_sockets(n)``
+binds n free ports (held until each member serves on its socket, so no
+other socket takes one meanwhile), and ``add_filer(sock=s,
+ring_peers=[...], ring_replicas=2)`` starts each member with the whole
+membership (the
+master's starting ring is ``master_kwargs={"ring_config":
+RingConfig(...)}``, or empty until ``/dir/ring/join``). The callers
+drive the cluster synchronously, from their own threads, through the
+port's client.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import time
 from typing import Optional
 
 from ..ec.geometry import DEFAULT, Geometry
+from ..metaring import RingConfig
 from ..storage.store import Store
 from . import http
 from .filer_server import run_filer
@@ -262,17 +270,30 @@ class LocalCluster:
                 raise TimeoutError(f"the master did not list {n} nodes")
             time.sleep(0.05)
 
+    @staticmethod
+    def ring_sockets(n: int) -> list:
+        """n sockets bound to free loopback ports, for the members of a
+        filer ring (their urls must be known before the first one
+        starts); ``add_filer(sock=)`` serves on one."""
+        return [http.listen_socket("127.0.0.1", 0) for _ in range(n)]
+
     def add_filer(self, store_name: str = "memory",
                   chunk_size: int = 16 * 1024,
                   store_kwargs: Optional[dict] = None, port: int = 0,
-                  **kwargs):
-        """Start a filer on `port` (0: a free one) with the named store
-        (a sqlite or leveldb store's ``path`` goes in `store_kwargs`);
-        returns it (``fs.url`` is host:port)."""
+                  ring_peers: Optional[list[str]] = None,
+                  ring_replicas: int = 2, sock=None, **kwargs):
+        """Start a filer on `port` (0: a free one) or on the bound `sock`
+        with the named store (a sqlite or leveldb store's ``path`` goes
+        in `store_kwargs`), a member of the filer ring of `ring_peers`
+        when given; returns it (``fs.url`` is host:port)."""
+        if ring_peers:
+            kwargs["ring_config"] = RingConfig(peers=list(ring_peers),
+                                               replicas=ring_replicas)
         kwargs = dict(kwargs, store_name=store_name, chunk_size=chunk_size,
                       store_kwargs=store_kwargs)
         fs, runner = self.call(run_filer("127.0.0.1", port,
-                                         self.master_url, **kwargs))
+                                         self.master_url, sock=sock,
+                                         **kwargs))
         self.filers[fs] = [runner, int(fs.url.rsplit(":", 1)[1]), kwargs]
         return fs
 

@@ -9,7 +9,11 @@ application with the reference's wire:
   GET  /dir/assign?count&collection&replication&ttl&dataCenter
   GET  /dir/lookup?volumeId=|fileId=&collection=   (every replica)
   GET  /dir/status         (topology, the EC geometry policy, the
-                            metadata log's status)
+                            metadata log's status, the filer ring)
+  GET  /dir/ring           (the filer ring's membership, DirectoryRing's
+                            wire form)
+  POST /dir/ring/join, /dir/ring/leave   ({"peer": host:port}, through
+                            raft)
   GET  /vol/grow?count&collection&replication&ttl&dataCenter
   GET  /vol/vacuum?garbageThreshold=
   GET  /vol/list
@@ -93,20 +97,29 @@ an election timeout (``RaftNode.lease_valid``):
 Every call of the master to a volume server or a peer is an awaited
 aiohttp client call, so masters and volume servers share a loop safely.
 
+The filer ring's membership (metaring/ring.py) is replicated state
+too: ``/dir/ring/join`` and ``/dir/ring/leave`` propose ``ring_add`` /
+``ring_remove`` entries (followers proxy them to the leader like every
+other request), every master applies them in log order, and snapshots
+carry the ring's wire form under ``ring`` (the reference's snapshots
+restore here and the port's there). Its starting membership is
+``ring_config`` (else ``WEED_FILER_RING_*``).
+
 The watch stream (KeepConnected's location half, upstream
 weed/server/master_grpc_server.go:178-233): ``GET /cluster/watch`` sends
-a snapshot of every volume's holders (normal and EC), then one
-``update`` line ({url, new_vids, deleted_vids}) per heartbeat or prune
-that changed a node's set. A subscriber that falls
-``watch_queue_depth`` lines behind is dropped with a ``resync`` line and
-redials for a snapshot. Followers answer it with a 307 to the leader.
-The filer's vid cache follows it.
+a snapshot of every volume's holders (normal and EC) and the ring, then
+one ``update`` line ({url, new_vids, deleted_vids}) per heartbeat or
+prune that changed a node's set and one ``ring`` line per membership
+change. A subscriber that falls ``watch_queue_depth`` lines behind is
+dropped with a ``resync`` line and redials for a snapshot (the
+reference drops an overflowing ring line instead). Followers answer it
+with a 307 to the leader. The filer's vid cache and its ring follow it.
 
-Left out: the filer ring and its raft commands (with the watch stream's
-``ring`` lines), the KeepConnected push to clients and volume servers,
-``KvSequencer``, geo, collection deletion, the gRPC leader hints,
-guard/JWT, the overload plane's priorities, the fastpath listener and
-gRPC.
+Left out, each with its later home (ROADMAP Queue 1 A):
+``KvSequencer`` (7.2, with the network stores), geo (8), the
+KeepConnected push to clients and volume servers, the gRPC leader hints
+and gRPC, guard/JWT, the overload plane's priorities and the fastpath
+listener (9), collection deletion (10, with the shell's rest).
 """
 
 from __future__ import annotations
@@ -129,7 +142,7 @@ from ..cluster.raft import RaftNode, _endpoint_ips
 from ..ec.geometry import GeometryPolicy
 from ..lifecycle.daemon import LifecycleDaemon
 from ..lifecycle.policy import LifecycleConfig
-from ..metaring import MasterMetaLog
+from ..metaring import DirectoryRing, MasterMetaLog, RingConfig
 from ..storage.file_id import FileId, new_cookie
 from ..storage.superblock import ReplicaPlacement
 from ..topology.sequence import LogSequencer
@@ -171,7 +184,8 @@ class MasterServer:
                  peers: Optional[list[str]] = None,
                  raft_state_dir: Optional[str] = None,
                  election_timeout: tuple[float, float] = (0.3, 0.6),
-                 raft_heartbeat: float = 0.1):
+                 raft_heartbeat: float = 0.1,
+                 ring_config: Optional[RingConfig] = None):
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds)
@@ -183,6 +197,11 @@ class MasterServer:
         self.sequencer = LogSequencer(self.metalog)
         # one seq_floor proposal at a time
         self._floor_inflight = False
+        # the filer ring's membership: served at /dir/ring, changed
+        # through raft, pushed to the filers over /cluster/watch
+        rc = ring_config or RingConfig.from_env()
+        self.ring = DirectoryRing(peers=rc.peers, vnodes=rc.vnodes,
+                                  replicas=rc.replicas)
         self.default_replication = default_replication
         self.garbage_threshold = garbage_threshold
         self.vacuum_interval_seconds = vacuum_interval_seconds
@@ -266,33 +285,45 @@ class MasterServer:
 
     def _raft_apply(self, cmd: dict):
         """Apply one committed entry: the volume-id counter (upstream's
-        MaxVolumeIdCommand, weed/topology/cluster_commands.go:8-31) and
-        the metadata log's commands; returns an assign batch's first key.
-        A reference log's key ceiling (``max_file_key``, from before its
-        metadata log) folds in as a floor."""
+        MaxVolumeIdCommand, weed/topology/cluster_commands.go:8-31), the
+        metadata log's commands and the filer ring's membership; returns
+        an assign batch's first key. A reference log's key ceiling
+        (``max_file_key``, from before its metadata log) folds in as a
+        floor."""
         if "max_volume_id" in cmd:
             self.topology.max_volume_id = max(self.topology.max_volume_id,
                                               cmd["max_volume_id"])
         if cmd.get("max_file_key"):
             self.metalog.apply({"seq_floor": cmd["max_file_key"]})
+        result = None
         if any(k in cmd for k in self._METALOG_CMDS):
-            return self.metalog.apply(cmd)
-        return None
+            result = self.metalog.apply(cmd)
+        if "ring_add" in cmd and self.ring.add_peer(cmd["ring_add"]):
+            self._broadcast_ring()
+        if "ring_remove" in cmd and \
+                self.ring.remove_peer(cmd["ring_remove"]):
+            self._broadcast_ring()
+        return result
 
     def _raft_capture(self) -> dict:
         """The applied state, for log compaction."""
         return {"max_volume_id": self.topology.max_volume_id,
-                "metalog": self.metalog.capture()}
+                "metalog": self.metalog.capture(),
+                "ring": self.ring.to_dict()}
 
     def _raft_restore(self, state: dict) -> None:
-        """Reinstate a snapshot, the reference's too (its ``ring`` is
-        ignored: the filer ring waits for the filer slice)."""
+        """Reinstate a snapshot, the reference's too; a ring newer than
+        this master's replaces it."""
         self.topology.max_volume_id = max(self.topology.max_volume_id,
                                           state.get("max_volume_id", 0))
         if state.get("metalog"):
             self.metalog.restore(state["metalog"])
         if state.get("max_file_key"):
             self.metalog.apply({"seq_floor": state["max_file_key"]})
+        ring = state.get("ring")
+        if ring and ring.get("version", 0) > self.ring.version:
+            self.ring = DirectoryRing.from_dict(ring)
+            self._broadcast_ring()
 
     def _build_app(self) -> web.Application:
         @web.middleware
@@ -312,6 +343,9 @@ class MasterServer:
         app.router.add_get("/dir/assign", self.dir_assign)
         app.router.add_get("/dir/lookup", self.dir_lookup)
         app.router.add_get("/dir/status", self.dir_status)
+        app.router.add_get("/dir/ring", self.dir_ring)
+        app.router.add_post("/dir/ring/join", self.ring_join)
+        app.router.add_post("/dir/ring/leave", self.ring_leave)
         app.router.add_get("/vol/grow", self.vol_grow)
         app.router.add_get("/vol/vacuum", self.vol_vacuum)
         app.router.add_get("/vol/list", self.vol_list)
@@ -961,7 +995,53 @@ class MasterServer:
         d = self.topology.to_dict()
         d["ec_geometry"] = self.ec_policy.to_dict()
         d["metalog"] = self.metalog.status()
+        d["ring"] = self.ring.to_dict()
         return web.json_response(d)
+
+    # --- the filer ring's membership (metaring plane) ---
+    async def dir_ring(self, request: web.Request) -> web.Response:
+        """The ring's wire form: filers start from it and follow the
+        watch stream's ring lines."""
+        return web.json_response(self.ring.to_dict())
+
+    async def ring_join(self, request: web.Request) -> web.Response:
+        """Add a filer to the ring, through raft (every master serves the
+        same membership after a failover); the filers run the partition
+        handoff off the pushed ring line."""
+        return await self._ring_change(request, "ring_add")
+
+    async def ring_leave(self, request: web.Request) -> web.Response:
+        return await self._ring_change(request, "ring_remove")
+
+    async def _ring_change(self, request: web.Request,
+                           op: str) -> web.Response:
+        try:
+            peer = (await request.json())["peer"]
+        except (ValueError, KeyError, TypeError):
+            return _error("missing peer", 400)
+        if not await self.raft.ensure_ready():
+            return _error("not the leader / not ready", 503)
+        if (op == "ring_add") == (peer in self.ring.peers):
+            # a join of a member, a leave of a stranger: the ring as is
+            return web.json_response({"ok": True, "unchanged": True,
+                                      "ring": self.ring.to_dict()})
+        if not await self.raft.propose({op: peer}):
+            return _error("lost leadership during ring change", 503)
+        return web.json_response({"ok": True, "ring": self.ring.to_dict()})
+
+    def _broadcast_ring(self) -> None:
+        """Push the ring to every watch subscriber; one that is full is
+        dropped with a ``resync`` line (its redial's snapshot carries the
+        ring)."""
+        msg = {"type": "ring", "ring": self.ring.to_dict()}
+        # a snapshot restored while raft starts comes before any watcher
+        for q in list(getattr(self, "_watchers", ())):
+            try:
+                q.put_nowait(msg)
+            except asyncio.QueueFull:
+                self._watchers.discard(q)
+                self.metrics.count("watchers_overflowed")
+                self._push(q, {"type": "resync"})
 
     async def vol_grow(self, request: web.Request) -> web.Response:
         q = request.query
@@ -1393,7 +1473,8 @@ class MasterServer:
                 if entry not in vols.setdefault(str(vid), []):
                     vols[str(vid)].append(entry)
         return {"type": "snapshot", "volumes": vols,
-                "leader": self.raft.leader_id or ""}
+                "leader": self.raft.leader_id or "",
+                "ring": self.ring.to_dict()}
 
     async def cluster_watch(self, request: web.Request
                             ) -> web.StreamResponse:

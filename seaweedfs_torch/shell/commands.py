@@ -14,9 +14,11 @@ plane's ``volume.heat``, ``lifecycle.status`` and ``lifecycle.run``
 and ``cluster.balance.run`` (shell/balance_commands.py), and the filer
 namespace's ``fs.*`` commands (shell/fs_commands.py), which talk to the
 filer that ``CommandEnv(filer=)`` names (shell ``-filer``) and resolve
-relative paths against ``env.cwd``; the other command modules of the
-reference (buckets, locks, geo, the ring, telemetry, traces and the rest
-of the volume commands) are not ported. A command that moves
+relative paths against ``env.cwd``, and the filer ring's
+``filer.ring.status``, ``filer.ring.join`` and ``filer.ring.leave``
+(shell/ring_commands.py); the other command modules of the reference
+(buckets, locks, geo, telemetry, traces and the rest of the volume
+commands) are not ported. A command that moves
 volumes (``destructive``) runs under the master's cluster-exclusive admin
 lock (client.AdminLock), taken and released around it; the reference's
 ``lock``/``unlock`` commands, which hold it across commands, are not
@@ -126,4 +128,4 @@ def _register_all() -> None:
     """Import every command module for its registration side effects
     (upstream does the same through init() imports, commands.go:42)."""
     from . import (balance_commands, ec_shell, fs_commands,  # noqa: F401
-                   volume_commands)
+                   ring_commands, volume_commands)

@@ -1307,7 +1307,8 @@ def test_shell_registry():
         "volume.tier.upload", "volume.tier.download",
         "fs.pwd", "fs.cd", "fs.ls", "fs.du", "fs.cat", "fs.mv", "fs.rm",
         "fs.mkdir", "fs.tree", "fs.meta.cat", "fs.meta.save",
-        "fs.meta.load"}
+        "fs.meta.load", "filer.ring.status", "filer.ring.join",
+        "filer.ring.leave"}
 
 
 # --- the HTTP layer --------------------------------------------------------

@@ -117,7 +117,12 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.filer.upload_window",
                  "seaweedfs_torch.server.filer_server",
                  "seaweedfs_torch.lifecycle.s3_rules",
-                 "seaweedfs_torch.shell.fs_commands"):
+                 "seaweedfs_torch.shell.fs_commands",
+                 "seaweedfs_torch.metaring.router",
+                 "seaweedfs_torch.metaring.coordinator",
+                 "seaweedfs_torch.metaring.invalidation",
+                 "seaweedfs_torch.metaring.handoff",
+                 "seaweedfs_torch.shell.ring_commands"):
         assert name in result["names"]
     assert result["forbidden"] == []
 

@@ -8,19 +8,29 @@ other's log. (b) ``RaftNode``'s handlers: seeded sequences of
 RequestVote and AppendEntries requests (stale terms, conflicting entries
 that truncate, ``prev_log_index`` below the snapshot floor, snapshot
 installs, ``leader_commit`` past the last entry) go to a port node and a
-reference node, both with peers and not started: equal responses, equal
-state after each request and equal ``raft_state.json`` bytes; the state
+reference node, both with peers and not started: equal responses (the
+port's refusal of a ``prev_log_index`` past its log's end also carries
+``last_index``, D19), equal state after each request and equal
+``raft_state.json`` bytes; the state
 directory each writes loads in the other, and the masters' snapshots
 restore across the packages. (c) F6: a restarted node of the reference
 re-applies log entries from its tail (its metadata log runs ahead of its
 replicas' and the cluster mints keys twice); the port's replicas stay
-equal and mint no key twice.
+equal and mint no key twice. The scenario waits, at each step, until
+every running node holds the leader's log and commit index. (d) F7: a
+leader deposed by a RequestVote while its replication round is queued
+sends, in the reference, AppendEntries at the candidate's term under its
+own name (the candidate then steps down); the port's sends nothing. (e)
+D19: a follower whose log ends far before the leader's ``next_index``
+(a node restarted behind a leader elected while it was down) matches in
+the reference after one round per missing entry, in the port after two.
 """
 
 import asyncio
 import functools
 import json
 import signal
+import time
 
 import numpy as np
 import pytest
@@ -233,13 +243,21 @@ def test_handlers_match_reference(seed, tmp_path):
         p = _node(praft, PMetaLog, str(tmp_path / "p"))
         r = _node(rraft, RMetaLog, str(tmp_path / "r"))
         seen = {"truncated": False, "below_floor": False,
-                "installed": False, "compacted": False}
+                "installed": False, "compacted": False, "hinted": False}
         for i, (kind, req) in enumerate(reqs):
             terms = {j: p._term_at(j) for j in range(
                 p.snap_index + 1, p.snap_index + len(p.log) + 1)}
             handler = "handle_vote" if kind == "vote" else "handle_append"
+            last_p = p._last_index()
             got_p = await getattr(p, handler)(json.loads(json.dumps(req)))
             got_r = await getattr(r, handler)(json.loads(json.dumps(req)))
+            # the port's refusal of a prev past its log's end also says
+            # where the log ends (D19); every other key is the reference's
+            hint = got_p.pop("last_index", None)
+            if hint is not None:
+                seen["hinted"] = True
+                assert not got_p["success"] and hint == last_p < \
+                    req["prev_log_index"], (i, req, hint)
             assert got_p == got_r, (i, kind, req)
             await _settle(p)
             await _settle(r)
@@ -349,12 +367,37 @@ async def _f6_scenario(mod, metalog_cls, tmp_path) -> dict:
         net.wire(node)
         return node
 
-    async def converge():
-        for _ in range(20):
-            await asyncio.sleep(0.02)
+    async def converge(bound: float = 10.0):
+        """Until every node that is up holds the leader's last log index
+        and commit index and has applied them (a restarted node catches
+        up through the leader's appends); at most `bound` seconds."""
+        deadline = time.monotonic() + bound
+        while True:
+            up = [n for nid, n in nodes.items() if nid not in net.down]
+            leaders = [n for n in up if n.is_leader]
+            if leaders:
+                lead = max(leaders, key=lambda n: n.term)
+                if all(n._last_index() == lead._last_index()
+                       and n.commit_index == lead.commit_index
+                       and n.last_applied == n.commit_index for n in up):
+                    return
+            assert time.monotonic() < deadline, "the nodes did not converge"
+            await asyncio.sleep(0.01)
 
     nodes = {nid: make(nid) for nid in PEERS}
     keys = []
+    tries = []
+
+    async def elect(node):
+        """Run node's election until it leads, as its election timer
+        would (at most 3 rounds); the rounds it took go to `tries`. A
+        deposed leader's round in flight can unseat a candidate of the
+        reference (F7)."""
+        for n in range(1, 4):
+            await node._run_election()
+            if node.is_leader:
+                break
+        tries.append(n)
 
     async def assign(leader, n):
         for _ in range(n):
@@ -363,7 +406,7 @@ async def _f6_scenario(mod, metalog_cls, tmp_path) -> dict:
             assert ok
             keys.append(key)
 
-    await nodes[N1]._run_election()
+    await elect(nodes[N1])
     assert nodes[N1].is_leader
     await assign(nodes[N1], 7)
     await converge()
@@ -381,16 +424,17 @@ async def _f6_scenario(mod, metalog_cls, tmp_path) -> dict:
     await converge()
     out["after_restart"] = {nid: n.ml.next_key for nid, n in nodes.items()}
     # N2 leads and assigns
-    await nodes[N2]._run_election()
+    await elect(nodes[N2])
     assert nodes[N2].is_leader
     await assign(nodes[N2], 3)
     await converge()
     # fail over to N3, which was never restarted
-    await nodes[N3]._run_election()
+    await elect(nodes[N3])
     assert nodes[N3].is_leader
     await assign(nodes[N3], 3)
     await converge()
     out["keys"] = keys
+    out["election_tries"] = tries
     out["captures"] = {nid: n.ml.capture() for nid, n in nodes.items()}
     for n in nodes.values():
         n._stopped = True
@@ -418,6 +462,9 @@ def test_f6_restarted_node_does_not_reapply(tmp_path):
     # the port: every replica equal after the restart and at the end,
     # and no key minted twice across both failovers
     assert set(port["after_restart"].values()) == {8}
+    # the port's deposed leader sends nothing at a term it did not win:
+    # each election is won at its first round
+    assert port["election_tries"] == [1, 1, 1]
     caps = list(port["captures"].values())
     assert caps[0] == caps[1] == caps[2]
     assert sorted(port["keys"]) == list(range(1, 14))
@@ -461,3 +508,116 @@ def test_same_endpoint_matches_reference():
                  ("127.0.0.1:9333", "127.0.0.1:9334"),
                  ("127.0.0.1:1", "127.0.0.1:1")]:
         assert praft.same_endpoint(a, b) == rraft.same_endpoint(a, b)
+
+
+# --- (d) F7: a deposed leader's queued round -------------------------------
+
+async def _f7_scenario(mod, tmp_path) -> list:
+    """N1 leads term 1; a replication round is started and, before its
+    per-peer sends run, N2's RequestVote for term 2 reaches N1. Returns
+    the (term, leader) of every AppendEntries N1 sent after the vote."""
+    net = _Net()
+    nodes = {}
+    for nid in PEERS:
+        d = tmp_path / nid.replace(":", "_").replace(".", "_")
+        d.mkdir(exist_ok=True)
+        nodes[nid] = mod.RaftNode(nid, PEERS, lambda cmd: None,
+                                  election_timeout=(30.0, 60.0),
+                                  heartbeat_interval=30.0,
+                                  state_dir=str(d))
+        net.wire(nodes[nid])
+    n1 = nodes[N1]
+    await n1._run_election()
+    assert n1.is_leader and n1.term == 1
+    sent = []
+    real = n1._post
+
+    async def post(peer, path, body):
+        if path.endswith("/append") and voted:
+            sent.append((body["term"], body["leader_id"]))
+        return await real(peer, path, body)
+
+    n1._post = post
+    voted = False
+    round_ = asyncio.ensure_future(n1._replicate_round())
+    vote = asyncio.ensure_future(n1.handle_vote(
+        {"term": 2, "candidate_id": N2,
+         "last_log_index": n1._last_index(),
+         "last_log_term": n1._term_at(n1._last_index())}))
+    await asyncio.sleep(0)
+    voted = True
+    await asyncio.gather(round_, vote)
+    for n in nodes.values():
+        n._stopped = True
+        n.role = "follower"
+    await asyncio.sleep(0.05)
+    for n in nodes.values():
+        n._save_exec.shutdown(wait=True)
+    return sent
+
+
+@within(30)
+def test_f7_deposed_leader_sends_nothing_at_the_new_term(tmp_path):
+    (tmp_path / "r").mkdir()
+    (tmp_path / "p").mkdir()
+    ref = asyncio.run(_f7_scenario(rraft, tmp_path / "r"))
+    port = asyncio.run(_f7_scenario(praft, tmp_path / "p"))
+    # the reference: its queued sends carry term 2, a term N1 never won
+    assert ref and all(t == 2 and who == N1 for t, who in ref), ref
+    # the port: the round sees it was deposed and sends nothing
+    assert port == []
+
+
+# --- (e) D19: a follower far behind the leader's next_index ---------------
+
+async def _d19_rounds(mod, tmp_path, leader_len: int = 300,
+                      follower_len: int = 20) -> tuple[int, list, list]:
+    """N1 leads term 2 with `leader_len` entries and next_index past its
+    log's end for every peer (as set at its election); N2's log holds the
+    first `follower_len` of them; N3 is down. Returns the replication
+    rounds until N2 matches, and both logs."""
+    net = _Net()
+    nodes = {}
+    for nid in PEERS:
+        d = tmp_path / nid.replace(":", "_").replace(".", "_")
+        d.mkdir(exist_ok=True)
+        nodes[nid] = mod.RaftNode(nid, PEERS, lambda cmd: None,
+                                  election_timeout=(30.0, 60.0),
+                                  heartbeat_interval=30.0,
+                                  state_dir=str(d), max_log_entries=10000)
+        net.wire(nodes[nid])
+    net.down.add(N3)
+    n1, n2 = nodes[N1], nodes[N2]
+    entries = [{"term": 1, "cmd": {"assign_batch": {"count": 1}}}
+               for _ in range(leader_len)]
+    n1.log, n1.term = list(entries), 2
+    n2.log, n2.term = entries[:follower_len], 1
+    n1.role, n1.leader_id = mod.LEADER, N1
+    n1.next_index = {p: leader_len + 1 for p in PEERS if p != N1}
+    n1.match_index = {p: 0 for p in PEERS if p != N1}
+    rounds = 0
+    while n1.match_index[N2] < leader_len and rounds < 2 * leader_len:
+        await n1._replicate_round()
+        rounds += 1
+    for n in nodes.values():
+        n._stopped = True
+        n.role = mod.FOLLOWER
+    for n in nodes.values():
+        n._save_exec.shutdown(wait=True)
+    return rounds, n1.log, n2.log
+
+
+@within(60)
+def test_d19_follower_far_behind_matches_in_two_rounds(tmp_path):
+    (tmp_path / "r").mkdir()
+    (tmp_path / "p").mkdir()
+    ref_rounds, ref_lead, ref_follow = asyncio.run(
+        _d19_rounds(rraft, tmp_path / "r"))
+    port_rounds, port_lead, port_follow = asyncio.run(
+        _d19_rounds(praft, tmp_path / "p"))
+    # the reference steps back one entry a round: 280 refusals, then the
+    # match
+    assert ref_rounds == 300 - 20 + 1
+    # the port jumps to the follower's end: one refusal, then the match
+    assert port_rounds == 2
+    assert ref_follow == ref_lead and port_follow == port_lead
