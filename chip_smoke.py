@@ -399,6 +399,32 @@ Phases (any failure exits non-zero before the result line):
    read through the member outside its directory's replica set (p50/p99
    per file). ``gf_apply`` must launch in 15e's warm-down and degraded
    reads, and in no other step of the phase;
+16. (run after 15) the network stores, in their own ``LocalCluster``:
+   a master whose sequencer is a ``KvSequencer`` on a fake redis of its
+   own, 2 volume servers (``Store(coder_name="auto")``, 64 MiB volumes),
+   and six filers at 8 MiB chunks, one per store (``redis``,
+   ``redis2``, ``etcd``, ``mongodb``, ``elastic``, ``cassandra``), each
+   on its fake server; the fakes run in processes of their own, the
+   ``redis2`` filer is ``python3 -m seaweedfs_torch.cli filer -store
+   redis2 -store_servers ...``, the other five are in this process.
+   (16a) through each filer 8 clients (a process a store) create 1000
+   metadata-only entries in 50 directories (``/__meta__/create_entry``):
+   creates/s and p50/p99 per store; every directory listed back 100 at
+   a time equal to what was acknowledged (0 lost); a rename of a
+   directory across directories and a recursive delete, each listed and
+   looked up. (16b) 16 MiB of phase 3's generator's files (log-uniform
+   1 KiB .. 8 MiB) through each filer under ``/buckets/nets-<store>/``,
+   the master restarted halfway: every chunk's key unique, every batch
+   minted after the restart above every batch before, the KV counter at
+   least the highest key; every volume holding a chunk EC-encoded with
+   the shell's ``ec.encode``; shards {0, 3, 7, 12} dropped (kept aside),
+   every file read whole through its own filer (p50/p99 per file per
+   store), the shards put back. (16c) each in-process filer restarted on
+   its fake and the CLI filer stopped by SIGTERM and started again with
+   its arguments: each tree lists equal, a file reads back through the
+   CLI filer, ``shell -filer ... fs.ls`` answers. ``gf_apply`` must
+   launch in 16b's encode and degraded reads, and in no other step of
+   the phase;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -6706,6 +6732,498 @@ def run_ring(work: Path, seed: int = SEED + 15, coder_name: str = "auto",
     return launches
 
 
+NETS_STORES = ("redis", "redis2", "etcd", "mongodb", "elastic", "cassandra")
+NETS_CLI_STORE = "redis2"         # the store of the CLI filer
+NETS_LIMIT_MB = 64
+NETS_ENTRIES = 1000               # metadata-only creates per store
+NETS_DIRS = 50
+NETS_CLIENTS = 8                  # create clients per store
+NETS_PAGE = 100                   # the listing's page
+NETS_STORE_BYTES = 16 * MIB       # files per store
+NETS_MAX_FILE = 8 * MIB           # phase 3's generator: log-uniform 1 KiB ..
+NETS_CHUNK = 8 * MIB              # the filers' chunks
+NETS_COLLECTION = "nets"
+NETS_META = "/nets-meta"
+NETS_CODER_STEPS = ("nets.ec_encode", "nets.read_degraded")
+# one fake server: its port on stdout, then serve until stdin closes
+_FAKE_SERVER = """
+import importlib, sys
+sys.path.insert(0, sys.argv[1])
+fake = getattr(importlib.import_module(
+    "seaweedfs_torch.filer." + sys.argv[2]), sys.argv[3])()
+print(fake.port, flush=True)
+sys.stdin.read()
+fake.close()
+"""
+# one store's create clients: POST /__meta__/create_entry once for each
+# path, `threads` at once; the acknowledged (path, seconds), the failed
+# (path, status or error) and the wall seconds as JSON on stdout
+_NETS_CREATE = """
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from seaweedfs_torch.filer.entry import new_file
+from seaweedfs_torch.server import http
+job = json.loads(sys.argv[2])
+acks, failed, lock = [], [], threading.Lock()
+
+def loop(k):
+    for path in job["paths"][k::job["threads"]]:
+        body = json.dumps({"entry": json.loads(new_file(path).to_json())})
+        t0 = time.perf_counter()
+        try:
+            why = http.request(
+                "POST", "http://%s/__meta__/create_entry" % job["filer"],
+                body.encode(), {"Content-Type": "application/json"},
+                timeout=60).status
+        except OSError as e:
+            why = repr(e)
+        with lock:
+            if why == 200:
+                acks.append((path, time.perf_counter() - t0))
+            else:
+                failed.append((path, why))
+
+t0 = time.perf_counter()
+workers = [threading.Thread(target=loop, args=(k,))
+           for k in range(job["threads"])]
+for w in workers:
+    w.start()
+for w in workers:
+    w.join()
+print(json.dumps({"acks": acks, "failed": failed,
+                  "seconds": time.perf_counter() - t0}))
+"""
+
+
+def nets_entry_path(i: int, dirs: int) -> str:
+    return f"{NETS_META}/d{i % dirs:04d}/e{i:05d}"
+
+
+class FakeServers:
+    """Phase 16's fake servers, each a process of its own (in this one
+    they would share its GIL with the filers); ``ports[name]``."""
+
+    def __init__(self, fakes: dict):
+        self.procs = {name: subprocess.Popen(
+            [sys.executable, "-c", _FAKE_SERVER, str(REPO), module, cls],
+            cwd=str(REPO), stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+            for name, (module, cls) in fakes.items()}
+        self.ports = {}
+        for name, proc in self.procs.items():
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"fake {name} did not start")
+            self.ports[name] = int(line)
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            proc.stdin.close()
+        for proc in self.procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+class CliNetsFiler(CliFiler):
+    """The redis2 filer as its own process: ``python3 -m
+    seaweedfs_torch.cli filer -store redis2 -store_servers host:port``."""
+
+    def __init__(self, work: Path, master: str, store_port: int):
+        self.url = f"127.0.0.1:{free_port()}"
+        self.work = work
+        self.args = [sys.executable, "-m", "seaweedfs_torch.cli", "filer",
+                     "-port", self.url.split(":")[1], "-mserver", master,
+                     "-store", NETS_CLI_STORE, "-store_servers",
+                     f"127.0.0.1:{store_port}",
+                     "-chunk_size_mb", str(NETS_CHUNK // MIB)]
+        self.proc = None
+
+
+def nets_list(filer: str, directory: str, page: int = NETS_PAGE) -> list:
+    """A directory's names, listed `page` at a time."""
+    names: list = []
+    while True:
+        got = [e["path"].rsplit("/", 1)[1] for e in fs_meta(
+            filer, "list", dir=directory,
+            start=names[-1] if names else "", limit=page)["entries"]]
+        names += got
+        if len(got) < page:
+            return names
+
+
+def run_nets(work: Path, seed: int = SEED + 16, coder_name: str = "auto",
+             device=None, limit_mb: int = NETS_LIMIT_MB,
+             entries: int = NETS_ENTRIES, dirs: int = NETS_DIRS,
+             store_bytes: int = NETS_STORE_BYTES,
+             max_file: int = NETS_MAX_FILE, chunk: int = NETS_CHUNK) -> dict:
+    """Phase 16; returns the launches per step. On the card they are held
+    to the phase's rule (gf_apply in 16b's ec.encode and degraded reads
+    only; no other kernel); ``coder_name="torch", device="cpu"`` at a few
+    MB runs it on a host without one (no launch is counted there)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_torch.balance import BalanceConfig
+    from seaweedfs_torch.filer.redis_store import _RespClient
+    from seaweedfs_torch.filer.stores import (NETWORK_STORES,
+                                              network_store_kwargs)
+    from seaweedfs_torch.topology.sequence import KvSequencer
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    files = FsFiles(seed)
+    rng = np.random.default_rng(seed)
+    # (first key, count, which master's sequencer) of every batch minted
+    minted: list = []
+    made: list = []
+
+    class RecordingKv(KvSequencer):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.start = len(made)
+            made.append(self)
+
+        def next_file_id(self, count: int = 1) -> int:
+            first = super().next_file_id(count)
+            minted.append((first, count, self.start))
+            return first
+
+    fakes = FakeServers({name: NETWORK_STORES[kind][:2] for name, kind in (
+        ("sequencer", "redis"), *((k, k) for k in NETS_STORES))})
+    seq_port = fakes.ports["sequencer"]
+    cl = cli = None
+    try:
+        cl = LocalCluster(2, coder_name=coder_name, device=device,
+                          volume_size_limit_mb=limit_mb, pulse=0.5,
+                          directory=str(work / "cluster"), racks=2,
+                          master_kwargs={
+                              "repair_enabled": False,
+                              "balance_config": BalanceConfig(
+                                  force_enabled=False)},
+                          sequencer=lambda: RecordingKv("127.0.0.1",
+                                                        seq_port))
+        master = cl.master_url
+        cli = CliNetsFiler(work, master, fakes.ports[NETS_CLI_STORE])
+        cli.start()
+        filers = {kind: cl.add_filer(kind, chunk, network_store_kwargs(
+            kind, f"127.0.0.1:{fakes.ports[kind]}")) for kind in NETS_STORES
+            if kind != NETS_CLI_STORE}
+        urls = {kind: (cli.url if kind == NETS_CLI_STORE
+                       else filers[kind].url) for kind in NETS_STORES}
+        wait_until(lambda: cli.up() and all(
+            fs.watch_messages for fs in filers.values()),
+            "the filers", timeout=120)
+        log({"phase": "nets.setup", "seconds": time.perf_counter() - t_phase,
+             "filers": urls, "fakes": fakes.ports})
+
+        # (16a) 8 clients a store create the metadata-only entries; every
+        # directory listed back a page at a time; a rename across
+        # directories and a recursive delete
+        paths = [nets_entry_path(int(i), dirs)
+                 for i in rng.permutation(entries)]
+
+        def creates() -> dict:
+            procs = {kind: subprocess.Popen(
+                [sys.executable, "-c", _NETS_CREATE, str(REPO), json.dumps(
+                    {"filer": urls[kind], "paths": paths,
+                     "threads": NETS_CLIENTS})],
+                cwd=str(REPO), stdout=subprocess.PIPE)
+                for kind in NETS_STORES}
+            out = {}
+            for kind, proc in procs.items():
+                stdout, _ = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(f"{kind} create clients exited "
+                                         f"{proc.returncode}")
+                out[kind] = json.loads(stdout.splitlines()[-1])
+            return out
+
+        t0 = time.perf_counter()
+        got, launches["nets.creates"] = counted(creates)
+        create_s = time.perf_counter() - t0
+        per_store = {}
+        for kind, r in got.items():
+            if r["failed"] or len(r["acks"]) != entries:
+                raise AssertionError(f"{kind}: {len(r['failed'])} creates "
+                                     f"failed, first {r['failed'][:3]}")
+            per_store[kind] = {
+                "creates_per_s": len(r["acks"]) / r["seconds"],
+                **latency_summary([a[1] for a in r["acks"]])}
+        bal_log("nets.creates", create_s, launches["nets.creates"],
+                entries_per_store=entries, dirs=dirs,
+                clients_per_store=NETS_CLIENTS, per_store=per_store,
+                creates_per_s=len(NETS_STORES) * entries / create_s)
+        want: dict = {}
+        for p in paths:
+            d, name = p.rsplit("/", 1)
+            want.setdefault(d, set()).add(name)
+        moved_from, deleted = nets_entry_path(1, dirs).rsplit("/", 1)[0], \
+            nets_entry_path(2, dirs).rsplit("/", 1)[0]
+        moved_to = f"{NETS_META}/moved/{moved_from.rsplit('/', 1)[1]}"
+
+        def listing() -> dict:
+            t1 = time.perf_counter()
+            lost = [(kind, d) for kind in NETS_STORES for d in sorted(want)
+                    if nets_list(urls[kind], d) != sorted(want[d])]
+            list_s = time.perf_counter() - t1
+            for kind, url in urls.items():
+                r = http.request("POST", f"http://{url}{moved_from}"
+                                 f"?mv.to={moved_to}")
+                if r.status != 200:
+                    raise AssertionError(f"{kind} rename: {r.status}")
+                r = http.request("DELETE", f"http://{url}{deleted}"
+                                 "?recursive=true")
+                if r.status != 202:
+                    raise AssertionError(f"{kind} delete: {r.status}")
+                if nets_list(url, moved_to) != sorted(want[moved_from]) \
+                        or nets_list(url, deleted) \
+                        or fs_meta_status(url, moved_from) != 404 \
+                        or fs_meta_status(url, deleted) != 404 \
+                        or fs_meta_status(url, f"{deleted}/e00002") != 404:
+                    raise AssertionError(f"{kind}: the rename or the "
+                                         f"delete shows otherwise")
+                top = set(want) - {moved_from, deleted}
+                if nets_list(url, NETS_META) != sorted(
+                        {d.rsplit("/", 1)[1] for d in top} | {"moved"}):
+                    raise AssertionError(f"{kind}: {NETS_META} lists "
+                                         f"otherwise")
+            return {"lost": lost, "list_s": list_s,
+                    "secs": time.perf_counter() - t1}
+
+        ls, launches["nets.listing"] = counted(listing)
+        bal_log("nets.listing", ls.pop("secs"), launches["nets.listing"],
+                acknowledged_entries=len(NETS_STORES) * entries,
+                listings=len(NETS_STORES) * len(want), page=NETS_PAGE,
+                acknowledged_entries_lost=len(ls["lost"]),
+                lost=ls["lost"][:5], list_s=ls["list_s"],
+                renamed=moved_to, deleted=deleted)
+        if ls["lost"]:
+            raise AssertionError(f"directories list otherwise: "
+                                 f"{ls['lost'][:3]}")
+
+        # (16b) phase 3's files through each filer, the master restarted
+        # halfway; the volumes EC-encoded through the shell; every file
+        # read with 4 shards lost; the shards put back
+        for kind in NETS_STORES:
+            for i, size in enumerate(fs_sizes(rng, store_bytes, 1024,
+                                              max_file)):
+                files.add(f"/buckets/nets-{kind}/f{i:03d}.bin", size)
+        by_store = {kind: files.under(f"/buckets/nets-{kind}/")
+                    for kind in NETS_STORES}
+        owner = {p: urls[kind] for kind, ps in by_store.items() for p in ps}
+
+        def upload(paths_: list) -> list:
+            def one(path: str) -> tuple:
+                status, secs, body = fs_put(
+                    owner[path], path, files.data(path),
+                    f"?collection={NETS_COLLECTION}")
+                if status != 201:
+                    raise AssertionError(f"PUT {path}: {status} {body!r}")
+                return secs
+
+            with ThreadPoolExecutor(2 * len(NETS_STORES)) as ex:
+                return list(ex.map(one, paths_))
+
+        halves = [[p for ps in by_store.values() for p in ps[h::2]]
+                  for h in (0, 1)]
+        t0 = time.perf_counter()
+        lat, launches["nets.uploads"] = counted(lambda: upload(halves[0]))
+
+        def restart_master() -> float:
+            t1 = time.perf_counter()
+            cl.restart_master(0)
+            cl.wait_for_nodes(2)
+            wait_until(lambda: http.get_json(
+                f"http://{master}/dir/assign?collection="
+                f"{NETS_COLLECTION}")[0] == 200,
+                "an assign through the restarted master")
+            return time.perf_counter() - t1
+
+        restart_s, launches["nets.master_restart"] = counted(restart_master)
+        more, more_launches = counted(lambda: upload(halves[1]))
+        up_s = time.perf_counter() - t0 - restart_s
+        for k, n in more_launches.items():
+            launches["nets.uploads"][k] += n
+        lat += more
+        nbytes = sum(files.files[p][1] for p in files.files)
+        keys = [int(FileId.parse(ch["fid"]).key) for p in files.files
+                for ch in fs_meta(owner[p], "lookup", path=p)["chunks"]]
+        before = [(k, n) for k, n, m in minted if m == 0]
+        after = [(k, n) for k, n, m in minted if m == 1]
+        kv = _RespClient("127.0.0.1", seq_port)
+        counter = int(kv.command("GET", "master/sequence"))
+        kv.close()
+        if len(set(keys)) != len(keys) or ha_overlaps(before + after) \
+                or not before or not after or len(made) != 2 \
+                or min(k for k, _ in after) <= max(k + n - 1
+                                                   for k, n in before) \
+                or counter < max(k + n - 1 for k, n in before + after):
+            raise AssertionError(f"keys across the master's restart: "
+                                 f"{len(keys)} chunks, {len(set(keys))} "
+                                 f"keys, batches {before[-3:]} then "
+                                 f"{after[:3]}, counter {counter}")
+        bal_log("nets.uploads", up_s, launches["nets.uploads"],
+                files=len(files.files), bytes=nbytes,
+                gbps=nbytes / up_s / 1e9, per_file=latency_summary(lat))
+        bal_log("nets.master_restart", restart_s,
+                launches["nets.master_restart"], chunks=len(keys),
+                batches_before=len(before), batches_after=len(after),
+                last_key_before=max(k + n - 1 for k, n in before),
+                first_key_after=min(k for k, _ in after),
+                kv_counter=counter, keys_repeated=0)
+
+        vids = sorted({int(FileId.parse(ch["fid"]).volume_id)
+                       for p in files.files
+                       for ch in fs_meta(owner[p], "lookup",
+                                         path=p)["chunks"]})
+        shell_commands._register_all()
+        env = shell_commands.CommandEnv(Client(master))
+
+        def ec_encode() -> None:
+            for vid in vids:
+                shell_commands.run_command(
+                    env, ["ec.encode", "-volumeId", str(vid),
+                          "-collection", NETS_COLLECTION])
+            for vid in vids:
+                shards = http.get_json(
+                    f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+                if len(shards.get("shards", {})) != 14 or any(
+                        cl.store(i).find_volume(vid) is not None
+                        for i in range(len(cl.nodes))):
+                    raise AssertionError(f"ec.encode {vid}: {shards}")
+
+        t0 = time.perf_counter()
+        _, launches["nets.ec_encode"] = counted(ec_encode)
+        bal_log("nets.ec_encode", time.perf_counter() - t0,
+                launches["nets.ec_encode"], volumes=vids)
+        aside = work / "aside"
+        aside.mkdir()
+        dropped: list = []
+
+        def drop() -> None:
+            for vid in vids:
+                info = http.get_json(
+                    f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+                for sid in VICTIMS:
+                    url = info["shards"][str(sid)][0]
+                    name = f"{NETS_COLLECTION}_{vid}{geometry.to_ext(sid)}"
+                    src = os.path.join(cl.nodes[cl.index_of(url)][3], name)
+                    shutil.copy2(src, aside / name)
+                    status, out = http.post_json(
+                        f"http://{url}/admin/ec/delete_shards",
+                        {"volume_id": vid, "collection": NETS_COLLECTION,
+                         "shard_ids": [sid]})
+                    if status != 200:
+                        raise AssertionError(f"drop {vid}.{sid}: {out}")
+                    dropped.append((vid, sid, url, src, name))
+            wait_until(lambda: all(len(http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={v}")[1][
+                    "shards"]) == 14 - len(VICTIMS) for v in vids),
+                "the lookup drops the four shards")
+
+        _, launches["nets.drop_shards"] = counted(drop)
+
+        def read_degraded() -> dict:
+            with ThreadPoolExecutor(len(NETS_STORES)) as ex:
+                return dict(zip(NETS_STORES, ex.map(
+                    lambda kind: fs_check_reads(
+                        urls[kind], files, by_store[kind], chunk, seed,
+                        ranges=0, threads=2), NETS_STORES)))
+
+        t0 = time.perf_counter()
+        rd, launches["nets.read_degraded"] = counted(read_degraded)
+        rd_s = time.perf_counter() - t0
+        bal_log("nets.read_degraded", rd_s, launches["nets.read_degraded"],
+                lost_shards=list(VICTIMS), volumes=vids,
+                files=sum(r["files"] for r in rd.values()), bytes=nbytes,
+                gbps=nbytes / rd_s / 1e9,
+                per_store={k: r["per_file"] for k, r in rd.items()})
+
+        def restore() -> None:
+            for vid, sid, url, src, name in dropped:
+                shutil.copy2(aside / name, src)
+                status, out = http.post_json(
+                    f"http://{url}/admin/ec/mount",
+                    {"volume_id": vid, "collection": NETS_COLLECTION,
+                     "shard_ids": [sid]})
+                if status != 200:
+                    raise AssertionError(f"restore {vid}.{sid}: {out}")
+            wait_until(lambda: all(len(http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={v}")[1][
+                    "shards"]) == 14 for v in vids),
+                "the lookup lists the restored shards")
+
+        _, launches["nets.restore_shards"] = counted(restore)
+        shutil.rmtree(aside, ignore_errors=True)
+
+        # (16c) each in-process filer restarted on its fake; the CLI filer
+        # stopped by SIGTERM and started again with its arguments, beside
+        # them
+        def restart_cli() -> float:
+            t2 = time.perf_counter()
+            before = fs_walk(cli.url, "/")
+            cli.stop()
+            cli.start()
+            wait_until(cli.up, "the restarted CLI filer", timeout=120)
+            restart_s = time.perf_counter() - t2
+            if fs_walk(cli.url, "/") != before:
+                raise AssertionError("the restarted CLI filer lists "
+                                     "otherwise")
+            one = by_store[NETS_CLI_STORE][0]
+            if fs_get(cli.url, one)[0].data != files.data(one):
+                raise AssertionError(f"after the CLI filer's restart: {one}")
+            sh = subprocess.run(
+                [sys.executable, "-m", "seaweedfs_torch.cli", "shell",
+                 "-master", master, "-filer", cli.url, "fs.ls",
+                 f"/buckets/nets-{NETS_CLI_STORE}"],
+                cwd=str(REPO), capture_output=True, text=True, timeout=120)
+            listed = json.loads(sh.stdout.strip().splitlines()[-1])
+            if sh.returncode != 0 or listed["entries"] != sorted(
+                    p.rsplit("/", 1)[1] for p in by_store[NETS_CLI_STORE]):
+                raise AssertionError(f"shell -filer fs.ls: {sh.stderr}")
+            return restart_s
+
+        def restarts() -> dict:
+            t1 = time.perf_counter()
+            out = {}
+            with ThreadPoolExecutor(1) as ex:
+                cli_done = ex.submit(restart_cli)
+                for kind, fs in list(filers.items()):
+                    t2 = time.perf_counter()
+                    before = fs_walk(fs.url, "/")
+                    fs = filers[kind] = cl.restart_filer(fs)
+                    wait_until(lambda: fs.watch_messages,
+                               f"the restarted {kind} filer")
+                    out[kind] = time.perf_counter() - t2
+                    if fs_walk(fs.url, "/") != before:
+                        raise AssertionError(f"the restarted {kind} filer "
+                                             f"lists otherwise")
+                out[NETS_CLI_STORE] = cli_done.result()
+            return {"restart_s": out, "secs": time.perf_counter() - t1}
+
+        rs, launches["nets.restarts"] = counted(restarts)
+        bal_log("nets.restarts", rs.pop("secs"), launches["nets.restarts"],
+                **rs)
+    finally:
+        if cli is not None:
+            cli.stop()
+        if cl is not None:
+            cl.shutdown()
+        fakes.stop()
+    if coder_name == "auto":
+        for step, counts in launches.items():
+            others = {k: n for k, n in counts.items()
+                      if k != "gf_apply" and n}
+            if others or (step in NETS_CODER_STEPS) != (counts["gf_apply"]
+                                                        > 0):
+                raise AssertionError(f"{step}: launches {counts}")
+    bal_log("nets.summary", time.perf_counter() - t_phase, launches,
+            gf_apply_per_step={k: v["gf_apply"] for k, v in launches.items()})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6843,6 +7361,14 @@ def main() -> int:
             finally:
                 gc.unfreeze()
             mark("15")
+            # phase 16: the network stores, their own cluster
+            gc.collect()
+            gc.freeze()
+            try:
+                launches["nets"] = run_nets(WORK / "nets")
+            finally:
+                gc.unfreeze()
+            mark("16")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -6877,7 +7403,7 @@ def main() -> int:
         k: v for k, v in launches["lifecycle"].items()
         if k not in LIFECYCLE_CHECKS}, **launches["mesh"],
         **launches["balance"], **launches["storage"], **launches["ha"],
-        **launches["filer"], **launches["ring"]}
+        **launches["filer"], **launches["ring"], **launches["nets"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

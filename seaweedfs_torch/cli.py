@@ -7,7 +7,7 @@ apply:
   python3 -m seaweedfs_torch.cli master -port 9333 -volumeSizeLimitMB 1024 \\
       [-defaultReplication 001] [-garbageThreshold 0.3] \\
       [-maintenance_interval S] [-repair_concurrency N] \\
-      [-peers h1:9333,h2:9333,h3:9333 -mdir /state]
+      [-peers h1:9333,h2:9333,h3:9333 -mdir /state] [-sequencer_kv h:6379]
   python3 -m seaweedfs_torch.cli volume -port 8080 -dir /data \\
       -mserver h1:9333[,h2:9333,...] [-rack r1] [-coder auto|torch|numpy] \\
       [-device cuda:0] [-index memory|compact|leveldb|leveldbMedium|\\
@@ -17,7 +17,9 @@ apply:
   python3 -m seaweedfs_torch.cli shell -server localhost:9333 \\
       volume.fix.replication -force
   python3 -m seaweedfs_torch.cli filer -port 8888 -mserver h1:9333 \\
-      [-store sqlite|memory|leveldb|leveldb2] [-store_path ./filer.db] \\
+      [-store sqlite|memory|leveldb|leveldb2|mysql|postgres|redis|redis2|\\
+      etcd|mongodb|elastic|cassandra] [-store_path ./filer.db] \\
+      [-store_servers host:port] \\
       [-chunk_size_mb 8] [-default_replication 000] [-collection c] \\
       [-meta_log events.jsonl] [-ring_peers h:8888,h:8889,h:8890]
   python3 -m seaweedfs_torch.cli shell -master h1:9333 -filer h:8888 \\
@@ -35,9 +37,10 @@ kernels' plain versions), run EC on the host. Servers run on an asyncio
 loop until SIGTERM or SIGINT, then stop their background tasks and
 close their stores. A filer (``filer``) keeps its namespace in ``-store`` (``sqlite`` at
 ``-store_path`` by default; ``leveldb`` and ``leveldb2`` keep a
-directory there; ``memory`` keeps nothing) and cuts uploads into
-``-chunk_size_mb`` chunks; the network stores (``-store_servers``) are
-not ported, and asking for one raises. The shell's ``fs.*`` commands
+directory there; ``memory`` keeps nothing; ``redis``, ``redis2``,
+``mongodb`` and ``cassandra`` take a ``host:port`` in
+``-store_servers``, ``etcd`` and ``elastic`` an address or URL there;
+the other stores refuse it) and cuts uploads into ``-chunk_size_mb`` chunks. The shell's ``fs.*`` commands
 need ``-filer``. ``-ring_peers`` makes the filer a member of the filer
 ring of those filers (every member's ``ip:port``, its own included; the
 vnodes and replicas come from ``WEED_FILER_RING_VNODES`` /
@@ -53,6 +56,9 @@ Masters of an HA group (upstream's ``weed master -peers``, at most 5)
 each take every master's ``ip:port`` in ``-peers`` (their own included)
 and a directory of their own in ``-mdir`` for the raft state (created if
 missing); a master without ``-peers`` is alone and needs no ``-mdir``.
+``-sequencer_kv host:port`` makes a master lease its file keys from a
+redis-protocol KV's counter (``KvSequencer``, upstream's etcd
+sequencer) instead of minting them through its metadata log.
 Volume servers (``-mserver``) and the shell (``-master``, or ``-server``)
 take the group's comma list and follow its leader.
 
@@ -108,10 +114,19 @@ def cmd_master(args) -> None:
     peers = [p.strip() for p in args.peers.split(",") if p.strip()]
     if args.mdir:
         os.makedirs(args.mdir, exist_ok=True)
+    sequencer = None
+    if args.sequencer_kv:
+        from .topology.sequence import KvSequencer
+        host, _, port = args.sequencer_kv.rpartition(":")
+        if not host or not port.isdigit():
+            raise SystemExit(f"-sequencer_kv must be host:port, got "
+                             f"{args.sequencer_kv!r}")
+        sequencer = KvSequencer(host, int(port))
     _serve_until_signalled(lambda: run_master(
         args.ip, args.port,
         peers=peers or None,
         raft_state_dir=args.mdir or None,
+        sequencer=sequencer,
         volume_size_limit_mb=args.volume_size_limit_mb,
         default_replication=args.default_replication,
         garbage_threshold=args.garbage_threshold,
@@ -147,12 +162,16 @@ def cmd_volume(args) -> None:
 
 def cmd_filer(args) -> None:
     from .server.filer_server import run_filer
-    if args.store_servers:
-        raise SystemExit("-store_servers: the network stores are not "
-                         "ported; use sqlite, leveldb, leveldb2 or memory")
     store_kwargs = {}
     if args.store in ("sqlite", "leveldb", "leveldb2"):
         store_kwargs["path"] = args.store_path
+    if args.store_servers:
+        from .filer.stores import network_store_kwargs
+        try:
+            store_kwargs.update(network_store_kwargs(args.store,
+                                                     args.store_servers))
+        except ValueError as e:
+            raise SystemExit(f"-store_servers: {e}")
     ring_config = None
     if args.ring_peers:
         from .metaring import RingConfig
@@ -298,6 +317,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "-peers)")
     m.add_argument("-mdir", default="",
                    help="directory of this master's raft state")
+    m.add_argument("-sequencer_kv", default="",
+                   help="host:port of a redis-protocol KV whose counter "
+                        "leases the file keys (KvSequencer)")
     m.add_argument("-repair_concurrency", type=int, default=None,
                    help="max concurrent repairs (re-replication / "
                         "auto ec.rebuild / lifecycle encodes) the "
@@ -355,10 +377,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the master, or an HA group's comma list")
     f.add_argument("-store", default="sqlite",
                    help="metadata store: sqlite | memory | leveldb | "
-                        "leveldb2")
+                        "leveldb2 | mysql | postgres | redis | redis2 | "
+                        "etcd | mongodb | elastic | cassandra")
     f.add_argument("-store_path", default="./filer.db")
     f.add_argument("-store_servers", default="",
-                   help="host:port of a network store (not ported)")
+                   help="host:port (or URL) of a network store (redis, "
+                        "redis2, etcd, mongodb, elastic, cassandra)")
     f.add_argument("-chunk_size_mb", type=int, default=8)
     f.add_argument("-default_replication", default="")
     f.add_argument("-collection", default="")

@@ -62,7 +62,12 @@ Differences from the reference:
   reference steps back one entry a heartbeat, so a node restarted behind
   a leader elected while it was down catches up one entry each 0.1 s
   (ROADMAP Queue 3, D19). A reply without the key, as the reference's
-  are, still steps back by one.
+  are, still steps back by one;
+- a leader or candidate that steps down restarts its election timer.
+  The reference's timer runs on through a term of leading, so a leader
+  deposed by a reply's higher term may campaign a few milliseconds
+  later, before the new leader's first heartbeat reaches it, and unseat
+  that leader (ROADMAP Queue 3, F8).
 """
 
 from __future__ import annotations
@@ -374,6 +379,10 @@ class RaftNode:
                 self._schedule_flush()
         if self.role != FOLLOWER:
             log.info("%s: stepping down at term %d", self.id, term)
+            # a deposed leader or candidate waits a whole election
+            # timeout for the new leader (F8): its timer ran on while it
+            # led and may be about to fire
+            self._timer_reset.set()
         self.role = FOLLOWER
         self._fail_waiters()
 

@@ -4,10 +4,12 @@ The port's reduced copy of seaweedfs_tpu/filer/abstract_sql.py
 (upstream weed/filer/abstract_sql/abstract_sql_store.go): all CRUD and
 listing SQL lives here, parameterized by a ``Dialect`` (placeholder
 style, upsert form, the LIKE escape), and an engine contributes only a
-connection. The engine ported is sqlite (stdlib ``sqlite3``), the CLI
-filer's default store; its tables, rows and listing order are the
-reference's, so either package opens the other's database. The mysql and
-postgres engines wait with the network stores.
+connection. Engines: sqlite (stdlib ``sqlite3``), the CLI filer's
+default store, whose tables, rows and listing order are the reference's,
+so either package opens the other's database; mysql and postgres, which
+bind to their DB-API drivers (``pymysql``, ``psycopg2``) when installed
+and raise a ``RuntimeError`` naming the missing module when not. Their dialects'
+SQL is the reference's, statement for statement.
 """
 
 from __future__ import annotations
@@ -47,6 +49,33 @@ class Dialect:
                    v BLOB NOT NULL
                )""",
         ]
+
+
+class MysqlDialect(Dialect):
+    placeholder = "%s"
+    # MySQL reads a backslash in a string literal as an escape: its
+    # ESCAPE clause doubles it
+    like_escape = r"ESCAPE '\\'"
+
+    def upsert_entry(self) -> str:
+        return ("INSERT INTO entries (dir, name, meta) VALUES (%s,%s,%s) "
+                "ON DUPLICATE KEY UPDATE meta=VALUES(meta)")
+
+    def upsert_kv(self) -> str:
+        return ("INSERT INTO kv (k, v) VALUES (%s,%s) "
+                "ON DUPLICATE KEY UPDATE v=VALUES(v)")
+
+
+class PostgresDialect(Dialect):
+    placeholder = "%s"
+
+    def upsert_entry(self) -> str:
+        return ("INSERT INTO entries (dir, name, meta) VALUES (%s,%s,%s) "
+                "ON CONFLICT (dir, name) DO UPDATE SET meta=EXCLUDED.meta")
+
+    def upsert_kv(self) -> str:
+        return ("INSERT INTO kv (k, v) VALUES (%s,%s) "
+                "ON CONFLICT (k) DO UPDATE SET v=EXCLUDED.v")
 
 
 class AbstractSqlStore(FilerStore):
@@ -196,3 +225,48 @@ class SqliteStore(AbstractSqlStore):
         conn = sqlite3.connect(self._path, timeout=30)
         conn.execute("PRAGMA journal_mode=WAL")
         return conn
+
+
+def _db_module(module: str, store: str):
+    """The DB-API driver `module`; a RuntimeError naming it if it is not
+    installed."""
+    import importlib
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise RuntimeError(f"filer store {store!r} needs the {module} "
+                           "driver, which is not installed") from e
+
+
+class MysqlStore(AbstractSqlStore):
+    """The mysql engine (filer store ``mysql``)."""
+
+    name = "mysql"
+    dialect = MysqlDialect()
+
+    def __init__(self, host: str = "localhost", port: int = 3306,
+                 user: str = "root", password: str = "",
+                 database: str = "seaweedfs", **_):
+        self._params = dict(host=host, port=port, user=user,
+                            password=password, database=database)
+        super().__init__()
+
+    def _connect(self):
+        return _db_module("pymysql", self.name).connect(**self._params)
+
+
+class PostgresStore(AbstractSqlStore):
+    """The postgres engine (filer store ``postgres``)."""
+
+    name = "postgres"
+    dialect = PostgresDialect()
+
+    def __init__(self, host: str = "localhost", port: int = 5432,
+                 user: str = "postgres", password: str = "",
+                 database: str = "seaweedfs", **_):
+        self._params = dict(host=host, port=port, user=user,
+                            password=password, dbname=database)
+        super().__init__()
+
+    def _connect(self):
+        return _db_module("psycopg2", self.name).connect(**self._params)

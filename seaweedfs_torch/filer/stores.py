@@ -11,17 +11,25 @@ by name, weed/filer/configuration.go:14-37):
 - ``leveldb``  : the embedded LSM (leveldb_store.py)
 - ``leveldb2`` : eight LSMs sharded by the parent directory's hash
                  (leveldb2_store.py)
+- ``mysql``, ``postgres``: the abstract-SQL layer on their DB-API
+                 drivers
+- the network stores, each with a fake server in the repo: ``redis``
+  (redis_store.py), ``redis2`` (redis2_store.py), ``etcd``
+  (etcd_store.py), ``mongodb`` (mongodb_store.py), ``elastic``
+  (elastic_store.py), ``cassandra`` (cassandra_store.py)
 
 Each supports the same contract: entry CRUD by full path, ordered
 directory listing with prefix and pagination, a subtree purge, a KV
 face for system metadata, and ``iter_directories``, the walk of the
 filer ring's handoff (the reference's leveldb stores cannot enumerate;
-the port's can, ROADMAP Queue 3, D17). Asking ``create_store`` for any other name
-(the network stores are not ported) raises the reference's KeyError.
+the port's can, ROADMAP Queue 3, D17). The network stores cannot, in
+either package, so a ring member on one hands no partition off. Asking
+``create_store`` for an unknown name raises the reference's KeyError.
 """
 
 from __future__ import annotations
 
+import importlib
 import threading
 from typing import Callable, Iterator, Optional
 
@@ -184,24 +192,56 @@ class MemoryStore(FilerStore):
         return iter(dirs)
 
 
-# the SQL store and the embedded LSMs register lazily: their modules
-# import this one
-def _sqlite(**kw):
-    from .abstract_sql import SqliteStore
-    return SqliteStore(**kw)
-
-
-def _leveldb(**kw):
-    from .leveldb_store import LevelDbStore
-    return LevelDbStore(**kw)
-
-
-def _leveldb2(**kw):
-    from .leveldb2_store import Leveldb2Store
-    return Leveldb2Store(**kw)
+def _lazy(module: str, cls: str):
+    """A factory that imports `module` at the first store made: the
+    stores' modules import this one."""
+    def make(**kw):
+        return getattr(importlib.import_module(f"{__package__}.{module}"),
+                       cls)(**kw)
+    return make
 
 
 register_store("memory", MemoryStore)
-register_store("sqlite", _sqlite)
-register_store("leveldb", _leveldb)
-register_store("leveldb2", _leveldb2)
+for _name, _module, _cls in (
+        ("sqlite", "abstract_sql", "SqliteStore"),
+        ("mysql", "abstract_sql", "MysqlStore"),
+        ("postgres", "abstract_sql", "PostgresStore"),
+        ("leveldb", "leveldb_store", "LevelDbStore"),
+        ("leveldb2", "leveldb2_store", "Leveldb2Store"),
+        ("redis", "redis_store", "RedisStore"),
+        ("redis2", "redis2_store", "Redis2Store"),
+        ("etcd", "etcd_store", "EtcdStore"),
+        ("mongodb", "mongodb_store", "MongodbStore"),
+        ("elastic", "elastic_store", "ElasticStore"),
+        ("cassandra", "cassandra_store", "CassandraStore")):
+    register_store(_name, _lazy(_module, _cls))
+
+# the network stores: kind -> (its fake server's module and class in this
+# package's filer/, whether its address goes to the store as ``servers``
+# (etcd and elastic: an address or URL) or as ``host`` and ``port``)
+NETWORK_STORES = {
+    "redis": ("fake_redis", "FakeRedisServer", False),
+    "redis2": ("fake_redis", "FakeRedisServer", False),
+    "etcd": ("fake_etcd", "FakeEtcdServer", True),
+    "mongodb": ("fake_mongo", "FakeMongoServer", False),
+    "elastic": ("fake_elastic", "FakeElasticServer", True),
+    "cassandra": ("fake_cassandra", "FakeCassandraServer", False),
+}
+
+
+def network_store_kwargs(kind: str, address: str) -> dict:
+    """The kwargs of the network store `kind` on the server at `address`
+    (``host:port``; etcd and elastic also take a URL or a comma list).
+    ValueError for a store that takes no address, or a malformed one."""
+    if kind not in NETWORK_STORES:
+        raise ValueError(f"the {kind!r} store takes no server address; "
+                         f"the network stores are {sorted(NETWORK_STORES)}")
+    if NETWORK_STORES[kind][2]:
+        if not address.strip(", "):
+            raise ValueError(f"the {kind!r} store needs an address")
+        return {"servers": address}
+    host, _, port = address.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"the {kind!r} store's address must be "
+                         f"host:port, got {address!r}")
+    return {"host": host, "port": int(port)}

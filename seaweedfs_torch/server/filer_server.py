@@ -88,7 +88,7 @@ from ..filer.assign_lease import AsyncAssignLeasePool
 from ..filer.chunks import FileChunk, etag as chunks_etag, read_plan
 from ..filer.entry import Entry, new_directory, new_file
 from ..filer.filer import Filer, _norm
-from ..filer.stores import create_store
+from ..filer.stores import FilerStore, create_store
 from ..filer.upload_window import UploadWindow
 from ..metaring import DirectoryRing, RingConfig
 from ..metaring.coordinator import FanoutCoordinator
@@ -147,8 +147,7 @@ async def _ring_errors(request: web.Request, handler):
 
 
 class FilerServer:
-    def __init__(self, master_url: str, store_name: str = "memory",
-                 store_kwargs: Optional[dict] = None,
+    def __init__(self, master_url: str, store: FilerStore,
                  chunk_size: int = 8 * 1024 * 1024,
                  default_replication: str = "",
                  default_collection: str = "",
@@ -165,7 +164,7 @@ class FilerServer:
         self.default_collection = default_collection
         self.url = url
         self.metrics = metrics_mod.Registry("filer")
-        self.filer = Filer(create_store(store_name, **(store_kwargs or {})),
+        self.filer = Filer(store,
                            on_delete_chunks=self._queue_chunk_deletes,
                            meta_log_path=meta_log_path,
                            metrics=self.metrics)
@@ -1384,6 +1383,8 @@ class FilerServer:
 
 
 async def run_filer(host: str, port: int, master_url: str, sock=None,
+                    store_name: str = "memory",
+                    store_kwargs: Optional[dict] = None,
                     **kwargs) -> tuple[FilerServer, web.AppRunner]:
     """Serve a filer on host:port (0 picks a free port), or on `sock`, on
     the running loop; returns the filer (``filer.url`` is host:port) and
@@ -1391,8 +1392,17 @@ async def run_filer(host: str, port: int, master_url: str, sock=None,
     store."""
     if sock is None:
         sock = http.listen_socket(host, port)
-    server = FilerServer(master_url, url=f"{host}:{sock.getsockname()[1]}",
-                         **kwargs)
+    # a network store connects (and etcd and elastic send requests) as it
+    # opens: never on the loop
+    store = await asyncio.get_running_loop().run_in_executor(
+        None, lambda: create_store(store_name, **(store_kwargs or {})))
+    try:
+        server = FilerServer(master_url, store,
+                             url=f"{host}:{sock.getsockname()[1]}",
+                             **kwargs)
+    except BaseException:
+        store.close()
+        raise
     runner = await http.start_app(server.app, sock)
     log.info("filer on %s -> master %s", server.url, master_url)
     return server, runner

@@ -26,7 +26,10 @@ leads now, ``wait_for_leader`` waits for one; ``stop_master(i)`` stops
 master i as a crash would leave it to its peers (raft first, then its
 listener), ``restart_master(i)`` starts it again on its directory and
 port. Raft's timings go in ``master_kwargs`` (``election_timeout``,
-``raft_heartbeat``). ``add_filer(store_name=, chunk_size=,
+``raft_heartbeat``). ``sequencer`` is a factory of the masters' key
+sequencer (``lambda: KvSequencer(host, port)``), called at every start
+and restart of a master, as a process would make its own; without it a
+master mints through its metadata log. ``add_filer(store_name=, chunk_size=,
 store_kwargs=, port=)`` starts a filer (server/filer_server.py) against
 the masters (after tests/cluster_util.py's ``add_filer``),
 ``restart_filer(fs)`` starts it again on its port and store (a process
@@ -48,7 +51,7 @@ import os
 import tempfile
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 from ..ec.geometry import DEFAULT, Geometry
 from ..metaring import RingConfig
@@ -75,7 +78,8 @@ class LocalCluster:
                  master_kwargs: Optional[dict] = None,
                  volume_kwargs: Optional[dict] = None,
                  store_kwargs: Optional[dict] = None,
-                 n_masters: int = 1):
+                 n_masters: int = 1,
+                 sequencer: Optional[Callable[[], object]] = None):
         self.coder_name = coder_name
         self.device = device
         self.geometry = geometry
@@ -83,6 +87,7 @@ class LocalCluster:
         self.racks = racks
         self.volume_kwargs = volume_kwargs or {}
         self.store_kwargs = store_kwargs or {}
+        self._sequencer = sequencer
         self._tmp = None
         if directory is None:
             self._tmp = tempfile.TemporaryDirectory(prefix="weedtorch_")
@@ -127,7 +132,7 @@ class LocalCluster:
     def start_master(self, port: int = 0, **kwargs) -> None:
         """Start the one master (on `port`, or a free one)."""
         self.master, self.master_runner = self.call(
-            run_master("127.0.0.1", port, **kwargs))
+            run_master("127.0.0.1", port, **self._with_sequencer(kwargs)))
         self.master_url = self.master.url
         self.master_slots = [[self.master, self.master_runner,
                               int(self.master.url.rsplit(":", 1)[1]),
@@ -152,7 +157,13 @@ class LocalCluster:
     def _run_slot(self, i: int, sock=None) -> None:
         slot = self.master_slots[i]
         slot[0], slot[1] = self.call(run_master(
-            "127.0.0.1", slot[2], sock=sock, **slot[3]))
+            "127.0.0.1", slot[2], sock=sock,
+            **self._with_sequencer(slot[3])))
+
+    def _with_sequencer(self, kwargs: dict) -> dict:
+        if self._sequencer is None:
+            return kwargs
+        return dict(kwargs, sequencer=self._sequencer())
 
     def leader(self):
         """The master that leads now, else None."""

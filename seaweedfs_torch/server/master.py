@@ -115,8 +115,16 @@ dropped with a ``resync`` line and redials for a snapshot (the
 reference drops an overflowing ring line instead). Followers answer it
 with a 307 to the leader. The filer's vid cache and its ring follow it.
 
-Left out, each with its later home (ROADMAP Queue 1 A):
-``KvSequencer`` (7.2, with the network stores), geo (8), the
+The sequencer: by default the metadata log's (``LogSequencer``). A
+``sequencer=`` that is not ``replicated``, such as a ``KvSequencer`` on
+an external KV (upstream's etcd sequencer, for masters without raft),
+mints the keys itself; the master keeps the reference's key ceiling in
+the raft log beside it (``max_file_key`` entries, ``_key_bound``),
+raises the sequencer to that ceiling once a term (``set_max``) and to
+every heartbeat's ``max_file_key``. A ``blocking`` sequencer's calls go
+to the executor, never on the loop.
+
+Left out, each with its later home (ROADMAP Queue 1 A): geo (8), the
 KeepConnected push to clients and volume servers, the gRPC leader hints
 and gRPC, guard/JWT, the overload plane's priorities and the fastpath
 listener (9), collection deletion (10, with the shell's rest).
@@ -185,16 +193,23 @@ class MasterServer:
                  raft_state_dir: Optional[str] = None,
                  election_timeout: tuple[float, float] = (0.3, 0.6),
                  raft_heartbeat: float = 0.1,
-                 ring_config: Optional[RingConfig] = None):
+                 ring_config: Optional[RingConfig] = None,
+                 sequencer=None):
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds)
         # the replicated metadata log: assign batches, the volume
         # registry and the geometry stamps ride raft, so a new leader
-        # replays to the exact assignment state; the sequencer is its
-        # read-only face (minting is an assign_batch entry)
+        # replays to the exact assignment state; the default sequencer
+        # is its read-only face (minting is an assign_batch entry)
         self.metalog = MasterMetaLog()
-        self.sequencer = LogSequencer(self.metalog)
+        self.sequencer = sequencer or LogSequencer(self.metalog)
+        self._replicated = getattr(self.sequencer, "replicated", False)
+        # a sequencer of its own: the raft-committed key ceiling, raised
+        # one step of keys a round, and the term it was last synced in
+        self._key_bound = 0
+        self._key_bound_step = 10000
+        self._seq_synced_term = -1
         # one seq_floor proposal at a time
         self._floor_inflight = False
         # the filer ring's membership: served at /dir/ring, changed
@@ -294,6 +309,7 @@ class MasterServer:
             self.topology.max_volume_id = max(self.topology.max_volume_id,
                                               cmd["max_volume_id"])
         if cmd.get("max_file_key"):
+            self._key_bound = max(self._key_bound, cmd["max_file_key"])
             self.metalog.apply({"seq_floor": cmd["max_file_key"]})
         result = None
         if any(k in cmd for k in self._METALOG_CMDS):
@@ -308,6 +324,7 @@ class MasterServer:
     def _raft_capture(self) -> dict:
         """The applied state, for log compaction."""
         return {"max_volume_id": self.topology.max_volume_id,
+                "max_file_key": self._key_bound,
                 "metalog": self.metalog.capture(),
                 "ring": self.ring.to_dict()}
 
@@ -319,6 +336,7 @@ class MasterServer:
         if state.get("metalog"):
             self.metalog.restore(state["metalog"])
         if state.get("max_file_key"):
+            self._key_bound = max(self._key_bound, state["max_file_key"])
             self.metalog.apply({"seq_floor": state["max_file_key"]})
         ring = state.get("ring")
         if ring and ring.get("version", 0) > self.ring.version:
@@ -404,6 +422,9 @@ class MasterServer:
                 setattr(self, attr, None)
         if not self.raft._stopped:
             await self.raft.stop()
+        close = getattr(self.sequencer, "close", None)
+        if close is not None:
+            close()
 
     async def _on_shutdown(self, app) -> None:
         await self.raft.stop()
@@ -884,7 +905,7 @@ class MasterServer:
         """Assign a write target (dirAssignHandler,
         weed/server/master_server_handlers.go:96-150)."""
         self.metrics.count("assign")
-        if not await self.raft.ensure_ready():
+        if not await self.ensure_assign_ready():
             return _error("not the leader / not ready", 503)
         q = request.query
         try:
@@ -898,6 +919,29 @@ class MasterServer:
             ttl=q.get("ttl", ""),
             data_center=q.get("dataCenter", ""))
         return web.json_response(resp, status=status)
+
+    async def _sequencer_call(self, fn, *args):
+        """`fn(*args)` of the sequencer: in the executor when it blocks
+        (a KV round trip), else here."""
+        if getattr(self.sequencer, "blocking", False):
+            return await asyncio.get_running_loop().run_in_executor(
+                None, fn, *args)
+        return fn(*args)
+
+    async def ensure_assign_ready(self) -> bool:
+        """The leader's readiness barrier (every earlier entry applied),
+        then, once a term, a sequencer of its own raised to the
+        committed key ceiling: a new leader's sequencer mints nothing at
+        or below a key an earlier one may have handed out. The metadata
+        log's sequencer needs no sync: its replay is the counter."""
+        if not await self.raft.ensure_ready():
+            return False
+        if self._seq_synced_term != self.raft.term:
+            if not self._replicated:
+                await self._sequencer_call(self.sequencer.set_max,
+                                           self._key_bound)
+            self._seq_synced_term = self.raft.term
+        return True
 
     async def assign_api(self, count: int = 1, collection: str = "",
                          replication: str = "", ttl: str = "",
@@ -937,17 +981,27 @@ class MasterServer:
         vid, nodes = picked
         g = self.ec_policy.for_collection(collection)
         geometry = f"{g.data_shards}+{g.parity_shards}"
-        # the batch is a log entry whose apply mints the keys: a leader
-        # killed now either committed it (its successor replays past it)
-        # or consumed nothing; a collection's first assign under its
-        # geometry stamps it in the same entry
-        cmd: dict = {"assign_batch": {"count": count}}
-        if self.metalog.geometry.get(collection or "") != geometry:
-            cmd["geometry_stamp"] = {"collection": collection or "",
-                                     "geometry": geometry}
-        ok, key = await self.raft.propose_apply(cmd)
-        if not ok or key is None:
-            return {"error": "lost leadership during assign"}, 503
+        if self._replicated:
+            # the batch is a log entry whose apply mints the keys: a
+            # leader killed now either committed it (its successor
+            # replays past it) or consumed nothing; a collection's first
+            # assign under its geometry stamps it in the same entry
+            cmd: dict = {"assign_batch": {"count": count}}
+            if self.metalog.geometry.get(collection or "") != geometry:
+                cmd["geometry_stamp"] = {"collection": collection or "",
+                                         "geometry": geometry}
+            ok, key = await self.raft.propose_apply(cmd)
+            if not ok or key is None:
+                return {"error": "lost leadership during assign"}, 503
+        else:
+            key = await self._sequencer_call(self.sequencer.next_file_id,
+                                             count)
+            # no key past the committed ceiling: a failover before the
+            # ceiling moves could otherwise mint the same keys again
+            if key + count > self._key_bound:
+                bound = key + count + self._key_bound_step
+                if not await self.raft.propose({"max_file_key": bound}):
+                    return {"error": "lost leadership during assign"}, 503
         fid = FileId(vid, key, new_cookie())
         node = nodes[0]
         return {
@@ -1286,9 +1340,15 @@ class MasterServer:
             rack=body.get("rack", ""),
             max_volume_count=body.get("max_volume_count", 8),
             payload=body)
-        # a key a volume holds above the replicated counter (a cold start
-        # over existing volumes) is logged as a floor
-        self._maybe_propose_floor(body.get("max_file_key", 0))
+        # a key a volume holds above the counter (a cold start over
+        # existing volumes) is logged as a floor, or raises a sequencer
+        # of its own
+        seen = body.get("max_file_key", 0)
+        if self._replicated:
+            self._maybe_propose_floor(seen)
+        elif seen:
+            self._watch(self._sequencer_call(self.sequencer.set_max, seen),
+                        f"sequencer set_max({seen})")
         self._broadcast_location(event)
         return {"volume_size_limit": self.topology.volume_size_limit,
                 "leader": self.raft.leader_id or ""}
@@ -1308,13 +1368,18 @@ class MasterServer:
             finally:
                 self._floor_inflight = False
 
+        self._watch(run(), f"seq_floor({seen})")
+
+    def _watch(self, coro, what: str) -> None:
+        """Run `coro` as one of the master's tasks; its failure is
+        logged (a lost floor or set_max would mint duplicates later)."""
         def done(t: asyncio.Task) -> None:
             if t in self._tasks:
                 self._tasks.remove(t)
             if not t.cancelled() and t.exception() is not None:
-                log.error("seq_floor(%d) failed: %s", seen, t.exception())
+                log.error("%s failed: %s", what, t.exception())
 
-        task = asyncio.get_running_loop().create_task(run())
+        task = asyncio.get_running_loop().create_task(coro)
         self._tasks.append(task)
         task.add_done_callback(done)
 

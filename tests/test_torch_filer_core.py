@@ -4,14 +4,17 @@
 Chunk math (visible intervals, read plans, compaction, etags) on 200
 seeded random overwrite sequences and the reference's named cases;
 entries' JSON; manifest blobs; the store contract, one test over the
-four ported stores, each package's store given the same operations;
+four embedded stores, each package's store given the same operations
+(tests/test_torch_network_stores.py runs it over the network stores);
 the namespace core (create, rename, delete, events, the rename's
 rollback); and state carried across: sqlite, leveldb and leveldb2 stores
-and a persisted event log written by one package are opened and listed
+and the six network stores (on the reader's package's fake server), and
+a persisted event log, written by one package are opened and listed
 equally by the other.
 """
 
 import asyncio
+import importlib
 import json
 import random
 import sqlite3
@@ -32,6 +35,20 @@ from seaweedfs_tpu.filer import stores as rstores
 PKGS = {"port": (pch, pent, pfil, pman, pstores),
         "reference": (rch, rent, rfil, rman, rstores)}
 STORES = ("memory", "sqlite", "leveldb", "leveldb2")
+# the network stores (the port's table: each package's fake has the
+# same module and class)
+NET_KINDS = tuple(pstores.NETWORK_STORES)
+PKG_NAMES = {"port": "seaweedfs_torch", "reference": "seaweedfs_tpu"}
+
+
+def start_fake(pkg: str, kind: str):
+    """`pkg`'s fake server for the network store `kind`, running; returns
+    it and the store's kwargs."""
+    module, cls, _ = pstores.NETWORK_STORES[kind]
+    mod = importlib.import_module(f"{PKG_NAMES[pkg]}.filer.{module}")
+    fake = getattr(mod, cls)()
+    return fake, pstores.network_store_kwargs(kind,
+                                              f"{fake.host}:{fake.port}")
 
 
 def _chunks(mod, specs):
@@ -187,11 +204,12 @@ def _listing(entries):
     return [json.loads(e.to_json()) for e in entries]
 
 
-def _drive_store(pkg, kind, tmp_path):
+def _drive_store(pkg, kind, tmp_path, store=None):
     """The store contract: CRUD, ordered listing with prefixes (LIKE
-    escapes), pagination, subtree purge, KV; returns what it read."""
+    escapes), pagination, subtree purge, KV, on `store` (else a new one
+    of `kind`); returns what it read."""
     _, ent, _, _, _ = PKGS[pkg]
-    s = _make_store(pkg, kind, tmp_path)
+    s = store if store is not None else _make_store(pkg, kind, tmp_path)
     seen = []
     names = ["b.txt", "a.txt", "my_file.txt", "myXfile.txt", "100%.txt",
              "z", "Zed", "été", "a b", "a_b"]
@@ -242,10 +260,12 @@ def test_store_contract_equal(tmp_path, kind):
         _drive_store("reference", kind, tmp_path)
 
 
-def test_unported_store_raises_keyerror():
-    for name in ("redis", "mysql", "cassandra"):
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_unknown_store_raises_keyerror(pkg):
+    stores = PKGS[pkg][4]
+    for name in ("redis3", "mysql8", "sqlite "):
         with pytest.raises(KeyError):
-            pstores.create_store(name)
+            stores.create_store(name)
 
 
 def _drive_filer(pkg, tmp_path):
@@ -330,9 +350,10 @@ def test_rename_rolls_back_on_failure(tmp_path, pkg):
     s.close()
 
 
-def _write_tree(pkg, kind, path):
+def _write_tree(pkg, kind, path, store_kwargs=None):
     _, ent, fil, _, stores = PKGS[pkg]
-    f = fil.Filer(stores.create_store(kind, path=str(path)),
+    f = fil.Filer(stores.create_store(kind, **(store_kwargs
+                                               or {"path": str(path)})),
                   meta_log_path=str(path) + ".events", entry_cache_ttl=0)
     rng = random.Random(3)
     ch = PKGS[pkg][0]
@@ -349,9 +370,10 @@ def _write_tree(pkg, kind, path):
     f.close()
 
 
-def _read_tree(pkg, kind, path):
+def _read_tree(pkg, kind, path, store_kwargs=None):
     _, _, fil, _, stores = PKGS[pkg]
-    f = fil.Filer(stores.create_store(kind, path=str(path)),
+    f = fil.Filer(stores.create_store(kind, **(store_kwargs
+                                               or {"path": str(path)})),
                   meta_log_path=str(path) + ".events", entry_cache_ttl=0)
     out = {}
 
@@ -373,16 +395,24 @@ def _read_tree(pkg, kind, path):
     return out, events, kv
 
 
-@pytest.mark.parametrize("kind", ["sqlite", "leveldb", "leveldb2"])
+@pytest.mark.parametrize("kind", ["sqlite", "leveldb", "leveldb2",
+                                  *NET_KINDS])
 @pytest.mark.parametrize("writer", ["reference", "port"])
 def test_state_carried_across(tmp_path, kind, writer):
     """A store and a persisted event log written by one package are
-    opened and listed equally by the other (and by the writer)."""
+    opened and listed equally by the other (and by the writer); a
+    network store's tree lives on the reader's package's fake."""
     path = tmp_path / f"state.{kind}"
-    _write_tree(writer, kind, path)
     reader = "port" if writer == "reference" else "reference"
-    theirs = _read_tree(reader, kind, path)
-    mine = _read_tree(writer, kind, path)
+    fake, kw = start_fake(reader, kind) if kind in NET_KINDS \
+        else (None, None)
+    try:
+        _write_tree(writer, kind, path, kw)
+        theirs = _read_tree(reader, kind, path, kw)
+        mine = _read_tree(writer, kind, path, kw)
+    finally:
+        if fake is not None:
+            fake.close()
     assert theirs == mine
     tree, events, kv = theirs
     assert len([p for p, e in tree.items() if e["chunks"]]) == 37

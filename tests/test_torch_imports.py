@@ -122,7 +122,20 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.metaring.coordinator",
                  "seaweedfs_torch.metaring.invalidation",
                  "seaweedfs_torch.metaring.handoff",
-                 "seaweedfs_torch.shell.ring_commands"):
+                 "seaweedfs_torch.shell.ring_commands",
+                 "seaweedfs_torch.filer.netutil",
+                 "seaweedfs_torch.filer.bson_lite",
+                 "seaweedfs_torch.filer.redis_store",
+                 "seaweedfs_torch.filer.redis2_store",
+                 "seaweedfs_torch.filer.etcd_store",
+                 "seaweedfs_torch.filer.mongodb_store",
+                 "seaweedfs_torch.filer.elastic_store",
+                 "seaweedfs_torch.filer.cassandra_store",
+                 "seaweedfs_torch.filer.fake_redis",
+                 "seaweedfs_torch.filer.fake_etcd",
+                 "seaweedfs_torch.filer.fake_mongo",
+                 "seaweedfs_torch.filer.fake_elastic",
+                 "seaweedfs_torch.filer.fake_cassandra"):
         assert name in result["names"]
     assert result["forbidden"] == []
 

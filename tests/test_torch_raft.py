@@ -621,3 +621,64 @@ def test_d19_follower_far_behind_matches_in_two_rounds(tmp_path):
     # the port jumps to the follower's end: one refusal, then the match
     assert port_rounds == 2
     assert ref_follow == ref_lead and port_follow == port_lead
+
+
+# --- (f) F8: a deposed leader's election timer -------------------------------
+
+async def _f8_delay(mod, tmp_path, timeout: float = 0.4,
+                    led_for: float = 0.3) -> float:
+    """N1 leads term 1 with its election timer running (a fixed timeout);
+    after `led_for` s a replication round meets followers at term 5 and
+    N1 steps down. Returns the seconds from the step-down to N1's next
+    campaign."""
+    net = _Net()
+    nodes = {}
+    for nid in PEERS:
+        d = tmp_path / nid.replace(":", "_").replace(".", "_")
+        d.mkdir(exist_ok=True)
+        nodes[nid] = mod.RaftNode(nid, PEERS, lambda cmd: None,
+                                  election_timeout=(timeout, timeout),
+                                  heartbeat_interval=30.0,
+                                  state_dir=str(d))
+        net.wire(nodes[nid])
+    n1 = nodes[N1]
+    await n1._run_election()
+    assert n1.is_leader and n1.term == 1
+    campaigns = []
+
+    async def campaign():
+        campaigns.append(time.monotonic())
+
+    n1._run_election = campaign
+    timer = asyncio.ensure_future(n1._election_timer())
+    await asyncio.sleep(led_for)
+    for nid in (N2, N3):
+        nodes[nid].term = 5
+    await n1._replicate_round()
+    assert n1.role == mod.FOLLOWER and n1.term == 5
+    down = time.monotonic()
+    while not campaigns and time.monotonic() - down < 3 * timeout:
+        await asyncio.sleep(0.01)
+    for t in [timer, *n1._tasks]:
+        t.cancel()
+    for n in nodes.values():
+        n._stopped = True
+        n.role = mod.FOLLOWER
+    await asyncio.gather(timer, *n1._tasks, return_exceptions=True)
+    for n in nodes.values():
+        n._save_exec.shutdown(wait=True)
+    assert campaigns
+    return campaigns[0] - down
+
+
+@within(30)
+def test_f8_deposed_leader_waits_an_election_timeout(tmp_path):
+    (tmp_path / "r").mkdir()
+    (tmp_path / "p").mkdir()
+    ref = asyncio.run(_f8_delay(rraft, tmp_path / "r"))
+    port = asyncio.run(_f8_delay(praft, tmp_path / "p"))
+    # the reference: the timer drawn while it led fires 0.1 s after the
+    # step-down, before a new leader's heartbeat could come
+    assert ref < 0.3, ref
+    # the port: a whole election timeout after the step-down
+    assert port >= 0.4, port
