@@ -239,9 +239,10 @@ Phases (any failure exits non-zero before the result line):
    holder over HTTP; a new volume grows on the coldest node, never the
    hottest; shell ``cluster.balance.run``; moves, bytes moved and
    seconds from the skew to the first completed move. (11d) shell
-   ``ec.encode`` of the moved volume on the card, every 4th needle read
+   ``ec.encode`` of the moved volume on the card, every 8th needle read
    with one shard holder stopped (degraded reads; the repair daemon
-   paused for them; every needle before phase 12), then the repair daemon's rebuild of the lost shards, each
+   paused for them; every needle before phase 12, every 4th before
+   phase 17's room), then the repair daemon's rebuild of the lost shards, each
    holder's ``.ecm`` digests equal to its shard files. (11b, last) the
    repair daemon off and the fifth volume's peer stopped: a needle corrupt on the remaining holder answers 500
    "data corruption" in under 2 s, eight times. (11e) the crash sweep of
@@ -369,9 +370,9 @@ Phases (any failure exits non-zero before the result line):
    replicas): A in this process, B and C each ``python3 -m
    seaweedfs_torch.cli filer -ring_peers ...``; the membership set
    through ``/dir/ring/join``. (15a) 16 clients in 4 processes create
-   8000 metadata-only entries in 400 directories (20000 in 1000 before
-   its first full runs) through
-   ``/__meta__/create_entry``, each op to a random member (about 2/3
+   3000 metadata-only entries in 150 directories (20000 in 1000 before
+   its first full runs, 8000 in 400 before phase 17, then 5000 in 250)
+   through ``/__meta__/create_entry``, each op to a random member (about 2/3
    proxied), while a fifth process PUTs 96 MiB of phase 3's generator's
    files (log-uniform 1 KiB .. 8 MiB) under ``/buckets/ring/arc/``
    through random members; an op a member refuses goes again to
@@ -404,9 +405,9 @@ Phases (any failure exits non-zero before the result line):
    own, 2 volume servers (``Store(coder_name="auto")``, 64 MiB volumes),
    and six filers at 8 MiB chunks, one per store (``redis``,
    ``redis2``, ``etcd``, ``mongodb``, ``elastic``, ``cassandra``), each
-   on its fake server; the fakes run in processes of their own, the
-   ``redis2`` filer is ``python3 -m seaweedfs_torch.cli filer -store
-   redis2 -store_servers ...``, the other five are in this process.
+   on its fake server; the fakes run in processes of their own, and so
+   does each filer (``python3 -m seaweedfs_torch.cli filer -store <kind>
+   -store_servers ...``).
    (16a) through each filer 8 clients (a process a store) create 1000
    metadata-only entries in 50 directories (``/__meta__/create_entry``):
    creates/s and p50/p99 per store; every directory listed back 100 at
@@ -419,12 +420,45 @@ Phases (any failure exits non-zero before the result line):
    least the highest key; every volume holding a chunk EC-encoded with
    the shell's ``ec.encode``; shards {0, 3, 7, 12} dropped (kept aside),
    every file read whole through its own filer (p50/p99 per file per
-   store), the shards put back. (16c) each in-process filer restarted on
-   its fake and the CLI filer stopped by SIGTERM and started again with
-   its arguments: each tree lists equal, a file reads back through the
-   CLI filer, ``shell -filer ... fs.ls`` answers. ``gf_apply`` must
-   launch in 16b's encode and degraded reads, and in no other step of
-   the phase;
+   store), the shards put back. (16c) every filer stopped by SIGTERM and
+   started again with its arguments, all at once: each tree lists equal,
+   a file reads back through each, ``shell -filer ... fs.ls`` answers
+   through the redis2 one. ``gf_apply`` must launch in 16b's encode and
+   degraded reads, and in no other step of the phase;
+17. (run after 16) upstream's S3 deployment, in its own
+   ``LocalCluster``: a master whose lifecycle daemon scans the filer
+   (a compressed day of 1 s), 2 volume servers on 2 racks
+   (``Store(coder_name="auto")``, 64 MiB volumes), the filer as
+   ``python3 -m seaweedfs_torch.cli filer -store leveldb2`` (8 MiB
+   chunks) and the gateway as ``python3 -m seaweedfs_torch.cli s3 -filer
+   ... -config s3.json`` with two identities, ``admin`` (Admin) and
+   ``reader`` (Read, List). Every request is SigV4-signed by this
+   script's own signer; 8 clients in 2 processes PUT and GET. (17a) the
+   ``warm`` bucket: 64 MiB of phase 3's generator (1 KiB .. 8 MiB) under
+   ``arc/`` and ``keep/`` and a few MiB under ``tmp/``, at least 20 of
+   them with a streaming chunked-SigV4 body, every object read back by
+   sha256 (PUT GB/s, p50/p99 per object; GET p50/p99). (17b) one 40 MiB
+   object in 8 MiB parts, ListParts checked before Complete (GB/s);
+   CopyObject of 20 objects; 1100 small keys under ``flat/``, 100 of
+   them deleted with DeleteObjects, the copies and the other 1000 read
+   back by sha256; ListObjectsV2 of ``flat/`` with
+   delimiter ``/`` and max-keys 100 paged by continuation token, and of
+   the bucket's root, each equal to what is acknowledged and in order
+   (p50/p99 per page); a presigned V4 GET and a presigned V2 GET; the
+   reader refused a PUT with 403. (17c) the ``ver`` bucket with
+   versioning enabled: 200 keys of 1-64 KiB each overwritten once, 50
+   deleted (delete markers), every old version read by ``?versionId``,
+   ListObjectVersions. (17d) PutBucketLifecycleConfiguration on ``warm``
+   (Transition Days 0 WARM for ``arc/``, Expiration Days 1 for
+   ``tmp/``): the daemon warms down every volume holding an ``arc/``
+   chunk (the encode, on the card; seconds from the rule's PUT to the
+   first and the last warm-down), ``tmp/`` objects answer 404 and their
+   chunks are freed, ``arc/`` objects list ``WARM``; with shards
+   {0, 3, 7, 12} of each warm volume dropped, every ``arc/`` and
+   ``keep/`` object read through the gateway by sha256 (p50/p99), the
+   shards put back. No answer may be a 5xx and no acknowledged PUT may
+   be lost. ``gf_apply`` must launch in 17d's warm-down and degraded
+   reads, and in no other step of the phase;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -3261,9 +3295,10 @@ BAL_ENV = {"WEED_BALANCE_ENABLED": "1", "WEED_BALANCE_INTERVAL": "1",
 # a read of a corrupt needle whose only peer is down: answered within
 # this many seconds (a connect timeout would take 10)
 BAL_FAST_500_S = 2.0
-# 11d reads every 4th needle of the moved volume with a holder stopped
-# (every needle before phase 12: 18416 reads, 101.5 s on one H100)
-BAL_DEGRADED_STRIDE = 4
+# 11d reads every 8th needle of the moved volume with a holder stopped
+# (every needle before phase 12: 18416 reads, 101.5 s on one H100; every
+# 4th before phase 17's smoke reached 1126 s: 1280 reads, 25.7 s)
+BAL_DEGRADED_STRIDE = 8
 # steps of phase 11 that run the coder (gf_apply must launch there, and
 # in no other step of the phase)
 BALANCE_CODER_STEPS = ("balance.ec_mid_encode", "balance.ec_encode",
@@ -5934,9 +5969,11 @@ RING_META = "/ringmeta"           # the metadata-only creates
 RING_LIMIT_MB = 64
 # 20000 entries in 1000 directories took 184.0-244.5 s of phase on an
 # H100 host (the creates alone 57.4-85.3 s), past the smoke's room: cut
-# to 8000 in 400 (20 a directory, as there)
-RING_ENTRIES = 8000
-RING_DIRS = 400
+# to 8000 in 400 (20 a directory, as there), then to 5000 in 250 to make
+# room for phase 17 (42.7 s alone on an H100 host), then to 3000 in 150
+# (the whole smoke took 1126 s of its 1200 on a slow H100 host)
+RING_ENTRIES = 3000
+RING_DIRS = 150
 RING_CLIENTS = 16                 # create clients, in RING_PROCS processes
 RING_PROCS = 4
 RING_UPLOAD_BYTES = 96 * MIB
@@ -6130,32 +6167,39 @@ def ring_procs(jobs: list, timeout: float = 600.0) -> list:
     return results
 
 
-class CliFiler:
-    """A ring member as its own process: ``python3 -m seaweedfs_torch.cli
-    filer -store sqlite -ring_peers ...`` (8 MiB chunks), logging to its
-    work directory."""
+def cli_chunk_mb(chunk: int) -> str:
+    """`chunk` as the CLI filer's ``-chunk_size_mb``, which takes whole
+    MiB."""
+    if chunk % MIB:
+        raise ValueError(f"the CLI filer takes whole MiB chunks, not "
+                         f"{chunk} bytes")
+    return str(chunk // MIB)
 
-    def __init__(self, work: Path, port: int, master: str, peers: list):
-        self.url = f"127.0.0.1:{port}"
+
+class CliFiler:
+    """A server of the port as its own process: ``python3 -m
+    seaweedfs_torch.cli <args> -port <port>`` (0: a free one), logging
+    to ``<name>_<port>.log`` in its work directory."""
+
+    def __init__(self, work: Path, args: list, name: str = "filer",
+                 port: int = 0):
+        self.url = f"127.0.0.1:{port or free_port()}"
         self.work = work
-        self.args = [sys.executable, "-m", "seaweedfs_torch.cli", "filer",
-                     "-port", str(port), "-mserver", master,
-                     "-store", "sqlite", "-store_path",
-                     str(work / f"ring_{port}.db"),
-                     "-chunk_size_mb", str(RING_CHUNK // MIB),
-                     "-ring_peers", ",".join(peers)]
+        self.name = name
+        self.args = [sys.executable, "-m", "seaweedfs_torch.cli", *args,
+                     "-port", self.url.split(":")[1]]
         self.proc = None
 
     def start(self) -> None:
-        with open(self.work / f"filer_{self.url.split(':')[1]}.log",
-                  "ab") as err:
+        with open(self.work / f"{self.name}_{self.url.split(':')[1]}"
+                  ".log", "ab") as err:
             self.proc = subprocess.Popen(self.args, cwd=str(REPO),
                                          stdout=subprocess.DEVNULL,
                                          stderr=err)
 
     def up(self) -> bool:
         if self.proc.poll() is not None:
-            raise AssertionError(f"filer {self.url} exited "
+            raise AssertionError(f"{self.name} {self.url} exited "
                                  f"{self.proc.returncode}")
         try:
             return http.get_json(f"http://{self.url}/healthz")[0] == 200
@@ -6273,7 +6317,11 @@ def run_ring(work: Path, seed: int = SEED + 15, coder_name: str = "auto",
                                      "lifecycle_config": lc_cfg})
     # A in the smoke's process (the lifecycle daemon's filer, and the
     # handoff drill's), B and C each a CLI process of their own
-    b, c = (CliFiler(work, p, cl.master_url, peers) for p in ports[1:])
+    b, c = (CliFiler(work, [
+        "filer", "-mserver", cl.master_url, "-store", "sqlite",
+        "-store_path", str(work / f"ring_{p}.db"),
+        "-chunk_size_mb", cli_chunk_mb(RING_CHUNK),
+        "-ring_peers", ",".join(peers)], port=p) for p in ports[1:])
     try:
         master = cl.master_url
         for s in socks[1:]:
@@ -6733,7 +6781,7 @@ def run_ring(work: Path, seed: int = SEED + 15, coder_name: str = "auto",
 
 
 NETS_STORES = ("redis", "redis2", "etcd", "mongodb", "elastic", "cassandra")
-NETS_CLI_STORE = "redis2"         # the store of the CLI filer
+NETS_CLI_STORE = "redis2"         # the CLI filer the shell reads back
 NETS_LIMIT_MB = 64
 NETS_ENTRIES = 1000               # metadata-only creates per store
 NETS_DIRS = 50
@@ -6826,21 +6874,6 @@ class FakeServers:
                 proc.wait()
 
 
-class CliNetsFiler(CliFiler):
-    """The redis2 filer as its own process: ``python3 -m
-    seaweedfs_torch.cli filer -store redis2 -store_servers host:port``."""
-
-    def __init__(self, work: Path, master: str, store_port: int):
-        self.url = f"127.0.0.1:{free_port()}"
-        self.work = work
-        self.args = [sys.executable, "-m", "seaweedfs_torch.cli", "filer",
-                     "-port", self.url.split(":")[1], "-mserver", master,
-                     "-store", NETS_CLI_STORE, "-store_servers",
-                     f"127.0.0.1:{store_port}",
-                     "-chunk_size_mb", str(NETS_CHUNK // MIB)]
-        self.proc = None
-
-
 def nets_list(filer: str, directory: str, page: int = NETS_PAGE) -> list:
     """A directory's names, listed `page` at a time."""
     names: list = []
@@ -6866,8 +6899,7 @@ def run_nets(work: Path, seed: int = SEED + 16, coder_name: str = "auto",
 
     from seaweedfs_torch.balance import BalanceConfig
     from seaweedfs_torch.filer.redis_store import _RespClient
-    from seaweedfs_torch.filer.stores import (NETWORK_STORES,
-                                              network_store_kwargs)
+    from seaweedfs_torch.filer.stores import NETWORK_STORES
     from seaweedfs_torch.topology.sequence import KvSequencer
     work.mkdir(parents=True)
     t_phase = time.perf_counter()
@@ -6892,7 +6924,8 @@ def run_nets(work: Path, seed: int = SEED + 16, coder_name: str = "auto",
     fakes = FakeServers({name: NETWORK_STORES[kind][:2] for name, kind in (
         ("sequencer", "redis"), *((k, k) for k in NETS_STORES))})
     seq_port = fakes.ports["sequencer"]
-    cl = cli = None
+    cl = None
+    filers: dict = {}
     try:
         cl = LocalCluster(2, coder_name=coder_name, device=device,
                           volume_size_limit_mb=limit_mb, pulse=0.5,
@@ -6904,16 +6937,16 @@ def run_nets(work: Path, seed: int = SEED + 16, coder_name: str = "auto",
                           sequencer=lambda: RecordingKv("127.0.0.1",
                                                         seq_port))
         master = cl.master_url
-        cli = CliNetsFiler(work, master, fakes.ports[NETS_CLI_STORE])
-        cli.start()
-        filers = {kind: cl.add_filer(kind, chunk, network_store_kwargs(
-            kind, f"127.0.0.1:{fakes.ports[kind]}")) for kind in NETS_STORES
-            if kind != NETS_CLI_STORE}
-        urls = {kind: (cli.url if kind == NETS_CLI_STORE
-                       else filers[kind].url) for kind in NETS_STORES}
-        wait_until(lambda: cli.up() and all(
-            fs.watch_messages for fs in filers.values()),
-            "the filers", timeout=120)
+        for kind in NETS_STORES:
+            filers[kind] = CliFiler(work, [
+                "filer", "-mserver", master, "-store", kind,
+                "-store_servers", f"127.0.0.1:{fakes.ports[kind]}",
+                "-chunk_size_mb", cli_chunk_mb(chunk)])
+            filers[kind].start()
+        cli = filers[NETS_CLI_STORE]
+        urls = {kind: fs.url for kind, fs in filers.items()}
+        wait_until(lambda: all(fs.up() for fs in filers.values()),
+                   "the filers", timeout=120)
         log({"phase": "nets.setup", "seconds": time.perf_counter() - t_phase,
              "filers": urls, "fakes": fakes.ports})
 
@@ -7157,22 +7190,30 @@ def run_nets(work: Path, seed: int = SEED + 16, coder_name: str = "auto",
         _, launches["nets.restore_shards"] = counted(restore)
         shutil.rmtree(aside, ignore_errors=True)
 
-        # (16c) each in-process filer restarted on its fake; the CLI filer
-        # stopped by SIGTERM and started again with its arguments, beside
-        # them
-        def restart_cli() -> float:
+        # (16c) every filer stopped by SIGTERM and started again with its
+        # arguments on its fake, all at once; the shell lists the redis2
+        # filer's files back
+        def restart(kind: str) -> float:
+            fs = filers[kind]
             t2 = time.perf_counter()
-            before = fs_walk(cli.url, "/")
-            cli.stop()
-            cli.start()
-            wait_until(cli.up, "the restarted CLI filer", timeout=120)
+            before = fs_walk(fs.url, "/")
+            fs.stop()
+            fs.start()
+            wait_until(fs.up, f"the restarted {kind} filer", timeout=120)
             restart_s = time.perf_counter() - t2
-            if fs_walk(cli.url, "/") != before:
-                raise AssertionError("the restarted CLI filer lists "
-                                     "otherwise")
-            one = by_store[NETS_CLI_STORE][0]
-            if fs_get(cli.url, one)[0].data != files.data(one):
-                raise AssertionError(f"after the CLI filer's restart: {one}")
+            if fs_walk(fs.url, "/") != before:
+                raise AssertionError(f"the restarted {kind} filer lists "
+                                     f"otherwise")
+            one = by_store[kind][0]
+            if fs_get(fs.url, one)[0].data != files.data(one):
+                raise AssertionError(f"after the {kind} filer's restart: "
+                                     f"{one}")
+            return restart_s
+
+        def restarts() -> dict:
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(len(NETS_STORES)) as ex:
+                out = dict(zip(NETS_STORES, ex.map(restart, NETS_STORES)))
             sh = subprocess.run(
                 [sys.executable, "-m", "seaweedfs_torch.cli", "shell",
                  "-master", master, "-filer", cli.url, "fs.ls",
@@ -7182,32 +7223,14 @@ def run_nets(work: Path, seed: int = SEED + 16, coder_name: str = "auto",
             if sh.returncode != 0 or listed["entries"] != sorted(
                     p.rsplit("/", 1)[1] for p in by_store[NETS_CLI_STORE]):
                 raise AssertionError(f"shell -filer fs.ls: {sh.stderr}")
-            return restart_s
-
-        def restarts() -> dict:
-            t1 = time.perf_counter()
-            out = {}
-            with ThreadPoolExecutor(1) as ex:
-                cli_done = ex.submit(restart_cli)
-                for kind, fs in list(filers.items()):
-                    t2 = time.perf_counter()
-                    before = fs_walk(fs.url, "/")
-                    fs = filers[kind] = cl.restart_filer(fs)
-                    wait_until(lambda: fs.watch_messages,
-                               f"the restarted {kind} filer")
-                    out[kind] = time.perf_counter() - t2
-                    if fs_walk(fs.url, "/") != before:
-                        raise AssertionError(f"the restarted {kind} filer "
-                                             f"lists otherwise")
-                out[NETS_CLI_STORE] = cli_done.result()
             return {"restart_s": out, "secs": time.perf_counter() - t1}
 
         rs, launches["nets.restarts"] = counted(restarts)
         bal_log("nets.restarts", rs.pop("secs"), launches["nets.restarts"],
                 **rs)
     finally:
-        if cli is not None:
-            cli.stop()
+        for fs in filers.values():
+            fs.stop()
         if cl is not None:
             cl.shutdown()
         fakes.stop()
@@ -7219,6 +7242,824 @@ def run_nets(work: Path, seed: int = SEED + 16, coder_name: str = "auto",
                                                         > 0):
                 raise AssertionError(f"{step}: launches {counts}")
     bal_log("nets.summary", time.perf_counter() - t_phase, launches,
+            gf_apply_per_step={k: v["gf_apply"] for k, v in launches.items()})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+S3P_LIMIT_MB = 64
+S3P_WARM_BYTES = 64 * MIB        # arc/ and keep/, half each
+S3P_TMP_BYTES = 4 * MIB          # tmp/, expired by the bucket's rule
+S3P_MAX_FILE = 8 * MIB           # phase 3's generator: log-uniform 1 KiB ..
+S3P_CHUNK = 8 * MIB              # the CLI filer's chunks
+S3P_STREAMING = 20               # at least this many streaming PUTs
+S3P_STREAM_PIECE = 64 * 1024     # a streaming body's signed chunk
+S3P_MULTIPART = 40 * MIB
+S3P_PART = 8 * MIB
+S3P_COPIES = 20
+S3P_FLAT = 1100                  # small keys under flat/
+S3P_FLAT_DELETED = 100           # of them, through DeleteObjects
+S3P_PAGE = 100                   # ListObjectsV2 max-keys
+S3P_VER_KEYS = 200
+S3P_VER_DELETED = 50
+S3P_VER_MAX = 64 * 1024
+S3P_CLIENTS = 8                  # PUT and GET clients ...
+S3P_PROCS = 2                    # ... in this many processes
+S3P_CODER_STEPS = ("s3.rules", "s3.read_degraded")
+S3P_ADMIN = ("S3ADMINKEY", "s3adminsecret")
+S3P_READER = ("S3READKEY", "s3readsecret")
+S3P_IDENTITIES = [
+    {"name": "admin", "credentials": [{"accessKey": S3P_ADMIN[0],
+                                       "secretKey": S3P_ADMIN[1]}],
+     "actions": ["Admin"]},
+    {"name": "reader", "credentials": [{"accessKey": S3P_READER[0],
+                                        "secretKey": S3P_READER[1]}],
+     "actions": ["Read", "List"]}]
+S3P_RULES = (b"<LifecycleConfiguration>"
+             b"<Rule><ID>tmp</ID><Filter><Prefix>tmp/</Prefix></Filter>"
+             b"<Status>Enabled</Status>"
+             b"<Expiration><Days>1</Days></Expiration></Rule>"
+             b"<Rule><ID>arc</ID><Filter><Prefix>arc/</Prefix></Filter>"
+             b"<Status>Enabled</Status>"
+             b"<Transition><Days>0</Days><StorageClass>WARM"
+             b"</StorageClass></Transition></Rule>"
+             b"</LifecycleConfiguration>")
+S3P_XMLNS = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+
+
+def s3_sign(method: str, url: str, headers: dict, content_sha: str,
+            akid: str, secret: str, now: float = None) -> tuple:
+    """This script's SigV4 signer, independent of the port's: the headers
+    to send (every one of them signed) and, for a streaming body's chunk
+    chain, the signing key, scope, date and seed signature."""
+    import hashlib
+    import hmac
+    import time
+    import urllib.parse
+
+    def mac(key: bytes, msg: str) -> bytes:
+        return hmac.new(key, msg.encode(), hashlib.sha256).digest()
+
+    parts = urllib.parse.urlsplit(url)
+    amz_date = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime(
+        time.time() if now is None else now))
+    scope = f"{amz_date[:8]}/us-east-1/s3/aws4_request"
+    out = {**headers, "host": parts.netloc, "x-amz-date": amz_date,
+           "x-amz-content-sha256": content_sha}
+    low = {k.lower(): str(v) for k, v in out.items()}
+    signed = sorted(low)
+    query = sorted((urllib.parse.quote(k, safe="-_.~"),
+                    urllib.parse.quote(v, safe="-_.~"))
+                   for k, v in urllib.parse.parse_qsl(
+                       parts.query, keep_blank_values=True))
+    canonical = "\n".join([
+        method, urllib.parse.quote(urllib.parse.unquote(parts.path) or "/",
+                                   safe="/-_.~"),
+        "&".join(f"{k}={v}" for k, v in query),
+        "".join(f"{h}:{' '.join(low[h].split())}\n" for h in signed),
+        ";".join(signed), content_sha])
+    key = mac(mac(mac(mac(f"AWS4{secret}".encode(), amz_date[:8]),
+                      "us-east-1"), "s3"), "aws4_request")
+    sig = hmac.new(key, "\n".join([
+        "AWS4-HMAC-SHA256", amz_date, scope,
+        hashlib.sha256(canonical.encode()).hexdigest()]).encode(),
+        hashlib.sha256).hexdigest()
+    out["Authorization"] = (f"AWS4-HMAC-SHA256 Credential={akid}/{scope}, "
+                            f"SignedHeaders={';'.join(signed)}, "
+                            f"Signature={sig}")
+    return out, key, scope, amz_date, sig
+
+
+def s3_chunked(data: bytes, piece: int, key: bytes, seed: str,
+               amz_date: str, scope: str) -> bytes:
+    """A STREAMING-AWS4-HMAC-SHA256-PAYLOAD body: `piece`-byte chunks,
+    each signature chained on the one before, ending with an empty
+    chunk."""
+    import hashlib
+    import hmac
+    empty = hashlib.sha256(b"").hexdigest()
+    out = bytearray()
+    prev = seed
+    for at in list(range(0, len(data), piece)) + [len(data)]:
+        chunk = data[at:at + piece]
+        prev = hmac.new(key, "\n".join([
+            "AWS4-HMAC-SHA256-PAYLOAD", amz_date, scope, prev, empty,
+            hashlib.sha256(chunk).hexdigest()]).encode(),
+            hashlib.sha256).hexdigest()
+        out += b"%x;chunk-signature=%s\r\n" % (len(chunk), prev.encode())
+        out += chunk + b"\r\n"
+    return bytes(out)
+
+
+# the clients of one process: the job (JSON on stdin) holds the gateway,
+# the credentials and groups of ops; each of `threads` threads runs its
+# groups in order on its own connection. An op is {"method", "path"} with
+# "seed", "nid", "size" for a PUT's body or a GET's expected bytes,
+# "stream" for a chunked-SigV4 body and "want" for an expected status.
+# One result per op on stdout as JSON: [id, status, seconds, version id,
+# bytes equal]
+_S3_CLIENT = """
+import hashlib, http.client, json, sys, threading, time
+import numpy as np
+%s
+%s
+job = json.loads(sys.stdin.read())
+host = job["gateway"]
+out, lock = [], threading.Lock()
+
+def body_of(op):
+    return np.random.default_rng((op["seed"], op["nid"])).bytes(op["size"])
+
+def run(groups):
+    conn = http.client.HTTPConnection(host, timeout=600)
+    for group in groups:
+        for op in group:
+            method, url = op["method"], "http://%%s%%s" %% (host, op["path"])
+            body = body_of(op) if method == "PUT" and "seed" in op else b""
+            if op.get("stream"):
+                hdrs, key, scope, amz, sig = s3_sign(
+                    method, url, {"x-amz-decoded-content-length":
+                                  str(len(body)), "Content-Type":
+                                  "application/octet-stream"},
+                    "STREAMING-AWS4-HMAC-SHA256-PAYLOAD", *job["who"])
+                body = s3_chunked(body, job["piece"], key, sig, amz, scope)
+            else:
+                hdrs = s3_sign(method, url, {"Content-Type":
+                                             "application/octet-stream"},
+                               hashlib.sha256(body).hexdigest(),
+                               *job["who"])[0]
+            t0 = time.perf_counter()
+            try:
+                conn.request(method, op["path"], body=body or None,
+                             headers=hdrs)
+                r = conn.getresponse()
+                data = r.read()
+                status, vid = r.status, r.getheader("x-amz-version-id", "")
+            except OSError as e:
+                conn.close()
+                conn = http.client.HTTPConnection(host, timeout=600)
+                status, vid, data = repr(e), "", b""
+            secs = time.perf_counter() - t0
+            equal = True
+            if method == "GET" and "seed" in op:
+                equal = hashlib.sha256(data).digest() == hashlib.sha256(
+                    body_of(op)).digest()
+            with lock:
+                out.append([op["id"], status, secs, vid, equal])
+    conn.close()
+
+workers = [threading.Thread(target=run, args=(job["groups"][k::job["threads"]],))
+           for k in range(job["threads"])]
+for w in workers:
+    w.start()
+for w in workers:
+    w.join()
+print(json.dumps(out))
+"""
+
+
+def s3_clients(gateway: str, groups: list, who: tuple = S3P_ADMIN) -> tuple:
+    """Run `groups` of ops through S3P_CLIENTS clients in S3P_PROCS
+    processes; (results by op id, wall seconds)."""
+    import inspect
+    script = _S3_CLIENT % (inspect.getsource(s3_sign),
+                           inspect.getsource(s3_chunked))
+    n = 0
+    for group in groups:
+        for op in group:
+            op["id"] = n
+            n += 1
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", script], cwd=str(REPO),
+                              stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+             for _ in range(S3P_PROCS)]
+    outs = [p.communicate(json.dumps({
+        "gateway": gateway, "who": list(who), "piece": S3P_STREAM_PIECE,
+        "threads": S3P_CLIENTS // S3P_PROCS,
+        "groups": groups[i::S3P_PROCS]}).encode(), timeout=1200)[0]
+        for i, p in enumerate(procs)]
+    wall = time.perf_counter() - t0
+    got = {}
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"S3 clients exited {p.returncode}")
+        for r in json.loads(out.splitlines()[-1]):
+            got[r[0]] = r
+    if len(got) != n:
+        raise AssertionError(f"S3 clients answered {len(got)} of {n} ops")
+    return got, wall
+
+
+class S3Tally:
+    """Every answer of the phase: none may be a 5xx."""
+
+    def __init__(self):
+        self.statuses = collections.Counter()
+
+    def add(self, status) -> None:
+        self.statuses[status] += 1
+        if not isinstance(status, int) or status >= 500:
+            raise AssertionError(f"S3 answer {status}")
+
+
+def s3_call(gateway: str, method: str, path: str, body: bytes = b"",
+            headers: dict = None, who: tuple = S3P_ADMIN, tally=None):
+    """One request signed by s3_sign; the response and its seconds."""
+    url = f"http://{gateway}{path}"
+    hdrs = s3_sign(method, url, dict(headers or {}),
+                   hashlib.sha256(body).hexdigest(), *who)[0]
+    t0 = time.perf_counter()
+    r = http.request(method, url, body or None, hdrs, timeout=600)
+    secs = time.perf_counter() - t0
+    if tally is not None:
+        tally.add(r.status)
+    return r, secs
+
+
+def s3_presign_v4(gateway: str, path: str, who: tuple,
+                  expires: int = 300) -> str:
+    """A presigned V4 GET URL (query auth, UNSIGNED-PAYLOAD)."""
+    import hmac
+    import urllib.parse
+    amz_date = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+    scope = f"{amz_date[:8]}/us-east-1/s3/aws4_request"
+    q = {"X-Amz-Algorithm": "AWS4-HMAC-SHA256",
+         "X-Amz-Credential": f"{who[0]}/{scope}", "X-Amz-Date": amz_date,
+         "X-Amz-Expires": str(expires), "X-Amz-SignedHeaders": "host"}
+    cq = "&".join(f"{urllib.parse.quote(k, safe='-_.~')}="
+                  f"{urllib.parse.quote(v, safe='-_.~')}"
+                  for k, v in sorted(q.items()))
+    canonical = "\n".join(["GET", urllib.parse.quote(path, safe="/-_.~"), cq,
+                           f"host:{gateway}\n", "host", "UNSIGNED-PAYLOAD"])
+    key = s3_sign("GET", f"http://{gateway}/", {}, "", *who)[1]
+    sig = hmac.new(key, "\n".join([
+        "AWS4-HMAC-SHA256", amz_date, scope,
+        hashlib.sha256(canonical.encode()).hexdigest()]).encode(),
+        hashlib.sha256).hexdigest()
+    return f"http://{gateway}{path}?{cq}&X-Amz-Signature={sig}"
+
+
+def s3_presign_v2(gateway: str, path: str, who: tuple,
+                  expires: int = 300) -> str:
+    """A presigned V2 GET URL: Base64(HMAC-SHA1) of the method, the epoch
+    expiry and the resource."""
+    import base64
+    import hmac
+    import urllib.parse
+    until = str(int(time.time()) + expires)
+    sig = base64.b64encode(hmac.new(
+        who[1].encode(), f"GET\n\n\n{until}\n{path}".encode(),
+        hashlib.sha1).digest()).decode()
+    return (f"http://{gateway}{path}?" + urllib.parse.urlencode(
+        {"AWSAccessKeyId": who[0], "Expires": until, "Signature": sig}))
+
+
+def s3_xml(data: bytes):
+    import xml.etree.ElementTree as ET
+    return ET.fromstring(data)
+
+
+def s3_list(gateway: str, bucket: str, tally, **params) -> tuple:
+    """ListObjectsV2 paged by continuation token: (keys, common prefixes,
+    storage classes, seconds per page, page sizes)."""
+    import urllib.parse
+    keys, prefixes, classes, lat, sizes = [], [], {}, [], []
+    token = ""
+    while True:
+        q = {"list-type": "2", **params}
+        if token:
+            q["continuation-token"] = token
+        r, secs = s3_call(gateway, "GET", f"/{bucket}?"
+                          + urllib.parse.urlencode(q), tally=tally)
+        if r.status != 200:
+            raise AssertionError(f"list {bucket} {q}: {r.status}")
+        root = s3_xml(r.data)
+        page = [c.find(f"{S3P_XMLNS}Key").text
+                for c in root.findall(f"{S3P_XMLNS}Contents")]
+        for c in root.findall(f"{S3P_XMLNS}Contents"):
+            classes[c.find(f"{S3P_XMLNS}Key").text] = c.find(
+                f"{S3P_XMLNS}StorageClass").text
+        cps = [p.find(f"{S3P_XMLNS}Prefix").text
+               for p in root.findall(f"{S3P_XMLNS}CommonPrefixes")]
+        keys += page
+        prefixes += cps
+        lat.append(secs)
+        sizes.append(len(page) + len(cps))
+        if root.find(f"{S3P_XMLNS}IsTruncated").text != "true":
+            return keys, prefixes, classes, lat, sizes
+        token = root.find(f"{S3P_XMLNS}NextContinuationToken").text
+
+
+def run_s3(work: Path, seed: int = SEED + 17, coder_name: str = "auto",
+           device=None, limit_mb: int = S3P_LIMIT_MB,
+           warm_bytes: int = S3P_WARM_BYTES, tmp_bytes: int = S3P_TMP_BYTES,
+           max_file: int = S3P_MAX_FILE, chunk: int = S3P_CHUNK,
+           multipart: int = S3P_MULTIPART, part: int = S3P_PART,
+           copies: int = S3P_COPIES, flat: int = S3P_FLAT,
+           flat_deleted: int = S3P_FLAT_DELETED, page: int = S3P_PAGE,
+           ver_keys: int = S3P_VER_KEYS,
+           ver_deleted: int = S3P_VER_DELETED) -> dict:
+    """Phase 17; returns the launches per step. On the card they are held
+    to the phase's rule (gf_apply in 17d's warm-down and degraded reads
+    only; no other kernel); ``coder_name="torch", device="cpu"`` at a few
+    MB runs it on a host without one (no launch is counted there; `chunk`
+    and `part` whole MiB, as the CLI filer takes them)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_torch.balance import BalanceConfig
+    from seaweedfs_torch.lifecycle import s3_rules
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    tally = S3Tally()
+    files = FsFiles(seed)
+    rng = np.random.default_rng(seed)
+    filer_port = free_port()
+    with env_set(WEED_LIFECYCLE_FILER=f"127.0.0.1:{filer_port}",
+                 WEED_LIFECYCLE_INTERVAL="0.5",
+                 WEED_LIFECYCLE_DAY_SECONDS="1",
+                 WEED_LIFECYCLE_WARM_AFTER=None,
+                 WEED_LIFECYCLE_HOT_READ_RATE=None,
+                 WEED_LIFECYCLE_COLLECTION_TTL=None):
+        lc_cfg = LifecycleConfig.from_env()
+    cl = LocalCluster(2, coder_name=coder_name, device=device,
+                      volume_size_limit_mb=limit_mb, pulse=0.5,
+                      directory=str(work / "cluster"), racks=2,
+                      master_kwargs={"repair_enabled": False,
+                                     "lifecycle_config": lc_cfg,
+                                     "balance_config": BalanceConfig(
+                                         force_enabled=False)})
+    master = cl.master_url
+    config = work / "s3.json"
+    config.write_text(json.dumps({"identities": S3P_IDENTITIES}))
+    filer = CliFiler(work, [
+        "filer", "-mserver", master, "-store", "leveldb2", "-store_path",
+        str(work / "filer_leveldb2"), "-chunk_size_mb", cli_chunk_mb(chunk)],
+        port=filer_port)
+    gw = CliFiler(work, ["s3", "-filer", filer.url, "-config", str(config)],
+                  name="s3")
+    daemon = cl.master.lifecycle
+
+    def ops_of(paths: list, method: str = "GET", **extra) -> list:
+        return [[{"method": method, "path": p, "seed": seed,
+                  "nid": files.files[p][0], "size": files.files[p][1],
+                  **extra}] for p in paths]
+
+    # (key, nid) of every PUT the gateway acknowledged, and of every
+    # object version a GET read back with its bytes
+    written: set = set()
+    verified: set = set()
+
+    def acked(got: dict, groups: list, want: int, what: str) -> list:
+        lat = []
+        for group in groups:
+            for op in group:
+                _, status, secs, _, equal = got[op["id"]]
+                tally.add(status)
+                if status != want or not equal:
+                    raise AssertionError(f"{what} {op['method']} "
+                                         f"{op['path']}: {status}, bytes "
+                                         f"equal {equal}")
+                lat.append(secs)
+                if "nid" in op and status == 200:
+                    (written if op["method"] == "PUT" else verified).add(
+                        (op["path"].split("?")[0], op["nid"]))
+        return lat
+
+    try:
+        filer.start()
+        wait_until(filer.up, "the CLI filer", timeout=120)
+        gw.start()
+        wait_until(gw.up, "the CLI gateway", timeout=120)
+        for bucket in ("warm", "ver"):
+            r, _ = s3_call(gw.url, "PUT", f"/{bucket}", tally=tally)
+            if r.status != 200:
+                raise AssertionError(f"PUT /{bucket}: {r.status}")
+        log({"phase": "s3.setup", "seconds": time.perf_counter() - t_phase,
+             "filer": filer.url, "gateway": gw.url, "card": SMI[0]})
+
+        # (17a) arc/, keep/ and tmp/ through the clients, every other PUT
+        # a streaming chunked-SigV4 body; every object read back
+        for sub, total in (("arc", warm_bytes // 2),
+                           ("keep", warm_bytes - warm_bytes // 2),
+                           ("tmp", tmp_bytes)):
+            for i, size in enumerate(fs_sizes(rng, total, 1024, max_file)):
+                files.add(f"/warm/{sub}/f{i:04d}.bin", size)
+        warm = list(files.files)
+        puts = ops_of(warm, "PUT")
+        for k, group in enumerate(puts):
+            group[0]["stream"] = k % 2 == 0 or k < S3P_STREAMING
+        streamed = sum(g[0]["stream"] for g in puts)
+        if streamed < min(S3P_STREAMING, len(puts)):
+            raise AssertionError(f"{streamed} streaming PUTs")
+
+        def put() -> dict:
+            got, wall = s3_clients(gw.url, puts)
+            return {"lat": acked(got, puts, 200, "warm"), "wall": wall}
+
+        up, launches["s3.put"] = counted(put)
+        nbytes = sum(files.files[p][1] for p in warm)
+        bal_log("s3.put", up["wall"], launches["s3.put"], objects=len(warm),
+                bytes=nbytes, streaming_puts=streamed,
+                gbps=nbytes / up["wall"] / 1e9,
+                per_object=latency_summary(up["lat"]))
+        gets = ops_of(warm)
+
+        def get() -> dict:
+            got, wall = s3_clients(gw.url, gets)
+            return {"lat": acked(got, gets, 200, "warm"), "wall": wall}
+
+        rd, launches["s3.get"] = counted(get)
+        bal_log("s3.get", rd["wall"], launches["s3.get"], objects=len(warm),
+                gbps=nbytes / rd["wall"] / 1e9,
+                per_object=latency_summary(rd["lat"]))
+
+        # (17b) multipart, copies, flat/ with a bulk delete, listings,
+        # presigned GETs, the reader refused
+        def multipart_upload() -> dict:
+            key = "/warm/big/mp.bin"
+            data = files.add(key, multipart)
+            t0 = time.perf_counter()
+            r, _ = s3_call(gw.url, "POST", f"{key}?uploads", tally=tally)
+            upload = s3_xml(r.data).find(f"{S3P_XMLNS}UploadId").text
+            pieces = [data[i:i + part] for i in range(0, len(data), part)]
+
+            def one(n: int) -> str:
+                r, _ = s3_call(gw.url, "PUT", f"{key}?partNumber={n}"
+                               f"&uploadId={upload}", pieces[n - 1],
+                               tally=tally)
+                if r.status != 200:
+                    raise AssertionError(f"part {n}: {r.status}")
+                return r.headers["ETag"]
+
+            with ThreadPoolExecutor(len(pieces)) as ex:
+                etags = list(ex.map(one, range(1, len(pieces) + 1)))
+            r, _ = s3_call(gw.url, "GET", f"{key}?uploadId={upload}",
+                           tally=tally)
+            listed = [(int(p.find(f"{S3P_XMLNS}PartNumber").text),
+                       int(p.find(f"{S3P_XMLNS}Size").text),
+                       p.find(f"{S3P_XMLNS}ETag").text)
+                      for p in s3_xml(r.data).findall(f"{S3P_XMLNS}Part")]
+            if listed != [(n + 1, len(pc), e) for n, (pc, e) in
+                          enumerate(zip(pieces, etags))]:
+                raise AssertionError(f"ListParts: {listed}")
+            body = "<CompleteMultipartUpload>" + "".join(
+                f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag></Part>"
+                for n, e in enumerate(etags, 1)) + "</CompleteMultipartUpload>"
+            r, _ = s3_call(gw.url, "POST", f"{key}?uploadId={upload}",
+                           body.encode(), tally=tally)
+            secs = time.perf_counter() - t0
+            want = '"%s-%d"' % (hashlib.md5(upload.encode()).hexdigest(),
+                                len(pieces))
+            etag = s3_xml(r.data).find(f"{S3P_XMLNS}ETag").text
+            if r.status != 200 or etag != want:
+                raise AssertionError(f"complete: {r.status} {etag}")
+            written.add((key, files.files[key][0]))
+            r, get_s = s3_call(gw.url, "GET", key, tally=tally)
+            if hashlib.sha256(r.data).digest() != hashlib.sha256(
+                    data).digest():
+                raise AssertionError("the multipart object reads back "
+                                     "wrong")
+            verified.add((key, files.files[key][0]))
+            return {"seconds": secs, "parts": len(pieces),
+                    "gbps": len(data) / secs / 1e9, "get_s": get_s}
+
+        mp, launches["s3.multipart"] = counted(multipart_upload)
+        bal_log("s3.multipart", mp.pop("seconds"), launches["s3.multipart"],
+                bytes=multipart, **mp)
+
+        keep = files.under("/warm/keep/")
+        for i, size in enumerate(int(x) for x in rng.integers(
+                16, 512, size=flat)):
+            files.add(f"/warm/flat/k{i:05d}", size)
+        flat_keys = files.under("/warm/flat/")
+        gone = sorted(str(k) for k in rng.choice(flat_keys, flat_deleted,
+                                                 replace=False))
+
+        def copy_flat_delete() -> dict:
+            def copy(src: str) -> None:
+                dst = src.replace("/keep/", "/copies/")
+                r, _ = s3_call(gw.url, "PUT", dst, headers={
+                    "x-amz-copy-source": src}, tally=tally)
+                if r.status != 200:
+                    raise AssertionError(f"copy {src}: {r.status}")
+                files.files[dst] = files.files[src]
+                written.add((dst, files.files[dst][0]))
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(S3P_CLIENTS) as ex:
+                list(ex.map(copy, keep[:copies]))
+            copy_s = time.perf_counter() - t0
+            groups = ops_of(flat_keys, "PUT")
+            got, flat_s = s3_clients(gw.url, groups)
+            acked(got, groups, 200, "flat")
+            body = "<Delete>" + "".join(
+                f"<Object><Key>{k[len('/warm/'):]}</Key></Object>"
+                for k in gone) + "</Delete>"
+            r, del_s = s3_call(gw.url, "POST", "/warm?delete",
+                               body.encode(), tally=tally)
+            deleted = sorted("/warm/" + d.find(f"{S3P_XMLNS}Key").text
+                             for d in s3_xml(r.data).findall(
+                                 f"{S3P_XMLNS}Deleted"))
+            if deleted != gone:
+                raise AssertionError(f"DeleteObjects: {len(deleted)} of "
+                                     f"{len(gone)}")
+            for k in gone:
+                written.discard((k, files.files.pop(k)[0]))
+            # every copy and every small key left read back by sha256
+            kept = ops_of(files.under("/warm/copies/")
+                          + files.under("/warm/flat/"))
+            got, read_s = s3_clients(gw.url, kept)
+            acked(got, kept, 200, "copies and flat/")
+            return {"secs": time.perf_counter() - t0, "copy_s": copy_s,
+                    "read_back_s": read_s,
+                    "flat_put_s": flat_s,
+                    "flat_puts_per_s": len(flat_keys) / flat_s,
+                    "delete_objects_s": del_s}
+
+        cf, launches["s3.copy_delete"] = counted(copy_flat_delete)
+        bal_log("s3.copy_delete", cf.pop("secs"),
+                launches["s3.copy_delete"], copies=copies,
+                flat_keys=len(flat_keys), deleted=len(gone), **cf)
+
+        def listings() -> dict:
+            want = sorted(k[len("/warm/flat/"):]
+                          for k in files.under("/warm/flat/"))
+            keys, cps, _, lat, sizes = s3_list(
+                gw.url, "warm", tally, prefix="flat/", delimiter="/",
+                **{"max-keys": str(page)})
+            if [k[len("flat/"):] for k in keys] != want or cps or \
+                    max(sizes) > page:
+                raise AssertionError(f"flat/ lists {len(keys)} keys, want "
+                                     f"{len(want)}")
+            keys2, cps2, _, lat2, _ = s3_list(gw.url, "warm", tally,
+                                              delimiter="/")
+            top = sorted({p.split("/")[2] + "/" for p in files.files
+                          if p.startswith("/warm/")})
+            if keys2 or cps2 != top:
+                raise AssertionError(f"the root lists {keys2} {cps2}, "
+                                     f"want {top}")
+            return {"lat": lat + lat2, "pages": len(lat),
+                    "keys": len(keys)}
+
+        ls, launches["s3.list"] = counted(listings)
+        bal_log("s3.list", sum(ls["lat"]), launches["s3.list"],
+                listed_keys=ls["keys"], pages=ls["pages"], page=page,
+                per_page=latency_summary(ls["lat"]))
+
+        def presigned() -> dict:
+            one = keep[0]
+            want = files.data(one)
+            out = {}
+            for name, url in (("v4", s3_presign_v4(gw.url, one, S3P_READER)),
+                              ("v2", s3_presign_v2(gw.url, one,
+                                                   S3P_READER))):
+                r = http.request("GET", url, timeout=600)
+                tally.add(r.status)
+                if r.status != 200 or r.data != want:
+                    raise AssertionError(f"presigned {name}: {r.status}")
+                out[name] = r.status
+            r, _ = s3_call(gw.url, "PUT", "/warm/keep/reader.bin", b"no",
+                           who=S3P_READER, tally=tally)
+            if r.status != 403 or b"AccessDenied" not in r.data:
+                raise AssertionError(f"the reader's PUT: {r.status}")
+            r, _ = s3_call(gw.url, "GET", one, who=S3P_READER, tally=tally)
+            if r.data != want:
+                raise AssertionError("the reader's GET")
+            return {"presigned": out, "reader_put": 403}
+
+        t0 = time.perf_counter()
+        pr, launches["s3.presigned"] = counted(presigned)
+        bal_log("s3.presigned", time.perf_counter() - t0,
+                launches["s3.presigned"], **pr)
+
+        # (17c) the ver bucket: each key written twice, some deleted,
+        # every old version read by id, the versions listed
+        r, _ = s3_call(gw.url, "PUT", "/ver?versioning",
+                       b"<VersioningConfiguration><Status>Enabled</Status>"
+                       b"</VersioningConfiguration>", tally=tally)
+        if r.status != 200:
+            raise AssertionError(f"versioning: {r.status}")
+        first, second = {}, {}
+        for i in range(ver_keys):
+            for store in (first, second):
+                size = int(np.exp(rng.uniform(np.log(1024),
+                                              np.log(S3P_VER_MAX))))
+                key = f"/ver/v{i:03d}"
+                nid = files.next_nid
+                files.next_nid += 1
+                store[key] = (nid, size)
+        dead = sorted(str(k) for k in rng.choice(sorted(first), ver_deleted,
+                                                 replace=False))
+
+        def versioning() -> dict:
+            t0 = time.perf_counter()
+            groups = [[{"method": "PUT", "path": k, "seed": seed,
+                        "nid": v[0], "size": v[1]} for v in (first[k],
+                                                              second[k])]
+                      for k in sorted(first)]
+            got, put_s = s3_clients(gw.url, groups)
+            acked(got, groups, 200, "ver")
+            vids = {g[0]["path"]: (got[g[0]["id"]][3], got[g[1]["id"]][3])
+                    for g in groups}
+            if any(not a or not b or a >= b for a, b in vids.values()):
+                raise AssertionError("version ids not time-ordered")
+            dels = [[{"method": "DELETE", "path": k}] for k in dead]
+            got, _ = s3_clients(gw.url, dels)
+            acked(got, dels, 204, "ver delete")
+            markers = {g[0]["path"]: got[g[0]["id"]][3] for g in dels}
+            reads = ([[{"method": "GET", "path": f"{k}?versionId="
+                        f"{vids[k][0]}", "seed": seed, "nid": first[k][0],
+                        "size": first[k][1]}] for k in sorted(first)]
+                     + [[{"method": "GET", "path": f"{k}?versionId="
+                          f"{vids[k][1]}" if k in markers else k,
+                          "seed": seed, "nid": second[k][0],
+                          "size": second[k][1]}] for k in sorted(first)])
+            got, _ = s3_clients(gw.url, reads)
+            old_lat = acked(got, reads, 200, "ver read")
+            gone_ = [[{"method": "GET", "path": k}] for k in dead]
+            got, _ = s3_clients(gw.url, gone_)
+            acked(got, gone_, 404, "a deleted ver key")
+            r, list_s = s3_call(gw.url, "GET", "/ver?versions&max-keys=1000",
+                                tally=tally)
+            root = s3_xml(r.data)
+            seen = {}
+            for el in root:
+                tag = el.tag[len(S3P_XMLNS):]
+                if tag not in ("Version", "DeleteMarker"):
+                    continue
+                key = "/ver/" + el.find(f"{S3P_XMLNS}Key").text
+                seen.setdefault(key, []).append((
+                    tag, el.find(f"{S3P_XMLNS}VersionId").text,
+                    el.find(f"{S3P_XMLNS}IsLatest").text))
+            for k in first:
+                want = [("Version", vids[k][1], "false"),
+                        ("Version", vids[k][0], "false")]
+                if k in markers:
+                    want.insert(0, ("DeleteMarker", markers[k], "true"))
+                else:
+                    want[0] = ("Version", vids[k][1], "true")
+                if seen.get(k) != want:
+                    raise AssertionError(f"versions of {k}: {seen.get(k)}, "
+                                         f"want {want}")
+            return {"secs": time.perf_counter() - t0, "put_s": put_s,
+                    "versions": 2 * len(first), "markers": len(markers),
+                    "old_reads": latency_summary(old_lat),
+                    "list_versions_s": list_s}
+
+        vs, launches["s3.versioning"] = counted(versioning)
+        bal_log("s3.versioning", vs.pop("secs"), launches["s3.versioning"],
+                keys=ver_keys, deleted=ver_deleted, **vs)
+
+        # (17d) the bucket's rules through the gateway: arc/ warms down on
+        # the card, tmp/ expires; then reads with 4 shards lost
+        def fids(prefix: str) -> dict:
+            return {p: [c["fid"] for c in fs_meta(
+                filer.url, "lookup", path=f"/buckets{p}")["chunks"]]
+                for p in files.under(prefix)}
+
+        arc_fids = fids("/warm/arc/")
+        arc_vids = sorted({int(f.split(",")[0]) for fl in arc_fids.values()
+                           for f in fl})
+        tmp_paths = files.under("/warm/tmp/")
+        tmp_fids = [f for fl in fids("/warm/tmp/").values() for f in fl]
+        records: list = []
+        real_record = daemon._record
+
+        def record(kind, vid, outcome, **kw):
+            records.append((time.monotonic(), kind, vid, outcome))
+            return real_record(kind, vid, outcome, **kw)
+
+        def warm_ok() -> dict:
+            return {r[2]: r[0] for r in list(records)
+                    if r[1] == "warm" and r[3] == "ok"}
+
+        def rules() -> dict:
+            daemon._record = record
+            try:
+                t0 = time.monotonic()
+                r, _ = s3_call(gw.url, "PUT", "/warm?lifecycle", S3P_RULES,
+                               tally=tally)
+                if r.status != 200:
+                    raise AssertionError(f"lifecycle: {r.status} {r.data}")
+                r, _ = s3_call(gw.url, "GET", "/warm?lifecycle",
+                               tally=tally)
+                if r.data != s3_rules.rules_to_xml(
+                        s3_rules.parse_lifecycle_xml(S3P_RULES)):
+                    raise AssertionError(f"lifecycle reads {r.data!r}")
+                wait_until(lambda: set(arc_vids) <= set(warm_ok()),
+                           "the daemon's warm-downs of the arc/ volumes",
+                           timeout=600)
+                wait_until(lambda: all(s3_call(
+                    gw.url, "GET", p, tally=tally)[0].status == 404
+                    for p in tmp_paths), "tmp/ expired", timeout=120)
+                freed_s = fs_wait_freed(master, tmp_fids, "tmp/ chunks")
+            finally:
+                daemon._record = real_record
+            return {"t0": t0, "freed_s": freed_s,
+                    "secs": time.monotonic() - t0}
+
+        rs, launches["s3.rules"] = counted(rules)
+        oks = warm_ok()
+        for p in tmp_paths:
+            files.files.pop(p)
+        _, _, classes, _, _ = s3_list(gw.url, "warm", tally, prefix="arc/")
+        if set(classes) != {p[len("/warm/"):] for p in arc_fids} or set(
+                classes.values()) != {s3_rules.WARM_CLASS}:
+            raise AssertionError(f"arc/ lists {sorted(set(classes.values()))}")
+        for vid in arc_vids:
+            shards = http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+            holders = [i for i in range(len(cl.nodes))
+                       if cl.store(i).find_volume(vid) is not None]
+            if len(shards.get("shards", {})) != 14 or holders:
+                raise AssertionError(f"volume {vid}: shards {shards}, "
+                                     f"normal copies on {holders}")
+        bal_log("s3.rules", rs["secs"], launches["s3.rules"],
+                warm_volumes=len(arc_vids),
+                first_warm_s=min(oks[v] for v in arc_vids) - rs["t0"],
+                last_warm_s=max(oks[v] for v in arc_vids) - rs["t0"],
+                expired=len(tmp_paths), tmp_chunks_freed=len(tmp_fids),
+                tmp_freed_s=rs["freed_s"],
+                failed_records=[r[1:] for r in records if r[3] != "ok"][:5],
+                s3_records=sum(r[1].startswith("s3_") for r in records))
+
+        aside = work / "aside"
+        aside.mkdir()
+        dropped: list = []
+
+        def drop() -> None:
+            for vid in arc_vids:
+                info = http.get_json(
+                    f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+                for sid in VICTIMS:
+                    url = info["shards"][str(sid)][0]
+                    name = f"{vid}{geometry.to_ext(sid)}"
+                    src = os.path.join(cl.nodes[cl.index_of(url)][3], name)
+                    shutil.copy2(src, aside / name)
+                    status, out = http.post_json(
+                        f"http://{url}/admin/ec/delete_shards",
+                        {"volume_id": vid, "collection": "",
+                         "shard_ids": [sid]})
+                    if status != 200:
+                        raise AssertionError(f"drop {vid}.{sid}: {out}")
+                    dropped.append((vid, sid, url, src, name))
+            wait_until(lambda: all(len(http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={v}")[1][
+                    "shards"]) == 14 - len(VICTIMS) for v in arc_vids),
+                "the lookup drops the four shards")
+
+        _, launches["s3.drop_shards"] = counted(drop)
+        readable = files.under("/warm/arc/") + files.under("/warm/keep/")
+        degraded = ops_of(readable)
+
+        def read_degraded() -> dict:
+            got, wall = s3_clients(gw.url, degraded)
+            return {"lat": acked(got, degraded, 200, "degraded"),
+                    "wall": wall}
+
+        dg, launches["s3.read_degraded"] = counted(read_degraded)
+        dbytes = sum(files.files[p][1] for p in readable)
+        bal_log("s3.read_degraded", dg["wall"], launches["s3.read_degraded"],
+                lost_shards=list(VICTIMS), volumes=arc_vids,
+                objects=len(readable), bytes=dbytes,
+                gbps=dbytes / dg["wall"] / 1e9,
+                per_object=latency_summary(dg["lat"]))
+
+        def restore() -> None:
+            for vid, sid, url, src, name in dropped:
+                shutil.copy2(aside / name, src)
+                status, out = http.post_json(
+                    f"http://{url}/admin/ec/mount",
+                    {"volume_id": vid, "collection": "",
+                     "shard_ids": [sid]})
+                if status != 200:
+                    raise AssertionError(f"restore {vid}.{sid}: {out}")
+            wait_until(lambda: all(len(http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={v}")[1][
+                    "shards"]) == 14 for v in arc_vids),
+                "the lookup lists the restored shards")
+
+        _, launches["s3.restore_shards"] = counted(restore)
+        shutil.rmtree(aside, ignore_errors=True)
+    finally:
+        gw.stop()
+        filer.stop()
+        cl.shutdown()
+    if coder_name == "auto":
+        for step, counts in launches.items():
+            others = {k: n for k, n in counts.items()
+                      if k != "gf_apply" and n}
+            if others or (step in S3P_CODER_STEPS) != (counts["gf_apply"]
+                                                       > 0):
+                raise AssertionError(f"{step}: launches {counts}")
+    lost = sorted(written - verified)
+    if lost:
+        raise AssertionError(f"{len(lost)} acknowledged PUTs never read "
+                             f"back, {lost[:3]}")
+    bal_log("s3.summary", time.perf_counter() - t_phase, launches,
+            answers=dict(tally.statuses), acknowledged_puts=len(written),
+            acknowledged_puts_lost=len(lost),
             gf_apply_per_step={k: v["gf_apply"] for k, v in launches.items()})
     shutil.rmtree(work, ignore_errors=True)
     return launches
@@ -7369,6 +8210,14 @@ def main() -> int:
             finally:
                 gc.unfreeze()
             mark("16")
+            # phase 17: the S3 gateway, its own cluster
+            gc.collect()
+            gc.freeze()
+            try:
+                launches["s3"] = run_s3(WORK / "s3")
+            finally:
+                gc.unfreeze()
+            mark("17")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -7403,7 +8252,8 @@ def main() -> int:
         k: v for k, v in launches["lifecycle"].items()
         if k not in LIFECYCLE_CHECKS}, **launches["mesh"],
         **launches["balance"], **launches["storage"], **launches["ha"],
-        **launches["filer"], **launches["ring"], **launches["nets"]}
+        **launches["filer"], **launches["ring"], **launches["nets"],
+        **launches["s3"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

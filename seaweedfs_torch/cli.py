@@ -24,6 +24,8 @@ apply:
       [-meta_log events.jsonl] [-ring_peers h:8888,h:8889,h:8890]
   python3 -m seaweedfs_torch.cli shell -master h1:9333 -filer h:8888 \\
       fs.ls -l /buckets
+  python3 -m seaweedfs_torch.cli s3 -port 8333 -filer h:8888 \\
+      [-config s3.json | -access_key K -secret_key S]
   python3 -m seaweedfs_torch.cli compact -dir /data -volumeId 3
   python3 -m seaweedfs_torch.cli backup -server localhost:9333 \\
       -dir /backup -volumeId 3 [-collection c]
@@ -46,7 +48,16 @@ ring of those filers (every member's ``ip:port``, its own included; the
 vnodes and replicas come from ``WEED_FILER_RING_VNODES`` /
 ``_REPLICAS``, 64 and 2); the shell's ``filer.ring.join -peer`` and
 ``filer.ring.leave -peer`` change the master's membership, which the
-members follow. ``compact`` vacuums one volume offline (the volume
+members follow. ``s3`` runs the S3 gateway in front of ``-filer``:
+buckets are the filer's ``/buckets/<name>`` directories; requests are
+SigV4 (header, presigned or streaming chunked) or V2 signed against the
+identities of ``-config`` (upstream's ``s3.json``: ``{"identities":
+[{"name", "credentials": [{"accessKey", "secretKey"}], "actions":
+["Admin" | "Read" | "Write" | "List" | "Tagging", optionally
+":bucket"]}]}``), or against the one Admin pair of ``-access_key`` and
+``-secret_key`` (given together or not at all); with neither the
+gateway is anonymous. The shell's ``bucket.*`` commands need ``-filer``
+too. ``compact`` vacuums one volume offline (the volume
 server must not have it mounted). ``backup`` pulls what a volume gained
 since the local copy's last record from its holder's ``/admin/tail``
 into a replica in ``-dir`` (creating it on the first run); ``fix``
@@ -186,6 +197,21 @@ def cmd_filer(args) -> None:
         default_replication=args.default_replication,
         default_collection=args.collection,
         meta_log_path=args.meta_log, ring_config=ring_config))
+
+
+def cmd_s3(args) -> None:
+    from .s3.s3_server import run_s3
+    if bool(args.access_key) != bool(args.secret_key):
+        raise SystemExit(
+            "-access_key and -secret_key must be provided together "
+            "(omit both for anonymous mode)")
+    iam = None
+    if args.config:
+        from .s3.auth import Iam
+        iam = Iam.from_file(args.config)
+    _serve_until_signalled(lambda: run_s3(
+        args.ip, args.port, args.filer,
+        access_key=args.access_key, secret_key=args.secret_key, iam=iam))
 
 
 def cmd_shell(args) -> None:
@@ -392,6 +418,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the filer ring's members, host:port each "
                         "(this filer's own included)")
     f.set_defaults(fn=cmd_filer)
+
+    s3p = sub.add_parser("s3", help="run the S3 gateway")
+    s3p.add_argument("-ip", default="127.0.0.1")
+    s3p.add_argument("-port", type=int, default=8333)
+    s3p.add_argument("-filer", default="127.0.0.1:8888")
+    s3p.add_argument("-access_key", default="")
+    s3p.add_argument("-secret_key", default="")
+    s3p.add_argument("-config", default="",
+                     help="JSON identities file with per-action ACLs "
+                          "(weed s3 -config)")
+    s3p.set_defaults(fn=cmd_s3)
 
     cp = sub.add_parser("compact", help="offline vacuum of one volume")
     cp.add_argument("-dir", default="./data")

@@ -65,10 +65,10 @@ class RingConfig:
                    replicas=max(1, num("WEED_FILER_RING_REPLICAS", 2)))
 
 
-# the ring hop's header: a request that already passed the edge peer
-# runs where it lands and is never routed again (one hop at most)
-RING_HOP_HEADER = "X-Seaweed-Ring-Hop"
-
+# the ring hop's header (defined once, in overload, as the reference
+# does): a request that already passed the edge peer runs where it lands
+# and is never routed again (one hop at most)
+from ..overload import RING_HOP_HEADER  # noqa: E402
 from .ring import DirectoryRing  # noqa: E402
 from .masterlog import MasterMetaLog  # noqa: E402
 

@@ -39,7 +39,10 @@ other socket takes one meanwhile), and ``add_filer(sock=s,
 ring_peers=[...], ring_replicas=2)`` starts each member with the whole
 membership (the
 master's starting ring is ``master_kwargs={"ring_config":
-RingConfig(...)}``, or empty until ``/dir/ring/join``). The callers
+RingConfig(...)}``, or empty until ``/dir/ring/join``). ``add_s3(fs,
+**kw)`` starts an S3 gateway (s3/s3_server.py) in front of a filer (its
+``iam``, ``access_key`` and ``secret_key`` in `kw`), ``stop_s3(gw)``
+stops it. The callers
 drive the cluster synchronously, from their own threads, through the
 port's client.
 """
@@ -57,6 +60,7 @@ from ..ec.geometry import DEFAULT, Geometry
 from ..metaring import RingConfig
 from ..storage.store import Store
 from . import http
+from ..s3.s3_server import run_s3
 from .filer_server import run_filer
 from .master import run_master
 from .volume_server import run_volume_server
@@ -104,6 +108,7 @@ class LocalCluster:
         self.master = self.master_runner = None
         # filer -> [its runner, its port, its constructor's kwargs]
         self.filers: dict = {}
+        self.gateways: dict = {}
         # per master: [server, runner, port, its constructor's kwargs]
         self.master_slots: list[list] = []
         try:
@@ -325,8 +330,22 @@ class LocalCluster:
         self.filers[new] = [runner, port, kwargs]
         return new
 
+    def add_s3(self, fs, **kwargs):
+        """Start an S3 gateway on a free port in front of the filer `fs`;
+        returns it (``gw.url`` is host:port)."""
+        gw, runner = self.call(run_s3("127.0.0.1", 0, fs.url, **kwargs))
+        self.gateways[gw] = runner
+        return gw
+
+    def stop_s3(self, gw) -> None:
+        runner = self.gateways.pop(gw, None)
+        if runner is not None:
+            self.call(runner.cleanup())
+
     def shutdown(self) -> None:
         try:
+            for gw in list(self.gateways):
+                self.stop_s3(gw)
             for fs in list(self.filers):
                 self.stop_filer(fs)
             for i in range(len(self.nodes)):

@@ -1497,7 +1497,11 @@ class VolumeServer:
             status, body = http.get_json(
                 f"http://{self.master_url}/col/lookup/ec?volumeId={vid}",
                 timeout=5)
-            shards = body.get("shards", {}) if status == 200 else {}
+            if status != 200:
+                # a master between leaders answers 503: keep the last
+                # map, as a failed lookup does (D21)
+                raise ValueError(f"HTTP {status}")
+            shards = body.get("shards", {})
             self._shard_loc_cache[vid] = (shards, now)
         except (OSError, ValueError) as e:
             log.warning("ec shard lookup for %d failed: %s", vid, e)

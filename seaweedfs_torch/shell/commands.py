@@ -14,11 +14,13 @@ plane's ``volume.heat``, ``lifecycle.status`` and ``lifecycle.run``
 and ``cluster.balance.run`` (shell/balance_commands.py), and the filer
 namespace's ``fs.*`` commands (shell/fs_commands.py), which talk to the
 filer that ``CommandEnv(filer=)`` names (shell ``-filer``) and resolve
-relative paths against ``env.cwd``, and the filer ring's
+relative paths against ``env.cwd``, the filer ring's
 ``filer.ring.status``, ``filer.ring.join`` and ``filer.ring.leave``
-(shell/ring_commands.py); the other command modules of the reference
-(buckets, locks, geo, telemetry, traces and the rest of the volume
-commands) are not ported. A command that moves
+(shell/ring_commands.py), and ``bucket.list``, ``bucket.create``,
+``bucket.delete``, ``collection.list`` and ``collection.delete``
+(shell/bucket_commands.py); the other command modules of the reference
+(locks, geo, telemetry, traces and the rest of the volume commands) are
+not ported. A command that moves
 volumes (``destructive``) runs under the master's cluster-exclusive admin
 lock (client.AdminLock), taken and released around it; the reference's
 ``lock``/``unlock`` commands, which hold it across commands, are not
@@ -127,5 +129,5 @@ def volume_list(env: CommandEnv, argv: list[str]):
 def _register_all() -> None:
     """Import every command module for its registration side effects
     (upstream does the same through init() imports, commands.go:42)."""
-    from . import (balance_commands, ec_shell, fs_commands,  # noqa: F401
-                   ring_commands, volume_commands)
+    from . import (balance_commands, bucket_commands,  # noqa: F401
+                   ec_shell, fs_commands, ring_commands, volume_commands)

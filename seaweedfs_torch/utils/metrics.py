@@ -1,13 +1,14 @@
 """Minimal Prometheus-text metrics registry.
 
-The port's reduced copy of seaweedfs_tpu/utils/metrics.py: counters and
-gauges with optional label sets, rendered in Prometheus exposition
-format, and the process-wide shared registries that subsystems which are
-not servers (the EC feed governor and feed) publish through. The family
-names keep the reference's ``seaweedfs_tpu_<subsystem>_`` namespace, so
-dashboards and alerts read either package. Not ported: duration
-histograms and their exemplars, the aiohttp ``exposition`` handler and
-the push-gateway loop (they come with the servers, which use them).
+The port's reduced copy of seaweedfs_tpu/utils/metrics.py: counters,
+gauges and duration histograms (the reference's buckets) with optional
+label sets, rendered in Prometheus exposition format, and the
+process-wide shared registries that subsystems which are not servers
+(the EC feed governor and feed) publish through. The family names keep
+the reference's ``seaweedfs_tpu_<subsystem>_`` namespace, so dashboards
+and alerts read either package. Not ported: histogram exemplars, the
+aiohttp ``exposition`` handler and the push-gateway loop (they come
+with the trace plane, ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from collections import defaultdict
 
 # the reference's metric namespace
 NAMESPACE = "seaweedfs_tpu"
+# the reference's histogram buckets, seconds
+_BUCKETS = [0.0001, 0.001, 0.01, 0.1, 1.0, 10.0]
 
 
 def _escape(value) -> str:
@@ -40,6 +43,9 @@ class Registry:
         self._lock = threading.Lock()
         self._counters: dict[str, float] = defaultdict(float)
         self._gauges: dict[str, float] = {}
+        self._hist: dict[str, list[int]] = {}
+        self._hist_sum: dict[str, float] = defaultdict(float)
+        self._hist_count: dict[str, int] = defaultdict(int)
 
     def count(self, name: str, value: float = 1.0,
               labels: dict | None = None) -> None:
@@ -50,6 +56,20 @@ class Registry:
               labels: dict | None = None) -> None:
         with self._lock:
             self._gauges[_key(name, labels)] = value
+
+    def observe(self, name: str, seconds: float,
+                labels: dict | None = None) -> None:
+        key = _key(name, labels)
+        with self._lock:
+            buckets = self._hist.setdefault(key, [0] * (len(_BUCKETS) + 1))
+            for i, b in enumerate(_BUCKETS):
+                if seconds <= b:
+                    buckets[i] += 1
+                    break
+            else:
+                buckets[-1] += 1
+            self._hist_sum[key] += seconds
+            self._hist_count[key] += 1
 
     def value(self, name: str, labels: dict | None = None,
               default: float = 0.0) -> float:
@@ -93,6 +113,21 @@ class Registry:
                 for key in keys:
                     _, lbl = self._split(key)
                     lines.append(f"{p}_{name}{lbl} {self._gauges[key]}")
+            for name, keys in self._families(self._hist).items():
+                lines.append(f"# TYPE {p}_{name}_seconds histogram")
+                for key in keys:
+                    _, lbl = self._split(key)
+                    # the key's labels with the per-bucket le label
+                    inner = lbl[1:-1] + "," if lbl else ""
+                    acc = 0
+                    for b, n in zip(_BUCKETS + ["+Inf"], self._hist[key]):
+                        acc += n
+                        lines.append(f"{p}_{name}_seconds_bucket"
+                                     f'{{{inner}le="{b}"}} {acc}')
+                    lines.append(f"{p}_{name}_seconds_sum{lbl} "
+                                 f"{self._hist_sum[key]}")
+                    lines.append(f"{p}_{name}_seconds_count{lbl} "
+                                 f"{self._hist_count[key]}")
             return "\n".join(lines) + "\n"
 
     def snapshot(self, prefix: str = "") -> dict[str, float]:
@@ -108,7 +143,7 @@ class Registry:
 
     def is_empty(self) -> bool:
         with self._lock:
-            return not (self._counters or self._gauges)
+            return not (self._counters or self._gauges or self._hist)
 
 
 # --- process-wide shared registries ---

@@ -1308,7 +1308,8 @@ def test_shell_registry():
         "fs.pwd", "fs.cd", "fs.ls", "fs.du", "fs.cat", "fs.mv", "fs.rm",
         "fs.mkdir", "fs.tree", "fs.meta.cat", "fs.meta.save",
         "fs.meta.load", "filer.ring.status", "filer.ring.join",
-        "filer.ring.leave"}
+        "filer.ring.leave", "bucket.list", "bucket.create",
+        "bucket.delete", "collection.list", "collection.delete"}
 
 
 # --- the HTTP layer --------------------------------------------------------

@@ -135,7 +135,18 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.filer.fake_etcd",
                  "seaweedfs_torch.filer.fake_mongo",
                  "seaweedfs_torch.filer.fake_elastic",
-                 "seaweedfs_torch.filer.fake_cassandra"):
+                 "seaweedfs_torch.filer.fake_cassandra",
+                 "seaweedfs_torch.overload",
+                 "seaweedfs_torch.overload.bucket",
+                 "seaweedfs_torch.overload.sampler",
+                 "seaweedfs_torch.overload.admission",
+                 "seaweedfs_torch.geo",
+                 "seaweedfs_torch.geo.rules",
+                 "seaweedfs_torch.geo.versioning",
+                 "seaweedfs_torch.s3.auth",
+                 "seaweedfs_torch.s3.sigv2",
+                 "seaweedfs_torch.s3.s3_server",
+                 "seaweedfs_torch.shell.bucket_commands"):
         assert name in result["names"]
     assert result["forbidden"] == []
 
@@ -167,7 +178,9 @@ SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
                   *PORT.glob("topology/*.py"), *PORT.glob("lifecycle/*.py"),
                   *PORT.glob("balance/*.py"), *PORT.glob("clustersim/*.py"),
                   *PORT.glob("metaring/*.py"), *PORT.glob("filer/*.py"),
-                  *PORT.glob("cache/*.py"), PORT / "utils" / "retry.py",
+                  *PORT.glob("cache/*.py"), *PORT.glob("overload/*.py"),
+                  *PORT.glob("geo/*.py"), *PORT.glob("s3/*.py"),
+                  PORT / "utils" / "retry.py",
                   PORT / "client.py",
                   PORT / "cli.py", PORT / "utils" / "multipart.py",
                   PORT / "storage" / "file_id.py"])

@@ -2,10 +2,12 @@
 
 ``s3_rules`` parses and serialises the reference's XML cases equally
 (and refuses the same ones with the same message). Then the end-to-end
-flow of tests/test_lifecycle.py's S3 case in both packages, with the
-rules put on the bucket's entry through the filer (the port has no S3
-gateway yet): a master whose lifecycle daemon scans the filer (a "day"
-of 1 s), four volume servers, a filer. An ``old/`` object expires and
+flow of tests/test_lifecycle.py's S3 case in both packages, twice: with
+the rules put on the bucket's entry through the filer's
+``/__meta__/update_entry``, and with the same rules put through each
+package's S3 gateway (PutBucketLifecycleConfiguration, objects PUT and
+read through the gateway): a master whose lifecycle daemon scans the
+filer (a "day" of 1 s), four volume servers, a filer. An ``old/`` object expires and
 its chunks are freed, an ``arc/`` object is listed ``WARM``, its
 volume's warm transition is ``ok``, and the object reads back equal
 through the filer, also with shards {0, 3, 7, 12} dropped from their
@@ -15,11 +17,12 @@ plain version (``coder_name="torch", device="cpu"``).
 
 import json
 import random
+import re
 import time
 
 import pytest
 
-from cluster_util import Cluster
+from cluster_util import Cluster, free_port
 from seaweedfs_torch.ec.geometry import Geometry
 from seaweedfs_torch.lifecycle import LifecycleConfig as PConfig
 from seaweedfs_torch.lifecycle import s3_rules as prules
@@ -27,6 +30,7 @@ from seaweedfs_torch.server import http as phttp
 from seaweedfs_torch.server.local_cluster import LocalCluster
 from seaweedfs_tpu.lifecycle import LifecycleConfig as RConfig
 from seaweedfs_tpu.lifecycle import s3_rules as rrules
+from seaweedfs_tpu.s3.s3_server import S3Server as RS3Server
 
 RULES = (b"<LifecycleConfiguration>"
          b"<Rule><ID>old</ID><Filter><Prefix>old/</Prefix></Filter>"
@@ -201,6 +205,103 @@ def test_s3_rules_end_to_end_through_the_filer():
     got = {pkg: _flow(pkg, payload) for pkg in ("reference", "port")}
     assert got["port"] == got["reference"] == {
         "healthy": True, "degraded": True, "keep": True,
+        "kinds": ["s3_expire", "s3_transition"], "warm_chunks": 2}
+
+
+def _gateway(pkg, c, fs):
+    """An anonymous S3 gateway of `pkg` in front of `fs`; its url."""
+    if pkg == "reference":
+        port = free_port()
+        c.runners.append(c.serve(RS3Server(fs.url).app, port))
+        return f"127.0.0.1:{port}"
+    return c.add_s3(fs).url
+
+
+def _gateway_flow(pkg, payload):
+    """The S3 case with the rules put through the gateway: ``arc/b.bin``
+    and ``keep.bin`` PUT through it, ``old/a.bin`` through the filer in
+    a collection of its own (a gateway PUT lands in the filer's default
+    collection, and the old/ chunks must not share the volume that warms
+    down), every read through the gateway."""
+    c, master, fs = _cluster(pkg)
+    gw = f"http://{_gateway(pkg, c, fs)}"
+    mu = c.master_url
+    try:
+        master.lifecycle.cfg.filer = fs.url
+        assert phttp.request("PUT", f"{gw}/b1").status == 200
+        for path in ("arc/b.bin", "keep.bin"):
+            r = phttp.request("PUT", f"{gw}/b1/{path}", payload)
+            assert r.status == 200, r.data
+        r = phttp.request("PUT", f"http://{fs.url}/buckets/b1/old/a.bin"
+                          "?collection=oldc", payload)
+        assert r.status == 201, r.data
+        _, old = phttp.get_json(
+            f"http://{fs.url}/__meta__/lookup?path=/buckets/b1/old/a.bin")
+        r = phttp.request("PUT", f"{gw}/b1?lifecycle", RULES)
+        assert r.status == 200, r.data
+        stored = phttp.request("GET", f"{gw}/b1?lifecycle").data
+
+        def get(path):
+            return phttp.request("GET", f"{gw}/b1/{path}")
+
+        _wait(lambda: get("old/a.bin").status == 404, "old/ expired")
+
+        def fid_status(fid):
+            _, loc = phttp.get_json(f"http://{mu}/dir/lookup?fileId={fid}")
+            return phttp.request(
+                "GET", f"http://{loc['locations'][0]['url']}/{fid}").status
+
+        _wait(lambda: all(fid_status(ch["fid"]) == 404
+                          for ch in old["chunks"]), "old/ chunks freed")
+
+        def classes():
+            body = phttp.request("GET", f"{gw}/b1?list-type=2").data
+            return dict(zip(re.findall(rb"<Key>(.*?)</Key>", body),
+                            re.findall(rb"<StorageClass>(.*?)<", body)))
+
+        _wait(lambda: classes().get(b"arc/b.bin") == b"WARM",
+              "arc/ listed WARM")
+
+        def status():
+            return phttp.get_json(f"http://{mu}/lifecycle/status")[1]
+
+        _wait(lambda: any(e["kind"] == "warm" and e["outcome"] == "ok"
+                          for e in status()["recent"]),
+              "the chunk volume's warm transition")
+        master.repair_enabled = False
+        healthy = get("arc/b.bin").data
+        _, arc = phttp.get_json(
+            f"http://{fs.url}/__meta__/lookup?path=/buckets/b1/arc/b.bin")
+        vid = int(arc["chunks"][0]["fid"].split(",")[0])
+        _, ec = phttp.get_json(f"http://{mu}/col/lookup/ec?volumeId={vid}")
+        for sid in (0, 3, 7, 12):
+            url = ec["shards"][str(sid)][0]
+            st, out = phttp.post_json(
+                f"http://{url}/admin/ec/delete_shards",
+                {"volume_id": vid, "collection": "", "shard_ids": [sid]})
+            assert st == 200, out
+        _wait(lambda: len(phttp.get_json(
+            f"http://{mu}/col/lookup/ec?volumeId={vid}")[1]["shards"])
+            == 10, "the lookup drops the four shards")
+        kinds = sorted({e["kind"] for e in status()["recent"]})
+        return {"stored": stored == prules.rules_to_xml(
+                    prules.parse_lifecycle_xml(RULES)),
+                "healthy": healthy == payload,
+                "degraded": get("arc/b.bin").data == payload,
+                "keep": get("keep.bin").data == payload,
+                "classes": classes(),
+                "kinds": [k for k in kinds if k.startswith("s3_")],
+                "warm_chunks": len(arc["chunks"])}
+    finally:
+        c.shutdown()
+
+
+def test_s3_rules_end_to_end_through_the_gateway():
+    payload = random.Random(53).randbytes(20_000)
+    got = {pkg: _gateway_flow(pkg, payload) for pkg in ("reference", "port")}
+    assert got["port"] == got["reference"] == {
+        "stored": True, "healthy": True, "degraded": True, "keep": True,
+        "classes": {b"arc/b.bin": b"WARM", b"keep.bin": b"STANDARD"},
         "kinds": ["s3_expire", "s3_transition"], "warm_chunks": 2}
 
 

@@ -17,6 +17,7 @@ the reference's target breaks a ``001`` placement the port keeps it
 import asyncio
 import functools
 import hashlib
+import http.server as http_server
 import json
 import os
 import random
@@ -33,6 +34,7 @@ from seaweedfs_torch.observe import spans as pspans
 from seaweedfs_torch.server import http
 from seaweedfs_torch.server.local_cluster import LocalCluster
 from seaweedfs_torch.server.master import MasterServer as PMaster
+from seaweedfs_torch.server.volume_server import VolumeServer as PVolumeServer
 from seaweedfs_torch.shell import commands as pcommands
 from seaweedfs_torch.shell import ec_commands as pec
 from seaweedfs_torch.storage import store as pstore
@@ -40,6 +42,7 @@ from seaweedfs_torch.storage.needle import Needle as PNeedle
 from seaweedfs_torch.topology import topology as ptopo
 from seaweedfs_tpu.balance import planner as rplanner
 from seaweedfs_tpu.server.master import MasterServer as RMaster
+from seaweedfs_tpu.server.volume_server import VolumeServer as RVolumeServer
 from seaweedfs_tpu.topology import topology as rtopo
 
 PG = pgeo.Geometry(10, 4, large_block_size=64 * 1024,
@@ -491,6 +494,50 @@ def test_a_dropped_shard_closes_after_its_reads(tmp_path):
             os.fstat(fd)
     finally:
         st.close()
+
+
+class _LookupMaster(http_server.BaseHTTPRequestHandler):
+    """A master's ``/col/lookup/ec``: answers ``server.answer``, a
+    (status, JSON body) pair."""
+
+    def do_GET(self):
+        status, body = self.server.answer
+        data = json.dumps(body).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def log_message(self, *args):
+        pass
+
+
+@within(30)
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+def test_d21_shard_map_kept_through_a_failed_lookup(pkg):
+    """A master between leaders answers ``/col/lookup/ec`` with a JSON
+    503. Both volume servers keep the last shard map they fetched, so an
+    EC read that needs a remote shard still finds its holder; the port
+    once cached an empty map for 11 s there, and degraded reads during a
+    term change answered 404 (ROADMAP Queue 3, D21)."""
+    cls = RVolumeServer if pkg == "reference" else PVolumeServer
+    master = http_server.ThreadingHTTPServer(("127.0.0.1", 0), _LookupMaster)
+    master.answer = (200, {"shards": {"3": ["10.0.0.1:8080", "me:1"]}})
+    threading.Thread(target=master.serve_forever, daemon=True).start()
+    try:
+        vs = cls.__new__(cls)
+        vs.master_url = f"127.0.0.1:{master.server_address[1]}"
+        vs.url = "me:1"
+        vs._shard_loc_cache = {}
+        assert vs._shard_locations(7, 3) == ["10.0.0.1:8080"]
+        assert vs._shard_locations(7, 5) == []
+        master.answer = (503, {"error": "no leader elected"})
+        assert vs._shard_locations(7, 3, force=True) == ["10.0.0.1:8080"]
+        assert vs._shard_locations(7, 3) == ["10.0.0.1:8080"]
+    finally:
+        master.shutdown()
+        master.server_close()
 
 
 @within(60)
