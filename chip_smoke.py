@@ -115,8 +115,9 @@ Phases (any failure exits non-zero before the result line):
    ``repair_enabled=False`` (the CLI's with ``-maintenance_interval 0``):
    the shell heals phases 7 and 8, and the repair daemon would race it;
 8. (run inside 7a's cluster, before 7b) the hot tier in front of the
-   warm one: a fresh server takes the place of the one 7a lost; a 256 MiB
-   volume (1 GiB before phase 12, 512 MiB before phase 14) of collection
+   warm one: a fresh server takes the place of the one 7a lost; a 128 MiB
+   volume (1 GiB before phase 12, 512 MiB before phase 14, 256 MiB before
+   phase 18) of collection
    ``repsmoke`` at replication ``001`` (upstream's
    "one more copy on the same rack") filled over HTTP with phase 3's
    generator (each 201 means both copies are written: both holders count
@@ -209,8 +210,9 @@ Phases (any failure exits non-zero before the result line):
    lifecycle daemon whose rules fire later than the phase lasts, and the
    balancer (``WEED_BALANCE_INTERVAL=1``, cooldown 30 s; heat half-life
    2 s), 4 volume servers on 2 racks (``Store(coder_name="auto")``, pulse
-   0.5 s), volume size limit 64 MiB (256 MiB before phase 12, 192 MiB
-   before phase 13, 160 MiB before phase 14, 96 MiB before phase 15),
+   0.5 s), volume size limit 40 MiB (256 MiB before phase 12, 192 MiB
+   before phase 13, 160 MiB before phase 14, 96 MiB before phase 15, 64
+   MiB before phase 18),
    default replication
    ``010``,
    ``WEED_VOLUME_GROUP_COMMIT_US=2000``. Under the operator's admin lease
@@ -218,8 +220,9 @@ Phases (any failure exits non-zero before the result line):
    3's generator's needles (log-uniform 1 KiB .. 64 KiB; 16 keys per
    assign) until four volumes are full: uploads/s, acknowledgement
    p50/p99 and fsyncs per upload (``os.fsync`` counted); then, into a
-   fifth volume, about 1500 uploads with group commit off and about 1500
-   with it on (4000 each before phase 14, 2000 before phase 15), side
+   fifth volume, about 900 uploads with group commit off and about 900
+   with it on (4000 each before phase 14, 2000 before phase 15, 1500
+   before phase 18), side
    by side; every acknowledged needle read back from
    both holders' stores. (11b) read repair on the fifth volume: a byte
    flipped in one holder's copy of a needle reads back good from that
@@ -251,8 +254,9 @@ Phases (any failure exits non-zero before the result line):
    ``gf_apply`` must launch in 11c's mid-encode and in 11d's encode and
    degraded reads, and nowhere else in the phase;
 12. (run after 11) the rest of the storage engine, with phase 3's
-   generator at log-uniform 1-16 KiB: (12a) a 640 MiB volume (about
-   121k needles; 1 GiB before phase 14), 5% deleted, under
+   generator at log-uniform 1-16 KiB: (12a) a 576 MiB volume (about
+   108k needles; 1 GiB before phase 14, 640 MiB before phase 18), 5%
+   deleted, under
    ``needle_map_kind="leveldb"`` written with
    ``Store.write_needle`` (the segment flushes counted), the ``.sdx``
    bytes, each kind's open time and RSS growth (``/proc/self/status``),
@@ -370,8 +374,9 @@ Phases (any failure exits non-zero before the result line):
    replicas): A in this process, B and C each ``python3 -m
    seaweedfs_torch.cli filer -ring_peers ...``; the membership set
    through ``/dir/ring/join``. (15a) 16 clients in 4 processes create
-   3000 metadata-only entries in 150 directories (20000 in 1000 before
-   its first full runs, 8000 in 400 before phase 17, then 5000 in 250)
+   2000 metadata-only entries in 100 directories (20000 in 1000 before
+   its first full runs, 8000 in 400 before phase 17, then 5000 in 250,
+   3000 in 150 before phase 18)
    through ``/__meta__/create_entry``, each op to a random member (about 2/3
    proxied), while a fifth process PUTs 96 MiB of phase 3's generator's
    files (log-uniform 1 KiB .. 8 MiB) under ``/buckets/ring/arc/``
@@ -459,6 +464,42 @@ Phases (any failure exits non-zero before the result line):
    shards put back. No answer may be a 5xx and no acknowledged PUT may
    be lost. ``gf_apply`` must launch in 17d's warm-down and degraded
    reads, and in no other step of the phase;
+18. (run after 17) the filer's client surfaces, in their own
+   ``LocalCluster``: a master, 2 volume servers on 2 racks
+   (``Store(coder_name="auto")``, 64 MiB volumes), the filer as
+   ``python3 -m seaweedfs_torch.cli filer -store leveldb2`` (8 MiB
+   chunks) and the WebDAV gateway as ``python3 -m seaweedfs_torch.cli
+   webdav -filer ...``. (18a) 20 collections made with MKCOL, 24 MiB of
+   phase 3's generator (1 KiB .. 8 MiB) PUT by 8 clients in 2 processes
+   and read back by sha256 (PUT GB/s, p50/p99 per file; GET), 20 files
+   moved across collections, a MOVE with ``Overwrite: F`` refused with
+   412, one collection copied whole with COPY. (18b) on 10 files: LOCK,
+   a PUT without the token answered 423, a PUT with it answered 2xx,
+   UNLOCK; then a depth-1 PROPFIND of each collection lists exactly its
+   files with their sizes (p50/p99). (18c) the mount as an in-process
+   ``WFS`` (8 MiB chunks): 16 MiB in files, the first at the
+   generator's top size, each written in seeded pieces of 4 KiB .. 1 MiB
+   out of order with overlaps (a full chunk's dirty pages flush early),
+   one file truncated and one renamed while open, each read back before
+   its release against a ``bytearray`` model; an xattr set on 5 files,
+   5 hard-linked and their first names unlinked. (18d) 8 MiB through
+   the fsspec adapter (``fs.open(..., "wb")`` and ``pipe_file``), ``ls``
+   and ``info`` checked. (18e) 2000 JSON documents of 200 B .. 4 KiB
+   uploaded to collection ``docs`` with the client (fids from the
+   threaded ``AssignLeasePool`` over ``/dir/assign?count=N``), three
+   ``Client.query`` calls with projections (``n < 500``, ``a.b = 7``,
+   ``tag contains "x"``) equal to the answers known by construction.
+   (18f) where the host serves a FUSE mount (a probe filesystem through
+   the port's libfuse2 binding mounts, else a ``skipped`` line), the
+   CLI ``mount`` on a kernel mount point and 3 files copied in with
+   ``open()``. (18g) every volume holding a file of the phase encoded
+   with the shell's ``ec.encode``; shards {0, 3, 7, 12} dropped. (18h)
+   every file read back with 4 shards lost: through WebDAV (p50/p99),
+   a fresh ``WFS`` (xattrs and links too), fsspec (whole and by ranges),
+   the kernel mount, and the three queries again. No answer may be a
+   5xx. ``gf_apply`` must launch in 18g's encode and in each read with 4
+   shards lost whose files have a needle on a lost shard (the fresh
+   mount's reads and the queries must), and in no other step;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -2069,7 +2110,9 @@ def run_cluster(work: Path, device: torch.device, total: int = 1 << 30,
              "rebuilt_sha256_equal": True, "decoded_reads_back": True,
              "launches": dict(launches)})
         # phase 8 in the same cluster
-        launches.update(run_replicated(cl, client, total, seed + 100))
+        launches.update(run_replicated(cl, client,
+                                       min(total, REPL_VOLUME_BYTES),
+                                       seed + 100))
     finally:
         cl.shutdown()
     check_cluster_launches(launches)
@@ -2968,6 +3011,9 @@ CRASH_DAT_BYTES = 32 * MIB
 # server's shards; a 256 MiB volume of this seed puts 211 there, a 192
 # MiB one 159)
 CUT_VOLUME_BYTES = 256 * MIB
+# phase 8's replicated volume: 7a's size until phase 18 (it has no
+# per-shard needle bound of its own)
+REPL_VOLUME_BYTES = 128 * MIB
 # phase 6b's archive volume, phase 9's and phase 10b's volumes, cut from
 # 1 GiB for phases 11 and 12, then from 512 MiB to make room for phase
 # 13 (the smoke took about 1175 s on one H100 with them at 512 MiB), then
@@ -3277,14 +3323,15 @@ BAL_COLLECTION = "balsmoke"
 BAL_AB = "balgc"          # the fifth volume: group commit off, then on
 BAL_NEW = "balnew"        # a volume grown after the moves
 # upstream's 30 GB volume size limit, cut to 256 MiB, then to 192 MiB
-# for phase 12, to 160 MiB for phase 13, to 96 MiB for phase 14 and to
-# 64 MiB for phase 15 (the fifth volume's about 45 MiB of group-commit
-# uploads stay under 0.9 of it)
-BAL_LIMIT_MB = 64
+# for phase 12, to 160 MiB for phase 13, to 96 MiB for phase 14, to 64
+# MiB for phase 15 and to 40 MiB for phase 18 (the fifth volume's about
+# 28 MiB of group-commit uploads stay under 0.9 of it)
+BAL_LIMIT_MB = 40
 BAL_FULL = 4              # the full 010 volumes of step 11a
 BAL_CLIENTS = 64
 BAL_PROCS = 4             # uploader processes (16 clients each)
-BAL_AB_NEEDLES = 1500    # 4000 before phase 14, 2000 before phase 15
+# 4000 before phase 14, 2000 before phase 15, 1500 before phase 18
+BAL_AB_NEEDLES = 900
 BAL_MAX_NEEDLE = 64 * 1024
 BAL_ASSIGN_COUNT = 16     # keys per /dir/assign?count=
 # the balancer's and the volume servers' knobs, read at construction
@@ -4075,9 +4122,9 @@ def check_balance_launches(launches: dict) -> None:
 
 STOR_MAX_NEEDLE = 16 * 1024   # phase 3's generator, log-uniform 1-16 KiB
 # 12a's volume (1 GiB, and 12b's 256 MiB, before phase 14, then 768
-# MiB; 12a keeps more than FLUSH_THRESHOLD needles, about 121k, so its
-# map flushes)
-STOR_DISK_BYTES = 640 * MIB
+# MiB, then 640 MiB before phase 18; 12a keeps more than FLUSH_THRESHOLD
+# needles, about 108k, so its map flushes)
+STOR_DISK_BYTES = 576 * MIB
 STOR_FUSED_BYTES = 128 * MIB  # 12b's archive volume
 # 12c's uploads, and its vacuumed volume (cut from 64 MiB for phase 13,
 # from 32 MiB for phase 15)
@@ -5702,7 +5749,7 @@ def run_filer(work: Path, seed: int = SEED + 14, coder_name: str = "auto",
                     "fid"]
                 vid = int(fid.split(",")[0])
                 arc_fids[path] = [fid]
-                lease = pool._leases.get((FS_COLLECTION, "", ""))
+                lease = pool.core._leases.get((FS_COLLECTION, "", ""))
                 if lease is not None and lease.vid == vid and \
                         lease.next_i < lease.count:
                     break
@@ -5720,10 +5767,10 @@ def run_filer(work: Path, seed: int = SEED + 14, coder_name: str = "auto",
             seal_s = time.monotonic() - t_late
             lease_age = time.monotonic() - lease.born
             go.set()
-            if lease_age >= pool.ttl:
+            if lease_age >= pool.core.ttl:
                 raise AssertionError(
                     f"volume {vid} sealed {lease_age:.2f} s after its lease "
-                    f"was filled, past the lease's {pool.ttl} s")
+                    f"was filled, past the lease's {pool.core.ttl} s")
             wait_until(lambda: fs_a.metrics.value(
                 "upload_stale_assignment") > stale0,
                 f"a keep2/ chunk POST into sealed volume {vid}", timeout=60)
@@ -5971,9 +6018,10 @@ RING_LIMIT_MB = 64
 # H100 host (the creates alone 57.4-85.3 s), past the smoke's room: cut
 # to 8000 in 400 (20 a directory, as there), then to 5000 in 250 to make
 # room for phase 17 (42.7 s alone on an H100 host), then to 3000 in 150
-# (the whole smoke took 1126 s of its 1200 on a slow H100 host)
-RING_ENTRIES = 3000
-RING_DIRS = 150
+# (the whole smoke took 1126 s of its 1200 on a slow H100 host), then to
+# 2000 in 100 to make room for phase 18
+RING_ENTRIES = 2000
+RING_DIRS = 100
 RING_CLIENTS = 16                 # create clients, in RING_PROCS processes
 RING_PROCS = 4
 RING_UPLOAD_BYTES = 96 * MIB
@@ -8065,6 +8113,927 @@ def run_s3(work: Path, seed: int = SEED + 17, coder_name: str = "auto",
     return launches
 
 
+# --- phase 18: the filer's client surfaces --------------------------------
+
+DAV_LIMIT_MB = 64
+DAV_CHUNK = 8 * MIB              # the CLI filer's chunks, and the mount's
+DAV_MAX_FILE = 8 * MIB           # phase 3's generator: log-uniform 1 KiB ..
+DAV_BYTES = 24 * MIB             # WebDAV PUTs ...
+DAV_DIRS = 20                    # ... under this many collections (MKCOL)
+DAV_MOVES = 20
+DAV_LOCKS = 10
+DAV_CLIENTS = 8                  # WebDAV clients ...
+DAV_PROCS = 2                    # ... in this many processes
+MNT_BYTES = 16 * MIB             # the in-process mount's files
+MNT_PIECE = (4 * 1024, MIB)      # its writes, log-uniform
+MNT_THREADS = 4
+MNT_XATTRS = 5
+MNT_LINKS = 5
+FSS_BYTES = 8 * MIB              # through the fsspec adapter
+QRY_DOCS = 2000                  # JSON documents for /admin/query ...
+QRY_DOC = (200, 4 * 1024)        # ... of this many bytes, log-uniform
+QRY_COLLECTION = "docs"
+QRY_THREADS = 16                 # the client's upload threads
+KMNT_FILES = 3                   # files copied in through a kernel mount
+DAV_CODER_STEPS = ("dav.ec_encode", "dav.read_webdav", "dav.read_mount",
+                   "dav.read_fsspec", "dav.read_kernel",
+                   "dav.query_degraded")
+DAV_QUERIES = (
+    ({"field": "n", "op": "<", "value": 500}, ["id", "n"]),
+    ({"field": "a.b", "op": "=", "value": 7}, ["id", "a.b"]),
+    ({"field": "tag", "op": "contains", "value": "x"}, ["id", "tag"]))
+DAV_LOCKINFO = (b'<?xml version="1.0" encoding="utf-8"?>'
+                b'<D:lockinfo xmlns:D="DAV:"><D:lockscope><D:exclusive/>'
+                b'</D:lockscope><D:locktype><D:write/></D:locktype>'
+                b'</D:lockinfo>')
+
+# the WebDAV clients of one process: the job (JSON on stdin) holds the
+# gateway and lists of ops; each of `threads` threads runs its lists in
+# order on its own connection. An op is {"method", "path"} with "seed",
+# "nid", "size" for a PUT's body or a GET's expected bytes. One result
+# per op on stdout as JSON: [id, status, seconds, bytes equal]
+_DAV_CLIENT = """
+import hashlib, http.client, json, sys, threading, time
+import numpy as np
+job = json.loads(sys.stdin.read())
+host = job["gateway"]
+out, lock = [], threading.Lock()
+
+def body_of(op):
+    return np.random.default_rng((op["seed"], op["nid"])).bytes(op["size"])
+
+def run(groups):
+    conn = http.client.HTTPConnection(host, timeout=600)
+    for group in groups:
+        for op in group:
+            body = body_of(op) if op["method"] == "PUT" else None
+            t0 = time.perf_counter()
+            try:
+                conn.request(op["method"], op["path"], body=body,
+                             headers=op.get("headers", {}))
+                r = conn.getresponse()
+                data = r.read()
+                status = r.status
+            except OSError as e:
+                conn.close()
+                conn = http.client.HTTPConnection(host, timeout=600)
+                status, data = repr(e), b""
+            secs = time.perf_counter() - t0
+            equal = True
+            if op["method"] == "GET":
+                equal = hashlib.sha256(data).digest() == hashlib.sha256(
+                    body_of(op)).digest()
+            with lock:
+                out.append([op["id"], status, secs, equal])
+    conn.close()
+
+workers = [threading.Thread(target=run, args=(job["groups"][k::job["threads"]],))
+           for k in range(job["threads"])]
+for w in workers:
+    w.start()
+for w in workers:
+    w.join()
+print(json.dumps(out))
+"""
+
+# a one-directory in-memory filesystem through the port's libfuse2
+# binding: whether this host's kernel serves a FUSE mount at all
+_FUSE_PROBE = """
+import errno, stat, sys
+from seaweedfs_torch.mount.fuse_ctypes import fuse_main
+
+
+class ProbeFS:
+    def __init__(self):
+        self.files = {}
+        self.cur = None
+
+    def getattr(self, path):
+        if path == "/":
+            return {"mode": stat.S_IFDIR | 0o755, "nlink": 2}
+        if path not in self.files:
+            raise OSError(errno.ENOENT, path)
+        return {"mode": stat.S_IFREG | 0o644, "size": len(self.files[path])}
+
+    def readdir(self, path):
+        return [p[1:] for p in self.files]
+
+    def create(self, path, mode):
+        self.files[path] = b""
+        self.cur = path
+        return 1
+
+    def open(self, path, for_write=False):
+        if path not in self.files:
+            raise OSError(errno.ENOENT, path)
+        self.cur = path
+        return 1
+
+    def read(self, fh, size, offset):
+        return self.files[self.cur][offset:offset + size]
+
+    def write(self, fh, data, offset):
+        cur = self.files[self.cur].ljust(offset, b"\\0")
+        self.files[self.cur] = cur[:offset] + data + cur[offset + len(data):]
+        return len(data)
+
+    def truncate(self, path, length):
+        self.files[path] = self.files.get(path, b"")[:length]
+
+    def flush(self, fh):
+        pass
+
+    def release(self, fh):
+        self.cur = None
+
+
+sys.exit(fuse_main(sys.argv[1], ProbeFS()))
+"""
+
+
+def fuse_usable() -> str:
+    """'' when this host can serve a FUSE mount (the reference's
+    predicate: /dev/fuse, libfuse, fusermount, uid 0), else why not."""
+    import ctypes.util
+    if not os.path.exists("/dev/fuse"):
+        return "no /dev/fuse"
+    if ctypes.util.find_library("fuse") is None:
+        return "no libfuse"
+    if shutil.which("fusermount") is None:
+        return "no fusermount"
+    if os.getuid() != 0:
+        return "not uid 0"
+    return ""
+
+
+def fuse_wait(proc, mnt: Path, timeout: float) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if os.path.ismount(mnt):
+            return True
+        if proc.poll() is not None:
+            return False
+        time.sleep(0.1)
+    return os.path.ismount(mnt)
+
+
+def fuse_unmount(proc, mnt: Path) -> None:
+    subprocess.run(["fusermount", "-u", "-z", str(mnt)],
+                   stderr=subprocess.DEVNULL, timeout=30)
+    if proc is not None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def fuse_probe(work: Path) -> str:
+    """'' when a probe filesystem mounts and a file written through it
+    reads back, else why not."""
+    why = fuse_usable()
+    if why:
+        return why
+    mnt = work / "fuse_probe"
+    mnt.mkdir()
+    proc = subprocess.Popen([sys.executable, "-c", _FUSE_PROBE, str(mnt)],
+                            cwd=str(REPO), stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    try:
+        if not fuse_wait(proc, mnt, 15.0):
+            return "the probe filesystem did not mount"
+        (mnt / "probe.txt").write_bytes(b"ping")
+        if (mnt / "probe.txt").read_bytes() != b"ping":
+            return "the probe filesystem read back wrong"
+        return ""
+    except OSError as e:
+        return f"the probe filesystem failed: {e!r}"
+    finally:
+        fuse_unmount(proc, mnt)
+
+
+def dav_clients(gateway: str, groups: list) -> tuple:
+    """Run `groups` of ops through DAV_CLIENTS clients in DAV_PROCS
+    processes; (results by op id, wall seconds)."""
+    n = 0
+    for group in groups:
+        for op in group:
+            op["id"] = n
+            n += 1
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _DAV_CLIENT],
+                              cwd=str(REPO), stdin=subprocess.PIPE,
+                              stdout=subprocess.PIPE)
+             for _ in range(DAV_PROCS)]
+    outs = [p.communicate(json.dumps({
+        "gateway": gateway, "threads": DAV_CLIENTS // DAV_PROCS,
+        "groups": groups[i::DAV_PROCS]}).encode(), timeout=1200)[0]
+        for i, p in enumerate(procs)]
+    wall = time.perf_counter() - t0
+    got = {}
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"WebDAV clients exited {p.returncode}")
+        for r in json.loads(out.splitlines()[-1]):
+            got[r[0]] = r
+    if len(got) != n:
+        raise AssertionError(f"WebDAV clients answered {len(got)} of {n}")
+    return got, wall
+
+
+def dav_call(gateway: str, method: str, path: str, body: bytes = b"",
+             headers: dict = None, tally=None):
+    """One WebDAV request from this process; the response and its
+    seconds."""
+    t0 = time.perf_counter()
+    r = http.request(method, f"http://{gateway}{path}", body or None,
+                     dict(headers or {}), timeout=600)
+    if tally is not None:
+        tally.add(r.status)
+    return r, time.perf_counter() - t0
+
+
+def dav_propfind(gateway: str, path: str, tally) -> tuple:
+    """{href: content length (None for a collection)} of a depth-1
+    PROPFIND, and its seconds."""
+    import xml.etree.ElementTree as ET
+    r, secs = dav_call(gateway, "PROPFIND", path, headers={"Depth": "1"},
+                       tally=tally)
+    if r.status != 207:
+        raise AssertionError(f"PROPFIND {path}: {r.status}")
+    out = {}
+    for resp in ET.fromstring(r.data).findall("{DAV:}response"):
+        href = resp.find("{DAV:}href").text
+        length = resp.find(".//{DAV:}getcontentlength")
+        out[href] = None if length is None else int(length.text)
+    return out, secs
+
+
+def mount_pieces(rng, size: int, nid0: int) -> list:
+    """(offset, nid, size) writes that cover [0, size) in pieces of
+    MNT_PIECE bytes, plus a quarter as many overlapping ones, all in a
+    seeded order; nids from nid0 up."""
+    lo, hi = MNT_PIECE
+    pieces, at = [], 0
+    while at < size:
+        n = min(size - at, int(np.exp(rng.uniform(np.log(lo), np.log(hi)))))
+        pieces.append((at, n))
+        at += n
+    for _ in range(max(1, len(pieces) // 4)):
+        n = min(size, int(np.exp(rng.uniform(np.log(lo), np.log(hi)))))
+        pieces.append((int(rng.integers(0, size - n + 1)), n))
+    order = rng.permutation(len(pieces))
+    return [(pieces[i][0], nid0 + k, pieces[i][1])
+            for k, i in enumerate(order)]
+
+
+def dav_fids(filer: str, paths: list) -> dict:
+    """path -> its chunks' fids, through the filer's meta API."""
+    return {p: [c["fid"] for c in fs_meta(filer, "lookup", path=p)["chunks"]]
+            for p in paths}
+
+
+def run_dav(work: Path, seed: int = SEED + 18, coder_name: str = "auto",
+            device=None, limit_mb: int = DAV_LIMIT_MB,
+            dav_bytes: int = DAV_BYTES, dav_dirs: int = DAV_DIRS,
+            moves: int = DAV_MOVES, locks: int = DAV_LOCKS,
+            mount_bytes: int = MNT_BYTES, fsspec_bytes: int = FSS_BYTES,
+            docs: int = QRY_DOCS, max_file: int = DAV_MAX_FILE,
+            chunk: int = DAV_CHUNK, kernel_mount: bool = True) -> dict:
+    """Phase 18; returns the launches per step. On the card they are held
+    to the phase's rule (gf_apply in 18's encode and in each read with 4
+    shards lost whose files have a needle on a lost shard; no other
+    kernel); ``coder_name="torch", device="cpu"`` at a few MB runs it on
+    a host without one (no launch is counted there; `chunk` whole MiB,
+    as the CLI filer takes it)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_torch.balance import BalanceConfig
+    from seaweedfs_torch.filer.assign_lease import AssignLeasePool
+    from seaweedfs_torch.mount import wfs as wfs_mod
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    tally = S3Tally()
+    files = FsFiles(seed)
+    rng = np.random.default_rng(seed)
+    cl = LocalCluster(2, coder_name=coder_name, device=device,
+                      volume_size_limit_mb=limit_mb, pulse=0.5,
+                      directory=str(work / "cluster"), racks=2,
+                      master_kwargs={"repair_enabled": False,
+                                     "balance_config": BalanceConfig(
+                                         force_enabled=False)})
+    master = cl.master_url
+    filer = CliFiler(work, [
+        "filer", "-mserver", master, "-store", "leveldb2", "-store_path",
+        str(work / "filer_leveldb2"), "-chunk_size_mb", cli_chunk_mb(chunk)])
+    gw = CliFiler(work, ["webdav", "-filer", filer.url], name="webdav")
+    kmnt = work / "kmnt"
+    kproc = None
+    wfs = None
+    fss = None
+    # each surface's paths, and the mount's bytes as the plain reference
+    surfaces: dict = {"webdav": [], "mount": [], "fsspec": [], "kernel": []}
+    model: dict = {}
+    try:
+        filer.start()
+        wait_until(filer.up, "the CLI filer", timeout=120)
+        gw.start()
+        wait_until(gw.up, "the CLI WebDAV gateway", timeout=120)
+        log({"phase": "dav.setup", "seconds": time.perf_counter() - t_phase,
+             "filer": filer.url, "webdav": gw.url, "card": SMI[0]})
+
+        # (18a) WebDAV: MKCOL, PUTs by the clients, MOVE, COPY, PROPFIND
+        colls = [f"/dav/c{i:02d}" for i in range(dav_dirs)]
+
+        def mkcol() -> None:
+            for p in ["/dav"] + colls:
+                r, _ = dav_call(gw.url, "MKCOL", p, tally=tally)
+                if r.status != 201:
+                    raise AssertionError(f"MKCOL {p}: {r.status}")
+
+        _, launches["dav.mkcol"] = counted(mkcol)
+        for i, size in enumerate(fs_sizes(rng, dav_bytes, 1024, max_file)):
+            files.add(f"{colls[i % dav_dirs]}/f{i:04d}.bin", size)
+        surfaces["webdav"] = list(files.files)
+
+        def ops_of(paths: list, method: str) -> list:
+            return [[{"method": method, "path": p, "seed": seed,
+                      "nid": files.files[p][0], "size": files.files[p][1]}]
+                    for p in paths]
+
+        def acked(got: dict, groups: list, want: int, what: str) -> list:
+            lat = []
+            for group in groups:
+                for op in group:
+                    _, status, secs, equal = got[op["id"]]
+                    tally.add(status)
+                    if status != want or not equal:
+                        raise AssertionError(
+                            f"{what} {op['method']} {op['path']}: "
+                            f"{status}, bytes equal {equal}")
+                    lat.append(secs)
+            return lat
+
+        puts = ops_of(surfaces["webdav"], "PUT")
+
+        def put() -> dict:
+            got, wall = dav_clients(gw.url, puts)
+            return {"lat": acked(got, puts, 201, "webdav"), "wall": wall}
+
+        up, launches["dav.put"] = counted(put)
+        nbytes = sum(files.files[p][1] for p in surfaces["webdav"])
+        bal_log("dav.put", up["wall"], launches["dav.put"],
+                files=len(puts), bytes=nbytes, collections=dav_dirs,
+                gbps=nbytes / up["wall"] / 1e9,
+                per_file=latency_summary(up["lat"]))
+        gets = ops_of(surfaces["webdav"], "GET")
+
+        def get() -> dict:
+            got, wall = dav_clients(gw.url, gets)
+            return {"lat": acked(got, gets, 200, "webdav"), "wall": wall}
+
+        rd, launches["dav.get"] = counted(get)
+        bal_log("dav.get", rd["wall"], launches["dav.get"], files=len(gets),
+                gbps=nbytes / rd["wall"] / 1e9,
+                per_file=latency_summary(rd["lat"]))
+
+        movers = [str(p) for p in rng.choice(surfaces["webdav"], moves,
+                                              replace=False)]
+
+        def move_copy() -> dict:
+            statuses = collections.Counter()
+            for k, src in enumerate(movers):
+                dst = f"{colls[(k * 7 + 3) % dav_dirs]}/mv{k:03d}.bin"
+                r, _ = dav_call(gw.url, "MOVE", src, headers={
+                    "Destination": f"http://{gw.url}{dst}"}, tally=tally)
+                statuses[r.status] += 1
+                if r.status != 201:
+                    raise AssertionError(f"MOVE {src} -> {dst}: {r.status}")
+                files.files[dst] = files.files.pop(src)
+            # Overwrite: F onto a file that exists is refused
+            one, other = sorted(files.files)[:2]
+            r, _ = dav_call(gw.url, "MOVE", one, headers={
+                "Destination": f"http://{gw.url}{other}",
+                "Overwrite": "F"}, tally=tally)
+            if r.status != 412:
+                raise AssertionError(f"MOVE with Overwrite: F: {r.status}")
+            src, dst = colls[0], colls[0] + "copy"
+            r, secs = dav_call(gw.url, "COPY", src, headers={
+                "Destination": f"http://{gw.url}{dst}/"}, tally=tally)
+            if r.status != 201:
+                raise AssertionError(f"COPY {src}: {r.status}")
+            copied = files.under(src + "/")
+            for p in copied:
+                files.files[dst + p[len(src):]] = files.files[p]
+            return {"moves": dict(statuses), "copied": len(copied),
+                    "copy_s": secs}
+
+        t0 = time.perf_counter()
+        mc, launches["dav.move_copy"] = counted(move_copy)
+        bal_log("dav.move_copy", time.perf_counter() - t0,
+                launches["dav.move_copy"], **mc)
+
+        # (18b) LOCK, a PUT without the token (423), with it (2xx), UNLOCK
+        locked = [str(p) for p in rng.choice(sorted(files.files), locks,
+                                              replace=False)]
+
+        def lock_cycle() -> dict:
+            seen = []
+            for p in locked:
+                r, _ = dav_call(gw.url, "LOCK", p, DAV_LOCKINFO,
+                                {"Timeout": "Second-600"}, tally=tally)
+                token = r.headers.get("Lock-Token", "").strip("<>")
+                size = int(np.exp(rng.uniform(np.log(1024), np.log(MIB))))
+                nid = files.next_nid
+                files.next_nid += 1
+                body = payload(seed, nid, size)
+                r2, _ = dav_call(gw.url, "PUT", p, body, tally=tally)
+                r3, _ = dav_call(gw.url, "PUT", p, body,
+                                 {"If": f"(<{token}>)"}, tally=tally)
+                if r3.status < 300:
+                    files.files[p] = (nid, size)
+                r4, _ = dav_call(gw.url, "UNLOCK", p,
+                                 headers={"Lock-Token": f"<{token}>"},
+                                 tally=tally)
+                seen.append((r.status, r2.status, r3.status, r4.status))
+            if any(s[0] != 200 or s[1] != 423 or not 200 <= s[2] < 300 or
+                   s[3] != 204 for s in seen):
+                raise AssertionError(f"lock answers {seen}")
+            return {"files": len(seen), "answers": seen[0]}
+
+        t0 = time.perf_counter()
+        lk, launches["dav.locks"] = counted(lock_cycle)
+        bal_log("dav.locks", time.perf_counter() - t0, launches["dav.locks"],
+                **lk)
+        surfaces["webdav"] = list(files.files)
+
+        def propfinds() -> dict:
+            lat = []
+            for c in colls + [colls[0] + "copy"]:
+                got, secs = dav_propfind(gw.url, c, tally)
+                lat.append(secs)
+                want = {c + "/": None, **{p: files.files[p][1]
+                                          for p in files.under(c + "/")}}
+                if got != want:
+                    raise AssertionError(
+                        f"PROPFIND {c}: {len(got)} entries, want "
+                        f"{len(want)}: {sorted(set(got) ^ set(want))[:4]}")
+            return {"lat": lat}
+
+        t0 = time.perf_counter()
+        pf, launches["dav.propfind"] = counted(propfinds)
+        bal_log("dav.propfind", time.perf_counter() - t0,
+                launches["dav.propfind"], collections=len(pf["lat"]),
+                per_propfind=latency_summary(pf["lat"]))
+
+        # (18c) the mount as an in-process WFS: seeded pieces, overlapping
+        # and out of order; a truncate and a rename while open; xattrs
+        # and hard links. A bytearray per file is the plain reference
+        early: collections.Counter = collections.Counter()
+        real_flush = wfs_mod.FileHandle._flush_largest_locked
+
+        def counting_flush(fh) -> None:
+            early[fh.path] += 1
+            real_flush(fh)
+
+        wfs = wfs_mod.WFS(filer.url, chunk_size=chunk, cache_ttl=0.0)
+        # the generator's top size first, whose last covering piece fills
+        # a chunk's worth of dirty pages and flushes it early
+        sizes = [min(max_file, mount_bytes)] + fs_sizes(
+            rng, mount_bytes - min(max_file, mount_bytes), 1024, max_file)
+        plans = []
+        nid = 1 << 20
+        for i, size in enumerate(sizes):
+            pieces = mount_pieces(rng, size, nid)
+            nid += len(pieces)
+            plans.append((f"/mnt/m{i:03d}.bin", size, pieces))
+        cut, moved = plans[1][0], plans[2][0]
+
+        def write_one(plan) -> tuple:
+            path, size, pieces = plan
+            t0 = time.perf_counter()
+            buf = bytearray(size)
+            fh = wfs.create(path)
+            for off, pnid, n in pieces:
+                data = payload(seed, pnid, n)
+                wfs.write(fh, data, off)
+                buf[off:off + n] = data
+            if path == cut:
+                # truncated while open: the cut bytes must not come back
+                # at release, and a write across the cut lands
+                keep = size // 2
+                wfs.truncate(path, keep)
+                del buf[keep:]
+                data = payload(seed, pnid + (1 << 30), 1000)
+                at = max(0, keep - 100)
+                wfs.write(fh, data, at)
+                buf[at:at + 1000] = data
+            if path == moved:
+                # renamed while open: the release saves at the new name
+                path += ".renamed"
+                wfs.rename(plan[0], path)
+            if wfs.read(fh, len(buf), 0) != bytes(buf):
+                raise AssertionError(f"mount: {path} reads back wrong "
+                                     f"before its release")
+            wfs.release(fh)
+            return path, bytes(buf), time.perf_counter() - t0
+
+        def mount_write() -> dict:
+            wfs_mod.FileHandle._flush_largest_locked = counting_flush
+            try:
+                t0 = time.perf_counter()
+                lat = []
+                with ThreadPoolExecutor(MNT_THREADS) as ex:
+                    for path, data, secs in ex.map(write_one, plans):
+                        model[path] = data
+                        lat.append(secs)
+                write_s = time.perf_counter() - t0
+            finally:
+                wfs_mod.FileHandle._flush_largest_locked = real_flush
+            chunks = {p: len(wfs.lookup(p)["chunks"]) for p in model}
+            if wfs.lookup(moved) is not None or wfs.lookup(
+                    moved + ".renamed") is None:
+                raise AssertionError("the rename of an open file")
+            named = sorted(model)
+            tagged = named[:MNT_XATTRS]
+            for p in tagged:
+                wfs.setxattr(p, "user.sha256",
+                             hashlib.sha256(model[p]).hexdigest().encode())
+            linked = named[-MNT_LINKS:]
+            for p in linked:
+                wfs.link(p, p + ".lnk")
+                wfs.unlink(p)
+                model[p + ".lnk"] = model.pop(p)
+            # a tagged file that is also linked keeps its xattr under
+            # the link's name (the entry's extended map goes with it)
+            tagged = [p + ".lnk" if p in linked else p for p in tagged]
+            return {"write_s": write_s, "chunks": chunks, "lat": lat,
+                    "tagged": tagged, "linked": linked}
+
+        mw, launches["dav.mount_write"] = counted(mount_write)
+        mbytes = sum(len(d) for d in model.values())
+        bal_log("dav.mount_write", mw["write_s"], launches["dav.mount_write"],
+                files=len(model), bytes=mbytes,
+                pieces=sum(len(p[2]) for p in plans),
+                gbps=mbytes / mw["write_s"] / 1e9,
+                per_file=latency_summary(mw["lat"]),
+                early_flushes=dict(early),
+                flushes_per_file=sum(mw["chunks"].values()) / len(model),
+                chunks_max=max(mw["chunks"].values()),
+                truncated=cut, renamed=moved)
+        if not early:
+            raise AssertionError("no mount file flushed early")
+        surfaces["mount"] = sorted(model)
+        wfs.destroy()
+        wfs = None
+
+        # (18d) fsspec: fs.open(..., "wb") and pipe_file, ls, info, ranges
+        fss_paths: list = []
+        try:
+            import fsspec
+
+            from seaweedfs_torch.integrations.fsspec_fs import register
+        except ImportError as e:
+            log({"phase": "dav.fsspec", "skipped": repr(e), "card": SMI[0]})
+            fsspec = None
+        if fsspec is not None:
+            register()
+            fss = fsspec.filesystem("seaweedfs", filer=filer.url)
+            for i, size in enumerate(fs_sizes(rng, fsspec_bytes, 1024,
+                                              max_file)):
+                fss_paths.append(f"/fss/f{i:03d}.bin")
+                files.add(fss_paths[-1], size)
+
+            def fsspec_write() -> dict:
+                lat = []
+                for i, p in enumerate(fss_paths):
+                    data = files.data(p)
+                    t0 = time.perf_counter()
+                    if i % 2 == 0:
+                        with fsspec.open(f"seaweedfs://{filer.url}{p}",
+                                         "wb") as f:
+                            f.write(data)
+                    else:
+                        fss.pipe_file(p, data)
+                    lat.append(time.perf_counter() - t0)
+                names = sorted(fss.ls("/fss", detail=False))
+                if names != sorted(p[1:] for p in fss_paths):
+                    raise AssertionError(f"fsspec ls: {names}")
+                for p in fss_paths:
+                    info = fss.info(p)
+                    if info["type"] != "file" or \
+                            info["size"] != files.files[p][1]:
+                        raise AssertionError(f"fsspec info {p}: {info}")
+                return {"lat": lat, "secs": sum(lat)}
+
+            fw, launches["dav.fsspec_write"] = counted(fsspec_write)
+            fbytes = sum(files.files[p][1] for p in fss_paths)
+            bal_log("dav.fsspec_write", fw["secs"],
+                    launches["dav.fsspec_write"], files=len(fss_paths),
+                    bytes=fbytes, gbps=fbytes / fw["secs"] / 1e9,
+                    per_file=latency_summary(fw["lat"]))
+        surfaces["fsspec"] = fss_paths
+
+        def fsspec_read() -> dict:
+            lat = []
+            for p in fss_paths:
+                want = files.data(p)
+                t0 = time.perf_counter()
+                got = fss.cat_file(p)
+                lat.append(time.perf_counter() - t0)
+                if hashlib.sha256(got).digest() != hashlib.sha256(
+                        want).digest():
+                    raise AssertionError(f"fsspec cat_file {p}")
+                for s, e in fs_ranges(np.random.default_rng(
+                        (seed, files.files[p][0])), len(want), chunk):
+                    if fss.cat_file(p, start=s, end=e + 1) != want[s:e + 1]:
+                        raise AssertionError(f"fsspec {p} [{s}, {e}]")
+            return {"lat": lat, "secs": sum(lat)}
+
+        # (18e) JSON documents through the client, queried on the volume
+        # servers; the answers are known by construction
+        client = Client(master)
+        doc_rows = []
+        for i in range(docs):
+            n, b = int(rng.integers(1000)), int(rng.integers(10))
+            tag = "".join(rng.choice(list("abcdwxyz"), 6))
+            doc = {"id": i, "n": n, "a": {"b": b}, "tag": tag, "pad": ""}
+            size = int(np.exp(rng.uniform(np.log(QRY_DOC[0]),
+                                          np.log(QRY_DOC[1]))))
+            doc["pad"] = "p" * max(0, size - len(json.dumps(doc)))
+            doc_rows.append(doc)
+
+        # fids from the threaded bulk-assign lease pool over the client's
+        # /dir/assign?count=N, as the reference's client takes them
+        refills: list = []
+
+        def refill(params: dict, count: int) -> dict:
+            refills.append(count)
+            return client.assign(count=count, **params)
+
+        lease = AssignLeasePool(refill)
+
+        def doc_upload() -> list:
+            def one(d: dict) -> str:
+                a = lease.get(collection=QRY_COLLECTION)
+                client.upload_blob(a["url"], a["fid"],
+                                   json.dumps(d).encode())
+                return a["fid"]
+
+            with ThreadPoolExecutor(QRY_THREADS) as ex:
+                return list(ex.map(one, doc_rows))
+
+        t0 = time.perf_counter()
+        doc_fids, launches["dav.query_upload"] = counted(doc_upload)
+        bal_log("dav.query_upload", time.perf_counter() - t0,
+                launches["dav.query_upload"], documents=len(doc_fids),
+                bytes=sum(len(json.dumps(d)) for d in doc_rows),
+                master_assigns=len(refills), keys_leased=sum(refills))
+        expected = []
+        for flt, proj in DAV_QUERIES:
+            ok = {"<": lambda x, y: x < y, "=": lambda x, y: x == y,
+                  "contains": lambda x, y: y in x}[flt["op"]]
+            rows = []
+            for d in doc_rows:
+                got = d["a"]["b"] if flt["field"] == "a.b" else d[flt["field"]]
+                if ok(got, flt["value"]):
+                    rows.append({p.split(".")[-1]: (d["a"]["b"] if p == "a.b"
+                                                    else d[p]) for p in proj})
+            expected.append(rows)
+
+        def queries(c) -> dict:
+            lat, answers = [], []
+            for (flt, proj), want in zip(DAV_QUERIES, expected):
+                t0 = time.perf_counter()
+                got = c.query(doc_fids, flt, proj)
+                lat.append(time.perf_counter() - t0)
+                if sorted(got, key=lambda r: r["id"]) != want:
+                    raise AssertionError(
+                        f"query {flt}: {len(got)} answers, want "
+                        f"{len(want)}")
+                answers.append(len(got))
+            return {"lat": lat, "answers": answers}
+
+        qh, launches["dav.query"] = counted(lambda: queries(client))
+        bal_log("dav.query", sum(qh["lat"]), launches["dav.query"],
+                answers=qh["answers"], per_call=latency_summary(qh["lat"]))
+
+        # (18f) the CLI mount on a kernel mount point, where the host
+        # serves one: files copied in with plain open()
+        kernel_files: list = []
+        why = fuse_probe(work) if kernel_mount else "not asked for"
+        if why:
+            log({"phase": "dav.kernel_mount", "skipped": why,
+                 "card": SMI[0]})
+        else:
+            kmnt.mkdir()
+            t0 = time.perf_counter()
+            kproc = subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_torch.cli", "mount",
+                 "-filer", filer.url, "-dir", str(kmnt), "-chunk_size_mb",
+                 cli_chunk_mb(chunk)], cwd=str(REPO),
+                stdout=subprocess.DEVNULL,
+                stderr=open(work / "mount.log", "ab"))
+            if not fuse_wait(kproc, kmnt, 60.0):
+                raise AssertionError("the CLI mount never appeared")
+            (kmnt / "kdir").mkdir()
+            for i in range(KMNT_FILES):
+                size = int(np.exp(rng.uniform(np.log(64 * 1024),
+                                              np.log(2 * MIB))))
+                p = f"/kdir/k{i}.bin"
+                data = files.add(p, size)
+                with open(kmnt / p[1:], "wb") as f:
+                    f.write(data)
+                if (kmnt / p[1:]).read_bytes() != data:
+                    raise AssertionError(f"kernel mount: {p} reads back "
+                                         f"wrong")
+                kernel_files.append(p)
+            log({"phase": "dav.kernel_mount", "seconds":
+                 time.perf_counter() - t0, "files": kernel_files,
+                 "card": SMI[0]})
+        surfaces["kernel"] = kernel_files
+
+        # (18g) the warm-down: every volume holding a file of the phase,
+        # EC-encoded with the shell's ec.encode on the card
+        fids_of = dav_fids(filer.url, surfaces["webdav"] + surfaces["mount"]
+                           + surfaces["fsspec"] + surfaces["kernel"])
+        fids_of.update({f"/docs/{i}": [f] for i, f in enumerate(doc_fids)})
+        vols = sorted({(int(f.split(",")[0]),
+                        QRY_COLLECTION if p.startswith("/docs/") else "")
+                       for p, fl in fids_of.items() for f in fl})
+        shell_commands._register_all()
+        env = shell_commands.CommandEnv(Client(master))
+
+        def ec_encode() -> None:
+            for vid, coll in vols:
+                shell_commands.run_command(
+                    env, ["ec.encode", "-volumeId", str(vid),
+                          "-collection", coll])
+            for vid, _ in vols:
+                shards = http.get_json(
+                    f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+                if len(shards.get("shards", {})) != 14 or any(
+                        cl.store(i).find_volume(vid) is not None
+                        for i in range(len(cl.nodes))):
+                    raise AssertionError(f"ec.encode {vid}: {shards}")
+
+        t0 = time.perf_counter()
+        _, launches["dav.ec_encode"] = counted(ec_encode)
+        bal_log("dav.ec_encode", time.perf_counter() - t0,
+                launches["dav.ec_encode"], volumes=[v for v, _ in vols])
+
+        # which surfaces have a needle on a shard about to be lost: their
+        # reads must reach the card
+        def on_victims(paths: list) -> int:
+            count = 0
+            for vid, _ in vols:
+                ev = next(ev for ev in (cl.store(i).find_ec_volume(vid)
+                                        for i in range(len(cl.nodes)))
+                          if ev is not None)
+                mine = [f for p in paths for f in fids_of[p]
+                        if int(f.split(",")[0]) == vid]
+                count += needles_on_shards(ev, mine, set(), VICTIMS)
+            return count
+
+        victims = {"webdav": on_victims(surfaces["webdav"]),
+                   "mount": on_victims(surfaces["mount"]),
+                   "fsspec": on_victims(surfaces["fsspec"]),
+                   "kernel": on_victims(surfaces["kernel"]),
+                   "query": on_victims([p for p in fids_of
+                                        if p.startswith("/docs/")])}
+        dropped: list = []
+
+        def drop() -> None:
+            for vid, coll in vols:
+                info = http.get_json(
+                    f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+                for sid in VICTIMS:
+                    url = info["shards"][str(sid)][0]
+                    status, out = http.post_json(
+                        f"http://{url}/admin/ec/delete_shards",
+                        {"volume_id": vid, "collection": coll,
+                         "shard_ids": [sid]})
+                    if status != 200:
+                        raise AssertionError(f"drop {vid}.{sid}: {out}")
+                    dropped.append((vid, sid, url))
+            wait_until(lambda: all(len(http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={v}")[1][
+                    "shards"]) == 14 - len(VICTIMS) for v, _ in vols),
+                "the lookup drops the four shards")
+
+        _, launches["dav.drop_shards"] = counted(drop)
+
+        # (18h) every file read back with 4 shards lost, through each
+        # surface; the mount through a fresh WFS (an empty chunk cache)
+        dgets = ops_of(surfaces["webdav"], "GET")
+
+        def read_webdav() -> dict:
+            got, wall = dav_clients(gw.url, dgets)
+            return {"lat": acked(got, dgets, 200, "degraded"),
+                    "wall": wall}
+
+        rw, launches["dav.read_webdav"] = counted(read_webdav)
+        wbytes = sum(files.files[p][1] for p in surfaces["webdav"])
+        bal_log("dav.read_webdav", rw["wall"], launches["dav.read_webdav"],
+                lost_shards=list(VICTIMS), files=len(dgets), bytes=wbytes,
+                gbps=wbytes / rw["wall"] / 1e9,
+                needles_on_victims=victims["webdav"],
+                per_file=latency_summary(rw["lat"]))
+
+        def read_mount() -> dict:
+            fresh = wfs_mod.WFS(filer.url, chunk_size=chunk, cache_ttl=0.0)
+            try:
+                lat = []
+                for p in surfaces["mount"]:
+                    t0 = time.perf_counter()
+                    fh = fresh.open(p)
+                    got = fresh.read(fh, len(model[p]) + 1, 0)
+                    fresh.release(fh)
+                    lat.append(time.perf_counter() - t0)
+                    if got != model[p] or \
+                            fresh.getattr(p)["size"] != len(model[p]):
+                        raise AssertionError(f"mount: {p}, {len(got)} of "
+                                             f"{len(model[p])} bytes")
+                for p in mw["tagged"]:
+                    want = hashlib.sha256(model[p]).hexdigest().encode()
+                    if fresh.getxattr(p, "user.sha256") != want or \
+                            fresh.listxattr(p) != ["user.sha256"]:
+                        raise AssertionError(f"mount: xattr of {p}")
+                for p in mw["linked"]:
+                    if fresh.lookup(p) is not None or not fresh.lookup(
+                            p + ".lnk").get("hard_link_id"):
+                        raise AssertionError(f"mount: hard link of {p}")
+                hits = fresh.client.chunk_cache.stats()["hits"]
+                return {"lat": lat, "cache_hits": hits}
+            finally:
+                fresh.destroy()
+
+        t0 = time.perf_counter()
+        rm, launches["dav.read_mount"] = counted(read_mount)
+        mnt_s = time.perf_counter() - t0
+        bal_log("dav.read_mount", mnt_s, launches["dav.read_mount"],
+                files=len(surfaces["mount"]), bytes=mbytes,
+                gbps=mbytes / mnt_s / 1e9, chunk_cache_hits=rm["cache_hits"],
+                needles_on_victims=victims["mount"],
+                per_file=latency_summary(rm["lat"]))
+        if fss is not None:
+            rf, launches["dav.read_fsspec"] = counted(fsspec_read)
+            bal_log("dav.read_fsspec", rf["secs"],
+                    launches["dav.read_fsspec"], files=len(fss_paths),
+                    gbps=fbytes / rf["secs"] / 1e9,
+                    needles_on_victims=victims["fsspec"],
+                    per_file=latency_summary(rf["lat"]))
+        if kernel_files:
+            def read_kernel() -> None:
+                for p in kernel_files:
+                    if hashlib.sha256((kmnt / p[1:]).read_bytes()).digest() \
+                            != hashlib.sha256(files.data(p)).digest():
+                        raise AssertionError(f"kernel mount: {p} after the "
+                                             f"encode")
+
+            t0 = time.perf_counter()
+            _, launches["dav.read_kernel"] = counted(read_kernel)
+            bal_log("dav.read_kernel", time.perf_counter() - t0,
+                    launches["dav.read_kernel"], files=len(kernel_files),
+                    needles_on_victims=victims["kernel"])
+        qd, launches["dav.query_degraded"] = counted(
+            lambda: queries(Client(master)))
+        bal_log("dav.query_degraded", sum(qd["lat"]),
+                launches["dav.query_degraded"], answers=qd["answers"],
+                needles_on_victims=victims["query"],
+                per_call=latency_summary(qd["lat"]))
+    finally:
+        if wfs is not None:
+            wfs.destroy()
+        if kproc is not None:
+            fuse_unmount(kproc, kmnt)
+        gw.stop()
+        filer.stop()
+        cl.shutdown()
+    if coder_name == "auto":
+        surface_of = {"dav.read_webdav": "webdav", "dav.read_mount": "mount",
+                      "dav.read_fsspec": "fsspec", "dav.read_kernel": "kernel",
+                      "dav.query_degraded": "query"}
+        for step, counts in launches.items():
+            others = {k: n for k, n in counts.items()
+                      if k != "gf_apply" and n}
+            want = step in DAV_CODER_STEPS and (
+                step not in surface_of or victims[surface_of[step]] > 0)
+            if others or want != (counts["gf_apply"] > 0):
+                raise AssertionError(f"{step}: launches {counts}")
+        for step in ("dav.ec_encode", "dav.read_mount", "dav.query_degraded"):
+            if launches[step]["gf_apply"] == 0:
+                raise AssertionError(f"{step} never reached the card")
+    bal_log("dav.summary", time.perf_counter() - t_phase, launches,
+            answers=dict(tally.statuses), victims=victims,
+            files_lost=0,
+            gf_apply_per_step={k: v["gf_apply"] for k, v in launches.items()})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8218,6 +9187,14 @@ def main() -> int:
             finally:
                 gc.unfreeze()
             mark("17")
+            # phase 18: the filer's client surfaces, their own cluster
+            gc.collect()
+            gc.freeze()
+            try:
+                launches["dav"] = run_dav(WORK / "dav")
+            finally:
+                gc.unfreeze()
+            mark("18")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -8253,7 +9230,7 @@ def main() -> int:
         if k not in LIFECYCLE_CHECKS}, **launches["mesh"],
         **launches["balance"], **launches["storage"], **launches["ha"],
         **launches["filer"], **launches["ring"], **launches["nets"],
-        **launches["s3"]}
+        **launches["s3"], **launches["dav"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

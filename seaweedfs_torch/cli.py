@@ -26,6 +26,9 @@ apply:
       fs.ls -l /buckets
   python3 -m seaweedfs_torch.cli s3 -port 8333 -filer h:8888 \\
       [-config s3.json | -access_key K -secret_key S]
+  python3 -m seaweedfs_torch.cli webdav -port 7333 -filer h:8888
+  python3 -m seaweedfs_torch.cli mount -filer h:8888 -dir /mnt/weed \\
+      [-collection c] [-replication 000] [-chunk_size_mb 8]
   python3 -m seaweedfs_torch.cli compact -dir /data -volumeId 3
   python3 -m seaweedfs_torch.cli backup -server localhost:9333 \\
       -dir /backup -volumeId 3 [-collection c]
@@ -57,7 +60,13 @@ identities of ``-config`` (upstream's ``s3.json``: ``{"identities":
 ":bucket"]}]}``), or against the one Admin pair of ``-access_key`` and
 ``-secret_key`` (given together or not at all); with neither the
 gateway is anonymous. The shell's ``bucket.*`` commands need ``-filer``
-too. ``compact`` vacuums one volume offline (the volume
+too. ``webdav`` runs the WebDAV gateway in front of ``-filer`` (no
+auth: trusted networks only). ``mount`` mounts the filer's namespace at
+``-dir`` through the kernel (fusepy if it imports, else the libfuse2
+ctypes binding; it needs /dev/fuse, libfuse.so.2 and fusermount) and
+serves it until unmounted (``fusermount -u -z DIR``); new files go to
+``-collection`` with ``-replication``, cut into ``-chunk_size_mb``
+chunks. ``compact`` vacuums one volume offline (the volume
 server must not have it mounted). ``backup`` pulls what a volume gained
 since the local copy's last record from its holder's ``/admin/tail``
 into a replica in ``-dir`` (creating it on the first run); ``fix``
@@ -212,6 +221,19 @@ def cmd_s3(args) -> None:
     _serve_until_signalled(lambda: run_s3(
         args.ip, args.port, args.filer,
         access_key=args.access_key, secret_key=args.secret_key, iam=iam))
+
+
+def cmd_webdav(args) -> None:
+    from .server.webdav_server import run_webdav
+    _serve_until_signalled(lambda: run_webdav(args.ip, args.port,
+                                              args.filer))
+
+
+def cmd_mount(args) -> None:
+    from .mount.fuse_mount import mount
+    mount(args.filer, args.dir, collection=args.collection,
+          replication=args.replication,
+          chunk_size=args.chunk_size_mb * 1024 * 1024)
 
 
 def cmd_shell(args) -> None:
@@ -429,6 +451,20 @@ def build_parser() -> argparse.ArgumentParser:
                      help="JSON identities file with per-action ACLs "
                           "(weed s3 -config)")
     s3p.set_defaults(fn=cmd_s3)
+
+    mt = sub.add_parser("mount", help="FUSE-mount a filer path")
+    mt.add_argument("-filer", default="127.0.0.1:8888")
+    mt.add_argument("-dir", required=True, help="local mountpoint")
+    mt.add_argument("-collection", default="")
+    mt.add_argument("-replication", default="")
+    mt.add_argument("-chunk_size_mb", type=int, default=8)
+    mt.set_defaults(fn=cmd_mount)
+
+    wd = sub.add_parser("webdav", help="run the WebDAV gateway")
+    wd.add_argument("-ip", default="127.0.0.1")
+    wd.add_argument("-port", type=int, default=7333)
+    wd.add_argument("-filer", default="127.0.0.1:8888")
+    wd.set_defaults(fn=cmd_webdav)
 
     cp = sub.add_parser("compact", help="offline vacuum of one volume")
     cp.add_argument("-dir", default="./data")

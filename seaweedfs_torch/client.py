@@ -24,7 +24,9 @@ the same rotation; a renewal that lands on a new leader hands it the
 lease's token, which it adopts. Left out: the bulk-assignment lease
 pool, the shared connection pool with its circuit breaker, replica
 failover to a second cluster, the watch stream and the leader hints it
-pushes, JWTs, batch delete and query. The volume tail (``tail_volume``)
+pushes, JWTs and batch delete. ``query`` posts each holder's share of
+the fids to its ``/admin/query`` and gathers the NDJSON answers. The
+volume tail (``tail_volume``)
 streams on a connection of its own.
 """
 
@@ -409,6 +411,29 @@ class Client:
                 yield Needle.from_bytes(rec, t.CURRENT_VERSION)
         finally:
             conn.close()
+
+    def query(self, fids: list[str], filter: Optional[dict] = None,
+              projections: Optional[list[str]] = None) -> list[dict]:
+        """S3-Select-lite over JSON blobs (weed/query): the documents of
+        `fids` that pass `filter` ({"field", "op", "value"}), projected
+        to `projections`, grouped by each volume's first holder."""
+        out: list[dict] = []
+        by_server: dict[str, list[str]] = {}
+        for fid in fids:
+            urls = self.lookup(int(fid.split(",")[0]))
+            if urls:
+                by_server.setdefault(urls[0], []).append(fid)
+        for server, group in by_server.items():
+            body = json.dumps({"fids": group, "filter": filter,
+                               "projections": projections}).encode()
+            r = _request("POST", f"http://{server}/admin/query", body,
+                         {"Content-Type": "application/json"}, timeout=300)
+            if r.status != 200:
+                raise ClientError(f"query on {server}: HTTP {r.status}")
+            for line in r.data.splitlines():
+                if line.strip():
+                    out.append(json.loads(line))
+        return out
 
     def ec_lookup(self, vid: int) -> dict:
         return self._master_get(f"/col/lookup/ec?volumeId={vid}")

@@ -24,6 +24,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from ..cache.singleflight import Singleflight
 from ..storage import idx as idx_mod
 from ..storage import types as t
 from ..storage.needle import Needle
@@ -41,37 +42,6 @@ _SURVIVOR_POOL = ThreadPoolExecutor(max_workers=14,
 
 # (shard_id, offset, size) -> the bytes, or None when no peer has them
 ShardReader = Callable[[int, int, int], Optional[bytes]]
-
-
-class Singleflight:
-    """Concurrent calls with one key share one execution: the first caller
-    runs fn, the others wait for its result (or its exception)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._calls: dict = {}
-
-    def do(self, key, fn: Callable[[], bytes]) -> bytes:
-        with self._lock:
-            call = self._calls.get(key)
-            leader = call is None
-            if leader:
-                call = self._calls[key] = {"event": threading.Event()}
-        if not leader:
-            call["event"].wait()
-            if "error" in call:
-                raise call["error"]
-            return call["value"]
-        try:
-            call["value"] = fn()
-            return call["value"]
-        except BaseException as e:
-            call["error"] = e
-            raise
-        finally:
-            with self._lock:
-                del self._calls[key]
-            call["event"].set()
 
 
 class Pinned:
@@ -157,7 +127,7 @@ class EcVolume:
         self._lock = threading.RLock()
         # concurrent cold reads of one missing interval share a single
         # reconstruction (k shard reads and a kernel run)
-        self.read_flight = Singleflight()
+        self.read_flight = Singleflight("ec.read")
 
         base = self.base_file_name()
         if not os.path.exists(base + ".ecx"):

@@ -99,6 +99,9 @@ KNOWN_POINTS = frozenset({
                             # push); a drop is a peer gone mid-request
     "ring.handoff",         # a handoff's move of one directory; an error
                             # or drop is a runner that died mid-pass
+    "http_pool.request",    # a pooled sync request (cache/http_pool.py);
+                            # an error or drop counts as a host failure
+    "http_pool.response",   # a pooled response's body (corrupt only)
 })
 
 _lock = threading.Lock()

@@ -42,7 +42,8 @@ master's starting ring is ``master_kwargs={"ring_config":
 RingConfig(...)}``, or empty until ``/dir/ring/join``). ``add_s3(fs,
 **kw)`` starts an S3 gateway (s3/s3_server.py) in front of a filer (its
 ``iam``, ``access_key`` and ``secret_key`` in `kw`), ``stop_s3(gw)``
-stops it. The callers
+stops it; ``add_webdav(fs)`` and ``stop_webdav(gw)`` do the same for a
+WebDAV gateway (server/webdav_server.py). The callers
 drive the cluster synchronously, from their own threads, through the
 port's client.
 """
@@ -64,6 +65,7 @@ from ..s3.s3_server import run_s3
 from .filer_server import run_filer
 from .master import run_master
 from .volume_server import run_volume_server
+from .webdav_server import run_webdav
 
 # volumes each server may hold
 MAX_VOLUMES = 16
@@ -338,6 +340,19 @@ class LocalCluster:
         return gw
 
     def stop_s3(self, gw) -> None:
+        self._stop_gateway(gw)
+
+    def add_webdav(self, fs, **kwargs):
+        """Start a WebDAV gateway on a free port in front of the filer
+        `fs`; returns it (``gw.url`` is host:port)."""
+        gw, runner = self.call(run_webdav("127.0.0.1", 0, fs.url, **kwargs))
+        self.gateways[gw] = runner
+        return gw
+
+    def stop_webdav(self, gw) -> None:
+        self._stop_gateway(gw)
+
+    def _stop_gateway(self, gw) -> None:
         runner = self.gateways.pop(gw, None)
         if runner is not None:
             self.call(runner.cleanup())
@@ -345,7 +360,7 @@ class LocalCluster:
     def shutdown(self) -> None:
         try:
             for gw in list(self.gateways):
-                self.stop_s3(gw)
+                self._stop_gateway(gw)
             for fs in list(self.filers):
                 self.stop_filer(fs)
             for i in range(len(self.nodes)):

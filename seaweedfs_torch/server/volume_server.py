@@ -34,6 +34,8 @@ reference's wire:
           GET  /admin/ec/shard_read?volume=&shard=&offset=&size=
           GET  /admin/ec/mesh_status      (the multi-card coder's state)
           GET  /admin/file_copy?volume_id=&collection=&ext=
+          POST /admin/query               (Query: {"fids", "filter",
+                                           "projections"} -> NDJSON)
           GET  /status, /healthz, /metrics
 
 Writes go through a per-volume ``WriteBatcher``: up to 128 requests or
@@ -99,7 +101,15 @@ the volumes of a disk with less than the store's
 is back. ``/admin/vacuum/compact`` takes the reference's
 ``compaction_byte_per_second`` and holds the copy to that rate.
 
-Left out: image resizing, read redirects, query, batch
+``/admin/query`` filters and projects the JSON documents of the fids it
+is given (query/), in the order of the fids; a fid it cannot read is
+skipped, as the reference skips it. Its reads run one after another in
+one executor call, through the store, so a fid on an EC volume with
+lost shards is reconstructed on the card. A read that misses a shard
+asks the master for a fresh shard map only when the one it holds is
+older than a second (D24).
+
+Left out: image resizing, read redirects, the gRPC ``Query``, batch
 delete, the UI, guard/JWT, the fastpath listener (with
 ``needle_sendfile_extent``) and its heat side channel, shard fleets and
 gRPC.
@@ -375,6 +385,7 @@ class VolumeServer:
                            self.admin_ec_mesh_status)
         app.router.add_get("/admin/file_copy", self.admin_file_copy)
         app.router.add_get("/admin/tail", self.admin_tail)
+        app.router.add_post("/admin/query", self.admin_query)
         app.router.add_get("/status", self.status)
         app.router.add_get("/metrics", self.metrics_handler)
         app.router.add_get("/healthz", self.healthz)
@@ -1475,8 +1486,10 @@ class VolumeServer:
 
     # shard-location freshness tiers (store_ec.go:221-262): a missing
     # shard re-polls the master after 11 s, a known one after 7 min; a
-    # total read miss forces an immediate refresh
+    # total read miss forces a refresh of a map older than 1 s
     _SHARD_LOC_MISSING_TTL = 11.0
+    # a read miss forces a refresh only of a map older than this (D24)
+    _SHARD_LOC_FORCE_FLOOR = 1.0
     _SHARD_LOC_KNOWN_TTL = 7 * 60.0
 
     def _shard_locations(self, vid: int, shard_id: int,
@@ -1530,14 +1543,68 @@ class VolumeServer:
 
         def read(shard_id: int, offset: int, size: int) -> Optional[bytes]:
             for force in (False, True):
-                for url in self._shard_locations(ev.vid, shard_id,
-                                                 force=force):
+                urls = self._shard_locations(ev.vid, shard_id, force=force)
+                for url in urls:
                     data = fetch(url, shard_id, offset, size)
                     if data is not None:
                         return data
+                if not force and not urls and not self._refresh_due(
+                        ev.vid):
+                    # a map younger than the floor names no holder of
+                    # this shard: it is lost, not moved (D24)
+                    break
             return None
 
         return read
+
+    def _refresh_due(self, vid: int) -> bool:
+        """Whether a miss on a shard that `vid`'s map names no holder of
+        may force a fresh lookup: not while the map is younger than
+        _SHARD_LOC_FORCE_FLOOR. With shards lost, every degraded read
+        tries each lost shard, and the reference asks the master again on
+        every miss (four lookups a reconstruction with four shards lost).
+        A holder the map names that fails its fetch still forces a fresh
+        lookup and a second try, as in the reference."""
+        cached = self._shard_loc_cache.get(vid)
+        return cached is None or \
+            time.monotonic() - cached[1] >= self._SHARD_LOC_FORCE_FLOOR
+
+    async def admin_query(self, request: web.Request) -> web.StreamResponse:
+        """S3-Select-lite over needle payloads (Query,
+        weed/server/volume_grpc_query.go:13-69): filter + project JSON
+        documents named by fid, emitting NDJSON."""
+        from ..query import QueryFilter, query_json_lines
+        body = await request.json()
+        flt = None
+        if body.get("filter"):
+            f = body["filter"]
+            flt = QueryFilter(f["field"], f.get("op", "="), f.get("value"))
+        projections = body.get("projections") or None
+        fids = body.get("fids", [])
+
+        def read_all() -> list[bytes]:
+            payloads = []
+            for fid_str in fids:
+                try:
+                    fid = FileId.parse(fid_str)
+                    n = self.store.read_needle(fid.volume_id, fid.key,
+                                               cookie=fid.cookie)
+                    payloads.append(n.data)
+                except Exception:
+                    continue
+            return payloads
+
+        # one executor call for all of them: the reference reads them one
+        # after another on its loop; a fan-out over the shared executor
+        # starved the heartbeats (the master pruned the node)
+        payloads = await _run(read_all)
+        resp = web.StreamResponse()
+        resp.headers["Content-Type"] = "application/x-ndjson"
+        await resp.prepare(request)
+        for line in query_json_lines(payloads, flt, projections):
+            await resp.write(line.encode() + b"\n")
+        await resp.write_eof()
+        return resp
 
     async def status(self, request: web.Request) -> web.Response:
         return web.json_response({"url": self.url, **self.store.status()})

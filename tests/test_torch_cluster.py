@@ -1259,6 +1259,29 @@ def test_cli_master_volume_shell(tmp_path):
                 raise
 
 
+@pytest.mark.parametrize("command", ["webdav", "mount"])
+def test_cli_lists_client_surfaces_with_the_reference_flags(command,
+                                                             capsys):
+    """`webdav` and `mount` are commands of the port's CLI; `-h` answers
+    for each, with the reference's flags and defaults."""
+    from seaweedfs_torch import cli as pcli
+    from seaweedfs_tpu import cli as rcli
+
+    def flags(parser) -> dict:
+        sub = next(a for a in parser._actions
+                   if a.__class__.__name__ == "_SubParsersAction")
+        return {a.dest: (a.default, a.required)
+                for a in sub.choices[command]._actions
+                if a.dest != "help"}
+
+    assert flags(pcli.build_parser()) == flags(rcli.build_parser())
+    with pytest.raises(SystemExit) as e:
+        pcli.main([command, "-h"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert f"seaweedfs-torch {command}" in out and "-filer" in out
+
+
 def test_cli_compact_matches_reference(tmp_path, capsys):
     """`compact -dir -volumeId` on copies of one volume: the same answer
     and the same files from both packages' CLI."""

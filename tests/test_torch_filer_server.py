@@ -409,7 +409,7 @@ def test_async_lease_pool_unit(lib, metrics):
         fids = [a["fid"] for a in got]
         assert state["calls"] == 1 and len(set(fids)) == 8
         await pool.get()
-        leases = pool.core._leases if lib is rlib else pool._leases
+        leases = pool.core._leases
         assert leases[("", "", "")].count == 16
         vid_box[0] = 9
         assert pool.invalidate(fids[0]) == 1

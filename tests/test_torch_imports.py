@@ -146,9 +146,53 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.s3.auth",
                  "seaweedfs_torch.s3.sigv2",
                  "seaweedfs_torch.s3.s3_server",
-                 "seaweedfs_torch.shell.bucket_commands"):
+                 "seaweedfs_torch.shell.bucket_commands",
+                 "seaweedfs_torch.query",
+                 "seaweedfs_torch.query.json_query",
+                 "seaweedfs_torch.cache.tiered",
+                 "seaweedfs_torch.cache.http_pool",
+                 "seaweedfs_torch.mount",
+                 "seaweedfs_torch.mount.dirty_pages",
+                 "seaweedfs_torch.mount.meta_cache",
+                 "seaweedfs_torch.mount.wfs",
+                 "seaweedfs_torch.mount.fuse_ctypes",
+                 "seaweedfs_torch.mount.fuse_mount",
+                 "seaweedfs_torch.server.webdav_server",
+                 "seaweedfs_torch.integrations",
+                 "seaweedfs_torch.integrations.fsspec_fs"):
         assert name in result["names"]
     assert result["forbidden"] == []
+
+
+_NO_FSSPEC = """
+import importlib, json, pkgutil, sys
+sys.path.insert(0, %r)
+sys.modules["fsspec"] = None  # an import of fsspec now fails
+import seaweedfs_torch
+names = [m.name for m in pkgutil.walk_packages(seaweedfs_torch.__path__,
+                                               "seaweedfs_torch.")]
+for name in names:
+    if name != "seaweedfs_torch.integrations.fsspec_fs":
+        importlib.import_module(name)
+import chip_smoke
+try:
+    importlib.import_module("seaweedfs_torch.integrations.fsspec_fs")
+    adapter = "imported"
+except ImportError:
+    adapter = "refused"
+print(json.dumps({"modules": len(names), "adapter": adapter}))
+""" % str(REPO)
+
+
+def test_port_imports_without_fsspec():
+    """Only the fsspec adapter needs fsspec: every other port module, and
+    chip_smoke.py, imports with it hidden."""
+    out = subprocess.run([sys.executable, "-I", "-c", _NO_FSSPEC],
+                         cwd=str(REPO), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["modules"] >= 25 and result["adapter"] == "refused"
 
 
 def _imported_roots(path: Path) -> set:
@@ -180,6 +224,7 @@ SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
                   *PORT.glob("metaring/*.py"), *PORT.glob("filer/*.py"),
                   *PORT.glob("cache/*.py"), *PORT.glob("overload/*.py"),
                   *PORT.glob("geo/*.py"), *PORT.glob("s3/*.py"),
+                  *PORT.glob("mount/*.py"), *PORT.glob("query/*.py"),
                   PORT / "utils" / "retry.py",
                   PORT / "client.py",
                   PORT / "cli.py", PORT / "utils" / "multipart.py",
@@ -194,7 +239,10 @@ def test_serving_layer_imports_only_stdlib_torch_numpy(path):
     virtual clock; the client, the shell and the CLI use the standard
     library's HTTP client: the serving layer
     imports the standard library, aiohttp, torch, numpy and the port,
-    nothing else."""
+    nothing else (the mount tries fusepy, ``fuse``, before its own
+    libfuse2 binding)."""
     allowed = set(sys.stdlib_module_names) | {"aiohttp", "torch", "numpy",
                                               "seaweedfs_torch"}
+    if path.name == "fuse_mount.py":
+        allowed.add("fuse")
     assert _imported_roots(path) <= allowed

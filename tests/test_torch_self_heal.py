@@ -540,6 +540,54 @@ def test_d21_shard_map_kept_through_a_failed_lookup(pkg):
         master.server_close()
 
 
+class _CountingLookupMaster(_LookupMaster):
+    def do_GET(self):
+        self.server.lookups += 1
+        super().do_GET()
+
+
+@within(30)
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+def test_d24_read_misses_refresh_the_shard_map_at_most_once_a_second(pkg):
+    """A degraded read tries each lost shard through the shard reader and
+    misses. The reference asks the master again on every miss; the port,
+    for a shard its map names no holder of, only when the map is at least
+    a second old (ROADMAP Queue 3, D24), so five misses in a row cost it
+    one lookup, not six. A named holder that fails forces a lookup in
+    the port too."""
+    import types
+    cls = RVolumeServer if pkg == "reference" else PVolumeServer
+    master = http_server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                             _CountingLookupMaster)
+    master.answer = (200, {"shards": {"3": []}})
+    master.lookups = 0
+    threading.Thread(target=master.serve_forever, daemon=True).start()
+    try:
+        vs = cls.__new__(cls)
+        vs.master_url = f"127.0.0.1:{master.server_address[1]}"
+        vs.url = "me:1"
+        vs._shard_loc_cache = {}
+        read = vs._make_shard_reader(types.SimpleNamespace(vid=7))
+        for _ in range(5):
+            assert read(5, 0, 10) is None
+        assert master.lookups == (6 if pkg == "reference" else 1)
+        if pkg == "port":
+            shards, fetched = vs._shard_loc_cache[7]
+            vs._shard_loc_cache[7] = (shards, fetched - 1.1)
+            assert read(5, 0, 10) is None
+            assert master.lookups == 2
+            # a holder the map names whose fetch fails forces a fresh
+            # lookup (and a second try) at once, as every miss does in
+            # the reference
+            master.answer = (200, {"shards": {"3": ["127.0.0.1:1"]}})
+            vs._shard_loc_cache = {}
+            assert read(3, 0, 10) is None
+            assert master.lookups == 4
+    finally:
+        master.shutdown()
+        master.server_close()
+
+
 @within(60)
 def test_reads_survive_shards_dropped_under_them(tmp_path):
     """Readers hammer an EC volume while every one of its shards is
