@@ -20,8 +20,9 @@ Phases (any failure exits non-zero before the result line):
    digest epilogue, with and without output stores, whose [C + R] sums
    must equal the plain ones;
 3. the main path at full size under the default ``bitplane``
-   formulation: a 1 GiB volume (seeded needles, log-uniform 1 KiB ..
-   4 MiB, about 5% deleted) written with the port's Volume,
+   formulation: a 512 MiB volume (1 GiB before phase 19; seeded
+   needles, log-uniform 1 KiB .. 4 MiB, about 5% deleted) written with
+   the port's Volume,
    ``stream_encode`` with ``get_coder("auto", 10, 4)`` under the default
    RS(10,4) geometry (1 GiB large / 1 MiB small blocks), the sorted .ecx,
    the parity held against the plain version over the whole volume, every
@@ -200,8 +201,9 @@ Phases (any failure exits non-zero before the result line):
    ``stream_encode`` with ``get_coder("auto")``), ``fused_warmdown``
    (RS(20,4), a 32 MiB volume of phase 6b's payload kinds, 30%
    tombstoned), ``volume_append``, ``raft_snapshot`` (a master's raft
-   state with the metadata log's snapshot folds) and ``filer_kv`` (the
-   filer's LevelDbStore, its segment compaction the barrier): zero
+   state with the metadata log's snapshot folds), ``filer_kv`` (the
+   filer's LevelDbStore, its segment compaction the barrier) and
+   ``offset_commit`` (replication's consume positions): zero
    violations,
    ``gf_apply`` launched in both EC sweeps and in no other; points,
    violations and wall time per workload;
@@ -500,6 +502,44 @@ Phases (any failure exits non-zero before the result line):
    5xx. ``gf_apply`` must launch in 18g's encode and in each read with 4
    shards lost whose files have a needle on a lost shard (the fresh
    mount's reads and the queries must), and in no other step;
+19. (run after 18) upstream's cross-cluster deployment, cut in scale
+   only: two clusters, each its own ``LocalCluster`` (a master whose geo
+   daemon scans its filer, 2 volume servers on 2 racks,
+   ``Store(coder_name="auto")``, 64 MiB volumes) with its filer as
+   ``python3 -m seaweedfs_torch.cli filer -store leveldb2`` (8 MiB
+   chunks); the primary's filer reads a ``notification.toml``
+   (``[notification.file]``, a spool), and the primary has the gateway
+   as ``python3 -m seaweedfs_torch.cli s3`` with
+   ``WEED_GEO_REPLICA_FILER`` naming the replica's filer. (19a) a
+   versioned bucket: 32 MiB of phase 3's generator (1 KiB .. 8 MiB) PUT
+   by 4 clients in 2 processes, half before its PutBucketReplication
+   rule (naming the replica's filer) and half after. (19b) every primary
+   volume holding an object encoded with the shell's ``ec.encode``;
+   shards {0, 3, 7, 12} dropped. (19c) ``/geo/run``: the job backfills
+   the bucket (its source reads with 4 shards lost), passes until its
+   lag is 0; both namespaces equal, every file by sha256. (19d) the
+   tail: first a steady segment, 200 small new objects (1-4 KiB, under
+   8 prefixes) by 4 clients with both filers up, whose lag from each
+   PUT's answer to its version on the replica (p50/p99) and events/s are
+   the phase's replication metrics; then the drill: 6 overwrites, 4 new
+   objects and 4 versioned deletes by 4 clients, the replica's filer
+   SIGKILLed once a third of them have replicated (as the reference's
+   drill) and started again after two thirds (its lag printed apart);
+   the namespaces equal again. (19f) CLI ``filer.replicate
+   -from_queue`` starts draining the spool of the whole bucket
+   (``gone/`` included: a queued create whose path was deleted since is
+   skipped, D27) into a ``LocalSink`` directory, beside (19e) a second
+   bucket with a rule each way: 4 objects written on each side reach the
+   other, and the jobs stop moving; the drain is stopped once its tree
+   equals the primary's file by file. (19g) the
+   replica's volumes encoded, the same 4 shards dropped, the primary's
+   filer and master stopped: every object and every version read back
+   through ``Client(replica_masters=)`` and through the gateway, each
+   marked stale and equal by sha256 (p50/p99). Then ``offset_commit``'s
+   crash sweep. No acknowledged PUT lost, no event applied twice or
+   looped back (every job apply is recorded), no 5xx. ``gf_apply`` must
+   launch in both encodes, in the backfill and both failover reads when
+   a needle lies on a lost shard, and in no other kernel;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -3005,6 +3045,10 @@ MESH_WIDTHS = (1, 1023, 64 * 1024 + 3, 8 * MIB + 5)
 CRASH_SEEDS, CRASH_POINTS = 2, 20
 MESH_CRASH_POINTS = 10
 CRASH_DAT_BYTES = 32 * MIB
+# phases 3-4's volume, cut from 1 GiB to make room for phase 19 (this
+# seed's 512 MiB volume keeps about 450 live needles on the lost shards
+# {0, 3, 7, 12}; 3a's check wants 200)
+MAIN_VOLUME_BYTES = 512 * MIB
 # phases 7-8's volumes, cut from 1 GiB to make room for phase 12 (the
 # smoke took about 1115 s on one H100 with them at 1 GiB), then from 512
 # MiB for phase 14 (not below: 7a's check wants 200 needles on the lost
@@ -3247,7 +3291,8 @@ def run_mesh_surface(work: Path, card: str, count: int) -> None:
 def crash_workloads(device: torch.device) -> list:
     """(10d) The crash workloads at the card's sizes: ec_encode on phase
     4's mixed tiers, fused_warmdown on phase 6b's payload kinds,
-    volume_append, raft_snapshot and filer_kv at their defaults."""
+    volume_append, raft_snapshot, filer_kv and offset_commit at their
+    defaults."""
     seed = SEED + 11
     mixed = geometry.Geometry(large_block_size=262144,
                               small_block_size=16384)
@@ -3268,7 +3313,8 @@ def crash_workloads(device: torch.device) -> list:
         geometry=geometry.Geometry(20, 4), needles=count, deleted=gone,
         make_needle=lambda nid: archive_needle(seed, nid))
     return [ec_encode, fused, crash_wl.make_volume_workload(),
-            crash_wl.make_raft_workload(), crash_wl.make_filer_kv_workload()]
+            crash_wl.make_raft_workload(), crash_wl.make_filer_kv_workload(),
+            crash_wl.make_offset_workload()]
 
 
 def run_crash_sweeps(work: Path, device: torch.device) -> dict:
@@ -6224,24 +6270,36 @@ def cli_chunk_mb(chunk: int) -> str:
     return str(chunk // MIB)
 
 
+def cli_env(extra: dict = None) -> dict:
+    """This process's environment with the repo on PYTHONPATH (for a CLI
+    process whose working directory is elsewhere) and `extra` added."""
+    path = [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(path),
+            **(extra or {})}
+
+
 class CliFiler:
     """A server of the port as its own process: ``python3 -m
     seaweedfs_torch.cli <args> -port <port>`` (0: a free one), logging
-    to ``<name>_<port>.log`` in its work directory."""
+    to ``<name>_<port>.log`` in its work directory; in `cwd` (where the
+    CLI reads its ``*.toml``) and with `env` added, when given."""
 
     def __init__(self, work: Path, args: list, name: str = "filer",
-                 port: int = 0):
+                 port: int = 0, cwd: Path = None, env: dict = None):
         self.url = f"127.0.0.1:{port or free_port()}"
         self.work = work
         self.name = name
         self.args = [sys.executable, "-m", "seaweedfs_torch.cli", *args,
                      "-port", self.url.split(":")[1]]
+        self.cwd = cwd or REPO
+        self.env = cli_env(env) if cwd is not None or env else None
         self.proc = None
 
     def start(self) -> None:
         with open(self.work / f"{self.name}_{self.url.split(':')[1]}"
                   ".log", "ab") as err:
-            self.proc = subprocess.Popen(self.args, cwd=str(REPO),
+            self.proc = subprocess.Popen(self.args, cwd=str(self.cwd),
+                                         env=self.env,
                                          stdout=subprocess.DEVNULL,
                                          stderr=err)
 
@@ -7466,8 +7524,9 @@ print(json.dumps(out))
 """
 
 
-def s3_clients(gateway: str, groups: list, who: tuple = S3P_ADMIN) -> tuple:
-    """Run `groups` of ops through S3P_CLIENTS clients in S3P_PROCS
+def s3_clients(gateway: str, groups: list, who: tuple = S3P_ADMIN,
+               clients: int = S3P_CLIENTS) -> tuple:
+    """Run `groups` of ops through `clients` clients in S3P_PROCS
     processes; (results by op id, wall seconds)."""
     import inspect
     script = _S3_CLIENT % (inspect.getsource(s3_sign),
@@ -7483,7 +7542,7 @@ def s3_clients(gateway: str, groups: list, who: tuple = S3P_ADMIN) -> tuple:
              for _ in range(S3P_PROCS)]
     outs = [p.communicate(json.dumps({
         "gateway": gateway, "who": list(who), "piece": S3P_STREAM_PIECE,
-        "threads": S3P_CLIENTS // S3P_PROCS,
+        "threads": clients // S3P_PROCS,
         "groups": groups[i::S3P_PROCS]}).encode(), timeout=1200)[0]
         for i, p in enumerate(procs)]
     wall = time.perf_counter() - t0
@@ -9034,6 +9093,701 @@ def run_dav(work: Path, seed: int = SEED + 18, coder_name: str = "auto",
     return launches
 
 
+# --- phase 19: the cross-cluster planes ------------------------------------
+
+GEO_LIMIT_MB = 64
+GEO_CHUNK = 8 * MIB              # the CLI filers' chunks
+GEO_MAX_FILE = 8 * MIB           # phase 3's generator: log-uniform 1 KiB ..
+GEO_BYTES = 32 * MIB             # ... into the versioned bucket, half
+                                 # before its replication rule
+GEO_CLIENTS = 4                  # S3 clients (2 processes)
+GEO_OVERWRITES = 6               # the tail: live/ objects overwritten,
+GEO_DELETES = 4                  # gone/ objects deleted (delete markers)
+GEO_TAIL_NEW = 4                 # and new objects, the replica filer
+                                 # killed and restarted among them
+GEO_STEADY = 200                 # the tail's steady segment: new objects
+GEO_STEADY_MAX = 4096            # of 1 KiB .. this, both filers up, in
+GEO_STEADY_DIRS = 8              # this many prefixes (the appliers keep
+                                 # each directory's events in order)
+GEO_AA_OBJECTS = 4               # each side's writes, active-active bucket
+GEO_READERS = 8                  # failover reads in flight
+
+
+def geo_bucket_entry(bucket: str, rule: dict = None) -> dict:
+    """A bucket's filer entry, with a replication rule (geo.rules' JSON)
+    when given: the form PutBucketReplication stores."""
+    from seaweedfs_torch.geo import rules as geo_rules
+    ext = ({geo_rules.BUCKET_ATTR: geo_rules.rules_to_json([rule])}
+           if rule else {})
+    return {"path": f"/buckets/{bucket}",
+            "attr": {"mode": 0o40770, "mtime": time.time(),
+                     "crtime": time.time()},
+            "chunks": [], "extended": ext}
+
+
+def geo_namespace(filer: str, root: str, tally) -> dict:
+    """path -> (is dir, version id, delete marker, sha256 of the bytes)
+    of everything under `root`, every file read through `filer`."""
+    from seaweedfs_torch.geo import versioning as geo_ver
+    out = {}
+    for path, e in fs_walk(filer, root).items():
+        is_dir = bool(e["attr"]["mode"] & 0o40000)
+        ext = e.get("extended") or {}
+        sha = ""
+        if not is_dir:
+            r = http.request("GET", f"http://{filer}{path}", timeout=600)
+            tally.add(r.status)
+            if r.status != 200:
+                raise AssertionError(f"GET {filer}{path}: {r.status}")
+            sha = hashlib.sha256(r.data).hexdigest()
+        out[path] = (is_dir, ext.get(geo_ver.VERSION_ID_ATTR, ""),
+                     geo_ver.DELETE_MARKER_ATTR in ext, sha)
+    return out
+
+
+def run_geo(work: Path, seed: int = SEED + 19, coder_name: str = "auto",
+            device=None, limit_mb: int = GEO_LIMIT_MB,
+            total: int = GEO_BYTES, max_file: int = GEO_MAX_FILE,
+            chunk: int = GEO_CHUNK, overwrites: int = GEO_OVERWRITES,
+            deletes: int = GEO_DELETES, tail_new: int = GEO_TAIL_NEW,
+            aa_objects: int = GEO_AA_OBJECTS) -> dict:
+    """Phase 19; returns the launches per step. On the card they are held
+    to the phase's rule (gf_apply in both encodes, in the backfill and in
+    both failover reads where a replicated needle lies on a lost shard,
+    more than 0 in the phase; no other kernel); ``coder_name="torch",
+    device="cpu"`` at a few MB runs it on a host without one (no launch
+    is counted there; `chunk` whole MiB, as the CLI filer takes it)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_torch.balance import BalanceConfig
+    from seaweedfs_torch.geo import GeoConfig
+    from seaweedfs_torch.geo import cluster_sink as geo_sink
+    from seaweedfs_torch.geo import versioning as geo_ver
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    tally = S3Tally()
+    files = FsFiles(seed)
+    rng = np.random.default_rng(seed)
+    p_filer = f"127.0.0.1:{free_port()}"
+    r_filer = f"127.0.0.1:{free_port()}"
+
+    def cluster(name: str, filer: str) -> LocalCluster:
+        # each master's geo daemon scans its own filer; passes run on
+        # /geo/run (the interval is out of the phase's reach)
+        return LocalCluster(
+            2, coder_name=coder_name, device=device,
+            volume_size_limit_mb=limit_mb, pulse=0.5,
+            directory=str(work / name), racks=2,
+            master_kwargs={"repair_enabled": False,
+                           "balance_config": BalanceConfig(
+                               force_enabled=False),
+                           "geo_config": GeoConfig(
+                               filer=filer, interval=3600.0, appliers=4)})
+
+    # every successful apply of the geo jobs, by (source, replica, tsns),
+    # and the applies of an event the replica had already signed
+    applies: collections.Counter = collections.Counter()
+    looped: list = []
+    sigs: dict = {}
+    orig_apply = geo_sink.ClusterSink.apply
+
+    async def recording_apply(self, event):
+        await orig_apply(self, event)
+        applies[(self.source, self.remote, event.tsns)] += 1
+        if sigs.get(self.remote) in event.signatures:
+            looped.append((self.source, event.tsns))
+
+    geo_sink.ClusterSink.apply = recording_apply
+    cl_p = cl_r = drain = None
+    procs: list = []
+    try:
+        cl_p = cluster("primary", p_filer)
+        cl_r = cluster("replica", r_filer)
+        p_master, r_master = cl_p.master_url, cl_r.master_url
+        spool = work / "spool"
+        pcwd = work / "primary_cwd"
+        pcwd.mkdir()
+        (pcwd / "notification.toml").write_text(
+            f'[notification.file]\nenabled = true\n'
+            f'directory = "{spool}"\n')
+        config = work / "s3.json"
+        config.write_text(json.dumps({"identities": S3P_IDENTITIES}))
+
+        def filer_proc(url: str, name: str, cwd=None) -> CliFiler:
+            return CliFiler(work, [
+                "filer", "-mserver", p_master if url == p_filer
+                else r_master, "-store", "leveldb2", "-store_path",
+                str(work / f"{name}_leveldb2"), "-chunk_size_mb",
+                cli_chunk_mb(chunk)], name=name,
+                port=int(url.rsplit(":", 1)[1]), cwd=cwd)
+
+        pf = filer_proc(p_filer, "pfiler", cwd=pcwd)
+        rf = filer_proc(r_filer, "rfiler")
+        gw = CliFiler(work, ["s3", "-filer", p_filer, "-config",
+                             str(config)], name="s3",
+                      env={"WEED_GEO_REPLICA_FILER": r_filer})
+        procs = [pf, rf, gw]
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            wait_until(proc.up, f"the CLI {proc.name}", timeout=120)
+        for url in (p_filer, r_filer):
+            sigs[url] = fs_meta(url, "info")["signature"]
+        log({"phase": "geo.setup", "seconds": time.perf_counter() - t_phase,
+             "primary_filer": p_filer, "replica_filer": r_filer,
+             "gateway": gw.url, "card": SMI[0]})
+
+        # (19a) the versioned bucket on the primary (through the gateway)
+        # and on the replica (its entry: bucket entries do not replicate)
+        for path, body in (("/geo", b""), ("/geo?versioning",
+                           b"<VersioningConfiguration><Status>Enabled"
+                           b"</Status></VersioningConfiguration>")):
+            r, _ = s3_call(gw.url, "PUT", path, body, tally=tally)
+            if r.status != 200:
+                raise AssertionError(f"PUT {path}: {r.status}")
+        status, out = http.post_json(f"http://{r_filer}/__meta__/"
+                                     "create_entry",
+                                     {"entry": geo_bucket_entry("geo")})
+        if status != 200:
+            raise AssertionError(f"replica bucket: {status} {out}")
+        sizes = fs_sizes(rng, total, 1024, max_file)
+        half = len(sizes) // 2
+        if half < 2 * deletes or len(sizes) - half < overwrites:
+            raise AssertionError(f"{len(sizes)} objects: too few")
+        for i, size in enumerate(sizes):
+            gone = i < 2 * deletes and i % 2
+            files.add(f"{'gone' if gone else 'live'}/o{i:04d}.bin", size)
+        keys = list(files.files)
+        # version id -> (key, nid, size) of every acknowledged PUT
+        acked: dict = {}
+
+        def put_all(batch: list) -> dict:
+            groups = [[{"method": "PUT", "path": f"/geo/{k}", "seed": seed,
+                        "nid": files.files[k][0],
+                        "size": files.files[k][1]}] for k in batch]
+            got, wall = s3_clients(gw.url, groups, clients=GEO_CLIENTS)
+            for group in groups:
+                op = group[0]
+                _, status, secs, vid, _ = got[op["id"]]
+                tally.add(status)
+                if status != 200 or not vid:
+                    raise AssertionError(f"PUT {op['path']}: {status}")
+                acked[vid] = (op["path"][len("/geo/"):], op["nid"],
+                              op["size"])
+            return {"wall": wall, "objects": len(batch), "bytes": sum(
+                files.files[k][1] for k in batch)}
+
+        pre, launches["geo.put_pre_rule"] = counted(
+            lambda: put_all(keys[:half]))
+        bal_log("geo.put_pre_rule", pre["wall"],
+                launches["geo.put_pre_rule"], **pre,
+                gbps=pre["bytes"] / pre["wall"] / 1e9)
+        rule = (b"<ReplicationConfiguration><Rule><Status>Enabled</Status>"
+                b"<Destination><Bucket>arn:aws:s3:::geo</Bucket><Endpoint>"
+                + r_filer.encode() + b"</Endpoint></Destination></Rule>"
+                b"</ReplicationConfiguration>")
+        r, _ = s3_call(gw.url, "PUT", "/geo?replication", rule, tally=tally)
+        if r.status != 200:
+            raise AssertionError(f"PutBucketReplication: {r.status}")
+        post, launches["geo.put_post_rule"] = counted(
+            lambda: put_all(keys[half:]))
+        bal_log("geo.put_post_rule", post["wall"],
+                launches["geo.put_post_rule"], **post,
+                gbps=post["bytes"] / post["wall"] / 1e9)
+
+        # (19b) the primary's volumes encoded by the shell, 4 shards lost
+        shell_commands._register_all()
+
+        def encode(master: str, cl, filer: str) -> tuple:
+            fids = dav_fids(filer, [p for p, v in fs_walk(
+                filer, "/buckets/geo").items()
+                if not v["attr"]["mode"] & 0o40000])
+            vids = sorted({int(f.split(",")[0]) for fl in fids.values()
+                           for f in fl})
+            env = shell_commands.CommandEnv(Client(master))
+            for vid in vids:
+                shell_commands.run_command(
+                    env, ["ec.encode", "-volumeId", str(vid),
+                          "-collection", ""])
+            for vid in vids:
+                shards = http.get_json(
+                    f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+                if len(shards.get("shards", {})) != 14:
+                    raise AssertionError(f"ec.encode {vid}: {shards}")
+            return vids, fids
+
+        def drop(master: str, vids: list) -> None:
+            for vid in vids:
+                info = http.get_json(
+                    f"http://{master}/col/lookup/ec?volumeId={vid}")[1]
+                for sid in VICTIMS:
+                    url = info["shards"][str(sid)][0]
+                    status, out = http.post_json(
+                        f"http://{url}/admin/ec/delete_shards",
+                        {"volume_id": vid, "collection": "",
+                         "shard_ids": [sid]})
+                    if status != 200:
+                        raise AssertionError(f"drop {vid}.{sid}: {out}")
+            wait_until(lambda: all(len(http.get_json(
+                f"http://{master}/col/lookup/ec?volumeId={v}")[1][
+                    "shards"]) == 14 - len(VICTIMS) for v in vids),
+                "the lookup drops the four shards")
+
+        def on_victims(cl, vids: list, fids: dict) -> int:
+            count = 0
+            for vid in vids:
+                ev = next(ev for ev in (cl.store(i).find_ec_volume(vid)
+                                        for i in range(len(cl.nodes)))
+                          if ev is not None)
+                mine = [f for fl in fids.values() for f in fl
+                        if int(f.split(",")[0]) == vid]
+                count += needles_on_shards(ev, mine, set(), VICTIMS)
+            return count
+
+        t0 = time.perf_counter()
+        (p_vids, p_fids), launches["geo.ec_encode_primary"] = counted(
+            lambda: encode(p_master, cl_p, p_filer))
+        bal_log("geo.ec_encode_primary", time.perf_counter() - t0,
+                launches["geo.ec_encode_primary"], volumes=p_vids)
+        _, launches["geo.drop_shards_primary"] = counted(
+            lambda: drop(p_master, p_vids))
+        p_victims = on_victims(cl_p, p_vids, p_fids)
+
+        # (19c) /geo/run: the job backfills the bucket (every source read
+        # with 4 shards lost), then tails; passes until the lag is 0
+        def job(cl, bucket: str):
+            return cl.master.geo.jobs.get(bucket)
+
+        def geo_run(master: str) -> dict:
+            status, out = http.post_json(f"http://{master}/geo/run", {})
+            if status != 200 or not out.get("ok"):
+                raise AssertionError(f"/geo/run: {status} {out}")
+            return out
+
+        def caught_up(cl, bucket: str) -> bool:
+            geo_run(cl.master_url)
+            j = job(cl, bucket)
+            return (j is not None and j.state == "streaming"
+                    and j.current_lag_s() == 0.0)
+
+        def backfill() -> dict:
+            t0 = time.perf_counter()
+            out = geo_run(p_master)
+            if "geo" not in out["started"]:
+                raise AssertionError(f"/geo/run started {out}")
+            wait_until(lambda: caught_up(cl_p, "geo"), "the backfill",
+                       timeout=300)
+            secs = time.perf_counter() - t0
+            src = geo_namespace(p_filer, "/buckets/geo", tally)
+            dst = geo_namespace(r_filer, "/buckets/geo", tally)
+            if src != dst:
+                diff = sorted(set(src.items()) ^ set(dst.items()))[:4]
+                raise AssertionError(f"after the backfill: {diff}")
+            return {"secs": secs, "entries": len(src),
+                    "backfilled": job(cl_p, "geo").backfilled}
+
+        bf, launches["geo.backfill"] = counted(backfill)
+        bal_log("geo.backfill", bf["secs"], launches["geo.backfill"],
+                entries=bf["entries"], backfilled=bf["backfilled"],
+                on_lost_shards=p_victims)
+
+        # (19d) the tail. First a steady segment: small new objects by 4
+        # clients with both filers up, whose lag (each PUT's answer to
+        # its version on the replica) and events/s are the replication
+        # metrics. Then the drill: overwrites, new objects and versioned
+        # deletes by 4 clients, the replica filer killed (SIGKILL) once
+        # a third of them have replicated and restarted after two thirds
+        live = [k for k in keys if k.startswith("live/")]
+        steady_ops = [("PUT", f"steady/d{i % GEO_STEADY_DIRS}/s{i:04d}.bin",
+                       files.next_nid + i,
+                       int(rng.integers(1024, GEO_STEADY_MAX + 1)))
+                      for i in range(GEO_STEADY)]
+        files.next_nid += GEO_STEADY
+        puts = live[:overwrites] + [f"live/t{i:04d}.bin"
+                                    for i in range(tail_new)]
+        # (method, key, nid, size): each PUT a new body of its own
+        ops = [("PUT", k, files.next_nid + i, int(np.exp(rng.uniform(
+            np.log(1024), np.log(max_file))))) for i, k in enumerate(puts)]
+        files.next_nid += len(puts)
+        ops += [("DELETE", k, 0, 0) for k in keys if k.startswith("gone/")]
+        ops = [ops[int(i)] for i in rng.permutation(len(ops))]
+        visible: dict = {}
+        pending: dict = {}
+        lock = threading.Lock()
+        done = threading.Event()
+
+        def versions_on_replica(d: str) -> dict:
+            """path -> version id of the replica's entries in `d`."""
+            out, start = {}, ""
+            while True:
+                entries = fs_meta(r_filer, "list", dir=d, start=start,
+                                  limit=1024)["entries"]
+                for e in entries:
+                    out[e["path"]] = (e.get("extended") or {}).get(
+                        geo_ver.VERSION_ID_ATTR)
+                if len(entries) < 1024:
+                    return out
+                start = entries[-1]["path"].rsplit("/", 1)[-1]
+
+        def poll_replica() -> None:
+            # one listing a directory a round, however many are pending
+            while not done.is_set():
+                with lock:
+                    todo = list(pending.items())
+                dirs = {f"/buckets/geo/{key}".rsplit("/", 1)[0]
+                        for _, (key, _) in todo}
+                seen: dict = {}
+                try:
+                    for d in dirs:
+                        seen.update(versions_on_replica(d))
+                except (OSError, AssertionError):  # the replica is down
+                    pass
+                now = time.perf_counter()
+                with lock:
+                    for vid, (key, t_ack) in todo:
+                        if seen.get(f"/buckets/geo/{key}") == vid:
+                            pending.pop(vid, None)
+                            visible[vid] = now - t_ack
+                time.sleep(0.02)
+
+        def one(op) -> None:
+            method, key, nid, size = op
+            body = payload(seed, nid, size) if method == "PUT" else b""
+            r, _ = s3_call(gw.url, method, f"/geo/{key}", body, tally=tally)
+            t_ack = time.perf_counter()
+            vid = r.headers.get("x-amz-version-id", "")
+            if r.status not in (200, 204) or not vid:
+                raise AssertionError(f"{method} /geo/{key}: {r.status}")
+            if method == "PUT":
+                with lock:
+                    acked[vid] = (key, nid, size)
+                    pending[vid] = (key, t_ack)
+
+        def tail() -> dict:
+            j = job(cl_p, "geo")
+            before = j.status()["applied"]
+            poller = threading.Thread(target=poll_replica, daemon=True)
+            poller.start()
+            third = max(1, len(ops) // 3)
+            t0 = time.perf_counter()
+            try:
+                with ThreadPoolExecutor(GEO_CLIENTS) as ex:
+                    list(ex.map(one, steady_ops))
+                    steady_put_s = time.perf_counter() - t0
+                    # every event committed, so the drill's restart
+                    # starts from a caught-up offset
+                    wait_until(lambda: not pending and caught_up(
+                        cl_p, "geo"), "the steady segment", timeout=120)
+                    steady_s = time.perf_counter() - t0
+                    steady_events = j.status()["applied"] - before
+                    t1 = time.perf_counter()
+                    # as the reference's drill: the first third
+                    # replicated, then the kill, more writes into the
+                    # outage, the restart (an apply in flight at the kill
+                    # would be replayed after it: at least once)
+                    list(ex.map(one, ops[:third]))
+                    wait_until(lambda: not pending and caught_up(
+                        cl_p, "geo"), "the drill's first third",
+                        timeout=120)
+                    rf.kill()
+                    killed = time.perf_counter()
+                    list(ex.map(one, ops[third:2 * third]))
+                    rf.start()
+                    wait_until(rf.up, "the replica filer's restart", 120)
+                    down = time.perf_counter() - killed
+                    list(ex.map(one, ops[2 * third:]))
+                wait_until(lambda: caught_up(cl_p, "geo") and not pending,
+                           "the tail", timeout=300)
+            finally:
+                done.set()
+                poller.join(30)
+            drill_s = time.perf_counter() - t1
+            src = geo_namespace(p_filer, "/buckets/geo", tally)
+            dst = geo_namespace(r_filer, "/buckets/geo", tally)
+            if src != dst:
+                diff = sorted(set(src.items()) ^ set(dst.items()))[:4]
+                raise AssertionError(f"after the tail: {diff}")
+            st = j.status()
+            return {"secs": time.perf_counter() - t0, "steady_s": steady_s,
+                    "steady_puts": len(steady_ops),
+                    "steady_put_s": steady_put_s,
+                    "steady_events": steady_events, "drill_s": drill_s,
+                    "replica_down_s": down, "drill_ops": len(ops),
+                    "events": st["applied"] - before,
+                    "restarts": st["restarts"], "poisoned": st["poisoned"],
+                    "namespace": src}
+
+        tl, launches["geo.tail"] = counted(tail)
+        namespace = tl.pop("namespace")
+        tail_s = tl.pop("secs")
+        steady_lag = [t for v, t in visible.items()
+                      if acked[v][0].startswith("steady/")]
+        drill_lag = [t for v, t in visible.items()
+                     if not acked[v][0].startswith("steady/")]
+        events_per_s = tl["steady_events"] / tl["steady_s"]
+        bal_log("geo.tail", tail_s, launches["geo.tail"], **tl,
+                events_per_s=events_per_s,
+                lag=latency_summary(steady_lag),
+                drill_lag=latency_summary(drill_lag))
+        if tl["poisoned"]:
+            raise AssertionError(f"the tail poisoned {tl['poisoned']}")
+
+        # (19f) filer.replicate -from_queue: the primary filer's
+        # notification spool of the whole bucket into a LocalSink
+        # directory. It runs for ever, as upstream's does: started here,
+        # beside 19e, and stopped once its tree equals the primary's
+        # files of the bucket, compared file by file
+        rcwd = work / "replicate_cwd"
+        rcwd.mkdir()
+        sink_dir = work / "local_sink"
+        (rcwd / "replication.toml").write_text(
+            f'[source.file]\nenabled = true\ndirectory = "{spool}"\n'
+            f'position_path = "{work / "spool.pos"}"\n'
+            f'[sink.local]\nenabled = true\n'
+            f'directory = "{sink_dir}"\n')
+        drain_log = work / "filer_replicate.log"
+        t_drain = time.perf_counter()
+        with open(drain_log, "ab") as err:
+            drain = subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_torch.cli",
+                 "filer.replicate", "-filer", p_filer, "-pathPrefix",
+                 "/buckets/geo/", "-offsetFile",
+                 str(work / "replicate.offset"), "-from_queue"],
+                cwd=str(rcwd), env=cli_env(), stdout=subprocess.DEVNULL,
+                stderr=err)
+
+        # (19e) active/active: a second bucket with a rule each way; both
+        # sides converge and the jobs stop moving
+        def active_active() -> dict:
+            for url, other, rid in ((p_filer, r_filer, "a2b"),
+                                    (r_filer, p_filer, "b2a")):
+                status, out = http.post_json(
+                    f"http://{url}/__meta__/create_entry",
+                    {"entry": geo_bucket_entry("aa", {
+                        "id": rid, "status": "Enabled", "prefix": "",
+                        "dest_bucket": "aa", "endpoint": other})})
+                if status != 200:
+                    raise AssertionError(f"aa bucket on {url}: {out}")
+            geo_run(p_master)
+            geo_run(r_master)
+            t0 = time.perf_counter()
+            want = {}
+            for i in range(aa_objects):
+                for url, side in ((p_filer, "a"), (r_filer, "b")):
+                    path = f"/buckets/aa/{side}{i}.bin"
+                    want[path] = payload(seed + 1, i, 1024 * (i + 1))
+                    status, _, _ = fs_put(url, path, want[path])
+                    if status not in (200, 201):
+                        raise AssertionError(f"PUT {url}{path}: {status}")
+
+            wait_until(lambda: all(
+                fs_meta_status(url, path) == 200 for url in (p_filer, r_filer)
+                for path in want), "active/active convergence",
+                timeout=120)
+            for url in (p_filer, r_filer):
+                for path, data in want.items():
+                    r = http.request("GET", f"http://{url}{path}",
+                                     timeout=60)
+                    if r.data != data:
+                        raise AssertionError(f"{url}{path} differs")
+            secs = time.perf_counter() - t0
+            jobs = (job(cl_p, "aa"), job(cl_r, "aa"))
+            counts = [j.status()["applied"] for j in jobs]
+            time.sleep(2.0)
+            after = [j.status()["applied"] for j in jobs]
+            if after != counts:
+                raise AssertionError(f"active/active still moving: "
+                                     f"{counts} -> {after}")
+            return {"secs": secs, "objects": len(want), "applied": after}
+
+        aa, launches["geo.active_active"] = counted(active_active)
+        bal_log("geo.active_active", aa.pop("secs"),
+                launches["geo.active_active"], **aa)
+
+        hashed: dict = {}
+
+        def sink_tree() -> dict:
+            got = {}
+            for dirpath, _, names in os.walk(sink_dir):
+                for name in names:
+                    full = os.path.join(dirpath, name)
+                    st = os.stat(full)
+                    key = (full, st.st_size, st.st_mtime_ns)
+                    if key not in hashed:
+                        hashed[key] = sha256_file(full)
+                    got["/" + os.path.relpath(full, sink_dir)] = hashed[key]
+            return got
+
+        def filer_replicate() -> dict:
+            want = {p: sha for p, (is_dir, _, _, sha) in namespace.items()
+                    if not is_dir}
+            wait_until(lambda: drain.poll() is None and sink_tree() == want,
+                       "the queue drain", timeout=120)
+            secs = time.perf_counter() - t_drain
+            drain.terminate()
+            drain.wait(timeout=20)
+            got = sink_tree()
+            if got != want:
+                diff = sorted(set(got.items()) ^ set(want.items()))[:4]
+                raise AssertionError(f"the local sink differs: {diff}")
+            # the events it consumed: the spool's lines up to its position
+            with open(work / "spool.pos", encoding="utf-8") as f:
+                pos = json.load(f)
+            consumed = 0
+            for name in sorted(os.listdir(spool)):
+                if name.endswith(".ndjson") and name <= pos["file"]:
+                    with open(spool / name, "rb") as f:
+                        body = f.read()
+                    if name == pos["file"]:
+                        body = body[:pos["offset"]]
+                    consumed += body.count(b"\n")
+            skipped = drain_log.read_text().count("SKIPPING")
+            return {"secs": secs, "events": consumed, "skipped": skipped,
+                    "files": len(got)}
+
+        fr, launches["geo.filer_replicate"] = counted(filer_replicate)
+        bal_log("geo.filer_replicate", fr.pop("secs"),
+                launches["geo.filer_replicate"], **fr)
+
+        # (19g) the replica's volumes encoded, the same 4 shards lost;
+        # the primary's master and filer stopped; every object and every
+        # version read back through Client(replica_masters=) and through
+        # the gateway's replica filer, each marked stale
+        t0 = time.perf_counter()
+        (r_vids, r_fids), launches["geo.ec_encode_replica"] = counted(
+            lambda: encode(r_master, cl_r, r_filer))
+        bal_log("geo.ec_encode_replica", time.perf_counter() - t0,
+                launches["geo.ec_encode_replica"], volumes=r_vids)
+        _, launches["geo.drop_shards_replica"] = counted(
+            lambda: drop(r_master, r_vids))
+        r_victims = on_victims(cl_r, r_vids, r_fids)
+        pf.stop()
+        cl_p.stop_master()
+        # what a reader may ask for: every version (current or not) of an
+        # acknowledged PUT, by the replica's entries
+        reads = []
+        for path, (is_dir, vid, marker, _) in namespace.items():
+            if is_dir or marker or not path.startswith("/buckets/geo/"):
+                continue
+            key, nid, size = acked[vid]
+            current = path == f"/buckets/geo/{key}"
+            reads.append((path, key, vid, current,
+                          hashlib.sha256(payload(seed, nid, size))
+                          .hexdigest()))
+        lost = sorted(set(acked) - {r[2] for r in reads})
+        if lost:
+            raise AssertionError(f"acknowledged PUTs lost: {lost[:3]}")
+
+        local = threading.local()
+
+        def client_read(item) -> float:
+            path, _, _, _, sha = item
+            c = getattr(local, "client", None)
+            if c is None:
+                c = local.client = Client(p_master,
+                                          replica_masters=r_master)
+            t0 = time.perf_counter()
+            chunks = sorted(fs_meta(r_filer, "lookup", path=path)["chunks"],
+                            key=lambda ch: ch["offset"])
+            data = b""
+            for ch in chunks:
+                data += c.download(ch["fid"])
+                if not c.last_read_stale:
+                    raise AssertionError(f"{path}: read not marked stale")
+            if hashlib.sha256(data).hexdigest() != sha:
+                raise AssertionError(f"{path}: the replica's bytes differ")
+            return time.perf_counter() - t0
+
+        def gateway_read(item) -> float:
+            _, key, vid, current, sha = item
+            t0 = time.perf_counter()
+            r, _ = s3_call(gw.url, "GET", f"/geo/{key}" if current
+                           else f"/geo/{key}?versionId={vid}", tally=tally)
+            secs = time.perf_counter() - t0
+            if r.status != 200 or r.headers.get("X-Seaweed-Stale-Ok") != "1":
+                raise AssertionError(f"GET {key} {vid}: {r.status}, stale "
+                                     f"{r.headers.get('X-Seaweed-Stale-Ok')}")
+            if hashlib.sha256(r.data).hexdigest() != sha:
+                raise AssertionError(f"GET {key} {vid}: bytes differ")
+            return secs
+
+        def failover(fn) -> dict:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(GEO_READERS) as ex:
+                lat = list(ex.map(fn, reads))
+            return {"wall": time.perf_counter() - t0, "lat": lat}
+
+        for name, fn in (("geo.failover_client", client_read),
+                         ("geo.failover_gateway", gateway_read)):
+            fo, launches[name] = counted(lambda: failover(fn))
+            bal_log(name, fo["wall"], launches[name], reads=len(reads),
+                    current=sum(r[3] for r in reads),
+                    stale_marked=len(reads), on_lost_shards=r_victims,
+                    per_read=latency_summary(fo["lat"]))
+        twice = [k for k, n in applies.items() if n > 1]
+        summary = {
+            "acknowledged_puts": len(acked),
+            "acknowledged_puts_lost": len(lost),
+            "objects_and_versions_equal": len(reads),
+            "events_applied": sum(applies.values()),
+            "events_applied_twice": len(twice),
+            "events_looped": len(looped),
+            "backfill_s": bf["secs"], "tail_s": tail_s,
+            "events_per_s": events_per_s,
+            "lag": latency_summary(steady_lag),
+            "drill_lag": latency_summary(drill_lag),
+            "answers": dict(tally.statuses)}
+        if twice or looped:
+            raise AssertionError(f"events applied twice {twice[:3]}, "
+                                 f"looped {looped[:3]}")
+    finally:
+        geo_sink.ClusterSink.apply = orig_apply
+        if drain is not None and drain.poll() is None:
+            drain.kill()
+            drain.wait()
+        for proc in procs:
+            proc.stop()
+        for c in (cl_p, cl_r):
+            if c is not None:
+                c.shutdown()
+    if coder_name == "auto":
+        for step, counts in launches.items():
+            if any(n for k, n in counts.items() if k != "gf_apply"):
+                raise AssertionError(f"{step}: launches {counts}")
+        must = ["geo.ec_encode_primary", "geo.ec_encode_replica"]
+        if p_victims:
+            must.append("geo.backfill")
+        if r_victims:
+            must += ["geo.failover_client", "geo.failover_gateway"]
+        for step in must:
+            if launches[step]["gf_apply"] == 0:
+                raise AssertionError(f"{step}: no gf_apply launch")
+    # the consume positions of replication, swept once nothing else of
+    # the phase writes (the recorder patches the process's file calls)
+    t0 = time.perf_counter()
+    sweep, launches["geo.crash_offset_commit"] = counted(
+        lambda: crash_harness.sweep_all(
+            seeds=CRASH_SEEDS, points=MESH_CRASH_POINTS,
+            workloads=[crash_wl.make_offset_workload()],
+            scratch_dir=str(work / "crash")))
+    bal_log("geo.crash_offset_commit", time.perf_counter() - t0,
+            launches["geo.crash_offset_commit"],
+            points=sweep["total_points"],
+            violations=sweep["total_violations"])
+    if not sweep["ok"] or sweep["total_violations"]:
+        raise AssertionError(f"offset_commit: {sweep}")
+    bal_log("geo.summary", time.perf_counter() - t_phase, launches,
+            **summary, gf_apply_per_step={
+                k: v["gf_apply"] for k, v in launches.items()},
+            gf_apply_phase=sum(v["gf_apply"] for v in launches.values()))
+    if coder_name == "auto" and not sum(
+            v["gf_apply"] for v in launches.values()):
+        raise AssertionError("phase 19 launched no gf_apply")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9092,7 +9846,8 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     launches = {}
     try:
-        volume = source_volume(WORK / "src", 1 << 30, 4 * MIB, SEED, "")
+        volume = source_volume(WORK / "src", MAIN_VOLUME_BYTES, 4 * MIB,
+                               SEED, "")
         log({"phase": "disk", "free_bytes": shutil.disk_usage(WORK).free})
         launches["bitplane"], sha_b = run_main_path(
             WORK / "default", coder, geometry.DEFAULT, volume, device, "",
@@ -9195,6 +9950,14 @@ def main() -> int:
             finally:
                 gc.unfreeze()
             mark("18")
+            # phase 19: the cross-cluster planes, two clusters
+            gc.collect()
+            gc.freeze()
+            try:
+                launches["geo"] = run_geo(WORK / "geo")
+            finally:
+                gc.unfreeze()
+            mark("19")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -9230,7 +9993,7 @@ def main() -> int:
         if k not in LIFECYCLE_CHECKS}, **launches["mesh"],
         **launches["balance"], **launches["storage"], **launches["ha"],
         **launches["filer"], **launches["ring"], **launches["nets"],
-        **launches["s3"], **launches["dav"]}
+        **launches["s3"], **launches["dav"], **launches["geo"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

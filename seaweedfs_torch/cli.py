@@ -21,7 +21,13 @@ apply:
       etcd|mongodb|elastic|cassandra] [-store_path ./filer.db] \\
       [-store_servers host:port] \\
       [-chunk_size_mb 8] [-default_replication 000] [-collection c] \\
-      [-meta_log events.jsonl] [-ring_peers h:8888,h:8889,h:8890]
+      [-meta_log events.jsonl] [-ring_peers h:8888,h:8889,h:8890] \\
+      [-peers h:8889]     (reads ./notification.toml when present)
+  python3 -m seaweedfs_torch.cli watch -filer h:8888 [-pathPrefix /p]
+  python3 -m seaweedfs_torch.cli filer.replicate -filer h:8888 \\
+      [-pathPrefix /p] [-offsetFile F] [-from_queue]
+                          (reads ./replication.toml)
+  python3 -m seaweedfs_torch.cli filer.sync -a h:8888 -b h:8889
   python3 -m seaweedfs_torch.cli shell -master h1:9333 -filer h:8888 \\
       fs.ls -l /buckets
   python3 -m seaweedfs_torch.cli s3 -port 8333 -filer h:8888 \\
@@ -105,6 +111,7 @@ import argparse
 import asyncio
 import json
 import logging
+import os
 import signal
 import sys
 
@@ -181,7 +188,9 @@ def cmd_volume(args) -> None:
 
 
 def cmd_filer(args) -> None:
+    from .notification.queues import load_notifier
     from .server.filer_server import run_filer
+    from .utils.config import load_configuration
     store_kwargs = {}
     if args.store in ("sqlite", "leveldb", "leveldb2"):
         store_kwargs["path"] = args.store_path
@@ -192,6 +201,7 @@ def cmd_filer(args) -> None:
                                                      args.store_servers))
         except ValueError as e:
             raise SystemExit(f"-store_servers: {e}")
+    notifier = load_notifier(load_configuration("notification"))
     ring_config = None
     if args.ring_peers:
         from .metaring import RingConfig
@@ -205,7 +215,97 @@ def cmd_filer(args) -> None:
         chunk_size=args.chunk_size_mb * 1024 * 1024,
         default_replication=args.default_replication,
         default_collection=args.collection,
-        meta_log_path=args.meta_log, ring_config=ring_config))
+        meta_log_path=args.meta_log, ring_config=ring_config,
+        peers=[p for p in args.peers.split(",") if p], notifier=notifier))
+
+
+def cmd_watch(args) -> None:
+    """Live-tail filer metadata events (weed watch,
+    weed/command/watch.go:36)."""
+    from .replication.replicator import Replicator
+    r = Replicator(args.filer, None, args.path_prefix)
+    for e in r.subscribe_events(since=args.since):
+        if e.directory.startswith(args.path_prefix):
+            print(json.dumps(e.to_dict()), flush=True)
+
+
+def _offset_path(stem: str, *parts: str) -> str:
+    """Default resume-offset file: a stable per-user directory (not the
+    working directory, so restarts from elsewhere still resume), a
+    readable first part and a hash of the full job identity (source,
+    sink, prefix), so distinct jobs never share an offset
+    (filer_sync.go setOffset/getOffset key by signature)."""
+    import hashlib
+    base = os.path.join(os.path.expanduser("~"), ".seaweedfs_torch",
+                        "offsets")
+    os.makedirs(base, exist_ok=True)
+    job_key = hashlib.sha256("|".join(parts).encode()).hexdigest()[:12]
+    human = parts[0].replace(":", "_").replace("/", "_") if parts else ""
+    return os.path.join(base, f"{stem}.{human}.{job_key}")
+
+
+def cmd_filer_replicate(args) -> None:
+    """Continuously replicate one filer into a sink configured by
+    replication.toml (weed filer.replicate). With -from_queue the events
+    come from the configured [source.*] queue (the file spool) instead of
+    a live subscribe stream: upstream's Kafka/SQS-fed mode
+    (weed/replication/sub)."""
+    import time as _time
+
+    from .replication.replicator import Replicator, run_from_queue
+    from .replication.sink import load_sink
+    from .utils.config import load_configuration
+    cfg = load_configuration("replication")
+    sink = load_sink(cfg)
+    if sink is None:
+        raise SystemExit("no enabled [sink.*] in replication.toml")
+    offset = args.offset_file or _offset_path(
+        "replicate_offset", args.filer, sink.identity(), args.path_prefix)
+    r = Replicator(args.filer, sink, args.path_prefix, offset_path=offset)
+    if args.from_queue:
+        from .replication.sub import load_notification_input
+        inp = load_notification_input(cfg)
+        if inp is None:
+            raise SystemExit("-from_queue needs an enabled [source.*] in "
+                             "replication.toml")
+        while True:
+            run_from_queue(r, inp, idle_timeout=2.0)
+            _time.sleep(1.0)
+    else:
+        r.run()
+
+
+def cmd_filer_sync(args) -> None:
+    """Active-active sync of two filers with signature loop prevention
+    (weed filer.sync, weed/command/filer_sync.go:81-330)."""
+    import threading
+
+    from .client import _get_json
+    from .replication.replicator import Replicator
+    from .replication.sink import FilerSink
+
+    def signature_of(filer: str) -> int:
+        return int(_get_json(f"http://{filer}/__meta__/info",
+                             timeout=10)["signature"])
+
+    sig_a, sig_b = signature_of(args.a), signature_of(args.b)
+
+    def one_direction(src: str, dst: str, dst_sig: int) -> None:
+        # exclude the events the destination already processed (the loop
+        # break); per-direction offsets, keyed by src, dst and prefix, so
+        # restarts resume instead of replaying everything
+        if args.offset_file:
+            suffix = f"{src}_{dst}".replace(":", "_").replace("/", "_")
+            offset = f"{args.offset_file}.{suffix}"
+        else:
+            offset = _offset_path("sync_offset", src, dst, args.path_prefix)
+        Replicator(src, FilerSink(dst), args.path_prefix,
+                   offset_path=offset).run(exclude_sig=dst_sig)
+
+    ta = threading.Thread(target=one_direction,
+                          args=(args.a, args.b, sig_b), daemon=True)
+    ta.start()
+    one_direction(args.b, args.a, sig_a)
 
 
 def cmd_s3(args) -> None:
@@ -436,10 +536,41 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("-collection", default="")
     f.add_argument("-meta_log", default="",
                    help="path for the persisted metadata event log")
+    f.add_argument("-peers", default="",
+                   help="peer filers, host:port each, whose metadata "
+                        "streams replay into this filer's store")
     f.add_argument("-ring_peers", default="",
                    help="the filer ring's members, host:port each "
                         "(this filer's own included)")
     f.set_defaults(fn=cmd_filer)
+
+    w = sub.add_parser("watch", help="live-tail filer metadata events")
+    w.add_argument("-filer", default="127.0.0.1:8888")
+    w.add_argument("-pathPrefix", dest="path_prefix", default="/")
+    w.add_argument("-since", type=int, default=0)
+    w.set_defaults(fn=cmd_watch)
+
+    fr = sub.add_parser("filer.replicate",
+                        help="replicate filer changes into a sink "
+                             "(replication.toml)")
+    fr.add_argument("-filer", default="127.0.0.1:8888")
+    fr.add_argument("-pathPrefix", dest="path_prefix", default="/")
+    fr.add_argument("-offsetFile", dest="offset_file", default="",
+                    help="resume-offset file (default derived from -filer)")
+    fr.add_argument("-from_queue", action="store_true",
+                    help="consume events from the [source.*] queue in "
+                         "replication.toml instead of a live subscribe")
+    fr.set_defaults(fn=cmd_filer_replicate)
+
+    fsync = sub.add_parser("filer.sync",
+                           help="active-active sync between two filers")
+    fsync.add_argument("-a", required=True, help="filer A host:port")
+    fsync.add_argument("-b", required=True, help="filer B host:port")
+    fsync.add_argument("-pathPrefix", dest="path_prefix", default="/")
+    fsync.add_argument("-offsetFile", dest="offset_file", default="",
+                       help="resume-offset file stem (default: "
+                            "~/.seaweedfs_torch/offsets/, keyed by job)")
+    fsync.set_defaults(fn=cmd_filer_sync)
 
     s3p = sub.add_parser("s3", help="run the S3 gateway")
     s3p.add_argument("-ip", default="127.0.0.1")

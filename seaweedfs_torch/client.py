@@ -21,19 +21,26 @@ no leader answers 503 "no leader elected", a leader that lost its term
 503) moves to the next master, with a backoff after each full round, for
 four rounds. The admin lease (``AdminLock``) and its renewals go through
 the same rotation; a renewal that lands on a new leader hands it the
-lease's token, which it adopts. Left out: the bulk-assignment lease
-pool, the shared connection pool with its circuit breaker, replica
-failover to a second cluster, the watch stream and the leader hints it
-pushes, JWTs and batch delete. ``query`` posts each holder's share of
-the fids to its ``/admin/query`` and gathers the NDJSON answers. The
-volume tail (``tail_volume``)
-streams on a connection of its own.
+lease's token, which it adopts. With ``replica_masters`` (else
+``WEED_GEO_REPLICA_MASTERS``), a second cluster's master list, a
+download whose primary cluster is unreachable (every master or every
+holder failed to connect) is served by that cluster and
+``last_read_stale`` is set (the geo plane's read failover,
+seaweedfs_tpu/client.py:356-420); an answer from a healthy primary, a
+404 among them, never fails over, and failover is one hop: the
+replica's client has no replica of its own (ROADMAP Queue 3, D26). Left
+out: the bulk-assignment lease pool, the shared connection pool with its
+circuit breaker, the watch stream and the leader hints it pushes, JWTs
+and batch delete. ``query`` posts each holder's share of the fids to its
+``/admin/query`` and gathers the NDJSON answers. The volume tail
+(``tail_volume``) streams on a connection of its own.
 """
 
 from __future__ import annotations
 
 import http.client as http_client
 import json
+import os
 import threading
 import time
 import urllib.parse
@@ -47,6 +54,18 @@ from .utils.retry import (RETRYABLE_STATUSES, RetryPolicy, cap_timeout,
 
 class ClientError(RuntimeError):
     pass
+
+
+class ClientUnreachable(ClientError):
+    """The whole primary cluster is unreachable (every master failed, or
+    every holder refused the connection): the condition geo read failover
+    answers. An authoritative negative answer (HTTP 404, 'volume not
+    found') from a healthy cluster is a plain ClientError and never fails
+    over: serving deleted data from the replica would resurrect it."""
+
+
+# connection errors worth a holder or master rotation
+_CONN_ERRORS = (OSError, http_client.HTTPException)
 
 
 def _request(method: str, url: str, body: Optional[bytes] = None,
@@ -185,10 +204,21 @@ class Client:
     # full rounds of an HA list before a call fails
     ROUNDS = 4
 
-    def __init__(self, master_url: str):
+    def __init__(self, master_url: str,
+                 replica_masters: Optional[str] = ""):
         # one master, or an HA group's comma list
         self.masters = [m.strip().rstrip("/") for m in master_url.split(",")
                         if m.strip()]
+        # geo read failover: a second CLUSTER's master list (not more HA
+        # peers of this one); "" reads WEED_GEO_REPLICA_MASTERS, None
+        # means no replica at all
+        self._replica_masters = "" if replica_masters is None else (
+            replica_masters or os.environ.get("WEED_GEO_REPLICA_MASTERS",
+                                              ""))
+        self._replica_client: Optional["Client"] = None
+        # True when the last download() was answered by the replica
+        # cluster: correct up to the replication lag, not read-your-writes
+        self.last_read_stale = False
         self._master_i = 0
         self._vid_cache = _VidCache(ttl=60.0)
         self.admin_lock = AdminLock(self)
@@ -229,7 +259,7 @@ class Client:
             except OSError as e:
                 if final:
                     if ha:
-                        raise ClientError(f"all masters failed: {e}")
+                        raise ClientUnreachable(f"all masters failed: {e}")
                     raise
                 last = e
                 self._after_failure(attempt)
@@ -239,8 +269,8 @@ class Client:
             last = ClientError(f"master {self.master}: HTTP {r.status} "
                                f"{r.data[:200]!r}")
             if final:
-                raise (ClientError(f"all masters failed: {last}") if ha
-                       else last)
+                raise (ClientUnreachable(f"all masters failed: {last}")
+                       if ha else last)
             if ha:
                 # a shed master is alive but busy: another is idle
                 if is_shed(r.status, r.headers):
@@ -353,22 +383,53 @@ class Client:
         self.upload_blob(a["url"], a["fid"], data, filename, mime, ttl)
         return a["fid"]
 
+    def _replica(self) -> Optional["Client"]:
+        if not self._replica_masters:
+            return None
+        if self._replica_client is None:
+            # the replica client gets no replica of its own, not even
+            # from the environment: failover is one hop, never a ring
+            # (ROADMAP Queue 3, D26)
+            self._replica_client = Client(self._replica_masters,
+                                          replica_masters=None)
+        return self._replica_client
+
     def download(self, fid: str, url: str = "") -> bytes:
         """The blob, from the first holder that serves it, or from the
-        holder `url` alone."""
+        holder `url` alone. When the primary cluster is unreachable and a
+        replica cluster is configured, the replica serves it and
+        ``last_read_stale`` is set."""
+        self.last_read_stale = False
+        try:
+            return self._download_local(fid, url)
+        except (ClientUnreachable, *_CONN_ERRORS):
+            # unreachability only: a 404 from a healthy primary is
+            # authoritative and must not resurrect deleted data
+            replica = self._replica()
+            if replica is None:
+                raise
+            data = replica.download(fid)
+            self.last_read_stale = True
+            return data
+
+    def _download_local(self, fid: str, url: str) -> bytes:
         vid = int(fid.split(",")[0])
         last_err: Optional[Exception] = None
         for holder in [url] if url else self.lookup(vid):
             try:
                 r = _request("GET", f"http://{holder}/{fid}",
-                                 timeout=300)
-            except OSError as e:  # refused etc: try the next holder
+                             timeout=300)
+            except _CONN_ERRORS as e:  # refused etc: try the next holder
                 last_err = e
                 self._vid_cache.pop(vid)
                 continue
             if r.status in (200, 206):
                 return r.data
             last_err = ClientError(f"{holder}/{fid}: HTTP {r.status}")
+        if isinstance(last_err, _CONN_ERRORS):
+            # every holder refused the dial: unreachable, not a negative
+            # answer
+            raise ClientUnreachable(f"download {fid} failed: {last_err}")
         raise ClientError(f"download {fid} failed: {last_err}")
 
     def delete(self, fid: str) -> None:

@@ -25,28 +25,10 @@ import stat
 import aiohttp
 
 from ..filer.filer import MetaEvent
+from ..filer.netutil import iter_ndjson
 from ..lifecycle import jittered
 
 log = logging.getLogger("metaring.invalidation")
-
-
-async def iter_ndjson(content):
-    """The lines of an aiohttp body, split by hand: aiohttp's own line
-    iterator raises past about 128 KiB, and the event of an entry with
-    many chunks is larger (a stream that resumes at the same offset would
-    be fed the same line for ever)."""
-    buf = bytearray()
-    async for chunk in content.iter_any():
-        buf += chunk
-        while True:
-            i = buf.find(b"\n")
-            if i < 0:
-                break
-            line = bytes(buf[:i])
-            del buf[:i + 1]
-            yield line
-    if buf:
-        yield bytes(buf)
 
 
 class PeerInvalidator:

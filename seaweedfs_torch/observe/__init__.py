@@ -293,3 +293,23 @@ def to_chrome_trace(span_dicts: Iterable[dict]) -> dict:
             "args": args,
         })
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def client_trace_config():
+    """aiohttp TraceConfig that adds the ambient deadline budget and
+    priority class to every outbound request of a session created with it
+    (params.headers is the live request header dict). The reference's also
+    carries the trace id, which waits for trace propagation (ROADMAP Queue
+    1 A.9)."""
+    import aiohttp
+
+    tc = aiohttp.TraceConfig()
+
+    async def on_request_start(session, trace_ctx, params) -> None:
+        from .. import overload
+        from ..utils import retry
+        retry.inject_deadline(params.headers)
+        overload.inject(params.headers)
+
+    tc.on_request_start.append(on_request_start)
+    return tc

@@ -24,8 +24,13 @@ Left out, each with its later home:
   so no request to them reaches a bucket;
 - ``shard_ctx`` and the stripe loop of a SO_REUSEPORT shard fleet (A.9,
   ``server/sharded.py``);
-- ``/admin/faults`` (the port's ``faults`` has no admin face);
-- replica-filer read failover, ``replica_filer_url`` (A.8, geo).
+- ``/admin/faults`` (the port's ``faults`` has no admin face).
+
+Replica-cluster read failover (the geo plane): with ``replica_filer_url``
+(else ``WEED_GEO_REPLICA_FILER``), a GET or HEAD whose primary filer is
+breaker-open (``utils/retry.shared_breaker()``) or fails live is served
+by the replica cluster's filer, marked ``X-Seaweed-Stale-Ok: 1`` and
+counted in ``geo_failover_reads``. Writes never fail over.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import asyncio
 import hashlib
 import hmac
 import logging
+import os
 import time
 import urllib.parse
 import uuid
@@ -49,6 +55,7 @@ from ..geo import rules as geo_rules
 from ..geo import versioning as geo_versioning
 from ..server import http
 from ..utils import metrics as metrics_mod
+from ..utils import retry as retry_mod
 
 log = logging.getLogger("s3")
 
@@ -75,8 +82,18 @@ class S3Server:
     def __init__(self, filer_url: str,
                  access_key: str = "", secret_key: str = "",
                  iam: Optional["auth_mod.Iam"] = None,
-                 url: str = ""):
+                 url: str = "",
+                 replica_filer_url: str = ""):
         self.filer_url = filer_url
+        # replica-cluster read failover: GETs go to the replica
+        # cluster's filer when the primary's breaker is open or a fetch
+        # fails live, marked stale. Writes never fail over (the replica
+        # is a follower; split-brain writes lose data).
+        self.replica_filer_url = (replica_filer_url or os.environ.get(
+            "WEED_GEO_REPLICA_FILER", ""))
+        # the process-wide per-host breaker: evidence of a dead filer
+        # collected here protects every other caller, and vice versa
+        self._filer_breaker = retry_mod.shared_breaker()
         # own advertised host:port
         self.url = url
         # identity registry with per-action ACLs
@@ -390,9 +407,10 @@ class S3Server:
                 f"http://{self.filer_url}/__meta__/{op}", json=body) as r:
             return r.status, await r.json()
 
-    async def _meta_get(self, op: str, params: dict) -> tuple[int, dict]:
+    async def _meta_get(self, op: str, params: dict,
+                        filer: str = "") -> tuple[int, dict]:
         async with self._session.get(
-                f"http://{self.filer_url}/__meta__/{op}",
+                f"http://{filer or self.filer_url}/__meta__/{op}",
                 params=params) as r:
             return r.status, await r.json()
 
@@ -856,26 +874,48 @@ class S3Server:
     async def get_object(self, request: web.Request, bucket: str,
                          key: str) -> web.StreamResponse:
         self.metrics.count("get_object")
-        try:
-            return await self._get_object_from(
-                request, bucket, key, request.query.get("versionId", ""))
-        except (aiohttp.ClientError, asyncio.TimeoutError, OSError) as e:
-            if request.get("s3_prepared"):
-                # the response already started streaming to the client:
-                # a second prepare() is impossible — let the truncation
-                # surface as a disconnect instead of a corrupt double
-                # response
-                raise
-            return _error("ServiceUnavailable",
-                          f"no filer reachable: {e}", 503)
+        want_vid = request.query.get("versionId", "")
+        # primary first; the replica cluster's filer only when the
+        # primary is breaker-open or fails live
+        filers = [self.filer_url]
+        if self.replica_filer_url:
+            filers.append(self.replica_filer_url)
+        last_err = ""
+        for i, filer in enumerate(filers):
+            stale_ok = i > 0
+            try:
+                self._filer_breaker.check(filer)
+            except retry_mod.BreakerOpen:
+                last_err = f"breaker open for {filer}"
+                continue
+            try:
+                resp = await self._get_object_from(
+                    filer, request, bucket, key, want_vid, stale_ok)
+                self._filer_breaker.record_success(filer)
+                if stale_ok:
+                    self.metrics.count("geo_failover_reads")
+                return resp
+            except (aiohttp.ClientError, asyncio.TimeoutError,
+                    OSError) as e:
+                self._filer_breaker.record_failure(filer)
+                last_err = str(e)
+                if request.get("s3_prepared"):
+                    # the response already started streaming to the
+                    # client: a second prepare() is impossible — let the
+                    # truncation surface as a disconnect instead of a
+                    # corrupt double response
+                    raise
+        return _error("ServiceUnavailable",
+                      f"no filer reachable: {last_err}", 503)
 
-    async def _get_object_from(self, request: web.Request, bucket: str,
-                               key: str,
-                               want_vid: str) -> web.StreamResponse:
+    async def _get_object_from(self, filer: str, request: web.Request,
+                               bucket: str, key: str, want_vid: str,
+                               stale_ok: bool) -> web.StreamResponse:
         path = self._obj_path(bucket, key)
         # keys never address directories: GETting a prefix entry must be
         # NoSuchKey, not the filer's JSON listing
-        status, entry = await self._meta_get("lookup", {"path": path})
+        status, entry = await self._meta_get("lookup", {"path": path},
+                                             filer=filer)
         if want_vid:
             current = geo_versioning.entry_version_id(entry) \
                 if status == 200 else ""
@@ -884,7 +924,7 @@ class S3Server:
                 path = (f"{geo_versioning.versions_dir(path)}"
                         f"/{want_vid}")
                 status, entry = await self._meta_get(
-                    "lookup", {"path": path})
+                    "lookup", {"path": path}, filer=filer)
                 if status != 200:
                     return _error("NoSuchVersion", want_vid, 404)
                 if geo_versioning.is_delete_marker(entry):
@@ -900,7 +940,7 @@ class S3Server:
             headers["Range"] = request.headers["Range"]
         async with self._session.request(
                 request.method,
-                f"http://{self.filer_url}{urllib.parse.quote(path)}",
+                f"http://{filer}{urllib.parse.quote(path)}",
                 headers=headers) as r:
             if r.status == 404:
                 return _error("NoSuchKey", key, 404)
@@ -912,6 +952,10 @@ class S3Server:
             vid = geo_versioning.entry_version_id(entry)
             if vid != geo_versioning.NULL_VERSION:
                 resp.headers["x-amz-version-id"] = vid
+            if stale_ok:
+                # served from the replica cluster: correct up to the
+                # replication lag, flagged so the caller knows
+                resp.headers["X-Seaweed-Stale-Ok"] = "1"
             request["s3_prepared"] = True
             await resp.prepare(request)
             if request.method != "HEAD":

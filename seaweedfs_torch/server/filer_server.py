@@ -57,9 +57,15 @@ the partition handoff. ``GET /__meta__/ring/status`` is the member's
 view (``filer.ring.status``). Without peers every namespace call goes
 straight to the local ``Filer``.
 
-Left out, each with its later home (ROADMAP Queue 1 A): the notifier,
-peer filer aggregation and ``/__meta__/brokers`` (slice 8, the
-cross-cluster planes); admission and the reserved ops routes, and with
+A ``notifier`` (notification/queues.py, from notification.toml) gets
+every metadata event of the ``MetaLog``. Each of ``peers`` (filers of
+other namespaces, upstream's MetaAggregator,
+weed/filer/meta_aggregator.go) is tailed through its
+``/__meta__/subscribe`` and its events are replayed into the local
+store, resuming from ``meta_progress/<peer>`` in the store's KV.
+
+Left out, each with its later home (ROADMAP Queue 1 A):
+``/__meta__/brokers`` (A.8b, with the broker); admission and the reserved ops routes, and with
 them the ring hop's admission class, the chunk cache, the pooled
 ``cache/http_pool`` client (the ring's hops ride this server's aiohttp
 session), chunk encryption (``cipher``), the guard and JWTs, gRPC, the
@@ -87,7 +93,8 @@ from ..filer import manifest as manifest_mod
 from ..filer.assign_lease import AsyncAssignLeasePool
 from ..filer.chunks import FileChunk, etag as chunks_etag, read_plan
 from ..filer.entry import Entry, new_directory, new_file
-from ..filer.filer import Filer, _norm
+from ..filer.filer import Filer, MetaEvent, _norm
+from ..filer.netutil import iter_ndjson
 from ..filer.stores import FilerStore, create_store
 from ..filer.upload_window import UploadWindow
 from ..metaring import DirectoryRing, RingConfig
@@ -153,7 +160,9 @@ class FilerServer:
                  default_collection: str = "",
                  meta_log_path: str = "",
                  url: str = "",
-                 ring_config: Optional[RingConfig] = None):
+                 ring_config: Optional[RingConfig] = None,
+                 peers: Optional[list[str]] = None,
+                 notifier=None):
         # the comma-separated master list rotates on failure
         # (wdclient/masterclient.go)
         self.masters = [m.strip() for m in master_url.split(",")
@@ -175,6 +184,12 @@ class FilerServer:
         # range, collapse into one request
         self._fetch_flight = AsyncSingleflight("filer.fetch",
                                                metrics=self.metrics)
+        # filers whose metadata streams replay into this one's store
+        self.peers = [p for p in (peers or []) if p]
+        # the outbound notification queue: every metadata event
+        self.notifier = notifier
+        if notifier is not None:
+            self.filer.meta_log.subscribe(notifier.notify)
         # pipelined chunk uploads ride a bounded in-flight window; fids
         # come from a bulk-assignment lease pool
         self.upload_concurrency = UPLOAD_WINDOW
@@ -797,6 +812,8 @@ class FilerServer:
                                           sock_read=60))
         self._tasks = [asyncio.create_task(self._deletion_worker()),
                        asyncio.create_task(self._watch_master())]
+        self._tasks += [asyncio.create_task(self._aggregate_from_peer(p))
+                        for p in self.peers]
         if self.ring is not None:
             self.ring_invalidator.start()
 
@@ -816,6 +833,38 @@ class FilerServer:
         if self._session is not None:
             await self._session.close()
         await self._exec(self.filer.close)
+
+    async def _aggregate_from_peer(self, peer: str) -> None:
+        """Subscribe to one peer filer's meta stream and replay its events
+        into our store, resuming from a persisted per-peer offset
+        (MetaAggregator, weed/filer/meta_aggregator.go)."""
+        offset_key = f"meta_progress/{peer}"
+
+        def replay(e: MetaEvent) -> None:
+            self.filer.apply_event(e)
+            self.filer.store.kv_put(offset_key, str(e.tsns).encode())
+
+        while True:
+            raw = await self._exec(lambda: self.filer.store.kv_get(
+                offset_key))
+            since = int(raw.decode()) if raw else 0
+            try:
+                async with self._session.get(
+                        f"http://{peer}/__meta__/subscribe",
+                        params={"since": str(since)},
+                        timeout=aiohttp.ClientTimeout(total=None,
+                                                      sock_read=None)) as r:
+                    async for line in iter_ndjson(r.content):
+                        line = line.strip()
+                        if not line:
+                            continue
+                        e = MetaEvent.from_dict(json.loads(line))
+                        await self._exec(lambda e=e: replay(e))
+            except asyncio.CancelledError:
+                raise
+            except Exception as ex:
+                log.debug("meta aggregator peer %s: %s (retrying)", peer, ex)
+            await asyncio.sleep(1.0)
 
     async def _watch_master(self) -> None:
         """The vid-location subscription: the master pushes location

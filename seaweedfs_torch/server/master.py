@@ -24,6 +24,7 @@ application with the reference's wire:
   GET  /vol/heat?volumeId=, POST /vol/heat/report
   GET  /lifecycle/status, POST /lifecycle/run
   GET  /balance/status, POST /balance/run
+  GET  /geo/status, POST /geo/run
   POST /cluster/lock, /cluster/unlock   (the admin lease)
   GET  /cluster/status     (is_leader, leader, peers, raft_term)
   GET  /cluster/watch      (ndjson: a location snapshot, then deltas)
@@ -82,6 +83,10 @@ an election timeout (``RaftNode.lease_valid``):
   configured (``WEED_LIFECYCLE_*``): it warms idle full volumes down,
   decodes hot EC volumes and expires TTL'd collections, sharing the
   repairs' semaphore and backoff;
+- the geo daemon (geo/daemon.py), only when a source filer is
+  configured (``geo_config``, else ``WEED_GEO_FILER``): it runs one
+  cross-cluster replication job per bucket whose PutBucketReplication
+  rule is enabled, on the leader only, and stops them at shutdown;
 - the balancer (balance/daemon.py), on unless
   ``WEED_BALANCE_ENABLED=0``: every ``WEED_BALANCE_INTERVAL`` it moves
   sealed volumes off nodes whose read rate is hot, with the repairs'
@@ -124,7 +129,7 @@ raises the sequencer to that ceiling once a term (``set_max``) and to
 every heartbeat's ``max_file_key``. A ``blocking`` sequencer's calls go
 to the executor, never on the loop.
 
-Left out, each with its later home (ROADMAP Queue 1 A): geo (8), the
+Left out, each with its later home (ROADMAP Queue 1 A): the
 KeepConnected push to clients and volume servers, the gRPC leader hints
 and gRPC, guard/JWT, the overload plane's priorities and the fastpath
 listener (9), collection deletion (10, with the shell's rest).
@@ -142,12 +147,14 @@ from typing import Optional
 import aiohttp
 from aiohttp import web
 
-from .. import observe
+from .. import observe, overload
 from ..balance import BalanceConfig
 from ..balance.daemon import BalancerDaemon
 from ..balance.planner import pick_replica_target
 from ..cluster.raft import RaftNode, _endpoint_ips
 from ..ec.geometry import GeometryPolicy
+from ..geo import GeoConfig
+from ..geo.daemon import GeoDaemon
 from ..lifecycle.daemon import LifecycleDaemon
 from ..lifecycle.policy import LifecycleConfig
 from ..metaring import DirectoryRing, MasterMetaLog, RingConfig
@@ -189,6 +196,7 @@ class MasterServer:
                  repair_enabled: bool = True,
                  lifecycle_config: Optional[LifecycleConfig] = None,
                  balance_config: Optional[BalanceConfig] = None,
+                 geo_config: Optional[GeoConfig] = None,
                  peers: Optional[list[str]] = None,
                  raft_state_dir: Optional[str] = None,
                  election_timeout: tuple[float, float] = (0.3, 0.6),
@@ -285,6 +293,8 @@ class MasterServer:
         # the lifecycle daemon runs only when a rule can fire
         self.lifecycle = LifecycleDaemon(
             self, lifecycle_config or LifecycleConfig.from_env())
+        # the geo daemon runs only when a source filer is configured
+        self.geo = GeoDaemon(self, geo_config or GeoConfig.from_env())
         # the balancer moves sealed volumes off heat-hot nodes; its
         # planner's node rates also make /dir/assign heat-aware
         self.balancer = BalancerDaemon(
@@ -376,6 +386,8 @@ class MasterServer:
         app.router.add_post("/lifecycle/run", self.lifecycle_run)
         app.router.add_get("/balance/status", self.balance_status)
         app.router.add_post("/balance/run", self.balance_run)
+        app.router.add_get("/geo/status", self.geo_status)
+        app.router.add_post("/geo/run", self.geo_run)
         app.router.add_post("/cluster/lock", self.cluster_lock)
         app.router.add_post("/cluster/unlock", self.cluster_unlock)
         app.router.add_get("/cluster/status", self.cluster_status)
@@ -407,6 +419,8 @@ class MasterServer:
         if self.balancer.cfg.enabled:
             self._tasks.append(
                 asyncio.create_task(self.balancer.run_loop()))
+        if self.geo.cfg.enabled:
+            self._tasks.append(asyncio.create_task(self.geo.run_loop()))
 
     async def _on_cleanup(self, app) -> None:
         tasks = (self._tasks + list(self._repair_tasks)
@@ -415,6 +429,7 @@ class MasterServer:
             task.cancel()
         await asyncio.gather(*tasks, return_exceptions=True)
         self._tasks = []
+        await self.geo.aclose()
         for attr in ("_maint_session", "_proxy_session"):
             session = getattr(self, attr)
             if session is not None:
@@ -898,6 +913,19 @@ class MasterServer:
         """One planning pass now, the timer's (``cluster.balance.run``);
         confirmed moves launch through the shared worker slots."""
         out = await self.balancer.pass_once()
+        return web.json_response({"ok": True, **out})
+
+    # --- the geo plane: cross-cluster replication jobs ---
+    async def geo_status(self, request: web.Request) -> web.Response:
+        """Per-bucket replication job state: offsets, lag, applied,
+        skipped and poisoned counts (``geo.status``)."""
+        return web.json_response(self.geo.status())
+
+    async def geo_run(self, request: web.Request) -> web.Response:
+        """One rule-scan and reconcile pass now, the timer's
+        (``geo.sync``): a fresh rule starts its job and backfill at once."""
+        with overload.priority(overload.CLASS_BG):
+            out = await self.geo.pass_once()
         return web.json_response({"ok": True, **out})
 
     # --- handlers ---

@@ -1491,6 +1491,11 @@ class VolumeServer:
     # a read miss forces a refresh only of a map older than this (D24)
     _SHARD_LOC_FORCE_FLOOR = 1.0
     _SHARD_LOC_KNOWN_TTL = 7 * 60.0
+    # with no map yet, a master between leaders (503) is waited out for
+    # up to this long, polled this often, not taken for a lost shard
+    # (D28)
+    _SHARD_LOC_ELECTION_WAIT = 5.0
+    _SHARD_LOC_ELECTION_POLL = 0.1
 
     def _shard_locations(self, vid: int, shard_id: int,
                          force: bool = False) -> list[str]:
@@ -1507,9 +1512,15 @@ class VolumeServer:
                 return [u for u in shards.get(str(shard_id), [])
                         if u != self.url]
         try:
-            status, body = http.get_json(
-                f"http://{self.master_url}/col/lookup/ec?volumeId={vid}",
-                timeout=5)
+            deadline = now + self._SHARD_LOC_ELECTION_WAIT
+            while True:
+                status, body = http.get_json(
+                    f"http://{self.master_url}/col/lookup/ec?volumeId={vid}",
+                    timeout=5)
+                if status != 503 or cached is not None or \
+                        time.monotonic() >= deadline:
+                    break
+                time.sleep(self._SHARD_LOC_ELECTION_POLL)
             if status != 200:
                 # a master between leaders answers 503: keep the last
                 # map, as a failed lookup does (D21)

@@ -18,9 +18,10 @@ relative paths against ``env.cwd``, the filer ring's
 ``filer.ring.status``, ``filer.ring.join`` and ``filer.ring.leave``
 (shell/ring_commands.py), and ``bucket.list``, ``bucket.create``,
 ``bucket.delete``, ``collection.list`` and ``collection.delete``
-(shell/bucket_commands.py); the other command modules of the reference
-(locks, geo, telemetry, traces and the rest of the volume commands) are
-not ported. A command that moves
+(shell/bucket_commands.py), and the geo plane's ``geo.status`` and
+``geo.sync`` (shell/geo_commands.py); the other command modules of the
+reference (locks, telemetry, traces and the rest of the volume commands)
+are not ported. A command that moves
 volumes (``destructive``) runs under the master's cluster-exclusive admin
 lock (client.AdminLock), taken and released around it; the reference's
 ``lock``/``unlock`` commands, which hold it across commands, are not
@@ -130,4 +131,5 @@ def _register_all() -> None:
     """Import every command module for its registration side effects
     (upstream does the same through init() imports, commands.go:42)."""
     from . import (balance_commands, bucket_commands,  # noqa: F401
-                   ec_shell, fs_commands, ring_commands, volume_commands)
+                   ec_shell, fs_commands, geo_commands, ring_commands,
+                   volume_commands)

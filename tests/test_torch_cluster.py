@@ -1332,7 +1332,8 @@ def test_shell_registry():
         "fs.mkdir", "fs.tree", "fs.meta.cat", "fs.meta.save",
         "fs.meta.load", "filer.ring.status", "filer.ring.join",
         "filer.ring.leave", "bucket.list", "bucket.create",
-        "bucket.delete", "collection.list", "collection.delete"}
+        "bucket.delete", "collection.list", "collection.delete",
+        "geo.status", "geo.sync"}
 
 
 # --- the HTTP layer --------------------------------------------------------

@@ -5,7 +5,7 @@ holds the reference's.
 Shim and replay mechanics (round trip, dropped or torn un-synced writes,
 revocable renames), the negative control (the sweep flags a non-durable
 writer), the sweep over the port's workloads with zero violations
-(raft_snapshot and filer_kv beside the reference's),
+(raft_snapshot, filer_kv and offset_commit beside the reference's),
 torn-tail volume recovery, the disk.* fault points; then the port's own
 seams (the EC fan-out's os.writev writer threads, a deferred close of a
 pinned shard) and two cases against the reference: one op log replayed by
@@ -211,10 +211,11 @@ def test_sweep_all_counts_points():
     assert sorted(summary["workloads"]) == ["ec_encode", "filer_kv",
                                             "fused_warmdown",
                                             "needle_map_flush",
+                                            "offset_commit",
                                             "raft_snapshot",
                                             "volume_append",
                                             "volume_group_commit"]
-    assert summary["total_points"] == 28 and summary["ok"]
+    assert summary["total_points"] == 32 and summary["ok"]
 
 
 @pytest.mark.parametrize("package", ["reference", "port"])
@@ -472,8 +473,23 @@ def test_filer_kv_sweep_has_no_violations(package):
     assert summary["total_violations"] == 0
 
 
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_offset_commit_sweep_has_no_violations(package):
+    """offset_commit (a FileQueueInput's position and a Replicator's
+    resume offset, each save a barrier) at 2 seeds x 20 crash points:
+    zero violations in the port, beside the reference's sweep of its own
+    workload of that name."""
+    run = harness if package == "port" else rharness
+    summary = run.sweep_all(seeds=2, points=20,
+                            workload_names=["offset_commit"])
+    assert list(summary["workloads"]) == ["offset_commit"]
+    assert summary["ok"], summary
+    assert summary["total_points"] == 40
+    assert summary["total_violations"] == 0
+
+
 @pytest.mark.parametrize("name", ["ec_encode", "fused_warmdown",
-                                  "filer_kv"])
+                                  "filer_kv", "offset_commit"])
 def test_workloads_ack_the_reference_bytes(tmp_path, name):
     """The port's EC workloads at their defaults ack the reference's
     bytes: one source tree (the port's setup), copied, each package's run
@@ -498,6 +514,9 @@ def test_workloads_ack_the_reference_bytes(tmp_path, name):
     if name == "filer_kv":
         # every compacted watermark is acked, the WAL tail is not
         assert len(acks["p"]) == 13
+    elif name == "offset_commit":
+        # seven positions and seven resume offsets, alternating
+        assert [k for k, _ in acks["p"]] == ["file_pos", "geo_since"] * 7
     else:
         assert any(key == "ecm" for key, _ in acks["p"])
 

@@ -225,7 +225,9 @@ SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
                   *PORT.glob("cache/*.py"), *PORT.glob("overload/*.py"),
                   *PORT.glob("geo/*.py"), *PORT.glob("s3/*.py"),
                   *PORT.glob("mount/*.py"), *PORT.glob("query/*.py"),
-                  PORT / "utils" / "retry.py",
+                  *PORT.glob("notification/*.py"),
+                  *PORT.glob("replication/*.py"),
+                  PORT / "utils" / "retry.py", PORT / "utils" / "config.py",
                   PORT / "client.py",
                   PORT / "cli.py", PORT / "utils" / "multipart.py",
                   PORT / "storage" / "file_id.py"])

@@ -540,6 +540,59 @@ def test_d21_shard_map_kept_through_a_failed_lookup(pkg):
         master.server_close()
 
 
+class _ElectingLookupMaster(_LookupMaster):
+    """Answers 503 "no leader elected" to its first ``server.leaderless``
+    lookups, then ``server.answer``."""
+
+    def do_GET(self):
+        if self.server.leaderless > 0:
+            self.server.leaderless -= 1
+            data = b'{"error": "no leader elected"}'
+            self.send_response(503)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+            return
+        super().do_GET()
+
+
+@within(30)
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+def test_d28_first_shard_lookup_waits_out_an_election(pkg):
+    """A volume server with no shard map yet meets a master between
+    leaders (three 503 answers). The reference takes the failed lookup
+    for a map that names no holder, so a degraded read during a term
+    change answers 404 (chip_smoke phase 13, run 20E); the port polls
+    the master until it answers, for up to _SHARD_LOC_ELECTION_WAIT,
+    and finds the holder (ROADMAP Queue 3, D28). With a map cached, a
+    503 still keeps the last map (D21), without waiting."""
+    cls = RVolumeServer if pkg == "reference" else PVolumeServer
+    master = http_server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                             _ElectingLookupMaster)
+    master.answer = (200, {"shards": {"3": ["10.0.0.1:8080"]}})
+    master.leaderless = 3
+    threading.Thread(target=master.serve_forever, daemon=True).start()
+    try:
+        vs = cls.__new__(cls)
+        vs.master_url = f"127.0.0.1:{master.server_address[1]}"
+        vs.url = "me:1"
+        vs._shard_loc_cache = {}
+        got = vs._shard_locations(7, 3)
+        if pkg == "reference":
+            assert got == [] and master.leaderless == 2
+            return
+        assert got == ["10.0.0.1:8080"] and master.leaderless == 0
+        master.leaderless = 100
+        t0 = time.monotonic()
+        assert vs._shard_locations(7, 3, force=True) == ["10.0.0.1:8080"]
+        assert time.monotonic() - t0 < 1.0
+        assert master.leaderless == 99
+    finally:
+        master.shutdown()
+        master.server_close()
+
+
 class _CountingLookupMaster(_LookupMaster):
     def do_GET(self):
         self.server.lookups += 1
@@ -597,7 +650,10 @@ def test_reads_survive_shards_dropped_under_them(tmp_path):
     bytes."""
     st, want = _ec_store(str(tmp_path))
     stop = threading.Event()
+    dropped = threading.Event()
     outcomes: list = []
+    # per reader: (whether the read began after the last drop, outcome)
+    mine: list = [[] for _ in range(4)]
 
     def reader(i: int) -> None:
         nids = sorted(want)
@@ -605,18 +661,20 @@ def test_reads_survive_shards_dropped_under_them(tmp_path):
         while not stop.is_set():
             nid = nids[n % len(nids)]
             n += 1
+            after = dropped.is_set()
             try:
                 got = st.read_needle(1, nid, cookie=nid).data
-                outcomes.append("ok" if got == want[nid]
-                                else f"{nid} read back wrong")
+                out = "ok" if got == want[nid] else f"{nid} read back wrong"
             except KeyError:
-                outcomes.append("gone")
+                out = "gone"
             except IOError as e:
-                outcomes.append("short" if str(e).startswith(
+                out = ("short" if str(e).startswith(
                     ("cannot reconstruct", "ec volume 1: no local"))
                     else repr(e))
             except Exception as e:
-                outcomes.append(repr(e))
+                out = repr(e)
+            outcomes.append(out)
+            mine[i].append((after, out))
 
     threads = [threading.Thread(target=reader, args=(i,))
                for i in range(4)]
@@ -628,8 +686,11 @@ def test_reads_survive_shards_dropped_under_them(tmp_path):
             st.ec_delete_shards(1, "", [sid])
             time.sleep(0.01)
         assert st.find_ec_volume(1) is None
+        dropped.set()
         n = len(outcomes)
-        _wait(lambda: len(outcomes) > n + 20, "reads after the drop")
+        _wait(lambda: len(outcomes) > n + 20
+              and all(any(a for a, _ in m) for m in mine),
+              "reads after the drop")
     finally:
         stop.set()
         for t in threads:
@@ -638,7 +699,13 @@ def test_reads_survive_shards_dropped_under_them(tmp_path):
     assert not any(t.is_alive() for t in threads)
     odd = sorted({o for o in outcomes if o not in ("ok", "gone", "short")})
     assert odd == []
-    assert outcomes.count("ok") >= 20 and outcomes[-1] == "gone"
+    assert outcomes.count("ok") >= 20
+    # the order across threads proves nothing (a read begun before the
+    # drop may append its answer after another thread's "gone"): each
+    # reader's last read, begun after the drop, answers "gone"
+    for m in mine:
+        later = [o for a, o in m if a]
+        assert later and later[-1] == "gone", later[-5:]
 
 
 @within(60)
