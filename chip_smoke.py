@@ -301,7 +301,8 @@ Phases (any failure exits non-zero before the result line):
    directory, at the reference's raft timings (elections 0.3-0.6 s,
    heartbeats 0.1 s, ``max_log_entries`` 256), with the repair daemon;
    4 volume servers on 2 racks (``Store(coder_name="auto")``, pulse 0.5
-   s) given the masters' list; volume size limit 256 MiB. (13a) the
+   s) given the masters' list; volume size limit 160 MiB (256 before
+   phase 20). (13a) the
    election's seconds; 16 client threads in 4 processes, each a
    ``Client`` over the list, assign and upload phase 3's needles (log-
    uniform 1 KiB .. 4 MiB) into collection ``hasmoke`` until one volume
@@ -376,9 +377,9 @@ Phases (any failure exits non-zero before the result line):
    replicas): A in this process, B and C each ``python3 -m
    seaweedfs_torch.cli filer -ring_peers ...``; the membership set
    through ``/dir/ring/join``. (15a) 16 clients in 4 processes create
-   2000 metadata-only entries in 100 directories (20000 in 1000 before
+   1500 metadata-only entries in 75 directories (20000 in 1000 before
    its first full runs, 8000 in 400 before phase 17, then 5000 in 250,
-   3000 in 150 before phase 18)
+   3000 in 150 before phase 18, 2000 in 100 before phase 20)
    through ``/__meta__/create_entry``, each op to a random member (about 2/3
    proxied), while a fifth process PUTs 96 MiB of phase 3's generator's
    files (log-uniform 1 KiB .. 8 MiB) under ``/buckets/ring/arc/``
@@ -518,7 +519,8 @@ Phases (any failure exits non-zero before the result line):
    shards {0, 3, 7, 12} dropped. (19c) ``/geo/run``: the job backfills
    the bucket (its source reads with 4 shards lost), passes until its
    lag is 0; both namespaces equal, every file by sha256. (19d) the
-   tail: first a steady segment, 200 small new objects (1-4 KiB, under
+   tail: first a steady segment, 100 small new objects (200 before phase
+   20; 1-4 KiB, under
    8 prefixes) by 4 clients with both filers up, whose lag from each
    PUT's answer to its version on the replica (p50/p99) and events/s are
    the phase's replication metrics; then the drill: 6 overwrites, 4 new
@@ -540,6 +542,44 @@ Phases (any failure exits non-zero before the result line):
    looped back (every job apply is recorded), no 5xx. ``gf_apply`` must
    launch in both encodes, in the backfill and both failover reads when
    a needle lies on a lost shard, and in no other kernel;
+20. (run after 19) the gRPC planes and the message broker, upstream's
+   default wiring cut in scale only: a ``LocalCluster`` (a master and 3
+   volume servers on 2 racks, ``Store(coder_name="auto")``, 64 MiB
+   volumes, every server with its gRPC port at its HTTP port + 10000,
+   the volume servers beating over the master's gRPC Heartbeat stream),
+   a CLI filer (``leveldb2``, 8 MiB chunks, its gRPC port) whose
+   ``notification.toml`` names ``[notification.broker]``, and two CLI
+   ``msg.broker`` processes registered over the filer's gRPC
+   KeepConnected (``/__meta__/brokers`` lists both). (20a) Assign,
+   Lookup, ClusterStatus and KeepConnected (the snapshot, then the delta
+   of a new volume) over gRPC. (20b) 120 JSON documents, then 24 MiB of
+   phase 3's generator (1 KiB .. 8 MiB), PUT through the filer by 4
+   clients, each PUT answered once its events are on the broker; the
+   documents open the volumes, so they lie on shard 0, one of the lost;
+   the filer's events go through the broker topic into
+   ``filer.replicate``'s ``[source.broker]`` input (in this process) and
+   a ``LocalSink``: the tree equal, every event applied once. (20c) the
+   volumes encoded with every step a volume server's gRPC call
+   (VolumeMarkReadonly, VolumeEcShardsGenerate, VolumeEcShardsCopy,
+   VolumeEcShardsMount, VolumeDelete, VolumeEcShardsDelete), then
+   VolumeEcShardsDelete of {0, 3, 7, 12}. (20d) every needle read back
+   through the client (p50/p99), each survivor interval fetched over
+   VolumeEcShardRead (``ec_shard_fetch{route="http"}`` 0, ``grpc`` above
+   0), then the same reads with the peers' gRPC ports taken for dead
+   (HTTP only), and Query over gRPC equal to ``/admin/query``. (20e)
+   VolumeEcShardsRebuild over gRPC after VolumeEcShardsCopy of the
+   survivors; the rebuilt files equal the encode's and the plain
+   version's reconstruction. (20f) 200 publishes at each ack level; 200
+   ``ack=flush`` publishes to a partition one broker owns, that broker
+   SIGKILLed after a third: the survivor owns it, a subscriber resumes
+   from the filer's segments, no acknowledged message is lost; the
+   topic's volumes encoded over gRPC with 4 shards lost, and the topic
+   replays whole. (20g) the same events through ``fake_kafka`` with
+   ``KafkaQueue`` -> ``KafkaQueueInput``: every event applied once, the
+   tree equal. Needles and documents must lie on the lost shards;
+   ``gf_apply`` must launch in both encodes and the rebuild, in the
+   reads and Query, in the replay where a segment lies on a lost shard,
+   and no other kernel anywhere;
 5. the kernels' times and the plain versions' (CUDA events, median of
    windows after warm-up) and the wrappers' host time per call at the
    shapes the main path gives them (RS(20,4) at [20, 8 MiB] and at the
@@ -2952,10 +2992,22 @@ def shard_size_of(rb: dict, cl, col: str, vid: int) -> int:
 
 
 def free_port() -> int:
+    """A free loopback port whose gRPC twin (port + 10000, where a CLI
+    master, volume server, filer or broker serves gRPC) is free too."""
     import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    for _ in range(64):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        if port + 10000 > 65535:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port + 10000))
+            except OSError:
+                continue
+        return port
+    raise OSError("no free port with a free gRPC twin")
 
 
 def run_cli(work: Path, needles: int = 48) -> None:
@@ -4900,7 +4952,8 @@ def run_storage(work: Path, coder_name: str = "auto", device=None,
 # --- phase 13: HA masters -------------------------------------------------
 
 HA_COLLECTION = "hasmoke"
-HA_LIMIT_MB = 256         # the phase's volume size limit
+HA_LIMIT_MB = 160         # the phase's volume size limit (256 before
+#                           phase 20)
 HA_CLIENTS = 16           # upload clients (threads), in HA_PROCS processes
 HA_PROCS = 4
 HA_MAX_NEEDLE = 4 * MIB   # phase 3's generator: log-uniform 1 KiB .. 4 MiB
@@ -6065,9 +6118,11 @@ RING_LIMIT_MB = 64
 # to 8000 in 400 (20 a directory, as there), then to 5000 in 250 to make
 # room for phase 17 (42.7 s alone on an H100 host), then to 3000 in 150
 # (the whole smoke took 1126 s of its 1200 on a slow H100 host), then to
-# 2000 in 100 to make room for phase 18
-RING_ENTRIES = 2000
-RING_DIRS = 100
+# 2000 in 100 to make room for phase 18, then to 1500 in 75 for phase 20
+# (the whole smoke took 1133.8 s on an H100 host whose phase 15 ran
+# three times its usual time)
+RING_ENTRIES = 1500
+RING_DIRS = 75
 RING_CLIENTS = 16                 # create clients, in RING_PROCS processes
 RING_PROCS = 4
 RING_UPLOAD_BYTES = 96 * MIB
@@ -9105,7 +9160,8 @@ GEO_OVERWRITES = 6               # the tail: live/ objects overwritten,
 GEO_DELETES = 4                  # gone/ objects deleted (delete markers)
 GEO_TAIL_NEW = 4                 # and new objects, the replica filer
                                  # killed and restarted among them
-GEO_STEADY = 200                 # the tail's steady segment: new objects
+GEO_STEADY = 100                 # the tail's steady segment: new objects
+#                                  (200 before phase 20)
 GEO_STEADY_MAX = 4096            # of 1 KiB .. this, both filers up, in
 GEO_STEADY_DIRS = 8              # this many prefixes (the appliers keep
                                  # each directory's events in order)
@@ -9788,6 +9844,785 @@ def run_geo(work: Path, seed: int = SEED + 19, coder_name: str = "auto",
     return launches
 
 
+GRPC_LIMIT_MB = 64
+GRPC_CHUNK = 8 * MIB             # the CLI filer's chunks
+GRPC_MAX_FILE = 8 * MIB          # phase 3's generator: log-uniform 1 KiB ..
+GRPC_BYTES = 24 * MIB            # ... through the filer, by GRPC_WRITERS
+GRPC_WRITERS = 4
+GRPC_DOCS = 120                  # JSON documents for Query
+GRPC_READERS = 8                 # degraded needle reads in flight
+GRPC_RATE_MSGS = 200             # publishes timed per ack level
+GRPC_KILL_MSGS = 200             # ack=flush publishes across the kill
+GRPC_MSG = 512                   # bytes a message
+GRPC_QUERY = ({"field": "n", "op": "<", "value": 500}, ["id", "n"])
+
+
+def grpc_stub(kind: str, http_url: str):
+    """A sync channel to the gRPC twin of `http_url` and its stub."""
+    from seaweedfs_torch.pb import rpc
+    ch = rpc.dial(rpc.grpc_address(http_url))
+    stub = {"master": rpc.MasterStub, "volume": rpc.VolumeServerStub,
+            "filer": rpc.FilerStub}[kind](ch)
+    return ch, stub
+
+
+def grpc_ok(resp, what: str):
+    if not resp.ok:
+        raise AssertionError(f"{what}: {resp.error}")
+    return resp
+
+
+def grpc_ec_encode(client, vids: list, collection: str = "") -> dict:
+    """ec.encode of `vids` with every step a gRPC call of the volume
+    servers' (VolumeMarkReadonly, VolumeEcShardsGenerate on the holder,
+    VolumeEcShardsCopy and VolumeEcShardsMount on the targets of the
+    shell's spread, VolumeDelete of the original, VolumeEcShardsDelete of
+    the holder's surplus); returns vid -> {url: shard ids}."""
+    from seaweedfs_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_torch.shell import ec_commands
+    nodes = ec_commands.collect_ec_nodes(client.dir_status())
+    plans = {}
+    for vid in vids:
+        holder = client.lookup(vid)[0]
+        plan = ec_commands.plan_shard_spread(nodes, 14, holder)
+        chans = {}
+        try:
+            for url in set(plan) | {holder}:
+                chans[url] = grpc_stub("volume", url)
+            stub = chans[holder][1]
+            ref = vpb.VolumeRef(volume_id=vid, collection=collection)
+            grpc_ok(stub.VolumeMarkReadonly(ref), f"readonly {vid}")
+            grpc_ok(stub.VolumeEcShardsGenerate(vpb.EcGenerateRequest(
+                volume_id=vid, collection=collection)), f"generate {vid}")
+            for url, sids in plan.items():
+                t = chans[url][1]
+                if url != holder:
+                    grpc_ok(t.VolumeEcShardsCopy(vpb.EcCopyRequest(
+                        volume_id=vid, collection=collection,
+                        shard_ids=sids, copy_ecx_file=True,
+                        source_data_node=holder)), f"copy {vid} to {url}")
+                grpc_ok(t.VolumeEcShardsMount(vpb.EcShardsRequest(
+                    volume_id=vid, collection=collection, shard_ids=sids)),
+                    f"mount {vid} on {url}")
+            grpc_ok(stub.VolumeDelete(ref), f"delete {vid}")
+            surplus = [s for s in range(14) if s not in plan.get(holder, [])]
+            if surplus:
+                grpc_ok(stub.VolumeEcShardsDelete(vpb.EcShardsRequest(
+                    volume_id=vid, collection=collection,
+                    shard_ids=surplus)), f"surplus {vid}")
+        finally:
+            for ch, _ in chans.values():
+                ch.close()
+        plans[vid] = plan
+    return plans
+
+
+def grpc_lookup_ec(master: str, vid: int) -> dict:
+    """shard id -> holder urls, from the master's gRPC LookupEc."""
+    from seaweedfs_torch.pb import master_pb2 as mpb
+    ch, stub = grpc_stub("master", master)
+    try:
+        out = stub.LookupEc(mpb.LookupEcRequest(volume_id=vid))
+    finally:
+        ch.close()
+    return {s.shard_id: [loc.url for loc in s.locations]
+            for s in out.shards}
+
+
+def grpc_drop(master: str, vids: list, collection: str = "") -> None:
+    """VolumeEcShardsDelete of VICTIMS on their holders, over gRPC."""
+    from seaweedfs_torch.pb import volume_server_pb2 as vpb
+    for vid in vids:
+        shards = grpc_lookup_ec(master, vid)
+        for sid in VICTIMS:
+            ch, stub = grpc_stub("volume", shards[sid][0])
+            try:
+                grpc_ok(stub.VolumeEcShardsDelete(vpb.EcShardsRequest(
+                    volume_id=vid, collection=collection, shard_ids=[sid])),
+                    f"drop {vid}.{sid}")
+            finally:
+                ch.close()
+    wait_until(lambda: all(len(grpc_lookup_ec(master, v))
+                           == 14 - len(VICTIMS) for v in vids),
+               "the master drops the four shards", timeout=60)
+
+
+def shard_fetches(cl) -> dict:
+    """ec_shard_fetch by route, summed over the cluster's volume
+    servers."""
+    return {route: sum(n[0].metrics.value("ec_shard_fetch",
+                                          {"route": route})
+                       for n in cl.nodes if n[0] is not None)
+            for route in ("grpc", "http")}
+
+
+def check_rebuilt_with_plain(base: str, victims: tuple,
+                             device: torch.device) -> int:
+    """The rebuilt shard files equal the plain version's reconstruction
+    of the victims from the first 10 survivors, in 8 MiB batches on
+    `device`; returns the bytes checked a shard."""
+    k, m = 10, 4
+    present = [i for i in range(k + m) if i not in victims][:k]
+    w = rs_torch.load_matrix(gf256.reconstruction_matrix(
+        k, m, present, list(victims)), device)
+    size = os.path.getsize(base + geometry.to_ext(0))
+    srcs = [open(base + geometry.to_ext(i), "rb") for i in present]
+    outs = [open(base + geometry.to_ext(v), "rb") for v in victims]
+    try:
+        for off in range(0, size, 8 * MIB):
+            n = min(8 * MIB, size - off)
+            x = torch.from_numpy(np.stack(
+                [np.frombuffer(f.read(n), np.uint8) for f in srcs]))
+            want = rs_torch.gf_apply(w, x.to(device)).cpu().numpy()
+            got = np.stack([np.frombuffer(f.read(n), np.uint8)
+                            for f in outs])
+            if not np.array_equal(want, got):
+                raise AssertionError(f"{base}: rebuilt shards differ from "
+                                     f"the plain version at {off}")
+        return size
+    finally:
+        for f in srcs + outs:
+            f.close()
+
+
+def run_grpc(work: Path, seed: int = SEED + 20, coder_name: str = "auto",
+             device=None, limit_mb: int = GRPC_LIMIT_MB,
+             total: int = GRPC_BYTES, max_file: int = GRPC_MAX_FILE,
+             chunk: int = GRPC_CHUNK, docs: int = GRPC_DOCS,
+             rate_msgs: int = GRPC_RATE_MSGS,
+             kill_msgs: int = GRPC_KILL_MSGS) -> dict:
+    """Phase 20; returns the launches per step. On the card they are held
+    to the phase's rule (gf_apply in the gRPC encodes and rebuild, in the
+    degraded reads and Query, in the topic's replay where a segment lies
+    on a lost shard, more than 0 in the phase; no other kernel); needles
+    and documents must lie on the lost shards on any host;
+    ``coder_name="torch", device="cpu"`` at a few MB runs it on a host
+    without one (no launch is counted there; `chunk` whole MiB, as the
+    CLI filer takes it)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_torch.balance import BalanceConfig
+    from seaweedfs_torch.filer.filer import MetaEvent
+    from seaweedfs_torch.messaging import client as msg_client
+    from seaweedfs_torch.messaging.fake_kafka import FakeKafkaServer
+    from seaweedfs_torch.notification.queues import KafkaQueue
+    from seaweedfs_torch.pb import master_pb2 as mpb
+    from seaweedfs_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_torch.replication import sub as rep_sub
+    from seaweedfs_torch.replication.replicator import (Replicator,
+                                                        run_from_queue)
+    from seaweedfs_torch.replication.sink import LocalSink
+    from seaweedfs_torch.utils.config import Configuration
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    plain_dev = torch.device("cpu") if device in (None, "cpu") and \
+        coder_name != "auto" else torch.device("cuda", 0)
+    launches: dict = {}
+    files = FsFiles(seed)
+    rng = np.random.default_rng(seed)
+    cl = kafka = None
+    procs: list = []
+    try:
+        # a master and 3 volume servers on 2 racks in this process (their
+        # launches count), every one with its gRPC port, the volume
+        # servers beating over the master's gRPC Heartbeat stream
+        cl = LocalCluster(3, coder_name=coder_name, device=device,
+                          volume_size_limit_mb=limit_mb, pulse=0.5,
+                          directory=str(work / "cluster"), racks=2,
+                          use_grpc_heartbeat=True,
+                          master_kwargs={"repair_enabled": False,
+                                         "balance_config": BalanceConfig(
+                                             force_enabled=False)})
+        master = cl.master_url
+        client = Client(master)
+        f_url = f"127.0.0.1:{free_port()}"
+        b_urls = [f"127.0.0.1:{free_port()}" for _ in range(2)]
+        fcwd = work / "filer_cwd"
+        fcwd.mkdir()
+        (fcwd / "notification.toml").write_text(
+            f'[notification.broker]\nenabled = true\n'
+            f'brokers = "{",".join(b_urls)}"\nfiler = "{f_url}"\n'
+            f'namespace = "notifications"\ntopic = "filer"\n')
+        filer = CliFiler(work, [
+            "filer", "-mserver", master, "-store", "leveldb2",
+            "-store_path", str(work / "filer_leveldb2"), "-chunk_size_mb",
+            cli_chunk_mb(chunk)], name="filer",
+            port=int(f_url.rsplit(":", 1)[1]), cwd=fcwd)
+        brokers = [CliFiler(work, ["msg.broker", "-filer", f_url],
+                            name=f"broker{i}",
+                            port=int(u.rsplit(":", 1)[1]))
+                   for i, u in enumerate(b_urls)]
+        procs = [filer, *brokers]
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            wait_until(proc.up, f"the CLI {proc.name}", timeout=120)
+
+        def registered() -> list:
+            return sorted(fs_meta(f_url, "brokers")["brokers"])
+
+        wait_until(lambda: registered() == sorted(b_urls) and all(
+            sorted(http.get_json(f"http://{u}/topics")[1]["brokers"])
+            == sorted(b_urls) for u in b_urls),
+            "both brokers registered and agreed", timeout=60)
+        log({"phase": "grpc.setup", "seconds": time.perf_counter() - t_phase,
+             "master": master, "filer": f_url, "brokers": b_urls,
+             "grpc_heartbeat": [n[0].use_grpc_heartbeat for n in cl.nodes],
+             "card": SMI[0]})
+
+        # (20a) the master over gRPC: Assign, Lookup, KeepConnected (the
+        # snapshot, then the delta of a new volume), ClusterStatus
+        def master_plane() -> dict:
+            ch, stub = grpc_stub("master", master)
+            try:
+                t0 = time.perf_counter()
+                a = stub.Assign(mpb.AssignRequest(count=1))
+                if a.error or not a.fid:
+                    raise AssertionError(f"Assign: {a.error}")
+                vid = int(a.fid.split(",")[0])
+                lk = stub.Lookup(mpb.LookupRequest(volume_id=vid))
+                if [loc.url for loc in lk.locations] != [a.url]:
+                    raise AssertionError(f"Lookup {vid}: {lk}")
+                st = stub.ClusterStatus(mpb.ClusterStatusRequest())
+                if not st.is_leader or st.leader != master:
+                    raise AssertionError(f"ClusterStatus: {st}")
+                stream = stub.KeepConnected(
+                    mpb.KeepConnectedRequest(client_name="smoke"),
+                    timeout=60)
+                snap = set()
+                msg = next(stream)
+                while msg.is_snapshot:
+                    snap.add(msg.url)
+                    if len(snap) == len(cl.nodes):
+                        break
+                    msg = next(stream)
+                if len(snap) != len(cl.nodes) or vid not in {
+                        v for n in cl.master.topology.nodes.values()
+                        for v in n.volumes}:
+                    raise AssertionError(f"KeepConnected snapshot {snap}")
+                t_grow = time.perf_counter()
+                threading.Thread(target=lambda: http.get_json(
+                    f"http://{master}/vol/grow?count=1&collection=grpcgrow"),
+                    daemon=True).start()
+                delta = None
+                for msg in stream:
+                    if not msg.is_snapshot and msg.new_vids:
+                        delta = list(msg.new_vids)
+                        break
+                stream.cancel()
+                if not delta or msg.leader != master:
+                    raise AssertionError(f"KeepConnected delta {msg}")
+                return {"secs": time.perf_counter() - t0,
+                        "delta_s": time.perf_counter() - t_grow,
+                        "snapshot_nodes": len(snap), "delta_vids": delta,
+                        "brokers": registered()}
+            finally:
+                ch.close()
+
+        mp_, launches["grpc.master"] = counted(master_plane)
+        bal_log("grpc.master", mp_.pop("secs"), launches["grpc.master"],
+                **mp_)
+
+        # (20b) uploads through the filer, its events through the broker
+        # topic into filer.replicate's [source.broker] input and a local
+        # sink: every event applied once, the sink equal to the uploads
+        sizes = fs_sizes(rng, total, 1024, max_file)
+        for i, size in enumerate(sizes):
+            files.add(f"/data/f{i:03d}.bin", size)
+        doc_rng = np.random.default_rng((seed, 1))
+        doc_bodies = {}
+        for i in range(docs):
+            pad = "x" * int(doc_rng.integers(100, 2000))
+            # no .json name: the volume server would store it gzipped,
+            # and Query (both packages', as upstream's) reads the raw
+            # needle
+            doc_bodies[f"/docs/d{i:04d}"] = json.dumps(
+                {"id": i, "n": int(doc_rng.integers(0, 1000)),
+                 "pad": pad}).encode()
+
+        def upload() -> dict:
+            t0 = time.perf_counter()
+
+            def one(item) -> None:
+                path, data = item
+                status, _, body = fs_put(f_url, path, data)
+                if status not in (200, 201):
+                    raise AssertionError(f"PUT {path}: {status} {body}")
+
+            # the documents first: they open the volumes, in the first
+            # small block of each, which is shard 0's, one of VICTIMS,
+            # so Query reconstructs them
+            items = list(doc_bodies.items()) + \
+                [(p, files.data(p)) for p in files.files]
+            with ThreadPoolExecutor(GRPC_WRITERS) as ex:
+                list(ex.map(one, items))
+            secs = time.perf_counter() - t0
+            nbytes = sum(len(d) for _, d in items)
+            return {"secs": secs, "files": len(items), "bytes": nbytes,
+                    "gbps": nbytes / secs / 1e9}
+
+        up, launches["grpc.upload"] = counted(upload)
+        bal_log("grpc.upload", up.pop("secs"), launches["grpc.upload"],
+                **up)
+
+        rcfg = Configuration({"source": {"broker": {
+            "enabled": True, "brokers": ",".join(b_urls),
+            "namespace": "notifications", "topic": "filer",
+            "position_path": str(work / "broker.pos")}}})
+        applied: collections.Counter = collections.Counter()
+        consumed: list = []
+        want_tree = {p: hashlib.sha256(files.data(p)).hexdigest()
+                     for p in files.files}
+        want_tree.update({p: hashlib.sha256(d).hexdigest()
+                          for p, d in doc_bodies.items()})
+
+        def sink_tree(d: Path) -> dict:
+            got = {}
+            for dirpath, _, names in os.walk(d):
+                for name in names:
+                    full = os.path.join(dirpath, name)
+                    got["/" + os.path.relpath(full, d)] = sha256_file(full)
+            return got
+
+        def drain(inp, sink_dir: Path, record: bool) -> dict:
+            r = Replicator(f_url, LocalSink(str(sink_dir)), "/")
+            orig = r.apply
+
+            def apply(ev) -> None:
+                orig(ev)
+                applied[(str(sink_dir), ev.tsns)] += 1
+                if record:
+                    consumed.append(ev)
+
+            r.apply = apply
+            t0 = time.perf_counter()
+            n = 0
+            deadline = time.monotonic() + 120
+            while sink_tree(sink_dir) != want_tree:
+                if time.monotonic() > deadline:
+                    got = sink_tree(sink_dir)
+                    diff = sorted(set(got.items()) ^ set(want_tree.items()))
+                    raise AssertionError(f"{sink_dir.name}: {diff[:4]}")
+                n += run_from_queue(r, inp, idle_timeout=1.0)
+            secs = time.perf_counter() - t0
+            twice = [k for k, c in applied.items()
+                     if k[0] == str(sink_dir) and c > 1]
+            if twice:
+                raise AssertionError(f"applied twice: {twice[:3]}")
+            return {"secs": secs, "events": n, "events_per_s": n / secs,
+                    "files": len(want_tree), "applied_twice": len(twice)}
+
+        rep, launches["grpc.replicate"] = counted(lambda: drain(
+            rep_sub.load_notification_input(rcfg), work / "sink_broker",
+            True))
+        bal_log("grpc.replicate", rep.pop("secs"),
+                launches["grpc.replicate"], **rep, events_lost=0)
+
+        # (20c) the volumes of the uploads encoded over gRPC (every step
+        # a volume server's RPC), then VolumeEcShardsDelete of VICTIMS
+        fids = dav_fids(f_url, list(files.files) + list(doc_bodies))
+        vids = sorted({int(f.split(",")[0]) for fl in fids.values()
+                       for f in fl})
+        t0 = time.perf_counter()
+        plans, launches["grpc.ec_encode"] = counted(
+            lambda: grpc_ec_encode(client, vids))
+        wait_until(lambda: all(len(grpc_lookup_ec(master, v)) == 14
+                               for v in vids), "14 shards listed", 60)
+        bal_log("grpc.ec_encode", time.perf_counter() - t0,
+                launches["grpc.ec_encode"], volumes=vids,
+                spread={v: {u: len(s) for u, s in p.items()}
+                        for v, p in plans.items()})
+        shard_sha = {}
+        for vid in vids:
+            for sid, urls in grpc_lookup_ec(master, vid).items():
+                i = cl.index_of(urls[0])
+                shard_sha[(vid, sid)] = sha256_file(os.path.join(
+                    cl.nodes[i][3], f"{vid}{geometry.to_ext(sid)}"))
+        _, launches["grpc.drop_shards"] = counted(
+            lambda: grpc_drop(master, vids))
+        def on_victims(some: list) -> int:
+            """Needles of `some` fids with an interval on VICTIMS."""
+            count = 0
+            for vid in sorted({int(f.split(",")[0]) for f in some}):
+                ev = next(ev for ev in (cl.store(i).find_ec_volume(vid)
+                                        for i in range(len(cl.nodes)))
+                          if ev is not None)
+                count += needles_on_shards(
+                    ev, [f for f in some if int(f.split(",")[0]) == vid],
+                    set(), VICTIMS)
+            return count
+
+        victims_on = on_victims([f for fl in fids.values() for f in fl])
+        docs_on = on_victims([fids[p][0] for p in doc_bodies])
+        if not victims_on or not docs_on:
+            raise AssertionError(f"{victims_on} needles, {docs_on} documents "
+                                 "on the lost shards: want both above 0")
+
+        # (20d) every needle read back with 4 shards lost: each survivor
+        # interval fetched from its holder over VolumeEcShardRead, none
+        # over /admin/ec/shard_read; Query over gRPC against /admin/query
+        before = shard_fetches(cl)
+        needles = [(f, p) for p, fl in fids.items() for f in fl]
+
+        def read_needles() -> dict:
+            local = threading.local()
+            wants = {p: (files.data(p) if p in files.files
+                         else doc_bodies[p]) for p in fids}
+            offsets = {}
+            for p, fl in fids.items():
+                chunks = sorted(fs_meta(f_url, "lookup", path=p)["chunks"],
+                                key=lambda c: c["offset"])
+                for c in chunks:
+                    offsets[c["fid"]] = (c["offset"], c["size"])
+
+            def one(item) -> float:
+                fid, path = item
+                c = getattr(local, "client", None)
+                if c is None:
+                    c = local.client = Client(master)
+                t0 = time.perf_counter()
+                data = c.download(fid)
+                secs = time.perf_counter() - t0
+                off, size = offsets[fid]
+                if data != wants[path][off:off + size]:
+                    raise AssertionError(f"{path} {fid}: bytes differ")
+                return secs
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(GRPC_READERS) as ex:
+                lat = list(ex.map(one, needles))
+            return {"wall": time.perf_counter() - t0, "lat": lat}
+
+        rd, launches["grpc.read_degraded"] = counted(read_needles)
+        after = shard_fetches(cl)
+        fetch = {k: after[k] - before[k] for k in after}
+        bal_log("grpc.read_degraded", rd["wall"],
+                launches["grpc.read_degraded"], needles=len(needles),
+                on_lost_shards=victims_on, shard_fetch=fetch,
+                per_needle=latency_summary(rd["lat"]))
+        if fetch["http"] or not fetch["grpc"]:
+            raise AssertionError(f"survivor fetches {fetch}: want gRPC "
+                                 "only")
+        # the same reads with every peer's gRPC port taken for dead: the
+        # survivors come over /admin/ec/shard_read, the route phase 18's
+        # degraded queries take (the two routes side by side, one host)
+        # (grpc, http, http, grpc: the first read of each route pays its
+        # warm-up on one side only)
+        servers = [n[0] for n in cl.nodes]
+        ab: dict = {"grpc": [rd["lat"]], "http": []}
+        for step, route in (("grpc.read_degraded_http", "http"),
+                            ("grpc.read_degraded_http2", "http"),
+                            ("grpc.read_degraded_grpc2", "grpc")):
+            if route == "http":
+                for vs in servers:
+                    vs._peer_grpc_dead.update(
+                        {u.url: time.time() + 3600 for u in servers})
+            try:
+                before_r = shard_fetches(cl)
+                rr, launches[step] = counted(read_needles)
+                after_r = shard_fetches(cl)
+            finally:
+                for vs in servers:
+                    vs._peer_grpc_dead.clear()
+            fetch_r = {k: after_r[k] - before_r[k] for k in after_r}
+            ab[route].append(rr["lat"])
+            bal_log(step, rr["wall"], launches[step], needles=len(needles),
+                    shard_fetch=fetch_r,
+                    per_needle=latency_summary(rr["lat"]))
+            other = "grpc" if route == "http" else "http"
+            if fetch_r[other] or not fetch_r[route]:
+                raise AssertionError(f"{step}: survivor fetches {fetch_r}")
+        rdh = {"lat": [t for lat in ab["http"] for t in lat]}
+
+        doc_fids = [fids[p][0] for p in sorted(doc_bodies)]
+
+        def query() -> dict:
+            flt, proj = GRPC_QUERY
+            target = cl.url(0)
+            t0 = time.perf_counter()
+            ch, stub = grpc_stub("volume", target)
+            try:
+                lines = []
+                for chunk_ in stub.Query(vpb.QueryRequest(
+                        file_ids=doc_fids, filter_json=json.dumps(flt),
+                        selections=proj), timeout=300):
+                    if chunk_.error:
+                        raise AssertionError(f"Query: {chunk_.error}")
+                    lines.append(bytes(chunk_.data))
+            finally:
+                ch.close()
+            grpc_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            r = http.request("POST", f"http://{target}/admin/query",
+                             json.dumps({"fids": doc_fids, "filter": flt,
+                                         "projections": proj}).encode(),
+                             {"Content-Type": "application/json"},
+                             timeout=300)
+            http_s = time.perf_counter() - t0
+            got = b"".join(lines).splitlines()
+            if r.status != 200 or got != r.data.splitlines():
+                raise AssertionError("Query over gRPC differs from "
+                                     "/admin/query")
+            want = [json.dumps({k: json.loads(d)[k] for k in proj},
+                               separators=(",", ":"))
+                    for p, d in sorted(doc_bodies.items())
+                    if json.loads(d)["n"] < flt["value"]]
+            if len(got) != len(want):
+                raise AssertionError(f"Query: {len(got)} of {len(want)}")
+            return {"grpc_s": grpc_s, "http_s": http_s, "docs": len(doc_fids),
+                    "matched": len(got)}
+
+        qy, launches["grpc.query"] = counted(query)
+        bal_log("grpc.query", qy["grpc_s"], launches["grpc.query"], **qy,
+                docs_on_lost_shards=docs_on)
+
+        # (20e) VolumeEcShardsRebuild over gRPC on the rebuilder, after
+        # VolumeEcShardsCopy of the survivors it lacks; the rebuilt files
+        # equal the encode's and the plain version's reconstruction
+        def rebuild() -> dict:
+            from seaweedfs_torch.shell import ec_commands
+            out = {}
+            for vid in vids:
+                nodes = ec_commands.collect_ec_nodes(client.dir_status())
+                rebuilder, missing, copy_plan = ec_commands.plan_rebuild(
+                    nodes, vid, 14)
+                if sorted(missing) != list(VICTIMS):
+                    raise AssertionError(f"{vid} misses {missing}")
+                ch, stub = grpc_stub("volume", rebuilder)
+                try:
+                    for src, sids in copy_plan.items():
+                        grpc_ok(stub.VolumeEcShardsCopy(vpb.EcCopyRequest(
+                            volume_id=vid, shard_ids=sids,
+                            source_data_node=src)), f"copy {vid}")
+                    rb = stub.VolumeEcShardsRebuild(vpb.EcRebuildRequest(
+                        volume_id=vid))
+                    if rb.error or sorted(rb.rebuilt_shard_ids) != \
+                            list(VICTIMS):
+                        raise AssertionError(f"rebuild {vid}: {rb}")
+                    grpc_ok(stub.VolumeEcShardsMount(vpb.EcShardsRequest(
+                        volume_id=vid, shard_ids=list(VICTIMS))),
+                        f"mount rebuilt {vid}")
+                finally:
+                    ch.close()
+                base = os.path.join(cl.nodes[cl.index_of(rebuilder)][3],
+                                    str(vid))
+                for sid in VICTIMS:
+                    if sha256_file(base + geometry.to_ext(sid)) != \
+                            shard_sha[(vid, sid)]:
+                        raise AssertionError(f"rebuilt {vid}.{sid} differs")
+                out[vid] = check_rebuilt_with_plain(base, VICTIMS,
+                                                    plain_dev)
+            return out
+
+        t0 = time.perf_counter()
+        rebuilt, launches["grpc.rebuild"] = counted(rebuild)
+        bal_log("grpc.rebuild", time.perf_counter() - t0,
+                launches["grpc.rebuild"], shard_bytes=rebuilt,
+                equal_to_plain=True)
+
+        # (20f) publishes per ack level; then an ack=flush stream to a
+        # partition one broker owns, that broker SIGKILLed mid-stream:
+        # the survivor takes the partition over, the subscriber resumes
+        # from the filer's segments, no acknowledged message is lost;
+        # the topic's volumes encoded with 4 shards lost, and the topic
+        # replays whole
+        def rates() -> dict:
+            out = {}
+            for ack in ("memory", "flush"):
+                pub = msg_client.Publisher(b_urls, "smoke", f"rate{ack}",
+                                           partition_count=1, ack=ack)
+                t0 = time.perf_counter()
+                for i in range(rate_msgs):
+                    pub.publish(b"k", payload(seed, 10_000 + i, GRPC_MSG))
+                out[ack] = rate_msgs / (time.perf_counter() - t0)
+            return out
+
+        rt, launches["grpc.publish_rates"] = counted(rates)
+        bal_log("grpc.publish_rates", 0.0, launches["grpc.publish_rates"],
+                publishes_per_s=rt, messages=rate_msgs, bytes=GRPC_MSG)
+
+        ordered = sorted(b_urls)
+        topic = next(f"kill{i}" for i in range(100)
+                     if msg_client.pick_broker(ordered, "smoke", f"kill{i}",
+                                               0) == b_urls[0])
+        victim_proc, survivor = brokers[0], b_urls[1]
+
+        def kill_drill() -> dict:
+            acked: dict = {}
+            seen: dict = {}
+            sub_err: list = []
+            retried = [0]
+            stop = threading.Event()
+
+            def subscribe_owner() -> None:
+                try:
+                    for e in msg_client.Subscriber(
+                            [b_urls[0]], "smoke", topic).stream(
+                                since=0, timeout=30):
+                        seen[e.value] = e.ts_ns
+                        if stop.is_set():
+                            return
+                except Exception as e:  # the broker died under the stream
+                    sub_err.append(repr(e))
+
+            reader = threading.Thread(target=subscribe_owner, daemon=True)
+            reader.start()
+            pub = msg_client.Publisher(list(b_urls), "smoke", topic,
+                                       partition_count=1, filer=f_url,
+                                       ack="flush")
+            t0 = time.perf_counter()
+            killed_at = None
+            for i in range(kill_msgs):
+                if i == kill_msgs // 3:
+                    victim_proc.kill()
+                    killed_at = time.perf_counter()
+                value = payload(seed, 20_000 + i, GRPC_MSG)
+                # a client keeps its message: a publish that failed over
+                # every broker it knew is sent again (it may land twice)
+                for attempt in range(3):
+                    try:
+                        acked[value] = pub.publish(b"k", value)
+                        break
+                    except OSError:
+                        if attempt == 2:
+                            raise
+                        retried[0] += 1
+            publish_s = time.perf_counter() - t0
+            stop.set()
+            reader.join(60)
+            last = max(seen.values()) if seen else 0
+            got = dict(seen)
+            # the broker reads the segments since `last` from the filer
+            # before its first line: wait for what was acknowledged
+            for e in msg_client.Subscriber([survivor], "smoke", topic) \
+                    .stream(since=last, timeout=120):
+                got[e.value] = e.ts_ns
+                if all(v in got for v in acked):
+                    break
+            lost = [v for v in acked if v not in got]
+            if lost:
+                raise AssertionError(f"{len(lost)} acknowledged messages "
+                                     "lost across the broker's kill")
+            owner = msg_client.pick_broker(
+                sorted(fs_meta(f_url, "brokers")["brokers"]), "smoke",
+                topic, 0)
+            if owner != survivor:
+                raise AssertionError(f"the partition is on {owner}")
+            return {"secs": publish_s, "acked": len(acked),
+                    "before_kill_read": len(seen),
+                    "resumed_from": last, "lost": len(lost),
+                    "takeover_s": time.perf_counter() - killed_at,
+                    "publishes_retried": retried[0],
+                    "subscriber_broke": sub_err[:1]}
+
+        kd, launches["grpc.broker_kill"] = counted(kill_drill)
+        bal_log("grpc.broker_kill", kd.pop("secs"),
+                launches["grpc.broker_kill"], **kd)
+
+        seg_dir = f"/topics/smoke/{topic}/0000"
+        seg_fids = dav_fids(f_url, [p for p, v in fs_walk(
+            f_url, seg_dir).items() if not v["attr"]["mode"] & 0o40000])
+        seg_vids = sorted({int(f.split(",")[0]) for fl in seg_fids.values()
+                           for f in fl})
+        seg_list = [f for fl in seg_fids.values() for f in fl]
+        t0 = time.perf_counter()
+        _, launches["grpc.ec_encode_topic"] = counted(
+            lambda: grpc_ec_encode(client, seg_vids))
+        wait_until(lambda: all(len(grpc_lookup_ec(master, v)) == 14
+                               for v in seg_vids), "14 shards listed", 60)
+        _, launches["grpc.drop_shards_topic"] = counted(
+            lambda: grpc_drop(master, seg_vids))
+        segs_on = on_victims(seg_list)
+        bal_log("grpc.ec_encode_topic", time.perf_counter() - t0,
+                launches["grpc.ec_encode_topic"], volumes=seg_vids,
+                segments=len(seg_fids), on_lost_shards=segs_on)
+
+        def replay() -> dict:
+            t0 = time.perf_counter()
+            want = {payload(seed, 20_000 + i, GRPC_MSG)
+                    for i in range(kill_msgs)}
+            values = []
+            # every segment is read from the filer (with 4 shards lost)
+            # before the broker's first line: a long idle bound
+            for e in msg_client.Subscriber([survivor], "smoke",
+                                           topic).stream(since=0,
+                                                         timeout=300):
+                values.append(e.value)
+                if want <= set(values):
+                    break
+            missing = want - set(values)
+            if missing:
+                raise AssertionError(f"the replay misses {len(missing)}")
+            return {"secs": time.perf_counter() - t0,
+                    "messages": len(values),
+                    "repeated": len(values) - len(set(values))}
+
+        rp, launches["grpc.broker_replay"] = counted(replay)
+        bal_log("grpc.broker_replay", rp.pop("secs"),
+                launches["grpc.broker_replay"], **rp)
+
+        # (20g) the same events through a Kafka topic (in-repo broker):
+        # KafkaQueue -> KafkaQueueInput -> the replicator, 0 lost, 0
+        # repeated
+        kafka = FakeKafkaServer()
+
+        def via_kafka() -> dict:
+            q = KafkaQueue(kafka.addr, topic="filer")
+            for ev in consumed:
+                q.notify(MetaEvent.from_dict(ev.to_dict()))
+            q.close()
+            out = drain(rep_sub.KafkaQueueInput(
+                kafka.addr, topic="filer",
+                position_path=str(work / "kafka.pos")),
+                work / "sink_kafka", False)
+            if out["events"] != len(consumed):
+                raise AssertionError(f"kafka: {out['events']} of "
+                                     f"{len(consumed)} events applied")
+            return out
+
+        kf, launches["grpc.kafka"] = counted(via_kafka)
+        bal_log("grpc.kafka", kf.pop("secs"), launches["grpc.kafka"],
+                **kf, events_lost=0)
+        summary = {"files": len(want_tree),
+                   "shard_fetch": fetch,
+                   "degraded_per_needle": latency_summary(
+                       [t for lat in ab["grpc"] for t in lat]),
+                   "degraded_per_needle_http": latency_summary(rdh["lat"]),
+                   "publishes_per_s": rt,
+                   "replicate_events_per_s": rep["events_per_s"],
+                   "acknowledged_messages_lost": kd["lost"],
+                   "events_applied_twice": 0}
+    finally:
+        if kafka is not None:
+            kafka.close()
+        for proc in procs:
+            proc.stop()
+        if cl is not None:
+            cl.shutdown()
+    if coder_name == "auto":
+        for step, counts in launches.items():
+            if any(n for k, n in counts.items() if k != "gf_apply"):
+                raise AssertionError(f"{step}: launches {counts}")
+        must = ["grpc.ec_encode", "grpc.rebuild", "grpc.ec_encode_topic",
+                "grpc.read_degraded", "grpc.read_degraded_http",
+                "grpc.read_degraded_http2", "grpc.read_degraded_grpc2",
+                "grpc.query"]
+        if segs_on:
+            must.append("grpc.broker_replay")
+        for step in must:
+            if launches[step]["gf_apply"] == 0:
+                raise AssertionError(f"{step}: no gf_apply launch")
+    bal_log("grpc.summary", time.perf_counter() - t_phase, launches,
+            **summary, gf_apply_per_step={
+                k: v["gf_apply"] for k, v in launches.items()},
+            gf_apply_phase=sum(v["gf_apply"] for v in launches.values()))
+    if coder_name == "auto" and not sum(
+            v["gf_apply"] for v in launches.values()):
+        raise AssertionError("phase 20 launched no gf_apply")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9958,6 +10793,15 @@ def main() -> int:
             finally:
                 gc.unfreeze()
             mark("19")
+            # phase 20: the gRPC planes and the message broker, their
+            # own cluster
+            gc.collect()
+            gc.freeze()
+            try:
+                launches["grpc"] = run_grpc(WORK / "grpc")
+            finally:
+                gc.unfreeze()
+            mark("20")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every governed step ran gf_apply and nothing else (TorchCoder has no
@@ -9993,7 +10837,8 @@ def main() -> int:
         if k not in LIFECYCLE_CHECKS}, **launches["mesh"],
         **launches["balance"], **launches["storage"], **launches["ha"],
         **launches["filer"], **launches["ring"], **launches["nets"],
-        **launches["s3"], **launches["dav"], **launches["geo"]}
+        **launches["s3"], **launches["dav"], **launches["geo"],
+        **launches["grpc"]}
     for kernel in KERNELS:
         by_phase = {step: counts[kernel]
                     for step, counts in main_steps.items()}

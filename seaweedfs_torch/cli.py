@@ -33,6 +33,7 @@ apply:
   python3 -m seaweedfs_torch.cli s3 -port 8333 -filer h:8888 \\
       [-config s3.json | -access_key K -secret_key S]
   python3 -m seaweedfs_torch.cli webdav -port 7333 -filer h:8888
+  python3 -m seaweedfs_torch.cli msg.broker -port 17777 -filer h:8888
   python3 -m seaweedfs_torch.cli mount -filer h:8888 -dir /mnt/weed \\
       [-collection c] [-replication 000] [-chunk_size_mb 8]
   python3 -m seaweedfs_torch.cli compact -dir /data -volumeId 3
@@ -77,6 +78,16 @@ server must not have it mounted). ``backup`` pulls what a volume gained
 since the local copy's last record from its holder's ``/admin/tail``
 into a replica in ``-dir`` (creating it on the first run); ``fix``
 rebuilds a volume's .idx from its .dat.
+
+A master, a volume server and a filer also serve their gRPC service
+(pb/, server/*_grpc.py) on ``-grpc_port``, by default their HTTP port +
+10000 (upstream's convention: peers reach each other's gRPC at the HTTP
+port + 10000), 0 for none; ``volume -grpc_heartbeat`` beats over the
+master's gRPC Heartbeat stream. ``msg.broker`` runs a pub/sub message
+broker (messaging/), its gRPC service on its port + 10000; with
+``-filer`` its topic segments persist under the filer's ``/topics/``
+and it registers over the filer's gRPC KeepConnected, so brokers of one
+filer share the partitions by rendezvous hash.
 
 Masters of an HA group (upstream's ``weed master -peers``, at most 5)
 each take every master's ``ip:port`` in ``-peers`` (their own included)
@@ -134,6 +145,12 @@ def _serve_until_signalled(start) -> None:
     asyncio.run(main())
 
 
+def _grpc_port(args) -> int:
+    """-grpc_port: -1 (the default) is the HTTP port + 10000
+    (weed/pb/grpc_client_server.go), 0 serves no gRPC."""
+    return args.port + 10000 if args.grpc_port < 0 else args.grpc_port
+
+
 def cmd_master(args) -> None:
     import os
 
@@ -161,7 +178,8 @@ def cmd_master(args) -> None:
         maintenance_interval_seconds=(
             None if args.maintenance_interval < 0
             else args.maintenance_interval),
-        repair_concurrency=args.repair_concurrency))
+        repair_concurrency=args.repair_concurrency,
+        grpc_port=_grpc_port(args)))
 
 
 def cmd_volume(args) -> None:
@@ -181,7 +199,8 @@ def cmd_volume(args) -> None:
         _serve_until_signalled(lambda: run_volume_server(
             args.ip, args.port, store, args.mserver,
             data_center=args.data_center, rack=args.rack,
-            pulse_seconds=args.pulse))
+            pulse_seconds=args.pulse, grpc_port=_grpc_port(args),
+            use_grpc_heartbeat=args.grpc_heartbeat))
     finally:
         # the runner's cleanup closes it; this covers a failed start
         store.close()
@@ -216,7 +235,8 @@ def cmd_filer(args) -> None:
         default_replication=args.default_replication,
         default_collection=args.collection,
         meta_log_path=args.meta_log, ring_config=ring_config,
-        peers=[p for p in args.peers.split(",") if p], notifier=notifier))
+        peers=[p for p in args.peers.split(",") if p], notifier=notifier,
+        grpc_port=_grpc_port(args)))
 
 
 def cmd_watch(args) -> None:
@@ -306,6 +326,12 @@ def cmd_filer_sync(args) -> None:
                           args=(args.a, args.b, sig_b), daemon=True)
     ta.start()
     one_direction(args.b, args.a, sig_a)
+
+
+def cmd_msg_broker(args) -> None:
+    from .messaging.broker import run_broker
+    _serve_until_signalled(lambda: run_broker(args.ip, args.port,
+                                              filer_url=args.filer))
 
 
 def cmd_s3(args) -> None:
@@ -473,6 +499,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "auto ec.rebuild / lifecycle encodes) the "
                         "daemon drives; default WEED_EC_ENCODE_WORKERS "
                         "or 2")
+    m.add_argument("-grpc_port", type=int, default=-1,
+                   help="the gRPC port (default: the HTTP port + 10000; "
+                        "0 serves no gRPC)")
     m.set_defaults(fn=cmd_master)
 
     v = sub.add_parser("volume", help="run a volume server")
@@ -501,6 +530,12 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("-preallocate", type=int, default=0,
                    help="MB to reserve for each new volume "
                         "(volume_create_linux.go)")
+    v.add_argument("-grpc_port", type=int, default=-1,
+                   help="the gRPC port (default: the HTTP port + 10000; "
+                        "0 serves no gRPC)")
+    v.add_argument("-grpc_heartbeat", action="store_true",
+                   help="beat over the master's gRPC Heartbeat stream "
+                        "(at its HTTP port + 10000) instead of HTTP")
     v.set_defaults(fn=cmd_volume)
 
     sh = sub.add_parser("shell", help="admin shell (REPL or one-shot)")
@@ -542,7 +577,20 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("-ring_peers", default="",
                    help="the filer ring's members, host:port each "
                         "(this filer's own included)")
+    f.add_argument("-grpc_port", type=int, default=-1,
+                   help="the gRPC port (default: the HTTP port + 10000; "
+                        "0 serves no gRPC)")
     f.set_defaults(fn=cmd_filer)
+
+    mb = sub.add_parser("msg.broker", help="run a pub/sub message broker")
+    mb.add_argument("-ip", default="127.0.0.1")
+    mb.add_argument("-port", type=int, default=17777,
+                    help="the HTTP port (gRPC on it + 10000)")
+    mb.add_argument("-filer", default="",
+                    help="filer host:port: segments persist there and the "
+                         "broker registers over its gRPC KeepConnected "
+                         "(empty: memory only, alone)")
+    mb.set_defaults(fn=cmd_msg_broker)
 
     w = sub.add_parser("watch", help="live-tail filer metadata events")
     w.add_argument("-filer", default="127.0.0.1:8888")

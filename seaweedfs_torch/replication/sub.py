@@ -9,21 +9,26 @@ queue. It keeps the reference's NotificationInput contract: receive()
 blocks up to a timeout and returns the next MetaEvent (or None), and
 ack() persists the consume position.
 
-Left out, with their later home: ``BrokerQueueInput`` and
-``KafkaQueueInput`` (``[source.broker]`` and ``[source.kafka]``), which
-consume through ``messaging/`` (ROADMAP Queue 1 A.8b);
-``load_notification_input`` refuses those sections until then.
+``BrokerQueueInput`` (``[source.broker]``) consumes the topic that
+notification.queues.BrokerQueue publishes to, resuming after the last
+acknowledged message's offset, a batch a subscribe stream;
+``KafkaQueueInput`` (``[source.kafka]``) fetches from a Kafka topic, resuming at the next offset. Both persist
+the position at ``position_path`` on ack(), and both skip (and log) a
+message that does not decode, going on to the next one.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import time
 from typing import Iterator, Optional
 
 from ..filer.filer import MetaEvent
 from ..utils import durable
+
+log = logging.getLogger("replication.sub")
 
 
 class NotificationInput:
@@ -120,6 +125,115 @@ class FileQueueInput(NotificationInput):
             self._file, self._offset = later[0], 0
 
 
+class BrokerQueueInput(NotificationInput):
+    """Consume filer events from a messaging-broker topic."""
+
+    name = "broker"
+
+    def __init__(self, brokers: list[str], namespace: str = "notifications",
+                 topic: str = "filer", partition: int = 0,
+                 position_path: str = ""):
+        from ..messaging.client import Subscriber
+        self.position_path = position_path
+        self._since = 0
+        if position_path and os.path.exists(position_path):
+            try:
+                with open(position_path, encoding="utf-8") as f:
+                    self._since = json.load(f).get("since", 0)
+            except (OSError, ValueError):
+                pass
+        self._sub = Subscriber(brokers, namespace, topic,
+                               partition=partition)
+        self._pending: list = []
+
+    # messages read ahead from one subscribe stream, at most
+    READ_AHEAD = 4096
+
+    def receive(self, timeout: float = 1.0) -> Optional[MetaEvent]:
+        while True:
+            if not self._pending:
+                # one stream a batch, read until it idles `timeout`: each
+                # stream replays the partition's persisted segments since
+                # the position, so the reference's stream a message reads
+                # them again for every message (ROADMAP Queue 3, D30)
+                for entry in self._sub.stream(since=self._since,
+                                              timeout=timeout):
+                    self._pending.append(entry)
+                    if len(self._pending) >= self.READ_AHEAD:
+                        break
+            if not self._pending:
+                return None
+            entry = self._pending.pop(0)
+            self._since = entry.ts_ns
+            try:
+                return MetaEvent.from_dict(json.loads(entry.value.decode()))
+            except Exception:
+                # a dropped message is not "caught up": go on past it
+                log.warning("broker input: dropping corrupt message at "
+                            "ts %d", entry.ts_ns)
+
+    def ack(self) -> None:
+        if self.position_path:
+            durable.write_json_atomic(self.position_path,
+                                      {"since": self._since})
+
+
+class KafkaQueueInput(NotificationInput):
+    """Consume filer events from a Kafka topic over the wire protocol
+    (weed/replication/sub/notification_kafka.go:22-117), the resume
+    offset persisted in a progress file."""
+
+    name = "kafka"
+
+    def __init__(self, bootstrap: str, topic: str = "seaweedfs_filer",
+                 partition: int = 0, position_path: str = ""):
+        from ..messaging.kafka_wire import KafkaClient
+        self._client = KafkaClient.from_addr(bootstrap)
+        self.topic = topic
+        self.partition = partition
+        self.position_path = position_path
+        self._offset = 0
+        if position_path and os.path.exists(position_path):
+            try:
+                with open(position_path, encoding="utf-8") as f:
+                    self._offset = json.load(f).get("offset", 0)
+            except (OSError, ValueError):
+                pass
+        self._pending: list = []
+
+    def receive(self, timeout: float = 1.0) -> Optional[MetaEvent]:
+        # a corrupt message is skipped, never taken for "caught up": a
+        # batch the drop emptied fetches again, so None still means idle
+        while True:
+            if not self._pending:
+                try:
+                    self._pending = self._client.fetch(
+                        self.topic, self.partition, self._offset,
+                        max_wait_ms=int(timeout * 1000))
+                except Exception:
+                    return None
+                if not self._pending:
+                    return None
+            while self._pending:
+                offset, _key, value = self._pending.pop(0)
+                self._offset = offset + 1
+                try:
+                    return MetaEvent.from_dict(
+                        json.loads((value or b"").decode()))
+                except Exception:
+                    log.warning("kafka input: dropping corrupt message "
+                                "at %s/%d offset %d", self.topic,
+                                self.partition, offset)
+
+    def ack(self) -> None:
+        if self.position_path:
+            durable.write_json_atomic(self.position_path,
+                                      {"offset": self._offset})
+
+    def close(self) -> None:
+        self._client.close()
+
+
 def iter_queue(inp: NotificationInput, idle_timeout: float = 1.0,
                stop_check=None) -> Iterator[MetaEvent]:
     """Drain an input until it idles past idle_timeout (or stop_check)."""
@@ -140,10 +254,20 @@ def load_notification_input(cfg) -> Optional[NotificationInput]:
         return FileQueueInput(
             cfg.get_string("source.file.directory", "./filer_events"),
             cfg.get_string("source.file.position_path", ""))
-    for name in ("broker", "kafka"):
-        if cfg.get_bool(f"source.{name}.enabled", False):
-            raise RuntimeError(
-                f"replication source {name!r} consumes through the "
-                "messaging broker, which this package does not have yet; "
-                "use [source.file]")
+    if cfg.get_bool("source.broker.enabled", False):
+        return BrokerQueueInput(
+            [b for b in cfg.get_string("source.broker.brokers",
+                                       "").split(",") if b],
+            namespace=cfg.get_string("source.broker.namespace",
+                                     "notifications"),
+            topic=cfg.get_string("source.broker.topic", "filer"),
+            partition=cfg.get_int("source.broker.partition", 0),
+            position_path=cfg.get_string("source.broker.position_path", ""))
+    if cfg.get_bool("source.kafka.enabled", False):
+        return KafkaQueueInput(
+            cfg.get_string("source.kafka.hosts",
+                           "127.0.0.1:9092").split(",")[0],
+            topic=cfg.get_string("source.kafka.topic", "seaweedfs_filer"),
+            partition=cfg.get_int("source.kafka.partition", 0),
+            position_path=cfg.get_string("source.kafka.position_path", ""))
     return None

@@ -16,6 +16,7 @@ with the reference's wire:
                     resolve_chunks,events}
   GET    /__meta__/subscribe?since=&prefix=&exclude_sig=   (ndjson tail)
   GET    /__meta__/ring/status
+  GET    /__meta__/brokers          (the brokers of gRPC KeepConnected)
   POST   /__meta__/{create_entry,update_entry,delete,rename}
   GET    /healthz, /metrics
 
@@ -58,21 +59,28 @@ view (``filer.ring.status``). Without peers every namespace call goes
 straight to the local ``Filer``.
 
 A ``notifier`` (notification/queues.py, from notification.toml) gets
-every metadata event of the ``MetaLog``. Each of ``peers`` (filers of
+every metadata event of the ``MetaLog``; with a ``BrokerQueue`` a write
+answers once its events are published. Each of ``peers`` (filers of
 other namespaces, upstream's MetaAggregator,
 weed/filer/meta_aggregator.go) is tailed through its
 ``/__meta__/subscribe`` and its events are replayed into the local
 store, resuming from ``meta_progress/<peer>`` in the store's KV.
 
-Left out, each with its later home (ROADMAP Queue 1 A):
-``/__meta__/brokers`` (A.8b, with the broker); admission and the reserved ops routes, and with
-them the ring hop's admission class, the chunk cache, the pooled
-``cache/http_pool`` client (the ring's hops ride this server's aiohttp
-session), chunk encryption (``cipher``), the guard and JWTs, gRPC, the
-status UI and the SO_REUSEPORT shard context (slice 9, the serving
-tiers). The reference's ``WEED_FILER_UPLOAD_CONCURRENCY`` and
-``WEED_ASSIGN_LEASE*`` knobs are left out too: their defaults are
-constants here. Without the chunk cache every view is read from a
+With ``grpc_port`` the filer also serves the SeaweedFiler gRPC service
+(server/filer_grpc.py; the CLI's ``-grpc_port``, HTTP port + 10000 by
+default): the same facade as the meta API, SubscribeMetadata over the
+same log as ``/__meta__/subscribe``, and KeepConnected, whose
+``broker@host:port`` streams make the registry ``/__meta__/brokers``
+lists and message brokers (messaging/broker.py) find each other by.
+
+Left out, each with its later home (ROADMAP Queue 1 A): admission and
+the reserved ops routes, and with them the ring hop's admission class,
+the chunk cache, the pooled ``cache/http_pool`` client (the ring's hops
+ride this server's aiohttp session), chunk encryption (``cipher``), the
+guard and JWTs, gRPC over TLS, the status UI and the SO_REUSEPORT shard
+context (A.3, the serving tiers). The reference's
+``WEED_FILER_UPLOAD_CONCURRENCY`` and ``WEED_ASSIGN_LEASE*`` knobs are
+left out too: their defaults are constants here. Without the chunk cache every view is read from a
 volume server, as the reference reads with its cache off.
 """
 
@@ -103,6 +111,7 @@ from ..metaring.handoff import HandoffRunner
 from ..metaring.invalidation import PeerInvalidator
 from ..metaring.router import (RING_HOP_HEADER, RING_REPLICA_HEADER,
                                RingProxyError, RingRouter)
+from ..notification.queues import BrokerQueue
 from ..utils import metrics as metrics_mod
 from ..utils.retry import RETRYABLE_STATUSES, is_shed, parse_retry_after
 from . import http
@@ -162,7 +171,15 @@ class FilerServer:
                  url: str = "",
                  ring_config: Optional[RingConfig] = None,
                  peers: Optional[list[str]] = None,
-                 notifier=None):
+                 notifier=None,
+                 grpc_port: int = 0):
+        # the SeaweedFiler gRPC service's port (0: none)
+        self.grpc_port = grpc_port
+        self._grpc_server = None
+        # clients announced over gRPC KeepConnected (mounts, brokers):
+        # name -> resources; the brokers among them: address -> count
+        self.connected_clients: dict[str, list[str]] = {}
+        self.broker_registry: dict[str, int] = {}
         # the comma-separated master list rotates on failure
         # (wdclient/masterclient.go)
         self.masters = [m.strip() for m in master_url.split(",")
@@ -253,6 +270,7 @@ class FilerServer:
         app.router.add_route("*", "/__meta__/subscribe",
                              self.meta_subscribe)
         app.router.add_get("/__meta__/ring/status", self.meta_ring_status)
+        app.router.add_get("/__meta__/brokers", self.meta_brokers)
         app.router.add_get("/__meta__/info", self.meta_info)
         app.router.add_get("/__meta__/assign", self.meta_assign)
         app.router.add_get("/__meta__/lookup_volume",
@@ -266,7 +284,16 @@ class FilerServer:
         return app
 
     async def _exec(self, fn):
-        return await asyncio.get_running_loop().run_in_executor(None, fn)
+        loop = asyncio.get_running_loop()
+        if not isinstance(self.notifier, BrokerQueue):
+            return await loop.run_in_executor(None, fn)
+        result, published = await loop.run_in_executor(
+            None, self.notifier.run, fn)
+        if published is not None:
+            # a write answers once its events are on the broker, as the
+            # reference's publish before the answer
+            await asyncio.wrap_future(published)
+        return result
 
     async def _create(self, entry: Entry, o_excl: bool = False,
                       signatures: tuple = (),
@@ -721,6 +748,11 @@ class FilerServer:
             "new": json.loads(e.new_entry.to_json()) if e.new_entry else None,
         } for e in events]})
 
+    async def meta_brokers(self, request: web.Request) -> web.Response:
+        """The message brokers registered over gRPC KeepConnected: the
+        HTTP face of LocateBroker."""
+        return web.json_response({"brokers": sorted(self.broker_registry)})
+
     async def meta_info(self, request: web.Request) -> web.Response:
         """The filer's signature (weed/filer/meta_aggregator.go:169)."""
         return web.json_response({"signature": self.filer.signature})
@@ -816,6 +848,11 @@ class FilerServer:
                         for p in self.peers]
         if self.ring is not None:
             self.ring_invalidator.start()
+        if self.grpc_port:
+            from .filer_grpc import serve_filer_grpc
+            self._grpc_server = await serve_filer_grpc(
+                self, self.url.rsplit(":", 1)[0] or "127.0.0.1",
+                self.grpc_port)
 
     async def _on_shutdown(self, app) -> None:
         # end the subscribe streams: their subscribers redial
@@ -823,6 +860,9 @@ class FilerServer:
             q.put_nowait(None)
 
     async def _on_cleanup(self, app) -> None:
+        if self._grpc_server is not None:
+            await self._grpc_server.stop(grace=0.5)
+            self._grpc_server = None
         for task in self._tasks:
             task.cancel()
         await asyncio.gather(*self._tasks, return_exceptions=True)

@@ -58,6 +58,34 @@ def listen_socket(host: str, port: int) -> socket.socket:
     return sock
 
 
+def listen_socket_with_grpc_twin(host: str = "127.0.0.1",
+                                 tries: int = 64) -> socket.socket:
+    """A socket bound to a free port whose gRPC twin (port + 10000, the
+    convention peers derive each other's gRPC address by) is free too
+    and a valid port."""
+    for _ in range(tries):
+        sock = listen_socket(host, 0)
+        twin = sock.getsockname()[1] + 10000
+        if twin <= 65535:
+            with socket.socket() as probe:
+                try:
+                    probe.bind((host, twin))
+                    return sock
+                except OSError:
+                    pass
+        sock.close()
+    raise OSError("no free port with a free gRPC twin")
+
+
+def free_port_with_grpc_twin(host: str = "127.0.0.1") -> int:
+    """A free port whose +10000 twin is free, for a server that binds
+    both itself (a CLI process)."""
+    sock = listen_socket_with_grpc_twin(host)
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
 async def start_app(app: web.Application,
                     sock: socket.socket) -> web.AppRunner:
     """Serve `app` on the bound socket; ``await runner.cleanup()`` stops

@@ -46,6 +46,16 @@ stops it; ``add_webdav(fs)`` and ``stop_webdav(gw)`` do the same for a
 WebDAV gateway (server/webdav_server.py). The callers
 drive the cluster synchronously, from their own threads, through the
 port's client.
+
+``with_grpc`` starts every master, volume server and filer on a port
+whose twin (port + 10000) is free and serves their gRPC services there,
+as the CLI does by default; ``use_grpc_heartbeat`` (which implies it)
+has the volume servers beat over the master's gRPC Heartbeat stream.
+``add_filer(with_grpc=)`` overrides the cluster's choice for one filer,
+and ``master_grpc_port`` serves the one master's gRPC elsewhere than
+its HTTP port + 10000 (the volume servers' beats dial it there).
+``ring_sockets`` bind ports whose twin is free too, so that CLI filers
+can take them.
 """
 
 from __future__ import annotations
@@ -85,8 +95,19 @@ class LocalCluster:
                  volume_kwargs: Optional[dict] = None,
                  store_kwargs: Optional[dict] = None,
                  n_masters: int = 1,
-                 sequencer: Optional[Callable[[], object]] = None):
+                 sequencer: Optional[Callable[[], object]] = None,
+                 with_grpc: bool = False,
+                 use_grpc_heartbeat: bool = False,
+                 master_grpc_port: int = 0):
         self.coder_name = coder_name
+        # every master and volume server (and filers by default) also
+        # serves gRPC on its port + 10000; the volume servers beat over
+        # the master's Heartbeat stream
+        self.with_grpc = with_grpc or use_grpc_heartbeat
+        self.use_grpc_heartbeat = use_grpc_heartbeat
+        # the one master's gRPC port when not its HTTP port + 10000; the
+        # volume servers' beats are dialled there
+        self.master_grpc_port = master_grpc_port
         self.device = device
         self.geometry = geometry
         self.pulse = pulse
@@ -136,23 +157,42 @@ class LocalCluster:
     def masters(self) -> list:
         return [slot[0] for slot in self.master_slots]
 
+    def _listen(self, port: int, grpc: bool):
+        """(socket or None, gRPC port) of a server to start on `port`
+        (0: a free one, with a free gRPC twin when `grpc`)."""
+        if not grpc:
+            return None, 0
+        sock = (http.listen_socket_with_grpc_twin() if port == 0
+                else None)
+        if sock is not None:
+            port = sock.getsockname()[1]
+        return sock, port + 10000
+
     def start_master(self, port: int = 0, **kwargs) -> None:
         """Start the one master (on `port`, or a free one)."""
+        sock, grpc_port = self._listen(port, self.with_grpc)
+        grpc_port = self.master_grpc_port or grpc_port
+        if grpc_port:
+            kwargs = dict(kwargs, grpc_port=grpc_port)
         self.master, self.master_runner = self.call(
-            run_master("127.0.0.1", port, **self._with_sequencer(kwargs)))
+            run_master("127.0.0.1", port, sock=sock,
+                       **self._with_sequencer(kwargs)))
         self.master_url = self.master.url
         self.master_slots = [[self.master, self.master_runner,
                               int(self.master.url.rsplit(":", 1)[1]),
                               kwargs]]
 
     def _start_group(self, n: int, kwargs: dict) -> None:
-        socks = [http.listen_socket("127.0.0.1", 0) for _ in range(n)]
+        socks = [self._listen(0, True)[0] if self.with_grpc
+                 else http.listen_socket("127.0.0.1", 0) for _ in range(n)]
         urls = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
         self.master_url = ",".join(urls)
         for i, sock in enumerate(socks):
             state_dir = os.path.join(self.directory, f"m{i}")
             os.makedirs(state_dir, exist_ok=True)
             slot_kwargs = dict(kwargs, peers=urls, raft_state_dir=state_dir)
+            if self.with_grpc:
+                slot_kwargs["grpc_port"] = sock.getsockname()[1] + 10000
             self.master_slots.append(
                 [None, None, sock.getsockname()[1], slot_kwargs])
         for i, sock in enumerate(socks):
@@ -229,11 +269,19 @@ class LocalCluster:
         store = Store([d], max_volume_counts=[MAX_VOLUMES],
                       coder_name=self.coder_name, geometry=self.geometry,
                       device=self.device, **self.store_kwargs)
+        sock, grpc_port = self._listen(port, self.with_grpc)
+        kwargs = dict(self.volume_kwargs)
+        if grpc_port:
+            kwargs.update(grpc_port=grpc_port,
+                          use_grpc_heartbeat=self.use_grpc_heartbeat)
+            if self.master_grpc_port:
+                kwargs["master_grpc_target"] = \
+                    f"127.0.0.1:{self.master_grpc_port}"
         try:
             vs, runner = self.call(run_volume_server(
-                "127.0.0.1", port, store, self.master_url,
+                "127.0.0.1", port, store, self.master_url, sock=sock,
                 data_center="dc1", rack=f"rack{i % self.racks}",
-                pulse_seconds=self.pulse, **self.volume_kwargs))
+                pulse_seconds=self.pulse, **kwargs))
         except BaseException:
             store.close()
             raise
@@ -293,17 +341,25 @@ class LocalCluster:
         """n sockets bound to free loopback ports, for the members of a
         filer ring (their urls must be known before the first one
         starts); ``add_filer(sock=)`` serves on one."""
-        return [http.listen_socket("127.0.0.1", 0) for _ in range(n)]
+        return [http.listen_socket_with_grpc_twin() for _ in range(n)]
 
     def add_filer(self, store_name: str = "memory",
                   chunk_size: int = 16 * 1024,
                   store_kwargs: Optional[dict] = None, port: int = 0,
                   ring_peers: Optional[list[str]] = None,
-                  ring_replicas: int = 2, sock=None, **kwargs):
+                  ring_replicas: int = 2, sock=None,
+                  with_grpc: Optional[bool] = None, **kwargs):
         """Start a filer on `port` (0: a free one) or on the bound `sock`
         with the named store (a sqlite or leveldb store's ``path`` goes
         in `store_kwargs`), a member of the filer ring of `ring_peers`
-        when given; returns it (``fs.url`` is host:port)."""
+        when given, serving gRPC on its port + 10000 with `with_grpc`
+        (default: the cluster's); returns it (``fs.url`` is
+        host:port)."""
+        grpc = self.with_grpc if with_grpc is None else with_grpc
+        if grpc and sock is None:
+            sock, kwargs["grpc_port"] = self._listen(port, True)
+        elif grpc:
+            kwargs["grpc_port"] = sock.getsockname()[1] + 10000
         if ring_peers:
             kwargs["ring_config"] = RingConfig(peers=list(ring_peers),
                                                replicas=ring_replicas)

@@ -129,10 +129,15 @@ raises the sequencer to that ceiling once a term (``set_max``) and to
 every heartbeat's ``max_file_key``. A ``blocking`` sequencer's calls go
 to the executor, never on the loop.
 
-Left out, each with its later home (ROADMAP Queue 1 A): the
-KeepConnected push to clients and volume servers, the gRPC leader hints
-and gRPC, guard/JWT, the overload plane's priorities and the fastpath
-listener (9), collection deletion (10, with the shell's rest).
+With ``grpc_port`` the master also serves the Master gRPC service
+(server/master_grpc.py; the CLI's ``-grpc_port``, HTTP port + 10000 by
+default): the heartbeat stream through ``apply_heartbeat``,
+KeepConnected off the watch stream's subscriber queues with the leader
+hint, assign, lookup, the admin lease and listings.
+
+Left out, each with its later home (ROADMAP Queue 1 A): guard/JWT and
+gRPC over TLS, the overload plane's priorities and the fastpath
+listener (3), the HTTP ``/col/delete`` (4, with the shell's rest).
 """
 
 from __future__ import annotations
@@ -202,7 +207,12 @@ class MasterServer:
                  election_timeout: tuple[float, float] = (0.3, 0.6),
                  raft_heartbeat: float = 0.1,
                  ring_config: Optional[RingConfig] = None,
-                 sequencer=None):
+                 sequencer=None,
+                 grpc_port: int = 0):
+        # the Master gRPC service's port (0: none; the CLI's default is
+        # the HTTP port + 10000)
+        self.grpc_port = grpc_port
+        self._grpc_server = None
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds)
@@ -421,8 +431,16 @@ class MasterServer:
                 asyncio.create_task(self.balancer.run_loop()))
         if self.geo.cfg.enabled:
             self._tasks.append(asyncio.create_task(self.geo.run_loop()))
+        if self.grpc_port:
+            from .master_grpc import serve_master_grpc
+            host = self.url.rsplit(":", 1)[0] or "127.0.0.1"
+            self._grpc_server = await serve_master_grpc(self, host,
+                                                        self.grpc_port)
 
     async def _on_cleanup(self, app) -> None:
+        if self._grpc_server is not None:
+            await self._grpc_server.stop(grace=0.5)
+            self._grpc_server = None
         tasks = (self._tasks + list(self._repair_tasks)
                  + list(self.lifecycle.tasks) + list(self.balancer.tasks))
         for task in tasks:

@@ -109,10 +109,21 @@ lost shards is reconstructed on the card. A read that misses a shard
 asks the master for a fresh shard map only when the one it holds is
 older than a second (D24).
 
-Left out: image resizing, read redirects, the gRPC ``Query``, batch
-delete, the UI, guard/JWT, the fastpath listener (with
-``needle_sendfile_extent``) and its heat side channel, shard fleets and
-gRPC.
+With ``grpc_port`` the server also serves the VolumeServer gRPC service
+(server/volume_grpc.py; the CLI's ``-grpc_port``, HTTP port + 10000 by
+default), and a degraded read fetches each survivor interval from its
+holder over ``VolumeEcShardRead`` first, through one sync channel per
+peer; a peer whose gRPC port refuses or times out is read over
+``/admin/ec/shard_read`` for a minute. ``ec_shard_fetch{route=}``
+counts which route served. With ``use_grpc_heartbeat`` (``-grpc_heartbeat``)
+the beats ride the master's gRPC Heartbeat stream; its heat deltas,
+which the message cannot carry, go to ``/vol/heat/report``; a broken
+stream falls back to one HTTP beat and is redialled the next pulse, and
+a leader it names is redialled at once.
+
+Left out: image resizing, read redirects, the UI, guard/JWT and gRPC
+over TLS, the fastpath listener (with ``needle_sendfile_extent``) and
+shard fleets.
 """
 
 from __future__ import annotations
@@ -306,8 +317,22 @@ class VolumeServer:
     def __init__(self, store: Store, master_url: str, url: str = "",
                  data_center: str = "", rack: str = "",
                  pulse_seconds: float = 5.0,
-                 scrub_interval_seconds: Optional[float] = None):
+                 scrub_interval_seconds: Optional[float] = None,
+                 grpc_port: int = 0,
+                 use_grpc_heartbeat: bool = False,
+                 master_grpc_target: str = ""):
         self.store = store
+        # the VolumeServer gRPC service's port (0: none)
+        self.grpc_port = grpc_port
+        self._grpc_server = None
+        # beats ride the master's gRPC Heartbeat stream, at the master's
+        # HTTP port + 10000 unless a target is given
+        self.use_grpc_heartbeat = use_grpc_heartbeat
+        self.master_grpc_target = master_grpc_target
+        # the degraded reads' survivor fetches: one sync channel a peer,
+        # and peers whose gRPC port failed, skipped until a time
+        self._peer_grpc_channels: dict = {}
+        self._peer_grpc_dead: dict[str, float] = {}
         # the HA list; master_url is the current master
         self.masters = [m.strip() for m in master_url.split(",")
                         if m.strip()]
@@ -406,8 +431,18 @@ class VolumeServer:
         self._hb_task = asyncio.create_task(self._heartbeat_loop())
         if self.scrub_interval_seconds > 0:
             self._scrub_task = asyncio.create_task(self._scrub_loop())
+        if self.grpc_port:
+            from .volume_grpc import serve_volume_grpc
+            self._grpc_server = await serve_volume_grpc(
+                self, self.url.rsplit(":", 1)[0], self.grpc_port)
 
     async def _on_cleanup(self, app) -> None:
+        for ch in self._peer_grpc_channels.values():
+            ch.close()
+        self._peer_grpc_channels.clear()
+        if self._grpc_server is not None:
+            await self._grpc_server.stop(grace=0.5)
+            self._grpc_server = None
         for task in (self._hb_task, self._scrub_task):
             if task is not None:
                 task.cancel()
@@ -426,12 +461,83 @@ class VolumeServer:
         while True:
             try:
                 await self._periodic_maintenance()
+                if self.use_grpc_heartbeat:
+                    # the stream carries the beats until it breaks; the
+                    # HTTP beat below stands in for that round
+                    await self._grpc_heartbeat_stream()
                 await self.send_heartbeat()
-            except (aiohttp.ClientError, asyncio.TimeoutError,
-                    RuntimeError, ValueError, OSError) as e:
+            except Exception as e:
                 log.warning("heartbeat to %s failed: %s", self.master_url,
                             e)
             await asyncio.sleep(self.pulse_seconds)
+
+    async def _grpc_heartbeat_stream(self) -> None:
+        """Hold the master's bidirectional Heartbeat stream
+        (volume_grpc_client_to_master.go:50-222): a full-state beat up
+        every pulse, the size limit and the leader down. Returns when the
+        stream breaks, or to redial a leader it names."""
+        import grpc
+
+        from ..pb import rpc
+        from .master_grpc import heartbeat_to_pb
+
+        target = self.master_grpc_target or rpc.grpc_address(self.master_url)
+        stop = asyncio.Event()
+
+        async def beats():
+            while not stop.is_set():
+                await self._periodic_maintenance()
+                # the message has no heat field: the deltas go to
+                # /vol/heat/report right after the beat
+                yield heartbeat_to_pb(self._hb_payload(include_heat=False))
+                await self._report_heat()
+                try:
+                    await asyncio.wait_for(stop.wait(), self.pulse_seconds)
+                except asyncio.TimeoutError:
+                    pass
+
+        async with rpc.aio_dial(target) as channel:
+            call = rpc.MasterStub(channel).Heartbeat(beats())
+            try:
+                async for resp in call:
+                    self.volume_size_limit = (resp.volume_size_limit
+                                              or self.volume_size_limit)
+                    leader = resp.leader
+                    if leader and leader not in ("self", self.master_url):
+                        log.info("grpc heartbeat: following leader %s",
+                                 leader)
+                        self.master_url = leader
+                        # an explicit target named the old master; the
+                        # leader is reached by the port convention
+                        self.master_grpc_target = ""
+                        return
+            except grpc.RpcError as e:
+                log.warning("grpc heartbeat to %s broke: %s", target,
+                            e.code())
+                self._rotate_master()
+            finally:
+                stop.set()
+
+    async def _report_heat(self) -> None:
+        """Deliver the heat deltas of a node whose beats ride the gRPC
+        stream. A failure puts the window back and never breaks the
+        stream: heat is advisory, the heartbeat is not."""
+        deltas = self.heat.deltas()
+        if not deltas:
+            return
+        try:
+            async with self._session.post(
+                    f"http://{self.master_url}/vol/heat/report",
+                    json={"node_id": self.url, "heat": deltas},
+                    timeout=aiohttp.ClientTimeout(total=5)) as r:
+                if r.status != 200:
+                    raise RuntimeError(f"status {r.status}")
+        except asyncio.CancelledError:
+            self.heat.requeue(deltas)
+            raise
+        except Exception as e:
+            self.heat.requeue(deltas)
+            log.debug("heat report to %s failed: %s", self.master_url, e)
 
     def _rotate_master(self) -> None:
         """The next master of the list, after a failed beat."""
@@ -452,7 +558,7 @@ class VolumeServer:
         if low != was_low:
             log.warning("low disk space: %s", low)
 
-    def _hb_payload(self) -> dict:
+    def _hb_payload(self, include_heat: bool = True) -> dict:
         payload = self.store.heartbeat()
         payload.update({
             "node_id": self.url,
@@ -461,6 +567,8 @@ class VolumeServer:
             "data_center": self.data_center,
             "rack": self.rack,
         })
+        if not include_heat:
+            return payload
         # changed-volumes-only deltas: an idle node's heartbeat carries
         # no heat entries at all; draining also prunes tracker state for
         # volumes that left the node
@@ -1532,15 +1640,65 @@ class VolumeServer:
             shards = cached[0] if cached else {}
         return [u for u in shards.get(str(shard_id), []) if u != self.url]
 
+    # a peer whose gRPC port refused or timed out is fetched from over
+    # HTTP for this long
+    _PEER_GRPC_DEAD_S = 60.0
+
+    def _fetch_shard_grpc(self, url: str, vid: int, shard_id: int,
+                          offset: int, size: int) -> Optional[bytes]:
+        """One interval over the peer's VolumeEcShardRead stream
+        (volume_grpc_erasure_coding.go:270-328), on a sync channel kept
+        per peer; None when the peer cannot serve it."""
+        if time.time() < self._peer_grpc_dead.get(url, 0):
+            return None
+        import grpc
+
+        from ..pb import rpc
+        from ..pb import volume_server_pb2 as vpb
+        try:
+            ch = self._peer_grpc_channels.get(url)
+            if ch is None:
+                # setdefault: racing executor threads keep one channel
+                new = rpc.dial(rpc.grpc_address(url))
+                ch = self._peer_grpc_channels.setdefault(url, new)
+                if ch is not new:
+                    new.close()
+            buf = bytearray()
+            for chunk in rpc.VolumeServerStub(ch).VolumeEcShardRead(
+                    vpb.EcShardReadRequest(volume_id=vid, shard_id=shard_id,
+                                           offset=offset, size=size),
+                    timeout=5):
+                if chunk.error:
+                    return None
+                buf += chunk.data
+                if chunk.is_last:
+                    break
+            return bytes(buf) if len(buf) == size else None
+        except grpc.RpcError as e:
+            if e.code() in (grpc.StatusCode.UNAVAILABLE,
+                            grpc.StatusCode.DEADLINE_EXCEEDED):
+                self._peer_grpc_dead[url] = (time.time()
+                                             + self._PEER_GRPC_DEAD_S)
+            return None
+
     def _make_shard_reader(self, ev):
         """Reader of non-local shard intervals for the EC read path
-        (store_ec.go:282-320), over the holders' /admin/ec/shard_read.
-        Synchronous: it runs in the executor threads of the EC read. A
-        total miss refreshes the location cache once, so reads survive
-        shard moves and lost servers."""
+        (store_ec.go:282-320): over the holder's VolumeEcShardRead gRPC
+        stream first, then its /admin/ec/shard_read (a peer without a
+        gRPC port, or one whose stream failed). Each served fetch counts
+        in ``ec_shard_fetch{route="grpc"|"http"}``. Synchronous: it runs
+        in the executor threads of the EC read. A total miss refreshes
+        the location cache once, so reads survive shard moves and lost
+        servers."""
 
         def fetch(url: str, shard_id: int, offset: int,
                   size: int) -> Optional[bytes]:
+            data = self._fetch_shard_grpc(url, ev.vid, shard_id, offset,
+                                          size)
+            if data is not None:
+                self.metrics.count("ec_shard_fetch",
+                                   labels={"route": "grpc"})
+                return data
             try:
                 r = http.request(
                     "GET", f"http://{url}/admin/ec/shard_read?volume="
@@ -1550,6 +1708,7 @@ class VolumeServer:
                 return None
             if r.status != 200 or len(r.data) != size:
                 return None
+            self.metrics.count("ec_shard_fetch", labels={"route": "http"})
             return r.data
 
         def read(shard_id: int, offset: int, size: int) -> Optional[bytes]:
@@ -1591,24 +1750,8 @@ class VolumeServer:
             f = body["filter"]
             flt = QueryFilter(f["field"], f.get("op", "="), f.get("value"))
         projections = body.get("projections") or None
-        fids = body.get("fids", [])
-
-        def read_all() -> list[bytes]:
-            payloads = []
-            for fid_str in fids:
-                try:
-                    fid = FileId.parse(fid_str)
-                    n = self.store.read_needle(fid.volume_id, fid.key,
-                                               cookie=fid.cookie)
-                    payloads.append(n.data)
-                except Exception:
-                    continue
-            return payloads
-
-        # one executor call for all of them: the reference reads them one
-        # after another on its loop; a fan-out over the shared executor
-        # starved the heartbeats (the master pruned the node)
-        payloads = await _run(read_all)
+        payloads = await _run(self.read_query_payloads,
+                              body.get("fids", []))
         resp = web.StreamResponse()
         resp.headers["Content-Type"] = "application/x-ndjson"
         await resp.prepare(request)
@@ -1616,6 +1759,22 @@ class VolumeServer:
             await resp.write(line.encode() + b"\n")
         await resp.write_eof()
         return resp
+
+    def read_query_payloads(self, fids: list[str]) -> list[bytes]:
+        """The payloads of a query's fids, read one after another (one
+        executor call for all: the reference reads them on its loop; a
+        fan-out over the shared executor starved the heartbeats); a fid
+        that cannot be read is skipped."""
+        payloads = []
+        for fid_str in fids:
+            try:
+                fid = FileId.parse(fid_str)
+                n = self.store.read_needle(fid.volume_id, fid.key,
+                                           cookie=fid.cookie)
+                payloads.append(n.data)
+            except Exception:
+                continue
+        return payloads
 
     async def status(self, request: web.Request) -> web.Response:
         return web.json_response({"url": self.url, **self.store.status()})
@@ -1630,14 +1789,16 @@ class VolumeServer:
 
 
 async def run_volume_server(host: str, port: int, store: Store,
-                            master_url: str, **kwargs
+                            master_url: str, sock=None, **kwargs
                             ) -> tuple[VolumeServer, web.AppRunner]:
-    """Serve a volume server on host:port (0 picks a free port) on the
-    running loop, its heartbeat loop started; returns the volume server
-    (``vs.url`` is host:port) and its runner. ``await
+    """Serve a volume server on host:port (0 picks a free port), or on
+    `sock`, a socket bound already, on the running loop, its heartbeat
+    loop started; returns the volume server (``vs.url`` is host:port)
+    and its runner. ``await
     runner.cleanup()`` stops it: the listener, kept connections, the
     heartbeat, and the store."""
-    sock = http.listen_socket(host, port)
+    if sock is None:
+        sock = http.listen_socket(host, port)
     vs = VolumeServer(store, master_url,
                       url=f"{host}:{sock.getsockname()[1]}", **kwargs)
     runner = await http.start_app(vs.app, sock)

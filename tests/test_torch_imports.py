@@ -159,7 +159,24 @@ def test_port_imports_without_jax():
                  "seaweedfs_torch.mount.fuse_mount",
                  "seaweedfs_torch.server.webdav_server",
                  "seaweedfs_torch.integrations",
-                 "seaweedfs_torch.integrations.fsspec_fs"):
+                 "seaweedfs_torch.integrations.fsspec_fs",
+                 "seaweedfs_torch.ec.shard_bits",
+                 "seaweedfs_torch.pb",
+                 "seaweedfs_torch.pb.rpc",
+                 "seaweedfs_torch.pb.master_pb2",
+                 "seaweedfs_torch.pb.volume_server_pb2",
+                 "seaweedfs_torch.pb.filer_pb2",
+                 "seaweedfs_torch.pb.messaging_pb2",
+                 "seaweedfs_torch.server.master_grpc",
+                 "seaweedfs_torch.server.volume_grpc",
+                 "seaweedfs_torch.server.filer_grpc",
+                 "seaweedfs_torch.utils.log_buffer",
+                 "seaweedfs_torch.messaging",
+                 "seaweedfs_torch.messaging.broker",
+                 "seaweedfs_torch.messaging.broker_grpc",
+                 "seaweedfs_torch.messaging.client",
+                 "seaweedfs_torch.messaging.kafka_wire",
+                 "seaweedfs_torch.messaging.fake_kafka"):
         assert name in result["names"]
     assert result["forbidden"] == []
 
@@ -227,6 +244,8 @@ SERVING = sorted([*PORT.glob("server/*.py"), *PORT.glob("shell/*.py"),
                   *PORT.glob("mount/*.py"), *PORT.glob("query/*.py"),
                   *PORT.glob("notification/*.py"),
                   *PORT.glob("replication/*.py"),
+                  *PORT.glob("pb/*.py"), *PORT.glob("messaging/*.py"),
+                  PORT / "utils" / "log_buffer.py",
                   PORT / "utils" / "retry.py", PORT / "utils" / "config.py",
                   PORT / "client.py",
                   PORT / "cli.py", PORT / "utils" / "multipart.py",
@@ -242,9 +261,43 @@ def test_serving_layer_imports_only_stdlib_torch_numpy(path):
     library's HTTP client: the serving layer
     imports the standard library, aiohttp, torch, numpy and the port,
     nothing else (the mount tries fusepy, ``fuse``, before its own
-    libfuse2 binding)."""
+    libfuse2 binding). The gRPC planes add grpcio and protobuf, each only
+    to the files that import it: the generated messages (``google``),
+    the service plumbing, the volume server's gRPC face and the volume
+    server itself, whose survivor fetch imports grpc inside the fetch
+    (``grpc``); every other gRPC module reaches grpc through pb/rpc.py,
+    and a server imports its gRPC module only when a gRPC port is set."""
     allowed = set(sys.stdlib_module_names) | {"aiohttp", "torch", "numpy",
                                               "seaweedfs_torch"}
     if path.name == "fuse_mount.py":
         allowed.add("fuse")
+    rel = str(path.relative_to(PORT))
+    if rel.startswith("pb/") and rel.endswith("_pb2.py"):
+        allowed.add("google")
+    if rel in GRPC_IMPORTERS:
+        allowed.add("grpc")
     assert _imported_roots(path) <= allowed
+
+
+# the serving modules that import grpc themselves
+GRPC_IMPORTERS = frozenset({"pb/rpc.py", "server/volume_grpc.py",
+                            "server/volume_server.py"})
+
+
+def test_servers_import_grpc_only_with_a_grpc_port():
+    """Importing the servers, the CLI and the messaging client loads no
+    grpc: a host without grpcio still runs every HTTP surface."""
+    probe = (f"import sys; sys.path.insert(0, {str(REPO)!r}); "
+             "sys.modules['grpc'] = None; "
+             "import seaweedfs_torch.server.master, "
+             "seaweedfs_torch.server.volume_server, "
+             "seaweedfs_torch.server.filer_server, "
+             "seaweedfs_torch.server.local_cluster, seaweedfs_torch.cli, "
+             "seaweedfs_torch.messaging, "
+             "seaweedfs_torch.notification.queues, "
+             "seaweedfs_torch.replication.sub; print('ok')")
+    out = subprocess.run([sys.executable, "-I", "-c", probe],
+                         cwd=str(REPO), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

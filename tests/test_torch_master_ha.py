@@ -39,7 +39,6 @@ import os
 import random
 import shutil
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -522,9 +521,10 @@ _CLI = ("import sys; sys.path.insert(0, %r); "
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free port whose gRPC twin (+10000) is free too: a CLI server
+    binds both."""
+    from seaweedfs_torch.server.http import free_port_with_grpc_twin
+    return free_port_with_grpc_twin()
 
 
 @within(90)

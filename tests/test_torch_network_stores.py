@@ -31,7 +31,6 @@ import copy
 import functools
 import json
 import signal
-import socket
 import sqlite3
 import subprocess
 import sys
@@ -551,9 +550,10 @@ _CLI = ("import sys; sys.path.insert(0, %r); "
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free port whose gRPC twin (+10000) is free too: a CLI server
+    binds both."""
+    from seaweedfs_torch.server.http import free_port_with_grpc_twin
+    return free_port_with_grpc_twin()
 
 
 def _up(url: str) -> bool:

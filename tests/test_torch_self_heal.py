@@ -620,6 +620,8 @@ def test_d24_read_misses_refresh_the_shard_map_at_most_once_a_second(pkg):
         vs.master_url = f"127.0.0.1:{master.server_address[1]}"
         vs.url = "me:1"
         vs._shard_loc_cache = {}
+        # the port's reader tries a holder's gRPC port first
+        vs._peer_grpc_channels, vs._peer_grpc_dead = {}, {}
         read = vs._make_shard_reader(types.SimpleNamespace(vid=7))
         for _ in range(5):
             assert read(5, 0, 10) is None
